@@ -9,10 +9,15 @@ Phases, each printing its own line:
    versions, whether PyYAML is installed;
 2. build: compiles the CUDA kernels from ``gaviko_tpu_torch/csrc`` (nvcc,
    one process per source, in parallel) and prints the seconds;
-3. kernels: each kernel of the GAViKO vit-l16 serving path, at the shapes
-   that path gives it (B=8), against its plain PyTorch version on the card,
-   in bf16 (relative MAE <= 1e-2) and fp32 with TF32 off (<= 1e-4), with
-   median CUDA-event times of kernel and plain version;
+3. kernels: each kernel against its plain PyTorch version on the card, in
+   bf16 (relative MAE <= 1e-2) and fp32 with TF32 off (<= 1e-4), with median
+   CUDA-event times of kernel, plain version and the one PyTorch call that
+   computes the same function (timed here only; the port never calls it),
+   and the least time the card could take (``bound_ms``). First at the
+   shapes the GAViKO vit-l16 B8 serving path gives the three forward
+   kernels, then at the shapes the B4 train step gives all five (fused MHSA
+   forward with lse and backward, local attention forward with dropout 0.2
+   and backward, patchify);
 4. serving: builds the GAViKO vit-l16 ``Predictor`` (bf16, micro-batch 8,
    random weights from seed 0) from ``gaviko_tpu/configs/gaviko.yaml``,
    starts ``serve()`` on 127.0.0.1, POSTs 16 synthetic (120, 160, 160)
@@ -20,10 +25,24 @@ Phases, each printing its own line:
    and that every kernel's launch counter moved while serving;
 5. plain check: one batch's served logits against the same params run
    through the plain versions on the card (relative MAE <= 2e-2), and the
-   end-to-end volumes/s of ``predict_logits`` at B8 bf16.
+   end-to-end volumes/s of ``predict_logits`` at B8 bf16;
+6. train: the GAViKO vit-l16 model of the same config (random init from
+   seed 0, frozen backbone, full depth) through ``split_params``,
+   ``make_optimizer`` and ``make_steps``: 3 train steps and one eval step
+   at B4 on synthetic volumes, at the config's fp32 (TF32 off) and at
+   bf16, with per-step loss, step ms (CUDA events), volumes/s, peak memory
+   and the launches of each kernel a step (each of the four attention
+   kernels 24 a step);
+7. train check: the same 3 steps, seeds and batches inside
+   ``plain_versions()``: fp32 per-step loss within 1e-4 relative and step-1
+   gradients of the trainable tensors within 1e-3 relative MAE; bf16 loss
+   within 2e-2, gradient cosine >= 0.99 and relative MAE <= 5e-2. The
+   gradients are compared under one logits cotangent (see
+   ``phase_train_check``).
 
-It then prints the kernels as one JSON line, the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+It then prints the kernels as one JSON line (times at the B4 fp32 train
+shapes, launches from the fp32 train run), the nvidia-smi line, and as its
+last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before that line; without a CUDA device it exits 2.
 """
 
@@ -45,6 +64,25 @@ CONFIG = "gaviko_tpu/configs/gaviko.yaml"
 B = 8
 N_REQUESTS = 16
 BF16_BUDGET, F32_BUDGET, SERVE_BUDGET = 1e-2, 1e-4, 2e-2
+TRAIN_B, TRAIN_STEPS, TRAIN_TOTAL_STEPS = 4, 3, 100
+LOCAL_RATE, LOCAL_SEED = 0.2, 1234567
+# Train-check budgets: (loss relative, gradient relative MAE, cosine floor).
+TRAIN_BUDGET = {"fp32": (1e-4, 1e-3, None), "bf16": (2e-2, 5e-2, 0.99)}
+# H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
+# input type. f32 runs on the SIMT units, outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+SOURCES = {
+    "patchify": ("gaviko_tpu_torch/csrc/patchify.cu", "gaviko_tpu/ops/patchify.py:50"),
+    "fused_mhsa": ("gaviko_tpu_torch/csrc/fused_mhsa.cu",
+                   "gaviko_tpu/ops/flash_attention.py:309"),
+    "fused_mhsa_bwd": ("gaviko_tpu_torch/csrc/fused_mhsa_bwd.cu",
+                       "gaviko_tpu/ops/flash_attention.py:494"),
+    "local_attention": ("gaviko_tpu_torch/csrc/local_attention.cu",
+                        "gaviko_tpu/ops/flash_attention.py:830"),
+    "local_attention_bwd": ("gaviko_tpu_torch/csrc/local_attention_bwd.cu",
+                            "gaviko_tpu/ops/flash_attention.py:946"),
+}
 
 
 def _nvidia_smi() -> str:
@@ -76,36 +114,132 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _kernel_cases(dtype, gen):
-    """(name, call, rows compared or None) at the shapes the GAViKO vit-l16
-    B8 serving path gives each kernel; the call runs the kernel, or its
-    plain version inside ``plain_versions()``."""
+def _bound(work, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for the input type."""
+    nbytes, ops = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[str(dtype)]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _window_pairs(DHW, local_k) -> int:
+    """(query, key) pairs inside the 3-D window: what the local kernels
+    compute for each batch entry."""
+    from gaviko_tpu_torch.ops.local_attention import local_mask_additive_np
+
+    return int((local_mask_additive_np(tuple(DHW), tuple(local_k)) == 0).sum())
+
+
+def _sdpa_grad(q, k, v, g, **kw):
+    """One autograd backward of F.scaled_dot_product_attention (the graph
+    is built once, outside the timed call)."""
     import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _kernel_cases(dtype, gen, batch, train):
+    """Cases at the shapes the GAViKO vit-l16 path gives each kernel:
+    (name, call, compare, work, library). ``call`` runs the kernel, or its
+    plain version inside ``plain_versions()``; ``compare`` cuts what is
+    compared from its result; ``work`` is (bytes, operations) the function
+    needs; ``library`` is the one PyTorch call that computes the same
+    function, or None. ``train`` adds the backward kernels and the local
+    dropout of the train step."""
+    import torch
+    import torch.nn.functional as F
 
     from gaviko_tpu_torch.ops.flash_attention import (
-        flash_local_attention, fused_mhsa)
+        flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd,
+        local_reference, mhsa_reference)
+    from gaviko_tpu_torch.ops.local_attention import local_mask_additive
     from gaviko_tpu_torch.ops.patchify import patchify_fused
 
-    dev = "cuda"
+    dev, H, D, n_pad, n_true = "cuda", 16, 64, 1040, 1033
+    DHW, local_k, dl, n_tok = (10, 10, 10), (6, 6, 6), 20, 1000
+    mhsa_scale, local_scale = D ** -0.5, 1024 ** -0.5
 
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
 
-    img = torch.rand(B, 1, 120, 160, 160, generator=gen, device=dev).to(dtype)
+    img = torch.rand(batch, 1, 120, 160, 160, generator=gen, device=dev).to(dtype)
     w = randn(1024, 1, 12, 16, 16, std=0.02)
     bias = randn(1024, std=0.02)
-    qkv = randn(B, 1040, 3 * 1024)
-    lat = randn(B, 1000, 60)
-    q, k, v = lat.split(20, dim=-1)
-    return [
-        ("patchify", lambda: patchify_fused(img, w, bias), None),
-        ("fused_mhsa", lambda: fused_mhsa(qkv, 16, 64, 64 ** -0.5, 1033), 1033),
+    qkv = randn(batch, n_pad, 3 * 1024)
+    q, k, v = randn(batch, n_tok, 3 * dl).split(dl, dim=-1)
+    rate = LOCAL_RATE if train else 0.0
+    pairs = batch * _window_pairs(DHW, local_k)
+    mhsa_products = batch * H * n_pad * n_true * D  # multiply-adds of one product
+    heads4 = qkv.view(batch, n_pad, 3, H, D).permute(2, 0, 3, 1, 4)
+    key_mask = (torch.arange(n_pad, device=dev) < n_true).view(1, 1, 1, n_pad)
+    win_mask = local_mask_additive(DHW, local_k, device=dev).to(dtype)
+    out_bytes = batch * n_tok * 1024 * img.element_size()
+    cases = [
+        ("patchify", lambda: patchify_fused(img, w, bias), lambda r: r,
+         (_nbytes(img, w, bias) + out_bytes, 2 * batch * n_tok * 1024 * w[0].numel()),
+         lambda: F.conv3d(img, w, bias, stride=(12, 16, 16))),
+        ("fused_mhsa", lambda: fused_mhsa(qkv, H, D, mhsa_scale, n_true, with_lse=train),
+         (lambda r: (r[0][:, :n_true], r[1])) if train else (lambda r: r[:, :n_true]),
+         (_nbytes(qkv) * 4 // 3 + (batch * H * n_pad * 4 if train else 0),
+          4 * mhsa_products),
+         lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask)),
         ("local_attention", lambda: flash_local_attention(
-            q, k, v, 1024 ** -0.5, (10, 10, 10), (6, 6, 6)), None),
+            q, k, v, local_scale, DHW, local_k, rate, LOCAL_SEED), lambda r: r,
+         (4 * batch * n_tok * dl * img.element_size() + batch * n_tok * 4, 4 * dl * pairs),
+         lambda: F.scaled_dot_product_attention(
+             q[:, None], k[:, None], v[:, None], attn_mask=win_mask, scale=local_scale)),
     ]
+    if not train:
+        return cases
+    with torch.no_grad():
+        out, lse = mhsa_reference(qkv, H, D, mhsa_scale, n_true, with_lse=True)
+        lout, llse = local_reference(q, k, v, local_scale, DHW, local_k, rate,
+                                     LOCAL_SEED, with_lse=True)
+    dout = randn(batch, n_pad, H * D)
+    dout[:, n_true:] = 0  # pad rows carry no cotangent on the train path
+    ldout = randn(batch, n_tok, dl)
+    dout4 = dout.view(batch, n_pad, H, D).transpose(1, 2)
+    cases += [
+        ("fused_mhsa_bwd", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, mhsa_scale,
+                                                  n_true), lambda r: r,
+         (_nbytes(qkv, out, dout, lse, qkv), 10 * mhsa_products),
+         _sdpa_grad(*heads4, dout4, attn_mask=key_mask)),
+        ("local_attention_bwd", lambda: local_attention_bwd(
+            q, k, v, lout, llse, ldout, local_scale, DHW, local_k, rate, LOCAL_SEED),
+         lambda r: r,
+         (_nbytes(q, k, v, lout, ldout, llse) + 3 * _nbytes(ldout), 10 * dl * pairs),
+         _sdpa_grad(q[:, None], k[:, None], v[:, None], ldout[:, None],
+                    attn_mask=win_mask, scale=local_scale)),
+    ]
+    return cases
 
 
-def phase_kernels(card: str) -> dict:
+def _compare(got, want) -> tuple:
+    """(relative MAE, max abs error) of a result or the worst of a tuple."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    rel, max_abs = 0.0, 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise RuntimeError("non-finite kernel output")
+        rel = max(rel, _rel_mae(g, w))
+        max_abs = max(max_abs, float((g.double() - w.double()).abs().max()))
+    return rel, max_abs
+
+
+def phase_kernels(card: str, batch: int, train: bool) -> dict:
+    """Every case in bf16 and fp32 (TF32 off): kernel vs plain version on
+    the same inputs, then the times. Returns the fp32 lines by name."""
     import torch
 
     from gaviko_tpu_torch.ops._build import plain_versions
@@ -115,38 +249,42 @@ def phase_kernels(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
-        for name, run, rows in _kernel_cases(dtype, gen):
-            got = run()
-            with plain_versions():
-                want = run()
-            torch.cuda.synchronize()
-            if rows is not None:
-                got, want = got[:, :rows], want[:, :rows]
-            if not torch.isfinite(got).all():
-                raise RuntimeError(f"{name} {dtype}: non-finite kernel output")
-            rel = _rel_mae(got, want)
-            max_abs = float((got.double() - want.double()).abs().max())
-            line = {"phase": "kernel", "name": name, "dtype": str(dtype),
-                    "rel_mae": rel, "max_abs_err": max_abs, "budget": budget,
-                    "card": card}
-            if dtype == torch.bfloat16:
-                line["ms"] = _median_ms(run)
+        for name, run, cut, work, library in _kernel_cases(dtype, gen, batch, train):
+            with torch.no_grad():
+                got = cut(run())
                 with plain_versions():
-                    line["plain_ms"] = _median_ms(run)
-                results[name] = line
+                    want = cut(run())
+                torch.cuda.synchronize()
+                rel, max_abs = _compare(got, want)
+                bound_ms, bound_by = _bound(work, dtype)
+                line = {"phase": "kernel", "path": "train" if train else "serving",
+                        "name": name, "dtype": str(dtype), "batch": batch,
+                        "rel_mae": rel, "max_abs_err": max_abs, "budget": budget,
+                        "ms": _median_ms(run), "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": work[0], "operations": work[1],
+                        "library_ms": _median_ms(library),
+                        "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
+                with plain_versions():
+                    line["plain_ms"] = _median_ms(run, reps=5, warmup=1)
+            results[(name, str(dtype))] = line
             print(json.dumps(line), flush=True)
             if not rel <= budget:
                 raise RuntimeError(f"{name} {dtype}: rel MAE {rel} > {budget}")
     return results
 
 
-def _wrappers():
+def _wrappers(train: bool = False):
+    """The launch counters of the serving path's kernels, or of the train
+    path's (which adds the two backward kernels)."""
     from gaviko_tpu_torch.ops.flash_attention import (
-        flash_local_attention, fused_mhsa)
+        flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd)
     from gaviko_tpu_torch.ops.patchify import patchify_fused
 
-    return {"patchify": patchify_fused, "fused_mhsa": fused_mhsa,
-            "local_attention": flash_local_attention}
+    out = {"patchify": patchify_fused, "fused_mhsa": fused_mhsa,
+           "local_attention": flash_local_attention}
+    if train:
+        out.update(fused_mhsa_bwd=fused_mhsa_bwd, local_attention_bwd=local_attention_bwd)
+    return out
 
 
 def _npz(vol: np.ndarray) -> bytes:
@@ -269,6 +407,216 @@ def phase_plain_check(predictor, vols, served, card: str) -> None:
         raise RuntimeError(f"served logits vs plain: rel MAE {rel} > {SERVE_BUDGET}")
 
 
+def train_setup():
+    """The vit-l16 GAViKO model of the shipped config (random init from seed
+    0, on the card), TRAIN_STEPS synthetic batches and each step's dropout
+    seeds (two a layer, the local branch's)."""
+    import torch
+
+    from gaviko_tpu_torch.config import apply_method_override, load_config
+    from gaviko_tpu_torch.models.factory import build_model
+
+    config = apply_method_override(load_config(CONFIG), "gaviko")
+    model = build_model(config["model"])
+    params = {k: v.to("cuda") for k, v in
+              model.init(torch.Generator().manual_seed(0), model.spec).items()}
+    rng = np.random.RandomState(0)
+    batches = [(torch.from_numpy(rng.rand(TRAIN_B, 1, 120, 160, 160).astype(np.float32))
+                .to("cuda"), torch.from_numpy(rng.randint(0, 5, TRAIN_B)).long().to("cuda"))
+               for _ in range(TRAIN_STEPS)]
+    n_seeds = 2 * model.spec.depth
+    seeds = [torch.randint(-2 ** 31, 2 ** 31, (n_seeds,),
+                           generator=torch.Generator().manual_seed(i)).tolist()
+             for i in range(TRAIN_STEPS)]
+    return config, model, params, batches, seeds
+
+
+def run_train(config, model, params, batches, seeds, precision: str,
+              profiled: bool = True) -> dict:
+    """TRAIN_STEPS train steps (the counted, timed main path), optionally one
+    more under the profiler, and one eval step, through the port's public
+    train API."""
+    import torch
+
+    from gaviko_tpu_torch.core.layers import SeedStream
+    from gaviko_tpu_torch.train import loop
+    from gaviko_tpu_torch.train.losses import make_criterion
+
+    train_cfg = {**config["train"], "precision": precision}
+    criterion = make_criterion(train_cfg)
+    fused = loop.make_optimizer(train_cfg, TRAIN_TOTAL_STEPS)
+    train_step, eval_step, _ = loop.make_steps(model, criterion, fused,
+                                               loop.compute_dtype_of(train_cfg))
+    trainable, frozen = loop.split_params(model, params)
+    opt_state = loop.init_opt_state(trainable)
+
+    wrappers = _wrappers(train=True)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for (x, y), step_seeds in zip(batches, seeds):
+        stream = SeedStream(step_seeds)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainable, opt_state, loss, _ = train_step(trainable, opt_state, frozen, x, y,
+                                                   stream)
+        stop.record()
+        stop.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        losses.append(float(loss))
+        if stream.count != len(step_seeds):
+            raise RuntimeError(f"a step used {stream.count} of {len(step_seeds)} seeds")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_step(lambda: train_step(
+        trainable, opt_state, frozen, *batches[0], SeedStream(seeds[0]))) if profiled else None
+    eval_loss, _, logits = eval_step(trainable, frozen, *batches[0])
+    if not np.isfinite([*losses, float(eval_loss)]).all() or not torch.isfinite(logits).all():
+        raise RuntimeError(f"train {precision}: non-finite loss or logits")
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "peak_bytes": peak, "eval_loss": float(eval_loss),
+            "trainable": len(trainable), "profile": profile}
+
+
+def step1_grads(config, model, params, batches, seeds, precision: str,
+                cotangent=None) -> tuple:
+    """Step 1's logits and the gradients of every trainable tensor: of the
+    config's loss, or, given a logits ``cotangent``, of sum(logits *
+    cotangent), which backpropagates that cotangent through the model."""
+    from gaviko_tpu_torch.train import loop
+    from gaviko_tpu_torch.train.losses import make_criterion
+
+    train_cfg = {**config["train"], "precision": precision}
+    criterion = make_criterion(train_cfg)
+    if cotangent is not None:
+        def criterion(logits, labels):
+            return (logits * cotangent).sum()
+    trainable, frozen = loop.split_params(model, params)
+    _, logits, grads = loop.make_loss_and_grads(
+        model, criterion, loop.compute_dtype_of(train_cfg))(
+            trainable, frozen, *batches[0], seeds[0])
+    if not all(bool(g.isfinite().all()) for g in grads.values()):
+        raise RuntimeError(f"train {precision}: non-finite gradient")
+    return logits.float(), grads
+
+
+def profile_step(step) -> dict:
+    """One more step under torch.profiler: the wall time, the device's busy
+    time (the sum of its kernels, which one stream runs one at a time) and
+    so its idle share, and the kernels that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name, busy_us, n = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        n += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms, "device_kernels": n,
+            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+
+def phase_train(setup, precision: str, card: str) -> dict:
+    result = run_train(*setup, precision)
+    depth = setup[1].spec.depth
+    per_step = {n: c / TRAIN_STEPS for n, c in result["launches"].items()}
+    median = statistics.median(result["step_ms"])
+    print(json.dumps({"phase": "train", "precision": precision, "batch": TRAIN_B,
+                      "depth": depth, "losses": result["losses"],
+                      "eval_loss": result["eval_loss"], "step_ms": result["step_ms"],
+                      "median_step_ms": median, "vol_per_s": 1e3 * TRAIN_B / median,
+                      "peak_memory_gib": result["peak_bytes"] / 2 ** 30,
+                      "launches_per_step": per_step,
+                      "trainable_tensors": result["trainable"],
+                      "profile": result["profile"], "card": card}),
+          flush=True)
+    want = {n: depth for n in per_step}
+    want["patchify"] = 1
+    if per_step != want:
+        raise RuntimeError(f"train {precision}: launches a step {per_step}, want {want}")
+    return result
+
+
+def _grad_diff(got: dict, want: dict) -> dict:
+    """Relative MAE and cosine over all trainable gradients, and the worst
+    relative MAE of one tensor (among tensors with a nonzero gradient)."""
+    a = np.concatenate([got[k].double().flatten().cpu().numpy() for k in want])
+    b = np.concatenate([want[k].double().flatten().cpu().numpy() for k in want])
+    per_tensor = {k: _rel_mae(got[k], g) for k, g in want.items() if float(g.abs().mean()) > 0}
+    worst = max(per_tensor, key=per_tensor.get)
+    return {"rel_mae": float(np.abs(a - b).mean() / np.abs(b).mean()),
+            "cosine": float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))),
+            "worst_tensor": worst, "worst_tensor_rel_mae": per_tensor[worst]}
+
+
+def phase_train_check(setup, precision: str, kernel: dict, card: str) -> None:
+    """The same steps through the plain versions: per-step losses against
+    the kernels' run, and step-1 gradients.
+
+    The gradients are compared under one logits cotangent (the loss's, at
+    the plain run's logits), backpropagated through both runs: the config's
+    parity focal loss clamps the logits to [1e-16, 1 - 1e-16] before its
+    softmaxes, so its gradient jumps where a logit crosses 0 or 1, and two
+    runs whose logits differ by bf16 rounding can fall on the two sides. The
+    gradients of the loss itself are printed beside, with the number of
+    logits that cross a clamp edge between the runs."""
+    import torch
+
+    from gaviko_tpu_torch.ops._build import plain_versions
+    from gaviko_tpu_torch.train.losses import make_criterion
+
+    with plain_versions():
+        plain = run_train(*setup, precision, profiled=False)
+        plain_logits, plain_loss_grads = step1_grads(*setup, precision)
+    kernel_logits, kernel_loss_grads = step1_grads(*setup, precision)
+    leaf = plain_logits.clone().requires_grad_(True)
+    with torch.enable_grad():
+        make_criterion(setup[0]["train"])(leaf, setup[3][0][1]).backward()
+    cot = leaf.grad
+    with plain_versions():
+        _, plain_grads = step1_grads(*setup, precision, cot)
+    _, kernel_grads = step1_grads(*setup, precision, cot)
+
+    loss_budget, grad_budget, cos_floor = TRAIN_BUDGET[precision]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])]
+    grads = _grad_diff(kernel_grads, plain_grads)
+    crossings = sum(int(((kernel_logits > edge) != (plain_logits > edge)).sum())
+                    for edge in (1e-16, 1.0 - 1e-16))
+    print(json.dumps({"phase": "train_check", "precision": precision,
+                      "kernel_losses": kernel["losses"], "plain_losses": plain["losses"],
+                      "loss_rel": loss_rel, "step1_logits_rel_mae":
+                          _rel_mae(kernel_logits, plain_logits),
+                      "grads_under_one_cotangent": grads,
+                      "grads_of_the_loss": _grad_diff(kernel_loss_grads, plain_loss_grads),
+                      "logits_crossing_a_clamp_edge": crossings,
+                      "plain_step_ms": plain["step_ms"],
+                      "budget": {"loss_rel": loss_budget, "grad_rel_mae": grad_budget,
+                                 "cosine": cos_floor}, "card": card}), flush=True)
+    if max(loss_rel) > loss_budget:
+        raise RuntimeError(f"train {precision}: loss rel {loss_rel} > {loss_budget}")
+    worst = grads["rel_mae"] if cos_floor is not None else max(
+        grads["rel_mae"], grads["worst_tensor_rel_mae"])
+    if worst > grad_budget:
+        raise RuntimeError(f"train {precision}: gradient rel MAE {worst} > {grad_budget}")
+    if cos_floor is not None and grads["cosine"] < cos_floor:
+        raise RuntimeError(f"train {precision}: gradient cosine {grads['cosine']} < {cos_floor}")
+
+
 def main() -> int:
     import torch
 
@@ -278,6 +626,7 @@ def main() -> int:
         return 2
     from gaviko_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     smi = _nvidia_smi()
     try:
         import yaml  # noqa: F401
@@ -295,24 +644,33 @@ def main() -> int:
                                     if "registers" in x or "spill" in x]
                                 for n, log in logs.items()}}), flush=True)
 
-    kernels = phase_kernels(smi)
+    phase_kernels(smi, B, train=False)
+    kernels = phase_kernels(smi, TRAIN_B, train=True)
     predictor = make_predictor()
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
-    launches, served = phase_serving(predictor, vols)
+    _, served = phase_serving(predictor, vols)
     phase_plain_check(predictor, vols[:B], served[:B], smi)
+    del predictor
+    torch.cuda.empty_cache()
 
-    sources = {"patchify": ("gaviko_tpu_torch/csrc/patchify.cu",
-                            "gaviko_tpu/ops/patchify.py:50"),
-               "fused_mhsa": ("gaviko_tpu_torch/csrc/fused_mhsa.cu",
-                              "gaviko_tpu/ops/flash_attention.py:309"),
-               "local_attention": ("gaviko_tpu_torch/csrc/local_attention.cu",
-                                   "gaviko_tpu/ops/flash_attention.py:830")}
+    setup = train_setup()
+    runs = {p: phase_train(setup, p, smi) for p in ("fp32", "bf16")}
+    for precision, run in runs.items():
+        phase_train_check(setup, precision, run, smi)
+
+    f32 = "torch.float32"
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": sources[n][0],
-         "replaces": sources[n][1], "launches": launches[n],
-         "max_abs_err": kernels[n]["max_abs_err"], "ms": kernels[n]["ms"],
-         "plain_ms": kernels[n]["plain_ms"]} for n in sources]}), flush=True)
+        {"name": n, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": runs["fp32"]["launches"][n],
+         "max_abs_err": kernels[(n, f32)]["max_abs_err"], "ms": kernels[(n, f32)]["ms"],
+         "plain_ms": kernels[(n, f32)]["plain_ms"],
+         "bound_ms": kernels[(n, f32)]["bound_ms"],
+         "bound_by": kernels[(n, f32)]["bound_by"],
+         "library_ms": kernels[(n, f32)]["library_ms"]}
+        for n, (src, tpu) in SOURCES.items()]}), flush=True)
+    print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,16 +6,19 @@ keyed by the PyTorch reference's ``state_dict`` names, with Linear weights in
 the torch ``(out_features, in_features)`` layout.
 
 Numerics follow the JAX package: LayerNorm uses eps=1e-5 with f32 statistics,
-GELU is the exact erf form unless a mode says otherwise. Dropout and the seed
-stream arrive with the training slice.
+GELU is the exact erf form unless a mode says otherwise. Dropout draws its
+bits from the coordinate hash of ``ops/hash_dropout.py`` with one int32 seed
+per call site, handed out by a :class:`SeedStream`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from gaviko_tpu_torch.ops.hash_dropout import keep_mask
 
 Params = Dict[str, torch.Tensor]
 
@@ -24,6 +27,34 @@ Params = Dict[str, torch.Tensor]
 _EF_C1 = 1.1281153655981508
 _EF_C3 = 0.1041330662360045
 _EF_C5 = -0.0017956401545075685
+
+
+class SeedStream:
+    """Int32 dropout seeds, one per call site, in the order the sites run:
+    the counterpart of the JAX package's ``RngStream.next_seed``.
+
+    The seeds come from an explicit sequence (tests feed the JAX package's
+    ``RngStream(key).next_seed()`` values, so both packages drop the same
+    elements) or from a ``torch.Generator``. Threefry is not reproduced:
+    only the order in which sites consume seeds must match."""
+
+    def __init__(self, seeds: Optional[Iterable[int]] = None,
+                 generator: Optional[torch.Generator] = None):
+        if (seeds is None) == (generator is None):
+            raise ValueError("SeedStream takes seeds or a generator, not both")
+        self._seeds = None if seeds is None else [int(s) for s in seeds]
+        self._gen = generator
+        self.count = 0
+
+    def next_seed(self) -> int:
+        self.count += 1
+        if self._seeds is None:
+            return int(torch.randint(-(1 << 31), 1 << 31, (), dtype=torch.int64,
+                                     generator=self._gen))
+        if self.count > len(self._seeds):
+            raise ValueError(f"dropout site {self.count} has no seed: the stream "
+                             f"holds {len(self._seeds)}")
+        return self._seeds[self.count - 1]
 
 
 def linear(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
@@ -66,3 +97,17 @@ def gelu_spec(x: torch.Tensor, mode: str) -> torch.Tensor:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x) (ref: gaviko.py:15-17)."""
     return x * torch.sigmoid(1.702 * x)
+
+
+def dropout(x: torch.Tensor, rate: float, enabled: bool,
+            seeds: Optional[SeedStream]) -> torch.Tensor:
+    """Inverted dropout over x flattened to [rows, last]; a no-op that
+    consumes no seed when disabled or when rate == 0."""
+    if not enabled or rate == 0.0:
+        return x
+    if seeds is None:
+        raise ValueError("dropout requested but no seed stream was given")
+    seed = seeds.next_seed()
+    rows = x.numel() // x.shape[-1]
+    mask = keep_mask((rows, x.shape[-1]), seed, rate, device=x.device)
+    return torch.where(mask.reshape(x.shape), x / (1.0 - rate), torch.zeros_like(x))

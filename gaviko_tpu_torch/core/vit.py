@@ -1,19 +1,22 @@
-"""Shared 3D-ViT building blocks (eval path).
+"""Shared 3D-ViT building blocks.
 
-Port of the blocks of ``gaviko_tpu/core/vit.py`` that GAViKO's serving path
-runs:
+Port of the blocks of ``gaviko_tpu/core/vit.py`` that GAViKO runs:
 
 - ``patchify_embed``: the Conv3d(kernel=stride=patch) embed, as the patchify
   kernel on CUDA (``ops/patchify.py``);
 - ``attention_block``: pre-norm MHSA. LN and the qkv / output projections are
   plain GEMMs (the JAX package leaves them to XLA at vit-l16, where its fused
   LN+qkv kernel is off); attention reads the packed qkv through the fused
-  MHSA kernel. The stream may carry tail padding: keys >= ``n_true`` are
-  masked and padded rows carry bounded garbage by contract;
-- ``feedforward_block``: LN -> Linear -> GELU -> Linear, plain GEMMs (the JAX
-  package's fused MLP kernel is off at vit-l16).
+  MHSA kernel. When a gradient is needed, the qkv projection and the
+  attention run under ``mhsa_qkv_proj``, whose backward is the fused MHSA
+  backward kernel. The stream may carry tail padding: keys >= ``n_true``
+  are masked and padded rows carry bounded garbage by contract;
+- ``feedforward_block``: LN -> Linear -> GELU -> Dropout -> Linear ->
+  Dropout, plain GEMMs (the JAX package's fused MLP kernel is off at
+  vit-l16).
 
-Eval only: dropout and the backward kernels arrive with the training slice.
+Backbone attention dropout in training (a trainable backbone) needs dropout
+inside the MHSA kernels, which a later slice ports: it raises.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from gaviko_tpu_torch.config import ModelSpec
-from gaviko_tpu_torch.core.layers import Params, gelu_spec, layer_norm, linear
-from gaviko_tpu_torch.ops.attention import self_attention
+from gaviko_tpu_torch.core.layers import (
+    Params, SeedStream, dropout, gelu_spec, layer_norm, linear)
+from gaviko_tpu_torch.ops.attention import self_attention, self_attention_train
 from gaviko_tpu_torch.ops.patchify import patchify_fused
 
 
@@ -40,19 +44,31 @@ def patchify_embed(p: Params, prefix: str, img: torch.Tensor,
 
 
 def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
-                    n_true: Optional[int] = None) -> torch.Tensor:
+                    train: bool = False, n_true: Optional[int] = None) -> torch.Tensor:
     """Pre-norm MHSA branch output (the caller adds the residual). Unlike
     the TPU kernel, the CUDA kernel takes any row count, so no per-call pad."""
+    if train and spec.dropout > 0.0:
+        raise NotImplementedError(
+            "training the backbone attention with dropout needs dropout inside "
+            "the MHSA kernels (ROADMAP Queue B item 2: the freeze_vit: false slice)")
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
-    qkv = F.linear(layer_norm(p, f"{prefix}.norm", x), p[f"{prefix}.to_qkv.weight"])
-    out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true)
+    h = layer_norm(p, f"{prefix}.norm", x)
+    w = p[f"{prefix}.to_qkv.weight"]
+    if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
+        out = self_attention_train(h, w, spec.heads, dh, dh ** -0.5, n_true)
+    else:
+        out = self_attention(F.linear(h, w), spec.heads, dh, dh ** -0.5, n_true)
     return linear(p, f"{prefix}.to_out.0", out)
 
 
-def feedforward_block(p: Params, prefix: str, x: torch.Tensor,
-                      spec: ModelSpec) -> torch.Tensor:
-    """LN -> Linear -> GELU -> Linear branch output (dropout off in eval)."""
+def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
+                      train: bool = False,
+                      seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout branch output;
+    dropout (``spec.dropout``) only when ``train``, one seed per site."""
     h = layer_norm(p, f"{prefix}.net.0", x)
     h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
-    return linear(p, f"{prefix}.net.4", h)
+    h = dropout(h, spec.dropout, train, seeds)
+    h = linear(p, f"{prefix}.net.4", h)
+    return dropout(h, spec.dropout, train, seeds)

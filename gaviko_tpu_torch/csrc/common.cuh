@@ -9,6 +9,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace gaviko {
@@ -27,6 +28,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 template <typename T>
 __host__ __device__ constexpr bool is_bf16() { return std::is_same<T, __nv_bfloat16>::value; }
+
+// Dropout keep bit of element (row, col) of plane `salt`: the coordinate
+// hash of gaviko_tpu_torch/ops/hash_dropout.py (and of the JAX package),
+// in uint32 arithmetic (signed overflow is undefined in C++), read as int32
+// only for the signed compare against the threshold the wrapper computes.
+__device__ __forceinline__ bool keep_bit(uint32_t row, uint32_t col, uint32_t salt,
+                                         uint32_t seed, int32_t threshold) {
+  uint32_t h = row * 0x9E3779B9u + seed + salt * 0x5851F42Du + col * 0x7FEB352Du;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  return static_cast<int32_t>(h) >= threshold;
+}
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory when needed.
 template <typename K>

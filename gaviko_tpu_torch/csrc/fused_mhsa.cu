@@ -2,7 +2,10 @@
 //
 // Replaces gaviko_tpu/ops/flash_attention.py:_fused_mhsa_kernel
 // (_fused_mhsa_forward / fused_mhsa / mhsa_qkv_proj's forward), without
-// dropout and without the (m, l) statistics the training backward needs.
+// dropout. When asked (lse != nullptr) it also writes each row's softmax
+// statistic for the backward (csrc/fused_mhsa_bwd.cu): lse = m + log2(l) in
+// log2 units, [B, heads, n_pad] f32. The TPU kernel saves m and l apart, with
+// m taken over the pad keys too; only their combination is defined here.
 //
 // qkv [B, n_pad, 3 * heads * 64] is read in place: head h's q, k and v are
 // the column ranges h*64, inner + h*64 and 2*inner + h*64 of each row (row
@@ -42,6 +45,7 @@ constexpr int THREADS = 128;  // 4 warps x 16 query rows
 struct Args {
   const void* qkv;
   void* out;
+  float* lse;  // [B, heads, n_pad] or nullptr
   int n_pad, heads, n_true;
   float scale_log2e;
 };
@@ -228,6 +232,11 @@ struct Attention<__nv_bfloat16> {
     }
     const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
     const int r0 = q0 + warp * 16 + g;
+    if (a.lse != nullptr && t == 0) {
+      float* lse = a.lse + (static_cast<long long>(b) * a.heads + h) * a.n_pad;
+      if (r0 < a.n_pad) lse[r0] = m0 + log2f(l0);
+      if (r0 + 8 < a.n_pad) lse[r0 + 8] = m1 + log2f(l1);
+    }
     T* out = static_cast<T*>(a.out) + static_cast<long long>(b) * a.n_pad * inner + h * HD;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -332,6 +341,8 @@ struct Attention<float> {
       for (int j = 0; j < HD / 2; ++j) os[row * LD + 2 * j + half] = acc[j];
     }
 
+    if (a.lse != nullptr && half == 0 && q0 + row < a.n_pad)
+      a.lse[(static_cast<long long>(b) * a.heads + h) * a.n_pad + q0 + row] = m + log2f(l);
     if (q0 + row < a.n_pad) {
       float* dst = static_cast<float*>(a.out) +
                    (static_cast<long long>(b) * a.n_pad + q0 + row) * inner + h * HD;
@@ -348,12 +359,12 @@ __global__ void __launch_bounds__(THREADS) fused_mhsa_kernel(Args a) {
 }
 
 template <typename T>
-int launch(const void* qkv, void* out, int B, int n_pad, int heads, int n_true, float scale,
-           void* stream) {
+int launch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int n_true,
+           float scale, void* stream) {
   constexpr size_t smem = Attention<T>::kSmem;
   cudaError_t err = gaviko::allow_smem(fused_mhsa_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Args a{qkv, out, n_pad, heads, n_true, scale * 1.4426950408889634f};
+  Args a{qkv, out, lse, n_pad, heads, n_true, scale * 1.4426950408889634f};
   dim3 grid((n_pad + BQ - 1) / BQ, heads, B);
   fused_mhsa_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -362,13 +373,13 @@ int launch(const void* qkv, void* out, int B, int n_pad, int heads, int n_true, 
 }  // namespace
 
 // qkv [B, n_pad, 3 * heads * 64] contiguous (16-byte aligned in bf16) ->
-// out [B, n_pad, heads * 64].
-extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, int B, int n_pad, int heads,
-                                      int n_true, float scale, void* stream) {
-  return launch<__nv_bfloat16>(qkv, out, B, n_pad, heads, n_true, scale, stream);
+// out [B, n_pad, heads * 64]; lse [B, heads, n_pad] f32, or nullptr.
+extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, float* lse, int B, int n_pad,
+                                      int heads, int n_true, float scale, void* stream) {
+  return launch<__nv_bfloat16>(qkv, out, lse, B, n_pad, heads, n_true, scale, stream);
 }
 
-extern "C" int gaviko_fused_mhsa_f32(const void* qkv, void* out, int B, int n_pad, int heads,
-                                     int n_true, float scale, void* stream) {
-  return launch<float>(qkv, out, B, n_pad, heads, n_true, scale, stream);
+extern "C" int gaviko_fused_mhsa_f32(const void* qkv, void* out, float* lse, int B, int n_pad,
+                                     int heads, int n_true, float scale, void* stream) {
+  return launch<float>(qkv, out, lse, B, n_pad, heads, n_true, scale, stream);
 }

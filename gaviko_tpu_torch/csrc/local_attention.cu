@@ -1,62 +1,43 @@
 // GAViKO local attention forward: single-head attention on the latent stream
-// restricted to a 3-D window of the patch grid.
+// restricted to a 3-D window of the patch grid, with dropout on the
+// probabilities.
 //
 // Replaces gaviko_tpu/ops/flash_attention.py:_local_kernel (_local_forward /
-// flash_local_attention), without dropout.
+// flash_local_attention).
 //
-// Query token n at grid cell (d, h, w) attends key (d2, h2, w2) iff, per axis
-// with window k, d2 - d lies in [-(k / 2), k - 1 - k / 2] (asymmetric for
-// even k, as in the reference's crop arithmetic). out = softmax(q k^T * scale
-// over the window) v, f32 throughout, with the TPU kernel's max(l, 1e-30)
-// guard.
+// out = dropout(softmax(q k^T * scale over the window)) v, f32 throughout,
+// with the TPU kernel's max(l, 1e-30) guard. Dropout keeps key j of query n
+// in batch b iff keep_bit(row = n, col = j, salt = b, seed) (the coordinate
+// hash of ops/hash_dropout.py, the TPU kernel's mask); l is the sum before
+// dropout and kept terms are scaled by 1 / (1 - rate), as on the TPU. When
+// asked (lse != nullptr) it writes each row's m + log(l) (natural log,
+// [B, N] f32) for the backward (local_attention_bwd.cu).
 //
-// What bounds it on the H100: at GAViKO vit-l16 B8 the call is tiny (q, k, v
-// [8, 1000, 20], at most 6^3 = 216 of the 1000 keys a query, ~0.14 GFLOP),
-// so it is bound by latency and by reading keys, never by arithmetic. The TPU
-// kernel computed the full 1000x1000 score block and masked it; here one
-// thread owns one query row and walks only the keys of its clipped window
-// with an f32 online softmax, its dl output accumulators in registers. The
-// keys and values the block's 128 queries can reach (a contiguous run of
-// depth slabs) are staged once in shared memory as f32, rows padded to an
-// odd width so neighbouring keys fall on different banks. q, k and v may be
-// strided views of the packed [B, N, 3*dl] projection.
+// What bounds it on the H100: at GAViKO vit-l16 (q, k, v [B, 1000, 20], at
+// most 6^3 = 216 of the 1000 keys a query) the call is tiny (~0.07 GFLOP
+// and ~0.5 MB at B4), so it is bound by latency and by reading keys, never
+// by arithmetic. The TPU kernel computed the full 1000x1000 score block and
+// masked it; here one thread owns one query row and walks only the keys of
+// its clipped window with an f32 online softmax, its dl output accumulators
+// in registers. The keys and values the block's 128 queries can reach (a
+// contiguous run of depth slabs) are staged once in shared memory as f32,
+// rows padded to an odd width so neighbouring keys fall on different banks.
+// q, k and v may be strided views of the packed [B, N, 3*dl] projection.
 
-#include "common.cuh"
+#include "local_window.cuh"
 
 using gaviko::from_f32;
+using gaviko::keep_bit;
 using gaviko::to_f32;
+using namespace gaviko::local;
 
 namespace {
-
-constexpr int THREADS = 128;
-constexpr int MAXDL = 32;
-
-struct Geom {
-  int B, N, dl, D, H, W, kd, kh, kw;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
-  float scale;
-};
-
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int lo(int k) { return -(k / 2); }
-__host__ __device__ inline int hi(int k) { return k - 1 - k / 2; }
-__host__ __device__ inline int ld_of(int dl) { return dl | 1; }
-
-// Key rows [start, end) that queries [q_first, q_first + THREADS) can reach.
-__host__ __device__ inline void key_span(const Geom& g, int q_first, int* start, int* end) {
-  const int hw = g.H * g.W;
-  const int q_last = imin(g.N, q_first + THREADS) - 1;
-  const int d0 = imax(0, q_first / hw + lo(g.kd));
-  const int d1 = imin(g.D - 1, q_last / hw + hi(g.kd));
-  *start = d0 * hw;
-  *end = imin(g.N, (d1 + 1) * hw);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, Geom g) {
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, Geom g) {
   extern __shared__ float kv[];
   const int b = blockIdx.y;
   const int q_first = blockIdx.x * THREADS;
@@ -86,9 +67,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int d2 = imax(0, d + lo(g.kd)); d2 <= imin(g.D - 1, d + hi(g.kd)); ++d2) {
     for (int h2 = imax(0, h + lo(g.kh)); h2 <= imin(g.H - 1, h + hi(g.kh)); ++h2) {
       for (int w2 = imax(0, w + lo(g.kw)); w2 <= imin(g.W - 1, w + hi(g.kw)); ++w2) {
-        const int r = (d2 * g.H + h2) * g.W + w2 - start;
-        const float* kr = ks + r * ld;
-        const float* vr = vs + r * ld;
+        const int key = (d2 * g.H + h2) * g.W + w2;
+        const float* kr = ks + (key - start) * ld;
+        const float* vr = vs + (key - start) * ld;
         float s = 0.0f;
 #pragma unroll
         for (int j = 0; j < MAXDL; ++j)
@@ -102,76 +83,54 @@ __global__ void __launch_bounds__(THREADS)
           m = s;
         }
         const float p = expf(s - m);
-        l += p;
+        l += p;  // the softmax sum is taken before dropout
+        if (g.dropout && !keep_bit(n, key, b, g.seed, g.threshold)) continue;
 #pragma unroll
         for (int j = 0; j < MAXDL; ++j)
           if (j < g.dl) acc[j] = fmaf(p, vr[j], acc[j]);
       }
     }
   }
-  const float inv = 1.0f / fmaxf(l, 1e-30f);
+  const float inv = (g.dropout ? g.drop_scale : 1.0f) / fmaxf(l, 1e-30f);
   T* dst = out + (static_cast<long long>(b) * g.N + n) * g.dl;
 #pragma unroll
   for (int j = 0; j < MAXDL; ++j)
     if (j < g.dl) dst[j] = from_f32<T>(acc[j] * inv);
+  if (lse != nullptr) lse[static_cast<long long>(b) * g.N + n] = m + logf(l);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, const Geom& g,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, const Geom& g,
            void* stream) {
-  if (g.dl < 1 || g.dl > MAXDL || g.N != g.D * g.H * g.W) return cudaErrorInvalidValue;
-  const int blocks = (g.N + THREADS - 1) / THREADS;
-  int span = 0;
-  for (int i = 0; i < blocks; ++i) {
-    int start, end;
-    key_span(g, i * THREADS, &start, &end);
-    span = imax(span, end - start);
-  }
-  const size_t smem = 2 * static_cast<size_t>(span) * ld_of(g.dl) * sizeof(float);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (!valid(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * static_cast<size_t>(max_span(g, key_span)) * ld_of(g.dl) * sizeof(float);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = gaviko::allow_smem(local_attention_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(blocks, g.B);
+  dim3 grid((g.N + THREADS - 1) / THREADS, g.B);
   local_attention_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), g);
+      static_cast<T*>(out), lse, g);
   return static_cast<int>(cudaGetLastError());
-}
-
-Geom make_geom(int B, int N, int dl, int D, int H, int W, int kd, int kh, int kw,
-               long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-               long long v_bs, long long v_rs, float scale) {
-  Geom g;
-  g.B = B; g.N = N; g.dl = dl; g.D = D; g.H = H; g.W = W; g.kd = kd; g.kh = kh; g.kw = kw;
-  g.q_bs = q_bs; g.q_rs = q_rs; g.k_bs = k_bs; g.k_rs = k_rs; g.v_bs = v_bs; g.v_rs = v_rs;
-  g.scale = scale;
-  return g;
 }
 
 }  // namespace
 
 // q, k, v [B, N, dl] with unit column stride and the given batch/row strides
-// (in elements); out [B, N, dl] contiguous. N must equal D * H * W.
-extern "C" int gaviko_local_attention_bf16(const void* q, const void* k, const void* v,
-                                           void* out, int B, int N, int dl, int D, int H,
-                                           int W, int kd, int kh, int kw, long long q_bs,
-                                           long long q_rs, long long k_bs, long long k_rs,
-                                           long long v_bs, long long v_rs, float scale,
-                                           void* stream) {
-  return launch<__nv_bfloat16>(
-      q, k, v, out,
-      make_geom(B, N, dl, D, H, W, kd, kh, kw, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale),
-      stream);
-}
+// (in elements); out [B, N, dl] contiguous; lse [B, N] f32 or nullptr.
+// N must equal D * H * W. threshold is hash_dropout._threshold(rate)
+// (INT32_MIN at rate 0: no dropout), drop_scale 1 / (1 - rate).
+#define GAVIKO_LOCAL_FWD(SUFFIX, T)                                                            \
+  extern "C" int gaviko_local_attention_##SUFFIX(                                              \
+      const void* q, const void* k, const void* v, void* out, float* lse, int B, int N,        \
+      int dl, int D, int H, int W, int kd, int kh, int kw, long long q_bs, long long q_rs,     \
+      long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale, int seed,   \
+      int threshold, float drop_scale, void* stream) {                                         \
+    return launch<T>(q, k, v, out, lse,                                                        \
+                     make_geom(B, N, dl, D, H, W, kd, kh, kw, q_bs, q_rs, k_bs, k_rs, v_bs,    \
+                               v_rs, scale, seed, threshold, drop_scale),                      \
+                     stream);                                                                  \
+  }
 
-extern "C" int gaviko_local_attention_f32(const void* q, const void* k, const void* v,
-                                          void* out, int B, int N, int dl, int D, int H,
-                                          int W, int kd, int kh, int kw, long long q_bs,
-                                          long long q_rs, long long k_bs, long long k_rs,
-                                          long long v_bs, long long v_rs, float scale,
-                                          void* stream) {
-  return launch<float>(
-      q, k, v, out,
-      make_geom(B, N, dl, D, H, W, kd, kh, kw, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale),
-      stream);
-}
+GAVIKO_LOCAL_FWD(bf16, __nv_bfloat16)
+GAVIKO_LOCAL_FWD(f32, float)

@@ -1,4 +1,4 @@
-"""GAViKO: dual-stream prompt-fused 3D ViT (the flagship model), eval path.
+"""GAViKO: dual-stream prompt-fused 3D ViT (the flagship model).
 
 Port of ``gaviko_tpu/models/gaviko.py``. Forward: patchify -> global stream
 = [prompts(P) | cls | N image tokens] + [prompt pos-emb | pos-emb]; local
@@ -19,6 +19,12 @@ Reproduced reference quirks (as in the JAX package):
 - ``global_query``/``local_query`` are state_dict aliases of the fusion
   ``query_proj`` entries, held as separate copies;
 - init zeroes local proj_down.bias and never proj_up.bias.
+
+Training (``train=True``) is ported for ``freeze_vit: true``, the shipped
+config: the backbone stays in eval (no embedding, attention or MLP dropout)
+while the local branch trains with ``attn_drop`` inside the local attention
+kernel and ``proj_drop`` after its proj_up, two seeds a layer. Gradients
+still flow through every frozen global layer to the prompts.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 from gaviko_tpu_torch.config import ModelSpec
 from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core import vit as vit_core
-from gaviko_tpu_torch.core.layers import Params, gelu, layer_norm, linear, quick_gelu
+from gaviko_tpu_torch.core.layers import (
+    Params, SeedStream, dropout, gelu, layer_norm, linear, quick_gelu)
 from gaviko_tpu_torch.ops.local_attention import masked_local_attention
 
 
@@ -52,16 +59,21 @@ def aliases(spec: ModelSpec) -> dict[str, str]:
 
 
 def _local_self_attention(p: Params, prefix: str, x: torch.Tensor,
-                          spec: ModelSpec) -> torch.Tensor:
-    """Branch output (the caller adds the residual); eval, no dropout."""
+                          spec: ModelSpec, *, train: bool = False,
+                          seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """Branch output (the caller adds the residual). In training, attention
+    dropout runs inside the kernel (one seed), then proj_drop (one seed)."""
     h = layer_norm(p, f"{prefix}.norm", x)
     h = linear(p, f"{prefix}.proj_down", h)  # [B, N, local_dim]
     qkv = F.linear(h, p[f"{prefix}.qkv.weight"])  # qkv_bias=False
     q, k, v = qkv.chunk(3, dim=-1)  # strided views; the kernel reads them
+    drop = spec.attn_drop if train else 0.0
     out = masked_local_attention(
         q, k, v, scale=spec.dim ** -0.5,  # full model dim (reference quirk)
-        DHW=spec.DHW, local_k=spec.local_k)
-    return linear(p, f"{prefix}.proj_up", out)
+        DHW=spec.DHW, local_k=spec.local_k,
+        seed=seeds.next_seed() if drop > 0.0 else None, dropout_rate=drop)
+    out = linear(p, f"{prefix}.proj_up", out)
+    return dropout(out, spec.proj_drop, train, seeds)
 
 
 def _fusion_cross_attention(q: torch.Tensor, tokens: torch.Tensor,
@@ -119,11 +131,14 @@ def _awakening_prompt(p: Params, prefix: str, x: torch.Tensor,
 
 
 def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
-          train: bool = False) -> torch.Tensor:
-    """img [B, C, D, H, W] in the working dtype -> logits [B, num_classes]."""
-    if train:
+          train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """img [B, C, D, H, W] in the working dtype -> logits [B, num_classes].
+    ``train`` turns on the local branch's dropout, drawing one seed a site
+    from ``seeds`` (the JAX package's ``rng``)."""
+    if train and not spec.freeze_vit:
         raise NotImplementedError(
-            "GAViKO training is not ported yet (ROADMAP Queue A: train step)")
+            "GAViKO training with a trainable backbone (freeze_vit: false) needs "
+            "dropout inside the MHSA kernels (ROADMAP Queue B item 2)")
     P = spec.num_prompts
     x = vit_core.patchify_embed(params, "conv_proj.0", img, spec)
     B, _, _ = x.shape
@@ -151,7 +166,8 @@ def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
         last = i == spec.depth - 1
         j = i // spec.share_factor
         local_tokens = _local_self_attention(
-            params, f"transformer.local_attns.{j}", local_tokens, spec) + local_tokens
+            params, f"transformer.local_attns.{j}", local_tokens, spec,
+            train=train, seeds=seeds) + local_tokens
         global_tokens = vit_core.attention_block(
             params, f"transformer.attns.{i}", global_tokens, spec,
             n_true=n_true) + global_tokens

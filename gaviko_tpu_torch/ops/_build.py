@@ -33,7 +33,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("patchify", "fused_mhsa", "local_attention")
+SOURCES = ("patchify", "fused_mhsa", "fused_mhsa_bwd", "local_attention",
+           "local_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,7 +57,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -132,16 +133,22 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(on: bool = True):
     """In this thread, run every kernel wrapper's plain PyTorch version even
     on CUDA tensors. For comparing kernels with their plain versions on the
-    card only: the serving path never enters it."""
-    prev = getattr(_plain, "on", False)
-    _plain.on = True
+    card only: the serving and training paths never enter it. An autograd
+    function records :func:`plain_active` in its forward and re-enters this
+    with that value in its backward, which autograd runs on another thread."""
+    prev = plain_active()
+    _plain.on = on
     try:
         yield
     finally:
         _plain.on = prev
+
+
+def plain_active() -> bool:
+    return getattr(_plain, "on", False)
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -153,7 +160,17 @@ def use_kernel(t: torch.Tensor) -> bool:
         raise NotImplementedError(
             f"no kernel for device {t.device}: the port runs on CUDA, or on "
             "the CPU through the plain versions")
-    return not getattr(_plain, "on", False)
+    return not plain_active()
+
+
+def refuse_grad(name: str, roadmap: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a backward that ``name`` has no kernel
+    for: its output on the card is a plain buffer with no ``grad_fn``, so the
+    gradient would be lost without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet ({roadmap}); call it under "
+            "torch.no_grad() or on inputs that need no gradient")
 
 
 def dtype_suffix(t: torch.Tensor) -> str:

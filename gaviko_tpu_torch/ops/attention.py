@@ -1,22 +1,35 @@
 """Multi-head self-attention dispatch for the 3D ViT token stream.
 
 Port of ``gaviko_tpu/ops/attention.py``. The device picks the path, not an
-option: a CUDA tensor goes to the fused MHSA kernel, a CPU tensor to its
-plain version. On CUDA a shape the kernel does not take raises: the JAX
+option: a CUDA tensor goes to the fused MHSA kernels, a CPU tensor to their
+plain versions. On CUDA a shape the kernels do not take raises: the JAX
 package sends those (odd head counts such as vit-t16's) to
 ``flash_attention``, which is not ported yet (ROADMAP Queue B).
+
+- :func:`self_attention` takes a packed qkv and needs no gradient (eval);
+- :func:`self_attention_train` takes the LN output and the qkv weight and is
+  differentiable: the projection and the attention run under
+  ``mhsa_qkv_proj``, whose backward is the fused MHSA backward kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.flash_attention import (
     fused_mhsa,
     fused_mhsa_supported,
+    mhsa_qkv_proj,
     mhsa_reference,
 )
+
+
+def _unsupported(heads: int, dim_head: int, n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"heads={heads}, dim_head={dim_head}, N={n} needs the flash_attention "
+        "kernel, which is not ported yet (ROADMAP Queue B)")
 
 
 def self_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
@@ -26,7 +39,21 @@ def self_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     if not _build.use_kernel(qkv):
         return mhsa_reference(qkv, heads, dim_head, scale, n_true)
     if not fused_mhsa_supported(heads, dim_head, qkv.shape[1]):
-        raise NotImplementedError(
-            f"heads={heads}, dim_head={dim_head}, N={qkv.shape[1]} needs the "
-            "flash_attention kernel, which is not ported yet (ROADMAP Queue B)")
+        raise _unsupported(heads, dim_head, qkv.shape[1])
     return fused_mhsa(qkv, heads, dim_head, scale, n_true)
+
+
+def self_attention_train(h: torch.Tensor, w: torch.Tensor, heads: int,
+                         dim_head: int, scale: float, n_true: int) -> torch.Tensor:
+    """LN output h [B, N_pad, dim] and qkv weight w [3*inner, dim] ->
+    attention output [B, N_pad, inner], differentiable in h and w.
+
+    As in the JAX package, a stream whose length is a multiple of 8 goes
+    through ``mhsa_qkv_proj``. Any other length takes the plain version on
+    the CPU and raises on CUDA, as does a shape the kernels do not take."""
+    n = h.shape[1]
+    if fused_mhsa_supported(heads, dim_head, n) and n % 8 == 0:
+        return mhsa_qkv_proj(h, w, heads, dim_head, scale, n_true)
+    if _build.use_kernel(h):
+        raise _unsupported(heads, dim_head, n)
+    return mhsa_reference(F.linear(h, w), heads, dim_head, scale, n_true)

@@ -1,37 +1,59 @@
-"""Fused MHSA and GAViKO's masked local attention (forward).
+"""Fused MHSA and GAViKO's masked local attention, forward and backward.
 
-Port of ``gaviko_tpu/ops/flash_attention.py``: ``fused_mhsa`` runs the kernel
-in ``csrc/fused_mhsa.cu`` on the packed qkv projection, and
-``flash_local_attention`` the kernel in ``csrc/local_attention.cu`` on the
-latent stream. ``mhsa_reference`` and ``local_reference`` are their plain
-PyTorch versions. Dropout inside either kernel, the (m, l) statistics and the
-backward kernels wait for the training slice: ``dropout_rate > 0`` raises.
+Port of ``gaviko_tpu/ops/flash_attention.py``. Four CUDA kernels:
+
+- ``fused_mhsa`` (``csrc/fused_mhsa.cu``): MHSA forward reading the packed
+  qkv projection in place, optionally writing the per-row statistic
+  ``lse = m + log2(l)`` the backward needs;
+- ``fused_mhsa_bwd`` (``csrc/fused_mhsa_bwd.cu``): its backward, dq, dk and
+  dv into one packed ``[B, N, 3 * inner]`` buffer;
+- ``flash_local_attention``'s forward (``csrc/local_attention.cu``): the 3-D
+  window attention of the latent stream with hash dropout, writing ``lse``;
+- ``local_attention_bwd`` (``csrc/local_attention_bwd.cu``): its backward.
+
+``mhsa_qkv_proj`` and ``flash_local_attention`` are autograd functions whose
+forward and backward are those kernels. ``mhsa_reference``,
+``mhsa_bwd_reference``, ``local_reference`` and ``local_bwd_reference`` are
+the plain PyTorch versions, run on CPU tensors and inside
+``_build.plain_versions()``. Dropout inside the MHSA kernels (a trainable
+backbone) waits for a later slice: ``dropout_rate > 0`` raises there.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops.hash_dropout import _threshold, keep_mask
 from gaviko_tpu_torch.ops.local_attention import local_mask_additive
 
 NEG_INF = float("-inf")
+LOG2E = math.log2(math.e)
 WHOLE_K_MAX = 2048
-KERNEL_DIM_HEAD = 64  # head dim the MHSA kernel is compiled for
+KERNEL_DIM_HEAD = 64  # head dim the MHSA kernels are compiled for
+MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_MHSA_ARGTYPES = (_P, _P, _I, _I, _I, _I, _F, _P)
-_LOCAL_ARGTYPES = (_P,) * 4 + (_I,) * 9 + (_L,) * 6 + (_F, _P)
+_MHSA_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _F, _P)
+_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_F, _P)
+_LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P)
+_LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
+_LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
+
+_MHSA_DROPOUT = ("dropout inside the MHSA kernels is not ported yet (ROADMAP "
+                 "Queue B item 2: the trainable-backbone slice, freeze_vit: false)")
+_FUSED_MHSA_BWD = ("ROADMAP Queue B item 3: the VJP of fused_mhsa on a given "
+                   "packed qkv; training goes through mhsa_qkv_proj")
 
 
-def _no_dropout(dropout_rate: float) -> None:
+def _no_mhsa_dropout(dropout_rate: float) -> None:
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (training slice, ROADMAP "
-            "Queue B: hash_dropout.keep_mask)")
+        raise NotImplementedError(_MHSA_DROPOUT)
 
 
 def fused_mhsa_supported(heads: int, dim_head: int, N: int) -> bool:
@@ -41,35 +63,57 @@ def fused_mhsa_supported(heads: int, dim_head: int, N: int) -> bool:
             and dim_head == KERNEL_DIM_HEAD)
 
 
-def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-                   n_true: int, dropout_rate: float = 0.0) -> torch.Tensor:
-    """qkv [B, N_pad, 3*heads*dim_head] -> [B, N_pad, heads*dim_head];
-    keys >= n_true are masked. f32 scores and softmax, PV in qkv's dtype."""
-    _no_dropout(dropout_rate)
-    B, n_pad, three_inner = qkv.shape
-    inner = three_inner // 3
+def _heads(t: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
+    B, n, _ = t.shape
+    return t.reshape(B, n, heads, dim_head).transpose(1, 2)
 
-    def to_heads(t):
-        return t.reshape(B, n_pad, heads, dim_head).transpose(1, 2)
 
-    q = to_heads(qkv[..., :inner])
-    k = to_heads(qkv[..., inner:2 * inner])
-    v = to_heads(qkv[..., 2 * inner:])
+def _unheads(t: torch.Tensor) -> torch.Tensor:
+    B, heads, n, dim_head = t.shape
+    return t.transpose(1, 2).reshape(B, n, heads * dim_head)
+
+
+def _split_heads(qkv: torch.Tensor, heads: int, dim_head: int):
+    inner = heads * dim_head
+    return (_heads(qkv[..., :inner], heads, dim_head),
+            _heads(qkv[..., inner:2 * inner], heads, dim_head),
+            _heads(qkv[..., 2 * inner:], heads, dim_head))
+
+
+def _mhsa_scores(q, k, scale, n_true):
+    """f32 scores [B, H, N, N] with keys >= n_true at -inf."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if n_pad != n_true:
-        s[..., n_true:] = NEG_INF
-    p = torch.softmax(s, dim=-1)
-    o = torch.matmul(p.to(v.dtype), v)
-    return o.transpose(1, 2).reshape(B, n_pad, inner)
+    if s.shape[-1] != n_true:
+        s = s.masked_fill(
+            torch.arange(s.shape[-1], device=s.device) >= n_true, NEG_INF)
+    return s
+
+
+def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
+                   n_true: int, dropout_rate: float = 0.0, with_lse: bool = False):
+    """qkv [B, N_pad, 3*heads*dim_head] -> [B, N_pad, heads*dim_head]; keys
+    >= n_true are masked. f32 scores and softmax, PV in qkv's dtype. With
+    ``with_lse`` also the per-row log-sum-exp in log2 units [B, heads,
+    N_pad] f32, the statistic kernel A hands its backward."""
+    _no_mhsa_dropout(dropout_rate)
+    q, k, v = _split_heads(qkv, heads, dim_head)
+    s = _mhsa_scores(q, k, scale, n_true)
+    o = _unheads(torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v))
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1) * LOG2E
 
 
 def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-               n_true: int, dropout_rate: float = 0.0) -> torch.Tensor:
-    """Same contract as :func:`mhsa_reference`; the kernel on CUDA. Rows
-    >= n_true are padding: their outputs are garbage by contract."""
-    _no_dropout(dropout_rate)
+               n_true: int, dropout_rate: float = 0.0, with_lse: bool = False):
+    """Same contract as :func:`mhsa_reference`; kernel A on CUDA. Rows
+    >= n_true are padding: their outputs are garbage by contract. On the
+    card the output has no backward: a call that needs a gradient raises
+    (train through :func:`mhsa_qkv_proj`)."""
+    _no_mhsa_dropout(dropout_rate)
     if not _build.use_kernel(qkv):
-        return mhsa_reference(qkv, heads, dim_head, scale, n_true)
+        return mhsa_reference(qkv, heads, dim_head, scale, n_true, with_lse=with_lse)
+    _build.refuse_grad("fused_mhsa", _FUSED_MHSA_BWD, qkv)
     B, n_pad, three_inner = qkv.shape
     if dim_head != KERNEL_DIM_HEAD or three_inner != 3 * heads * dim_head:
         raise NotImplementedError(
@@ -81,39 +125,175 @@ def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     _build.check_cuda("fused_mhsa", qkv)
     out = torch.empty((B, n_pad, heads * dim_head), device=qkv.device,
                       dtype=qkv.dtype)
+    lse = (torch.empty((B, heads, n_pad), device=qkv.device, dtype=torch.float32)
+           if with_lse else None)
     _build.launch(
         "fused_mhsa", f"gaviko_fused_mhsa_{_build.dtype_suffix(qkv)}",
-        _MHSA_ARGTYPES, qkv.data_ptr(), out.data_ptr(), B, n_pad, heads,
-        n_true, scale, _build.stream_of(qkv))
+        _MHSA_ARGTYPES, qkv.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, n_pad, heads, n_true, scale,
+        _build.stream_of(qkv))
     fused_mhsa.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 fused_mhsa.launches = 0
 
 
+def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                       dout: torch.Tensor, heads: int, dim_head: int,
+                       scale: float, n_true: int) -> torch.Tensor:
+    """The algebra of kernel B in plain PyTorch (f32): from the forward's
+    output and lse (log2 units), P = exp2(s - lse), delta = rowsum(dO * O),
+    dS = P (dP - delta) -> packed dqkv [B, N_pad, 3 * inner] in qkv's dtype."""
+    q, k, v = (t.float() for t in _split_heads(qkv, heads, dim_head))
+    s2 = _mhsa_scores(q, k, scale * LOG2E, n_true)
+    p = torch.exp2(s2 - lse.unsqueeze(-1))
+    do = _heads(dout, heads, dim_head).float()
+    delta = (do * _heads(out, heads, dim_head).float()).sum(-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1).to(qkv.dtype)
+
+
+def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                   dout: torch.Tensor, heads: int, dim_head: int, scale: float,
+                   n_true: int) -> torch.Tensor:
+    """Same contract as :func:`mhsa_bwd_reference`; kernel B on CUDA."""
+    if not _build.use_kernel(qkv):
+        return mhsa_bwd_reference(qkv, out, lse, dout, heads, dim_head, scale, n_true)
+    B, n_pad, three_inner = qkv.shape
+    inner = heads * dim_head
+    if dim_head != KERNEL_DIM_HEAD or three_inner != 3 * inner:
+        raise NotImplementedError(
+            f"fused_mhsa_bwd kernel takes dim_head {KERNEL_DIM_HEAD} and a "
+            f"packed qkv; got {tuple(qkv.shape)}, heads={heads}, dim_head={dim_head}")
+    if not 1 <= n_true <= n_pad:
+        raise ValueError(f"n_true {n_true} outside [1, {n_pad}]")
+    dout = dout.contiguous()
+    if tuple(out.shape) != (B, n_pad, inner) or dout.shape != out.shape:
+        raise ValueError(f"out and dout must be {(B, n_pad, inner)}")
+    if tuple(lse.shape) != (B, heads, n_pad) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(B, heads, n_pad)}")
+    _build.check_cuda("fused_mhsa_bwd", qkv, out, dout)
+    _build.check_cuda("fused_mhsa_bwd", lse)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(lse)
+    _build.launch(
+        "fused_mhsa_bwd", f"gaviko_fused_mhsa_bwd_{_build.dtype_suffix(qkv)}",
+        _MHSA_BWD_ARGTYPES, qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, n_pad, heads,
+        n_true, scale, _build.stream_of(qkv))
+    fused_mhsa_bwd.launches += 1
+    return dqkv
+
+
+fused_mhsa_bwd.launches = 0
+
+
+class _MhsaQkvProj(torch.autograd.Function):
+    """qkv = h W^T, then kernel A; the backward runs kernel B and the two
+    products of the projection's VJP."""
+
+    @staticmethod
+    def forward(ctx, h, w, heads, dim_head, scale, n_true):
+        qkv = F.linear(h, w)
+        out, lse = fused_mhsa(qkv, heads, dim_head, scale, n_true, with_lse=True)
+        ctx.save_for_backward(h, w, qkv, out, lse)
+        ctx.cfg = (heads, dim_head, scale, n_true)
+        ctx.plain = _build.plain_active()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, qkv, out, lse = ctx.saved_tensors
+        # dq, dk and dv sit side by side in one buffer, so the JAX package's
+        # dh = dq Wq + dk Wk + dv Wv is one product with the packed weight.
+        with _build.plain_versions(ctx.plain):
+            dqkv = fused_mhsa_bwd(qkv, out, lse, g, *ctx.cfg)
+        dh = torch.matmul(dqkv, w) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(dqkv.reshape(-1, dqkv.shape[-1]).t(),
+                              h.reshape(-1, h.shape[-1]))
+        return dh, dw, None, None, None, None
+
+
+def mhsa_qkv_proj(h: torch.Tensor, w: torch.Tensor, heads: int, dim_head: int,
+                  scale: float, n_true: int, dropout_rate: float = 0.0) -> torch.Tensor:
+    """``fused_mhsa(h @ w.T)`` under one autograd function: h [B, N_pad, dim]
+    (the LN output), w [3*heads*dim_head, dim] (torch layout). The backward
+    forms dW only when ``w`` needs a gradient."""
+    _no_mhsa_dropout(dropout_rate)
+    return _MhsaQkvProj.apply(h, w, heads, dim_head, scale, n_true)
+
+
+def _local_dropout_args(dropout_rate: float, seed: int) -> Tuple[int, float]:
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    if not -(1 << 31) <= int(seed) < (1 << 31):
+        raise ValueError(f"seed {seed} is not an int32")
+    scale = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    return _threshold(dropout_rate), scale
+
+
+def _local_keep(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
+    """The local kernels' mask: rows = query index, cols = key index, salt
+    = batch index (the TPU kernel's, ``flash_attention.py:938-942``)."""
+    B = shape[0]
+    salt = torch.arange(B, device=device).reshape(B, 1, 1)
+    return keep_mask(shape, seed, dropout_rate, salt=salt, device=device)
+
+
+def _local_scores(q, k, scale, DHW, local_k):
+    mask = local_mask_additive(DHW, local_k, device=q.device)
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + mask
+
+
 def local_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, DHW: Tuple[int, int, int],
-                    local_k: Tuple[int, int, int],
-                    dropout_rate: float = 0.0) -> torch.Tensor:
+                    local_k: Tuple[int, int, int], dropout_rate: float = 0.0,
+                    seed: int = 0, with_lse: bool = False):
     """q, k, v [B, N, dl], N == prod(DHW) -> [B, N, dl]: softmax over the 3-D
-    window (additive mask), f32 scores, PV in v's dtype."""
-    _no_dropout(dropout_rate)
-    mask = local_mask_additive(DHW, local_k, device=q.device)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + mask
+    window (additive mask), then hash dropout on the probabilities, f32
+    scores, PV in v's dtype. With ``with_lse`` also the per-row natural
+    log-sum-exp [B, N] f32 that kernel C hands its backward."""
+    s = _local_scores(q, k, scale, DHW, local_k)
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(v.dtype), v)
+    if dropout_rate > 0.0:
+        keep = _local_keep(s.shape, seed, dropout_rate, q.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), torch.zeros_like(p))
+    o = torch.matmul(p.to(v.dtype), v)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1)
 
 
-def flash_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float, DHW: Tuple[int, int, int],
-                          local_k: Tuple[int, int, int],
-                          dropout_rate: float = 0.0) -> torch.Tensor:
-    """Same contract as :func:`local_reference`; the kernel on CUDA. q, k and
-    v may be strided views (unit column stride), e.g. splits of [B, N, 3*dl]."""
-    _no_dropout(dropout_rate)
-    if not _build.use_kernel(q):
-        return local_reference(q, k, v, scale, DHW, local_k)
+def local_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                        scale: float, DHW: Tuple[int, int, int],
+                        local_k: Tuple[int, int, int], dropout_rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """The algebra of kernel D in plain PyTorch (f32): P = exp(s - lse),
+    f = keep / (1 - rate), delta = rowsum(dO * O), dS = P (f dP - delta)
+    -> packed dqkv [B, N, 3 * dl] in q's dtype."""
+    s = _local_scores(q, k, scale, DHW, local_k)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    f = torch.ones_like(p)
+    if dropout_rate > 0.0:
+        keep = _local_keep(s.shape, seed, dropout_rate, q.device)
+        f = keep.float() * (1.0 / (1.0 - dropout_rate))
+    do = dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    dv = torch.matmul((f * p).transpose(-1, -2), do)
+    ds = p * (f * torch.matmul(do, v.float().transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return torch.cat([dq, dk, dv], dim=-1).to(q.dtype)
+
+
+def _local_geometry(q, k, v, DHW, local_k):
     B, N, dl = q.shape
     D, H, W = (int(x) for x in DHW)
     kd, kh, kw = (int(x) for x in local_k)
@@ -124,18 +304,100 @@ def flash_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or t.stride(2) != 1):
             raise ValueError("q, k, v must share shape, device and dtype, with "
                              "unit column stride")
-    if not 1 <= dl <= 32:
-        raise NotImplementedError(f"local attention kernel takes dl <= 32, got {dl}")
+    if not 1 <= dl <= MAX_LOCAL_DL:
+        raise NotImplementedError(
+            f"local attention kernel takes dl <= {MAX_LOCAL_DL}, got {dl}")
+    return (B, N, dl, D, H, W, kd, kh, kw, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+
+
+def _local_forward(q, k, v, scale, DHW, local_k, dropout_rate, seed):
+    """Kernel C -> (out [B, N, dl], lse [B, N] f32)."""
+    if not _build.use_kernel(q):
+        return local_reference(q, k, v, scale, DHW, local_k, dropout_rate, seed,
+                               with_lse=True)
+    geom = _local_geometry(q, k, v, DHW, local_k)
+    threshold, drop_scale = _local_dropout_args(dropout_rate, seed)
+    B, N, dl = q.shape
     out = torch.empty((B, N, dl), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, N), device=q.device, dtype=torch.float32)
     _build.launch(
-        "local_attention",
-        f"gaviko_local_attention_{_build.dtype_suffix(q)}", _LOCAL_ARGTYPES,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, N, dl, D, H, W, kd, kh, kw,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), scale, _build.stream_of(q))
+        "local_attention", f"gaviko_local_attention_{_build.dtype_suffix(q)}",
+        _LOCAL_ARGTYPES, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *geom, scale, int(seed), threshold, drop_scale,
+        _build.stream_of(q))
     flash_local_attention.launches += 1
-    return out
+    return out, lse
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                        scale: float, DHW: Tuple[int, int, int],
+                        local_k: Tuple[int, int, int], dropout_rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """Same contract as :func:`local_bwd_reference`; kernel D on CUDA."""
+    if not _build.use_kernel(q):
+        return local_bwd_reference(q, k, v, out, lse, dout, scale, DHW, local_k,
+                                   dropout_rate, seed)
+    geom = _local_geometry(q, k, v, DHW, local_k)
+    threshold, drop_scale = _local_dropout_args(dropout_rate, seed)
+    B, N, dl = q.shape
+    dout = dout.contiguous()
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be {tuple(q.shape)}")
+    if tuple(lse.shape) != (B, N) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(B, N)}")
+    _build.check_cuda("local_attention_bwd", out, dout)
+    _build.check_cuda("local_attention_bwd", lse)
+    dqkv = torch.empty((B, N, 3 * dl), device=q.device, dtype=q.dtype)
+    delta = torch.empty_like(lse)
+    _build.launch(
+        "local_attention_bwd",
+        f"gaviko_local_attention_bwd_{_build.dtype_suffix(q)}", _LOCAL_BWD_ARGTYPES,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *geom, scale, int(seed),
+        threshold, drop_scale, _build.stream_of(q))
+    local_attention_bwd.launches += 1
+    return dqkv
+
+
+local_attention_bwd.launches = 0
+
+
+class _LocalAttention(torch.autograd.Function):
+    """Kernel C forward; kernel D backward from the saved (out, lse), with
+    the dropout bits replayed from (seed, coordinates)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, DHW, local_k, dropout_rate, seed):
+        out, lse = _local_forward(q, k, v, scale, DHW, local_k, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (scale, DHW, local_k, dropout_rate, seed)
+        ctx.plain = _build.plain_active()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        with _build.plain_versions(ctx.plain):
+            dqkv = local_attention_bwd(q, k, v, out, lse, g, *ctx.cfg)
+        dq, dk, dv = dqkv.chunk(3, dim=-1)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, DHW: Tuple[int, int, int],
+                          local_k: Tuple[int, int, int],
+                          dropout_rate: float = 0.0,
+                          seed: Optional[int] = None) -> torch.Tensor:
+    """Same contract as :func:`local_reference`, differentiable; kernels C
+    and D on CUDA. q, k and v may be strided views (unit column stride),
+    e.g. splits of [B, N, 3*dl]. ``seed`` is the int32 dropout seed (unused
+    at rate 0)."""
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout needs a seed")
+    return _LocalAttention.apply(q, k, v, scale, tuple(DHW), tuple(local_k),
+                                 float(dropout_rate), 0 if seed is None else int(seed))
 
 
 flash_local_attention.launches = 0

@@ -13,7 +13,7 @@ evaluates it per key instead.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,10 +46,14 @@ def local_mask_additive(DHW: Tuple[int, int, int], local_k: Tuple[int, int, int]
 def masked_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            scale: float, DHW: Tuple[int, int, int],
                            local_k: Tuple[int, int, int],
+                           seed: Optional[int] = None,
                            dropout_rate: float = 0.0) -> torch.Tensor:
     """Single-head local attention over the [B, N, dl] latent stream, N ==
-    prod(DHW). ``scale`` is the caller's (GAViKO scales by the full model
-    dim ** -0.5). The kernel on CUDA, its plain version on the CPU."""
+    prod(DHW), differentiable. ``scale`` is the caller's (GAViKO scales by
+    the full model dim ** -0.5). Dropout on the probabilities (the
+    reference's attn_drop) takes hash bits from the int32 ``seed``, so the
+    kernel, its plain version and the JAX package drop the same elements.
+    The kernels on CUDA, their plain versions on the CPU."""
     from gaviko_tpu_torch.ops.flash_attention import flash_local_attention
 
-    return flash_local_attention(q, k, v, scale, DHW, local_k, dropout_rate)
+    return flash_local_attention(q, k, v, scale, DHW, local_k, dropout_rate, seed)

@@ -50,9 +50,14 @@ def patchify_reference(img: torch.Tensor, weight: torch.Tensor,
 
 def patchify_fused(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Same contract as :func:`patchify_reference`; the kernel on CUDA."""
+    """Same contract as :func:`patchify_reference`; the kernel on CUDA,
+    whose output has no backward: a call that needs a gradient raises there
+    (GAViKO's conv_proj is frozen and its input needs none)."""
     if not _build.use_kernel(img):
         return patchify_reference(img, weight, bias, pos)
+    _build.refuse_grad(
+        "patchify_fused", "ROADMAP Queue B item 5: save_rows and the dW backward",
+        *(t for t in (img, weight, bias, pos) if t is not None))
     B, C, D, H, W, dim, pd, ph, pw = _geometry(img, weight)
     dt = img.dtype
     weight, bias = weight.to(dt).contiguous(), bias.to(dt).contiguous()

@@ -4,7 +4,9 @@ Both packages key params by the same torch ``state_dict`` names in the same
 ``(out, in)`` layout, so the move is a per-entry copy. Every array is copied
 (JAX on the CPU can alias memory that torch would then share), alias entries
 stay separate tensors, and bfloat16 arrays cross through a uint16 view,
-which ``torch.from_numpy`` needs.
+which ``torch.from_numpy`` needs. ``opt_state_from_jax`` moves the JAX
+package's ``FusedAdamState(count, mu, nu)`` the same way, so both packages
+can start a train step from one mid-schedule state.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from gaviko_tpu_torch.core.layers import Params
+from gaviko_tpu_torch.train.fused_optim import FusedAdamState
 
 
 def array_to_tensor(v) -> torch.Tensor:
@@ -38,3 +41,11 @@ def from_jax(params: Mapping[str, object], device="cpu",
             t = t.to(dtype)
         out[k] = t.to(device)
     return out
+
+
+def opt_state_from_jax(state, device="cpu") -> FusedAdamState:
+    """The JAX package's ``FusedAdamState`` (numpy or jax leaves) -> the
+    port's, with the count as a host int."""
+    return FusedAdamState(count=int(np.asarray(state.count)),
+                          mu=from_jax(state.mu, device),
+                          nu=from_jax(state.nu, device))

@@ -9,15 +9,19 @@ without the suite's conftest:
 Shapes are small and deliberately ragged (tiles cut by every edge). Budgets:
 fp32 with TF32 off to 1e-4 relative MAE (the sums only reorder), bf16 to
 1e-2 (the kernels round P to bf16 at another point than the plain versions).
+Dropout is bit-exact, so the rate-0.2 cases keep the rate-0 budgets.
 """
 
 import pytest
 import torch
 
+from gaviko_tpu_torch.core.layers import SeedStream
 from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.flash_attention import (
-    flash_local_attention, fused_mhsa, local_reference, mhsa_reference)
+    flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd,
+    local_bwd_reference, local_reference, mhsa_bwd_reference, mhsa_qkv_proj,
+    mhsa_reference)
 from gaviko_tpu_torch.ops.patchify import patchify_fused, patchify_reference
 
 pytestmark = pytest.mark.cuda
@@ -124,4 +128,112 @@ def test_gaviko_forward_runs_the_kernels(dev):
             want = model.apply(params, x, model.spec)
     assert counts == [1, model.spec.depth, model.spec.depth]
     assert [w.launches for w in wrappers] == counts  # the plain run launched nothing
+    assert _rel_mae(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,n_pad,n_true", [(2, 4, 136, 130), (1, 2, 64, 64), (3, 2, 40, 1)])
+def test_fused_mhsa_lse_and_backward_kernels(dev, dtype, B, H, n_pad, n_true):
+    """Kernel A's lse and kernel B's packed dqkv against their plain
+    versions; pad keys get dK = dV = 0 and a zero cotangent on pad rows
+    gives dq = 0 there."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qkv = _randn(gen, B, n_pad, 3 * H * 64, dtype=dtype)
+    dout = _randn(gen, B, n_pad, H * 64, dtype=dtype)
+    dout[:, n_true:] = 0
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    out, lse = fused_mhsa(qkv, H, 64, 0.125, n_true, with_lse=True)
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, 64, 0.125, n_true)
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _, lse_want = mhsa_reference(qkv, H, 64, 0.125, n_true, with_lse=True)
+    want = mhsa_bwd_reference(qkv, out, lse, dout, H, 64, 0.125, n_true)
+    assert _rel_mae(lse, lse_want) <= BUDGET[dtype]  # bf16: q * scale is rounded
+    assert torch.isfinite(dqkv).all()
+    inner = H * 64
+    assert torch.all(dqkv[:, n_true:, inner:] == 0)
+    assert torch.all(dqkv[:, n_true:, :inner] == 0)
+    assert _rel_mae(dqkv, want) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mhsa_qkv_proj_runs_kernels_a_and_b(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    h = _randn(gen, 2, 48, 96, dtype=dtype, std=0.5).requires_grad_(True)
+    w = _randn(gen, 3 * 2 * 64, 96, dtype=dtype, std=0.1).requires_grad_(True)
+    g = _randn(gen, 2, 48, 2 * 64, dtype=dtype)
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    mhsa_qkv_proj(h, w, 2, 64, 0.125, 45).backward(g)
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    got = (h.grad.clone(), w.grad.clone())
+    h.grad = w.grad = None
+    with _build.plain_versions():
+        mhsa_qkv_proj(h, w, 2, 64, 0.125, 45).backward(g)
+    for a, b in zip(got, (h.grad, w.grad)):
+        assert _rel_mae(a, b) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("DHW,local_k,dl", [
+    ((4, 5, 6), (6, 6, 6), 20), ((4, 5, 6), (3, 6, 6), 8), ((10, 10, 10), (2, 3, 1), 20),
+])
+def test_local_attention_dropout_and_backward_kernels(dev, dtype, rate, DHW, local_k, dl):
+    """Kernels C and D against their plain versions, dropout on and off."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = DHW[0] * DHW[1] * DHW[2]
+    q, k, v = _randn(gen, 2, n, 3 * dl, dtype=dtype, std=3.0).chunk(3, dim=-1)
+    dout = _randn(gen, 2, n, dl, dtype=dtype)
+    seed = -123456789
+    before = (flash_local_attention.launches, local_attention_bwd.launches)
+    got = flash_local_attention(q, k, v, 0.05, DHW, local_k, rate, seed)
+    want, lse = local_reference(q, k, v, 0.05, DHW, local_k, rate, seed, with_lse=True)
+    assert _rel_mae(got, want) <= BUDGET[dtype]
+    dqkv = local_attention_bwd(q, k, v, got, lse, dout, 0.05, DHW, local_k, rate, seed)
+    assert (flash_local_attention.launches, local_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    dwant = local_bwd_reference(q, k, v, got, lse, dout, 0.05, DHW, local_k, rate, seed)
+    assert torch.isfinite(dqkv).all()
+    assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+
+
+def test_wrappers_without_a_backward_kernel_refuse_a_gradient(dev):
+    qkv = torch.zeros(1, 8, 3 * 2 * 64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_mhsa(qkv, 2, 64, 0.125, 8)
+    w = torch.zeros(8, 1, 2, 4, 4, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        patchify_fused(torch.zeros(1, 1, 4, 8, 8, device=dev), w, torch.zeros(8, device=dev))
+
+
+def test_gaviko_train_gradients_run_the_kernels(dev):
+    cfg = dict(image_size=32, image_patch_size=16, frames=24, frame_patch_size=12,
+               num_classes=5, channels=1, pool="cls", backbone="vit-s16",
+               method="gaviko", num_prompts=4, prompt_latent_dim=8, local_dim=8,
+               local_k=(2, 2, 2), freeze_vit=True)
+    model = build_model(cfg)
+    params = {k: v.to(dev) for k, v in
+              model.init(torch.Generator().manual_seed(0), model.spec).items()}
+    x = torch.rand(2, 1, 24, 32, 32, generator=torch.Generator().manual_seed(1)).to(dev)
+    seeds = [int(s) for s in torch.randint(-2 ** 31, 2 ** 31, (2 * model.spec.depth,),
+                                           generator=torch.Generator().manual_seed(2))]
+
+    def trainable_grads():
+        p = {k: v.clone().requires_grad_(True) if model.trainable(k) else v
+             for k, v in params.items()}
+        names = model.trainable_names(p)
+        out = model.apply(p, x, model.spec, train=True, seeds=SeedStream(seeds))
+        grads = torch.autograd.grad(out.square().sum(), [p[k] for k in names],
+                                    allow_unused=True)
+        return torch.cat([torch.zeros_like(p[k]).flatten() if g is None else g.flatten()
+                          for k, g in zip(names, grads)])
+
+    wrappers = (fused_mhsa, fused_mhsa_bwd, flash_local_attention, local_attention_bwd)
+    for w in wrappers:
+        w.launches = 0
+    got = trainable_grads()
+    counts = [w.launches for w in wrappers]
+    with _build.plain_versions():
+        want = trainable_grads()
+    assert counts == [model.spec.depth] * 4
+    assert [w.launches for w in wrappers] == counts
     assert _rel_mae(got, want) <= 1e-4

@@ -101,8 +101,26 @@ def test_unported_methods_name_their_roadmap_item(method):
 
 
 def test_training_is_not_ported():
+    """Training with a trainable backbone (freeze_vit: false) still raises
+    and names its ROADMAP item; the frozen-backbone step is ported
+    (tests/test_torch_train.py)."""
+    geom, shape = GEOMETRIES["tiny"]
+    tm = build_model({**BASE, **geom, "freeze_vit": False})
+    params = tm.init(torch.Generator().manual_seed(0), tm.spec)
+    with pytest.raises(NotImplementedError, match="freeze_vit: false.*ROADMAP"):
+        tm.apply(params, torch.zeros(shape), tm.spec, train=True)
+
+
+def test_frozen_backbone_training_forward_consumes_two_seeds_a_layer():
+    from gaviko_tpu_torch.core.layers import SeedStream
+
     geom, shape = GEOMETRIES["tiny"]
     tm = build_model({**BASE, **geom})
     params = tm.init(torch.Generator().manual_seed(0), tm.spec)
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.apply(params, torch.zeros(shape), tm.spec, train=True)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
+    seeds = SeedStream(generator=torch.Generator().manual_seed(2))
+    train = tm.apply(params, x, tm.spec, train=True, seeds=seeds)
+    assert seeds.count == 2 * tm.spec.depth
+    eval_ = tm.apply(params, x, tm.spec)
+    assert train.shape == eval_.shape and torch.isfinite(train).all()
+    assert not torch.equal(train, eval_)  # the local branch dropped something

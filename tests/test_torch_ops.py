@@ -130,11 +130,20 @@ def test_local_mask_matches_jax(DHW, local_k):
 
 
 def test_dropout_is_not_ported():
+    """Dropout inside the MHSA kernels (a trainable backbone) still raises
+    and names its ROADMAP item; the local attention takes dropout now."""
     qkv = torch.zeros(1, 8, 3 * 2 * 64)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
         tfa.fused_mhsa(qkv, 2, 64, 0.125, 8, dropout_rate=0.1)
-    q = torch.zeros(1, 8, 4)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
+        tfa.mhsa_qkv_proj(torch.zeros(1, 8, 16), torch.zeros(3 * 2 * 64, 16), 2, 64,
+                          0.125, 8, dropout_rate=0.1)
+    q = torch.randn(1, 8, 4, generator=torch.Generator().manual_seed(0))
+    out = tfa.flash_local_attention(q, q, q, 1.0, (2, 2, 2), (2, 2, 2),
+                                    dropout_rate=0.5, seed=3)
+    torch.testing.assert_close(out, tfa.local_reference(
+        q, q, q, 1.0, (2, 2, 2), (2, 2, 2), dropout_rate=0.5, seed=3), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="seed"):
         tfa.flash_local_attention(q, q, q, 1.0, (2, 2, 2), (2, 2, 2), dropout_rate=0.1)
 
 
