@@ -34,11 +34,14 @@ Phases, each printing its own line:
    and the launches of each kernel a step (each of the four attention
    kernels 24 a step);
 7. train check: the same 3 steps, seeds and batches inside
-   ``plain_versions()``: fp32 per-step loss within 1e-4 relative and step-1
-   gradients of the trainable tensors within 1e-3 relative MAE; bf16 loss
-   within 2e-2, gradient cosine >= 0.99 and relative MAE <= 5e-2. The
-   gradients are compared under one logits cotangent (see
-   ``phase_train_check``).
+   ``plain_versions()``: fp32 per-step loss within 1e-4 relative, step-1
+   logits within 1e-4 and step-1 gradients of the loss (every trainable
+   tensor) within 1e-3 relative MAE; bf16 loss within 2e-2, logits within
+   1e-2, gradient cosine >= 0.99 and relative MAE <= 5e-2. Where a bf16
+   logit crosses an edge of the focal loss's clamp between the two runs,
+   the gradients are gated under one logits cotangent instead, and the
+   loss gradients' difference is split into the kernels' and the clamp's
+   shares (see ``phase_train_check``).
 
 It then prints the kernels as one JSON line (times at the B4 fp32 train
 shapes, launches from the fp32 train run), the nvidia-smi line, and as its
@@ -66,8 +69,10 @@ N_REQUESTS = 16
 BF16_BUDGET, F32_BUDGET, SERVE_BUDGET = 1e-2, 1e-4, 2e-2
 TRAIN_B, TRAIN_STEPS, TRAIN_TOTAL_STEPS = 4, 3, 100
 LOCAL_RATE, LOCAL_SEED = 0.2, 1234567
-# Train-check budgets: (loss relative, gradient relative MAE, cosine floor).
-TRAIN_BUDGET = {"fp32": (1e-4, 1e-3, None), "bf16": (2e-2, 5e-2, 0.99)}
+# Train-check budgets: (loss relative, step-1 logits relative MAE, gradient
+# relative MAE, cosine floor).
+TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
+                "bf16": (2e-2, BF16_BUDGET, 5e-2, 0.99)}
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
 # input type. f32 runs on the SIMT units, outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -564,57 +569,85 @@ def _grad_diff(got: dict, want: dict) -> dict:
             "worst_tensor": worst, "worst_tensor_rel_mae": per_tensor[worst]}
 
 
-def phase_train_check(setup, precision: str, kernel: dict, card: str) -> None:
-    """The same steps through the plain versions: per-step losses against
-    the kernels' run, and step-1 gradients.
-
-    The gradients are compared under one logits cotangent (the loss's, at
-    the plain run's logits), backpropagated through both runs: the config's
-    parity focal loss clamps the logits to [1e-16, 1 - 1e-16] before its
-    softmaxes, so its gradient jumps where a logit crosses 0 or 1, and two
-    runs whose logits differ by bf16 rounding can fall on the two sides. The
-    gradients of the loss itself are printed beside, with the number of
-    logits that cross a clamp edge between the runs."""
+def _loss_cotangent(setup, logits):
+    """d loss / d logits of the config's criterion at step 1's labels."""
     import torch
 
-    from gaviko_tpu_torch.ops._build import plain_versions
     from gaviko_tpu_torch.train.losses import make_criterion
+
+    leaf = logits.clone().requires_grad_(True)
+    with torch.enable_grad():
+        make_criterion(setup[0]["train"])(leaf, setup[3][0][1]).backward()
+    return leaf.grad
+
+
+def _share(part: dict, minus: dict, scale: dict) -> float:
+    """mean |part - minus| over all trainable tensors, relative to mean
+    |scale|: one term of a gradient difference, in the units of rel MAE."""
+    num = sum(float((part[k].double() - minus[k].double()).abs().sum()) for k in scale)
+    den = sum(float(scale[k].double().abs().sum()) for k in scale)
+    return num / den
+
+
+def phase_train_check(setup, precision: str, kernel: dict, card: str) -> None:
+    """The same steps through the plain versions: per-step losses, step-1
+    logits and step-1 gradients of the loss against the kernels' run.
+
+    The config's parity focal loss clamps the logits to [1e-16, 1 - 1e-16]
+    before its softmaxes, so its gradient jumps where a logit crosses 0 or
+    1. In bf16 the two runs' logits differ by rounding and one can fall on
+    the two sides of an edge. Only then are the gradients gated under one
+    logits cotangent (the loss's at the plain run's logits) backpropagated
+    through both runs, and the difference of the loss gradients is split in
+    two: the kernels' share (both runs' backward of that one cotangent) and
+    the clamp's share (the kernel run's backward of the change in cotangent
+    between the two runs' logits)."""
+    from gaviko_tpu_torch.ops._build import plain_versions
 
     with plain_versions():
         plain = run_train(*setup, precision, profiled=False)
-        plain_logits, plain_loss_grads = step1_grads(*setup, precision)
-    kernel_logits, kernel_loss_grads = step1_grads(*setup, precision)
-    leaf = plain_logits.clone().requires_grad_(True)
-    with torch.enable_grad():
-        make_criterion(setup[0]["train"])(leaf, setup[3][0][1]).backward()
-    cot = leaf.grad
-    with plain_versions():
-        _, plain_grads = step1_grads(*setup, precision, cot)
-    _, kernel_grads = step1_grads(*setup, precision, cot)
-
-    loss_budget, grad_budget, cos_floor = TRAIN_BUDGET[precision]
-    loss_rel = [abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])]
-    grads = _grad_diff(kernel_grads, plain_grads)
+        plain_logits, plain_grads = step1_grads(*setup, precision)
+    kernel_logits, kernel_grads = step1_grads(*setup, precision)
     crossings = sum(int(((kernel_logits > edge) != (plain_logits > edge)).sum())
                     for edge in (1e-16, 1.0 - 1e-16))
-    print(json.dumps({"phase": "train_check", "precision": precision,
-                      "kernel_losses": kernel["losses"], "plain_losses": plain["losses"],
-                      "loss_rel": loss_rel, "step1_logits_rel_mae":
-                          _rel_mae(kernel_logits, plain_logits),
-                      "grads_under_one_cotangent": grads,
-                      "grads_of_the_loss": _grad_diff(kernel_loss_grads, plain_loss_grads),
-                      "logits_crossing_a_clamp_edge": crossings,
-                      "plain_step_ms": plain["step_ms"],
-                      "budget": {"loss_rel": loss_budget, "grad_rel_mae": grad_budget,
-                                 "cosine": cos_floor}, "card": card}), flush=True)
+    loss_budget, logits_budget, grad_budget, cos_floor = TRAIN_BUDGET[precision]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])]
+    logits_rel = _rel_mae(kernel_logits, plain_logits)
+    line = {"phase": "train_check", "precision": precision,
+            "kernel_losses": kernel["losses"], "plain_losses": plain["losses"],
+            "loss_rel": loss_rel, "step1_logits_rel_mae": logits_rel,
+            "logits_crossing_a_clamp_edge": crossings,
+            "grads_of_the_loss": _grad_diff(kernel_grads, plain_grads),
+            "gated": "grads_of_the_loss"}
+    if precision == "bf16" and crossings:
+        cot = _loss_cotangent(setup, plain_logits)
+        with plain_versions():
+            _, plain_cot_grads = step1_grads(*setup, precision, cot)
+        _, kernel_cot_grads = step1_grads(*setup, precision, cot)
+        line.update(grads_under_one_cotangent=_grad_diff(kernel_cot_grads, plain_cot_grads),
+                    gated="grads_under_one_cotangent",
+                    loss_grad_share_of_the_kernels=_share(
+                        kernel_cot_grads, plain_cot_grads, plain_grads),
+                    loss_grad_share_of_the_clamp=_share(
+                        kernel_grads, kernel_cot_grads, plain_grads))
+    grads = line[line["gated"]]
+    line.update(plain_step_ms=plain["step_ms"], card=card,
+                budget={"loss_rel": loss_budget, "logits_rel_mae": logits_budget,
+                        "grad_rel_mae": grad_budget, "cosine": cos_floor})
+    print(json.dumps(line), flush=True)
     if max(loss_rel) > loss_budget:
         raise RuntimeError(f"train {precision}: loss rel {loss_rel} > {loss_budget}")
+    if not logits_rel <= logits_budget:
+        raise RuntimeError(f"train {precision}: step-1 logits rel MAE {logits_rel} > "
+                           f"{logits_budget}")
     worst = grads["rel_mae"] if cos_floor is not None else max(
         grads["rel_mae"], grads["worst_tensor_rel_mae"])
-    if worst > grad_budget:
-        raise RuntimeError(f"train {precision}: gradient rel MAE {worst} > {grad_budget}")
-    if cos_floor is not None and grads["cosine"] < cos_floor:
-        raise RuntimeError(f"train {precision}: gradient cosine {grads['cosine']} < {cos_floor}")
+    if not worst <= grad_budget:
+        raise RuntimeError(f"train {precision}: {line['gated']} rel MAE {worst} > "
+                           f"{grad_budget}")
+    if cos_floor is not None and not grads["cosine"] >= cos_floor:
+        raise RuntimeError(f"train {precision}: {line['gated']} cosine {grads['cosine']} "
+                           f"< {cos_floor}")
 
 
 def main() -> int:

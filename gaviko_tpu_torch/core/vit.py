@@ -15,8 +15,9 @@ Port of the blocks of ``gaviko_tpu/core/vit.py`` that GAViKO runs:
   Dropout, plain GEMMs (the JAX package's fused MLP kernel is off at
   vit-l16).
 
-Backbone attention dropout in training (a trainable backbone) needs dropout
-inside the MHSA kernels, which a later slice ports: it raises.
+The attention has no dropout: a trainable backbone (``freeze_vit: false``)
+needs dropout inside the MHSA kernels, which a later slice ports, and
+``models/gaviko.apply`` refuses to train one.
 """
 
 from __future__ import annotations
@@ -44,13 +45,9 @@ def patchify_embed(p: Params, prefix: str, img: torch.Tensor,
 
 
 def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
-                    train: bool = False, n_true: Optional[int] = None) -> torch.Tensor:
+                    n_true: Optional[int] = None) -> torch.Tensor:
     """Pre-norm MHSA branch output (the caller adds the residual). Unlike
     the TPU kernel, the CUDA kernel takes any row count, so no per-call pad."""
-    if train and spec.dropout > 0.0:
-        raise NotImplementedError(
-            "training the backbone attention with dropout needs dropout inside "
-            "the MHSA kernels (ROADMAP Queue B item 2: the freeze_vit: false slice)")
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
     h = layer_norm(p, f"{prefix}.norm", x)
