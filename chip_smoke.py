@@ -12,20 +12,29 @@ Phases, each printing its own line:
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (relative MAE <= 1e-2) and fp32 with TF32 off (<= 1e-4), with median
    CUDA-event times of kernel, plain version and the one PyTorch call that
-   computes the same function (timed here only; the port never calls it),
-   and the least time the card could take (``bound_ms``). First at the
-   shapes the GAViKO vit-l16 B8 serving path gives the three forward
-   kernels, then at the shapes the B4 train step gives all five (fused MHSA
-   forward with lse and backward, local attention forward with dropout 0.2
-   and backward, patchify);
-4. serving: builds the GAViKO vit-l16 ``Predictor`` (bf16, micro-batch 8,
-   random weights from seed 0) from ``gaviko_tpu/configs/gaviko.yaml``,
-   starts ``serve()`` on 127.0.0.1, POSTs 16 synthetic (120, 160, 160)
-   volumes, 8 at a time, and checks the answers, ``/healthz``, ``/metrics``
-   and that every kernel's launch counter moved while serving;
-5. plain check: one batch's served logits against the same params run
-   through the plain versions on the card (relative MAE <= 2e-2), and the
-   end-to-end volumes/s of ``predict_logits`` at B8 bf16;
+   computes the same function (``library_ms``; timed here only, the port
+   never calls it) or, where no one call does, the chain of calls
+   (``chain_ms``), and the least time the card could take (``bound_ms``).
+   First at the shapes the GAViKO vit-l16 B8 serving path gives its three
+   forward kernels, then at the shapes the vit-b16 B8 serving path gives
+   its three (LN+qkv and LN+kv, the fused MLP with the residual, the CLS
+   attention), then at the shapes the B4 train step gives all five of
+   GAViKO (fused MHSA forward with lse and backward, local attention
+   forward with dropout 0.2 and backward, patchify);
+4. serving, once for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``)
+   and once for the plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``,
+   method ``fft``): builds the ``Predictor`` (bf16, micro-batch 8, random
+   weights from seed 0), starts ``serve()`` on 127.0.0.1, POSTs 16
+   synthetic (120, 160, 160) volumes, 8 at a time, and checks the answers,
+   ``/healthz``, ``/metrics`` and every kernel's launches: each batch is
+   one forward, which launches each kernel ``serving_launches`` times
+   (GAViKO: none of the vit-b16 kernels);
+5. plain check, after each serving phase: one batch's served logits
+   against the same params run through the plain versions on the card
+   (relative MAE <= 2e-2), the end-to-end volumes/s of ``predict_logits``
+   at B8 bf16, one forward under ``torch.profiler`` (device busy ms, wall
+   ms, idle share) and, for vit-b16, one forward at B64 (the JAX bench's
+   headline batch) in CUDA-event ms;
 6. train: the GAViKO vit-l16 model of the same config (random init from
    seed 0, frozen backbone, full depth) through ``split_params``,
    ``make_optimizer`` and ``make_steps``: 3 train steps and one eval step
@@ -43,10 +52,12 @@ Phases, each printing its own line:
    loss gradients' difference is split into the kernels' and the clamp's
    shares (see ``phase_train_check``).
 
-It then prints the kernels as one JSON line (times at the B4 fp32 train
-shapes, launches from the fp32 train run), the nvidia-smi line, and as its
-last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before that line; without a CUDA device it exits 2.
+It then prints the kernels as one JSON line (GAViKO's at the B4 fp32 train
+shapes with the fp32 train run's launches; the vit-b16 kernels at their B8
+bf16 serving shapes with the vit-b16 serving run's launches), the
+nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before that line; without a CUDA device it
+exits 2.
 """
 
 from __future__ import annotations
@@ -64,7 +75,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 CONFIG = "gaviko_tpu/configs/gaviko.yaml"
+VIT_CONFIG = "gaviko_tpu/configs/vit.yaml"
 B = 8
+HEADLINE_B = 64  # the JAX bench's vit-b16 serving batch
 N_REQUESTS = 16
 BF16_BUDGET, F32_BUDGET, SERVE_BUDGET = 1e-2, 1e-4, 2e-2
 TRAIN_B, TRAIN_STEPS, TRAIN_TOTAL_STEPS = 4, 3, 100
@@ -87,7 +100,12 @@ SOURCES = {
                         "gaviko_tpu/ops/flash_attention.py:830"),
     "local_attention_bwd": ("gaviko_tpu_torch/csrc/local_attention_bwd.cu",
                             "gaviko_tpu/ops/flash_attention.py:946"),
+    "ln_linear": ("gaviko_tpu_torch/csrc/ln_linear.cu", "gaviko_tpu/ops/ln_linear.py:58"),
+    "fused_mlp": ("gaviko_tpu_torch/csrc/fused_mlp.cu", "gaviko_tpu/ops/fused_mlp.py:116"),
+    "cls_attention": ("gaviko_tpu_torch/csrc/cls_attention.cu",
+                      "gaviko_tpu/ops/cls_attention.py:58"),
 }
+VIT_KERNELS = ("ln_linear", "fused_mlp", "cls_attention")
 
 
 def _nvidia_smi() -> str:
@@ -153,12 +171,13 @@ def _sdpa_grad(q, k, v, g, **kw):
 
 def _kernel_cases(dtype, gen, batch, train):
     """Cases at the shapes the GAViKO vit-l16 path gives each kernel:
-    (name, call, compare, work, library). ``call`` runs the kernel, or its
-    plain version inside ``plain_versions()``; ``compare`` cuts what is
-    compared from its result; ``work`` is (bytes, operations) the function
-    needs; ``library`` is the one PyTorch call that computes the same
-    function, or None. ``train`` adds the backward kernels and the local
-    dropout of the train step."""
+    (name, call, compare, work, library, chain). ``call`` runs the kernel,
+    or its plain version inside ``plain_versions()``; ``compare`` cuts what
+    is compared from its result; ``work`` is (bytes, operations) the
+    function needs; ``library`` is the one PyTorch call that computes the
+    same function, or None; ``chain`` the chain of PyTorch calls that does
+    where no one call does, or None. ``train`` adds the backward kernels
+    and the local dropout of the train step."""
     import torch
     import torch.nn.functional as F
 
@@ -190,17 +209,18 @@ def _kernel_cases(dtype, gen, batch, train):
     cases = [
         ("patchify", lambda: patchify_fused(img, w, bias), lambda r: r,
          (_nbytes(img, w, bias) + out_bytes, 2 * batch * n_tok * 1024 * w[0].numel()),
-         lambda: F.conv3d(img, w, bias, stride=(12, 16, 16))),
+         lambda: F.conv3d(img, w, bias, stride=(12, 16, 16)), None),
         ("fused_mhsa", lambda: fused_mhsa(qkv, H, D, mhsa_scale, n_true, with_lse=train),
          (lambda r: (r[0][:, :n_true], r[1])) if train else (lambda r: r[:, :n_true]),
          (_nbytes(qkv) * 4 // 3 + (batch * H * n_pad * 4 if train else 0),
           4 * mhsa_products),
-         lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask)),
+         lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask), None),
         ("local_attention", lambda: flash_local_attention(
             q, k, v, local_scale, DHW, local_k, rate, LOCAL_SEED), lambda r: r,
          (4 * batch * n_tok * dl * img.element_size() + batch * n_tok * 4, 4 * dl * pairs),
          lambda: F.scaled_dot_product_attention(
-             q[:, None], k[:, None], v[:, None], attn_mask=win_mask, scale=local_scale)),
+             q[:, None], k[:, None], v[:, None], attn_mask=win_mask, scale=local_scale),
+         None),
     ]
     if not train:
         return cases
@@ -216,13 +236,64 @@ def _kernel_cases(dtype, gen, batch, train):
         ("fused_mhsa_bwd", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, mhsa_scale,
                                                   n_true), lambda r: r,
          (_nbytes(qkv, out, dout, lse, qkv), 10 * mhsa_products),
-         _sdpa_grad(*heads4, dout4, attn_mask=key_mask)),
+         _sdpa_grad(*heads4, dout4, attn_mask=key_mask), None),
         ("local_attention_bwd", lambda: local_attention_bwd(
             q, k, v, lout, llse, ldout, local_scale, DHW, local_k, rate, LOCAL_SEED),
          lambda r: r,
          (_nbytes(q, k, v, lout, ldout, llse) + 3 * _nbytes(ldout), 10 * dl * pairs),
          _sdpa_grad(q[:, None], k[:, None], v[:, None], ldout[:, None],
-                    attn_mask=win_mask, scale=local_scale)),
+                    attn_mask=win_mask, scale=local_scale), None),
+    ]
+    return cases
+
+
+def _vit_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) at the shapes the vit-b16 serving
+    path gives its three kernels: the LN+qkv and LN+kv projections, the
+    fused MLP with the residual (the config's exact GELU) and the CLS
+    attention of the last layer. The bytes and operations count what this
+    run's inputs need: the CLS attention reads the keys below n_true."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.cls_attention import cls_attention
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp
+    from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
+
+    dev, H, D, n_pad, n_true, dim, mlp = "cuda", 12, 64, 1008, 1001, 768, 3072
+    inner = H * D
+    rows = batch * n_pad
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    x = randn(batch, n_pad, dim)
+    gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
+    w_qkv = randn(3 * inner, dim, std=dim ** -0.5)
+    w1, b1 = randn(mlp, dim, std=dim ** -0.5), randn(mlp, std=0.1)
+    w2, b2 = randn(dim, mlp, std=mlp ** -0.5), randn(dim, std=0.1)
+    kv, q0 = randn(batch, n_pad, 2 * inner), randn(batch, inner)
+    size = x.element_size()
+    key_mask = (torch.arange(n_pad, device=dev) < n_true).view(1, 1, 1, n_pad)
+    q4 = q0.view(batch, H, 1, D)
+    k4, v4 = kv.view(batch, n_pad, 2, H, D).permute(2, 0, 3, 1, 4)
+    cases = []
+    for name, w in (("ln_linear", w_qkv), ("ln_linear_kv", w_qkv[inner:])):
+        cases.append((
+            name, lambda w=w: fused_ln_linear(x, gamma, beta, w), lambda r: r,
+            (_nbytes(x, gamma, beta, w) + rows * w.shape[0] * size,
+             2 * rows * dim * w.shape[0]),
+            None, lambda w=w: F.linear(F.layer_norm(x, (dim,), gamma, beta, 1e-5), w)))
+    cases += [
+        ("fused_mlp",
+         lambda: fused_mlp(x, gamma, beta, w1, b1, w2, b2, 1e-5, "exact", residual=True),
+         lambda r: r, (_nbytes(x, gamma, beta, w1, b1, w2, b2, x), 4 * rows * dim * mlp),
+         None,
+         lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(x, (dim,), gamma, beta, 1e-5),
+                                              w1, b1)), w2, b2)),
+        ("cls_attention", lambda: cls_attention(kv, q0, H, D, D ** -0.5, n_true), lambda r: r,
+         (batch * n_true * 2 * inner * size + 2 * _nbytes(q0), 4 * batch * n_true * inner),
+         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=key_mask), None),
     ]
     return cases
 
@@ -242,9 +313,10 @@ def _compare(got, want) -> tuple:
     return rel, max_abs
 
 
-def phase_kernels(card: str, batch: int, train: bool) -> dict:
-    """Every case in bf16 and fp32 (TF32 off): kernel vs plain version on
-    the same inputs, then the times. Returns the fp32 lines by name."""
+def phase_kernels(card: str, batch: int, path: str) -> dict:
+    """Every case of ``path`` ("serving" and "train": GAViKO vit-l16; "vit":
+    vit-b16 serving) in bf16 and fp32 (TF32 off): kernel vs plain version
+    on the same inputs, then the times. Returns the lines by (name, dtype)."""
     import torch
 
     from gaviko_tpu_torch.ops._build import plain_versions
@@ -254,7 +326,9 @@ def phase_kernels(card: str, batch: int, train: bool) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
-        for name, run, cut, work, library in _kernel_cases(dtype, gen, batch, train):
+        cases = (_vit_kernel_cases(dtype, gen, batch) if path == "vit"
+                 else _kernel_cases(dtype, gen, batch, path == "train"))
+        for name, run, cut, work, library, chain in cases:
             with torch.no_grad():
                 got = cut(run())
                 with plain_versions():
@@ -262,13 +336,15 @@ def phase_kernels(card: str, batch: int, train: bool) -> dict:
                 torch.cuda.synchronize()
                 rel, max_abs = _compare(got, want)
                 bound_ms, bound_by = _bound(work, dtype)
-                line = {"phase": "kernel", "path": "train" if train else "serving",
+                line = {"phase": "kernel", "path": path,
                         "name": name, "dtype": str(dtype), "batch": batch,
                         "rel_mae": rel, "max_abs_err": max_abs, "budget": budget,
                         "ms": _median_ms(run), "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": work[0], "operations": work[1],
-                        "library_ms": _median_ms(library),
+                        "library_ms": None if library is None else _median_ms(library),
                         "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
+                if chain is not None:
+                    line["chain_ms"] = _median_ms(chain)
                 with plain_versions():
                     line["plain_ms"] = _median_ms(run, reps=5, warmup=1)
             results[(name, str(dtype))] = line
@@ -278,18 +354,34 @@ def phase_kernels(card: str, batch: int, train: bool) -> dict:
     return results
 
 
-def _wrappers(train: bool = False):
-    """The launch counters of the serving path's kernels, or of the train
-    path's (which adds the two backward kernels)."""
+def _wrappers():
+    """Every kernel wrapper, whose ``launches`` counters a phase reads."""
+    from gaviko_tpu_torch.ops.cls_attention import cls_attention
     from gaviko_tpu_torch.ops.flash_attention import (
         flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd)
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp
+    from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
     from gaviko_tpu_torch.ops.patchify import patchify_fused
 
-    out = {"patchify": patchify_fused, "fused_mhsa": fused_mhsa,
-           "local_attention": flash_local_attention}
-    if train:
-        out.update(fused_mhsa_bwd=fused_mhsa_bwd, local_attention_bwd=local_attention_bwd)
-    return out
+    return {"patchify": patchify_fused, "fused_mhsa": fused_mhsa,
+            "local_attention": flash_local_attention, "fused_mhsa_bwd": fused_mhsa_bwd,
+            "local_attention_bwd": local_attention_bwd, "ln_linear": fused_ln_linear,
+            "fused_mlp": fused_mlp, "cls_attention": cls_attention}
+
+
+def serving_launches(spec) -> dict:
+    """Launches of each kernel in one serving forward: GAViKO runs patchify,
+    then the MHSA and local attention in every layer; the plain ViT runs
+    patchify, the fused LN+qkv, MHSA and MLP in all but the last layer and
+    the CLS-fast last layer (LN+kv and the CLS attention)."""
+    want = dict.fromkeys(_wrappers(), 0)
+    want["patchify"] = 1
+    if spec.method == "gaviko":
+        want.update(fused_mhsa=spec.depth, local_attention=spec.depth)
+    else:
+        want.update(ln_linear=spec.depth, fused_mhsa=spec.depth - 1,
+                    fused_mlp=spec.depth - 1, cls_attention=1)
+    return want
 
 
 def _npz(vol: np.ndarray) -> bytes:
@@ -298,26 +390,28 @@ def _npz(vol: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def make_predictor():
+def make_predictor(config_path: str, method: str):
     from gaviko_tpu_torch.config import apply_method_override, load_config
     from gaviko_tpu_torch.serving import Predictor
 
-    config = apply_method_override(load_config(CONFIG), "gaviko")
+    config = apply_method_override(load_config(config_path), method)
     t0 = time.perf_counter()
     predictor = Predictor(config, batch_size=B, dtype="bfloat16",
                           pretrained_dir=None, device="cuda:0")
     spec = predictor.spec
     print(json.dumps({"phase": "predictor", "seconds": time.perf_counter() - t0,
-                      "backbone": spec.backbone, "depth": spec.depth,
+                      "method": method, "backbone": spec.backbone, "depth": spec.depth,
                       "dim": spec.dim, "heads": spec.heads,
                       "volume": [spec.frames, *spec.image_size],
-                      "prompts": spec.num_prompts, "local_k": list(spec.local_k),
-                      "batch_size": B, "dtype": "bfloat16"}), flush=True)
+                      "gelu": spec.gelu, "pool": spec.pool, "batch_size": B,
+                      "dtype": "bfloat16"}), flush=True)
     return predictor
 
 
 def phase_serving(predictor, vols) -> tuple:
-    """POST every volume, B at a time; returns (launches, served logits)."""
+    """POST every volume, B at a time; returns (launches, served logits).
+    Each batch the dispatcher runs is one forward, so every kernel must
+    launch ``serving_launches`` times the number of batches."""
     from gaviko_tpu_torch.serving import serve
 
     bodies = [_npz(v) for v in vols]
@@ -353,9 +447,11 @@ def phase_serving(predictor, vols) -> tuple:
 
     logits = np.asarray([a["logits"] for a in answers], np.float64)
     classes = np.asarray([a["class"] for a in answers])
-    print(json.dumps({"phase": "serving", "requests": len(answers),
-                      "seconds": seconds, "launches": launches,
-                      "metrics": metrics}), flush=True)
+    want = {n: c * metrics["batches_total"]
+            for n, c in serving_launches(predictor.spec).items()}
+    print(json.dumps({"phase": "serving", "method": predictor.spec.method,
+                      "requests": len(answers), "seconds": seconds, "launches": launches,
+                      "want_launches": want, "metrics": metrics}), flush=True)
     if logits.shape != (len(vols), predictor.spec.num_classes):
         raise RuntimeError(f"served logits have shape {logits.shape}")
     if not np.isfinite(logits).all():
@@ -368,15 +464,16 @@ def phase_serving(predictor, vols) -> tuple:
     if metrics["requests_total"] != len(vols) or \
             metrics["batches_total"] >= len(vols):
         raise RuntimeError(f"requests were not coalesced: {metrics}")
-    idle = [n for n, c in launches.items() if c < 1]
-    if idle:
-        raise RuntimeError(f"serving never launched {idle}")
+    if launches != want:
+        raise RuntimeError(f"serving launched {launches}, want {want}")
     return launches, logits
 
 
-def phase_plain_check(predictor, vols, served, card: str) -> None:
+def phase_plain_check(predictor, vols, served, card: str, headline_batch=None) -> None:
     """Served logits of one batch against the plain versions on the card,
-    and the end-to-end rate of predict_logits at B8 bf16."""
+    the end-to-end rate of predict_logits at B8 bf16, one forward under the
+    profiler (device busy ms, wall ms and idle share) and, given
+    ``headline_batch``, one forward at that batch in CUDA-event ms."""
     from gaviko_tpu_torch.ops._build import plain_versions
     from gaviko_tpu_torch.utils.layouts import put_volume
 
@@ -402,12 +499,19 @@ def phase_plain_check(predictor, vols, served, card: str) -> None:
     with plain_versions():
         plain_fwd = _median_ms(
             lambda: predictor._forward(predictor.params, batch), reps=3, warmup=1)
-    print(json.dumps({"phase": "plain_check", "rel_mae": rel, "budget": SERVE_BUDGET,
-                      "argmax_agreement": agree, "vol_per_s": kernel_rate,
-                      "plain_vol_per_s": plain_rate, "forward_ms": kernel_fwd,
-                      "plain_forward_ms": plain_fwd, "batch_size": len(vols),
-                      "card": card}),
-          flush=True)
+    profile = profile_step(lambda: predictor._forward(predictor.params, batch))
+    line = {"phase": "plain_check", "method": predictor.spec.method, "rel_mae": rel,
+            "budget": SERVE_BUDGET, "argmax_agreement": agree, "vol_per_s": kernel_rate,
+            "plain_vol_per_s": plain_rate, "forward_ms": kernel_fwd,
+            "plain_forward_ms": plain_fwd, "batch_size": len(vols), "profile": profile,
+            "card": card}
+    if headline_batch is not None:
+        big = put_volume(np.zeros((headline_batch, *batch.shape[1:]), np.float32),
+                         torch.bfloat16, predictor.device)
+        line[f"forward_ms_b{headline_batch}"] = _median_ms(
+            lambda: predictor._forward(predictor.params, big), reps=5)
+        del big
+    print(json.dumps(line), flush=True)
     if not rel <= SERVE_BUDGET:
         raise RuntimeError(f"served logits vs plain: rel MAE {rel} > {SERVE_BUDGET}")
 
@@ -455,7 +559,7 @@ def run_train(config, model, params, batches, seeds, precision: str,
     trainable, frozen = loop.split_params(model, params)
     opt_state = loop.init_opt_state(trainable)
 
-    wrappers = _wrappers(train=True)
+    wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -551,7 +655,7 @@ def phase_train(setup, precision: str, card: str) -> dict:
                       "profile": result["profile"], "card": card}),
           flush=True)
     want = {n: depth for n in per_step}
-    want["patchify"] = 1
+    want.update(patchify=1, **dict.fromkeys(VIT_KERNELS, 0))
     if per_step != want:
         raise RuntimeError(f"train {precision}: launches a step {per_step}, want {want}")
     return result
@@ -677,31 +781,39 @@ def main() -> int:
                                     if "registers" in x or "spill" in x]
                                 for n, log in logs.items()}}), flush=True)
 
-    phase_kernels(smi, B, train=False)
-    kernels = phase_kernels(smi, TRAIN_B, train=True)
-    predictor = make_predictor()
+    phase_kernels(smi, B, "serving")
+    vit_kernels = phase_kernels(smi, B, "vit")
+    kernels = phase_kernels(smi, TRAIN_B, "train")
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
-    _, served = phase_serving(predictor, vols)
-    phase_plain_check(predictor, vols[:B], served[:B], smi)
-    del predictor
-    torch.cuda.empty_cache()
+    vit_launches = {}
+    for config, method, headline in ((CONFIG, "gaviko", None), (VIT_CONFIG, "fft", HEADLINE_B)):
+        predictor = make_predictor(config, method)
+        vit_launches, served = phase_serving(predictor, vols)
+        phase_plain_check(predictor, vols[:B], served[:B], smi, headline)
+        del predictor
+        torch.cuda.empty_cache()
 
     setup = train_setup()
     runs = {p: phase_train(setup, p, smi) for p in ("fp32", "bf16")}
     for precision, run in runs.items():
         phase_train_check(setup, precision, run, smi)
 
-    f32 = "torch.float32"
-    print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": runs["fp32"]["launches"][n],
-         "max_abs_err": kernels[(n, f32)]["max_abs_err"], "ms": kernels[(n, f32)]["ms"],
-         "plain_ms": kernels[(n, f32)]["plain_ms"],
-         "bound_ms": kernels[(n, f32)]["bound_ms"],
-         "bound_by": kernels[(n, f32)]["bound_by"],
-         "library_ms": kernels[(n, f32)]["library_ms"]}
-        for n, (src, tpu) in SOURCES.items()]}), flush=True)
+    # GAViKO's kernels at the B4 fp32 train shapes with the fp32 train run's
+    # launches; the vit-b16 kernels at its B8 bf16 serving shapes with the
+    # vit-b16 serving run's launches (ln_linear: the qkv projection).
+    rows = []
+    for n, (src, tpu) in SOURCES.items():
+        vit = n in VIT_KERNELS
+        line = vit_kernels[(n, "torch.bfloat16")] if vit else kernels[(n, "torch.float32")]
+        row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
+               "launches": (vit_launches if vit else runs["fp32"]["launches"])[n],
+               **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "dtype", "batch", "path")}}
+        if "chain_ms" in line:
+            row["chain_ms"] = line["chain_ms"]
+        rows.append(row)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(smi, flush=True)

@@ -18,15 +18,11 @@ from typing import Dict, Iterable, Optional
 import torch
 import torch.nn.functional as F
 
+from gaviko_tpu_torch.ops.fused_mlp import gelu_erf_fast_f32
 from gaviko_tpu_torch.ops.hash_dropout import keep_mask
+from gaviko_tpu_torch.ops.ln_linear import layer_norm_rounded
 
 Params = Dict[str, torch.Tensor]
-
-# erf ~= sign(a) * tanh(C1|a| + C3|a|^3 + C5|a|^5), the JAX package's
-# erf_fast fit (gaviko_tpu/ops/fused_mlp.py).
-_EF_C1 = 1.1281153655981508
-_EF_C3 = 0.1041330662360045
-_EF_C5 = -0.0017956401545075685
 
 
 class SeedStream:
@@ -66,24 +62,12 @@ def layer_norm(p: Params, prefix: str, x: torch.Tensor, eps: float = 1e-5) -> to
     """Statistics in f32, cast to the working dtype, then ``* w + b`` in that
     dtype: the JAX package's rounding order (``F.layer_norm`` in bf16 rounds
     elsewhere)."""
-    dtype = x.dtype
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).to(dtype)
-    return y * p[f"{prefix}.weight"] + p[f"{prefix}.bias"]
+    return layer_norm_rounded(x, p[f"{prefix}.weight"], p[f"{prefix}.bias"], eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, torch nn.GELU's default."""
     return F.gelu(x)
-
-
-def gelu_erf_fast_f32(x: torch.Tensor) -> torch.Tensor:
-    a = (x * 0.7071067811865476).abs()
-    a2 = a * a
-    erf = torch.sign(x) * torch.tanh(a * (_EF_C1 + a2 * (_EF_C3 + a2 * _EF_C5)))
-    return x * 0.5 * (1.0 + erf)
 
 
 def gelu_spec(x: torch.Tensor, mode: str) -> torch.Tensor:

@@ -1,47 +1,81 @@
-"""Shared 3D-ViT building blocks.
+"""Shared 3D-ViT building blocks and the plain VisionTransformer model.
 
-Port of the blocks of ``gaviko_tpu/core/vit.py`` that GAViKO runs:
+Port of ``gaviko_tpu/core/vit.py``. The routes follow the JAX package's
+dispatch predicates, copied into the port, so one configuration takes the
+same route in both packages; the device picks kernel or plain version.
 
-- ``patchify_embed``: the Conv3d(kernel=stride=patch) embed, as the patchify
-  kernel on CUDA (``ops/patchify.py``);
-- ``attention_block``: pre-norm MHSA. LN and the qkv / output projections are
-  plain GEMMs (the JAX package leaves them to XLA at vit-l16, where its fused
-  LN+qkv kernel is off); attention reads the packed qkv through the fused
-  MHSA kernel. When a gradient is needed, the qkv projection and the
-  attention run under ``mhsa_qkv_proj``, whose backward is the fused MHSA
-  backward kernel. The stream may carry tail padding: keys >= ``n_true``
-  are masked and padded rows carry bounded garbage by contract;
-- ``feedforward_block``: LN -> Linear -> GELU -> Dropout -> Linear ->
-  Dropout, plain GEMMs (the JAX package's fused MLP kernel is off at
-  vit-l16).
+- ``patchify_embed``: the Conv3d(kernel=stride=patch) embed as the patchify
+  kernel, with optional positional rows in its epilogue;
+- ``attention_block``: pre-norm MHSA. At inference (no gradient) the qkv
+  projection is the fused LN+linear kernel where ``ln_linear_supported``
+  holds (vit-b16 and smaller in bf16), else LN and a plain GEMM; attention
+  reads the packed qkv through the fused MHSA kernel. When a gradient is
+  needed, the projection and attention run under ``mhsa_qkv_proj``, whose
+  backward is the fused MHSA backward kernel. The stream may carry tail
+  padding: keys >= ``n_true`` are masked, padded rows carry bounded garbage;
+- ``feedforward_block(_res)``: LN -> Linear -> GELU -> Dropout -> Linear ->
+  Dropout. At inference the fused MLP kernel (with the residual fused in
+  for ``_res``) where ``fused_mlp_supported`` holds, else plain GEMMs;
+- the CLS-fast last layer (``attention_cls_branch``, ``cls_attend``,
+  ``feedforward_cls_branch``): with ``pool='cls'`` only row 0 of the last
+  layer is used, so it runs one query row through the CLS attention kernel;
+- ``vit_apply`` / ``vit_init``: the plain 3D ViT of methods ``fft``,
+  ``linear`` and ``bitfit``, in eval mode.
 
-The attention has no dropout: a trainable backbone (``freeze_vit: false``)
-needs dropout inside the MHSA kernels, which a later slice ports, and
-``models/gaviko.apply`` refuses to train one.
+Training differs from the JAX package in one place: its TPU path fuses the
+MLP in training too (in-kernel dropout), while here a step that needs a
+gradient keeps ``layers.dropout`` and plain GEMMs, the route of the JAX
+package on the CPU (ROADMAP Queue C). ``vit_apply(train=True)`` waits for
+the vit-b16 train slice; the attention has no dropout yet either, and
+``models/gaviko.apply`` refuses to train a trainable backbone.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from gaviko_tpu_torch.config import ModelSpec
+from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core.layers import (
     Params, SeedStream, dropout, gelu_spec, layer_norm, linear)
 from gaviko_tpu_torch.ops.attention import self_attention, self_attention_train
+from gaviko_tpu_torch.ops.cls_attention import (
+    cls_attention, cls_attention_reference, cls_attention_supported)
+from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_supported
+from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_supported
 from gaviko_tpu_torch.ops.patchify import patchify_fused
 
+VIT_TRAIN = ("vit_apply(train=True) is not ported yet: ROADMAP Queue A item 4 "
+             "and the vit-b16 train slice")
 
-def patchify_embed(p: Params, prefix: str, img: torch.Tensor,
-                   spec: ModelSpec) -> torch.Tensor:
-    """[B, C, D, H, W] -> [B, N, dim] tokens in (d, h, w) row-major order."""
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def patchify_embed(p: Params, prefix: str, img: torch.Tensor, spec: ModelSpec,
+                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, C, D, H, W] -> [B, N, dim] tokens in (d, h, w) row-major order;
+    ``pos`` (N, dim) rows fold into the kernel's epilogue."""
     w = p[f"{prefix}.weight"]  # (dim, C, pd, ph, pw)
     if tuple(w.shape[2:]) != (spec.frame_patch_size, *spec.image_patch_size):
         raise ValueError(f"{prefix}.weight {tuple(w.shape)} does not match the "
                          "spec's patch size")
-    return patchify_fused(img, w, p[f"{prefix}.bias"])
+    return patchify_fused(img, w, p[f"{prefix}.bias"], pos)
+
+
+def _ln_proj(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """LN(x) @ w.T: the fused kernel at inference where the JAX package's
+    gate holds, else LN and a plain GEMM."""
+    gamma, beta = p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]
+    if (not _needs_grad(x, w, gamma, beta) and w.dtype == x.dtype
+            and ln_linear_supported(x.shape[-1], w.shape[0], x.dtype)):
+        return fused_ln_linear(x, gamma, beta, w)
+    return F.linear(layer_norm(p, f"{prefix}.norm", x), w)
 
 
 def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
@@ -50,13 +84,38 @@ def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
     the TPU kernel, the CUDA kernel takes any row count, so no per-call pad."""
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
-    h = layer_norm(p, f"{prefix}.norm", x)
     w = p[f"{prefix}.to_qkv.weight"]
-    if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
-        out = self_attention_train(h, w, spec.heads, dh, dh ** -0.5, n_true)
+    if _needs_grad(x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]):
+        out = self_attention_train(layer_norm(p, f"{prefix}.norm", x), w, spec.heads,
+                                   dh, dh ** -0.5, n_true)
     else:
-        out = self_attention(F.linear(h, w), spec.heads, dh, dh ** -0.5, n_true)
+        out = self_attention(_ln_proj(p, prefix, x, w), spec.heads, dh, dh ** -0.5, n_true)
     return linear(p, f"{prefix}.to_out.0", out)
+
+
+def attention_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
+                        n_true: Optional[int] = None) -> torch.Tensor:
+    """x + attention branch."""
+    return attention_block(p, prefix, x, spec, n_true=n_true) + x
+
+
+def _mlp_fused(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
+               train: bool) -> bool:
+    """The fused MLP route: inference only, where the JAX package's gate
+    holds."""
+    names = ("net.0.weight", "net.0.bias", "net.1.weight", "net.1.bias",
+             "net.4.weight", "net.4.bias")
+    return (not train and not _needs_grad(x, *(p[f"{prefix}.{n}"] for n in names))
+            and fused_mlp_supported(x.shape[-1], p[f"{prefix}.net.1.weight"].shape[0],
+                                    x.dtype))
+
+
+def _fused_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
+               residual: bool) -> torch.Tensor:
+    return fused_mlp(x, p[f"{prefix}.net.0.weight"], p[f"{prefix}.net.0.bias"],
+                     p[f"{prefix}.net.1.weight"], p[f"{prefix}.net.1.bias"],
+                     p[f"{prefix}.net.4.weight"], p[f"{prefix}.net.4.bias"],
+                     1e-5, spec.gelu, residual=residual)
 
 
 def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
@@ -64,8 +123,148 @@ def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, 
                       seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout branch output;
     dropout (``spec.dropout``) only when ``train``, one seed per site."""
+    if _mlp_fused(p, prefix, x, spec, train):
+        return _fused_mlp(p, prefix, x, spec, residual=False)
     h = layer_norm(p, f"{prefix}.net.0", x)
     h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
     h = dropout(h, spec.dropout, train, seeds)
     h = linear(p, f"{prefix}.net.4", h)
     return dropout(h, spec.dropout, train, seeds)
+
+
+def feedforward_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
+                          train: bool = False,
+                          seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """x + MLP branch; on the fused route the residual add runs inside the
+    kernel."""
+    if _mlp_fused(p, prefix, x, spec, train):
+        return _fused_mlp(p, prefix, x, spec, residual=True)
+    return feedforward_block(p, prefix, x, spec, train=train, seeds=seeds) + x
+
+
+def cls_attend(kv: torch.Tensor, q0: torch.Tensor, spec: ModelSpec, *,
+               n_true: int) -> torch.Tensor:
+    """Single-query attention core: kv (B, N, 2*inner) packed [K | V], q0
+    (B, inner) -> (B, inner); the kernel at inference where the JAX
+    package's gate holds, else its plain version (the JAX package's XLA
+    twin)."""
+    heads, dh = spec.heads, spec.dim_head
+    if not _needs_grad(kv, q0) and cls_attention_supported(heads, dh, kv.shape[1], kv.dtype):
+        return cls_attention(kv, q0, heads, dh, dh ** -0.5, n_true)
+    return cls_attention_reference(kv, q0, heads, dh, dh ** -0.5, n_true)
+
+
+def attention_cls_branch(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
+                         n_true: int) -> torch.Tensor:
+    """Attention branch output for query row 0 only, (B, dim): exactly
+    ``attention_block(...)[:, 0]``. K and V span every real row; Q, the
+    scores and the out-projection are needed for one row."""
+    inner = spec.heads * spec.dim_head
+    wq = p[f"{prefix}.to_qkv.weight"]  # (3*inner, dim); rows = [q | k | v]
+    kv = _ln_proj(p, prefix, x, wq[inner:])
+    q0 = F.linear(layer_norm(p, f"{prefix}.norm", x[:, 0]), wq[:inner])
+    out = cls_attend(kv, q0, spec, n_true=n_true)
+    return linear(p, f"{prefix}.to_out.0", out.to(x.dtype))
+
+
+def cls_fast_enabled(spec: ModelSpec) -> bool:
+    """Shared gate of the last-layer fast path (pool='cls' models)."""
+    return spec.pool == "cls" and os.environ.get("GAVIKO_CLS_FAST", "1") == "1"
+
+
+def feedforward_cls_branch(p: Params, prefix: str, c: torch.Tensor,
+                           spec: ModelSpec) -> torch.Tensor:
+    """MLP branch on the pooled (B, dim) CLS rows (last-layer fast path)."""
+    h = layer_norm(p, f"{prefix}.net.0", c)
+    h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
+    return linear(p, f"{prefix}.net.4", h)
+
+
+def add_cls_and_pos(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Prepend the cls token and add the positional embedding."""
+    B, n, dim = tokens.shape
+    cls = p["cls_token"].to(tokens.dtype).expand(B, 1, dim)
+    x = torch.cat([cls, tokens], dim=1)
+    return x + p["pos_embedding"][:, : n + 1].to(tokens.dtype)
+
+
+def pool_and_head(p: Params, x: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+    pooled = x.mean(dim=1) if spec.pool == "mean" else x[:, 0]
+    return linear(p, "mlp_head", pooled)
+
+
+def vit_apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
+              train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """Eval forward of the plain 3D ViT: img [B, C, D, H, W] in the working
+    dtype -> logits [B, num_classes]. The stream is padded once to a
+    multiple of 8 rows (1001 -> 1008 at 120x160x160); keys >= n_true are
+    masked and pad rows are cut before pooling."""
+    if train:
+        raise NotImplementedError(VIT_TRAIN)
+    pos = params["pos_embedding"]
+    x = patchify_embed(params, "conv_proj.0", img, spec,
+                       pos=pos[0, 1:1 + spec.num_patches])
+    B, _, dim = x.shape
+    cls = (params["cls_token"][0] + pos[:, 0]).to(x.dtype)
+    x = torch.cat([cls.expand(B, 1, dim), x], dim=1)
+    n_true = x.shape[1]
+    pad = (-n_true) % 8
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    last = spec.depth - 1
+    fast_cls = (cls_fast_enabled(spec)
+                and f"transformer.layers.{last}.0.to_qkv.weight" in params)
+    for i in range(last if fast_cls else spec.depth):
+        x = attention_block_res(params, f"transformer.layers.{i}.0", x, spec, n_true=n_true)
+        x = feedforward_block_res(params, f"transformer.layers.{i}.1", x, spec)
+    if fast_cls:
+        c = x[:, 0] + attention_cls_branch(params, f"transformer.layers.{last}.0", x, spec,
+                                           n_true=n_true)
+        c = c + feedforward_cls_branch(params, f"transformer.layers.{last}.1", c, spec)
+        return linear(params, "mlp_head", layer_norm(params, "transformer.norm", c))
+    if spec.pool == "cls":
+        # LN is per row, so pooling row 0 first is exact.
+        return linear(params, "mlp_head",
+                      layer_norm(params, "transformer.norm", x[:, 0]))
+    x = layer_norm(params, "transformer.norm", x[:, :n_true])
+    return pool_and_head(params, x, spec)
+
+
+def vit_init(gen: torch.Generator, spec: ModelSpec) -> Params:
+    """Random f32 params on ``gen``'s device under the reference's names,
+    with torch's default distributions."""
+    dim, mlp = spec.dim, spec.mlp_dim
+    inner = spec.heads * spec.dim_head
+    kdhw = (spec.frame_patch_size, *spec.image_patch_size)
+    dev = gen.device
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.float32, device=dev)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+
+    p: Params = {}
+    p["conv_proj.0.weight"] = tinit.torch_conv3d_weight(gen, dim, spec.channels, kdhw)
+    p["conv_proj.0.bias"] = tinit.torch_conv3d_bias(gen, dim, spec.channels, kdhw)
+    p["pos_embedding"] = tinit.normal(gen, (1, spec.num_patches + 1, dim))
+    p["cls_token"] = tinit.normal(gen, (1, 1, dim))
+    for i in range(spec.depth):
+        a = f"transformer.layers.{i}.0"
+        p[f"{a}.norm.weight"] = ones(dim)
+        p[f"{a}.norm.bias"] = zeros(dim)
+        p[f"{a}.to_qkv.weight"] = tinit.torch_linear_weight(gen, inner * 3, dim)
+        p[f"{a}.to_out.0.weight"] = tinit.torch_linear_weight(gen, dim, inner)
+        p[f"{a}.to_out.0.bias"] = tinit.torch_linear_bias(gen, dim, inner)
+        f = f"transformer.layers.{i}.1"
+        p[f"{f}.net.0.weight"] = ones(dim)
+        p[f"{f}.net.0.bias"] = zeros(dim)
+        p[f"{f}.net.1.weight"] = tinit.torch_linear_weight(gen, mlp, dim)
+        p[f"{f}.net.1.bias"] = tinit.torch_linear_bias(gen, mlp, dim)
+        p[f"{f}.net.4.weight"] = tinit.torch_linear_weight(gen, dim, mlp)
+        p[f"{f}.net.4.bias"] = tinit.torch_linear_bias(gen, dim, mlp)
+    p["transformer.norm.weight"] = ones(dim)
+    p["transformer.norm.bias"] = zeros(dim)
+    p["mlp_head.weight"] = tinit.torch_linear_weight(gen, spec.num_classes, dim)
+    p["mlp_head.bias"] = tinit.torch_linear_bias(gen, spec.num_classes, dim)
+    return p

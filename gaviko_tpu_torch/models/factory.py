@@ -1,8 +1,9 @@
 """Model factory + trainable-parameter masks.
 
-Port of ``gaviko_tpu/models/factory.py`` for the methods ported so far
-(``gaviko``). Every other method raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+Port of ``gaviko_tpu/models/factory.py`` for the methods ported so far:
+``gaviko``, and ``linear`` / ``fft`` / ``bitfit`` (the plain ViT of
+``core/vit.py`` with a trainable-name filter). Every other method raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -13,14 +14,12 @@ from typing import Callable, Dict
 import torch
 
 from gaviko_tpu_torch.config import METHODS, ModelSpec, make_spec
+from gaviko_tpu_torch.core import vit as vit_core
 from gaviko_tpu_torch.core.layers import Params
 
 _BACKBONE_NAMES = ("transformer", "cls_token", "conv_proj", "pos_embedding")
 
 _NOT_PORTED = {
-    "fft": "Queue A item 4 (core/vit.py vit_apply) and the vit-b16 slice",
-    "linear": "Queue A item 4 (core/vit.py vit_apply) and the vit-b16 slice",
-    "bitfit": "Queue A item 4 (core/vit.py vit_apply) and the vit-b16 slice",
     "deep_vpt": "Queue A item 11 (models/vpt.py)",
     "shallow_vpt": "Queue A item 11 (models/vpt.py)",
     "adaptformer": "Queue A item 11 (models/adaptformer.py)",
@@ -33,6 +32,24 @@ _NOT_PORTED = {
 
 def _is_backbone(name: str) -> bool:
     return any(s in name for s in _BACKBONE_NAMES)
+
+
+def _trainable_linear(name: str, spec: ModelSpec) -> bool:
+    # ref: train.py:114-121 — head-only.
+    return "head" in name
+
+
+def _trainable_fft(name: str, spec: ModelSpec) -> bool:
+    return True
+
+
+def _trainable_bitfit(name: str, spec: ModelSpec) -> bool:
+    # ref: train.py:129-137 — any bias, plus the head.
+    return "bias" in name or "head" in name
+
+
+_VIT_MASKS = {"linear": _trainable_linear, "fft": _trainable_fft,
+              "bitfit": _trainable_bitfit}
 
 
 def _trainable_gaviko(name: str, spec: ModelSpec) -> bool:
@@ -71,6 +88,8 @@ def build_model(model_cfg: dict) -> Model:
     """config['model'] -> Model with init/apply/trainable."""
     spec = make_spec(model_cfg)
     method = spec.method
+    if method in _VIT_MASKS:
+        return Model(spec, vit_core.vit_init, vit_core.vit_apply, _VIT_MASKS[method])
     if method == "gaviko":
         from gaviko_tpu_torch.models import gaviko
 

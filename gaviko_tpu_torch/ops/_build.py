@@ -34,7 +34,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("patchify", "fused_mhsa", "fused_mhsa_bwd", "local_attention",
-           "local_attention_bwd")
+           "local_attention_bwd", "ln_linear", "fused_mlp", "cls_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

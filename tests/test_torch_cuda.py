@@ -12,18 +12,30 @@ fp32 with TF32 off to 1e-4 relative MAE (the sums only reorder), bf16 to
 Dropout is bit-exact, so the rate-0.2 cases keep the rate-0 budgets.
 """
 
+import io
+import json
 import math
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
 from gaviko_tpu_torch.core.layers import SeedStream
 from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops.cls_attention import cls_attention, cls_attention_reference
 from gaviko_tpu_torch.ops.flash_attention import (
     flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd,
     local_bwd_reference, local_reference, mhsa_bwd_reference, mhsa_qkv_proj,
     mhsa_reference)
+from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, mlp_reference
+from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_reference
 from gaviko_tpu_torch.ops.patchify import patchify_fused, patchify_reference
 
 pytestmark = pytest.mark.cuda
@@ -250,3 +262,143 @@ def test_gaviko_train_gradients_run_the_kernels(dev):
     assert counts == [model.spec.depth] * 4
     assert [w.launches for w in wrappers] == counts
     assert _rel_mae(got, want) <= 1e-4
+
+
+def _ln_params(gen, dim, dtype):
+    gamma = (1.0 + 0.1 * torch.randn(dim, generator=gen, device=gen.device)).to(dtype)
+    return gamma, _randn(gen, dim, dtype=dtype, std=0.1)
+
+
+# (B, N, dim, out): the vit-b16 B8 qkv and kv projections, then ragged rows
+# (tiles cut by the row edge) and an out width that is no multiple of 128.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,dim,out", [
+    (8, 1008, 768, 2304), (8, 1008, 768, 1536), (3, 37, 384, 1152), (2, 5, 128, 136),
+])
+def test_ln_linear_kernel(dev, dtype, B, N, dim, out):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = _randn(gen, B, N, dim, dtype=dtype, std=2.0) + 0.5
+    gamma, beta = _ln_params(gen, dim, dtype)
+    w = _randn(gen, out, dim, dtype=dtype, std=dim ** -0.5)
+    before = fused_ln_linear.launches
+    got = fused_ln_linear(x, gamma, beta, w)
+    assert fused_ln_linear.launches == before + 1
+    assert got.shape == (B, N, out) and torch.isfinite(got).all()
+    assert _rel_mae(got, ln_linear_reference(x, gamma, beta, w)) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,dim,mlp,gelu,residual", [
+    (8, 1008, 768, 3072, "exact", True), (8, 1008, 768, 3072, "tanh", True),
+    (8, 1008, 768, 3072, "erf_fast", True), (3, 37, 384, 1536, "exact", False),
+    (2, 5, 128, 256, "tanh", True), (1, 70, 1024, 512, "erf_fast", False),
+])
+def test_fused_mlp_kernel(dev, dtype, B, N, dim, mlp, gelu, residual):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(gen, B, N, dim, dtype=dtype)
+    gamma, beta = _ln_params(gen, dim, dtype)
+    w1 = _randn(gen, mlp, dim, dtype=dtype, std=dim ** -0.5)
+    b1 = _randn(gen, mlp, dtype=dtype, std=0.1)
+    w2 = _randn(gen, dim, mlp, dtype=dtype, std=mlp ** -0.5)
+    b2 = _randn(gen, dim, dtype=dtype, std=0.1)
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-5, gelu)
+    before = fused_mlp.launches
+    got = fused_mlp(*args, residual=residual)
+    assert fused_mlp.launches == before + 1
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _rel_mae(got, mlp_reference(*args, residual=residual)) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,n_true", [
+    (8, 1008, 12, 1001), (2, 128, 4, 128), (1, 64, 8, 57), (4, 16, 2, 11), (3, 40, 2, 1),
+])
+def test_cls_attention_kernel(dev, dtype, B, N, H, n_true):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    kv = _randn(gen, B, N, 2 * H * 64, dtype=dtype)
+    q0 = _randn(gen, B, H * 64, dtype=dtype)
+    before = cls_attention.launches
+    got = cls_attention(kv, q0, H, 64, 0.125, n_true)
+    assert cls_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel_mae(got, cls_attention_reference(kv, q0, H, 64, 0.125, n_true)) <= BUDGET[dtype]
+
+
+def test_new_wrappers_refuse_a_gradient_and_mlp_dropout(dev):
+    x = torch.zeros(1, 8, 128, device=dev, requires_grad=True)
+    g, b = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    w = torch.zeros(256, 128, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_ln_linear(x, g, b, w)
+    w1, b1 = torch.zeros(256, 128, device=dev), torch.zeros(256, device=dev)
+    w2 = torch.zeros(128, 256, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_mlp(x, g, b, w1, b1, w2, b, residual=True)
+    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
+        fused_mlp(x.detach(), g, b, w1, b1, w2, b, dropout_rate=0.1)
+    kv = torch.zeros(1, 8, 2 * 2 * 64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="train slice"):
+        cls_attention(kv, torch.zeros(1, 2 * 64, device=dev), 2, 64, 0.125, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_forward_runs_the_kernels(dev, dtype):
+    """The plain ViT's serving forward at vit-s16 width: patchify, LN+qkv,
+    MHSA and the fused MLP in every full layer, LN+kv and the CLS attention
+    in the last one, against the plain versions."""
+    cfg = dict(image_size=32, image_patch_size=16, frames=24, frame_patch_size=12,
+               num_classes=5, channels=1, pool="cls", backbone="vit-s16", method="fft")
+    model = build_model(cfg)
+    params = {k: v.to(dev, dtype) for k, v in
+              model.init(torch.Generator().manual_seed(0), model.spec).items()}
+    x = torch.rand(3, 1, 24, 32, 32, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    wrappers = (patchify_fused, fused_ln_linear, fused_mhsa, fused_mlp, cls_attention)
+    for w in wrappers:
+        w.launches = 0
+    with torch.inference_mode():
+        got = model.apply(params, x, model.spec)
+        counts = [w.launches for w in wrappers]
+        with _build.plain_versions():
+            want = model.apply(params, x, model.spec)
+    d = model.spec.depth
+    assert counts == [1, d, d - 1, d - 1, 1]
+    assert [w.launches for w in wrappers] == counts
+    assert _rel_mae(got, want) <= {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+
+
+def test_cli_serves_vit_b16(dev, tmp_path):
+    """``python -m gaviko_tpu_torch.cli.serve --config vit.yaml --method fft``
+    builds the vit-b16 Predictor on the card (random init: no pretrained
+    file) and answers /predict over HTTP."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log = open(tmp_path / "serve.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gaviko_tpu_torch.cli.serve", "--config",
+         "gaviko_tpu/configs/vit.yaml", "--method", "fft", "--port", str(port)],
+        cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 600
+        while True:
+            assert proc.poll() is None, (tmp_path / "serve.log").read_text()
+            try:
+                with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+                    if json.load(r)["status"] == "ok":
+                        break
+            except OSError:
+                assert time.monotonic() < deadline, "the server did not come up"
+                time.sleep(1)
+        buf = io.BytesIO()
+        np.savez(buf, data=np.random.RandomState(0).rand(120, 160, 160).astype(np.float32))
+        req = urllib.request.Request(f"{url}/predict", data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            answer = json.load(r)
+        assert len(answer["logits"]) == 5 and np.isfinite(answer["logits"]).all()
+        assert answer["class"] == int(np.argmax(answer["logits"]))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        log.close()

@@ -91,9 +91,8 @@ def test_from_jax_copies_and_casts():
     assert float(out["a"][0, 0]) == 0.0
 
 
-@pytest.mark.parametrize("method", ["fft", "linear", "bitfit", "deep_vpt",
-                                    "shallow_vpt", "adaptformer", "ssf", "melo",
-                                    "dvpt", "evp"])
+@pytest.mark.parametrize("method", ["deep_vpt", "shallow_vpt", "adaptformer", "ssf",
+                                    "melo", "dvpt", "evp"])
 def test_unported_methods_name_their_roadmap_item(method):
     cfg = {**BASE, **GEOMETRIES["tiny"][0], "method": method}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
