@@ -19,12 +19,16 @@
 // shared memory; then fc2 adds that chunk's contribution to the (32, dim)
 // f32 output, which stays in registers for the whole walk (8 warps as
 // 2 x 4, each 16 rows x dim / 4 columns: 96 accumulators a thread at dim
-// 768). So the hidden never reaches device memory. Both weights stream
-// through one 3-stage cp.async ring of 128 x 64 tiles from L2 (every block
-// re-reads all 9.4 MB of weights: 252 blocks read ~2.4 GB from L2 a call,
-// which bounds this design above the tensor-core bound; a later PR can
-// share weight tiles across a cluster with TMA multicast). No wgmma or TMA
-// yet. f32 inputs take a SIMT path with the same walk, so the f32 check
+// 768). So the hidden never reaches device memory. Fragments load by
+// ldmatrix. Both weights stream through one 8-stage cp.async ring of
+// 128 x 64 tiles from L2: every block re-reads all 9.4 MB of weights, ~2.4
+// GB from L2 a call at B8, which bounds this design above the tensor-core
+// bound (a later PR can share weight tiles across a cluster with TMA
+// multicast). On an H100 it runs at ~10% of the tensor-core rate
+// (PERF.md), and neither the ring depth, ldmatrix nor staggered walks over
+// the weights moved it: 8 warps of 16 x 32 tiles give each scheduler few
+// independent products; wgmma with 64-row warpgroup tiles is the next
+// step. f32 inputs take a SIMT path with the same walk, so the f32 check
 // runs in full f32, not TF32.
 
 #include "row_gemm.cuh"
@@ -85,7 +89,7 @@ __device__ __forceinline__ float gelu(float x, int mode) {
 namespace bf16 {
 
 using T = __nv_bfloat16;
-constexpr int BK = 64, LDW = BK + 8, LDH = HC + 8, STAGES = 3;
+constexpr int BK = 64, LDW = BK + 8, LDH = HC + 8, STAGES = 8;  // 222 KB at dim 1024
 constexpr int TILE = 128 * LDW;  // one ring stage: 128 rows x 64 columns
 
 __host__ __device__ inline int ldx(int dim) { return dim + 8; }
@@ -159,13 +163,13 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
       const T* wt = next();
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t af[4];
-        gaviko::load_a(af, xs, ldx(dim), wm * 16, kt * BK + ks * 16, g, t);
+        uint32_t af[4], bf[2][4];
+        gaviko::load_a(af, xs, ldx(dim), wm * 16, kt * BK + ks * 16);
+        gaviko::load_b2(bf[0], wt, LDW, wn * 32, ks * 16);
+        gaviko::load_b2(bf[1], wt, LDW, wn * 32 + 16, ks * 16);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const T* p = wt + (wn * 32 + ni * 8 + g) * LDW + ks * 16 + 2 * t;
-          gaviko::mma_bf16(hacc[ni], af, gaviko::lds32(p), gaviko::lds32(p + 8));
-        }
+        for (int ni = 0; ni < 4; ++ni)
+          gaviko::mma_bf16(hacc[ni], af, bf[ni / 2][ni % 2 * 2], bf[ni / 2][ni % 2 * 2 + 1]);
       }
     }
     // + b1, GELU, round; the chunk goes to shared memory as fc2's A operand
@@ -189,13 +193,13 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
         const T* wt = next();
 #pragma unroll
         for (int ks = 0; ks < BK / 16; ++ks) {
-          uint32_t af[4];
-          gaviko::load_a(af, hs, LDH, wm * 16, kt * BK + ks * 16, g, t);
+          uint32_t af[4], bf[2][4];
+          gaviko::load_a(af, hs, LDH, wm * 16, kt * BK + ks * 16);
+          gaviko::load_b2(bf[0], wt, LDW, wn * 32, ks * 16);
+          gaviko::load_b2(bf[1], wt, LDW, wn * 32 + 16, ks * 16);
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const T* p = wt + (wn * 32 + ni * 8 + g) * LDW + ks * 16 + 2 * t;
-            gaviko::mma_bf16(oacc[rr][ni], af, gaviko::lds32(p), gaviko::lds32(p + 8));
-          }
+          for (int ni = 0; ni < 4; ++ni)
+            gaviko::mma_bf16(oacc[rr][ni], af, bf[ni / 2][ni % 2 * 2], bf[ni / 2][ni % 2 * 2 + 1]);
         }
       }
     }

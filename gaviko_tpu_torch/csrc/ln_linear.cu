@@ -13,12 +13,16 @@
 // W resident in VMEM and streamed row blocks; no SM holds a 3.5 MB W, so
 // here a block normalises its 64-row tile ONCE into shared memory (96 KB at
 // dim 768) and then walks every 128-column tile of W, streaming W in
-// 128 x 64 tiles through a 3-stage cp.async ring (W stays in the 50 MB L2
+// 128 x 64 tiles through a 5-stage cp.async ring (W stays in the 50 MB L2
 // across blocks). In bf16 8 warps (2 x 4) each own a 32 x 32 output tile on
-// mma.sync m16n8k16 with f32 accumulators; W's (out, in) layout is already
-// the [n][k] B operand. 126 blocks at B8 make one wave on 132 SMs. No
-// wgmma or TMA yet. f32 inputs take a SIMT path (32-row tiles, W tiles
-// transposed in shared memory) so the f32 check runs in full f32, not TF32.
+// mma.sync m16n8k16 with f32 accumulators, fragments loaded by ldmatrix;
+// W's (out, in) layout is already the [n][k] B operand. 126 blocks at B8
+// make one wave on 132 SMs. On an H100 this runs at ~12% of the tensor-core
+// rate (PERF.md): a deeper ring, ldmatrix and blocks walking W from
+// staggered starts each left it where it was, so the limit is inside the
+// SM; wgmma with TMA is the next step. f32 inputs take a SIMT path (32-row
+// tiles, W tiles transposed in shared memory) so the f32 check runs in full
+// f32, not TF32.
 
 #include "row_gemm.cuh"
 
@@ -46,7 +50,7 @@ struct Args {
 namespace bf16 {
 
 using T = __nv_bfloat16;
-constexpr int BM = 64, BK = 64, LDW = BK + 8, STAGES = 3;
+constexpr int BM = 64, BK = 64, LDW = BK + 8, STAGES = 5;  // 224 KB at dim 1024
 constexpr int TILE = BN * LDW;  // elements of one ring stage
 
 __host__ __device__ inline int ldx(int dim) { return dim + 8; }  // conflict-free fragments
@@ -97,17 +101,17 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
     const int kc = idx % nk;
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[2][4];
+      uint32_t af[2][4], bf[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
-        gaviko::load_a(af[mi], xs, ldx(a.dim), wm * 32 + mi * 16, kc * BK + ks * 16, g, t);
+        gaviko::load_a(af[mi], xs, ldx(a.dim), wm * 32 + mi * 16, kc * BK + ks * 16);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const T* p = wt + (wn * 32 + ni * 8 + g) * LDW + ks * 16 + 2 * t;
-        const uint32_t b0 = gaviko::lds32(p), b1 = gaviko::lds32(p + 8);
+      for (int nj = 0; nj < 2; ++nj) gaviko::load_b2(bf[nj], wt, LDW, wn * 32 + nj * 16, ks * 16);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) gaviko::mma_bf16(acc[mi][ni], af[mi], b0, b1);
-      }
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          gaviko::mma_bf16(acc[mi][ni], af[mi], bf[ni / 2][ni % 2 * 2], bf[ni / 2][ni % 2 * 2 + 1]);
     }
     if (kc == nk - 1) {  // this column tile is complete
       T* out = static_cast<T*>(a.out);

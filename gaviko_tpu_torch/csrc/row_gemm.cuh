@@ -28,19 +28,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Four 8x8 bf16 matrices from shared memory in one instruction: lanes 8i ..
+// 8i + 7 give the 16-byte rows of matrix i, and r[i] comes back in the mma
+// fragment layout (row lane / 4, columns 2 (lane % 4) and + 1).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const __nv_bfloat16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
-// A fragment of rows [r, r + 16) and columns [k, k + 16) of a row-major bf16
-// tile with row stride ld; g = lane / 4, t = lane % 4.
+// The A fragment of rows [r, r + 16) and columns [k, k + 16) of a
+// row-major bf16 tile with row stride ld (16-byte aligned rows).
 __device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s, int ld, int r,
-                                       int k, int g, int t) {
-  const __nv_bfloat16* p = s + (r + g) * ld + k + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
+                                       int k) {
+  const int lane = threadIdx.x % 32, i = lane / 8;
+  ldsm_x4(a, s + (r + lane % 8 + 8 * (i % 2)) * ld + k + 8 * (i / 2));
+}
+
+// The B fragments (b0, b1) of two neighbouring 8-column groups, n and
+// n + 8, over k [k, k + 16), from a tile stored [n][k] with row stride ld:
+// b[0], b[1] for columns n .. n + 7 and b[2], b[3] for n + 8 .. n + 15.
+__device__ __forceinline__ void load_b2(uint32_t* b, const __nv_bfloat16* s, int ld, int n,
+                                        int k) {
+  const int lane = threadIdx.x % 32, i = lane / 8;
+  ldsm_x4(b, s + (n + lane % 8 + 8 * (i / 2)) * ld + k + 8 * (i % 2));
 }
 
 // 16 bytes global -> shared without registers; src_valid false writes zeros.

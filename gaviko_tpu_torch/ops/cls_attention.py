@@ -72,7 +72,6 @@ def cls_attention(kv: torch.Tensor, q0: torch.Tensor, heads: int, dim_head: int,
         raise ValueError(f"q0 must be {(B, inner)}, got {tuple(q0.shape)}")
     if not 1 <= n_true <= N:
         raise ValueError(f"n_true {n_true} outside [1, {N}]")
-    q0 = q0.contiguous()
     _build.check_cuda("cls_attention", kv, q0)
     out = torch.empty((B, inner), device=kv.device, dtype=kv.dtype)
     _build.launch(

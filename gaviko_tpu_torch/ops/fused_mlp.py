@@ -104,19 +104,12 @@ def fused_mlp_supported(dim: int, mlp_dim: int, dtype: torch.dtype) -> bool:
             and _chunk_plan(dim, mlp_dim, dtype.itemsize) == mlp_dim)
 
 
-def _no_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"dropout inside the fused MLP is not ported yet ({_TRAIN_SLICE})")
-
-
 def mlp_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                   b2: torch.Tensor, eps: float = 1e-5, gelu="exact",
-                  dropout_rate: float = 0.0, residual: bool = False) -> torch.Tensor:
+                  residual: bool = False) -> torch.Tensor:
     """x [..., dim]; w1 (mlp, dim), w2 (dim, mlp) torch layout -> [..., dim]
     in x's dtype; ``residual`` returns x + branch."""
-    _no_dropout(dropout_rate)
     h = layer_norm_rounded(x, gamma, beta, eps)
     a = torch.matmul(h.float(), w1.float().t()) + b1.float()
     g = gelu_by_mode(a, gelu).to(x.dtype)
@@ -130,9 +123,11 @@ def fused_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
               eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
               residual: bool = False) -> torch.Tensor:
-    """Same contract as :func:`mlp_reference`; the kernel on CUDA, whose
-    output has no backward."""
-    _no_dropout(dropout_rate)
+    """Same contract as :func:`mlp_reference` at ``dropout_rate`` 0; the
+    kernel on CUDA, whose output has no backward."""
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            f"dropout inside the fused MLP is not ported yet ({_TRAIN_SLICE})")
     if not _build.use_kernel(x):
         return mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps, gelu,
                              residual=residual)
@@ -151,7 +146,7 @@ def fused_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             or gamma.shape != (dim,) or beta.shape != (dim,)):
         raise ValueError("fused_mlp: w1 (mlp, dim), b1 (mlp,), w2 (dim, mlp), b2, "
                          "gamma and beta (dim,)")
-    x = x.contiguous()
+    x = x.contiguous()  # e.g. GAViKO's last layer passes a row slice
     _build.check_cuda("fused_mlp", x, gamma, beta, w1, b1, w2, b2)
     rows = x.numel() // dim
     out = torch.empty_like(x)

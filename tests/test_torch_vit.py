@@ -150,6 +150,20 @@ def test_gradient_needed_keeps_the_plain_routes(monkeypatch):
                                                    "transformer.layers.0.0.to_qkv.weight"))
 
 
+def test_add_cls_and_pos_and_pool_match_jax():
+    from gaviko_tpu.core import vit as jvit
+
+    jm, jspec, tm, spec = _models({**TINY, "pool": "mean"}, "fft")
+    jp = {k: np.asarray(v) for k, v in jm.init(jax.random.PRNGKey(5), jspec).items()}
+    tokens = np.random.RandomState(5).randn(2, spec.num_patches, spec.dim).astype(np.float32)
+    want = jvit.add_cls_and_pos(jp, jnp.asarray(tokens))
+    got = tvit.add_cls_and_pos(from_jax(jp), torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tvit.pool_and_head(from_jax(jp), got, spec).numpy(),
+                               np.asarray(jvit.pool_and_head(jp, want, jspec)),
+                               atol=1e-5, rtol=0)
+
+
 def test_training_is_not_ported():
     _, _, tm, spec = _models(TINY, "fft")
     params = tm.init(torch.Generator().manual_seed(0), spec)
