@@ -20,7 +20,11 @@ Phases, each printing its own line:
    its three (LN+qkv and LN+kv, the fused MLP with the residual, the CLS
    attention), then at the shapes the B4 train step gives all five of
    GAViKO (fused MHSA forward with lse and backward, local attention
-   forward with dropout 0.2 and backward, patchify);
+   forward with dropout 0.2 and backward, patchify), then at the shapes the
+   vit-b16 B8 train step gives its five (fused MHSA with dropout 0.1 and
+   lse, its backward replaying the mask, the fused MLP with dropout 0.1 and
+   the saved pre-GELU hidden, the fused MLP backward, patchify with the
+   patch rows; every output compared, the saved ones too);
 4. serving, once for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``)
    and once for the plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``,
    method ``fft``): builds the ``Predictor`` (bf16, micro-batch 8, random
@@ -50,14 +54,23 @@ Phases, each printing its own line:
    logit crosses an edge of the focal loss's clamp between the two runs,
    the gradients are gated under one logits cotangent instead, and the
    loss gradients' difference is split into the kernels' and the clamp's
-   shares (see ``phase_train_check``).
+   shares (see ``phase_train_check``);
+8. vit-b16 train and train check: phases 6 and 7 for the plain ViT of
+   ``gaviko_tpu/configs/vit.yaml``, method ``fft`` (every tensor trains;
+   dropout and emb_dropout 0.1; random init from seed 0; full depth), at
+   B8: 3 train steps and one eval step in fp32 (TF32 off) and bf16, with
+   the exact launches a step (bf16: patchify 1 and each of A, B, B6 and B7
+   11; fp32, where the fused MLP's gate is false: patchify 1, A and B 11),
+   then the same steps through the plain versions under ``TRAIN_BUDGET``.
 
-It then prints the kernels as one JSON line (GAViKO's at the B4 fp32 train
-shapes with the fp32 train run's launches; the vit-b16 kernels at their B8
-bf16 serving shapes with the vit-b16 serving run's launches), the
-nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
-Any failure exits non-zero before that line; without a CUDA device it
-exits 2.
+It then prints the kernels as one JSON line (the local attention kernels
+at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
+patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes with the
+vit-b16 bf16 train run's launches; LN+linear and CLS attention at the
+vit-b16 B8 bf16 serving shapes with the vit-b16 serving run's launches),
+the nvidia-smi line, and as its last line ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero before that line; without a CUDA
+device it exits 2.
 """
 
 from __future__ import annotations
@@ -81,7 +94,9 @@ HEADLINE_B = 64  # the JAX bench's vit-b16 serving batch
 N_REQUESTS = 16
 BF16_BUDGET, F32_BUDGET, SERVE_BUDGET = 1e-2, 1e-4, 2e-2
 TRAIN_B, TRAIN_STEPS, TRAIN_TOTAL_STEPS = 4, 3, 100
+VIT_TRAIN_B = 8  # vit.yaml's batch_size
 LOCAL_RATE, LOCAL_SEED = 0.2, 1234567
+VIT_RATE, VIT_SEED = 0.1, -7654321  # vit.yaml's dropout
 # Train-check budgets: (loss relative, step-1 logits relative MAE, gradient
 # relative MAE, cosine floor).
 TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
@@ -102,10 +117,18 @@ SOURCES = {
                             "gaviko_tpu/ops/flash_attention.py:946"),
     "ln_linear": ("gaviko_tpu_torch/csrc/ln_linear.cu", "gaviko_tpu/ops/ln_linear.py:58"),
     "fused_mlp": ("gaviko_tpu_torch/csrc/fused_mlp.cu", "gaviko_tpu/ops/fused_mlp.py:116"),
+    "fused_mlp_bwd": ("gaviko_tpu_torch/csrc/fused_mlp_bwd.cu",
+                      "gaviko_tpu/ops/fused_mlp.py:340"),
     "cls_attention": ("gaviko_tpu_torch/csrc/cls_attention.cu",
                       "gaviko_tpu/ops/cls_attention.py:58"),
 }
-VIT_KERNELS = ("ln_linear", "fused_mlp", "cls_attention")
+VIT_KERNELS = ("ln_linear", "fused_mlp", "fused_mlp_bwd", "cls_attention")
+# The kernels of the JSON line by the path whose shapes and launches they
+# are reported at.
+LINE_PATH = {"local_attention": "train", "local_attention_bwd": "train",
+             "ln_linear": "vit", "cls_attention": "vit", "patchify": "vit_train",
+             "fused_mhsa": "vit_train", "fused_mhsa_bwd": "vit_train",
+             "fused_mlp": "vit_train", "fused_mlp_bwd": "vit_train"}
 
 
 def _nvidia_smi() -> str:
@@ -167,6 +190,26 @@ def _sdpa_grad(q, k, v, g, **kw):
     with torch.enable_grad():
         out = F.scaled_dot_product_attention(*leaves, **kw)
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _mlp_chain(x, gamma, beta, w1, b1, w2, b2, rate=0.0):
+    """x + [dropout] fc2([dropout] GELU(fc1(LN(x)))) as PyTorch's chain of
+    calls."""
+    import torch.nn.functional as F
+
+    h = F.gelu(F.linear(F.layer_norm(x, (x.shape[-1],), gamma, beta, 1e-5), w1, b1))
+    return x + F.dropout(F.linear(F.dropout(h, rate), w2, b2), rate)
+
+
+def _mlp_chain_grad(args, dy):
+    """One autograd backward of :func:`_mlp_chain` (the graph is built once,
+    outside the timed call)."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    with torch.enable_grad():
+        out = _mlp_chain(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
 
 
 def _kernel_cases(dtype, gen, batch, train):
@@ -298,6 +341,72 @@ def _vit_kernel_cases(dtype, gen, batch):
     return cases
 
 
+def _vit_train_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) at the shapes the vit-b16 train
+    step gives its five kernels: fused MHSA with dropout and lse, its
+    backward replaying the mask, the fused MLP with dropout, the residual
+    and the saved pre-GELU hidden, the fused MLP backward, patchify with the
+    patch rows. Every output is compared, the saved ones too."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.flash_attention import (
+        fused_mhsa, fused_mhsa_bwd, mhsa_reference)
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_forward, mlp_reference
+    from gaviko_tpu_torch.ops.patchify import patchify_kernel
+
+    dev, H, D, n_pad, n_true, dim, mlp = "cuda", 12, 64, 1008, 1001, 768, 3072
+    n_tok, patch = 1000, 12 * 16 * 16
+    inner, rows, scale = H * D, batch * n_pad, D ** -0.5
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    qkv = randn(batch, n_pad, 3 * inner)
+    dout = randn(batch, n_pad, inner)
+    dout[:, n_true:] = 0  # pad rows carry no cotangent on the train path
+    x, dy = randn(batch, n_pad, dim), randn(batch, n_pad, dim)
+    gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
+    w1, b1 = randn(mlp, dim, std=dim ** -0.5), randn(mlp, std=0.1)
+    w2, b2 = randn(dim, mlp, std=mlp ** -0.5), randn(dim, std=0.1)
+    mlp_args = (x, gamma, beta, w1, b1, w2, b2)
+    img = torch.rand(batch, 1, 120, 160, 160, generator=gen, device=dev).to(dtype)
+    w, bias, pos = randn(dim, 1, 12, 16, 16, std=0.02), randn(dim, std=0.02), randn(n_tok, dim)
+    with torch.no_grad():
+        out, lse = mhsa_reference(qkv, H, D, scale, n_true, VIT_RATE, with_lse=True,
+                                  seed=VIT_SEED)
+        _, a = mlp_reference(*mlp_args, 1e-5, "exact", VIT_RATE, True, VIT_SEED, save_a=True)
+    heads4 = qkv.view(batch, n_pad, 3, H, D).permute(2, 0, 3, 1, 4)
+    dout4 = dout.view(batch, n_pad, H, D).transpose(1, 2)
+    key_mask = (torch.arange(n_pad, device=dev) < n_true).view(1, 1, 1, n_pad)
+    mhsa_products = batch * H * n_pad * n_true * D
+    size = x.element_size()
+    return [
+        ("fused_mhsa", lambda: fused_mhsa(qkv, H, D, scale, n_true, VIT_RATE, with_lse=True,
+                                          seed=VIT_SEED),
+         lambda r: (r[0][:, :n_true], r[1]),
+         (_nbytes(qkv) * 4 // 3 + _nbytes(lse), 4 * mhsa_products),
+         lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask,
+                                                dropout_p=VIT_RATE), None),
+        ("fused_mhsa_bwd", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, scale, n_true,
+                                                  VIT_RATE, VIT_SEED), lambda r: r,
+         (_nbytes(qkv, out, dout, lse, qkv), 10 * mhsa_products),
+         _sdpa_grad(*heads4, dout4, attn_mask=key_mask, dropout_p=VIT_RATE), None),
+        ("fused_mlp", lambda: fused_mlp_forward(*mlp_args, 1e-5, "exact", VIT_RATE, True,
+                                                VIT_SEED, save_a=True), lambda r: r,
+         (_nbytes(*mlp_args, x) + rows * mlp * size, 4 * rows * dim * mlp),
+         None, lambda: _mlp_chain(*mlp_args, VIT_RATE)),
+        ("fused_mlp_bwd", lambda: fused_mlp_bwd(*mlp_args, dy, a, 1e-5, "exact", VIT_RATE,
+                                                True, VIT_SEED), lambda r: r,
+         (_nbytes(x, gamma, beta, w1, w2, dy, a) + _nbytes(*mlp_args), 8 * rows * dim * mlp),
+         None, _mlp_chain_grad(mlp_args, dy)),
+        ("patchify", lambda: patchify_kernel(img, w, bias, pos, save_rows=True), lambda r: r,
+         (_nbytes(img, w, bias, pos) + batch * n_tok * (dim + patch) * size,
+          2 * batch * n_tok * dim * patch),
+         lambda: F.conv3d(img, w, bias, stride=(12, 16, 16)), None),
+    ]
+
+
 def _compare(got, want) -> tuple:
     """(relative MAE, max abs error) of a result or the worst of a tuple."""
     import torch
@@ -314,9 +423,10 @@ def _compare(got, want) -> tuple:
 
 
 def phase_kernels(card: str, batch: int, path: str) -> dict:
-    """Every case of ``path`` ("serving" and "train": GAViKO vit-l16; "vit":
-    vit-b16 serving) in bf16 and fp32 (TF32 off): kernel vs plain version
-    on the same inputs, then the times. Returns the lines by (name, dtype)."""
+    """Every case of ``path`` ("serving" and "train": GAViKO vit-l16; "vit"
+    and "vit_train": vit-b16 serving and training) in bf16 and fp32 (TF32
+    off): kernel vs plain version on the same inputs, then the times.
+    Returns the lines by (name, dtype)."""
     import torch
 
     from gaviko_tpu_torch.ops._build import plain_versions
@@ -326,8 +436,12 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
-        cases = (_vit_kernel_cases(dtype, gen, batch) if path == "vit"
-                 else _kernel_cases(dtype, gen, batch, path == "train"))
+        if path == "vit":
+            cases = _vit_kernel_cases(dtype, gen, batch)
+        elif path == "vit_train":
+            cases = _vit_train_kernel_cases(dtype, gen, batch)
+        else:
+            cases = _kernel_cases(dtype, gen, batch, path == "train")
         for name, run, cut, work, library, chain in cases:
             with torch.no_grad():
                 got = cut(run())
@@ -351,6 +465,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             print(json.dumps(line), flush=True)
             if not rel <= budget:
                 raise RuntimeError(f"{name} {dtype}: rel MAE {rel} > {budget}")
+        del cases
+        torch.cuda.empty_cache()
     return results
 
 
@@ -359,14 +475,15 @@ def _wrappers():
     from gaviko_tpu_torch.ops.cls_attention import cls_attention
     from gaviko_tpu_torch.ops.flash_attention import (
         flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd)
-    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
     from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
     from gaviko_tpu_torch.ops.patchify import patchify_fused
 
     return {"patchify": patchify_fused, "fused_mhsa": fused_mhsa,
             "local_attention": flash_local_attention, "fused_mhsa_bwd": fused_mhsa_bwd,
             "local_attention_bwd": local_attention_bwd, "ln_linear": fused_ln_linear,
-            "fused_mlp": fused_mlp, "cls_attention": cls_attention}
+            "fused_mlp": fused_mlp, "fused_mlp_bwd": fused_mlp_bwd,
+            "cls_attention": cls_attention}
 
 
 def serving_launches(spec) -> dict:
@@ -529,18 +646,80 @@ def train_setup():
     model = build_model(config["model"])
     params = {k: v.to("cuda") for k, v in
               model.init(torch.Generator().manual_seed(0), model.spec).items()}
-    rng = np.random.RandomState(0)
-    batches = [(torch.from_numpy(rng.rand(TRAIN_B, 1, 120, 160, 160).astype(np.float32))
-                .to("cuda"), torch.from_numpy(rng.randint(0, 5, TRAIN_B)).long().to("cuda"))
-               for _ in range(TRAIN_STEPS)]
-    n_seeds = 2 * model.spec.depth
-    seeds = [torch.randint(-2 ** 31, 2 ** 31, (n_seeds,),
-                           generator=torch.Generator().manual_seed(i)).tolist()
-             for i in range(TRAIN_STEPS)]
-    return config, model, params, batches, seeds
+    seeds = _step_seeds(2 * model.spec.depth)
+    return (config, model, params, _batches(TRAIN_B, 0), {"fp32": seeds, "bf16": seeds},
+            gaviko_train_launches)
 
 
-def run_train(config, model, params, batches, seeds, precision: str,
+def _batches(batch: int, seed: int) -> list:
+    """TRAIN_STEPS synthetic (volumes, labels) batches on the card."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return [(torch.from_numpy(rng.rand(batch, 1, 120, 160, 160).astype(np.float32))
+             .to("cuda"), torch.from_numpy(rng.randint(0, 5, batch)).long().to("cuda"))
+            for _ in range(TRAIN_STEPS)]
+
+
+def _step_seeds(n_seeds: int) -> list:
+    """Each step's dropout seeds."""
+    import torch
+
+    return [torch.randint(-2 ** 31, 2 ** 31, (n_seeds,),
+                          generator=torch.Generator().manual_seed(i)).tolist()
+            for i in range(TRAIN_STEPS)]
+
+
+def gaviko_train_launches(spec, precision: str) -> dict:
+    """GAViKO's frozen-backbone step: patchify once, each of the four
+    attention kernels in every layer, none of the ViT's kernels."""
+    want = dict.fromkeys(_wrappers(), spec.depth)
+    want.update(patchify=1, **dict.fromkeys(VIT_KERNELS, 0))
+    return want
+
+
+def _vit_mlp_fused(spec, precision: str) -> bool:
+    import torch
+
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_supported
+
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    return fused_mlp_supported(spec.dim, spec.mlp_dim, dtype)
+
+
+def vit_train_launches(spec, precision: str) -> dict:
+    """The vit-b16 fft step: patchify once, A and B in every full layer and,
+    where the fused MLP's gate holds (bf16), B6 and B7 there too; the
+    CLS-fast last layer runs plain PyTorch in training."""
+    full = spec.depth - 1
+    fused = full if _vit_mlp_fused(spec, precision) else 0
+    want = dict.fromkeys(_wrappers(), 0)
+    want.update(patchify=1, fused_mhsa=full, fused_mhsa_bwd=full, fused_mlp=fused,
+                fused_mlp_bwd=fused)
+    return want
+
+
+def vit_train_setup():
+    """The vit-b16 ViT of vit.yaml, method fft (random init from seed 0, on
+    the card), TRAIN_STEPS synthetic B8 batches and each step's seeds: one
+    for the embedding, three a full layer on the fused MLP route (bf16) or
+    four on the plain one (fp32), four in the CLS-fast last layer."""
+    import torch
+
+    from gaviko_tpu_torch.config import apply_method_override, load_config
+    from gaviko_tpu_torch.models.factory import build_model
+
+    config = apply_method_override(load_config(VIT_CONFIG), "fft")
+    model = build_model(config["model"])
+    spec = model.spec
+    params = {k: v.to("cuda") for k, v in
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+    seeds = {p: _step_seeds(1 + (spec.depth - 1) * (3 if _vit_mlp_fused(spec, p) else 4) + 4)
+             for p in ("fp32", "bf16")}
+    return config, model, params, _batches(VIT_TRAIN_B, 1), seeds, vit_train_launches
+
+
+def run_train(config, model, params, batches, seeds, launches, precision: str,
               profiled: bool = True) -> dict:
     """TRAIN_STEPS train steps (the counted, timed main path), optionally one
     more under the profiler, and one eval step, through the port's public
@@ -558,6 +737,7 @@ def run_train(config, model, params, batches, seeds, precision: str,
                                                loop.compute_dtype_of(train_cfg))
     trainable, frozen = loop.split_params(model, params)
     opt_state = loop.init_opt_state(trainable)
+    seeds = seeds[precision]
 
     wrappers = _wrappers()
     for w in wrappers.values():
@@ -590,7 +770,7 @@ def run_train(config, model, params, batches, seeds, precision: str,
             "trainable": len(trainable), "profile": profile}
 
 
-def step1_grads(config, model, params, batches, seeds, precision: str,
+def step1_grads(config, model, params, batches, seeds, launches, precision: str,
                 cotangent=None) -> tuple:
     """Step 1's logits and the gradients of every trainable tensor: of the
     config's loss, or, given a logits ``cotangent``, of sum(logits *
@@ -606,7 +786,7 @@ def step1_grads(config, model, params, batches, seeds, precision: str,
     trainable, frozen = loop.split_params(model, params)
     _, logits, grads = loop.make_loss_and_grads(
         model, criterion, loop.compute_dtype_of(train_cfg))(
-            trainable, frozen, *batches[0], seeds[0])
+            trainable, frozen, *batches[0], seeds[precision][0])
     if not all(bool(g.isfinite().all()) for g in grads.values()):
         raise RuntimeError(f"train {precision}: non-finite gradient")
     return logits.float(), grads
@@ -642,20 +822,21 @@ def profile_step(step) -> dict:
 
 def phase_train(setup, precision: str, card: str) -> dict:
     result = run_train(*setup, precision)
-    depth = setup[1].spec.depth
+    spec = setup[1].spec
+    batch = setup[3][0][0].shape[0]
     per_step = {n: c / TRAIN_STEPS for n, c in result["launches"].items()}
     median = statistics.median(result["step_ms"])
-    print(json.dumps({"phase": "train", "precision": precision, "batch": TRAIN_B,
-                      "depth": depth, "losses": result["losses"],
+    print(json.dumps({"phase": "train", "method": spec.method, "backbone": spec.backbone,
+                      "precision": precision, "batch": batch,
+                      "depth": spec.depth, "losses": result["losses"],
                       "eval_loss": result["eval_loss"], "step_ms": result["step_ms"],
-                      "median_step_ms": median, "vol_per_s": 1e3 * TRAIN_B / median,
+                      "median_step_ms": median, "vol_per_s": 1e3 * batch / median,
                       "peak_memory_gib": result["peak_bytes"] / 2 ** 30,
                       "launches_per_step": per_step,
                       "trainable_tensors": result["trainable"],
                       "profile": result["profile"], "card": card}),
           flush=True)
-    want = {n: depth for n in per_step}
-    want.update(patchify=1, **dict.fromkeys(VIT_KERNELS, 0))
+    want = setup[5](spec, precision)
     if per_step != want:
         raise RuntimeError(f"train {precision}: launches a step {per_step}, want {want}")
     return result
@@ -717,7 +898,7 @@ def phase_train_check(setup, precision: str, kernel: dict, card: str) -> None:
     loss_budget, logits_budget, grad_budget, cos_floor = TRAIN_BUDGET[precision]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(kernel["losses"], plain["losses"])]
     logits_rel = _rel_mae(kernel_logits, plain_logits)
-    line = {"phase": "train_check", "precision": precision,
+    line = {"phase": "train_check", "method": setup[1].spec.method, "precision": precision,
             "kernel_losses": kernel["losses"], "plain_losses": plain["losses"],
             "loss_rel": loss_rel, "step1_logits_rel_mae": logits_rel,
             "logits_crossing_a_clamp_edge": crossings,
@@ -781,9 +962,10 @@ def main() -> int:
                                     if "registers" in x or "spill" in x]
                                 for n, log in logs.items()}}), flush=True)
 
-    phase_kernels(smi, B, "serving")
-    vit_kernels = phase_kernels(smi, B, "vit")
-    kernels = phase_kernels(smi, TRAIN_B, "train")
+    kernels = {"serving": phase_kernels(smi, B, "serving"),
+               "vit": phase_kernels(smi, B, "vit"),
+               "train": phase_kernels(smi, TRAIN_B, "train"),
+               "vit_train": phase_kernels(smi, VIT_TRAIN_B, "vit_train")}
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
     vit_launches = {}
@@ -794,20 +976,28 @@ def main() -> int:
         del predictor
         torch.cuda.empty_cache()
 
-    setup = train_setup()
-    runs = {p: phase_train(setup, p, smi) for p in ("fp32", "bf16")}
-    for precision, run in runs.items():
-        phase_train_check(setup, precision, run, smi)
+    launches = {"vit": vit_launches}
+    for name, make_setup in (("train", train_setup), ("vit_train", vit_train_setup)):
+        setup = make_setup()
+        runs = {p: phase_train(setup, p, smi) for p in ("fp32", "bf16")}
+        for precision, run in runs.items():
+            phase_train_check(setup, precision, run, smi)
+        launches[name] = runs["fp32" if name == "train" else "bf16"]["launches"]
+        del setup, runs
+        torch.cuda.empty_cache()
 
-    # GAViKO's kernels at the B4 fp32 train shapes with the fp32 train run's
-    # launches; the vit-b16 kernels at its B8 bf16 serving shapes with the
-    # vit-b16 serving run's launches (ln_linear: the qkv projection).
+    # Each kernel at the shapes of the path LINE_PATH names, with that
+    # path's launches: the local attention kernels at GAViKO's B4 fp32 train
+    # shapes; patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes;
+    # LN+linear (the qkv projection) and CLS attention at the vit-b16 B8
+    # bf16 serving shapes.
     rows = []
     for n, (src, tpu) in SOURCES.items():
-        vit = n in VIT_KERNELS
-        line = vit_kernels[(n, "torch.bfloat16")] if vit else kernels[(n, "torch.float32")]
+        path = LINE_PATH[n]
+        dtype = "torch.float32" if path == "train" else "torch.bfloat16"
+        line = kernels[path][(n, dtype)]
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
-               "launches": (vit_launches if vit else runs["fp32"]["launches"])[n],
+               "launches": launches[path][n],
                **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "dtype", "batch", "path")}}
         if "chain_ms" in line:

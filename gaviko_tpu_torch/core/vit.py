@@ -9,25 +9,26 @@ same route in both packages; the device picks kernel or plain version.
 - ``attention_block``: pre-norm MHSA. At inference (no gradient) the qkv
   projection is the fused LN+linear kernel where ``ln_linear_supported``
   holds (vit-b16 and smaller in bf16), else LN and a plain GEMM; attention
-  reads the packed qkv through the fused MHSA kernel. When a gradient is
-  needed, the projection and attention run under ``mhsa_qkv_proj``, whose
-  backward is the fused MHSA backward kernel. The stream may carry tail
-  padding: keys >= ``n_true`` are masked, padded rows carry bounded garbage;
+  reads the packed qkv through the fused MHSA kernel. In training, or when
+  a gradient is needed, the projection and attention run under
+  ``mhsa_qkv_proj`` (dropout inside the kernel, one seed), whose backward
+  is the fused MHSA backward kernel; then dropout after the out-projection.
+  The stream may carry tail padding: keys >= ``n_true`` are masked, padded
+  rows carry bounded garbage;
 - ``feedforward_block(_res)``: LN -> Linear -> GELU -> Dropout -> Linear ->
-  Dropout. At inference the fused MLP kernel (with the residual fused in
-  for ``_res``) where ``fused_mlp_supported`` holds, else plain GEMMs;
+  Dropout. The fused MLP kernel (dropout inside it, one seed; the residual
+  fused in for ``_res``) wherever ``fused_mlp_supported`` holds, in training
+  and under a gradient too (its backward is the fused MLP backward kernel),
+  else plain GEMMs and ``layers.dropout``: the JAX package's TPU route;
 - the CLS-fast last layer (``attention_cls_branch``, ``cls_attend``,
   ``feedforward_cls_branch``): with ``pool='cls'`` only row 0 of the last
-  layer is used, so it runs one query row through the CLS attention kernel;
+  layer is used, so it runs one query row, through the CLS attention kernel
+  at inference and a differentiable form with dropout on the probabilities
+  in training;
 - ``vit_apply`` / ``vit_init``: the plain 3D ViT of methods ``fft``,
-  ``linear`` and ``bitfit``, in eval mode.
-
-Training differs from the JAX package in one place: its TPU path fuses the
-MLP in training too (in-kernel dropout), while here a step that needs a
-gradient keeps ``layers.dropout`` and plain GEMMs, the route of the JAX
-package on the CPU (ROADMAP Queue C). ``vit_apply(train=True)`` waits for
-the vit-b16 train slice; the attention has no dropout yet either, and
-``models/gaviko.apply`` refuses to train a trainable backbone.
+  ``linear`` and ``bitfit``; ``train=True`` turns every dropout on, the
+  embedding dropout included, drawing seeds in the order of the JAX
+  package's ``RngStream``.
 """
 
 from __future__ import annotations
@@ -42,19 +43,13 @@ from gaviko_tpu_torch.config import ModelSpec
 from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core.layers import (
     Params, SeedStream, dropout, gelu_spec, layer_norm, linear)
+from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.attention import self_attention, self_attention_train
 from gaviko_tpu_torch.ops.cls_attention import (
     cls_attention, cls_attention_reference, cls_attention_supported)
 from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_supported
 from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_supported
 from gaviko_tpu_torch.ops.patchify import patchify_fused
-
-VIT_TRAIN = ("vit_apply(train=True) is not ported yet: ROADMAP Queue A item 4 "
-             "and the vit-b16 train slice")
-
-
-def _needs_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def patchify_embed(p: Params, prefix: str, img: torch.Tensor, spec: ModelSpec,
@@ -68,63 +63,75 @@ def patchify_embed(p: Params, prefix: str, img: torch.Tensor, spec: ModelSpec,
     return patchify_fused(img, w, p[f"{prefix}.bias"], pos)
 
 
-def _ln_proj(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _ln_proj(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
+             train: bool = False) -> torch.Tensor:
     """LN(x) @ w.T: the fused kernel at inference where the JAX package's
-    gate holds, else LN and a plain GEMM."""
+    gate holds (and no gradient is needed: it has no backward), else LN and
+    a plain GEMM."""
     gamma, beta = p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]
-    if (not _needs_grad(x, w, gamma, beta) and w.dtype == x.dtype
+    if (not train and not _build.needs_grad(x, w, gamma, beta) and w.dtype == x.dtype
             and ln_linear_supported(x.shape[-1], w.shape[0], x.dtype)):
         return fused_ln_linear(x, gamma, beta, w)
     return F.linear(layer_norm(p, f"{prefix}.norm", x), w)
 
 
+def _drop_seed(rate: float, seeds: Optional[SeedStream]) -> Optional[int]:
+    """One seed for a dropout site inside a kernel; none at rate 0."""
+    if rate == 0.0:
+        return None
+    if seeds is None:
+        raise ValueError("dropout requested but no seed stream was given")
+    return seeds.next_seed()
+
+
 def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
+                    train: bool = False, seeds: Optional[SeedStream] = None,
                     n_true: Optional[int] = None) -> torch.Tensor:
-    """Pre-norm MHSA branch output (the caller adds the residual). Unlike
-    the TPU kernel, the CUDA kernel takes any row count, so no per-call pad."""
+    """Pre-norm MHSA branch output (the caller adds the residual). In
+    training the MHSA kernels drop probabilities (one seed) and the
+    out-projection's output is dropped (a second seed). Unlike the TPU
+    kernel, the CUDA kernel takes any row count, so no per-call pad."""
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
     w = p[f"{prefix}.to_qkv.weight"]
-    if _needs_grad(x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]):
+    if train or _build.needs_grad(x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]):
+        rate = spec.dropout if train else 0.0
         out = self_attention_train(layer_norm(p, f"{prefix}.norm", x), w, spec.heads,
-                                   dh, dh ** -0.5, n_true)
+                                   dh, dh ** -0.5, n_true, rate, _drop_seed(rate, seeds))
     else:
         out = self_attention(_ln_proj(p, prefix, x, w), spec.heads, dh, dh ** -0.5, n_true)
-    return linear(p, f"{prefix}.to_out.0", out)
+    return dropout(linear(p, f"{prefix}.to_out.0", out), spec.dropout, train, seeds)
 
 
 def attention_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
+                        train: bool = False, seeds: Optional[SeedStream] = None,
                         n_true: Optional[int] = None) -> torch.Tensor:
     """x + attention branch."""
-    return attention_block(p, prefix, x, spec, n_true=n_true) + x
+    return attention_block(p, prefix, x, spec, train=train, seeds=seeds, n_true=n_true) + x
 
 
-def _mlp_fused(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
-               train: bool) -> bool:
-    """The fused MLP route: inference only, where the JAX package's gate
-    holds."""
-    names = ("net.0.weight", "net.0.bias", "net.1.weight", "net.1.bias",
-             "net.4.weight", "net.4.bias")
-    return (not train and not _needs_grad(x, *(p[f"{prefix}.{n}"] for n in names))
-            and fused_mlp_supported(x.shape[-1], p[f"{prefix}.net.1.weight"].shape[0],
-                                    x.dtype))
+def _mlp_fused(p: Params, prefix: str, x: torch.Tensor) -> bool:
+    """The fused MLP route: wherever the JAX package's gate holds."""
+    return fused_mlp_supported(x.shape[-1], p[f"{prefix}.net.1.weight"].shape[0], x.dtype)
 
 
 def _fused_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
-               residual: bool) -> torch.Tensor:
+               residual: bool, train: bool, seeds: Optional[SeedStream]) -> torch.Tensor:
+    rate = spec.dropout if train else 0.0
     return fused_mlp(x, p[f"{prefix}.net.0.weight"], p[f"{prefix}.net.0.bias"],
                      p[f"{prefix}.net.1.weight"], p[f"{prefix}.net.1.bias"],
                      p[f"{prefix}.net.4.weight"], p[f"{prefix}.net.4.bias"],
-                     1e-5, spec.gelu, residual=residual)
+                     1e-5, spec.gelu, rate, residual, _drop_seed(rate, seeds))
 
 
 def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                       train: bool = False,
                       seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout branch output;
-    dropout (``spec.dropout``) only when ``train``, one seed per site."""
-    if _mlp_fused(p, prefix, x, spec, train):
-        return _fused_mlp(p, prefix, x, spec, residual=False)
+    dropout (``spec.dropout``) only when ``train``: one seed for the fused
+    kernel's two sites, else one per site."""
+    if _mlp_fused(p, prefix, x):
+        return _fused_mlp(p, prefix, x, spec, False, train, seeds)
     h = layer_norm(p, f"{prefix}.net.0", x)
     h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
     h = dropout(h, spec.dropout, train, seeds)
@@ -137,34 +144,49 @@ def feedforward_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSp
                           seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """x + MLP branch; on the fused route the residual add runs inside the
     kernel."""
-    if _mlp_fused(p, prefix, x, spec, train):
-        return _fused_mlp(p, prefix, x, spec, residual=True)
+    if _mlp_fused(p, prefix, x):
+        return _fused_mlp(p, prefix, x, spec, True, train, seeds)
     return feedforward_block(p, prefix, x, spec, train=train, seeds=seeds) + x
 
 
 def cls_attend(kv: torch.Tensor, q0: torch.Tensor, spec: ModelSpec, *,
-               n_true: int) -> torch.Tensor:
+               n_true: int, train: bool = False,
+               seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """Single-query attention core: kv (B, N, 2*inner) packed [K | V], q0
     (B, inner) -> (B, inner); the kernel at inference where the JAX
-    package's gate holds, else its plain version (the JAX package's XLA
-    twin)."""
+    package's gate holds, in training a differentiable form with dropout
+    (one seed) on the (B, N, heads) probabilities, else the kernel's plain
+    version (the JAX package's XLA twin)."""
     heads, dh = spec.heads, spec.dim_head
-    if not _needs_grad(kv, q0) and cls_attention_supported(heads, dh, kv.shape[1], kv.dtype):
+    B, N, _ = kv.shape
+    inner = heads * dh
+    if (not train and not _build.needs_grad(kv, q0)
+            and cls_attention_supported(heads, dh, N, kv.dtype)):
         return cls_attention(kv, q0, heads, dh, dh ** -0.5, n_true)
+    if train and spec.dropout > 0.0:
+        k, v = kv[..., :inner].float(), kv[..., inner:].float()
+        s = (k * q0[:, None, :].float()).reshape(B, N, heads, dh).sum(-1) * dh ** -0.5
+        if n_true != N:
+            s = s.masked_fill((torch.arange(N, device=s.device) >= n_true)[:, None],
+                              float("-inf"))
+        a = dropout(torch.softmax(s, dim=1), spec.dropout, train, seeds)
+        return (v.reshape(B, N, heads, dh) * a[..., None]).sum(1).reshape(B, inner)
     return cls_attention_reference(kv, q0, heads, dh, dh ** -0.5, n_true)
 
 
 def attention_cls_branch(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
-                         n_true: int) -> torch.Tensor:
+                         n_true: int, train: bool = False,
+                         seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """Attention branch output for query row 0 only, (B, dim): exactly
     ``attention_block(...)[:, 0]``. K and V span every real row; Q, the
     scores and the out-projection are needed for one row."""
     inner = spec.heads * spec.dim_head
     wq = p[f"{prefix}.to_qkv.weight"]  # (3*inner, dim); rows = [q | k | v]
-    kv = _ln_proj(p, prefix, x, wq[inner:])
+    kv = _ln_proj(p, prefix, x, wq[inner:], train)
     q0 = F.linear(layer_norm(p, f"{prefix}.norm", x[:, 0]), wq[:inner])
-    out = cls_attend(kv, q0, spec, n_true=n_true)
-    return linear(p, f"{prefix}.to_out.0", out.to(x.dtype))
+    out = cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds)
+    out = linear(p, f"{prefix}.to_out.0", out.to(x.dtype))
+    return dropout(out, spec.dropout, train, seeds)
 
 
 def cls_fast_enabled(spec: ModelSpec) -> bool:
@@ -173,11 +195,13 @@ def cls_fast_enabled(spec: ModelSpec) -> bool:
 
 
 def feedforward_cls_branch(p: Params, prefix: str, c: torch.Tensor,
-                           spec: ModelSpec) -> torch.Tensor:
+                           spec: ModelSpec, *, train: bool = False,
+                           seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """MLP branch on the pooled (B, dim) CLS rows (last-layer fast path)."""
     h = layer_norm(p, f"{prefix}.net.0", c)
     h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
-    return linear(p, f"{prefix}.net.4", h)
+    h = dropout(h, spec.dropout, train, seeds)
+    return dropout(linear(p, f"{prefix}.net.4", h), spec.dropout, train, seeds)
 
 
 def add_cls_and_pos(p: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -195,18 +219,19 @@ def pool_and_head(p: Params, x: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
 
 def vit_apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
               train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
-    """Eval forward of the plain 3D ViT: img [B, C, D, H, W] in the working
-    dtype -> logits [B, num_classes]. The stream is padded once to a
-    multiple of 8 rows (1001 -> 1008 at 120x160x160); keys >= n_true are
-    masked and pad rows are cut before pooling."""
-    if train:
-        raise NotImplementedError(VIT_TRAIN)
+    """Forward of the plain 3D ViT: img [B, C, D, H, W] in the working dtype
+    -> logits [B, num_classes]. The stream is padded once to a multiple of 8
+    rows (1001 -> 1008 at 120x160x160); keys >= n_true are masked and pad
+    rows are cut before pooling. ``train`` turns on every dropout (the
+    reference's methods fft / linear / bitfit train in train mode
+    throughout), drawing one seed a site from ``seeds``."""
     pos = params["pos_embedding"]
     x = patchify_embed(params, "conv_proj.0", img, spec,
                        pos=pos[0, 1:1 + spec.num_patches])
     B, _, dim = x.shape
     cls = (params["cls_token"][0] + pos[:, 0]).to(x.dtype)
     x = torch.cat([cls.expand(B, 1, dim), x], dim=1)
+    x = dropout(x, spec.emb_dropout, train, seeds)
     n_true = x.shape[1]
     pad = (-n_true) % 8
     if pad:
@@ -215,12 +240,15 @@ def vit_apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
     fast_cls = (cls_fast_enabled(spec)
                 and f"transformer.layers.{last}.0.to_qkv.weight" in params)
     for i in range(last if fast_cls else spec.depth):
-        x = attention_block_res(params, f"transformer.layers.{i}.0", x, spec, n_true=n_true)
-        x = feedforward_block_res(params, f"transformer.layers.{i}.1", x, spec)
+        x = attention_block_res(params, f"transformer.layers.{i}.0", x, spec, train=train,
+                                seeds=seeds, n_true=n_true)
+        x = feedforward_block_res(params, f"transformer.layers.{i}.1", x, spec, train=train,
+                                  seeds=seeds)
     if fast_cls:
         c = x[:, 0] + attention_cls_branch(params, f"transformer.layers.{last}.0", x, spec,
-                                           n_true=n_true)
-        c = c + feedforward_cls_branch(params, f"transformer.layers.{last}.1", c, spec)
+                                           n_true=n_true, train=train, seeds=seeds)
+        c = c + feedforward_cls_branch(params, f"transformer.layers.{last}.1", c, spec,
+                                       train=train, seeds=seeds)
         return linear(params, "mlp_head", layer_norm(params, "transformer.norm", c))
     if spec.pool == "cls":
         # LN is per row, so pooling row 0 first is exact.

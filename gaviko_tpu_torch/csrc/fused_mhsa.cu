@@ -1,8 +1,13 @@
 // Fused multi-head self-attention forward over the packed qkv projection.
 //
 // Replaces gaviko_tpu/ops/flash_attention.py:_fused_mhsa_kernel
-// (_fused_mhsa_forward / fused_mhsa / mhsa_qkv_proj's forward), without
-// dropout. When asked (lse != nullptr) it also writes each row's softmax
+// (_fused_mhsa_forward / fused_mhsa / mhsa_qkv_proj's forward), with the
+// TPU kernel's dropout on the probabilities: element (query row r, key j) of
+// batch b and head h is kept iff keep_bit(r, j, salt = b * heads + h, seed)
+// (csrc/common.cuh). The row sum l is taken before dropout, so the lse below
+// is unchanged by it, and 1 / (1 - rate) folds into the output. At rate 0
+// (threshold INT32_MIN) no bit is computed. When asked (lse != nullptr) it
+// also writes each row's softmax
 // statistic for the backward (csrc/fused_mhsa_bwd.cu): lse = m + log2(l) in
 // log2 units, [B, heads, n_pad] f32. The TPU kernel saves m and l apart, with
 // m taken over the pad keys too; only their combination is defined here.
@@ -48,7 +53,12 @@ struct Args {
   float* lse;  // [B, heads, n_pad] or nullptr
   int n_pad, heads, n_true;
   float scale_log2e;
+  uint32_t seed;
+  int32_t threshold;  // INT32_MIN: no dropout
+  float drop_scale;   // 1 / (1 - rate)
 };
+
+__device__ __forceinline__ bool dropping(const Args& a) { return a.threshold != INT32_MIN; }
 
 template <typename T>
 struct Attention;
@@ -203,14 +213,24 @@ struct Attention<__nv_bfloat16> {
         o[n][3] *= al1;
       }
 
-      // P = exp2(S - m), repacked in registers as the A operand of P V.
+      // P = exp2(S - m), summed, then dropped, and repacked in registers as
+      // the A operand of P V.
       uint32_t pa[4][4];
+      const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
+      const uint32_t ra = q0 + warp * 16 + g;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p0 = exp2f(s[j][0] - mn0), p1 = exp2f(s[j][1] - mn0);
-        const float p2 = exp2f(s[j][2] - mn1), p3 = exp2f(s[j][3] - mn1);
+        float p0 = exp2f(s[j][0] - mn0), p1 = exp2f(s[j][1] - mn0);
+        float p2 = exp2f(s[j][2] - mn1), p3 = exp2f(s[j][3] - mn1);
         l0 += p0 + p1;
         l1 += p2 + p3;
+        if (dropping(a)) {
+          const uint32_t c = k0 + j * 8 + 2 * t;
+          if (!gaviko::keep_bit(ra, c, salt, a.seed, a.threshold)) p0 = 0.0f;
+          if (!gaviko::keep_bit(ra, c + 1, salt, a.seed, a.threshold)) p1 = 0.0f;
+          if (!gaviko::keep_bit(ra + 8, c, salt, a.seed, a.threshold)) p2 = 0.0f;
+          if (!gaviko::keep_bit(ra + 8, c + 1, salt, a.seed, a.threshold)) p3 = 0.0f;
+        }
         pa[j / 2][(j % 2) * 2] = pack(p0, p1);
         pa[j / 2][(j % 2) * 2 + 1] = pack(p2, p3);
       }
@@ -230,7 +250,7 @@ struct Attention<__nv_bfloat16> {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+    const float inv0 = a.drop_scale / l0, inv1 = a.drop_scale / l1;
     const int r0 = q0 + warp * 16 + g;
     if (a.lse != nullptr && t == 0) {
       float* lse = a.lse + (static_cast<long long>(b) * a.heads + h) * a.n_pad;
@@ -318,11 +338,14 @@ struct Attention<float> {
       const float m_new = fmaxf(m, mx);
       const float alpha = exp2f(m - m_new);  // 0 on the first tile (m = -inf)
       float sum = 0.0f;
+      const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
       for (int i = 0; i < BKV / 2; ++i) {
         const int c = 2 * i + half;
         const float p = exp2f(ss[row * LD + c] - m_new);
-        ps[row * LD + c] = p;
-        sum += p;
+        sum += p;  // before dropout
+        const bool keep = !dropping(a) || gaviko::keep_bit(q0 + row, k0 + c, salt, a.seed,
+                                                           a.threshold);
+        ps[row * LD + c] = keep ? p : 0.0f;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       l = l * alpha + sum;
@@ -346,7 +369,7 @@ struct Attention<float> {
     if (q0 + row < a.n_pad) {
       float* dst = static_cast<float*>(a.out) +
                    (static_cast<long long>(b) * a.n_pad + q0 + row) * inner + h * HD;
-      const float inv = 1.0f / l;
+      const float inv = a.drop_scale / l;
       for (int j = 0; j < HD / 2; ++j) dst[2 * j + half] = os[row * LD + 2 * j + half] * inv;
     }
   }
@@ -360,11 +383,12 @@ __global__ void __launch_bounds__(THREADS) fused_mhsa_kernel(Args a) {
 
 template <typename T>
 int launch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int n_true,
-           float scale, void* stream) {
+           float scale, int seed, int threshold, float drop_scale, void* stream) {
   constexpr size_t smem = Attention<T>::kSmem;
   cudaError_t err = gaviko::allow_smem(fused_mhsa_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Args a{qkv, out, lse, n_pad, heads, n_true, scale * 1.4426950408889634f};
+  Args a{qkv,  out, lse, n_pad, heads, n_true, scale * 1.4426950408889634f,
+         static_cast<uint32_t>(seed), threshold, drop_scale};
   dim3 grid((n_pad + BQ - 1) / BQ, heads, B);
   fused_mhsa_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -374,12 +398,18 @@ int launch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, 
 
 // qkv [B, n_pad, 3 * heads * 64] contiguous (16-byte aligned in bf16) ->
 // out [B, n_pad, heads * 64]; lse [B, heads, n_pad] f32, or nullptr.
+// threshold is hash_dropout._threshold(rate) (INT32_MIN at rate 0: no
+// dropout), drop_scale 1 / (1 - rate).
 extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, float* lse, int B, int n_pad,
-                                      int heads, int n_true, float scale, void* stream) {
-  return launch<__nv_bfloat16>(qkv, out, lse, B, n_pad, heads, n_true, scale, stream);
+                                      int heads, int n_true, float scale, int seed,
+                                      int threshold, float drop_scale, void* stream) {
+  return launch<__nv_bfloat16>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
+                               drop_scale, stream);
 }
 
 extern "C" int gaviko_fused_mhsa_f32(const void* qkv, void* out, float* lse, int B, int n_pad,
-                                     int heads, int n_true, float scale, void* stream) {
-  return launch<float>(qkv, out, lse, B, n_pad, heads, n_true, scale, stream);
+                                     int heads, int n_true, float scale, int seed, int threshold,
+                                     float drop_scale, void* stream) {
+  return launch<float>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
+                       drop_scale, stream);
 }

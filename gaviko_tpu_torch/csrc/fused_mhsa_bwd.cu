@@ -1,9 +1,9 @@
 // Fused multi-head self-attention backward over the packed qkv projection.
 //
 // Replaces gaviko_tpu/ops/flash_attention.py:_fused_mhsa_bwd_kernel
-// (_mhsa_bwd_core, the backward of fused_mhsa and of mhsa_qkv_proj), without
-// dropout (the frozen-backbone train step runs the backbone attention
-// without it).
+// (_mhsa_bwd_core, the backward of fused_mhsa and of mhsa_qkv_proj), with the
+// forward's dropout mask replayed from (seed, query row, key, b * heads + h)
+// (csrc/fused_mhsa.cu).
 //
 // From qkv [B, n_pad, 3 * heads * 64], the forward's output O and its
 // per-row statistic lse = m + log2(l) (csrc/fused_mhsa.cu, log2 units,
@@ -14,8 +14,8 @@
 // concatenation is ever made. The algebra is the TPU kernel's:
 //
 //   P  = exp2(S - lse),  S = (scale * log2(e) * q) k^T over keys < n_true
-//   delta = rowsum(dO * O)
-//   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta)
+//   f  = keep / (1 - rate)   (1 at rate 0),  delta = rowsum(dO * O)
+//   dV = (f P)^T dO,  dP = dO V^T,  dS = P * (f dP - delta)
 //   dQ = scale * dS K,  dK = scale * dS^T Q
 //
 // q is scaled and rounded to the input dtype exactly as the forward does,
@@ -65,7 +65,16 @@ struct Args {
   void* dqkv;
   int n_pad, heads, n_true;
   float scale_log2e, scale;
+  uint32_t seed;
+  int32_t threshold;  // INT32_MIN: no dropout
+  float drop_scale;   // 1 / (1 - rate)
 };
+
+// f = keep / (1 - rate) of (query row, key) in plane salt; 1 at rate 0.
+__device__ __forceinline__ float drop_factor(const Args& a, int row, int key, uint32_t salt) {
+  if (a.threshold == INT32_MIN) return 1.0f;
+  return gaviko::keep_bit(row, key, salt, a.seed, a.threshold) ? a.drop_scale : 0.0f;
+}
 
 // ------------------------------------------------------------ f32 SIMT ----
 
@@ -153,11 +162,12 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_simt(Args a) {
     stage_f32(vs, qkv + 2 * inner + h * HD, stride, k0, a.n_true, 1.0f);
     __syncthreads();
     const int n = min(TILE, a.n_true - k0);
+    const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
     for (int c = 0; c < n; ++c) {
       const float* kc = ks + c * LD + half * HALF;
       const float s = pair_sum(dot_half(qr, kc));
       const float dp = pair_sum(dot_half(dor, vs + c * LD + half * HALF));
-      const float ds = exp2f(s - lse) * (dp - delta);
+      const float ds = exp2f(s - lse) * (drop_factor(a, r, k0 + c, salt) * dp - delta);
       axpy_half(acc, ds, kc);
     }
   }
@@ -210,13 +220,15 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_simt(Args a) {
     // Every lane runs the walk (the shuffles take the whole warp); keys
     // >= n_true carry p = 0, so their dk and dv stay 0.
     const int n = min(TILE, a.n_pad - q0);
+    const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
     for (int c = 0; c < n; ++c) {
       const int off = c * LD + half * HALF;
       const float s = pair_sum(dot_half(kr, qs + off));
       const float dp = pair_sum(dot_half(vr, dos + off));
       const float p = live ? exp2f(s - lse_s[c]) : 0.0f;
-      axpy_half(dv, p, dos + off);
-      axpy_half(dk, p * (dp - delta_s[c]), qu + off);
+      const float f = drop_factor(a, q0 + c, j, salt);
+      axpy_half(dv, f * p, dos + off);
+      axpy_half(dk, p * (f * dp - delta_s[c]), qu + off);
     }
   }
   if (j < a.n_pad) {
@@ -343,6 +355,7 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
   const long long stat = (static_cast<long long>(b) * a.heads + h) * a.n_pad;
   const int r0 = q0 + warp * 16;
   const int ra = r0 + g, rb = ra + 8;  // this thread's two rows
+  const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
 
   uint32_t qa[4][4], doa[4][4];
   load_a(qa, qkv + h * HD, stride, r0, a.n_pad, a.scale_log2e, g, t);
@@ -384,16 +397,18 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
     zero(dp);
     mma_row(s, qa, ks, g, t);
     mma_row(dp, doa, vs, g, t);
-    // dS = P (dP - delta), P = exp2(S - lse); keys >= n_true drop out.
+    // dS = P (f dP - delta), P = exp2(S - lse); keys >= n_true drop out.
     uint32_t dsa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bool in = k0 + j * 8 + 2 * t + (i % 2) < a.n_true;
+        const int key = k0 + j * 8 + 2 * t + (i % 2);
+        const bool in = key < a.n_true;
         const float p = in ? exp2f(s[j][i] - (i < 2 ? lse_a : lse_b)) : 0.0f;
-        ds[i] = p * (dp[j][i] - (i < 2 ? delta_a : delta_b));
+        const float f = drop_factor(a, i < 2 ? ra : rb, key, salt);
+        ds[i] = p * (f * dp[j][i] - (i < 2 ? delta_a : delta_b));
       }
       dsa[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
       dsa[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
@@ -429,6 +444,7 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
   const int r0 = k0 + warp * 16;
   const int ka = r0 + g, kb = ka + 8;  // this thread's two keys
   const bool live_a = ka < a.n_true, live_b = kb < a.n_true;
+  const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
 
   uint32_t kfa[4][4], vfa[4][4];
   load_a(kfa, qkv + inner + h * HD, stride, r0, a.n_true, 1.0f, g, t);
@@ -451,7 +467,7 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
     zero(dpt);
     mma_row(st, kfa, qs, g, t);
     mma_row(dpt, vfa, dos, g, t);
-    // P^T and dS^T; query rows >= n_pad and keys >= n_true drop out.
+    // (f P)^T and dS^T; query rows >= n_pad and keys >= n_true drop out.
     uint32_t pa[4][4], dsa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -460,8 +476,10 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
       for (int i = 0; i < 4; ++i) {
         const int c = j * 8 + 2 * t + (i % 2);
         const bool in = (i < 2 ? live_a : live_b) && q0 + c < a.n_pad;
-        p[i] = in ? exp2f(st[j][i] - lse_s[c]) : 0.0f;
-        ds[i] = p[i] * (dpt[j][i] - delta_s[c]);
+        const float pc = in ? exp2f(st[j][i] - lse_s[c]) : 0.0f;
+        const float f = drop_factor(a, q0 + c, i < 2 ? ka : kb, salt);
+        p[i] = f * pc;
+        ds[i] = pc * (f * dpt[j][i] - delta_s[c]);
       }
       pa[j / 2][(j % 2) * 2] = pack(p[0], p[1]);
       pa[j / 2][(j % 2) * 2 + 1] = pack(p[2], p[3]);
@@ -490,10 +508,11 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
 
 template <typename T>
 int launch(const void* qkv, const void* out, const void* dout, const float* lse, float* delta,
-           void* dqkv, int B, int n_pad, int heads, int n_true, float scale, void* stream) {
+           void* dqkv, int B, int n_pad, int heads, int n_true, float scale, int seed,
+           int threshold, float drop_scale, void* stream) {
   if (n_true < 1 || n_true > n_pad) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{qkv, out, dout, lse, delta, dqkv, n_pad, heads, n_true,
-         scale * 1.4426950408889634f, scale};
+  Args a{qkv,   out,  dout, lse, delta, dqkv, n_pad, heads, n_true, scale * 1.4426950408889634f,
+         scale, static_cast<uint32_t>(seed), threshold, drop_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n_pad + TILE - 1) / TILE, heads, B);
   cudaError_t err;
@@ -519,18 +538,21 @@ int launch(const void* qkv, const void* out, const void* dout, const float* lse,
 
 // qkv [B, n_pad, 3 * heads * 64], out and dout [B, n_pad, heads * 64], all
 // contiguous and of one dtype; lse and delta (scratch) [B, heads, n_pad]
-// f32 -> dqkv [B, n_pad, 3 * heads * 64] in qkv's dtype.
+// f32 -> dqkv [B, n_pad, 3 * heads * 64] in qkv's dtype. seed, threshold
+// and drop_scale are the forward's (threshold INT32_MIN: no dropout).
 extern "C" int gaviko_fused_mhsa_bwd_bf16(const void* qkv, const void* out, const void* dout,
                                           const float* lse, float* delta, void* dqkv, int B,
                                           int n_pad, int heads, int n_true, float scale,
+                                          int seed, int threshold, float drop_scale,
                                           void* stream) {
   return launch<__nv_bfloat16>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, n_true, scale,
-                               stream);
+                               seed, threshold, drop_scale, stream);
 }
 
 extern "C" int gaviko_fused_mhsa_bwd_f32(const void* qkv, const void* out, const void* dout,
                                          const float* lse, float* delta, void* dqkv, int B,
-                                         int n_pad, int heads, int n_true, float scale,
-                                         void* stream) {
-  return launch<float>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, n_true, scale, stream);
+                                         int n_pad, int heads, int n_true, float scale, int seed,
+                                         int threshold, float drop_scale, void* stream) {
+  return launch<float>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, n_true, scale, seed,
+                       threshold, drop_scale, stream);
 }

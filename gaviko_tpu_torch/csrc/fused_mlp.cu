@@ -1,12 +1,17 @@
-// Fused transformer MLP forward: out = [x +] GELU(LN(x) W1^T + b1) W2^T + b2.
+// Fused transformer MLP forward:
+//   out = [x +] drop1(drop0(GELU(LN(x) W1^T + b1)) W2^T + b2).
 //
-// Replaces gaviko_tpu/ops/fused_mlp.py:_mlp_kernel (fused_mlp) at dropout
-// rate 0. x is [M, dim], W1 [mlp, dim] and W2 [dim, mlp] in the torch
-// layout. Rounding order of the TPU kernel: LN as in csrc/row_gemm.cuh; fc1
-// in f32, + b1 and the GELU in f32, rounded to the input dtype; fc2 in f32,
-// + b2 and + x in f32, rounded once. GELU modes 0 exact (the TPU kernel's
-// Abramowitz & Stegun erf, not erff, so both packages compute one
-// function), 1 tanh, 2 erf_fast.
+// Replaces gaviko_tpu/ops/fused_mlp.py:_mlp_kernel (fused_mlp, and its
+// forward with save_a). x is [M, dim], W1 [mlp, dim] and W2 [dim, mlp] in
+// the torch layout. Rounding order of the TPU kernel: LN as in
+// csrc/row_gemm.cuh; fc1 in f32, + b1, the GELU and the dropout in f32,
+// rounded to the input dtype; fc2 in f32, + b2, the dropout and + x in f32,
+// rounded once. GELU modes as in csrc/gelu.cuh. Dropout is the TPU kernel's
+// hash: salt 0 on the hidden at (row, hidden column), salt 1 on the fc2
+// output at (row, output column), row the flat row of x; kept values are
+// scaled by 1 / (1 - rate). When asked (a != nullptr) it also writes the
+// pre-GELU hidden LN(x) W1^T + b1, rounded to the input dtype, [M, mlp]:
+// the backward kernel (csrc/fused_mlp_bwd.cu) reads it.
 //
 // What bounds it on the H100: at vit-b16 B8 (M = 8064, dim 768, mlp 3072)
 // one call is 76 GFLOP against ~34 MB of x, W1, W2 and out: bound by the
@@ -31,9 +36,11 @@
 // step. f32 inputs take a SIMT path with the same walk, so the f32 check
 // runs in full f32, not TF32.
 
+#include "gelu.cuh"
 #include "row_gemm.cuh"
 
 using gaviko::from_f32;
+using gaviko::gelu;
 using gaviko::to_f32;
 
 namespace {
@@ -52,37 +59,11 @@ struct Args {
   const void* w2;
   const void* b2;
   void* out;
+  void* a;  // [M, mlp] pre-GELU hidden, or nullptr
   int M, dim, mlp, gelu, residual;
   float eps;
+  gaviko::Drop drop;
 };
-
-__device__ __forceinline__ float erf_as(float x) {  // Abramowitz & Stegun 7.1.26
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float y = 1.0f - poly * expf(-a * a);
-  return x > 0.0f ? y : (x < 0.0f ? -y : 0.0f);
-}
-
-__device__ __forceinline__ float gelu(float x, int mode) {
-  if (mode == 1) {  // tanh approximation
-    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.0f + tanhf(u));
-  }
-  const float z = x * 0.7071067811865476f;
-  float e;
-  if (mode == 2) {  // erf_fast: sign(z) tanh(C1|z| + C3|z|^3 + C5|z|^5)
-    const float a = fabsf(z), a2 = a * a;
-    const float th = tanhf(a * (1.1281153655981508f +
-                                a2 * (0.1041330662360045f + a2 * -0.0017956401545075685f)));
-    e = z > 0.0f ? th : (z < 0.0f ? -th : 0.0f);
-  } else {
-    e = erf_as(z);
-  }
-  return x * 0.5f * (1.0f + e);
-}
 
 // ---------------------------------------------------------------- bf16 ----
 
@@ -172,18 +153,25 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
           gaviko::mma_bf16(hacc[ni], af, bf[ni / 2][ni % 2 * 2], bf[ni / 2][ni % 2 * 2 + 1]);
       }
     }
-    // + b1, GELU, round; the chunk goes to shared memory as fc2's A operand
-    // (read after the next tile's barrier).
+    // + b1 (saved when asked), GELU, dropout, round; the chunk goes to
+    // shared memory as fc2's A operand (read after the next tile's barrier).
     const T* b1 = static_cast<const T*>(a.b1) + c * HC;
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = wn * 32 + ni * 8 + 2 * t;
+      const int hcol = c * HC + col;
       const float bb0 = to_f32(b1[col]), bb1 = to_f32(b1[col + 1]);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * 16 + g + 8 * h;
+        const float v0 = hacc[ni][2 * h] + bb0, v1 = hacc[ni][2 * h + 1] + bb1;
+        if (a.a != nullptr && row < a.M)
+          *reinterpret_cast<uint32_t*>(static_cast<T*>(a.a) +
+                                       static_cast<long long>(row) * a.mlp + hcol) =
+              gaviko::pack_bf16(v0, v1);
         *reinterpret_cast<uint32_t*>(hs + (wm * 16 + g + 8 * h) * LDH + col) =
-            gaviko::pack_bf16(gelu(hacc[ni][2 * h] + bb0, a.gelu),
-                              gelu(hacc[ni][2 * h + 1] + bb1, a.gelu));
+            gaviko::pack_bf16(gelu(v0, a.gelu) * a.drop.factor(row, hcol, 0),
+                              gelu(v1, a.gelu) * a.drop.factor(row, hcol + 1, 0));
       }
     }
 #pragma unroll
@@ -219,7 +207,8 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
         const int row = m0 + wm * 16 + g + 8 * h;
         if (row >= a.M) continue;
         const long long off = static_cast<long long>(row) * dim + col;
-        float y0 = oacc[rr][ni][2 * h] + bb0, y1 = oacc[rr][ni][2 * h + 1] + bb1;
+        float y0 = (oacc[rr][ni][2 * h] + bb0) * a.drop.factor(row, col, 1);
+        float y1 = (oacc[rr][ni][2 * h + 1] + bb1) * a.drop.factor(row, col + 1, 1);
         if (a.residual) {
           const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + off);
           y0 += __low2float(xv);
@@ -327,10 +316,17 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
     }
     const T* b1 = static_cast<const T*>(a.b1) + c * HC;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty + 8 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        hs[(ty + 8 * i) * LDH + tx + 32 * j] = gelu(hacc[i][j] + b1[tx + 32 * j], a.gelu);
+      for (int j = 0; j < 4; ++j) {
+        const int hcol = c * HC + tx + 32 * j;
+        const float v = hacc[i][j] + b1[tx + 32 * j];
+        if (a.a != nullptr && row < a.M)
+          static_cast<T*>(a.a)[static_cast<long long>(row) * a.mlp + hcol] = v;
+        hs[(ty + 8 * i) * LDH + tx + 32 * j] = gelu(v, a.gelu) * a.drop.factor(row, hcol, 0);
+      }
+    }
 #pragma unroll
     for (int rr = 0; rr < NT; ++rr) {
 #pragma unroll
@@ -354,7 +350,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         const int col = rr * 128 + tx + 32 * j;
         const long long off = static_cast<long long>(row) * dim + col;
-        float y = oacc[rr][i][j] + b2[col];
+        float y = (oacc[rr][i][j] + b2[col]) * a.drop.factor(row, col, 1);
         if (a.residual) y += x[off];
         out[off] = y;
       }
@@ -395,20 +391,19 @@ int launch(const Args& a, bool is_bf16, void* stream) {
 }  // namespace
 
 // x and out [M, dim], gamma, beta and b2 [dim], w1 [mlp, dim], b1 [mlp], w2
-// [dim, mlp]; all contiguous, 16-byte aligned, one dtype; dim and mlp
-// multiples of 128, dim up to 1024. gelu: 0 exact, 1 tanh, 2 erf_fast.
-extern "C" int gaviko_fused_mlp_bf16(const void* x, const void* gamma, const void* beta,
-                                     const void* w1, const void* b1, const void* w2,
-                                     const void* b2, void* out, int M, int dim, int mlp,
-                                     int gelu, int residual, float eps, void* stream) {
-  const Args a{x, gamma, beta, w1, b1, w2, b2, out, M, dim, mlp, gelu, residual, eps};
-  return launch(a, true, stream);
-}
-
-extern "C" int gaviko_fused_mlp_f32(const void* x, const void* gamma, const void* beta,
-                                    const void* w1, const void* b1, const void* w2,
-                                    const void* b2, void* out, int M, int dim, int mlp,
-                                    int gelu, int residual, float eps, void* stream) {
-  const Args a{x, gamma, beta, w1, b1, w2, b2, out, M, dim, mlp, gelu, residual, eps};
-  return launch(a, false, stream);
-}
+// [dim, mlp], a [M, mlp] or null; all contiguous, 16-byte aligned, one
+// dtype; dim and mlp multiples of 128, dim up to 1024. gelu: 0 exact, 1
+// tanh, 2 erf_fast. threshold is hash_dropout._threshold(rate) (INT32_MIN
+// at rate 0: no dropout), drop_scale 1 / (1 - rate).
+#define GAVIKO_FUSED_MLP(NAME, BF16)                                                          \
+  extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,     \
+                      const void* b1, const void* w2, const void* b2, void* out, void* a_out, \
+                      int M, int dim, int mlp, int gelu, int residual, float eps, int seed,   \
+                      int threshold, float drop_scale, void* stream) {                        \
+    const Args a{x,   gamma, beta, w1,       b1,  w2,  b2,                                   \
+                 out, a_out, M,    dim,      mlp, gelu, residual,                            \
+                 eps, {static_cast<uint32_t>(seed), threshold, drop_scale}};                  \
+    return launch(a, BF16, stream);                                                           \
+  }
+GAVIKO_FUSED_MLP(gaviko_fused_mlp_bf16, true)
+GAVIKO_FUSED_MLP(gaviko_fused_mlp_f32, false)

@@ -1,12 +1,16 @@
 // Patchify embed: Conv3d with kernel == stride, as an implicit GEMM.
 //
 // Replaces gaviko_tpu/ops/patchify.py:_patchify_kernel (patchify_pallas /
-// patchify_fused), forward only.
+// patchify_fused, with save_rows for the weight gradient).
 //
 // out[b*n_tok + t, n] = bf16(sum_k A[b, t, k] * W[n, k] + pos[t, n]) + bias[n]
 // where row (b, t) of A is one patch, read straight from the volume in
 // (c, pd, ph, pw) column order (the order of weight.reshape(dim, -1)), so the
-// [B*n_tok, K] patch matrix never exists in device memory.
+// [B*n_tok, K] patch matrix never exists in device memory, unless asked:
+// with rows != nullptr the blocks of the first column tile also write the
+// patch rows they gathered to rows [B*n_tok, K], the matrix the weight
+// gradient dW = rows^T dy needs (the TPU kernel's save_rows, without its
+// stripe layout).
 //
 // What bounds it on the H100: at GAViKO vit-l16 B8 the GEMM is
 // M = 8000, N = 1024, K = 3072 (50 GFLOP) over 0.4 GB of volume and weights,
@@ -219,11 +223,25 @@ __device__ __forceinline__ void stash(T* As, T* Bs, const Run<T, V>* a, const Ru
   }
 }
 
+// The gathered patch rows of k tile [k0, k0 + bk) into rows [M, K].
+template <typename T, int V>
+__device__ __forceinline__ void save_rows(T* rows, const Run<T, V>* a, int m0, int k0,
+                                          const Geom& g) {
+  constexpr int PER_ROW = bk<T>() / V;
+#pragma unroll
+  for (int i = 0; i < BM * PER_ROW / THREADS; ++i) {
+    const int e = threadIdx.x + THREADS * i;
+    const int m = m0 + e / PER_ROW, k = k0 + (e % PER_ROW) * V;
+    if (m < g.B * g.n_tok && k < g.K)
+      *reinterpret_cast<Run<T, V>*>(rows + static_cast<long long>(m) * g.K + k) = a[i];
+  }
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
     patchify_kernel(const T* __restrict__ img, const T* __restrict__ w,
                     const T* __restrict__ bias, const T* __restrict__ pos,
-                    T* __restrict__ out, Geom g) {
+                    T* __restrict__ out, T* __restrict__ rows, Geom g) {
   constexpr int LD = lds<T>();
   __shared__ __align__(128) T As[BM * LD];
   __shared__ __align__(128) T Bs[BN * LD];
@@ -250,8 +268,10 @@ __global__ void __launch_bounds__(THREADS)
   Tile<T> tile;
   tile.zero();
   Run<T, V> a[BM * (bk<T>() / V) / THREADS], b[BM * (bk<T>() / V) / THREADS];
+  const bool saving = rows != nullptr && blockIdx.x == 0;
   fetch<T, V>(a, b, img, w, rowoff, 0, n0, g);
   for (int k0 = 0; k0 < g.K; k0 += bk<T>()) {
+    if (saving) save_rows<T, V>(rows, a, m0, k0, g);
     __syncthreads();  // every warp is done with the previous tile
     stash<T, V>(As, Bs, a, b);
     __syncthreads();
@@ -263,7 +283,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 int launch(const void* img, const void* w, const void* bias, const void* pos, void* out,
-           int B, int C, int D, int H, int W, int pd, int ph, int pw, int dim,
+           void* rows, int B, int C, int D, int H, int W, int pd, int ph, int pw, int dim,
            void* stream) {
   Geom g;
   g.B = B; g.C = C; g.D = D; g.H = H; g.W = W;
@@ -280,29 +300,31 @@ int launch(const void* img, const void* w, const void* bias, const void* pos, vo
   const auto* bs = static_cast<const T*>(bias);
   const auto* ps = static_cast<const T*>(pos);
   auto* o = static_cast<T*>(out);
+  auto* r = static_cast<T*>(rows);
   // 16-byte runs need every patch row and volume row to start on one (the
   // base pointers are 16-byte aligned: the wrapper checks).
   constexpr int VEC = 16 / sizeof(T);
   if (pw % VEC == 0 && W % VEC == 0)
-    patchify_kernel<T, VEC><<<grid, THREADS, 0, s>>>(x, wt, bs, ps, o, g);
+    patchify_kernel<T, VEC><<<grid, THREADS, 0, s>>>(x, wt, bs, ps, o, r, g);
   else
-    patchify_kernel<T, 1><<<grid, THREADS, 0, s>>>(x, wt, bs, ps, o, g);
+    patchify_kernel<T, 1><<<grid, THREADS, 0, s>>>(x, wt, bs, ps, o, r, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // img [B, C, D, H, W], w [dim, C, pd, ph, pw], bias [dim], pos [n_tok, dim] or
-// null, out [B, n_tok, dim]; all contiguous, one dtype.
+// null, out [B, n_tok, dim], rows [B * n_tok, C * pd * ph * pw] or null; all
+// contiguous, one dtype.
 extern "C" int gaviko_patchify_bf16(const void* img, const void* w, const void* bias,
-                                    const void* pos, void* out, int B, int C, int D, int H,
-                                    int W, int pd, int ph, int pw, int dim, void* stream) {
-  return launch<__nv_bfloat16>(img, w, bias, pos, out, B, C, D, H, W, pd, ph, pw, dim,
+                                    const void* pos, void* out, void* rows, int B, int C, int D,
+                                    int H, int W, int pd, int ph, int pw, int dim, void* stream) {
+  return launch<__nv_bfloat16>(img, w, bias, pos, out, rows, B, C, D, H, W, pd, ph, pw, dim,
                                stream);
 }
 
 extern "C" int gaviko_patchify_f32(const void* img, const void* w, const void* bias,
-                                   const void* pos, void* out, int B, int C, int D, int H,
-                                   int W, int pd, int ph, int pw, int dim, void* stream) {
-  return launch<float>(img, w, bias, pos, out, B, C, D, H, W, pd, ph, pw, dim, stream);
+                                   const void* pos, void* out, void* rows, int B, int C, int D,
+                                   int H, int W, int pd, int ph, int pw, int dim, void* stream) {
+  return launch<float>(img, w, bias, pos, out, rows, B, C, D, H, W, pd, ph, pw, dim, stream);
 }

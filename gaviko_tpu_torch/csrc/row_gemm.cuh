@@ -55,6 +55,31 @@ __device__ __forceinline__ void load_b2(uint32_t* b, const __nv_bfloat16* s, int
   ldsm_x4(b, s + (n + lane % 8 + 8 * (i / 2)) * ld + k + 8 * (i % 2));
 }
 
+// ldmatrix with .trans: r[i] holds elements (2 (lane % 4), lane / 4) and
+// (2 (lane % 4) + 1, lane / 4) of the 8x8 matrix whose 16-byte rows lanes
+// 8i .. 8i + 7 give, i.e. the fragment of its transpose.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const __nv_bfloat16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The A fragment of rows [r, r + 16) and columns [k, k + 16) of A, from a
+// tile stored transposed, s[k][r] with row stride ld.
+__device__ __forceinline__ void load_a_t(uint32_t* a, const __nv_bfloat16* s, int ld, int r,
+                                         int k) {
+  const int lane = threadIdx.x % 32, i = lane / 8;
+  ldsm_x4_t(a, s + (k + lane % 8 + 8 * (i / 2)) * ld + r + 8 * (i % 2));
+}
+
+// As load_b2, from a tile stored [k][n] with row stride ld.
+__device__ __forceinline__ void load_b2_t(uint32_t* b, const __nv_bfloat16* s, int ld, int n,
+                                          int k) {
+  const int lane = threadIdx.x % 32, i = lane / 8;
+  ldsm_x4_t(b, s + (k + lane % 8 + 8 * (i % 2)) * ld + n + 8 * (i / 2));
+}
+
 // 16 bytes global -> shared without registers; src_valid false writes zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool src_valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -20,11 +20,14 @@ Reproduced reference quirks (as in the JAX package):
   ``query_proj`` entries, held as separate copies;
 - init zeroes local proj_down.bias and never proj_up.bias.
 
-Training (``train=True``) is ported for ``freeze_vit: true``, the shipped
-config: the backbone stays in eval (no embedding, attention or MLP dropout)
-while the local branch trains with ``attn_drop`` inside the local attention
-kernel and ``proj_drop`` after its proj_up, two seeds a layer. Gradients
-still flow through every frozen global layer to the prompts.
+Training (``train=True``): the local branch trains with ``attn_drop``
+inside the local attention kernel and ``proj_drop`` after its proj_up, two
+seeds a layer. With ``freeze_vit: true``, the shipped config, the backbone
+stays in eval (no embedding, attention or MLP dropout; gradients still flow
+through every frozen global layer to the prompts). With ``freeze_vit:
+false`` the backbone trains too, as the reference's custom ``train()``
+leaves it: both embedding dropouts, then per layer the attention's and
+the MLP's dropout sites of ``core/vit.py``, in the JAX package's seed order.
 """
 
 from __future__ import annotations
@@ -133,12 +136,10 @@ def _awakening_prompt(p: Params, prefix: str, x: torch.Tensor,
 def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
           train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """img [B, C, D, H, W] in the working dtype -> logits [B, num_classes].
-    ``train`` turns on the local branch's dropout, drawing one seed a site
-    from ``seeds`` (the JAX package's ``rng``)."""
-    if train and not spec.freeze_vit:
-        raise NotImplementedError(
-            "GAViKO training with a trainable backbone (freeze_vit: false) needs "
-            "dropout inside the MHSA kernels (ROADMAP Queue B item 2)")
+    ``train`` turns on the local branch's dropout, and the backbone's unless
+    ``freeze_vit``, drawing one seed a site from ``seeds`` (the JAX
+    package's ``rng``)."""
+    bb_train = train and not spec.freeze_vit
     P = spec.num_prompts
     x = vit_core.patchify_embed(params, "conv_proj.0", img, spec)
     B, _, _ = x.shape
@@ -148,8 +149,10 @@ def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
     prompts = params["prompt_embeddings"].to(dt).expand(B, P, spec.dim)
     pos = torch.cat([params["prompt_positional_embedding"],
                      params["pos_embedding"]], dim=1).to(dt)
-    global_tokens = torch.cat([prompts, cls, x], dim=1) + pos
-    local_tokens = x + params["pos_embedding"][:, 1:, :].to(dt)
+    global_tokens = dropout(torch.cat([prompts, cls, x], dim=1) + pos, spec.emb_dropout,
+                            bb_train, seeds)
+    local_tokens = dropout(x + params["pos_embedding"][:, 1:, :].to(dt), spec.emb_dropout,
+                           bb_train, seeds)
 
     # Pad the global stream once to a multiple of 8 (P+1+N = 1033 -> 1040 at
     # the shipped config): attention masks keys >= n_true and the GPA leaves
@@ -169,19 +172,21 @@ def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
             params, f"transformer.local_attns.{j}", local_tokens, spec,
             train=train, seeds=seeds) + local_tokens
         global_tokens = vit_core.attention_block(
-            params, f"transformer.attns.{i}", global_tokens, spec,
-            n_true=n_true) + global_tokens
+            params, f"transformer.attns.{i}", global_tokens, spec, train=bb_train,
+            seeds=seeds, n_true=n_true) + global_tokens
         prompt = _awakening_prompt(
             params, f"transformer.prompt_projs.{j}", global_tokens, local_tokens,
             spec, n_true=n_true, rows_out=P + 1 if last else None)
         if last:
             rows = global_tokens[:, : P + 1]
             rows = vit_core.feedforward_block(
-                params, f"transformer.mlps.{i}", rows, spec) + rows + prompt
+                params, f"transformer.mlps.{i}", rows, spec, train=bb_train,
+                seeds=seeds) + rows + prompt
             out = layer_norm(params, "transformer.norm", rows)
             return linear(params, "mlp_head.head", out.mean(dim=1))
         global_tokens = vit_core.feedforward_block(
-            params, f"transformer.mlps.{i}", global_tokens, spec) + global_tokens + prompt
+            params, f"transformer.mlps.{i}", global_tokens, spec, train=bb_train,
+            seeds=seeds) + global_tokens + prompt
     raise ValueError("spec.depth must be >= 1")
 
 

@@ -34,7 +34,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("patchify", "fused_mhsa", "fused_mhsa_bwd", "local_attention",
-           "local_attention_bwd", "ln_linear", "fused_mlp", "cls_attention")
+           "local_attention_bwd", "ln_linear", "fused_mlp", "fused_mlp_bwd",
+           "cls_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -163,14 +164,21 @@ def use_kernel(t: torch.Tensor) -> bool:
     return not plain_active()
 
 
-def refuse_grad(name: str, roadmap: str, *tensors: torch.Tensor) -> None:
-    """Raise when autograd would need a backward that ``name`` has no kernel
-    for: its output on the card is a plain buffer with no ``grad_fn``, so the
-    gradient would be lost without a word."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+def needs_grad(*tensors) -> bool:
+    """True when autograd records a call on these tensors (None skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a backward that ``name`` does not
+    have: its output on the card is a plain buffer with no ``grad_fn``, so
+    the gradient would be lost without a word. ``why`` says where the
+    gradient goes instead, or which ROADMAP item ports it."""
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name} has no backward kernel yet ({roadmap}); call it under "
-            "torch.no_grad() or on inputs that need no gradient")
+            f"{name} has no backward ({why}); call it under torch.no_grad() or on "
+            "inputs that need no gradient")
 
 
 def dtype_suffix(t: torch.Tensor) -> str:

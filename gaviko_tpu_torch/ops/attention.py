@@ -8,11 +8,13 @@ package sends those (odd head counts such as vit-t16's) to
 
 - :func:`self_attention` takes a packed qkv and needs no gradient (eval);
 - :func:`self_attention_train` takes the LN output and the qkv weight and is
-  differentiable: the projection and the attention run under
+  differentiable, with dropout: the projection and the attention run under
   ``mhsa_qkv_proj``, whose backward is the fused MHSA backward kernel.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,16 +46,19 @@ def self_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
 
 
 def self_attention_train(h: torch.Tensor, w: torch.Tensor, heads: int,
-                         dim_head: int, scale: float, n_true: int) -> torch.Tensor:
+                         dim_head: int, scale: float, n_true: int,
+                         dropout_rate: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
     """LN output h [B, N_pad, dim] and qkv weight w [3*inner, dim] ->
-    attention output [B, N_pad, inner], differentiable in h and w.
+    attention output [B, N_pad, inner], differentiable in h and w, with
+    dropout on the probabilities (``seed``, the MHSA kernels' mask).
 
     As in the JAX package, a stream whose length is a multiple of 8 goes
     through ``mhsa_qkv_proj``. Any other length takes the plain version on
-    the CPU and raises on CUDA, as does a shape the kernels do not take."""
+    the CPU (at rate 0: the JAX package drops elsewhere there) and raises on
+    CUDA, as does a shape the kernels do not take."""
     n = h.shape[1]
     if fused_mhsa_supported(heads, dim_head, n) and n % 8 == 0:
-        return mhsa_qkv_proj(h, w, heads, dim_head, scale, n_true)
-    if _build.use_kernel(h):
+        return mhsa_qkv_proj(h, w, heads, dim_head, scale, n_true, dropout_rate, seed)
+    if _build.use_kernel(h) or dropout_rate > 0.0:
         raise _unsupported(heads, dim_head, n)
     return mhsa_reference(F.linear(h, w), heads, dim_head, scale, n_true)

@@ -56,11 +56,12 @@ def cls_attention_reference(kv: torch.Tensor, q0: torch.Tensor, heads: int,
 def cls_attention(kv: torch.Tensor, q0: torch.Tensor, heads: int, dim_head: int,
                   scale: float, n_true: int) -> torch.Tensor:
     """Same contract as :func:`cls_attention_reference`; the kernel on CUDA,
-    whose output has no backward (the vit-b16 train slice ports the CLS
-    branch's backward)."""
+    whose output has no backward: as in the JAX package it serves inference,
+    and training takes ``core/vit.cls_attend``'s differentiable form."""
     if not _build.use_kernel(kv):
         return cls_attention_reference(kv, q0, heads, dim_head, scale, n_true)
-    _build.refuse_grad("cls_attention", "the vit-b16 train slice", kv, q0)
+    _build.refuse_grad("cls_attention", "inference only, as in the JAX package: training "
+                       "takes cls_attend's differentiable form", kv, q0)
     B, N, two_inner = kv.shape
     inner = heads * dim_head
     if dim_head != KERNEL_DIM_HEAD or two_inner != 2 * inner:

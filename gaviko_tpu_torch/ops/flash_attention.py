@@ -15,8 +15,14 @@ Port of ``gaviko_tpu/ops/flash_attention.py``. Four CUDA kernels:
 forward and backward are those kernels. ``mhsa_reference``,
 ``mhsa_bwd_reference``, ``local_reference`` and ``local_bwd_reference`` are
 the plain PyTorch versions, run on CPU tensors and inside
-``_build.plain_versions()``. Dropout inside the MHSA kernels (a trainable
-backbone) waits for a later slice: ``dropout_rate > 0`` raises there.
+``_build.plain_versions()``.
+
+Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
+row within the padded stream, key column) in plane ``salt = b * heads +
+head`` drops an unnormalised probability after the row sum ``l`` is taken,
+so the lse the backward reads is the pre-dropout one, and ``1 / (1 -
+rate)`` folds into the output. The backward replays the mask and forms
+``dS = P~ * dP~ - P * delta`` with ``delta = rowsum(dO * O)``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
-from gaviko_tpu_torch.ops.hash_dropout import _threshold, keep_mask
+from gaviko_tpu_torch.ops.hash_dropout import dropout_args, keep_mask
 from gaviko_tpu_torch.ops.local_attention import local_mask_additive
 
 NEG_INF = float("-inf")
@@ -39,21 +45,24 @@ KERNEL_DIM_HEAD = 64  # head dim the MHSA kernels are compiled for
 MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_MHSA_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _F, _P)
-_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_F, _P)
+_DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
+_MHSA_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _F) + _DROP + (_P,)
+_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_F,) + _DROP + (_P,)
 _LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P)
 _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
 _LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
 
-_MHSA_DROPOUT = ("dropout inside the MHSA kernels is not ported yet (ROADMAP "
-                 "Queue B item 2: the trainable-backbone slice, freeze_vit: false)")
 _FUSED_MHSA_BWD = ("ROADMAP Queue B item 3: the VJP of fused_mhsa on a given "
                    "packed qkv; training goes through mhsa_qkv_proj")
 
 
-def _no_mhsa_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(_MHSA_DROPOUT)
+def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
+    """keep / (1 - rate) over [B, heads, N, N]: the MHSA kernels' mask at
+    (query row, key column) in plane b * heads + head."""
+    B, heads = shape[0], shape[1]
+    salt = torch.arange(B * heads, device=device).reshape(B, heads, 1, 1)
+    keep = keep_mask(shape, seed, dropout_rate, salt=salt, device=device)
+    return keep.float() * (1.0 / (1.0 - dropout_rate))
 
 
 def fused_mhsa_supported(heads: int, dim_head: int, N: int) -> bool:
@@ -90,29 +99,36 @@ def _mhsa_scores(q, k, scale, n_true):
 
 
 def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-                   n_true: int, dropout_rate: float = 0.0, with_lse: bool = False):
+                   n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
+                   seed: int = 0):
     """qkv [B, N_pad, 3*heads*dim_head] -> [B, N_pad, heads*dim_head]; keys
-    >= n_true are masked. f32 scores and softmax, PV in qkv's dtype. With
+    >= n_true are masked. f32 scores and softmax, hash dropout on the
+    probabilities (``seed``, the module's mask), PV in qkv's dtype. With
     ``with_lse`` also the per-row log-sum-exp in log2 units [B, heads,
-    N_pad] f32, the statistic kernel A hands its backward."""
-    _no_mhsa_dropout(dropout_rate)
+    N_pad] f32 of the scores before dropout, the statistic kernel A hands
+    its backward."""
     q, k, v = _split_heads(qkv, heads, dim_head)
     s = _mhsa_scores(q, k, scale, n_true)
-    o = _unheads(torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v))
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        p = p * _mhsa_keep_factor(s.shape, seed, dropout_rate, s.device)
+    o = _unheads(torch.matmul(p.to(v.dtype), v))
     if not with_lse:
         return o
     return o, torch.logsumexp(s, dim=-1) * LOG2E
 
 
 def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-               n_true: int, dropout_rate: float = 0.0, with_lse: bool = False):
+               n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
+               seed: int = 0):
     """Same contract as :func:`mhsa_reference`; kernel A on CUDA. Rows
     >= n_true are padding: their outputs are garbage by contract. On the
     card the output has no backward: a call that needs a gradient raises
     (train through :func:`mhsa_qkv_proj`)."""
-    _no_mhsa_dropout(dropout_rate)
+    drop = dropout_args(dropout_rate, seed)
     if not _build.use_kernel(qkv):
-        return mhsa_reference(qkv, heads, dim_head, scale, n_true, with_lse=with_lse)
+        return mhsa_reference(qkv, heads, dim_head, scale, n_true, dropout_rate,
+                              with_lse=with_lse, seed=seed)
     _build.refuse_grad("fused_mhsa", _FUSED_MHSA_BWD, qkv)
     B, n_pad, three_inner = qkv.shape
     if dim_head != KERNEL_DIM_HEAD or three_inner != 3 * heads * dim_head:
@@ -131,7 +147,7 @@ def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
         "fused_mhsa", f"gaviko_fused_mhsa_{_build.dtype_suffix(qkv)}",
         _MHSA_ARGTYPES, qkv.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, n_pad, heads, n_true, scale,
-        _build.stream_of(qkv))
+        *drop, _build.stream_of(qkv))
     fused_mhsa.launches += 1
     return (out, lse) if with_lse else out
 
@@ -141,17 +157,22 @@ fused_mhsa.launches = 0
 
 def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                        dout: torch.Tensor, heads: int, dim_head: int,
-                       scale: float, n_true: int) -> torch.Tensor:
+                       scale: float, n_true: int, dropout_rate: float = 0.0,
+                       seed: int = 0) -> torch.Tensor:
     """The algebra of kernel B in plain PyTorch (f32): from the forward's
-    output and lse (log2 units), P = exp2(s - lse), delta = rowsum(dO * O),
-    dS = P (dP - delta) -> packed dqkv [B, N_pad, 3 * inner] in qkv's dtype."""
+    output and lse (log2 units), P = exp2(s - lse), f = keep / (1 - rate)
+    (the forward's mask, replayed), delta = rowsum(dO * O), dV = (f P)^T dO,
+    dS = P (f dP - delta) -> packed dqkv [B, N_pad, 3 * inner] in qkv's
+    dtype."""
     q, k, v = (t.float() for t in _split_heads(qkv, heads, dim_head))
     s2 = _mhsa_scores(q, k, scale * LOG2E, n_true)
     p = torch.exp2(s2 - lse.unsqueeze(-1))
+    f = (_mhsa_keep_factor(p.shape, seed, dropout_rate, p.device)
+         if dropout_rate > 0.0 else torch.ones_like(p))
     do = _heads(dout, heads, dim_head).float()
     delta = (do * _heads(out, heads, dim_head).float()).sum(-1, keepdim=True)
-    dv = torch.matmul(p.transpose(-1, -2), do)
-    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    dv = torch.matmul((f * p).transpose(-1, -2), do)
+    ds = p * (f * torch.matmul(do, v.transpose(-1, -2)) - delta)
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
     return torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1).to(qkv.dtype)
@@ -159,10 +180,12 @@ def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
 
 def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                    dout: torch.Tensor, heads: int, dim_head: int, scale: float,
-                   n_true: int) -> torch.Tensor:
+                   n_true: int, dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
     """Same contract as :func:`mhsa_bwd_reference`; kernel B on CUDA."""
+    drop = dropout_args(dropout_rate, seed)
     if not _build.use_kernel(qkv):
-        return mhsa_bwd_reference(qkv, out, lse, dout, heads, dim_head, scale, n_true)
+        return mhsa_bwd_reference(qkv, out, lse, dout, heads, dim_head, scale, n_true,
+                                  dropout_rate, seed)
     B, n_pad, three_inner = qkv.shape
     inner = heads * dim_head
     if dim_head != KERNEL_DIM_HEAD or three_inner != 3 * inner:
@@ -184,7 +207,7 @@ def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         "fused_mhsa_bwd", f"gaviko_fused_mhsa_bwd_{_build.dtype_suffix(qkv)}",
         _MHSA_BWD_ARGTYPES, qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, n_pad, heads,
-        n_true, scale, _build.stream_of(qkv))
+        n_true, scale, *drop, _build.stream_of(qkv))
     fused_mhsa_bwd.launches += 1
     return dqkv
 
@@ -193,15 +216,17 @@ fused_mhsa_bwd.launches = 0
 
 
 class _MhsaQkvProj(torch.autograd.Function):
-    """qkv = h W^T, then kernel A; the backward runs kernel B and the two
-    products of the projection's VJP."""
+    """qkv = h W^T, then kernel A; the backward runs kernel B (the dropout
+    mask replayed from the seed) and the two products of the projection's
+    VJP."""
 
     @staticmethod
-    def forward(ctx, h, w, heads, dim_head, scale, n_true):
+    def forward(ctx, h, w, heads, dim_head, scale, n_true, dropout_rate, seed):
         qkv = F.linear(h, w)
-        out, lse = fused_mhsa(qkv, heads, dim_head, scale, n_true, with_lse=True)
+        out, lse = fused_mhsa(qkv, heads, dim_head, scale, n_true, dropout_rate,
+                              with_lse=True, seed=seed)
         ctx.save_for_backward(h, w, qkv, out, lse)
-        ctx.cfg = (heads, dim_head, scale, n_true)
+        ctx.cfg = (heads, dim_head, scale, n_true, dropout_rate, seed)
         ctx.plain = _build.plain_active()
         return out
 
@@ -217,25 +242,20 @@ class _MhsaQkvProj(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(dqkv.reshape(-1, dqkv.shape[-1]).t(),
                               h.reshape(-1, h.shape[-1]))
-        return dh, dw, None, None, None, None
+        return dh, dw, None, None, None, None, None, None
 
 
 def mhsa_qkv_proj(h: torch.Tensor, w: torch.Tensor, heads: int, dim_head: int,
-                  scale: float, n_true: int, dropout_rate: float = 0.0) -> torch.Tensor:
+                  scale: float, n_true: int, dropout_rate: float = 0.0,
+                  seed: Optional[int] = None) -> torch.Tensor:
     """``fused_mhsa(h @ w.T)`` under one autograd function: h [B, N_pad, dim]
-    (the LN output), w [3*heads*dim_head, dim] (torch layout). The backward
-    forms dW only when ``w`` needs a gradient."""
-    _no_mhsa_dropout(dropout_rate)
-    return _MhsaQkvProj.apply(h, w, heads, dim_head, scale, n_true)
-
-
-def _local_dropout_args(dropout_rate: float, seed: int) -> Tuple[int, float]:
-    if not 0.0 <= dropout_rate < 1.0:
-        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
-    if not -(1 << 31) <= int(seed) < (1 << 31):
-        raise ValueError(f"seed {seed} is not an int32")
-    scale = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
-    return _threshold(dropout_rate), scale
+    (the LN output), w [3*heads*dim_head, dim] (torch layout), ``seed`` the
+    int32 dropout seed (unused at rate 0). The backward forms dW only when
+    ``w`` needs a gradient."""
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout needs a seed")
+    return _MhsaQkvProj.apply(h, w, heads, dim_head, scale, n_true, float(dropout_rate),
+                              0 if seed is None else int(seed))
 
 
 def _local_keep(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
@@ -317,15 +337,14 @@ def _local_forward(q, k, v, scale, DHW, local_k, dropout_rate, seed):
         return local_reference(q, k, v, scale, DHW, local_k, dropout_rate, seed,
                                with_lse=True)
     geom = _local_geometry(q, k, v, DHW, local_k)
-    threshold, drop_scale = _local_dropout_args(dropout_rate, seed)
+    drop = dropout_args(dropout_rate, seed)
     B, N, dl = q.shape
     out = torch.empty((B, N, dl), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, N), device=q.device, dtype=torch.float32)
     _build.launch(
         "local_attention", f"gaviko_local_attention_{_build.dtype_suffix(q)}",
         _LOCAL_ARGTYPES, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *geom, scale, int(seed), threshold, drop_scale,
-        _build.stream_of(q))
+        lse.data_ptr(), *geom, scale, *drop, _build.stream_of(q))
     flash_local_attention.launches += 1
     return out, lse
 
@@ -340,7 +359,7 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return local_bwd_reference(q, k, v, out, lse, dout, scale, DHW, local_k,
                                    dropout_rate, seed)
     geom = _local_geometry(q, k, v, DHW, local_k)
-    threshold, drop_scale = _local_dropout_args(dropout_rate, seed)
+    drop = dropout_args(dropout_rate, seed)
     B, N, dl = q.shape
     dout = dout.contiguous()
     if out.shape != q.shape or dout.shape != q.shape:
@@ -355,8 +374,8 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "local_attention_bwd",
         f"gaviko_local_attention_bwd_{_build.dtype_suffix(q)}", _LOCAL_BWD_ARGTYPES,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *geom, scale, int(seed),
-        threshold, drop_scale, _build.stream_of(q))
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *geom, scale, *drop,
+        _build.stream_of(q))
     local_attention_bwd.launches += 1
     return dqkv
 

@@ -1,21 +1,28 @@
-"""Fused transformer MLP: LN -> fc1 + b1 -> GELU -> fc2 + b2 (+ x), forward.
+"""Fused transformer MLP: LN -> fc1 + b1 -> GELU -> drop -> fc2 + b2 -> drop
+(+ x), forward and backward.
 
-Port of ``gaviko_tpu/ops/fused_mlp.py``. On the card it runs the kernel in
-``csrc/fused_mlp.cu``: a block keeps a tile of normalised rows in shared
-memory, walks the hidden dimension in chunks, stages each GELU'd chunk in
-shared memory and accumulates the fc2 output in registers, so the
-``(rows, mlp_dim)`` hidden never reaches device memory. ``mlp_reference`` is
-its plain PyTorch version.
+Port of ``gaviko_tpu/ops/fused_mlp.py``. On the card the forward runs the
+kernel in ``csrc/fused_mlp.cu``: a block keeps a tile of normalised rows in
+shared memory, walks the hidden dimension in chunks, stages each GELU'd
+chunk in shared memory and accumulates the fc2 output in registers, so the
+``(rows, mlp_dim)`` hidden never reaches device memory. The backward runs
+``csrc/fused_mlp_bwd.cu`` from the pre-GELU hidden ``a`` the forward saved.
+``mlp_reference`` and ``mlp_bwd_reference`` are their plain PyTorch
+versions.
 
 Rounding order (the TPU kernel's): LN as in ``ops/ln_linear.py``; fc1
-accumulated in f32, ``+ b1`` and the GELU in f32, then rounded to the
-working dtype; fc2 accumulated in f32, ``+ b2`` and ``+ x`` in f32, rounded
-once. The ``exact`` GELU is the JAX kernel's Abramowitz & Stegun erf
-(``erf_f32``), so both packages compute the same function.
+accumulated in f32, ``+ b1``, the GELU and the dropout in f32, then rounded
+to the working dtype; fc2 accumulated in f32, ``+ b2``, the dropout and
+``+ x`` in f32, rounded once. The ``exact`` GELU is the JAX kernel's
+Abramowitz & Stegun erf (``erf_f32``), so both packages compute the same
+function.
 
-Dropout inside the kernel (salts 0 and 1) and the backward kernel wait for
-the vit-b16 train slice: ``dropout_rate > 0`` raises, and on the card a call
-that needs a gradient raises.
+Dropout is the TPU kernel's hash (``ops/hash_dropout.py``): salt 0 on the
+hidden at (flat row, hidden column), salt 1 on the fc2 output at (flat row,
+output column), before the residual; the backward replays both masks.
+:func:`fused_mlp` is differentiable: where JAX's ``_mlp_bwd_supported``
+holds, the forward saves ``a`` and the backward is the kernel; elsewhere the
+backward is autograd through :func:`mlp_reference`, JAX's remat VJP.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops.hash_dropout import dropout_args, keep_mask
 from gaviko_tpu_torch.ops.ln_linear import layer_norm_rounded
 
 # The JAX package's weight budget (its VMEM residency gate), kept as is so
@@ -36,8 +44,10 @@ KERNEL_MAX_DIM = 1024  # widest row the kernel takes (output tile in registers)
 GELU_MODES = ("exact", "tanh", "erf_fast")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 8 + (_I,) * 5 + (_F, _P)
-_TRAIN_SLICE = "the vit-b16 train slice, ROADMAP Queue B items 6-7"
+_DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
+_ARGTYPES = (_P,) * 9 + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_ROW_BLOCK = 32  # rows a block of the backward kernel's row passes, its finest row tile
 
 # erf ~= sign(a) * tanh(C1|a| + C3|a|^3 + C5|a|^5): the JAX package's
 # erf_fast fit.
@@ -88,6 +98,28 @@ def gelu_by_mode(h: torch.Tensor, gelu) -> torch.Tensor:
     return gelu_exact_f32(h)
 
 
+def gelu_grad_f32(a: torch.Tensor, gelu) -> torch.Tensor:
+    """d/da of :func:`gelu_by_mode` in f32, the JAX kernel's
+    ``_gelu_grad_f32`` (for erf_fast and exact, the derivative of the
+    approximation computed)."""
+    mode = gelu_mode(gelu)
+    if mode == "tanh":
+        c = 0.7978845608028654
+        t = torch.tanh(c * (a + 0.044715 * a * a * a))
+        du = c * (1.0 + 3.0 * 0.044715 * a * a)
+        return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * du
+    if mode == "erf_fast":
+        z = a * 0.7071067811865476
+        az = z.abs()
+        a2 = az * az
+        t = torch.tanh(az * (_EF_C1 + a2 * (_EF_C3 + a2 * _EF_C5)))
+        dp = _EF_C1 + a2 * (3.0 * _EF_C3 + a2 * (5.0 * _EF_C5))
+        return (0.5 * (1.0 + torch.sign(z) * t)
+                + a * 0.5 * (1.0 - t * t) * dp * 0.7071067811865476)
+    phi = torch.exp(-0.5 * a * a) * 0.3989422804014327  # N(0, 1) pdf
+    return 0.5 * (1.0 + erf_f32(a * 0.7071067811865476)) + a * phi
+
+
 def _chunk_plan(dim: int, mlp_dim: int, itemsize: int) -> Optional[int]:
     """-> the JAX kernel's hidden chunk (a divisor of mlp_dim, multiple of
     128) whose weight slices fit its budget, or None."""
@@ -104,34 +136,61 @@ def fused_mlp_supported(dim: int, mlp_dim: int, dtype: torch.dtype) -> bool:
             and _chunk_plan(dim, mlp_dim, dtype.itemsize) == mlp_dim)
 
 
+def _mlp_bwd_supported(dim: int, mlp_dim: int, itemsize: int) -> bool:
+    """The JAX package's gate for its backward kernel (weights and two f32
+    weight-gradient accumulators resident in VMEM); where it is false the
+    backward is autograd through :func:`mlp_reference`."""
+    return (dim % 128 == 0 and mlp_dim % 128 == 0
+            and 2 * dim * mlp_dim * (itemsize + 4) <= 60_000_000)
+
+
+def _keep_factor(rows: int, cols: int, seed: int, rate: float, salt: int,
+                 device) -> torch.Tensor:
+    """keep / (1 - rate) over [rows, cols] at (flat row, column) of ``salt``."""
+    keep = keep_mask((rows, cols), seed, rate, salt=salt, device=device)
+    return keep.float() * (1.0 / (1.0 - rate))
+
+
 def mlp_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                   b2: torch.Tensor, eps: float = 1e-5, gelu="exact",
-                  residual: bool = False) -> torch.Tensor:
+                  dropout_rate: float = 0.0, residual: bool = False, seed: int = 0,
+                  save_a: bool = False):
     """x [..., dim]; w1 (mlp, dim), w2 (dim, mlp) torch layout -> [..., dim]
-    in x's dtype; ``residual`` returns x + branch."""
-    h = layer_norm_rounded(x, gamma, beta, eps)
+    in x's dtype; ``residual`` returns x + branch; ``dropout_rate`` > 0 drops
+    the hidden and the output with the int32 ``seed``. With ``save_a`` also
+    the pre-GELU hidden ``a`` [rows, mlp] in x's dtype, as the kernel saves
+    it for its backward."""
+    dim, mlp = x.shape[-1], w1.shape[0]
+    rows = x.numel() // dim
+    h = layer_norm_rounded(x, gamma, beta, eps).reshape(rows, dim)
     a = torch.matmul(h.float(), w1.float().t()) + b1.float()
-    g = gelu_by_mode(a, gelu).to(x.dtype)
-    out = torch.matmul(g.float(), w2.float().t()) + b2.float()
+    g = gelu_by_mode(a, gelu)
+    if dropout_rate > 0.0:
+        g = g * _keep_factor(rows, mlp, seed, dropout_rate, 0, x.device)
+    out = torch.matmul(g.to(x.dtype).float(), w2.float().t()) + b2.float()
+    if dropout_rate > 0.0:
+        out = out * _keep_factor(rows, dim, seed, dropout_rate, 1, x.device)
+    out = out.reshape(x.shape)
     if residual:
         out = out + x.float()
-    return out.to(x.dtype)
+    out = out.to(x.dtype)
+    return (out, a.to(x.dtype)) if save_a else out
 
 
-def fused_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-              eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
-              residual: bool = False) -> torch.Tensor:
-    """Same contract as :func:`mlp_reference` at ``dropout_rate`` 0; the
-    kernel on CUDA, whose output has no backward."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"dropout inside the fused MLP is not ported yet ({_TRAIN_SLICE})")
+def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
+                      residual: bool = False, seed: int = 0, save_a: bool = False):
+    """Same contract as :func:`mlp_reference`: kernel B6 on CUDA (its plain
+    version on the CPU) -> out, or (out, a) with ``save_a``. Its outputs have
+    no backward: the train path differentiates :func:`fused_mlp`."""
+    drop = dropout_args(dropout_rate, seed)
     if not _build.use_kernel(x):
-        return mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps, gelu,
-                             residual=residual)
-    _build.refuse_grad("fused_mlp", _TRAIN_SLICE, x, gamma, beta, w1, b1, w2, b2)
+        return mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate,
+                             residual, seed, save_a)
+    _build.refuse_grad("fused_mlp_forward", "the gradient goes through fused_mlp",
+                       x, gamma, beta, w1, b1, w2, b2)
     mode = gelu_mode(gelu)
     if mode not in GELU_MODES:
         raise ValueError(f"gelu mode must be one of {GELU_MODES}, got {mode!r}")
@@ -150,13 +209,161 @@ def fused_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.check_cuda("fused_mlp", x, gamma, beta, w1, b1, w2, b2)
     rows = x.numel() // dim
     out = torch.empty_like(x)
+    a = torch.empty((rows, mlp_dim), device=x.device, dtype=x.dtype) if save_a else None
     _build.launch(
         "fused_mlp", f"gaviko_fused_mlp_{_build.dtype_suffix(x)}", _ARGTYPES,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, dim, mlp_dim,
-        GELU_MODES.index(mode), int(residual), eps, _build.stream_of(x))
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), None if a is None else a.data_ptr(),
+        rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual), eps, *drop,
+        _build.stream_of(x))
     fused_mlp.launches += 1
-    return out
+    return (out, a) if save_a else out
+
+
+class _FusedMlp(torch.autograd.Function):
+    """Kernel B6 forward (saving ``a`` where the backward kernel takes the
+    shape); kernel B7 backward, or autograd through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate, residual, seed):
+        save_a = _mlp_bwd_supported(x.shape[-1], w1.shape[0], x.element_size())
+        res = fused_mlp_forward(x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate,
+                                residual, seed, save_a)
+        out, a = res if save_a else (res, None)
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2, a)
+        ctx.cfg = (eps, gelu, dropout_rate, residual, seed)
+        ctx.plain = _build.plain_active()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, w1, b1, w2, b2, a = ctx.saved_tensors
+        eps, gelu, rate, residual, seed = ctx.cfg
+        params = (x, gamma, beta, w1, b1, w2, b2)
+        if a is not None:
+            with _build.plain_versions(ctx.plain):
+                grads = fused_mlp_bwd(*params, g, a, eps, gelu, rate, residual, seed)
+        else:
+            leaves = [t.detach().requires_grad_(True) for t in params]
+            with torch.enable_grad():
+                out = mlp_reference(*leaves, eps, gelu, rate, residual, seed)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None, None, None)
+
+
+def fused_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+              eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
+              residual: bool = False, seed: Optional[int] = None) -> torch.Tensor:
+    """Same contract as :func:`mlp_reference`; kernel B6 on CUDA, and
+    differentiable (kernel B7 backward). ``seed`` is the int32 dropout seed
+    (unused at rate 0)."""
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout needs a seed")
+    args = (x, gamma, beta, w1, b1, w2, b2, eps, gelu, float(dropout_rate), residual,
+            0 if seed is None else int(seed))
+    if _build.needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        return _FusedMlp.apply(*args)
+    return fused_mlp_forward(*args)
 
 
 fused_mlp.launches = 0
+
+
+def mlp_bwd_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor, dy: torch.Tensor, a: torch.Tensor,
+                      eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
+                      residual: bool = False, seed: int = 0):
+    """The algebra of kernel B7 (the JAX package's ``_mlp_bwd_kernel``) in
+    plain PyTorch, f32 sums with the kernel's rounding points: from x, the
+    incoming gradient dy and the saved pre-GELU hidden a [rows, mlp] ->
+    (dx, dgamma, dbeta, dw1, db1, dw2, db2), dx in x's dtype and each weight
+    gradient in its weight's dtype."""
+    dt = x.dtype
+    dim, mlp = x.shape[-1], w1.shape[0]
+    xf = x.reshape(-1, dim).float()
+    rows = xf.shape[0]
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    h = xhat.to(dt) * gamma + beta
+    af = a.reshape(rows, mlp).float()
+    gdrop = gelu_by_mode(af, gelu)
+    dout = dy.reshape(rows, dim).float()
+    dx_res = dout if residual else 0.0
+    if dropout_rate > 0.0:
+        f0 = _keep_factor(rows, mlp, seed, dropout_rate, 0, x.device)
+        gdrop = gdrop * f0
+        dout = dout * _keep_factor(rows, dim, seed, dropout_rate, 1, x.device)
+    db2 = dout.sum(0)
+    dout16 = dout.to(dt).float()
+    dw2 = torch.matmul(dout16.t(), gdrop.to(dt).float())
+    dg = torch.matmul(dout16, w2.float())
+    if dropout_rate > 0.0:
+        dg = dg * f0
+    da = dg * gelu_grad_f32(af, gelu)
+    da16 = da.to(dt).float()
+    db1 = da.sum(0)
+    dw1 = torch.matmul(da16.t(), h.float())
+    dh = torch.matmul(da16, w1.float())
+    dgamma = (dh * xhat).sum(0)
+    dbeta = dh.sum(0)
+    dxhat = dh * gamma.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + dx_res
+    return (dx.to(dt).reshape(x.shape), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def fused_mlp_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                  dy: torch.Tensor, a: torch.Tensor, eps: float = 1e-5, gelu="exact",
+                  dropout_rate: float = 0.0, residual: bool = False, seed: int = 0):
+    """Same contract as :func:`mlp_bwd_reference`; kernel B7 on CUDA."""
+    drop = dropout_args(dropout_rate, seed)
+    if not _build.use_kernel(x):
+        return mlp_bwd_reference(x, gamma, beta, w1, b1, w2, b2, dy, a, eps, gelu,
+                                 dropout_rate, residual, seed)
+    mode = gelu_mode(gelu)
+    if mode not in GELU_MODES:
+        raise ValueError(f"gelu mode must be one of {GELU_MODES}, got {mode!r}")
+    dim, mlp_dim = x.shape[-1], w1.shape[0]
+    rows = x.numel() // dim
+    if dim % 128 or mlp_dim % 128:
+        raise NotImplementedError(
+            f"fused_mlp_bwd kernel takes dim and mlp_dim multiples of 128; got "
+            f"{dim}, {mlp_dim}")
+    if (tuple(w1.shape) != (mlp_dim, dim) or tuple(w2.shape) != (dim, mlp_dim)
+            or gamma.shape != (dim,) or beta.shape != (dim,)
+            or dy.shape != x.shape or a.numel() != rows * mlp_dim):
+        raise ValueError("fused_mlp_bwd: w1 (mlp, dim), w2 (dim, mlp), gamma and beta "
+                         "(dim,), dy like x, a (rows, mlp)")
+    x, dy, a = x.contiguous(), dy.contiguous(), a.contiguous()
+    _build.check_cuda("fused_mlp_bwd", x, gamma, beta, w1, b1, w2, b2, dy, a)
+    dev, dt = x.device, x.dtype
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    f32 = torch.float32
+    row_blocks = -(-rows // _ROW_BLOCK)  # rows of column partials each pass may write
+    outs = (torch.empty_like(x), torch.empty_like(gamma), torch.empty_like(beta),
+            torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2),
+            torch.empty_like(b2))
+    dx, dgamma, dbeta, dw1, db1, dw2, db2 = outs
+    scratch = (empty(rows, dim), empty(rows, dim), empty(rows, mlp_dim), empty(rows, mlp_dim),
+               empty(rows, dim, dtype=f32), empty(rows, dtype=f32), empty(rows, dtype=f32),
+               empty(row_blocks, dim, dtype=f32), empty(row_blocks, mlp_dim, dtype=f32),
+               empty(row_blocks, dim, dtype=f32), empty(row_blocks, dim, dtype=f32))
+    _build.launch(
+        "fused_mlp_bwd", f"gaviko_fused_mlp_bwd_{_build.dtype_suffix(x)}", _BWD_ARGTYPES,
+        *(t.data_ptr() for t in (x, gamma, beta, w1, w2, dy, a, dx, dgamma, dbeta, dw1,
+                                 db1, dw2, db2, *scratch)),
+        rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual), eps, *drop,
+        _build.stream_of(x))
+    fused_mlp_bwd.launches += 1
+    return outs
+
+
+fused_mlp_bwd.launches = 0

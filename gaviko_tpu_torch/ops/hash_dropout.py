@@ -36,6 +36,16 @@ def _threshold(rate: float) -> int:
                                round((2.0 * rate - 1.0) * (1 << 31))))
 
 
+def dropout_args(rate: float, seed: int):
+    """(seed, threshold, 1 / (1 - rate)) as the CUDA kernels take them; at
+    rate 0 the threshold is INT32_MIN and every element is kept."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate {rate} outside [0, 1)")
+    if not -(1 << 31) <= int(seed) < (1 << 31):
+        raise ValueError(f"seed {seed} is not an int32")
+    return int(seed), _threshold(rate), 1.0 / (1.0 - rate)
+
+
 def _u32(x: Int) -> Int:
     return x & _MASK
 

@@ -29,7 +29,8 @@ KERNEL_MAX_DIM = 1024  # widest row the kernel stages in shared memory
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P,) * 5 + (_I,) * 3 + (_F, _P)
-_NO_BACKWARD = "ROADMAP Queue B item 12 and the vit-b16 train slice"
+_NO_BACKWARD = ("inference only, as in the JAX package: training takes LN and a "
+                "GEMM; its backward kernel is ROADMAP Queue B item 12")
 
 
 def ln_linear_supported(dim: int, out_dim: int, dtype: torch.dtype) -> bool:

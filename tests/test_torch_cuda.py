@@ -34,9 +34,11 @@ from gaviko_tpu_torch.ops.flash_attention import (
     flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd,
     local_bwd_reference, local_reference, mhsa_bwd_reference, mhsa_qkv_proj,
     mhsa_reference)
-from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, mlp_reference
+from gaviko_tpu_torch.ops.fused_mlp import (
+    fused_mlp, fused_mlp_bwd, fused_mlp_forward, mlp_bwd_reference, mlp_reference)
 from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_reference
-from gaviko_tpu_torch.ops.patchify import patchify_fused, patchify_reference
+from gaviko_tpu_torch.ops.patchify import (
+    patch_rows, patchify_fused, patchify_kernel, patchify_reference)
 
 pytestmark = pytest.mark.cuda
 BUDGET = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -222,12 +224,17 @@ def test_local_attention_dropout_and_backward_kernels(dev, dtype, rate, DHW, loc
 
 
 def test_wrappers_without_a_backward_kernel_refuse_a_gradient(dev):
+    """The forward kernel wrappers whose outputs have no backward refuse a
+    gradient; their differentiable entry points take one."""
     qkv = torch.zeros(1, 8, 3 * 2 * 64, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_mhsa(qkv, 2, 64, 0.125, 8)
     w = torch.zeros(8, 1, 2, 4, 4, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        patchify_fused(torch.zeros(1, 1, 4, 8, 8, device=dev), w, torch.zeros(8, device=dev))
+    img = torch.zeros(1, 1, 4, 8, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="through patchify_fused"):
+        patchify_kernel(img, w, torch.zeros(8, device=dev))
+    patchify_fused(img, w, torch.zeros(8, device=dev)).sum().backward()
+    assert w.grad is not None
 
 
 def test_gaviko_train_gradients_run_the_kernels(dev):
@@ -325,6 +332,9 @@ def test_cls_attention_kernel(dev, dtype, B, N, H, n_true):
 
 
 def test_new_wrappers_refuse_a_gradient_and_mlp_dropout(dev):
+    """The inference-only kernels (LN+linear, CLS attention) and the raw
+    fused MLP forward refuse a gradient; ``fused_mlp`` takes dropout and a
+    gradient (B6 then B7)."""
     x = torch.zeros(1, 8, 128, device=dev, requires_grad=True)
     g, b = torch.ones(128, device=dev), torch.zeros(128, device=dev)
     w = torch.zeros(256, 128, device=dev)
@@ -332,12 +342,14 @@ def test_new_wrappers_refuse_a_gradient_and_mlp_dropout(dev):
         fused_ln_linear(x, g, b, w)
     w1, b1 = torch.zeros(256, 128, device=dev), torch.zeros(256, device=dev)
     w2 = torch.zeros(128, 256, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_mlp(x, g, b, w1, b1, w2, b, residual=True)
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
-        fused_mlp(x.detach(), g, b, w1, b1, w2, b, dropout_rate=0.1)
+    with pytest.raises(NotImplementedError, match="through fused_mlp"):
+        fused_mlp_forward(x, g, b, w1, b1, w2, b, residual=True)
+    before = (fused_mlp.launches, fused_mlp_bwd.launches)
+    fused_mlp(x, g, b, w1, b1, w2, b, dropout_rate=0.1, residual=True, seed=3).sum().backward()
+    assert (fused_mlp.launches, fused_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(x.grad, torch.ones_like(x))  # zero weights: the residual
     kv = torch.zeros(1, 8, 2 * 2 * 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="train slice"):
+    with pytest.raises(NotImplementedError, match="inference only"):
         cls_attention(kv, torch.zeros(1, 2 * 64, device=dev), 2, 64, 0.125, 8)
 
 
@@ -402,3 +414,151 @@ def test_cli_serves_vit_b16(dev, tmp_path):
         proc.terminate()
         proc.wait(timeout=60)
         log.close()
+
+
+# ------------------------------------------- the vit-b16 train path kernels ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,n_pad,n_true", [(2, 4, 136, 130), (2, 12, 64, 57), (3, 2, 40, 1)])
+def test_fused_mhsa_dropout_kernels(dev, dtype, B, H, n_pad, n_true):
+    """Kernels A and B with dropout 0.1 against their plain versions: the
+    bits are the same, so the budgets of rate 0 hold; lse is unchanged by
+    dropout."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qkv = _randn(gen, B, n_pad, 3 * H * 64, dtype=dtype)
+    dout = _randn(gen, B, n_pad, H * 64, dtype=dtype)
+    dout[:, n_true:] = 0
+    seed = -20260
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    out, lse = fused_mhsa(qkv, H, 64, 0.125, n_true, 0.1, with_lse=True, seed=seed)
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, 64, 0.125, n_true, 0.1, seed)
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want, want_lse = mhsa_reference(qkv, H, 64, 0.125, n_true, 0.1, with_lse=True, seed=seed)
+    assert _rel_mae(out[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
+    assert float((lse - _lse_as_kernel_a(qkv, H, 0.125, n_true)).abs().max()) <= 1e-3
+    dwant = mhsa_bwd_reference(qkv, out, lse, dout, H, 64, 0.125, n_true, 0.1, seed)
+    assert torch.isfinite(dqkv).all()
+    assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+    nodrop = fused_mhsa(qkv, H, 64, 0.125, n_true)
+    assert _rel_mae(out[:, :n_true], nodrop[:, :n_true]) > 10 * BUDGET[dtype]
+
+
+def _mlp_args(gen, B, N, dim, mlp, dtype):
+    x = _randn(gen, B, N, dim, dtype=dtype)
+    gamma, beta = _ln_params(gen, dim, dtype)
+    return (x, gamma, beta, _randn(gen, mlp, dim, dtype=dtype, std=dim ** -0.5),
+            _randn(gen, mlp, dtype=dtype, std=0.1), _randn(gen, dim, mlp, dtype=dtype,
+                                                           std=mlp ** -0.5),
+            _randn(gen, dim, dtype=dtype, std=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,dim,mlp,gelu,residual", [
+    (2, 1008, 768, 3072, "exact", True), (3, 37, 384, 1536, "erf_fast", False),
+    (2, 5, 128, 256, "tanh", True),
+])
+def test_fused_mlp_dropout_and_save_a_kernel(dev, dtype, B, N, dim, mlp, gelu, residual):
+    """Kernel B6 with dropout 0.1 and save_a: the output and the saved
+    pre-GELU hidden against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    args = _mlp_args(gen, B, N, dim, mlp, dtype)
+    before = fused_mlp.launches
+    out, a = fused_mlp_forward(*args, 1e-5, gelu, 0.1, residual, seed=77, save_a=True)
+    assert fused_mlp.launches == before + 1
+    want, want_a = mlp_reference(*args, 1e-5, gelu, 0.1, residual, 77, save_a=True)
+    assert out.shape == args[0].shape and a.shape == (B * N, mlp)
+    assert torch.isfinite(out).all() and torch.isfinite(a).all()
+    assert _rel_mae(out, want) <= BUDGET[dtype]
+    assert _rel_mae(a, want_a) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,dim,mlp,gelu,residual,rate", [
+    (2, 1008, 768, 3072, "exact", True, 0.1), (3, 37, 384, 1536, "erf_fast", False, 0.1),
+    (2, 5, 128, 256, "tanh", True, 0.0), (1, 200, 256, 512, "exact", False, 0.0),
+])
+def test_fused_mlp_bwd_kernel(dev, dtype, B, N, dim, mlp, gelu, residual, rate):
+    """Kernel B7 against its plain version: dx, dgamma, dbeta, dW1, db1, dW2
+    and db2 from the saved pre-GELU hidden, the masks replayed."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args = _mlp_args(gen, B, N, dim, mlp, dtype)
+    dy = _randn(gen, B, N, dim, dtype=dtype)
+    _, a = mlp_reference(*args, 1e-5, gelu, rate, residual, 5, save_a=True)
+    before = fused_mlp_bwd.launches
+    got = fused_mlp_bwd(*args, dy, a, 1e-5, gelu, rate, residual, 5)
+    assert fused_mlp_bwd.launches == before + 1
+    want = mlp_bwd_reference(*args, dy, a, 1e-5, gelu, rate, residual, 5)
+    for name, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_mae(g, w) <= BUDGET[dtype], (name, _rel_mae(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,dim,vol,patch", [
+    (1, 200, (24, 32, 48), (12, 16, 16)), (3, 40, (3, 6, 10), (1, 3, 5)),
+])
+def test_patchify_save_rows_and_backward(dev, dtype, C, dim, vol, patch):
+    """The patch rows the kernel saves are the patch matrix exactly, and the
+    gradients of weight, bias and pos (dW = rows^T dy) match autograd
+    through the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    img = torch.rand(3, C, *vol, generator=gen, device=dev).to(dtype)
+    n_tok = (vol[0] // patch[0]) * (vol[1] // patch[1]) * (vol[2] // patch[2])
+    leaves = [_randn(gen, dim, C, *patch, dtype=dtype, std=0.02), _randn(gen, dim, dtype=dtype),
+              _randn(gen, n_tok, dim, dtype=dtype)]
+    dy = _randn(gen, 3, n_tok, dim, dtype=dtype)
+    before = patchify_fused.launches
+    out, rows = patchify_kernel(img, *leaves, save_rows=True)
+    assert patchify_fused.launches == before + 1
+    assert torch.equal(rows, patch_rows(img, patch).reshape(3 * n_tok, -1))
+    assert _rel_mae(out, patchify_reference(img, *leaves)) <= BUDGET[dtype]
+    got = torch.autograd.grad(patchify_fused(img, *(t.requires_grad_(True) for t in leaves)),
+                              leaves, dy)
+    assert patchify_fused.launches == before + 2
+    want = torch.autograd.grad(patchify_reference(img, *leaves), leaves, dy)
+    for g, w in zip(got, want):
+        assert _rel_mae(g, w) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_b16_train_step_runs_the_backward_kernels(dev, dtype):
+    """The vit-b16 train forward and its gradients (method fft, full
+    120x160x160 geometry, depth cut to 3, B2, dropout 0.1) launch patchify
+    with its rows once, kernels A and B in each full layer and, where the
+    fused MLP gate holds (bf16), B6 and B7 there; the gradients of every
+    tensor match the plain versions' (1e-4 / 5e-2 relative MAE)."""
+    import dataclasses
+
+    cfg = dict(image_size=160, image_patch_size=16, frames=120, frame_patch_size=12,
+               num_classes=5, channels=1, pool="cls", backbone="vit-b16", method="fft",
+               dropout=0.1, emb_dropout=0.1)
+    model = build_model(cfg)
+    spec = dataclasses.replace(model.spec, depth=3)
+    params = {k: v.to(dev, dtype) for k, v in
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+    x = torch.rand(2, 1, 120, 160, 160, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    n = 1 + 3 * 2 + 4 if dtype == torch.bfloat16 else 1 + 4 * 2 + 4
+    seeds = [int(s) for s in torch.randint(-2 ** 31, 2 ** 31, (n,),
+                                           generator=torch.Generator().manual_seed(2))]
+
+    def grads():
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        stream = SeedStream(seeds)
+        out = model.apply(p, x, spec, train=True, seeds=stream)
+        assert stream.count == n
+        g = torch.autograd.grad(out.float().square().sum(), list(p.values()))
+        return torch.cat([t.float().flatten() for t in g])
+
+    wrappers = (patchify_fused, fused_mhsa, fused_mhsa_bwd, fused_mlp, fused_mlp_bwd)
+    for w in wrappers:
+        w.launches = 0
+    got = grads()
+    counts = [w.launches for w in wrappers]
+    with _build.plain_versions():
+        want = grads()
+    fused = 2 if dtype == torch.bfloat16 else 0
+    assert counts == [1, 2, 2, fused, fused]
+    assert [w.launches for w in wrappers] == counts
+    assert torch.isfinite(got).all()
+    assert _rel_mae(got, want) <= {torch.float32: 1e-4, torch.bfloat16: 5e-2}[dtype]

@@ -100,14 +100,25 @@ def test_unported_methods_name_their_roadmap_item(method):
 
 
 def test_training_is_not_ported():
-    """Training with a trainable backbone (freeze_vit: false) still raises
-    and names its ROADMAP item; the frozen-backbone step is ported
-    (tests/test_torch_train.py)."""
+    """Training with a trainable backbone (freeze_vit: false) is ported: the
+    backbone's dropout sites draw seeds too (two embedding sites, then per
+    layer two local, two attention and one fused-MLP site), and every
+    backbone tensor gets a gradient. The 3-step oracle against the JAX
+    package is tests/test_torch_gaviko_train.py."""
+    from gaviko_tpu_torch.core.layers import SeedStream
+
     geom, shape = GEOMETRIES["tiny"]
-    tm = build_model({**BASE, **geom, "freeze_vit": False})
-    params = tm.init(torch.Generator().manual_seed(0), tm.spec)
-    with pytest.raises(NotImplementedError, match="freeze_vit: false.*ROADMAP"):
-        tm.apply(params, torch.zeros(shape), tm.spec, train=True)
+    tm = build_model({**BASE, **geom, "freeze_vit": False, "dropout": 0.1,
+                      "emb_dropout": 0.1})
+    params = {k: v.requires_grad_(True) for k, v in
+              tm.init(torch.Generator().manual_seed(0), tm.spec).items()}
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
+    seeds = SeedStream(generator=torch.Generator().manual_seed(2))
+    tm.apply(params, x, tm.spec, train=True, seeds=seeds).square().sum().backward()
+    assert seeds.count == 2 + 5 * tm.spec.depth
+    for k in ("conv_proj.0.weight", "cls_token", "transformer.attns.0.to_qkv.weight",
+              "transformer.mlps.0.net.1.weight", "transformer.mlps.0.net.0.bias"):
+        assert params[k].grad is not None and float(params[k].grad.abs().max()) > 0, k
 
 
 def test_frozen_backbone_training_forward_consumes_two_seeds_a_layer():

@@ -130,14 +130,19 @@ def test_local_mask_matches_jax(DHW, local_k):
 
 
 def test_dropout_is_not_ported():
-    """Dropout inside the MHSA kernels (a trainable backbone) still raises
-    and names its ROADMAP item; the local attention takes dropout now."""
-    qkv = torch.zeros(1, 8, 3 * 2 * 64)
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
-        tfa.fused_mhsa(qkv, 2, 64, 0.125, 8, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
+    """Dropout is ported in every attention kernel: on the CPU the MHSA and
+    local wrappers are their plain versions with the mask of the seed, and
+    a rate without a seed, or outside [0, 1), is refused."""
+    qkv = torch.randn(2, 8, 3 * 2 * 64, generator=torch.Generator().manual_seed(1))
+    got = tfa.fused_mhsa(qkv, 2, 64, 0.125, 7, dropout_rate=0.3, seed=11)
+    torch.testing.assert_close(got, tfa.mhsa_reference(qkv, 2, 64, 0.125, 7, 0.3, seed=11),
+                               rtol=0, atol=0)
+    assert not torch.equal(got, tfa.fused_mhsa(qkv, 2, 64, 0.125, 7))
+    with pytest.raises(ValueError, match="seed"):
         tfa.mhsa_qkv_proj(torch.zeros(1, 8, 16), torch.zeros(3 * 2 * 64, 16), 2, 64,
                           0.125, 8, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="outside"):
+        tfa.fused_mhsa(qkv, 2, 64, 0.125, 7, dropout_rate=1.0, seed=1)
     q = torch.randn(1, 8, 4, generator=torch.Generator().manual_seed(0))
     out = tfa.flash_local_attention(q, q, q, 1.0, (2, 2, 2), (2, 2, 2),
                                     dropout_rate=0.5, seed=3)

@@ -35,6 +35,7 @@ from gaviko_tpu_torch.core.layers import SeedStream
 from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops import flash_attention as tfa
+from gaviko_tpu_torch.ops import fused_mlp as tmlp
 from gaviko_tpu_torch.ops import patchify as tpatch
 from gaviko_tpu_torch.train import fused_optim as topt
 from gaviko_tpu_torch.train import loop as tloop
@@ -134,17 +135,23 @@ def test_mhsa_qkv_proj_skips_dw_when_w_is_frozen():
 
 
 def test_kernel_wrappers_refuse_a_gradient_on_the_card(monkeypatch):
-    """A wrapper without a backward kernel raises, naming its ROADMAP item,
-    when a CUDA tensor needs a gradient (faked here: use_kernel says yes);
-    it raises before touching the device."""
+    """A forward kernel wrapper whose output has no backward raises, saying
+    where the gradient goes, when a CUDA tensor needs a gradient (faked
+    here: use_kernel says yes); it raises before touching the device. The
+    differentiable entry points (``mhsa_qkv_proj``, ``patchify_fused``,
+    ``fused_mlp``) take a gradient."""
     monkeypatch.setattr(_build, "use_kernel", lambda t: True)
     qkv = torch.zeros(1, 8, 3 * 2 * 64, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 3"):
         tfa.fused_mhsa(qkv, 2, 64, 0.125, 8)
     img = torch.zeros(1, 1, 4, 8, 8)
     w = torch.zeros(8, 1, 2, 4, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 5"):
-        tpatch.patchify_fused(img, w, torch.zeros(8))
+    with pytest.raises(NotImplementedError, match="through patchify_fused"):
+        tpatch.patchify_kernel(img, w, torch.zeros(8))
+    x = torch.zeros(1, 8, 128, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="through fused_mlp"):
+        tmlp.fused_mlp_forward(x, torch.ones(128), torch.zeros(128), torch.zeros(256, 128),
+                               torch.zeros(256), torch.zeros(128, 256), torch.zeros(128))
     calls = []
     monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a))
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)

@@ -25,6 +25,7 @@ from gaviko_tpu.models.factory import build_model as jax_build_model
 from gaviko_tpu.ops import attention as jattn
 from gaviko_tpu.serving import Predictor as JaxPredictor
 from gaviko_tpu_torch.core import vit as tvit
+from gaviko_tpu_torch.core.layers import SeedStream
 from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.serving import Predictor
 from gaviko_tpu_torch.weights.from_jax import from_jax
@@ -136,18 +137,25 @@ def test_other_last_layers_match_jax(monkeypatch, pool, fast):
 
 
 def test_gradient_needed_keeps_the_plain_routes(monkeypatch):
-    """A forward that needs a gradient never takes a fused route that has no
-    backward kernel."""
+    """A forward that needs a gradient takes the JAX package's routes: the
+    fused MLP (its backward is kernel B7) and the MHSA through
+    ``self_attention_train`` (kernel B) in every full layer, patchify with
+    its weight gradient; never the inference-only LN+linear or CLS attention
+    kernels, which have no backward."""
     _, _, tm, spec = _models(TINY, "fft")
     params = {k: v.requires_grad_(True) for k, v in
               tm.init(torch.Generator().manual_seed(0), spec).items()}
     x = torch.rand(2, 1, 24, 32, 32, generator=torch.Generator().manual_seed(3))
     counts = _counting(monkeypatch, ["fused_ln_linear", "fused_mlp", "self_attention",
-                                     "cls_attention"])
+                                     "self_attention_train", "cls_attention",
+                                     "patchify_fused"])
     tm.apply(params, x, spec).sum().backward()
-    assert counts == dict.fromkeys(counts, 0)
+    d = spec.depth
+    assert counts == {"fused_ln_linear": 0, "fused_mlp": d - 1, "self_attention": 0,
+                      "self_attention_train": d - 1, "cls_attention": 0, "patchify_fused": 1}
     assert all(params[k].grad is not None for k in ("conv_proj.0.weight", "mlp_head.bias",
-                                                   "transformer.layers.0.0.to_qkv.weight"))
+                                                   "transformer.layers.0.0.to_qkv.weight",
+                                                   "transformer.layers.0.1.net.1.weight"))
 
 
 def test_add_cls_and_pos_and_pool_match_jax():
@@ -164,11 +172,23 @@ def test_add_cls_and_pos_and_pool_match_jax():
                                atol=1e-5, rtol=0)
 
 
-def test_training_is_not_ported():
-    _, _, tm, spec = _models(TINY, "fft")
+@pytest.mark.parametrize("method", METHODS)
+def test_training_is_not_ported(method):
+    """``vit_apply(train=True)`` is ported for every ViT method: each
+    dropout site draws one seed (the embedding, three a full layer, four in
+    the CLS-fast last layer), dropout changes the logits, and a seed stream
+    is required."""
+    _, _, tm, spec = _models({**TINY, "dropout": 0.1, "emb_dropout": 0.1}, method)
     params = tm.init(torch.Generator().manual_seed(0), spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*vit-b16 train slice"):
-        tm.apply(params, torch.zeros(1, 1, 24, 32, 32), spec, train=True)
+    x = torch.rand(2, 1, 24, 32, 32, generator=torch.Generator().manual_seed(6))
+    seeds = SeedStream(generator=torch.Generator().manual_seed(7))
+    train = tm.apply(params, x, spec, train=True, seeds=seeds)
+    assert seeds.count == 1 + 3 * (spec.depth - 1) + 4
+    eval_ = tm.apply(params, x, spec)
+    assert train.shape == eval_.shape == (2, 5) and torch.isfinite(train).all()
+    assert not torch.equal(train, eval_)
+    with pytest.raises(ValueError, match="no seed stream"):
+        tm.apply(params, x, spec, train=True)
 
 
 def test_predictor_serves_fft_like_the_jax_predictor(tmp_path):

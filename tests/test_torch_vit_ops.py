@@ -93,12 +93,17 @@ def test_gelu_modes_match_jax(gelu):
 
 
 def test_mlp_wrapper_on_cpu_is_the_plain_version_and_refuses_dropout():
+    """On the CPU the wrapper is the plain version, dropout included; a
+    dropout rate without a seed is refused."""
     args = [torch.from_numpy(a) for a in _mlp_inputs(rows=5, seed=1)]
     before = tmlp.fused_mlp.launches
     torch.testing.assert_close(tmlp.fused_mlp(*args, residual=True),
                                tmlp.mlp_reference(*args, residual=True), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tmlp.fused_mlp(*args, dropout_rate=0.1, residual=True, seed=-3),
+        tmlp.mlp_reference(*args, residual=True, dropout_rate=0.1, seed=-3), rtol=0, atol=0)
     assert tmlp.fused_mlp.launches == before
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
+    with pytest.raises(ValueError, match="seed"):
         tmlp.fused_mlp(*args, dropout_rate=0.1)
 
 
