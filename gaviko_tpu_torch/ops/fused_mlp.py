@@ -20,9 +20,10 @@ function.
 Dropout is the TPU kernel's hash (``ops/hash_dropout.py``): salt 0 on the
 hidden at (flat row, hidden column), salt 1 on the fc2 output at (flat row,
 output column), before the residual; the backward replays both masks.
-:func:`fused_mlp` is differentiable: where JAX's ``_mlp_bwd_supported``
-holds, the forward saves ``a`` and the backward is the kernel; elsewhere the
-backward is autograd through :func:`mlp_reference`, JAX's remat VJP.
+:func:`fused_mlp` is differentiable: under a gradient the forward saves
+``a`` and the backward is the kernel. B7 keeps its partial sums in device
+memory, so it takes every shape the forward takes and JAX's VMEM gate for its
+backward (``_mlp_bwd_supported``) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -136,14 +137,6 @@ def fused_mlp_supported(dim: int, mlp_dim: int, dtype: torch.dtype) -> bool:
             and _chunk_plan(dim, mlp_dim, dtype.itemsize) == mlp_dim)
 
 
-def _mlp_bwd_supported(dim: int, mlp_dim: int, itemsize: int) -> bool:
-    """The JAX package's gate for its backward kernel (weights and two f32
-    weight-gradient accumulators resident in VMEM); where it is false the
-    backward is autograd through :func:`mlp_reference`."""
-    return (dim % 128 == 0 and mlp_dim % 128 == 0
-            and 2 * dim * mlp_dim * (itemsize + 4) <= 60_000_000)
-
-
 def _keep_factor(rows: int, cols: int, seed: int, rate: float, salt: int,
                  device) -> torch.Tensor:
     """keep / (1 - rate) over [rows, cols] at (flat row, column) of ``salt``."""
@@ -221,15 +214,12 @@ def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 class _FusedMlp(torch.autograd.Function):
-    """Kernel B6 forward (saving ``a`` where the backward kernel takes the
-    shape); kernel B7 backward, or autograd through the plain version."""
+    """Kernel B6 forward, saving ``a``; kernel B7 backward."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate, residual, seed):
-        save_a = _mlp_bwd_supported(x.shape[-1], w1.shape[0], x.element_size())
-        res = fused_mlp_forward(x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate,
-                                residual, seed, save_a)
-        out, a = res if save_a else (res, None)
+        out, a = fused_mlp_forward(x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate,
+                                   residual, seed, save_a=True)
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2, a)
         ctx.cfg = (eps, gelu, dropout_rate, residual, seed)
         ctx.plain = _build.plain_active()
@@ -239,15 +229,9 @@ class _FusedMlp(torch.autograd.Function):
     def backward(ctx, g):
         x, gamma, beta, w1, b1, w2, b2, a = ctx.saved_tensors
         eps, gelu, rate, residual, seed = ctx.cfg
-        params = (x, gamma, beta, w1, b1, w2, b2)
-        if a is not None:
-            with _build.plain_versions(ctx.plain):
-                grads = fused_mlp_bwd(*params, g, a, eps, gelu, rate, residual, seed)
-        else:
-            leaves = [t.detach().requires_grad_(True) for t in params]
-            with torch.enable_grad():
-                out = mlp_reference(*leaves, eps, gelu, rate, residual, seed)
-            grads = torch.autograd.grad(out, leaves, g)
+        with _build.plain_versions(ctx.plain):
+            grads = fused_mlp_bwd(x, gamma, beta, w1, b1, w2, b2, g, a, eps, gelu, rate,
+                                  residual, seed)
         return (*grads, None, None, None, None, None)
 
 

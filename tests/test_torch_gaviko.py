@@ -104,7 +104,8 @@ def test_training_is_not_ported():
     backbone's dropout sites draw seeds too (two embedding sites, then per
     layer two local, two attention and one fused-MLP site), and every
     backbone tensor gets a gradient. The 3-step oracle against the JAX
-    package is tests/test_torch_gaviko_train.py."""
+    package is tests/test_torch_gaviko_train.py. (Named when a trainable
+    backbone was still refused.)"""
     from gaviko_tpu_torch.core.layers import SeedStream
 
     geom, shape = GEOMETRIES["tiny"]

@@ -132,7 +132,8 @@ def test_local_mask_matches_jax(DHW, local_k):
 def test_dropout_is_not_ported():
     """Dropout is ported in every attention kernel: on the CPU the MHSA and
     local wrappers are their plain versions with the mask of the seed, and
-    a rate without a seed, or outside [0, 1), is refused."""
+    a rate without a seed, or outside [0, 1), is refused. (Named when MHSA
+    dropout was still refused.)"""
     qkv = torch.randn(2, 8, 3 * 2 * 64, generator=torch.Generator().manual_seed(1))
     got = tfa.fused_mhsa(qkv, 2, 64, 0.125, 7, dropout_rate=0.3, seed=11)
     torch.testing.assert_close(got, tfa.mhsa_reference(qkv, 2, 64, 0.125, 7, 0.3, seed=11),

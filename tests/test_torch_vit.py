@@ -177,7 +177,7 @@ def test_training_is_not_ported(method):
     """``vit_apply(train=True)`` is ported for every ViT method: each
     dropout site draws one seed (the embedding, three a full layer, four in
     the CLS-fast last layer), dropout changes the logits, and a seed stream
-    is required."""
+    is required. (Named when ViT training was still refused.)"""
     _, _, tm, spec = _models({**TINY, "dropout": 0.1, "emb_dropout": 0.1}, method)
     params = tm.init(torch.Generator().manual_seed(0), spec)
     x = torch.rand(2, 1, 24, 32, 32, generator=torch.Generator().manual_seed(6))

@@ -94,7 +94,8 @@ def test_gelu_modes_match_jax(gelu):
 
 def test_mlp_wrapper_on_cpu_is_the_plain_version_and_refuses_dropout():
     """On the CPU the wrapper is the plain version, dropout included; a
-    dropout rate without a seed is refused."""
+    dropout rate without a seed is refused (the refusal the name means;
+    a rate with a seed is taken)."""
     args = [torch.from_numpy(a) for a in _mlp_inputs(rows=5, seed=1)]
     before = tmlp.fused_mlp.launches
     torch.testing.assert_close(tmlp.fused_mlp(*args, residual=True),
