@@ -11,7 +11,8 @@ Phases, each printing its own line:
    one process per source, in parallel) and prints the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (relative MAE <= 1e-2) and fp32 with TF32 off (<= 1e-4), with median
-   CUDA-event times of kernel, plain version and the one PyTorch call that
+   CUDA-event times (per call, over 10 back-to-back calls) of kernel, plain
+   version and the one PyTorch call that
    computes the same function (``library_ms``; timed here only, the port
    never calls it) or, where no one call does, the chain of calls
    (``chain_ms``), and the least time the card could take (``bound_ms``).
@@ -24,15 +25,22 @@ Phases, each printing its own line:
    vit-b16 B8 train step gives its five (fused MHSA with dropout 0.1 and
    lse, its backward replaying the mask, the fused MLP with dropout 0.1 and
    the saved pre-GELU hidden, the fused MLP backward, patchify with the
-   patch rows; every output compared, the saved ones too);
-4. serving, once for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``)
-   and once for the plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``,
-   method ``fft``): builds the ``Predictor`` (bf16, micro-batch 8, random
+   patch rows; every output compared, the saved ones too), then the flash
+   attention kernel B10 at the vit-t16 B8 serving shapes (the head views
+   of the packed qkv, 1001 rows) and streaming at N = 2353, then A, B, B8
+   and the packed-qkv VJP of ``fused_mhsa`` at head dim 128 (vit-b16 with
+   ``dim_head: 128``, B8);
+4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
+   plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
+   vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
+   unfused attention route, B10 in 11 layers) and vit-b16 with
+   ``model.dim_head: 128`` (A at 128, B8 at 128 in the last layer), the
+   last two built in memory: builds the ``Predictor`` (bf16, micro-batch 8, random
    weights from seed 0), starts ``serve()`` on 127.0.0.1, POSTs 16
    synthetic (120, 160, 160) volumes, 8 at a time, and checks the answers,
    ``/healthz``, ``/metrics`` and every kernel's launches: each batch is
    one forward, which launches each kernel ``serving_launches`` times
-   (GAViKO: none of the vit-b16 kernels);
+   (GAViKO: none of the vit-b16 kernels; the ViTs by the gates);
 5. plain check, after each serving phase: one batch's served logits
    against the same params run through the plain versions on the card
    (relative MAE <= 2e-2), the end-to-end volumes/s of ``predict_logits``
@@ -61,13 +69,23 @@ Phases, each printing its own line:
    B8: 3 train steps and one eval step in fp32 (TF32 off) and bf16, with
    the exact launches a step (bf16: patchify 1 and each of A, B, B6 and B7
    11; fp32, where the fused MLP's gate is false: patchify 1, A and B 11),
-   then the same steps through the plain versions under ``TRAIN_BUDGET``.
+   then the same steps through the plain versions under ``TRAIN_BUDGET``;
+9. vit-t16 train and train check: phases 6 and 7 for vit-t16 at B8, with
+   the config's dropout 0.1 (plain attention with ``layers.dropout`` on
+   the probabilities: no attention kernel) in fp32 and bf16, and
+   dropout-free in bf16 (B10 in 11 layers a step, its backward the plain
+   version's VJP);
+10. vit-b16 with ``dim_head: 128``, train and train check in fp32 and bf16
+   (A and B at head dim 128 in 11 layers a step).
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
 patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes with the
 vit-b16 bf16 train run's launches; LN+linear and CLS attention at the
-vit-b16 B8 bf16 serving shapes with the vit-b16 serving run's launches),
+vit-b16 B8 bf16 serving shapes with the vit-b16 serving run's launches;
+B10 at the vit-t16 B8 bf16 serving shapes with the vit-t16 serving run's
+launches; rows ``*_dh128`` for A, B and B8 at head dim 128 with the
+dim_head-128 bf16 train run's or serving run's launches),
 the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -97,6 +115,7 @@ TRAIN_B, TRAIN_STEPS, TRAIN_TOTAL_STEPS = 4, 3, 100
 VIT_TRAIN_B = 8  # vit.yaml's batch_size
 LOCAL_RATE, LOCAL_SEED = 0.2, 1234567
 VIT_RATE, VIT_SEED = 0.1, -7654321  # vit.yaml's dropout
+KERNEL_CALLS = 10  # back-to-back calls a timed kernel, library or plain sample
 # Train-check budgets: (loss relative, step-1 logits relative MAE, gradient
 # relative MAE, cosine floor).
 TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
@@ -121,14 +140,28 @@ SOURCES = {
                       "gaviko_tpu/ops/fused_mlp.py:340"),
     "cls_attention": ("gaviko_tpu_torch/csrc/cls_attention.cu",
                       "gaviko_tpu/ops/cls_attention.py:58"),
+    "flash_attention": ("gaviko_tpu_torch/csrc/flash_attention.cu",
+                        "gaviko_tpu/ops/flash_attention.py:183"),
 }
-VIT_KERNELS = ("ln_linear", "fused_mlp", "fused_mlp_bwd", "cls_attention")
+VIT_KERNELS = ("ln_linear", "fused_mlp", "fused_mlp_bwd", "cls_attention", "flash_attention")
 # The kernels of the JSON line by the path whose shapes and launches they
 # are reported at.
 LINE_PATH = {"local_attention": "train", "local_attention_bwd": "train",
              "ln_linear": "vit", "cls_attention": "vit", "patchify": "vit_train",
              "fused_mhsa": "vit_train", "fused_mhsa_bwd": "vit_train",
-             "fused_mlp": "vit_train", "fused_mlp_bwd": "vit_train"}
+             "fused_mlp": "vit_train", "fused_mlp_bwd": "vit_train",
+             "flash_attention": "t16"}
+# The head-dim-128 instances of A, B and B8, reported as rows of their own at
+# the vit-b16 dim_head-128 shapes: row name -> (kernel, the run whose
+# launches the row carries).
+DH128_ROWS = {"fused_mhsa_dh128": ("fused_mhsa", "dh128_train"),
+              "fused_mhsa_bwd_dh128": ("fused_mhsa_bwd", "dh128_train"),
+              "cls_attention_dh128": ("cls_attention", "dh128")}
+# The configurations this slice adds, built in memory from vit.yaml (method
+# fft): vit-t16 (3 heads, the unfused attention route) and vit-b16 with
+# dim_head 128 (the fused route at head dim 128).
+T16 = {"backbone": "vit-t16"}
+DH128 = {"dim_head": 128}
 
 
 def _nvidia_smi() -> str:
@@ -143,7 +176,11 @@ def _rel_mae(got, want) -> float:
     return float((got - want).abs().mean() / want.abs().mean().clamp_min(1e-30))
 
 
-def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def _median_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
+    """Median over ``reps`` of the CUDA-event ms of ``calls`` back-to-back
+    calls, per call. With several calls the host enqueues the next launch
+    while the card runs the last one, so a short kernel's time is not its
+    host launch overhead."""
     import torch
 
     for _ in range(warmup):
@@ -153,10 +190,11 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / calls)
     return statistics.median(times)
 
 
@@ -407,6 +445,100 @@ def _vit_train_kernel_cases(dtype, gen, batch):
     ]
 
 
+def _t16_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) for B10: at the shapes the vit-t16
+    serving path gives it (the head views of the packed qkv sliced to the
+    1001 real rows, read in place), and streaming at N = 2353 (a 12x14x14
+    grid and the CLS token, longer than JAX's whole-K limit of 2048)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.flash_attention import _split_heads, flash_attention
+
+    dev, H, D, n_pad, n_true, n_long = "cuda", 3, 64, 1008, 1001, 2353
+    scale = D ** -0.5
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    qkv = randn(batch, n_pad, 3 * H * D)
+    q, k, v = (t[:, :, :n_true] for t in _split_heads(qkv, H, D))
+    ql, kl, vl = (randn(2, H, n_long, D) for _ in range(3))
+    size = qkv.element_size()
+
+    def work(b, n):
+        return 4 * b * H * n * D * size, 4 * b * H * n * n * D
+
+    return [
+        ("flash_attention", lambda: flash_attention(q, k, v, scale), lambda r: r,
+         work(batch, n_true), lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+         None),
+        ("flash_attention_stream", lambda: flash_attention(ql, kl, vl, scale), lambda r: r,
+         work(2, n_long), lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
+         None),
+    ]
+
+
+def _dh128_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) for A, B and B8 at head dim 128,
+    at the vit-b16 dim_head-128 shapes (12 heads, 1001 rows padded to
+    1008): A with dropout 0.1 and lse and B replaying the mask (the train
+    step's), B8 (the serving forward's last layer), and the packed-qkv VJP
+    of fused_mhsa (A then B under autograd)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.cls_attention import cls_attention
+    from gaviko_tpu_torch.ops.flash_attention import fused_mhsa, fused_mhsa_bwd, mhsa_reference
+
+    dev, H, D, n_pad, n_true = "cuda", 12, 128, 1008, 1001
+    inner, scale = H * D, D ** -0.5
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    qkv = randn(batch, n_pad, 3 * inner)
+    dout = randn(batch, n_pad, inner)
+    dout[:, n_true:] = 0  # pad rows carry no cotangent on the train path
+    kv, q0 = randn(batch, n_pad, 2 * inner), randn(batch, inner)
+    with torch.no_grad():
+        out, lse = mhsa_reference(qkv, H, D, scale, n_true, VIT_RATE, with_lse=True,
+                                  seed=VIT_SEED)
+    heads4 = qkv.view(batch, n_pad, 3, H, D).permute(2, 0, 3, 1, 4)
+    dout4 = dout.view(batch, n_pad, H, D).transpose(1, 2)
+    key_mask = (torch.arange(n_pad, device=dev) < n_true).view(1, 1, 1, n_pad)
+    k4, v4 = kv.view(batch, n_pad, 2, H, D).permute(2, 0, 3, 1, 4)
+    products = batch * H * n_pad * n_true * D
+    size = qkv.element_size()
+    leaf = qkv.detach().requires_grad_(True)
+
+    def vjp():
+        with torch.enable_grad():
+            return torch.autograd.grad(
+                fused_mhsa(leaf, H, D, scale, n_true, VIT_RATE, seed=VIT_SEED), leaf, dout)[0]
+
+    return [
+        ("fused_mhsa_dh128", lambda: fused_mhsa(qkv, H, D, scale, n_true, VIT_RATE,
+                                                with_lse=True, seed=VIT_SEED),
+         lambda r: (r[0][:, :n_true], r[1]),
+         (_nbytes(qkv) * 4 // 3 + _nbytes(lse), 4 * products),
+         lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask,
+                                                dropout_p=VIT_RATE), None),
+        ("fused_mhsa_bwd_dh128", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, scale,
+                                                        n_true, VIT_RATE, VIT_SEED),
+         lambda r: r, (_nbytes(qkv, out, dout, lse, qkv), 10 * products),
+         _sdpa_grad(*heads4, dout4, attn_mask=key_mask, dropout_p=VIT_RATE), None),
+        ("cls_attention_dh128", lambda: cls_attention(kv, q0, H, D, scale, n_true),
+         lambda r: r,
+         (batch * n_true * 2 * inner * size + 2 * _nbytes(q0), 4 * batch * n_true * inner),
+         lambda: F.scaled_dot_product_attention(q0.view(batch, H, 1, D), k4, v4,
+                                                attn_mask=key_mask), None),
+        ("fused_mhsa_vjp_dh128", vjp, lambda r: r,
+         (_nbytes(qkv, dout, qkv), 14 * products),
+         None, None),
+    ]
+
+
 def _compare(got, want) -> tuple:
     """(relative MAE, max abs error) of a result or the worst of a tuple."""
     import torch
@@ -424,7 +556,9 @@ def _compare(got, want) -> tuple:
 
 def phase_kernels(card: str, batch: int, path: str) -> dict:
     """Every case of ``path`` ("serving" and "train": GAViKO vit-l16; "vit"
-    and "vit_train": vit-b16 serving and training) in bf16 and fp32 (TF32
+    and "vit_train": vit-b16 serving and training; "t16": B10 at vit-t16
+    serving and streaming; "dh128": A, B and B8 at vit-b16 with dim_head
+    128) in bf16 and fp32 (TF32
     off): kernel vs plain version on the same inputs, then the times.
     Returns the lines by (name, dtype)."""
     import torch
@@ -440,6 +574,10 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _vit_kernel_cases(dtype, gen, batch)
         elif path == "vit_train":
             cases = _vit_train_kernel_cases(dtype, gen, batch)
+        elif path == "t16":
+            cases = _t16_kernel_cases(dtype, gen, batch)
+        elif path == "dh128":
+            cases = _dh128_kernel_cases(dtype, gen, batch)
         else:
             cases = _kernel_cases(dtype, gen, batch, path == "train")
         for name, run, cut, work, library, chain in cases:
@@ -453,14 +591,16 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                 line = {"phase": "kernel", "path": path,
                         "name": name, "dtype": str(dtype), "batch": batch,
                         "rel_mae": rel, "max_abs_err": max_abs, "budget": budget,
-                        "ms": _median_ms(run), "bound_ms": bound_ms,
+                        "ms": _median_ms(run, calls=KERNEL_CALLS), "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": work[0], "operations": work[1],
-                        "library_ms": None if library is None else _median_ms(library),
+                        "library_ms": None if library is None else _median_ms(
+                            library, calls=KERNEL_CALLS),
                         "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
                 if chain is not None:
-                    line["chain_ms"] = _median_ms(chain)
+                    line["chain_ms"] = _median_ms(chain, calls=KERNEL_CALLS)
                 with plain_versions():
-                    line["plain_ms"] = _median_ms(run, reps=5, warmup=1)
+                    line["plain_ms"] = _median_ms(run, reps=5, warmup=1,
+                                                  calls=KERNEL_CALLS)
             results[(name, str(dtype))] = line
             print(json.dumps(line), flush=True)
             if not rel <= budget:
@@ -474,7 +614,8 @@ def _wrappers():
     """Every kernel wrapper, whose ``launches`` counters a phase reads."""
     from gaviko_tpu_torch.ops.cls_attention import cls_attention
     from gaviko_tpu_torch.ops.flash_attention import (
-        flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd)
+        flash_attention, flash_local_attention, fused_mhsa, fused_mhsa_bwd,
+        local_attention_bwd)
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
     from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
     from gaviko_tpu_torch.ops.patchify import patchify_fused
@@ -483,21 +624,48 @@ def _wrappers():
             "local_attention": flash_local_attention, "fused_mhsa_bwd": fused_mhsa_bwd,
             "local_attention_bwd": local_attention_bwd, "ln_linear": fused_ln_linear,
             "fused_mlp": fused_mlp, "fused_mlp_bwd": fused_mlp_bwd,
-            "cls_attention": cls_attention}
+            "cls_attention": cls_attention, "flash_attention": flash_attention}
+
+
+def _vit_routes(spec, dtype) -> dict:
+    """Which kernel each of the plain ViT's sites takes, by the port's
+    gates (the JAX package's): the stream is padded to a multiple of 8."""
+    import torch
+
+    from gaviko_tpu_torch.ops.cls_attention import cls_attention_supported
+    from gaviko_tpu_torch.ops.flash_attention import fused_mhsa_supported
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_supported
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_supported
+
+    n_pad = -(-(spec.num_patches + 1) // 8) * 8
+    inner = spec.heads * spec.dim_head
+    return {"fused_mhsa": fused_mhsa_supported(spec.heads, spec.dim_head, n_pad),
+            "qkv": ln_linear_supported(spec.dim, 3 * inner, dtype),
+            "kv": ln_linear_supported(spec.dim, 2 * inner, dtype),
+            "mlp": fused_mlp_supported(spec.dim, spec.mlp_dim, dtype),
+            "cls": cls_attention_supported(spec.heads, spec.dim_head, n_pad, dtype)}
 
 
 def serving_launches(spec) -> dict:
-    """Launches of each kernel in one serving forward: GAViKO runs patchify,
-    then the MHSA and local attention in every layer; the plain ViT runs
-    patchify, the fused LN+qkv, MHSA and MLP in all but the last layer and
-    the CLS-fast last layer (LN+kv and the CLS attention)."""
+    """Launches of each kernel in one bf16 serving forward: GAViKO runs
+    patchify, then the MHSA and local attention in every layer; the plain
+    ViT runs patchify and, in all but the last layer, the fused LN+qkv
+    where its gate holds and the fused MHSA (or, where the MHSA gate is
+    false, as for vit-t16's 3 heads, the flash attention kernel B10) and
+    the fused MLP where its gate holds; in the CLS-fast last layer LN+kv and
+    the CLS attention where their gates hold."""
+    import torch
+
     want = dict.fromkeys(_wrappers(), 0)
     want["patchify"] = 1
     if spec.method == "gaviko":
         want.update(fused_mhsa=spec.depth, local_attention=spec.depth)
-    else:
-        want.update(ln_linear=spec.depth, fused_mhsa=spec.depth - 1,
-                    fused_mlp=spec.depth - 1, cls_attention=1)
+        return want
+    full = spec.depth - 1
+    r = _vit_routes(spec, torch.bfloat16)
+    want.update(ln_linear=full * r["qkv"] + r["kv"],
+                fused_mhsa=full * r["fused_mhsa"], flash_attention=full * (not r["fused_mhsa"]),
+                fused_mlp=full * r["mlp"], cls_attention=int(r["cls"]))
     return want
 
 
@@ -507,18 +675,28 @@ def _npz(vol: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def make_predictor(config_path: str, method: str):
+def _config(config_path: str, method: str, model_over=None) -> dict:
+    """The shipped config with the method override and, given
+    ``model_over``, those ``model`` entries replaced (in memory)."""
     from gaviko_tpu_torch.config import apply_method_override, load_config
-    from gaviko_tpu_torch.serving import Predictor
 
     config = apply_method_override(load_config(config_path), method)
+    if model_over:
+        config["model"].update(model_over)
+    return config
+
+
+def make_predictor(config_path: str, method: str, model_over=None):
+    from gaviko_tpu_torch.serving import Predictor
+
+    config = _config(config_path, method, model_over)
     t0 = time.perf_counter()
     predictor = Predictor(config, batch_size=B, dtype="bfloat16",
                           pretrained_dir=None, device="cuda:0")
     spec = predictor.spec
     print(json.dumps({"phase": "predictor", "seconds": time.perf_counter() - t0,
                       "method": method, "backbone": spec.backbone, "depth": spec.depth,
-                      "dim": spec.dim, "heads": spec.heads,
+                      "dim": spec.dim, "heads": spec.heads, "dim_head": spec.dim_head,
                       "volume": [spec.frames, *spec.image_size],
                       "gelu": spec.gelu, "pool": spec.pool, "batch_size": B,
                       "dtype": "bfloat16"}), flush=True)
@@ -678,44 +856,51 @@ def gaviko_train_launches(spec, precision: str) -> dict:
     return want
 
 
-def _vit_mlp_fused(spec, precision: str) -> bool:
+def _dtype(precision: str):
     import torch
 
-    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_supported
-
-    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    return fused_mlp_supported(spec.dim, spec.mlp_dim, dtype)
+    return torch.bfloat16 if precision == "bf16" else torch.float32
 
 
 def vit_train_launches(spec, precision: str) -> dict:
-    """The vit-b16 fft step: patchify once, A and B in every full layer and,
-    where the fused MLP's gate holds (bf16), B6 and B7 there too; the
-    CLS-fast last layer runs plain PyTorch in training."""
+    """A plain-ViT fft step: patchify once; in every full layer A and B
+    where the fused MHSA's gate holds, else the flash attention kernel B10
+    where dropout is off (its backward is the plain version's VJP) and no
+    kernel where it is on (plain attention with dropout); B6 and B7 there
+    too where the fused MLP's gate holds (bf16 at vit-b16, never at
+    vit-t16); the CLS-fast last layer runs plain PyTorch in training."""
     full = spec.depth - 1
-    fused = full if _vit_mlp_fused(spec, precision) else 0
+    r = _vit_routes(spec, _dtype(precision))
     want = dict.fromkeys(_wrappers(), 0)
-    want.update(patchify=1, fused_mhsa=full, fused_mhsa_bwd=full, fused_mlp=fused,
-                fused_mlp_bwd=fused)
+    want.update(patchify=1, fused_mhsa=full * r["fused_mhsa"],
+                fused_mhsa_bwd=full * r["fused_mhsa"], fused_mlp=full * r["mlp"],
+                fused_mlp_bwd=full * r["mlp"],
+                flash_attention=full * (not r["fused_mhsa"] and spec.dropout == 0.0))
     return want
 
 
-def vit_train_setup():
-    """The vit-b16 ViT of vit.yaml, method fft (random init from seed 0, on
-    the card), TRAIN_STEPS synthetic B8 batches and each step's seeds: one
-    for the embedding, three a full layer on the fused MLP route (bf16) or
-    four on the plain one (fp32), four in the CLS-fast last layer."""
+def vit_train_setup(model_over=None):
+    """The ViT of vit.yaml, method fft (vit-b16, or as ``model_over``
+    changes it; random init from seed 0, on the card), TRAIN_STEPS
+    synthetic B8 batches and each step's seeds: one for the embedding,
+    three a full layer on the fused MLP route or four on the plain one,
+    four in the CLS-fast last layer (none where the rates are 0)."""
     import torch
 
-    from gaviko_tpu_torch.config import apply_method_override, load_config
     from gaviko_tpu_torch.models.factory import build_model
 
-    config = apply_method_override(load_config(VIT_CONFIG), "fft")
+    config = _config(VIT_CONFIG, "fft", model_over)
     model = build_model(config["model"])
     spec = model.spec
     params = {k: v.to("cuda") for k, v in
               model.init(torch.Generator().manual_seed(0), spec).items()}
-    seeds = {p: _step_seeds(1 + (spec.depth - 1) * (3 if _vit_mlp_fused(spec, p) else 4) + 4)
-             for p in ("fp32", "bf16")}
+
+    def n_seeds(precision):
+        mlp = 1 if _vit_routes(spec, _dtype(precision))["mlp"] else 2
+        return (int(spec.emb_dropout > 0.0)
+                + int(spec.dropout > 0.0) * ((spec.depth - 1) * (2 + mlp) + 4))
+
+    seeds = {p: _step_seeds(n_seeds(p)) for p in ("fp32", "bf16")}
     return config, model, params, _batches(VIT_TRAIN_B, 1), seeds, vit_train_launches
 
 
@@ -965,24 +1150,38 @@ def main() -> int:
     kernels = {"serving": phase_kernels(smi, B, "serving"),
                "vit": phase_kernels(smi, B, "vit"),
                "train": phase_kernels(smi, TRAIN_B, "train"),
-               "vit_train": phase_kernels(smi, VIT_TRAIN_B, "vit_train")}
+               "vit_train": phase_kernels(smi, VIT_TRAIN_B, "vit_train"),
+               "t16": phase_kernels(smi, B, "t16"),
+               "dh128": phase_kernels(smi, VIT_TRAIN_B, "dh128")}
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
-    vit_launches = {}
-    for config, method, headline in ((CONFIG, "gaviko", None), (VIT_CONFIG, "fft", HEADLINE_B)):
-        predictor = make_predictor(config, method)
-        vit_launches, served = phase_serving(predictor, vols)
+    launches = {}
+    for name, config, method, over, headline in (
+            ("serving", CONFIG, "gaviko", None, None), ("vit", VIT_CONFIG, "fft", None, HEADLINE_B),
+            ("t16", VIT_CONFIG, "fft", T16, None), ("dh128", VIT_CONFIG, "fft", DH128, None)):
+        predictor = make_predictor(config, method, over)
+        launches[name], served = phase_serving(predictor, vols)
         phase_plain_check(predictor, vols[:B], served[:B], smi, headline)
         del predictor
         torch.cuda.empty_cache()
 
-    launches = {"vit": vit_launches}
-    for name, make_setup in (("train", train_setup), ("vit_train", vit_train_setup)):
+    # Train runs: (name, setup, precisions, the precision whose launches the
+    # kernels line reports). vit-t16 trains with the config's dropout 0.1
+    # (plain attention with dropout, no attention kernel) and dropout-free
+    # (B10 forward, the plain version's VJP backward).
+    t16_no_dropout = {**T16, "dropout": 0.0, "emb_dropout": 0.0}
+    for name, make_setup, precisions, reported in (
+            ("train", train_setup, ("fp32", "bf16"), "fp32"),
+            ("vit_train", vit_train_setup, ("fp32", "bf16"), "bf16"),
+            ("t16_train", lambda: vit_train_setup(T16), ("fp32", "bf16"), "bf16"),
+            ("t16_train_no_dropout", lambda: vit_train_setup(t16_no_dropout), ("bf16",),
+             "bf16"),
+            ("dh128_train", lambda: vit_train_setup(DH128), ("fp32", "bf16"), "bf16")):
         setup = make_setup()
-        runs = {p: phase_train(setup, p, smi) for p in ("fp32", "bf16")}
+        runs = {p: phase_train(setup, p, smi) for p in precisions}
         for precision, run in runs.items():
             phase_train_check(setup, precision, run, smi)
-        launches[name] = runs["fp32" if name == "train" else "bf16"]["launches"]
+        launches[name] = runs[reported]["launches"]
         del setup, runs
         torch.cuda.empty_cache()
 
@@ -990,14 +1189,18 @@ def main() -> int:
     # path's launches: the local attention kernels at GAViKO's B4 fp32 train
     # shapes; patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes;
     # LN+linear (the qkv projection) and CLS attention at the vit-b16 B8
-    # bf16 serving shapes.
+    # bf16 serving shapes; B10 at the vit-t16 B8 bf16 serving shapes with
+    # the vit-t16 serving run's launches. Then A, B and B8 at head dim 128
+    # (bf16) with the dim_head-128 train or serving run's launches.
     rows = []
-    for n, (src, tpu) in SOURCES.items():
-        path = LINE_PATH[n]
+    line_rows = [(n, n, LINE_PATH[n], LINE_PATH[n]) for n in SOURCES]
+    line_rows += [(row, n, "dh128", run) for row, (n, run) in DH128_ROWS.items()]
+    for row_name, n, path, run in line_rows:
+        src, tpu = SOURCES[n]
         dtype = "torch.float32" if path == "train" else "torch.bfloat16"
-        line = kernels[path][(n, dtype)]
-        row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
-               "launches": launches[path][n],
+        line = kernels[path][(row_name, dtype)]
+        row = {"name": row_name, "route": "cuda", "source": src, "replaces": tpu,
+               "launches": launches[run][n],
                **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "dtype", "batch", "path")}}
         if "chain_ms" in line:

@@ -8,13 +8,17 @@ same route in both packages; the device picks kernel or plain version.
   kernel, with optional positional rows in its epilogue;
 - ``attention_block``: pre-norm MHSA. At inference (no gradient) the qkv
   projection is the fused LN+linear kernel where ``ln_linear_supported``
-  holds (vit-b16 and smaller in bf16), else LN and a plain GEMM; attention
-  reads the packed qkv through the fused MHSA kernel. In training, or when
-  a gradient is needed, the projection and attention run under
-  ``mhsa_qkv_proj`` (dropout inside the kernel, one seed), whose backward
-  is the fused MHSA backward kernel; then dropout after the out-projection.
+  holds (vit-b16 and smaller in bf16), else LN and a plain GEMM. Where
+  ``fused_mhsa_supported`` holds, attention reads the packed qkv through
+  the fused MHSA kernel; in training, or when a gradient is needed, the
+  projection and attention run under ``mhsa_qkv_proj`` (dropout inside the
+  kernel, one seed), whose backward is the fused MHSA backward kernel.
+  Elsewhere (vit-t16's 3 heads, N > 2048) the rows are sliced to
+  ``n_true`` and ``ops/attention.multi_head_attention`` runs the flash
+  attention kernel, or plain attention with ``layers.dropout`` on the
+  probabilities when dropout is on. Then dropout after the out-projection.
   The stream may carry tail padding: keys >= ``n_true`` are masked, padded
-  rows carry bounded garbage;
+  rows carry bounded garbage (zeros on the unfused route);
 - ``feedforward_block(_res)``: LN -> Linear -> GELU -> Dropout -> Linear ->
   Dropout. The fused MLP kernel (dropout inside it, one seed; the residual
   fused in for ``_res``) wherever ``fused_mlp_supported`` holds, in training
@@ -88,16 +92,18 @@ def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                     train: bool = False, seeds: Optional[SeedStream] = None,
                     n_true: Optional[int] = None) -> torch.Tensor:
     """Pre-norm MHSA branch output (the caller adds the residual). In
-    training the MHSA kernels drop probabilities (one seed) and the
-    out-projection's output is dropped (a second seed). Unlike the TPU
-    kernel, the CUDA kernel takes any row count, so no per-call pad."""
+    training the attention drops probabilities (one seed) and the
+    out-projection's output is dropped (a second seed). At inference the
+    CUDA kernel takes any row count, so no per-call pad; in training a
+    fused-route stream whose length is no multiple of 8 is padded around
+    ``fused_mhsa``, as in the JAX package."""
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
     w = p[f"{prefix}.to_qkv.weight"]
     if train or _build.needs_grad(x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]):
         rate = spec.dropout if train else 0.0
         out = self_attention_train(layer_norm(p, f"{prefix}.norm", x), w, spec.heads,
-                                   dh, dh ** -0.5, n_true, rate, _drop_seed(rate, seeds))
+                                   dh, dh ** -0.5, n_true, rate, seeds)
     else:
         out = self_attention(_ln_proj(p, prefix, x, w), spec.heads, dh, dh ** -0.5, n_true)
     return dropout(linear(p, f"{prefix}.to_out.0", out), spec.dropout, train, seeds)

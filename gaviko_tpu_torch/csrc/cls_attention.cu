@@ -1,7 +1,8 @@
 // Single-query (CLS) attention over the packed [K | V] projection.
 //
 // Replaces gaviko_tpu/ops/cls_attention.py:_cls_attention_kernel
-// (cls_attention). kv is [B, N, 2 * heads * 64] with K in the first inner
+// (cls_attention). kv is [B, N, 2 * heads * hd] (head dim hd 64 or 128)
+// with K in the first inner
 // columns of each row and V in the rest; q0 is [B, inner]. For each (batch,
 // head): s[n] = q0 . K[n] * scale over the keys n < n_true, softmax in f32,
 // out = sum_n p[n] V[n] in f32, rounded once to the input dtype. Keys >=
@@ -11,7 +12,7 @@
 // elements of kv (24.8 MB in bf16) and does 2 * 8 * 1001 * 768 * 2 = 25
 // MFLOP, so it is bound by bytes: 0.0074 ms at 3.35 TB/s. The TPU kernel
 // needed a head-indicator matmul to split lanes into heads; here a block of
-// 256 threads owns one (batch, head) and lanes split the 64-wide head row
+// 256 threads owns one (batch, head) and lanes split the hd-wide head row
 // into 16-byte loads (8 bf16 or 4 f32 a lane), so each row of K, then of
 // V, is read once with full 128-byte transactions. Pass 1 writes the scores
 // to shared memory (four rows a thread in flight), a block reduction takes
@@ -26,7 +27,6 @@ using gaviko::to_f32;
 
 namespace {
 
-constexpr int HD = 64;        // head dim
 constexpr int THREADS = 256;
 constexpr int UNROLL = 4;     // rows a thread has in flight
 
@@ -52,12 +52,12 @@ __device__ float block_reduce(float v, float* red) {
   return v;
 }
 
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     cls_attention_kernel(const T* __restrict__ kv, const T* __restrict__ q0,
                          T* __restrict__ out, int N, int heads, int n_true, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements a lane loads at once
-  constexpr int LPR = HD / VEC;        // lanes sharing one row: 8 (bf16) or 16 (f32)
+  constexpr int LPR = HD / VEC;        // lanes sharing one row: hd / 8 (bf16) or hd / 4 (f32)
   constexpr int RPP = THREADS / LPR;   // rows one pass of the block covers
   extern __shared__ __align__(16) float smem[];
   float* sc = smem;          // [N] scores, then exponentials
@@ -147,32 +147,46 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T>
+template <typename T, int HD>
 int launch(const void* kv, const void* q0, void* out, int B, int N, int heads, int n_true,
            float scale, void* stream) {
   constexpr int RPP = THREADS / (HD / (16 / sizeof(T)));
   const size_t smem = (static_cast<size_t>(N) + RPP * HD) * sizeof(float);
-  cudaError_t err = gaviko::allow_smem(cls_attention_kernel<T>, smem);
+  cudaError_t err = gaviko::allow_smem(cls_attention_kernel<T, HD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(heads, B);
-  cls_attention_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  cls_attention_kernel<T, HD><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(kv), static_cast<const T*>(q0), static_cast<T*>(out), N, heads,
       n_true, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch(const void* kv, const void* q0, void* out, int B, int N, int heads, int dim_head,
+             int n_true, float scale, void* stream) {
+  switch (dim_head) {
+    case 64:
+      return launch<T, 64>(kv, q0, out, B, N, heads, n_true, scale, stream);
+    case 128:
+      return launch<T, 128>(kv, q0, out, B, N, heads, n_true, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// kv [B, N, 2 * heads * 64], q0 [B, heads * 64] -> out [B, heads * 64]; all
-// contiguous and 16-byte aligned, one dtype; 1 <= n_true <= N.
+// kv [B, N, 2 * heads * dim_head], q0 [B, heads * dim_head] -> out [B,
+// heads * dim_head]; all contiguous and 16-byte aligned, one dtype; dim_head
+// 64 or 128; 1 <= n_true <= N.
 extern "C" int gaviko_cls_attention_bf16(const void* kv, const void* q0, void* out, int B,
-                                         int N, int heads, int n_true, float scale,
-                                         void* stream) {
-  return launch<__nv_bfloat16>(kv, q0, out, B, N, heads, n_true, scale, stream);
+                                         int N, int heads, int dim_head, int n_true,
+                                         float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(kv, q0, out, B, N, heads, dim_head, n_true, scale, stream);
 }
 
 extern "C" int gaviko_cls_attention_f32(const void* kv, const void* q0, void* out, int B,
-                                        int N, int heads, int n_true, float scale,
+                                        int N, int heads, int dim_head, int n_true, float scale,
                                         void* stream) {
-  return launch<float>(kv, q0, out, B, N, heads, n_true, scale, stream);
+  return dispatch<float>(kv, q0, out, B, N, heads, dim_head, n_true, scale, stream);
 }

@@ -5,10 +5,11 @@
 // forward's dropout mask replayed from (seed, query row, key, b * heads + h)
 // (csrc/fused_mhsa.cu).
 //
-// From qkv [B, n_pad, 3 * heads * 64], the forward's output O and its
-// per-row statistic lse = m + log2(l) (csrc/fused_mhsa.cu, log2 units,
-// [B, heads, n_pad] f32) and the cotangent dO, it writes dq, dk and dv into
-// the column ranges h*64, inner + h*64 and 2*inner + h*64 of one packed
+// From qkv [B, n_pad, 3 * heads * hd] (head dim hd 64 or 128), the
+// forward's output O and its per-row statistic lse = m + log2(l)
+// (csrc/fused_mhsa.cu, log2 units, [B, heads, n_pad] f32) and the cotangent
+// dO, it writes dq, dk and dv into the column ranges h*hd, inner + h*hd and
+// 2*inner + h*hd of one packed
 // dqkv [B, n_pad, 3 * inner], the layout of qkv itself, so the caller's
 // dh = dq Wq + dk Wk + dv Wv is one product with the packed weight and no
 // concatenation is ever made. The algebra is the TPU kernel's:
@@ -35,26 +36,31 @@
 // two passes cost over the TPU's one.
 //
 // bf16 runs on the tensor cores with mma.sync m16n8k16, in the forward's
-// layout (csrc/fused_mhsa.cu): each of 4 warps owns 16 rows, keeps its A
-// operands (q and dO for the dq pass, k and v for the dk/dv pass) in
-// registers for the whole walk, and accumulates S, dP and its two outputs
-// in f32 registers; P and dS are repacked in registers as bf16 A operands,
-// as the forward does with P. The walked tile is staged in shared memory as
-// bf16, row-major where it is the B operand of S or dP and transposed where
-// it is the B operand of an output product, so every B fragment loads as
-// one 32-bit word. f32 takes a SIMT path (a pair of lanes owns a row, each
-// lane half of its 64 columns in registers; staged tiles are f32 read as
-// shared 16-byte vectors), so the f32 check runs in full f32, not TF32.
+// layout (csrc/attention_fwd.cuh): each of 4 warps owns 16 rows, keeps its
+// A operands (q and dO for the dq pass, k and v for the dk/dv pass) for the
+// whole walk, and accumulates S, dP and its two outputs in f32 registers;
+// P and dS are repacked in registers as bf16 A operands, as the forward
+// does with P. The walked tile is staged in shared memory as bf16,
+// row-major where it is the B operand of S or dP and transposed where it is
+// the B operand of an output product, so every B fragment loads as one
+// 32-bit word. At head dim 64 the walked tile is 64 rows and the A
+// operands sit in registers; at 128 the two output accumulators alone take
+// 128 registers a thread, so the walked tile is 32 rows and the A operands
+// are staged once in shared memory and read a fragment at a time, which
+// keeps the dk/dv pass under the register limit.
+// f32 takes a SIMT path: hd / 32 lanes own a row, each lane 32 of its
+// columns in registers, so a block owns 64 rows at head dim 64 and 32 at
+// 128 (the smaller row tile keeps a lane at 32 columns a tensor); staged
+// tiles are f32 read as shared 16-byte vectors. The f32 check runs in full
+// f32, not TF32.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int HD = 64;        // head dim
-constexpr int HALF = HD / 2;  // columns a lane owns
-constexpr int TILE = 64;      // rows a block owns, and rows of a staged tile
-constexpr int THREADS = 128;  // SIMT: 2 lanes for each of 64 rows; mma: 4 warps x 16 rows
-constexpr int LD = HD + 4;    // staged row width: 16-byte aligned rows
+constexpr int THREADS = 128;  // SIMT: hd / 32 lanes for each row; mma: 4 warps x 16 rows
 
 struct Args {
   const void* qkv;
@@ -78,25 +84,39 @@ __device__ __forceinline__ float drop_factor(const Args& a, int row, int key, ui
 
 // ------------------------------------------------------------ f32 SIMT ----
 
-// Rows [row0, row0 + TILE) x HD columns of a matrix with row stride
+constexpr int COLS = 32;  // columns of a row one lane owns
+
+template <int HD>
+struct Simt {
+  static constexpr int LANES = HD / COLS;      // lanes sharing a row
+  static constexpr int ROWS = THREADS / LANES;  // rows a block owns and stages
+  static constexpr int LD = HD + 4;             // staged row width: 16-byte aligned rows
+  static constexpr size_t kSmemDq = 2 * static_cast<size_t>(ROWS) * LD * sizeof(float);
+  static constexpr size_t kSmemDkdv =
+      (3 * static_cast<size_t>(ROWS) * LD + 2 * ROWS) * sizeof(float);
+};
+
+// Rows [row0, row0 + ROWS) x HD columns of a matrix with row stride
 // `stride` into shared memory, times `mult`; rows >= n_valid become zeros.
+template <int HD>
 __device__ void stage_f32(float* dst, const float* src, long long stride, int row0,
                           int n_valid, float mult) {
-  for (int e = threadIdx.x; e < TILE * HD; e += THREADS) {
+  using S = Simt<HD>;
+  for (int e = threadIdx.x; e < S::ROWS * HD; e += THREADS) {
     const int r = e / HD, c = e % HD;
     float x = 0.0f;
     if (row0 + r < n_valid) x = src[static_cast<long long>(row0 + r) * stride + c] * mult;
-    dst[r * LD + c] = x;
+    dst[r * S::LD + c] = x;
   }
 }
 
 // sum over this lane's 32 columns of a[j] * row[j], row a staged f32 row
 // segment (16-byte aligned).
-__device__ __forceinline__ float dot_half(const float* a, const float* row) {
+__device__ __forceinline__ float dot_cols(const float* a, const float* row) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < HALF / 4; ++j) {
+  for (int j = 0; j < COLS / 4; ++j) {
     const float4 x = r4[j];
     s = fmaf(a[4 * j], x.x, s);
     s = fmaf(a[4 * j + 1], x.y, s);
@@ -107,10 +127,10 @@ __device__ __forceinline__ float dot_half(const float* a, const float* row) {
 }
 
 // acc[j] += w * row[j] over this lane's 32 columns.
-__device__ __forceinline__ void axpy_half(float* acc, float w, const float* row) {
+__device__ __forceinline__ void axpy_cols(float* acc, float w, const float* row) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
-  for (int j = 0; j < HALF / 4; ++j) {
+  for (int j = 0; j < COLS / 4; ++j) {
     const float4 x = r4[j];
     acc[4 * j] = fmaf(w, x.x, acc[4 * j]);
     acc[4 * j + 1] = fmaf(w, x.y, acc[4 * j + 1]);
@@ -119,30 +139,36 @@ __device__ __forceinline__ void axpy_half(float* acc, float w, const float* row)
   }
 }
 
-__device__ __forceinline__ float pair_sum(float x) {
-  return x + __shfl_xor_sync(0xffffffffu, x, 1);
+// The sum over the LANES lanes that share a row.
+template <int LANES>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < LANES; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
-// Pass 1 (f32): dq for 64 query rows, and delta = rowsum(dO * O) for them.
+// Pass 1 (f32): dq for ROWS query rows, and delta = rowsum(dO * O) for them.
+template <int HD>
 __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_simt(Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;          // [TILE][LD] keys
-  float* vs = ks + TILE * LD;  // [TILE][LD] values
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  using S = Simt<HD>;
+  extern __shared__ __align__(16) char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [ROWS][LD] keys
+  float* vs = ks + S::ROWS * S::LD;  // [ROWS][LD] values
+  const int q0 = blockIdx.x * S::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int inner = a.heads * HD;
   const long long stride = 3LL * inner;
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
+  const int row = threadIdx.x / S::LANES, part = threadIdx.x % S::LANES;
   const int r = q0 + row;
   const bool live = r < a.n_pad;
-  const int col = h * HD + half * HALF;  // this lane's first column in a head block
+  const int col = h * HD + part * COLS;  // this lane's first column in a head block
   const float* qkv = static_cast<const float*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
   const long long orow = (static_cast<long long>(b) * a.n_pad + r) * inner + col;
   const long long srow = (static_cast<long long>(b) * a.heads + h) * a.n_pad + r;
 
-  float qr[HALF], dor[HALF], acc[HALF];
+  float qr[COLS], dor[COLS], acc[COLS];
   float delta = 0.0f;
 #pragma unroll
-  for (int j = 0; j < HALF; ++j) {
+  for (int j = 0; j < COLS; ++j) {
     qr[j] = 0.0f;
     dor[j] = 0.0f;
     acc[j] = 0.0f;
@@ -152,66 +178,68 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_simt(Args a) {
       delta = fmaf(dor[j], static_cast<const float*>(a.out)[orow + j], delta);
     }
   }
-  delta = pair_sum(delta);
+  delta = row_sum<S::LANES>(delta);
   const float lse = live ? a.lse[srow] : 0.0f;
-  if (live && half == 0) a.delta[srow] = delta;
+  if (live && part == 0) a.delta[srow] = delta;
 
-  for (int k0 = 0; k0 < a.n_true; k0 += TILE) {
+  for (int k0 = 0; k0 < a.n_true; k0 += S::ROWS) {
     __syncthreads();  // every lane is done with the previous tile
-    stage_f32(ks, qkv + inner + h * HD, stride, k0, a.n_true, 1.0f);
-    stage_f32(vs, qkv + 2 * inner + h * HD, stride, k0, a.n_true, 1.0f);
+    stage_f32<HD>(ks, qkv + inner + h * HD, stride, k0, a.n_true, 1.0f);
+    stage_f32<HD>(vs, qkv + 2 * inner + h * HD, stride, k0, a.n_true, 1.0f);
     __syncthreads();
-    const int n = min(TILE, a.n_true - k0);
+    const int n = min(S::ROWS, a.n_true - k0);
     const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
     for (int c = 0; c < n; ++c) {
-      const float* kc = ks + c * LD + half * HALF;
-      const float s = pair_sum(dot_half(qr, kc));
-      const float dp = pair_sum(dot_half(dor, vs + c * LD + half * HALF));
+      const float* kc = ks + c * S::LD + part * COLS;
+      const float s = row_sum<S::LANES>(dot_cols(qr, kc));
+      const float dp = row_sum<S::LANES>(dot_cols(dor, vs + c * S::LD + part * COLS));
       const float ds = exp2f(s - lse) * (drop_factor(a, r, k0 + c, salt) * dp - delta);
-      axpy_half(acc, ds, kc);
+      axpy_cols(acc, ds, kc);
     }
   }
   if (live) {
     float* dst = static_cast<float*>(a.dqkv) + (static_cast<long long>(b) * a.n_pad + r) * stride + col;
 #pragma unroll
-    for (int j = 0; j < HALF; ++j) dst[j] = acc[j] * a.scale;
+    for (int j = 0; j < COLS; ++j) dst[j] = acc[j] * a.scale;
   }
 }
 
-// Pass 2 (f32): dk and dv for 64 keys, walking every query row < n_pad.
+// Pass 2 (f32): dk and dv for ROWS keys, walking every query row < n_pad.
+template <int HD>
 __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_simt(Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;               // [TILE][LD] q * scale * log2(e)
-  float* qu = qs + TILE * LD;     // [TILE][LD] q
-  float* dos = qu + TILE * LD;    // [TILE][LD] dO
-  float* lse_s = dos + TILE * LD;  // [TILE]
-  float* delta_s = lse_s + TILE;   // [TILE]
-  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  using S = Simt<HD>;
+  extern __shared__ __align__(16) char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [ROWS][LD] q * scale * log2(e)
+  float* qu = qs + S::ROWS * S::LD;     // [ROWS][LD] q
+  float* dos = qu + S::ROWS * S::LD;    // [ROWS][LD] dO
+  float* lse_s = dos + S::ROWS * S::LD;  // [ROWS]
+  float* delta_s = lse_s + S::ROWS;      // [ROWS]
+  const int k0 = blockIdx.x * S::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int inner = a.heads * HD;
   const long long stride = 3LL * inner;
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
+  const int row = threadIdx.x / S::LANES, part = threadIdx.x % S::LANES;
   const int j = k0 + row;
   const bool live = j < a.n_true;
-  const int col = h * HD + half * HALF;
+  const int col = h * HD + part * COLS;
   const float* qkv = static_cast<const float*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
   const float* dout = static_cast<const float*>(a.dout) + static_cast<long long>(b) * a.n_pad * inner;
   const long long stat = (static_cast<long long>(b) * a.heads + h) * a.n_pad;
 
-  float kr[HALF], vr[HALF], dk[HALF], dv[HALF];
+  float kr[COLS], vr[COLS], dk[COLS], dv[COLS];
 #pragma unroll
-  for (int c = 0; c < HALF; ++c) {
+  for (int c = 0; c < COLS; ++c) {
     kr[c] = live ? qkv[j * stride + inner + col + c] : 0.0f;
     vr[c] = live ? qkv[j * stride + 2 * inner + col + c] : 0.0f;
     dk[c] = 0.0f;
     dv[c] = 0.0f;
   }
 
-  for (int q0 = 0; q0 < a.n_pad; q0 += TILE) {
+  for (int q0 = 0; q0 < a.n_pad; q0 += S::ROWS) {
     __syncthreads();
-    stage_f32(qs, qkv + h * HD, stride, q0, a.n_pad, a.scale_log2e);
-    stage_f32(qu, qkv + h * HD, stride, q0, a.n_pad, 1.0f);
-    stage_f32(dos, dout + h * HD, inner, q0, a.n_pad, 1.0f);
-    for (int e = threadIdx.x; e < TILE; e += THREADS) {
+    stage_f32<HD>(qs, qkv + h * HD, stride, q0, a.n_pad, a.scale_log2e);
+    stage_f32<HD>(qu, qkv + h * HD, stride, q0, a.n_pad, 1.0f);
+    stage_f32<HD>(dos, dout + h * HD, inner, q0, a.n_pad, 1.0f);
+    for (int e = threadIdx.x; e < S::ROWS; e += THREADS) {
       const bool in = q0 + e < a.n_pad;
       lse_s[e] = in ? a.lse[stat + q0 + e] : 0.0f;
       delta_s[e] = in ? a.delta[stat + q0 + e] : 0.0f;
@@ -219,22 +247,22 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_simt(Args a) {
     __syncthreads();
     // Every lane runs the walk (the shuffles take the whole warp); keys
     // >= n_true carry p = 0, so their dk and dv stay 0.
-    const int n = min(TILE, a.n_pad - q0);
+    const int n = min(S::ROWS, a.n_pad - q0);
     const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
     for (int c = 0; c < n; ++c) {
-      const int off = c * LD + half * HALF;
-      const float s = pair_sum(dot_half(kr, qs + off));
-      const float dp = pair_sum(dot_half(vr, dos + off));
+      const int off = c * S::LD + part * COLS;
+      const float s = row_sum<S::LANES>(dot_cols(kr, qs + off));
+      const float dp = row_sum<S::LANES>(dot_cols(vr, dos + off));
       const float p = live ? exp2f(s - lse_s[c]) : 0.0f;
       const float f = drop_factor(a, q0 + c, j, salt);
-      axpy_half(dv, f * p, dos + off);
-      axpy_half(dk, p * (f * dp - delta_s[c]), qu + off);
+      axpy_cols(dv, f * p, dos + off);
+      axpy_cols(dk, p * (f * dp - delta_s[c]), qu + off);
     }
   }
   if (j < a.n_pad) {
     float* dst = static_cast<float*>(a.dqkv) + (static_cast<long long>(b) * a.n_pad + j) * stride + col;
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
+    for (int c = 0; c < COLS; ++c) {
       dst[inner + c] = dk[c] * a.scale;
       dst[2 * inner + c] = dv[c];
     }
@@ -245,7 +273,26 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_simt(Args a) {
 // ---------------------------------------------------------- bf16 mma ----
 
 using bf16 = __nv_bfloat16;
-constexpr int LDB = HD + 8;  // 144-byte rows: conflict-free fragment loads
+
+template <int HD>
+struct Mma {
+  static constexpr int OWN = 64;                   // rows a block owns: 4 warps x 16
+  static constexpr int WALK = HD >= 128 ? 32 : 64;  // rows of a staged tile
+  static constexpr int LDR = HD + 8;    // row-major staged rows: conflict-free fragment loads
+  static constexpr int LDT = WALK + 8;  // rows of a transposed staged tile
+  static constexpr int KC = HD / 16;    // k chunks over the head dim
+  static constexpr int NG = WALK / 8;   // column groups over a staged tile
+  static constexpr int WC = WALK / 16;  // k chunks over a staged tile
+  static constexpr int OG = HD / 8;     // output column groups
+  static constexpr bool kSmemA = HD >= 128;  // the A operands of the walk in shared memory
+  // Two row-major and one transposed walked tile (dq pass) or two of each
+  // (dk/dv pass), then two resident [OWN][LDR] operands where kSmemA.
+  static constexpr size_t kTile = static_cast<size_t>(WALK) * LDR * sizeof(bf16);
+  static constexpr size_t kTrans = static_cast<size_t>(HD) * LDT * sizeof(bf16);
+  static constexpr size_t kOwn = kSmemA ? 2 * static_cast<size_t>(OWN) * LDR * sizeof(bf16) : 0;
+  static constexpr size_t kSmemDq = 2 * kTile + kTrans + kOwn;
+  static constexpr size_t kSmemDkdv = 2 * kTile + 2 * kTrans + kOwn + 2 * WALK * sizeof(float);
+};
 
 __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -268,15 +315,38 @@ __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A fragments (16 rows x 64 columns) of rows [r0, r0 + 16) of a row-major
-// matrix with row stride `stride`: frag[kc][i] holds row r0 + g + 8 (i % 2),
-// columns kc * 16 + 8 (i / 2) + 2t and the next, times `mult`, rounded to
-// bf16. Rows >= n_valid are zeros.
-__device__ __forceinline__ void load_a(uint32_t (&frag)[4][4], const bf16* src,
-                                       long long stride, int r0, int n_valid, float mult,
-                                       int g, int t) {
+// A operand fragments (16 rows x 16 k a chunk) held in registers:
+// f[kc][i] holds row g + 8 (i % 2), columns kc * 16 + 8 (i / 2) + 2t and
+// the next.
+template <int KC>
+struct RegFrags {
+  uint32_t f[KC][4];
+  __device__ __forceinline__ void operator()(int kc, uint32_t (&x)[4]) const {
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+    for (int i = 0; i < 4; ++i) x[i] = f[kc][i];
+  }
+};
+
+// The same fragments read from a warp's 16 rows staged in shared memory
+// (row stride ld), a chunk at a time.
+struct SmemFrags {
+  const bf16* rows;
+  int ld, g, t;
+  __device__ __forceinline__ void operator()(int kc, uint32_t (&x)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = lds32(rows + (g + (i % 2) * 8) * ld + kc * 16 + (i / 2) * 8 + 2 * t);
+  }
+};
+
+// Register fragments of rows [r0, r0 + 16) x KC * 16 columns of a
+// row-major matrix with row stride `stride`, times `mult`, rounded to bf16.
+// Rows >= n_valid are zeros.
+template <int KC>
+__device__ __forceinline__ void load_frags(RegFrags<KC>& fr, const bf16* src, long long stride,
+                                           int r0, int n_valid, float mult, int g, int t) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + g + (i % 2) * 8;
@@ -285,20 +355,22 @@ __device__ __forceinline__ void load_a(uint32_t (&frag)[4][4], const bf16* src,
         x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
             src + r * stride + kc * 16 + (i / 2) * 8 + 2 * t));
       }
-      frag[kc][i] = pack(x.x * mult, x.y * mult);
+      fr.f[kc][i] = pack(x.x * mult, x.y * mult);
     }
   }
 }
 
-// Rows [row0, row0 + TILE) x HD columns of src into shared memory: `rm`
-// row-major [TILE][LDB], each value times `mult` and rounded to bf16, and
-// `tr` (when not null) transposed [HD][LDB], as is. Rows >= n_valid are
-// zeros. Lanes walk down the rows, so the transposed 2-byte stores of a
-// warp land on consecutive addresses.
+// Rows [row0, row0 + ROWS) x HD columns of src into shared memory: `rm`
+// row-major [ROWS][HD + 8], each value times `mult` and rounded to bf16,
+// and `tr` (when not null) transposed [HD][ROWS + 8], as is. Rows >=
+// n_valid are zeros. Lanes walk down the rows, so the transposed 2-byte
+// stores of a warp land on consecutive addresses.
+template <int HD, int ROWS>
 __device__ void stage_bf16(bf16* rm, bf16* tr, const bf16* src, long long stride, int row0,
-                      int n_valid, float mult) {
-  for (int e = threadIdx.x; e < TILE * (HD / 8); e += THREADS) {
-    const int r = e % TILE, c8 = e / TILE;
+                           int n_valid, float mult) {
+  constexpr int LDR = HD + 8, LDT = ROWS + 8;
+  for (int e = threadIdx.x; e < ROWS * (HD / 8); e += THREADS) {
+    const int r = e % ROWS, c8 = e / ROWS;
     uint4 x = make_uint4(0, 0, 0, 0);
     if (row0 + r < n_valid)
       x = *reinterpret_cast<const uint4*>(src + static_cast<long long>(row0 + r) * stride + c8 * 8);
@@ -311,40 +383,72 @@ __device__ void stage_bf16(bf16* rm, bf16* tr, const bf16* src, long long stride
         w[j] = pack(v.x * mult, v.y * mult);
       }
     }
-    *reinterpret_cast<uint4*>(rm + r * LDB + c8 * 8) = y;
+    *reinterpret_cast<uint4*>(rm + r * LDR + c8 * 8) = y;
     if (tr != nullptr) {
       const bf16* v = reinterpret_cast<const bf16*>(&x);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(c8 * 8 + j) * LDB + r] = v[j];
+      for (int j = 0; j < 8; ++j) tr[(c8 * 8 + j) * LDT + r] = v[j];
     }
   }
 }
 
-// acc[j] (8 groups of 8 columns) += A (16 x 64, registers) B, B's column
-// n of group j read from row j * 8 + g of `bs` (k = 64 along that row).
-__device__ __forceinline__ void mma_row(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16* bs, int g, int t) {
+// acc[j] (NG groups of 8 columns) += A (16 x KC * 16, from `a`) B, B's
+// column n of group j read from row j * 8 + n of `bs` (k along that row,
+// row stride ldb).
+template <int NG, int KC, typename Frags>
+__device__ __forceinline__ void mma_rows(float (&acc)[NG][4], const Frags& a, const bf16* bs,
+                                         int ldb, int g, int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const bf16* row = bs + (j * 8 + g) * LDB + 2 * t;
+  for (int kc = 0; kc < KC; ++kc) {
+    uint32_t f[4];
+    a(kc, f);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) mma(acc[j], a[kc], lds32(row + kc * 16), lds32(row + kc * 16 + 8));
+    for (int j = 0; j < NG; ++j) {
+      const bf16* row = bs + (j * 8 + g) * ldb + kc * 16 + 2 * t;
+      mma(acc[j], f, lds32(row), lds32(row + 8));
+    }
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+template <int NG>
+__device__ __forceinline__ void zero(float (&acc)[NG][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NG; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
 }
 
+// The block's resident A operand (OWN rows of src, times mult): register
+// fragments of the warp's 16 rows at head dim 64; at 128 all OWN rows
+// staged in `own` ([OWN][HD + 8]) and read a chunk at a time. The caller
+// synchronises the block before the first use of an operand staged in
+// shared memory.
+template <int HD>
+using Resident = std::conditional_t<Mma<HD>::kSmemA, SmemFrags, RegFrags<Mma<HD>::KC>>;
+
+template <int HD>
+__device__ __forceinline__ void load_resident(Resident<HD>& fr, bf16* own, const bf16* src,
+                                              long long stride, int block_row0, int n_valid,
+                                              float mult, int warp, int g, int t) {
+  using M = Mma<HD>;
+  if constexpr (M::kSmemA) {
+    stage_bf16<HD, M::OWN>(own, nullptr, src, stride, block_row0, n_valid, mult);
+    fr = SmemFrags{own + warp * 16 * M::LDR, M::LDR, g, t};
+  } else {
+    load_frags(fr, src, stride, block_row0 + warp * 16, n_valid, mult, g, t);
+  }
+}
+
 // Pass 1 (bf16): dq for 64 query rows, and delta for them.
+template <int HD>
 __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
-  __shared__ __align__(16) bf16 ks[TILE * LDB];  // K row-major: B of S = Q K^T
-  __shared__ __align__(16) bf16 kt[HD * LDB];    // K transposed: B of dQ = dS K
-  __shared__ __align__(16) bf16 vs[TILE * LDB];  // V row-major: B of dP = dO V^T
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  using M = Mma<HD>;
+  extern __shared__ __align__(16) char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // K row-major: B of S = Q K^T
+  bf16* vs = ks + M::WALK * M::LDR;          // V row-major: B of dP = dO V^T
+  bf16* kt = vs + M::WALK * M::LDR;          // K transposed: B of dQ = dS K
+  bf16* own = kt + HD * M::LDT;              // q and dO of the block's rows (kSmemA)
+  const int q0 = blockIdx.x * M::OWN, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int inner = a.heads * HD;
@@ -353,23 +457,26 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
   const bf16* out = static_cast<const bf16*>(a.out) + static_cast<long long>(b) * a.n_pad * inner;
   const bf16* dout = static_cast<const bf16*>(a.dout) + static_cast<long long>(b) * a.n_pad * inner;
   const long long stat = (static_cast<long long>(b) * a.heads + h) * a.n_pad;
-  const int r0 = q0 + warp * 16;
-  const int ra = r0 + g, rb = ra + 8;  // this thread's two rows
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;  // this thread's two rows
   const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
 
-  uint32_t qa[4][4], doa[4][4];
-  load_a(qa, qkv + h * HD, stride, r0, a.n_pad, a.scale_log2e, g, t);
-  load_a(doa, dout + h * HD, inner, r0, a.n_pad, 1.0f, g, t);
+  Resident<HD> qa, doa;
+  load_resident<HD>(qa, own, qkv + h * HD, stride, q0, a.n_pad, a.scale_log2e, warp, g, t);
+  load_resident<HD>(doa, own + M::OWN * M::LDR, dout + h * HD, inner, q0, a.n_pad, 1.0f, warp,
+                    g, t);
+  if constexpr (M::kSmemA) __syncthreads();
   float delta_a = 0.0f, delta_b = 0.0f;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+  for (int kc = 0; kc < M::KC; ++kc) {
+    uint32_t d4[4];
+    doa(kc, d4);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = i % 2 ? rb : ra;
       if (r >= a.n_pad) continue;
       const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           out + static_cast<long long>(r) * inner + h * HD + kc * 16 + (i / 2) * 8 + 2 * t));
-      const float2 d = unpack(doa[kc][i]);
+      const float2 d = unpack(d4[i]);
       (i % 2 ? delta_b : delta_a) += d.x * o.x + d.y * o.y;
     }
   }
@@ -385,22 +492,22 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
     if (rb < a.n_pad) a.delta[stat + rb] = delta_b;
   }
 
-  float dq[8][4];
+  float dq[M::OG][4];
   zero(dq);
-  for (int k0 = 0; k0 < a.n_true; k0 += TILE) {
+  for (int k0 = 0; k0 < a.n_true; k0 += M::WALK) {
     __syncthreads();  // every warp is done with the previous tile
-    stage_bf16(ks, kt, qkv + inner + h * HD, stride, k0, a.n_true, 1.0f);
-    stage_bf16(vs, nullptr, qkv + 2 * inner + h * HD, stride, k0, a.n_true, 1.0f);
+    stage_bf16<HD, M::WALK>(ks, kt, qkv + inner + h * HD, stride, k0, a.n_true, 1.0f);
+    stage_bf16<HD, M::WALK>(vs, nullptr, qkv + 2 * inner + h * HD, stride, k0, a.n_true, 1.0f);
     __syncthreads();
-    float s[8][4], dp[8][4];
+    float s[M::NG][4], dp[M::NG][4];
     zero(s);
     zero(dp);
-    mma_row(s, qa, ks, g, t);
-    mma_row(dp, doa, vs, g, t);
+    mma_rows<M::NG, M::KC>(s, qa, ks, M::LDR, g, t);
+    mma_rows<M::NG, M::KC>(dp, doa, vs, M::LDR, g, t);
     // dS = P (f dP - delta), P = exp2(S - lse); keys >= n_true drop out.
-    uint32_t dsa[4][4];
+    RegFrags<M::WC> dsa;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < M::NG; ++j) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -410,13 +517,13 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
         const float f = drop_factor(a, i < 2 ? ra : rb, key, salt);
         ds[i] = p * (f * dp[j][i] - (i < 2 ? delta_a : delta_b));
       }
-      dsa[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
+      dsa.f[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
+      dsa.f[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
     }
-    mma_row(dq, dsa, kt, g, t);
+    mma_rows<M::OG, M::WC>(dq, dsa, kt, M::LDT, g, t);
   }
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < M::OG; ++n) {
     const int c = h * HD + n * 8 + 2 * t;
     bf16* dst = static_cast<bf16*>(a.dqkv) + static_cast<long long>(b) * a.n_pad * stride + c;
     if (ra < a.n_pad)
@@ -427,13 +534,18 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
 }
 
 // Pass 2 (bf16): dk and dv for 64 keys, walking every query row < n_pad.
+template <int HD>
 __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
-  __shared__ __align__(16) bf16 qs[TILE * LDB];   // q * scale * log2(e): B of S^T = K Qs^T
-  __shared__ __align__(16) bf16 qt[HD * LDB];     // q transposed: B of dK = dS^T Q
-  __shared__ __align__(16) bf16 dos[TILE * LDB];  // dO row-major: B of dP^T = V dO^T
-  __shared__ __align__(16) bf16 dot[HD * LDB];    // dO transposed: B of dV = P^T dO
-  __shared__ float lse_s[TILE], delta_s[TILE];
-  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  using M = Mma<HD>;
+  extern __shared__ __align__(16) char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // q * scale * log2(e): B of S^T = K Qs^T
+  bf16* dos = qs + M::WALK * M::LDR;         // dO row-major: B of dP^T = V dO^T
+  bf16* qt = dos + M::WALK * M::LDR;         // q transposed: B of dK = dS^T Q
+  bf16* dot = qt + HD * M::LDT;              // dO transposed: B of dV = P^T dO
+  bf16* own = dot + HD * M::LDT;             // k and v of the block's keys (kSmemA)
+  float* lse_s = reinterpret_cast<float*>(reinterpret_cast<char*>(own) + M::kOwn);
+  float* delta_s = lse_s + M::WALK;
+  const int k0 = blockIdx.x * M::OWN, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int inner = a.heads * HD;
@@ -441,36 +553,36 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
   const bf16* qkv = static_cast<const bf16*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
   const bf16* dout = static_cast<const bf16*>(a.dout) + static_cast<long long>(b) * a.n_pad * inner;
   const long long stat = (static_cast<long long>(b) * a.heads + h) * a.n_pad;
-  const int r0 = k0 + warp * 16;
-  const int ka = r0 + g, kb = ka + 8;  // this thread's two keys
+  const int ka = k0 + warp * 16 + g, kb = ka + 8;  // this thread's two keys
   const bool live_a = ka < a.n_true, live_b = kb < a.n_true;
   const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
 
-  uint32_t kfa[4][4], vfa[4][4];
-  load_a(kfa, qkv + inner + h * HD, stride, r0, a.n_true, 1.0f, g, t);
-  load_a(vfa, qkv + 2 * inner + h * HD, stride, r0, a.n_true, 1.0f, g, t);
-  float dk[8][4], dv[8][4];
+  Resident<HD> kfa, vfa;
+  load_resident<HD>(kfa, own, qkv + inner + h * HD, stride, k0, a.n_true, 1.0f, warp, g, t);
+  load_resident<HD>(vfa, own + M::OWN * M::LDR, qkv + 2 * inner + h * HD, stride, k0, a.n_true,
+                    1.0f, warp, g, t);
+  float dk[M::OG][4], dv[M::OG][4];
   zero(dk);
   zero(dv);
-  for (int q0 = 0; q0 < a.n_pad; q0 += TILE) {
-    __syncthreads();
-    stage_bf16(qs, qt, qkv + h * HD, stride, q0, a.n_pad, a.scale_log2e);
-    stage_bf16(dos, dot, dout + h * HD, inner, q0, a.n_pad, 1.0f);
-    for (int e = threadIdx.x; e < TILE; e += THREADS) {
+  for (int q0 = 0; q0 < a.n_pad; q0 += M::WALK) {
+    __syncthreads();  // also orders the resident operands' staging (kSmemA)
+    stage_bf16<HD, M::WALK>(qs, qt, qkv + h * HD, stride, q0, a.n_pad, a.scale_log2e);
+    stage_bf16<HD, M::WALK>(dos, dot, dout + h * HD, inner, q0, a.n_pad, 1.0f);
+    for (int e = threadIdx.x; e < M::WALK; e += THREADS) {
       const bool in = q0 + e < a.n_pad;
       lse_s[e] = in ? a.lse[stat + q0 + e] : 0.0f;
       delta_s[e] = in ? a.delta[stat + q0 + e] : 0.0f;
     }
     __syncthreads();
-    float st[8][4], dpt[8][4];
+    float st[M::NG][4], dpt[M::NG][4];
     zero(st);
     zero(dpt);
-    mma_row(st, kfa, qs, g, t);
-    mma_row(dpt, vfa, dos, g, t);
+    mma_rows<M::NG, M::KC>(st, kfa, qs, M::LDR, g, t);
+    mma_rows<M::NG, M::KC>(dpt, vfa, dos, M::LDR, g, t);
     // (f P)^T and dS^T; query rows >= n_pad and keys >= n_true drop out.
-    uint32_t pa[4][4], dsa[4][4];
+    RegFrags<M::WC> pa, dsa;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < M::NG; ++j) {
       float p[4], ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -481,16 +593,16 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
         p[i] = f * pc;
         ds[i] = pc * (f * dpt[j][i] - delta_s[c]);
       }
-      pa[j / 2][(j % 2) * 2] = pack(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack(p[2], p[3]);
-      dsa[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
+      pa.f[j / 2][(j % 2) * 2] = pack(p[0], p[1]);
+      pa.f[j / 2][(j % 2) * 2 + 1] = pack(p[2], p[3]);
+      dsa.f[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
+      dsa.f[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
     }
-    mma_row(dv, pa, dot, g, t);
-    mma_row(dk, dsa, qt, g, t);
+    mma_rows<M::OG, M::WC>(dv, pa, dot, M::LDT, g, t);
+    mma_rows<M::OG, M::WC>(dk, dsa, qt, M::LDT, g, t);
   }
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < M::OG; ++n) {
     const int c = h * HD + n * 8 + 2 * t;
     bf16* dst = static_cast<bf16*>(a.dqkv) + static_cast<long long>(b) * a.n_pad * stride + c;
     if (ka < a.n_pad) {
@@ -506,53 +618,71 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
   }
 }
 
-template <typename T>
-int launch(const void* qkv, const void* out, const void* dout, const float* lse, float* delta,
-           void* dqkv, int B, int n_pad, int heads, int n_true, float scale, int seed,
-           int threshold, float drop_scale, void* stream) {
-  if (n_true < 1 || n_true > n_pad) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{qkv,   out,  dout, lse, delta, dqkv, n_pad, heads, n_true, scale * 1.4426950408889634f,
-         scale, static_cast<uint32_t>(seed), threshold, drop_scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_pad + TILE - 1) / TILE, heads, B);
-  cudaError_t err;
-  if constexpr (gaviko::is_bf16<T>()) {
-    mhsa_bwd_dq_mma<<<grid, THREADS, 0, s>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mhsa_bwd_dkdv_mma<<<grid, THREADS, 0, s>>>(a);
-  } else {
-    constexpr size_t smem_dq = 2 * static_cast<size_t>(TILE) * LD * sizeof(float);
-    constexpr size_t smem_dkdv = (3 * static_cast<size_t>(TILE) * LD + 2 * TILE) * sizeof(float);
-    err = gaviko::allow_smem(mhsa_bwd_dkdv_simt, smem_dkdv);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mhsa_bwd_dq_simt<<<grid, THREADS, smem_dq, s>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mhsa_bwd_dkdv_simt<<<grid, THREADS, smem_dkdv, s>>>(a);
-  }
+template <typename K>
+int run(K kernel, dim3 grid, size_t smem, cudaStream_t s, const Args& a) {
+  cudaError_t err = gaviko::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch(const Args& a, int B, cudaStream_t s) {
+  int err;
+  if constexpr (gaviko::is_bf16<T>()) {
+    using M = Mma<HD>;
+    const dim3 grid((a.n_pad + M::OWN - 1) / M::OWN, a.heads, B);
+    err = run(mhsa_bwd_dq_mma<HD>, grid, M::kSmemDq, s, a);
+    if (err != 0) return err;
+    return run(mhsa_bwd_dkdv_mma<HD>, grid, M::kSmemDkdv, s, a);
+  } else {
+    using S = Simt<HD>;
+    const dim3 grid((a.n_pad + S::ROWS - 1) / S::ROWS, a.heads, B);
+    err = run(mhsa_bwd_dq_simt<HD>, grid, S::kSmemDq, s, a);
+    if (err != 0) return err;
+    return run(mhsa_bwd_dkdv_simt<HD>, grid, S::kSmemDkdv, s, a);
+  }
+}
+
+template <typename T>
+int dispatch(const void* qkv, const void* out, const void* dout, const float* lse, float* delta,
+             void* dqkv, int B, int n_pad, int heads, int dim_head, int n_true, float scale,
+             int seed, int threshold, float drop_scale, void* stream) {
+  if (n_true < 1 || n_true > n_pad) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{qkv,   out,  dout, lse, delta, dqkv, n_pad, heads, n_true, scale * 1.4426950408889634f,
+               scale, static_cast<uint32_t>(seed), threshold, drop_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dim_head) {
+    case 64:
+      return launch<T, 64>(a, B, s);
+    case 128:
+      return launch<T, 128>(a, B, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// qkv [B, n_pad, 3 * heads * 64], out and dout [B, n_pad, heads * 64], all
-// contiguous and of one dtype; lse and delta (scratch) [B, heads, n_pad]
-// f32 -> dqkv [B, n_pad, 3 * heads * 64] in qkv's dtype. seed, threshold
-// and drop_scale are the forward's (threshold INT32_MIN: no dropout).
+// qkv [B, n_pad, 3 * heads * dim_head], out and dout [B, n_pad, heads *
+// dim_head], all contiguous and of one dtype, dim_head 64 or 128; lse and
+// delta (scratch) [B, heads, n_pad] f32 -> dqkv [B, n_pad, 3 * heads *
+// dim_head] in qkv's dtype. seed, threshold and drop_scale are the
+// forward's (threshold INT32_MIN: no dropout).
 extern "C" int gaviko_fused_mhsa_bwd_bf16(const void* qkv, const void* out, const void* dout,
                                           const float* lse, float* delta, void* dqkv, int B,
-                                          int n_pad, int heads, int n_true, float scale,
-                                          int seed, int threshold, float drop_scale,
-                                          void* stream) {
-  return launch<__nv_bfloat16>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, n_true, scale,
-                               seed, threshold, drop_scale, stream);
+                                          int n_pad, int heads, int dim_head, int n_true,
+                                          float scale, int seed, int threshold,
+                                          float drop_scale, void* stream) {
+  return dispatch<__nv_bfloat16>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, dim_head,
+                                 n_true, scale, seed, threshold, drop_scale, stream);
 }
 
 extern "C" int gaviko_fused_mhsa_bwd_f32(const void* qkv, const void* out, const void* dout,
                                          const float* lse, float* delta, void* dqkv, int B,
-                                         int n_pad, int heads, int n_true, float scale, int seed,
-                                         int threshold, float drop_scale, void* stream) {
-  return launch<float>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, n_true, scale, seed,
-                       threshold, drop_scale, stream);
+                                         int n_pad, int heads, int dim_head, int n_true,
+                                         float scale, int seed, int threshold, float drop_scale,
+                                         void* stream) {
+  return dispatch<float>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads, dim_head, n_true,
+                         scale, seed, threshold, drop_scale, stream);
 }

@@ -1,15 +1,21 @@
 """Multi-head self-attention dispatch for the 3D ViT token stream.
 
-Port of ``gaviko_tpu/ops/attention.py``. The device picks the path, not an
-option: a CUDA tensor goes to the fused MHSA kernels, a CPU tensor to their
-plain versions. On CUDA a shape the kernels do not take raises: the JAX
-package sends those (odd head counts such as vit-t16's) to
-``flash_attention``, which is not ported yet (ROADMAP Queue B).
+Port of ``gaviko_tpu/ops/attention.py``, on the routes the JAX package takes
+on its TPU. The device picks kernel or plain version, not an option: a CUDA
+tensor launches the kernels, a CPU tensor runs their plain versions.
 
-- :func:`self_attention` takes a packed qkv and needs no gradient (eval);
-- :func:`self_attention_train` takes the LN output and the qkv weight and is
-  differentiable, with dropout: the projection and the attention run under
-  ``mhsa_qkv_proj``, whose backward is the fused MHSA backward kernel.
+- Where ``fused_mhsa_supported`` holds, the fused MHSA kernels read the
+  packed qkv (dropout inside them, one seed);
+- elsewhere (odd head counts such as vit-t16's, N > 2048) heads are split,
+  the rows sliced to ``n_true`` and :func:`multi_head_attention` runs: the
+  flash attention kernel (B10) at eval and in dropout-free training, and
+  :func:`_xla_attention`, plain PyTorch on both devices, when dropout is on
+  (``layers.dropout`` on the flattened probabilities, as the JAX package
+  runs XLA there); the output is padded back with zero rows.
+
+:func:`self_attention` takes a packed qkv and needs no gradient (eval);
+:func:`self_attention_train` takes the LN output and the qkv weight and is
+differentiable, with dropout drawn from a seed stream.
 """
 
 from __future__ import annotations
@@ -19,46 +25,78 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.core.layers import SeedStream, dropout
 from gaviko_tpu_torch.ops.flash_attention import (
+    _split_heads,
+    flash_attention,
     fused_mhsa,
     fused_mhsa_supported,
     mhsa_qkv_proj,
-    mhsa_reference,
 )
 
 
-def _unsupported(heads: int, dim_head: int, n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"heads={heads}, dim_head={dim_head}, N={n} needs the flash_attention "
-        "kernel, which is not ported yet (ROADMAP Queue B)")
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float, dropout_rate: float = 0.0,
+                         dropout_enabled: bool = False,
+                         seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """q, k, v: [B, H, N, Dh] -> [B, H, N, Dh]."""
+    if dropout_enabled and dropout_rate > 0.0:
+        return _xla_attention(q, k, v, scale=scale, dropout_rate=dropout_rate,
+                              dropout_enabled=True, seeds=seeds)
+    return flash_attention(q, k, v, scale)
+
+
+def _xla_attention(q, k, v, *, scale, dropout_rate, dropout_enabled, seeds):
+    dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    attn = torch.softmax(dots, dim=-1).to(v.dtype)
+    attn = dropout(attn, dropout_rate, dropout_enabled, seeds)
+    return torch.matmul(attn, v)
+
+
+def _unfused(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_true: int,
+             dropout_rate: float, seeds: Optional[SeedStream]) -> torch.Tensor:
+    """Split heads, slice the rows to n_true (the dropout mask's coordinates
+    depend on it), attend, merge heads and pad back with zero rows."""
+    B, N, _ = qkv.shape
+    q, k, v = (t[:, :, :n_true] for t in _split_heads(qkv, heads, dim_head))
+    out = multi_head_attention(q, k, v, scale=scale, dropout_rate=dropout_rate,
+                               dropout_enabled=dropout_rate > 0.0, seeds=seeds)
+    out = out.transpose(1, 2).reshape(B, n_true, heads * dim_head)
+    return F.pad(out, (0, 0, 0, N - n_true)) if n_true != N else out
 
 
 def self_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
                    n_true: int) -> torch.Tensor:
     """Packed qkv [B, N_pad, 3*heads*dim_head] -> [B, N_pad, heads*dim_head],
     keys >= n_true masked (eval: no dropout)."""
-    if not _build.use_kernel(qkv):
-        return mhsa_reference(qkv, heads, dim_head, scale, n_true)
-    if not fused_mhsa_supported(heads, dim_head, qkv.shape[1]):
-        raise _unsupported(heads, dim_head, qkv.shape[1])
-    return fused_mhsa(qkv, heads, dim_head, scale, n_true)
+    if fused_mhsa_supported(heads, dim_head, qkv.shape[1]):
+        return fused_mhsa(qkv, heads, dim_head, scale, n_true)
+    return _unfused(qkv, heads, dim_head, scale, n_true, 0.0, None)
 
 
 def self_attention_train(h: torch.Tensor, w: torch.Tensor, heads: int,
                          dim_head: int, scale: float, n_true: int,
-                         dropout_rate: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
-    """LN output h [B, N_pad, dim] and qkv weight w [3*inner, dim] ->
-    attention output [B, N_pad, inner], differentiable in h and w, with
-    dropout on the probabilities (``seed``, the MHSA kernels' mask).
+                         dropout_rate: float = 0.0,
+                         seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """LN output h [B, N, dim] and qkv weight w [3*inner, dim] -> attention
+    output [B, N, inner], differentiable in h and w, with dropout on the
+    probabilities (one seed from ``seeds`` at rate > 0).
 
-    As in the JAX package, a stream whose length is a multiple of 8 goes
-    through ``mhsa_qkv_proj``. Any other length takes the plain version on
-    the CPU (at rate 0: the JAX package drops elsewhere there) and raises on
-    CUDA, as does a shape the kernels do not take."""
+    As in the JAX package: on the fused route a stream whose length is a
+    multiple of 8 goes through ``mhsa_qkv_proj``; any other length is padded
+    to one, runs ``fused_mhsa`` on the packed qkv (its backward is kernel B)
+    and is sliced back."""
     n = h.shape[1]
-    if fused_mhsa_supported(heads, dim_head, n) and n % 8 == 0:
+    if not fused_mhsa_supported(heads, dim_head, n):
+        return _unfused(F.linear(h, w), heads, dim_head, scale, n_true, dropout_rate, seeds)
+    seed = None
+    if dropout_rate > 0.0:
+        if seeds is None:
+            raise ValueError("dropout requested but no seed stream was given")
+        seed = seeds.next_seed()
+    pad = (-n) % 8
+    if pad == 0:
         return mhsa_qkv_proj(h, w, heads, dim_head, scale, n_true, dropout_rate, seed)
-    if _build.use_kernel(h) or dropout_rate > 0.0:
-        raise _unsupported(heads, dim_head, n)
-    return mhsa_reference(F.linear(h, w), heads, dim_head, scale, n_true)
+    qkv = F.pad(F.linear(h, w), (0, 0, 0, pad))
+    return fused_mhsa(qkv, heads, dim_head, scale, n_true, dropout_rate,
+                      seed=0 if seed is None else seed)[:, :n]

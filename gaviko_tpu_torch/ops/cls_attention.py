@@ -21,10 +21,10 @@ import torch
 from gaviko_tpu_torch.ops import _build
 
 _HP = 128  # the JAX kernel's padded head count
-KERNEL_DIM_HEAD = 64  # head dim the kernel is compiled for
+KERNEL_DIM_HEADS = (64, 128)  # head dims the kernel is compiled for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P, _P, _P) + (_I,) * 4 + (_F, _P)
+_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_F, _P)
 
 
 def cls_attention_supported(heads: int, dim_head: int, n: int,
@@ -64,11 +64,13 @@ def cls_attention(kv: torch.Tensor, q0: torch.Tensor, heads: int, dim_head: int,
                        "takes cls_attend's differentiable form", kv, q0)
     B, N, two_inner = kv.shape
     inner = heads * dim_head
-    if dim_head != KERNEL_DIM_HEAD or two_inner != 2 * inner:
+    if dim_head not in KERNEL_DIM_HEADS:
         raise NotImplementedError(
-            f"cls_attention kernel takes dim_head {KERNEL_DIM_HEAD} and a packed "
-            f"(B, N, 2*heads*dim_head) kv; got {tuple(kv.shape)}, heads={heads}, "
-            f"dim_head={dim_head}")
+            f"cls_attention kernel is compiled for dim_head in {KERNEL_DIM_HEADS}, got "
+            f"{dim_head} (ROADMAP Queue C item 4)")
+    if two_inner != 2 * inner:
+        raise ValueError(f"cls_attention takes a packed (B, N, 2*heads*dim_head) kv; got "
+                         f"{tuple(kv.shape)}, heads={heads}, dim_head={dim_head}")
     if tuple(q0.shape) != (B, inner):
         raise ValueError(f"q0 must be {(B, inner)}, got {tuple(q0.shape)}")
     if not 1 <= n_true <= N:
@@ -77,7 +79,7 @@ def cls_attention(kv: torch.Tensor, q0: torch.Tensor, heads: int, dim_head: int,
     out = torch.empty((B, inner), device=kv.device, dtype=kv.dtype)
     _build.launch(
         "cls_attention", f"gaviko_cls_attention_{_build.dtype_suffix(kv)}", _ARGTYPES,
-        kv.data_ptr(), q0.data_ptr(), out.data_ptr(), B, N, heads, n_true, scale,
+        kv.data_ptr(), q0.data_ptr(), out.data_ptr(), B, N, heads, dim_head, n_true, scale,
         _build.stream_of(kv))
     cls_attention.launches += 1
     return out

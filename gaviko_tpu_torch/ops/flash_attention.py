@@ -1,21 +1,31 @@
-"""Fused MHSA and GAViKO's masked local attention, forward and backward.
+"""Attention kernels: plain flash attention, the fused MHSA and GAViKO's
+masked local attention, forward and backward.
 
-Port of ``gaviko_tpu/ops/flash_attention.py``. Four CUDA kernels:
+Port of ``gaviko_tpu/ops/flash_attention.py``. Five CUDA kernels:
 
-- ``fused_mhsa`` (``csrc/fused_mhsa.cu``): MHSA forward reading the packed
-  qkv projection in place, optionally writing the per-row statistic
-  ``lse = m + log2(l)`` the backward needs;
-- ``fused_mhsa_bwd`` (``csrc/fused_mhsa_bwd.cu``): its backward, dq, dk and
-  dv into one packed ``[B, N, 3 * inner]`` buffer;
+- ``flash_attention`` (``csrc/flash_attention.cu``, B10): softmax(q k^T
+  scale) v on [B, H, N, D], the route where the fused MHSA's gate is false;
+  its backward is a rematerialised VJP of the plain version, as in the JAX
+  package;
+- ``fused_mhsa`` (``csrc/fused_mhsa.cu``, A): MHSA forward reading the
+  packed qkv projection in place, optionally writing the per-row statistic
+  ``lse = m + log2(l)`` the backward needs; differentiable on the packed
+  qkv, its backward being kernel B;
+- ``fused_mhsa_bwd`` (``csrc/fused_mhsa_bwd.cu``, B): its backward, dq, dk
+  and dv into one packed ``[B, N, 3 * inner]`` buffer;
 - ``flash_local_attention``'s forward (``csrc/local_attention.cu``): the 3-D
   window attention of the latent stream with hash dropout, writing ``lse``;
 - ``local_attention_bwd`` (``csrc/local_attention_bwd.cu``): its backward.
 
 ``mhsa_qkv_proj`` and ``flash_local_attention`` are autograd functions whose
-forward and backward are those kernels. ``mhsa_reference``,
-``mhsa_bwd_reference``, ``local_reference`` and ``local_bwd_reference`` are
-the plain PyTorch versions, run on CPU tensors and inside
-``_build.plain_versions()``.
+forward and backward are those kernels. ``flash_attention_reference``,
+``mhsa_reference``, ``mhsa_bwd_reference``, ``local_reference`` and
+``local_bwd_reference`` are the plain PyTorch versions, run on CPU tensors
+and inside ``_build.plain_versions()``.
+
+A and B are compiled for head dims 64 and 128, B10 for 32, 64 and 128; the
+JAX package's fused gate also admits 192 and 256, which raise here (ROADMAP
+Queue C item 4).
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
 row within the padded stream, key column) in plane ``salt = b * heads +
@@ -41,19 +51,25 @@ from gaviko_tpu_torch.ops.local_attention import local_mask_additive
 NEG_INF = float("-inf")
 LOG2E = math.log2(math.e)
 WHOLE_K_MAX = 2048
-KERNEL_DIM_HEAD = 64  # head dim the MHSA kernels are compiled for
+MHSA_DIM_HEADS = (64, 128)  # head dims kernels A and B are compiled for
+FLASH_DIM_HEADS = (32, 64, 128)  # head dims kernel B10 is compiled for
 MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
-_MHSA_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _F) + _DROP + (_P,)
-_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_F,) + _DROP + (_P,)
+_MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_FLASH_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P, _F, _P)
 _LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P)
 _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
 _LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
 
-_FUSED_MHSA_BWD = ("ROADMAP Queue B item 3: the VJP of fused_mhsa on a given "
-                   "packed qkv; training goes through mhsa_qkv_proj")
+
+def _check_dim_head(name: str, dim_head: int, compiled) -> None:
+    if dim_head not in compiled:
+        raise NotImplementedError(
+            f"{name} kernel is compiled for dim_head in {compiled}, got {dim_head} "
+            "(ROADMAP Queue C item 4)")
 
 
 def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
@@ -66,10 +82,9 @@ def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Te
 
 
 def fused_mhsa_supported(heads: int, dim_head: int, N: int) -> bool:
-    """The JAX package's gate (even heads, 128-lane head pairs, whole-K
-    length), with the head dim the kernel is compiled for."""
-    return (heads % 2 == 0 and (2 * dim_head) % 128 == 0 and N <= WHOLE_K_MAX
-            and dim_head == KERNEL_DIM_HEAD)
+    """The JAX package's gate: even heads, 128-lane head pairs, whole-K
+    length. It admits head dims 192 and 256, which the kernels raise on."""
+    return heads % 2 == 0 and (2 * dim_head) % 128 == 0 and N <= WHOLE_K_MAX
 
 
 def _heads(t: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
@@ -98,6 +113,85 @@ def _mhsa_scores(q, k, scale, n_true):
     return s
 
 
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """q, k, v [B, H, N, D] -> [B, H, N, D]: f32 scores, softmax over every
+    key, the probabilities rounded to v's dtype, then the PV product in v's
+    dtype (the JAX package's ``flash_attention`` reference and VJP)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+
+
+def _flash_strides(name: str, t: torch.Tensor):
+    """(batch, head, row) strides of a [B, H, N, D] operand the kernel can
+    read: unit column stride, 16-byte rows and planes."""
+    sb, sh, sn, sd = t.stride()
+    if sd != 1 or any(x % 8 for x in (sb, sh, sn)) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: flash_attention takes unit column stride, strides "
+                         f"that are multiples of 8 and 16-byte aligned data; got "
+                         f"strides {t.stride()}")
+    return sb, sh, sn
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Kernel B10 on CUDA, :func:`flash_attention_reference` on the CPU; no
+    autograd. The kernel writes o in [B, N, H, D] memory and returns it as a
+    [B, H, N, D] view, so merging the heads is no copy."""
+    if not _build.use_kernel(q):
+        return flash_attention_reference(q, k, v, scale)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be one [B, H, N, D] shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, N, D = q.shape
+    _check_dim_head("flash_attention", D, FLASH_DIM_HEADS)
+    dtype = _build.dtype_suffix(q)
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("q, k, v must share device and dtype")
+    o = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *_flash_strides("q", q), *_flash_strides("k", k), *_flash_strides("v", v),
+        *o.stride()[:3])
+    _build.launch("flash_attention", f"gaviko_flash_attention_{dtype}", _FLASH_ARGTYPES,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, N, D,
+                  strides, scale, _build.stream_of(q))
+    flash_attention.launches += 1
+    return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel B10 forward; the backward rematerialises the plain version and
+    takes its VJP, the JAX package's ``_flash_bwd`` (an XLA VJP there, plain
+    PyTorch on either device here)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_reference(*leaves, ctx.scale)
+        return (*torch.autograd.grad(out, leaves, g), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Same contract as :func:`flash_attention_reference`; kernel B10 on
+    CUDA (q, k, v may be strided head views of a packed projection),
+    differentiable through the rematerialised plain version."""
+    if not _build.needs_grad(q, k, v):
+        return _flash_forward(q, k, v, scale)
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+flash_attention.launches = 0
+
+
 def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
                    n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
                    seed: int = 0):
@@ -118,24 +212,18 @@ def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     return o, torch.logsumexp(s, dim=-1) * LOG2E
 
 
-def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-               n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
-               seed: int = 0):
-    """Same contract as :func:`mhsa_reference`; kernel A on CUDA. Rows
-    >= n_true are padding: their outputs are garbage by contract. On the
-    card the output has no backward: a call that needs a gradient raises
-    (train through :func:`mhsa_qkv_proj`)."""
+def _mhsa_forward(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
+                  n_true: int, dropout_rate: float, with_lse: bool, seed: int):
+    """Kernel A on CUDA, :func:`mhsa_reference` on the CPU; no autograd."""
     drop = dropout_args(dropout_rate, seed)
     if not _build.use_kernel(qkv):
         return mhsa_reference(qkv, heads, dim_head, scale, n_true, dropout_rate,
                               with_lse=with_lse, seed=seed)
-    _build.refuse_grad("fused_mhsa", _FUSED_MHSA_BWD, qkv)
     B, n_pad, three_inner = qkv.shape
-    if dim_head != KERNEL_DIM_HEAD or three_inner != 3 * heads * dim_head:
-        raise NotImplementedError(
-            f"fused_mhsa kernel takes dim_head {KERNEL_DIM_HEAD} and a packed "
-            f"[B, N, 3*heads*dim_head] qkv; got {tuple(qkv.shape)}, "
-            f"heads={heads}, dim_head={dim_head}")
+    _check_dim_head("fused_mhsa", dim_head, MHSA_DIM_HEADS)
+    if three_inner != 3 * heads * dim_head:
+        raise ValueError(f"fused_mhsa takes a packed [B, N, 3*heads*dim_head] qkv; got "
+                         f"{tuple(qkv.shape)}, heads={heads}, dim_head={dim_head}")
     if not 1 <= n_true <= n_pad:
         raise ValueError(f"n_true {n_true} outside [1, {n_pad}]")
     _build.check_cuda("fused_mhsa", qkv)
@@ -146,9 +234,47 @@ def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     _build.launch(
         "fused_mhsa", f"gaviko_fused_mhsa_{_build.dtype_suffix(qkv)}",
         _MHSA_ARGTYPES, qkv.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, n_pad, heads, n_true, scale,
-        *drop, _build.stream_of(qkv))
+        None if lse is None else lse.data_ptr(), B, n_pad, heads, dim_head, n_true,
+        scale, *drop, _build.stream_of(qkv))
     fused_mhsa.launches += 1
+    return (out, lse) if with_lse else out
+
+
+class _FusedMhsa(torch.autograd.Function):
+    """The VJP of ``fused_mhsa`` on a given packed qkv, as the JAX package's
+    custom VJP: kernel A with lse forward, kernel B (the dropout mask
+    replayed from the seed) backward, returning the packed dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head, scale, n_true, dropout_rate, seed):
+        out, lse = _mhsa_forward(qkv, heads, dim_head, scale, n_true, dropout_rate,
+                                 True, seed)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.cfg = (heads, dim_head, scale, n_true, dropout_rate, seed)
+        ctx.plain = _build.plain_active()
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _):
+        qkv, out, lse = ctx.saved_tensors
+        with _build.plain_versions(ctx.plain):
+            dqkv = fused_mhsa_bwd(qkv, out, lse, g, *ctx.cfg)
+        return dqkv, None, None, None, None, None, None
+
+
+def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
+               n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
+               seed: int = 0):
+    """Same contract as :func:`mhsa_reference`; kernel A on CUDA. Rows
+    >= n_true are padding: their outputs are garbage by contract. When qkv
+    needs a gradient the output's backward is kernel B (the lse is not
+    differentiable)."""
+    if not _build.needs_grad(qkv):
+        return _mhsa_forward(qkv, heads, dim_head, scale, n_true, dropout_rate,
+                             with_lse, seed)
+    out, lse = _FusedMhsa.apply(qkv, heads, dim_head, scale, n_true,
+                                float(dropout_rate), int(seed))
     return (out, lse) if with_lse else out
 
 
@@ -188,10 +314,10 @@ def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                                   dropout_rate, seed)
     B, n_pad, three_inner = qkv.shape
     inner = heads * dim_head
-    if dim_head != KERNEL_DIM_HEAD or three_inner != 3 * inner:
-        raise NotImplementedError(
-            f"fused_mhsa_bwd kernel takes dim_head {KERNEL_DIM_HEAD} and a "
-            f"packed qkv; got {tuple(qkv.shape)}, heads={heads}, dim_head={dim_head}")
+    _check_dim_head("fused_mhsa_bwd", dim_head, MHSA_DIM_HEADS)
+    if three_inner != 3 * inner:
+        raise ValueError(f"fused_mhsa_bwd takes a packed qkv; got {tuple(qkv.shape)}, "
+                         f"heads={heads}, dim_head={dim_head}")
     if not 1 <= n_true <= n_pad:
         raise ValueError(f"n_true {n_true} outside [1, {n_pad}]")
     dout = dout.contiguous()
@@ -207,7 +333,7 @@ def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         "fused_mhsa_bwd", f"gaviko_fused_mhsa_bwd_{_build.dtype_suffix(qkv)}",
         _MHSA_BWD_ARGTYPES, qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, n_pad, heads,
-        n_true, scale, *drop, _build.stream_of(qkv))
+        dim_head, n_true, scale, *drop, _build.stream_of(qkv))
     fused_mhsa_bwd.launches += 1
     return dqkv
 

@@ -31,9 +31,9 @@ from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.cls_attention import cls_attention, cls_attention_reference
 from gaviko_tpu_torch.ops.flash_attention import (
-    flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd,
-    local_bwd_reference, local_reference, mhsa_bwd_reference, mhsa_qkv_proj,
-    mhsa_reference)
+    _split_heads, flash_attention, flash_attention_reference, flash_local_attention,
+    fused_mhsa, fused_mhsa_bwd, local_attention_bwd, local_bwd_reference, local_reference,
+    mhsa_bwd_reference, mhsa_qkv_proj, mhsa_reference)
 from gaviko_tpu_torch.ops.fused_mlp import (
     fused_mlp, fused_mlp_bwd, fused_mlp_forward, mlp_bwd_reference, mlp_reference)
 from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_reference
@@ -225,10 +225,14 @@ def test_local_attention_dropout_and_backward_kernels(dev, dtype, rate, DHW, loc
 
 def test_wrappers_without_a_backward_kernel_refuse_a_gradient(dev):
     """The forward kernel wrappers whose outputs have no backward refuse a
-    gradient; their differentiable entry points take one."""
+    gradient; their differentiable entry points take one. ``fused_mhsa`` on
+    a packed qkv that needs a gradient launches kernel A and its backward
+    runs kernel B (the name dates from when it refused)."""
     qkv = torch.zeros(1, 8, 3 * 2 * 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_mhsa(qkv, 2, 64, 0.125, 8)
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    fused_mhsa(qkv, 2, 64, 0.125, 8).sum().backward()
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert qkv.grad is not None and torch.isfinite(qkv.grad).all()
     w = torch.zeros(8, 1, 2, 4, 4, device=dev, requires_grad=True)
     img = torch.zeros(1, 1, 4, 8, 8, device=dev)
     with pytest.raises(NotImplementedError, match="through patchify_fused"):
@@ -562,3 +566,151 @@ def test_vit_b16_train_step_runs_the_backward_kernels(dev, dtype):
     assert [w.launches for w in wrappers] == counts
     assert torch.isfinite(got).all()
     assert _rel_mae(got, want) <= {torch.float32: 1e-4, torch.bfloat16: 5e-2}[dtype]
+
+
+# ----------------------- flash attention (B10) and head dim 128 (A, B, B8) ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,N,D", [
+    (8, 3, 1001, 64), (1, 1, 2353, 32), (2, 2, 130, 128), (3, 1, 1, 64), (2, 3, 77, 32),
+])
+def test_flash_attention_kernel(dev, dtype, B, H, N, D):
+    """B10 against its plain version: vit-t16's serving shape, a stream
+    longer than 2048, head dims 32 and 128, one row, tiles cut by N."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (_randn(gen, B, H, N, D, dtype=dtype) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, D ** -0.5)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert _rel_mae(got, flash_attention_reference(q, k, v, D ** -0.5)) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_packed_heads_and_takes_a_gradient(dev, dtype):
+    """B10 on the head views of a packed qkv sliced to n_true rows (no
+    copy), and its gradient: the rematerialised plain version's VJP."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    B, n_pad, n_true, H, D = 2, 48, 45, 3, 64
+    qkv = _randn(gen, B, n_pad, 3 * H * D, dtype=dtype).requires_grad_(True)
+    g = _randn(gen, B, H, n_true, D, dtype=dtype)
+
+    def grads():
+        q, k, v = (t[:, :, :n_true] for t in _split_heads(qkv, H, D))
+        out = flash_attention(q, k, v, 0.125)
+        (dqkv,) = torch.autograd.grad(out, qkv, g)
+        return out, dqkv
+
+    before = flash_attention.launches
+    out, dqkv = grads()
+    assert flash_attention.launches == before + 1
+    with _build.plain_versions():
+        want, want_d = grads()
+    assert _rel_mae(out, want) <= BUDGET[dtype]
+    assert _rel_mae(dqkv, want_d) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,n_pad,n_true,rate", [
+    (2, 12, 136, 130, 0.0), (1, 2, 64, 64, 0.1), (3, 2, 40, 1, 0.0), (2, 4, 72, 65, 0.1),
+])
+def test_fused_mhsa_kernels_at_head_dim_128(dev, dtype, B, H, n_pad, n_true, rate):
+    """Kernels A (output and lse) and B at head dim 128 against their plain
+    versions, dropout on and off."""
+    D, seed = 128, 4242
+    gen = torch.Generator(device=dev).manual_seed(15)
+    qkv = _randn(gen, B, n_pad, 3 * H * D, dtype=dtype)
+    dout = _randn(gen, B, n_pad, H * D, dtype=dtype)
+    dout[:, n_true:] = 0
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    out, lse = fused_mhsa(qkv, H, D, D ** -0.5, n_true, rate, with_lse=True, seed=seed)
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, D, D ** -0.5, n_true, rate, seed)
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want, want_lse = mhsa_reference(qkv, H, D, D ** -0.5, n_true, rate, with_lse=True,
+                                    seed=seed)
+    assert _rel_mae(out[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
+    assert float((lse - want_lse).abs().max()) <= (1e-4 if dtype == torch.float32 else 0.1)
+    dwant = mhsa_bwd_reference(qkv, out, lse, dout, H, D, D ** -0.5, n_true, rate, seed)
+    assert torch.isfinite(dqkv).all()
+    assert torch.all(dqkv[:, n_true:] == 0)
+    assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,n_true", [(8, 1008, 12, 1001), (3, 40, 2, 1), (2, 64, 4, 57)])
+def test_cls_attention_kernel_at_head_dim_128(dev, dtype, B, N, H, n_true):
+    gen = torch.Generator(device=dev).manual_seed(16)
+    kv = _randn(gen, B, N, 2 * H * 128, dtype=dtype)
+    q0 = _randn(gen, B, H * 128, dtype=dtype)
+    before = cls_attention.launches
+    got = cls_attention(kv, q0, H, 128, 128 ** -0.5, n_true)
+    assert cls_attention.launches == before + 1
+    want = cls_attention_reference(kv, q0, H, 128, 128 ** -0.5, n_true)
+    assert torch.isfinite(got).all() and _rel_mae(got, want) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_pad", [40, 37])
+def test_fused_mhsa_packed_qkv_vjp_runs_kernels_a_and_b(dev, dtype, n_pad):
+    """The gradient of fused_mhsa on a packed qkv (head dims 64 and 128,
+    dropout 0.1; 37 rows is the length a training stream pads from) is
+    kernel B's, against the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for D in (64, 128):
+        qkv = _randn(gen, 2, n_pad, 3 * 2 * D, dtype=dtype).requires_grad_(True)
+        g = _randn(gen, 2, n_pad, 2 * D, dtype=dtype)
+        before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+        (got,) = torch.autograd.grad(fused_mhsa(qkv, 2, D, D ** -0.5, 35, 0.1, seed=8), qkv, g)
+        assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+        with _build.plain_versions():
+            (want,) = torch.autograd.grad(fused_mhsa(qkv, 2, D, D ** -0.5, 35, 0.1, seed=8),
+                                          qkv, g)
+        assert _rel_mae(got, want) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("backbone,dim_head,heads", [("vit-t16", 64, 3), ("vit-s16", 128, 2)])
+def test_vit_t16_and_dim_head_128_forward_and_step_run_the_kernels(dev, backbone, dim_head,
+                                                                    heads):
+    """vit-t16 (3 heads: B10 in every full layer) and a dim_head-128 ViT (A
+    and B at 128, B8 at 128 in the last layer) in bf16: the serving
+    forward's launches and logits, and one train step's gradients with
+    dropout 0.1, against the plain versions."""
+    import dataclasses
+
+    cfg = dict(image_size=32, image_patch_size=16, frames=24, frame_patch_size=12,
+               num_classes=5, channels=1, pool="cls", backbone=backbone, method="fft",
+               dim_head=dim_head, dropout=0.1, emb_dropout=0.1)
+    model = build_model(cfg)
+    spec = dataclasses.replace(model.spec, heads=heads, depth=3)
+    params = {k: v.to(dev, torch.bfloat16) for k, v in
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+    x = torch.rand(2, 1, 24, 32, 32, generator=torch.Generator().manual_seed(1)).to(
+        dev, torch.bfloat16)
+    wrappers = (flash_attention, fused_mhsa, fused_mhsa_bwd, cls_attention)
+    for w in wrappers:
+        w.launches = 0
+    with torch.inference_mode():
+        got = model.apply(params, x, spec)
+        counts = [w.launches for w in wrappers]
+        with _build.plain_versions():
+            want = model.apply(params, x, spec)
+    t16 = backbone == "vit-t16"
+    assert counts == ([2, 0, 0, 0] if t16 else [0, 2, 0, 1])
+    assert _rel_mae(got, want) <= 2e-2
+
+    def grads():
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        out = model.apply(p, x, spec, train=True, seeds=SeedStream(range(1, 64)))
+        return torch.cat([g.float().flatten() for g in
+                          torch.autograd.grad(out.float().square().sum(), list(p.values()))])
+
+    for w in wrappers:
+        w.launches = 0
+    got = grads()
+    counts = [w.launches for w in wrappers]
+    with _build.plain_versions():
+        want = grads()
+    assert counts == ([0, 0, 0, 0] if t16 else [0, 2, 2, 0])  # vit-t16: dropout's route
+    assert torch.isfinite(got).all()
+    assert torch.nn.functional.cosine_similarity(got, want, dim=0) >= 0.99

@@ -77,24 +77,33 @@ def test_mhsa_reference_matches_jax_fused_mhsa():
 
 
 def test_self_attention_dispatch_on_cpu():
+    """Odd heads fail the fused gate: as in the JAX package the rows are
+    sliced to n_true, attention runs on [B, H, n_true, D] (the flash
+    attention kernel's plain version on the CPU) and the output is padded
+    back with zero rows. fused_mhsa on the CPU is its plain version."""
     B, H, D, n_pad, n_true = 2, 3, 64, 40, 37  # odd heads: the kernel's gate refuses
     qkv = torch.from_numpy(_qkv(B, H, D, n_pad, seed=1))
     assert not tfa.fused_mhsa_supported(H, D, n_pad)
-    want = tfa.mhsa_reference(qkv, H, D, 0.125, n_true)
-    torch.testing.assert_close(tattn.self_attention(qkv, H, D, 0.125, n_true), want,
+    q, k, v = (t[:, :, :n_true] for t in tfa._split_heads(qkv, H, D))
+    rows = tfa.flash_attention_reference(q, k, v, 0.125).transpose(1, 2)
+    got = tattn.self_attention(qkv, H, D, 0.125, n_true)
+    torch.testing.assert_close(got[:, :n_true], rows.reshape(B, n_true, H * D),
                                rtol=0, atol=0)
+    assert torch.all(got[:, n_true:] == 0)
+    want = tfa.mhsa_reference(qkv, H, D, 0.125, n_true)
+    torch.testing.assert_close(got[:, :n_true], want[:, :n_true], rtol=0, atol=1e-6)
     torch.testing.assert_close(tfa.fused_mhsa(qkv, H, D, 0.125, n_true), want,
                                rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("heads,dim_head,n,ok", [
     (16, 64, 1040, True), (6, 64, 1040, True), (3, 64, 1040, False),
-    (4, 32, 64, False), (4, 64, 4096, False),
+    (4, 32, 64, False), (4, 64, 4096, False), (12, 128, 1008, True),
 ])
 def test_fused_mhsa_supported(heads, dim_head, n, ok):
+    """The port's gate is the JAX package's, head dim 128 included."""
     assert tfa.fused_mhsa_supported(heads, dim_head, n) is ok
-    if dim_head == 64:  # the JAX gate, where the kernel's head dim matches
-        assert jfa.fused_mhsa_supported(heads, dim_head, n) is ok
+    assert jfa.fused_mhsa_supported(heads, dim_head, n) is ok
 
 
 @pytest.mark.parametrize("local_k", [(6, 6, 6), (3, 6, 6)])

@@ -138,12 +138,12 @@ def test_kernel_wrappers_refuse_a_gradient_on_the_card(monkeypatch):
     """A forward kernel wrapper whose output has no backward raises, saying
     where the gradient goes, when a CUDA tensor needs a gradient (faked
     here: use_kernel says yes); it raises before touching the device. The
-    differentiable entry points (``mhsa_qkv_proj``, ``patchify_fused``,
-    ``fused_mlp``) take a gradient."""
+    differentiable entry points (``fused_mhsa``, ``mhsa_qkv_proj``,
+    ``patchify_fused``, ``fused_mlp``) take a gradient: ``fused_mhsa`` on a
+    packed qkv launches kernel A and its backward reaches kernel B
+    (``fused_mhsa_bwd``). The name dates from when ``fused_mhsa`` refused."""
     monkeypatch.setattr(_build, "use_kernel", lambda t: True)
     qkv = torch.zeros(1, 8, 3 * 2 * 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 3"):
-        tfa.fused_mhsa(qkv, 2, 64, 0.125, 8)
     img = torch.zeros(1, 1, 4, 8, 8)
     w = torch.zeros(8, 1, 2, 4, 4, requires_grad=True)
     with pytest.raises(NotImplementedError, match="through patchify_fused"):
@@ -153,11 +153,14 @@ def test_kernel_wrappers_refuse_a_gradient_on_the_card(monkeypatch):
         tmlp.fused_mlp_forward(x, torch.ones(128), torch.zeros(128), torch.zeros(256, 128),
                                torch.zeros(256), torch.zeros(128, 256), torch.zeros(128))
     calls = []
-    monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(_build, "launch", lambda name, symbol, *a: calls.append(symbol))
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    tfa.fused_mhsa(qkv, 2, 64, 0.125, 8).sum().backward()
+    assert calls == ["gaviko_fused_mhsa_f32", "gaviko_fused_mhsa_bwd_f32"]
+    assert qkv.grad is not None and qkv.grad.shape == qkv.shape
     with torch.no_grad():
-        tfa.fused_mhsa(qkv, 2, 64, 0.125, 8)  # no gradient asked: launches
-    assert len(calls) == 1
+        tfa.fused_mhsa(qkv, 2, 64, 0.125, 8)  # no gradient asked: kernel A alone
+    assert calls[2:] == ["gaviko_fused_mhsa_f32"]
 
 
 # ------------------------------------------------- losses and optimizer ----
