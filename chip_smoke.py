@@ -29,13 +29,14 @@ Phases, each printing its own line:
    attention kernel B10 at the vit-t16 B8 serving shapes (the head views
    of the packed qkv, 1001 rows) and streaming at N = 2353, then A, B, B8
    and the packed-qkv VJP of ``fused_mhsa`` at head dim 128 (vit-b16 with
-   ``dim_head: 128``, B8);
+   ``dim_head: 128``, B8), then A, B and B8 at head dims 192 and 256
+   (vit-b16 widths, 12 heads, B8);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
    unfused attention route, B10 in 11 layers) and vit-b16 with
-   ``model.dim_head: 128`` (A at 128, B8 at 128 in the last layer), the
-   last two built in memory: builds the ``Predictor`` (bf16, micro-batch 8, random
+   ``model.dim_head`` 128, 192 and 256 (A at that head dim, B8 in the last
+   layer), the last four built in memory: builds the ``Predictor`` (bf16, micro-batch 8, random
    weights from seed 0), starts ``serve()`` on 127.0.0.1, POSTs 16
    synthetic (120, 160, 160) volumes, 8 at a time, and checks the answers,
    ``/healthz``, ``/metrics`` and every kernel's launches: each batch is
@@ -53,7 +54,8 @@ Phases, each printing its own line:
    at B4 on synthetic volumes, at the config's fp32 (TF32 off) and at
    bf16, with per-step loss, step ms (CUDA events), volumes/s, peak memory
    and the launches of each kernel a step (each of the four attention
-   kernels 24 a step);
+   kernels 24 a step, and B13, the multi-tensor Adam, once after its norm
+   kernel);
 7. train check: the same 3 steps, seeds and batches inside
    ``plain_versions()``: fp32 per-step loss within 1e-4 relative, step-1
    logits within 1e-4 and step-1 gradients of the loss (every trainable
@@ -76,7 +78,26 @@ Phases, each printing its own line:
    dropout-free in bf16 (B10 in 11 layers a step, its backward the plain
    version's VJP);
 10. vit-b16 with ``dim_head: 128``, train and train check in fp32 and bf16
-   (A and B at head dim 128 in 11 layers a step).
+   (A and B at head dim 128 in 11 layers a step), and with 192 and 256 in
+   bf16;
+11. B13 (``csrc/fused_adam.cu``) at the trainable leaves of the GAViKO train
+   run (604 tensors, 2.27 M elements) and of the vit-b16 fft run (140, 88.2
+   M), in f32 and bf16 storage with the cycled beta1, clipping off and on:
+   every output against the plain version (2 f32 ULP, 1 bf16 ULP, of each
+   output's largest term), two runs bit-equal, and the kernel's, the plain
+   version's and PyTorch's foreach-norm + fused-Adam chain's ms, the bound,
+   and the device kernels of one ``fused_optim.step`` under the profiler;
+12. trainer check: the first two steps of the trainer phase's run (GAViKO
+   vit-l16 from its loader) with the kernels and through the plain
+   versions, fp32 with TF32 off: params within 1e-4 relative MAE;
+13. trainer: ``python -m gaviko_tpu_torch.cli.train`` on 12 synthetic
+   (120, 160, 160) volumes (8 train, 4 val) with a copy of gaviko.yaml
+   (vit-l16, B4, fp32, 2 epochs, save_threshold -1, the second step
+   profiled), again with 3 epochs and ``--resume auto``, then
+   ``cli.evaluate`` on the best checkpoint and ``cli.infer`` on the folder:
+   the 15-field CSV with a row a step, the resume at epoch 2, the
+   trainable-only checkpoint, 4 eval and 12 inference rows, and the
+   profiled step's ms, volumes/s, idle share and launches (B13's too).
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
@@ -84,8 +105,10 @@ patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes with the
 vit-b16 bf16 train run's launches; LN+linear and CLS attention at the
 vit-b16 B8 bf16 serving shapes with the vit-b16 serving run's launches;
 B10 at the vit-t16 B8 bf16 serving shapes with the vit-t16 serving run's
-launches; rows ``*_dh128`` for A, B and B8 at head dim 128 with the
-dim_head-128 bf16 train run's or serving run's launches),
+launches; rows ``*_dh128``, ``*_dh192`` and ``*_dh256`` for A, B and B8 at
+those head dims with the dim_head-D bf16 train run's or serving run's
+launches; ``fused_adam_gaviko`` and ``fused_adam_vitb16`` for B13 at f32
+storage with the GAViKO fp32 and vit-b16 bf16 train runs' launches),
 the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -95,9 +118,11 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -120,6 +145,9 @@ KERNEL_CALLS = 10  # back-to-back calls a timed kernel, library or plain sample
 # relative MAE, cosine floor).
 TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
                 "bf16": (2e-2, BF16_BUDGET, 5e-2, 0.99)}
+# Trainer check: relative MAE of the update two fp32 steps applied against
+# the plain path's (H100 readings 3.6e-7 and 2.0e-6; 1 for no update).
+TRAINER_UPDATE_BUDGET = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
 # input type. f32 runs on the SIMT units, outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -142,6 +170,7 @@ SOURCES = {
                       "gaviko_tpu/ops/cls_attention.py:58"),
     "flash_attention": ("gaviko_tpu_torch/csrc/flash_attention.cu",
                         "gaviko_tpu/ops/flash_attention.py:183"),
+    "fused_adam": ("gaviko_tpu_torch/csrc/fused_adam.cu", "gaviko_tpu/ops/fused_adam.py:30"),
 }
 VIT_KERNELS = ("ln_linear", "fused_mlp", "fused_mlp_bwd", "cls_attention", "flash_attention")
 # The kernels of the JSON line by the path whose shapes and launches they
@@ -151,17 +180,27 @@ LINE_PATH = {"local_attention": "train", "local_attention_bwd": "train",
              "fused_mhsa": "vit_train", "fused_mhsa_bwd": "vit_train",
              "fused_mlp": "vit_train", "fused_mlp_bwd": "vit_train",
              "flash_attention": "t16"}
-# The head-dim-128 instances of A, B and B8, reported as rows of their own at
-# the vit-b16 dim_head-128 shapes: row name -> (kernel, the run whose
-# launches the row carries).
-DH128_ROWS = {"fused_mhsa_dh128": ("fused_mhsa", "dh128_train"),
-              "fused_mhsa_bwd_dh128": ("fused_mhsa_bwd", "dh128_train"),
-              "cls_attention_dh128": ("cls_attention", "dh128")}
-# The configurations this slice adds, built in memory from vit.yaml (method
-# fft): vit-t16 (3 heads, the unfused attention route) and vit-b16 with
-# dim_head 128 (the fused route at head dim 128).
+# The head-dim-128, 192 and 256 instances of A, B and B8, reported as rows of
+# their own at the vit-b16 dim_head-D shapes: row name -> (kernel, the run
+# whose launches the row carries).
+DIM_HEADS = (128, 192, 256)
+# B8 has no row at 256: at vit-b16 widths (12 x 256 = 3072) its gate, JAX's
+# VMEM budget, is false, so that path runs no B8 (its kernel case still runs).
+DH_ROWS = {row: (kernel, run) for d in DIM_HEADS for row, kernel, run in (
+    (f"fused_mhsa_dh{d}", "fused_mhsa", f"dh{d}_train"),
+    (f"fused_mhsa_bwd_dh{d}", "fused_mhsa_bwd", f"dh{d}_train"),
+    (f"cls_attention_dh{d}", "cls_attention", f"dh{d}")) if (kernel, d) != ("cls_attention", 256)}
+# Configurations built in memory from vit.yaml (method fft): vit-t16 (3
+# heads, the unfused attention route) and vit-b16 with dim_head 128, 192 and
+# 256 (the fused route at those head dims).
 T16 = {"backbone": "vit-t16"}
-DH128 = {"dim_head": 128}
+DH = {d: {"dim_head": d} for d in DIM_HEADS}
+# B13 rows, at the trainable leaves of the GAViKO fp32 train run and of the
+# vit-b16 fft train run (whose bf16 precision keeps f32 masters and
+# moments): row name -> the run whose leaves and launches the row carries.
+ADAM_ROWS = {"fused_adam_gaviko": "train", "fused_adam_vitb16": "vit_train"}
+ADAM_STEP = 40  # the step count whose lr and cycled beta1 the B13 cases take
+TRAINER_VOLUMES = (8, 4)  # train and val volumes of the trainer phase
 
 
 def _nvidia_smi() -> str:
@@ -479,11 +518,11 @@ def _t16_kernel_cases(dtype, gen, batch):
     ]
 
 
-def _dh128_kernel_cases(dtype, gen, batch):
-    """Cases (as in :func:`_kernel_cases`) for A, B and B8 at head dim 128,
-    at the vit-b16 dim_head-128 shapes (12 heads, 1001 rows padded to
-    1008): A with dropout 0.1 and lse and B replaying the mask (the train
-    step's), B8 (the serving forward's last layer), and the packed-qkv VJP
+def _dh_kernel_cases(dtype, gen, batch, D):
+    """Cases (as in :func:`_kernel_cases`) for A, B and B8 at head dim D,
+    at the vit-b16 dim_head-D shapes (12 heads, 1001 rows padded to 1008):
+    A with dropout 0.1 and lse and B replaying the mask (the train step's),
+    B8 (the serving forward's last layer) and, at 128, the packed-qkv VJP
     of fused_mhsa (A then B under autograd)."""
     import torch
     import torch.nn.functional as F
@@ -491,7 +530,7 @@ def _dh128_kernel_cases(dtype, gen, batch):
     from gaviko_tpu_torch.ops.cls_attention import cls_attention
     from gaviko_tpu_torch.ops.flash_attention import fused_mhsa, fused_mhsa_bwd, mhsa_reference
 
-    dev, H, D, n_pad, n_true = "cuda", 12, 128, 1008, 1001
+    dev, H, n_pad, n_true = "cuda", 12, 1008, 1001
     inner, scale = H * D, D ** -0.5
 
     def randn(*shape):
@@ -517,26 +556,27 @@ def _dh128_kernel_cases(dtype, gen, batch):
             return torch.autograd.grad(
                 fused_mhsa(leaf, H, D, scale, n_true, VIT_RATE, seed=VIT_SEED), leaf, dout)[0]
 
-    return [
-        ("fused_mhsa_dh128", lambda: fused_mhsa(qkv, H, D, scale, n_true, VIT_RATE,
-                                                with_lse=True, seed=VIT_SEED),
+    cases = [
+        (f"fused_mhsa_dh{D}", lambda: fused_mhsa(qkv, H, D, scale, n_true, VIT_RATE,
+                                                 with_lse=True, seed=VIT_SEED),
          lambda r: (r[0][:, :n_true], r[1]),
          (_nbytes(qkv) * 4 // 3 + _nbytes(lse), 4 * products),
          lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask,
                                                 dropout_p=VIT_RATE), None),
-        ("fused_mhsa_bwd_dh128", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, scale,
-                                                        n_true, VIT_RATE, VIT_SEED),
+        (f"fused_mhsa_bwd_dh{D}", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, scale,
+                                                         n_true, VIT_RATE, VIT_SEED),
          lambda r: r, (_nbytes(qkv, out, dout, lse, qkv), 10 * products),
          _sdpa_grad(*heads4, dout4, attn_mask=key_mask, dropout_p=VIT_RATE), None),
-        ("cls_attention_dh128", lambda: cls_attention(kv, q0, H, D, scale, n_true),
+        (f"cls_attention_dh{D}", lambda: cls_attention(kv, q0, H, D, scale, n_true),
          lambda r: r,
          (batch * n_true * 2 * inner * size + 2 * _nbytes(q0), 4 * batch * n_true * inner),
          lambda: F.scaled_dot_product_attention(q0.view(batch, H, 1, D), k4, v4,
                                                 attn_mask=key_mask), None),
-        ("fused_mhsa_vjp_dh128", vjp, lambda r: r,
-         (_nbytes(qkv, dout, qkv), 14 * products),
-         None, None),
     ]
+    if D == 128:
+        cases.append(("fused_mhsa_vjp_dh128", vjp, lambda r: r,
+                      (_nbytes(qkv, dout, qkv), 14 * products), None, None))
+    return cases
 
 
 def _compare(got, want) -> tuple:
@@ -557,8 +597,8 @@ def _compare(got, want) -> tuple:
 def phase_kernels(card: str, batch: int, path: str) -> dict:
     """Every case of ``path`` ("serving" and "train": GAViKO vit-l16; "vit"
     and "vit_train": vit-b16 serving and training; "t16": B10 at vit-t16
-    serving and streaming; "dh128": A, B and B8 at vit-b16 with dim_head
-    128) in bf16 and fp32 (TF32
+    serving and streaming; "dh128", "dh192", "dh256": A, B and B8 at vit-b16
+    with dim_head 128, 192 or 256) in bf16 and fp32 (TF32
     off): kernel vs plain version on the same inputs, then the times.
     Returns the lines by (name, dtype)."""
     import torch
@@ -568,6 +608,7 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    reps = 5 if path in ("dh192", "dh256") else 20  # their f32 kernel B runs for ~0.1 s
     results = {}
     for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
         if path == "vit":
@@ -576,8 +617,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _vit_train_kernel_cases(dtype, gen, batch)
         elif path == "t16":
             cases = _t16_kernel_cases(dtype, gen, batch)
-        elif path == "dh128":
-            cases = _dh128_kernel_cases(dtype, gen, batch)
+        elif path.startswith("dh"):
+            cases = _dh_kernel_cases(dtype, gen, batch, int(path[2:]))
         else:
             cases = _kernel_cases(dtype, gen, batch, path == "train")
         for name, run, cut, work, library, chain in cases:
@@ -591,13 +632,14 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                 line = {"phase": "kernel", "path": path,
                         "name": name, "dtype": str(dtype), "batch": batch,
                         "rel_mae": rel, "max_abs_err": max_abs, "budget": budget,
-                        "ms": _median_ms(run, calls=KERNEL_CALLS), "bound_ms": bound_ms,
+                        "ms": _median_ms(run, reps=reps, calls=KERNEL_CALLS),
+                        "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": work[0], "operations": work[1],
                         "library_ms": None if library is None else _median_ms(
-                            library, calls=KERNEL_CALLS),
+                            library, reps=reps, calls=KERNEL_CALLS),
                         "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
                 if chain is not None:
-                    line["chain_ms"] = _median_ms(chain, calls=KERNEL_CALLS)
+                    line["chain_ms"] = _median_ms(chain, reps=reps, calls=KERNEL_CALLS)
                 with plain_versions():
                     line["plain_ms"] = _median_ms(run, reps=5, warmup=1,
                                                   calls=KERNEL_CALLS)
@@ -616,6 +658,7 @@ def _wrappers():
     from gaviko_tpu_torch.ops.flash_attention import (
         flash_attention, flash_local_attention, fused_mhsa, fused_mhsa_bwd,
         local_attention_bwd)
+    from gaviko_tpu_torch.ops.fused_adam import fused_adam
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
     from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
     from gaviko_tpu_torch.ops.patchify import patchify_fused
@@ -624,7 +667,8 @@ def _wrappers():
             "local_attention": flash_local_attention, "fused_mhsa_bwd": fused_mhsa_bwd,
             "local_attention_bwd": local_attention_bwd, "ln_linear": fused_ln_linear,
             "fused_mlp": fused_mlp, "fused_mlp_bwd": fused_mlp_bwd,
-            "cls_attention": cls_attention, "flash_attention": flash_attention}
+            "cls_attention": cls_attention, "flash_attention": flash_attention,
+            "fused_adam": fused_adam}
 
 
 def _vit_routes(spec, dtype) -> dict:
@@ -850,9 +894,10 @@ def _step_seeds(n_seeds: int) -> list:
 
 def gaviko_train_launches(spec, precision: str) -> dict:
     """GAViKO's frozen-backbone step: patchify once, each of the four
-    attention kernels in every layer, none of the ViT's kernels."""
+    attention kernels in every layer, none of the ViT's kernels, and one
+    B13 update (after its norm kernel) over every trainable tensor."""
     want = dict.fromkeys(_wrappers(), spec.depth)
-    want.update(patchify=1, **dict.fromkeys(VIT_KERNELS, 0))
+    want.update(patchify=1, fused_adam=1, **dict.fromkeys(VIT_KERNELS, 0))
     return want
 
 
@@ -868,11 +913,12 @@ def vit_train_launches(spec, precision: str) -> dict:
     where dropout is off (its backward is the plain version's VJP) and no
     kernel where it is on (plain attention with dropout); B6 and B7 there
     too where the fused MLP's gate holds (bf16 at vit-b16, never at
-    vit-t16); the CLS-fast last layer runs plain PyTorch in training."""
+    vit-t16); the CLS-fast last layer runs plain PyTorch in training; one
+    B13 update over every trainable tensor."""
     full = spec.depth - 1
     r = _vit_routes(spec, _dtype(precision))
     want = dict.fromkeys(_wrappers(), 0)
-    want.update(patchify=1, fused_mhsa=full * r["fused_mhsa"],
+    want.update(patchify=1, fused_adam=1, fused_mhsa=full * r["fused_mhsa"],
                 fused_mhsa_bwd=full * r["fused_mhsa"], fused_mlp=full * r["mlp"],
                 fused_mlp_bwd=full * r["mlp"],
                 flash_attention=full * (not r["fused_mhsa"] and spec.dropout == 0.0))
@@ -921,6 +967,9 @@ def run_train(config, model, params, batches, seeds, launches, precision: str,
     train_step, eval_step, _ = loop.make_steps(model, criterion, fused,
                                                loop.compute_dtype_of(train_cfg))
     trainable, frozen = loop.split_params(model, params)
+    # The step updates the trainable tensors in place on the card (B13), so
+    # each run starts from its own copy.
+    trainable = {k: v.clone() for k, v in trainable.items()}
     opt_state = loop.init_opt_state(trainable)
     seeds = seeds[precision]
 
@@ -952,7 +1001,9 @@ def run_train(config, model, params, batches, seeds, launches, precision: str,
         raise RuntimeError(f"train {precision}: non-finite loss or logits")
     return {"losses": losses, "step_ms": step_ms, "launches": launches,
             "peak_bytes": peak, "eval_loss": float(eval_loss),
-            "trainable": len(trainable), "profile": profile}
+            "trainable": len(trainable), "trainable_shapes": [tuple(v.shape) for v in
+                                                                trainable.values()],
+            "profile": profile}
 
 
 def step1_grads(config, model, params, batches, seeds, launches, precision: str,
@@ -1120,6 +1171,376 @@ def phase_train_check(setup, precision: str, kernel: dict, card: str) -> None:
                            f"< {cos_floor}")
 
 
+def _ulps(got, want, mag=None) -> float:
+    """max |got - want| in units in the last place, in want's dtype (24
+    significant bits in f32, 8 in bf16), of ``mag``: the largest term of the
+    sum that made want (want itself by default), since m' = b1 m + (1 - b1)
+    g and p' = p - lr u can cancel."""
+    import torch
+
+    bits = 24 if want.dtype == torch.float32 else 8
+    ref = want.double().abs() if mag is None else torch.maximum(want.double().abs(), mag)
+    _, exp = torch.frexp(ref)
+    return float(((got.double() - want.double()).abs() / torch.pow(2.0, exp - bits)).max())
+
+
+def _adam_leaves(shapes, dtype, gen, grad_std):
+    """Random (grads, mu, nu, params) of ``shapes`` on the card."""
+    import torch
+
+    def randn(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    grads = [randn(s, grad_std) for s in shapes]
+    mu = [randn(s, 1e-3) for s in shapes]
+    nu = [randn(s, 1e-3).float().square().to(dtype) for s in shapes]
+    params = [randn(s, 0.02) for s in shapes]
+    return grads, mu, nu, params
+
+
+def _adam_chain(grads, mu, nu, params, lr, b1, clip=1.0):
+    """PyTorch's own multi-tensor clip + Adam, for its time only (the port
+    never calls it): torch._foreach_norm for the global norm, the clip
+    scale, then torch._fused_adam_."""
+    import torch
+
+    steps = [torch.zeros((), device="cuda") for _ in params]
+
+    def run():
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = (clip / norm).clamp(max=1.0)
+        torch._foreach_mul_(grads, scale)
+        torch._fused_adam_(params, grads, mu, nu, [], steps, lr=lr, beta1=b1, beta2=0.999,
+                           weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)
+
+    return run
+
+
+def _op_counts(fn) -> dict:
+    """The PyTorch operators (aten, on the host) and the device events of
+    one call of ``fn`` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"aten_ops": sum(e.name.startswith("aten::") for e in events
+                            if e.device_type == DeviceType.CPU),
+            "device_events": sum(e.device_type == DeviceType.CUDA for e in events)}
+
+
+def phase_adam(card: str, name: str, shapes) -> dict:
+    """B13 on the trainable leaves ``shapes`` of a train run: f32 and bf16
+    storage, the cycled beta1 of step ADAM_STEP of 100, clipping off
+    (gradients of std 1e-6: gn < 1) and on (std 1): every output of the
+    kernel against the plain version on the same inputs (f32 within 2 ULP,
+    bf16 within 1 ULP, of each output's largest term), and a second run of
+    the kernel bit-equal to the first. Then, with clipping on, over
+    back-to-back calls: the kernel's two launches alone (``ms``), the whole
+    wrapper call with its host work (``call_ms``), the plain version and
+    PyTorch's own foreach-norm + fused-Adam chain; the bound (7 arrays an
+    element plus one more read of g for the norm, over 3.35 TB/s); and the
+    PyTorch operators a later ``fused_optim.step`` issues (its table held),
+    against the plain step's. Returns the lines by dtype."""
+    import torch
+
+    from gaviko_tpu_torch.ops import fused_adam as fa
+    from gaviko_tpu_torch.ops._build import plain_versions
+    from gaviko_tpu_torch.ops.fused_adam import fused_adam
+    from gaviko_tpu_torch.train import fused_optim
+    from gaviko_tpu_torch.train import schedule as schedule_lib
+
+    sched, beta1 = schedule_lib.onecycle_cos(3e-4, 100), schedule_lib.onecycle_beta1(100)
+    lr, b1, c1, c2 = fused_optim.step_scalars(ADAM_STEP, sched, beta1)
+    n = sum(int(np.prod(s)) for s in shapes)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lines = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        budget = 2 if dtype == torch.float32 else 1
+        worst_ulp, max_abs, bit_equal = 0.0, 0.0, True
+        for grad_std in (1e-6, 1.0):
+            grads, mu, nu, params = _adam_leaves(shapes, dtype, gen, grad_std)
+            with plain_versions():
+                want = fused_adam(grads, mu, nu, params, lr, b1, c1, c2)
+            runs = []
+            for _ in range(2):
+                copies = [[t.clone() for t in ts] for ts in (mu, nu, params)]
+                runs.append(fused_adam(grads, *copies, lr, b1, c1, c2))
+            torch.cuda.synchronize()
+            for i in range(len(shapes)):
+                mags = ((params[i].double() - want[0][i].double()).abs().maximum(
+                            params[i].double().abs()),
+                        (b1 * mu[i].double()).abs().maximum(
+                            ((1 - b1) * grads[i].double()).abs()), None)
+                for got, ref, mag in zip(runs[0], want, mags):
+                    if not torch.isfinite(got[i]).all():
+                        raise RuntimeError(f"B13 {name} {dtype}: non-finite output")
+                    worst_ulp = max(worst_ulp, _ulps(got[i], ref[i], mag))
+                    max_abs = max(max_abs, float((got[i].double() - ref[i].double()).abs().max()))
+            bit_equal &= all(torch.equal(a, b) for x, y in zip(*runs) for a, b in zip(x, y))
+            del want, runs
+        copies = [[t.clone() for t in ts] for ts in (mu, nu, params)]
+        table = fa.AdamTable(*copies)
+        call_ms = _median_ms(lambda: fused_adam(grads, *copies, lr, b1, c1, c2, table=table),
+                             calls=KERNEL_CALLS)
+        ms = _median_ms(lambda: fa.launch_table(table, copies[2][0], 1.0, 1e-8),
+                        calls=KERNEL_CALLS)
+        with plain_versions():
+            plain_ms = _median_ms(lambda: fused_adam(grads, mu, nu, params, lr, b1, c1, c2),
+                                  reps=3, warmup=1, calls=2)
+        chain = [[t.clone() for t in ts] for ts in (grads, mu, nu, params)]
+        chain_ms = _median_ms(_adam_chain(*chain, lr, b1), calls=KERNEL_CALLS)
+        size = torch.empty((), dtype=dtype).element_size()
+        bound_ms, bound_by = _bound((8 * n * size, 12 * n), "torch.float32")
+        keys = [str(i) for i in range(len(shapes))]
+        state = fused_optim.FusedAdamState(ADAM_STEP, dict(zip(keys, copies[0])),
+                                           dict(zip(keys, copies[1])))
+        step_args = (dict(zip(keys, grads)), state, dict(zip(keys, copies[2])), sched)
+        # The first step builds the kernel's table and hands it on with the
+        # state; count the operators of the next one, as every later step.
+        held = fused_optim.step(*step_args, b1=beta1)
+        ops = _op_counts(lambda: fused_optim.step(step_args[0], held[1], held[0], sched,
+                                                  b1=beta1))
+        with plain_versions():
+            plain_ops = _op_counts(lambda: fused_optim.step(*step_args, b1=beta1))
+        line = {"phase": "kernel", "path": "adam", "name": name, "dtype": str(dtype),
+                "leaves": len(shapes), "elements": n, "lr": lr, "b1": b1,
+                "max_ulp": worst_ulp, "ulp_budget": budget, "max_abs_err": max_abs,
+                "bit_equal_reruns": bit_equal, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "chain_ms": chain_ms, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": 8 * n * size,
+                "operations": 12 * n, "step_ops": ops, "plain_step_ops": plain_ops,
+                "card": card}
+        print(json.dumps(line), flush=True)
+        lines[str(dtype)] = line
+        if not worst_ulp <= budget:
+            raise RuntimeError(f"B13 {name} {dtype}: {worst_ulp} ULP > {budget}")
+        if not bit_equal:
+            raise RuntimeError(f"B13 {name} {dtype}: two runs differ")
+        if ops["aten_ops"] > 50:  # the plain step issues ~20 a leaf
+            raise RuntimeError(f"B13 {name} {dtype}: one optimizer step issued {ops}")
+        del grads, mu, nu, params, copies, chain, table, held
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _trainer_files(root: str, label: int) -> tuple:
+    """The trainer phase's synthetic dataset under ``root``: (120, 160,
+    160) .npz volumes, 8 train and 4 val, and the CSV (every volume of class
+    ``label``), plus a copy of gaviko.yaml pointing at them. Returns
+    (config path, config, volume folder)."""
+    import yaml
+
+    from gaviko_tpu_torch.config import load_config
+
+    n_train, n_val = TRAINER_VOLUMES
+    folder = os.path.join(root, "volumes")
+    os.makedirs(folder, exist_ok=True)
+    rows = ["mri_path,kl_grade,subset"]
+    for i in range(n_train + n_val):
+        name = f"vol_{i:02d}.npz"
+        path = os.path.join(folder, name)
+        if not os.path.exists(path):
+            vol = np.random.RandomState(100 + i).rand(120, 160, 160).astype(np.float32)
+            np.savez(path, data=vol)
+        rows.append(f"{name},{label},{'train' if i < n_train else 'val'}")
+    with open(os.path.join(root, "labels.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    config = load_config(CONFIG)
+    config["data"].update(data_path=os.path.join(root, "labels.csv"), image_folder=folder,
+                          test_data=os.path.join(root, "labels.csv"))
+    config["utils"].update(log_dir=os.path.join(root, "log"),
+                           results_dir=os.path.join(root, "outputs"))
+    config["train"].update(num_epochs=2, save_threshold=-1,
+                           profile={"enabled": True, "start_step": 1, "num_steps": 1})
+    path = os.path.join(root, "gaviko.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path, config, folder
+
+
+def phase_trainer_check(root: str, card: str) -> list:
+    """The first two steps of the trainer phase's run (the CLI's model:
+    GAViKO vit-l16, random init from seed 0; its loader's first two train
+    batches and its dropout seeds), with the kernels and inside
+    ``plain_versions()``, each from its own copy of the params, fp32 with
+    TF32 off: the trainable params within 1e-4 relative MAE, and the update
+    the two steps applied (final params less initial ones) within
+    TRAINER_UPDATE_BUDGET relative MAE of the plain path's (1 if the
+    optimizer applied nothing; the params' own MAE is dominated by their
+    initial values, which two steps move by ~3e-4). Every volume
+    is labelled with the class the random-init model gives most of the val
+    volumes, so that training keeps that class, the first validation scores
+    above 0 and the best checkpoint is written. Returns that class and the
+    names of the trainable tensors."""
+    import torch
+
+    from gaviko_tpu_torch.cli.train import make_loaders
+    from gaviko_tpu_torch.data import transforms as T
+    from gaviko_tpu_torch.models.factory import build_model
+    from gaviko_tpu_torch.models.pretrained import build_params
+    from gaviko_tpu_torch.ops._build import plain_versions
+    from gaviko_tpu_torch.train import loop
+    from gaviko_tpu_torch.train.losses import make_criterion
+    from gaviko_tpu_torch.utils.layouts import put_volume
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, config, folder = _trainer_files(root, 0)
+    model = build_model(config["model"])
+    params = {k: v.to("cuda") for k, v in build_params(
+        model, torch.Generator().manual_seed(0), pretrained_dir=None).items()}
+    n_train, n_val = TRAINER_VOLUMES
+    paths = [os.path.join(folder, f"vol_{i:02d}.npz") for i in range(n_train + n_val)]
+    train_cfg = config["train"]
+    fused = loop.make_optimizer(train_cfg, 2 * (n_train // config["data"]["batch_size"]))
+    train_step, _, predict_step = loop.make_steps(model, make_criterion(train_cfg), fused)
+    trainable, frozen = loop.split_params(model, params)
+    with torch.no_grad():
+        x = put_volume(np.stack([T.eval_transform(np.load(p)["data"][None])
+                                 for p in paths[n_train:]]), torch.float32, "cuda")
+        val_classes = predict_step(trainable, frozen, x).argmax(-1).tolist()
+    label = max(set(val_classes), key=val_classes.count)
+    _, config, _ = _trainer_files(root, label)
+    loader = make_loaders(config)[0]
+    loader.set_epoch(0)
+    batches = [(put_volume(x, torch.float32, "cuda"), torch.from_numpy(y).long().cuda())
+               for x, y, _ in list(loader)[:2]]
+    seeds = loop.default_step_seeds(0)
+    runs = {}
+    for name in ("kernels", "plain"):
+        with plain_versions(name == "plain"):
+            tr = {k: v.clone() for k, v in trainable.items()}
+            state = loop.init_opt_state(tr, fused)
+            losses = []
+            for step, (xb, yb) in enumerate(batches):
+                tr, state, loss, _ = train_step(tr, state, frozen, xb, yb, seeds(step))
+                losses.append(float(loss))
+            runs[name] = (tr, losses)
+    got, want = runs["kernels"][0], runs["plain"][0]
+    rel = _rel_mae(torch.cat([got[k].flatten() for k in got]),
+                   torch.cat([want[k].flatten() for k in got]))
+    upd = _rel_mae(torch.cat([(got[k] - trainable[k]).flatten() for k in got]),
+                   torch.cat([(want[k] - trainable[k]).flatten() for k in got]))
+    line = {"phase": "trainer_check", "steps": len(batches), "trainable_tensors": len(got),
+            "kernel_losses": runs["kernels"][1], "plain_losses": runs["plain"][1],
+            "params_rel_mae": rel, "budget": F32_BUDGET, "update_rel_mae": upd,
+            "update_budget": TRAINER_UPDATE_BUDGET,
+            "val_classes_at_init": val_classes, "label": label, "card": card}
+    print(json.dumps(line), flush=True)
+    if not rel <= F32_BUDGET:
+        raise RuntimeError(f"trainer check: params rel MAE {rel} > {F32_BUDGET}")
+    if not upd <= TRAINER_UPDATE_BUDGET:
+        raise RuntimeError(f"trainer check: update rel MAE {upd} > {TRAINER_UPDATE_BUDGET}")
+    keys = set(trainable)
+    del params, trainable, frozen, runs, batches
+    torch.cuda.empty_cache()
+    return label, keys
+
+
+def _cli(module: str, *args) -> None:
+    """``python -m gaviko_tpu_torch.cli.<module> args``; raises on failure."""
+    proc = subprocess.run([sys.executable, "-m", f"gaviko_tpu_torch.cli.{module}", *args],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli.{module} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _trace_stats(path: str) -> dict:
+    """One profiled train step's chrome trace: wall ms (first to last
+    event), device busy ms (the sum of its kernels, which one stream runs one
+    at a time), idle share, kernel launches, and B13's among them."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e and "ts" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    wall_us = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    busy_us = sum(e["dur"] for e in kernels)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us, "launches": len(kernels),
+            "b13_update_launches": sum("adam_update" in e["name"] for e in kernels),
+            "b13_norm_launches": sum("adam_sumsq" in e["name"] for e in kernels)}
+
+
+def phase_trainer(root: str, label: int, trainable_keys, card: str) -> dict:
+    """The port's CLIs end to end at full width (GAViKO vit-l16, batch 4,
+    fp32, gaviko.yaml with num_epochs 2, save_threshold -1 and the second
+    step profiled) on the synthetic volumes: ``cli.train``, then again with
+    num_epochs 3 and ``--resume auto``, ``cli.evaluate`` on the best
+    checkpoint and ``cli.infer`` on the volume folder, each a subprocess.
+    Checks the 15-field CSV with a row a step, that the resume continued at
+    epoch 2, the trainable-only checkpoint and the 4- and 12-row outputs;
+    reads the profiled step's trace."""
+    import torch
+    import yaml
+
+    from gaviko_tpu_torch.utils.logging import TRAIN_LOG_FIELDS
+
+    t0 = time.perf_counter()
+    cfg_path, config, folder = _trainer_files(root, label)
+    weights, outputs = os.path.join(root, "weights"), os.path.join(root, "outputs")
+    _cli("train", "--config", cfg_path, "--method", "gaviko", "--results_dir", weights)
+    t_train = time.perf_counter() - t0
+    config["train"].update(num_epochs=3, profile={"enabled": False})
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    _cli("train", "--config", cfg_path, "--method", "gaviko", "--results_dir", weights,
+         "--resume", "auto")
+    log_dir = config["utils"]["log_dir"]
+    first = _csv_rows(os.path.join(log_dir, "gaviko_training_log_v1.csv"))
+    resumed = _csv_rows(os.path.join(log_dir, "gaviko_training_log_v2.csv"))
+    n_train, n_val = TRAINER_VOLUMES
+    batch = config["data"]["batch_size"]
+    per_epoch = -(-n_train // batch) + -(-n_val // batch)
+    exp_dir = os.path.join(weights, "experiments", "gaviko")
+    best = sorted(f for f in os.listdir(exp_dir) if f.endswith(".pt"))
+    saved = set(torch.load(os.path.join(exp_dir, best[-1]), weights_only=True)) if best else set()
+    _cli("evaluate", "--config", cfg_path, "--method", "gaviko", "--checkpoint",
+         os.path.join(exp_dir, best[-1]) if best else "none", "--results_dir", outputs)
+    _cli("infer", "--config", cfg_path, "--method", "gaviko", "--checkpoint",
+         os.path.join(exp_dir, best[-1]) if best else "none", "--results_dir", outputs)
+    prefix = os.path.join(outputs, "gaviko_" + config["model"]["backbone"].replace("-", "_"))
+    eval_rows = _csv_rows(prefix + "_eval_results_v1.csv")
+    infer_rows = _csv_rows(prefix + "_inference_results_v1.csv")
+    with open(prefix + "_eval_results_v1_metrics.txt") as f:
+        metrics = f.read().strip().splitlines()
+    trace = _trace_stats(os.path.join(log_dir, "profile", "trace.json"))
+    trace["ms_per_step"] = trace["wall_ms"]
+    trace["vol_per_s"] = 1e3 * batch / trace["wall_ms"]
+    line = {"phase": "trainer", "csv_fields": len(first[0]) if first else 0,
+            "csv_rows": len(first), "want_rows": 2 * per_epoch,
+            "resumed_epochs": sorted({int(r["epoch"]) for r in resumed}),
+            "best_checkpoints": best, "checkpoint_keys": len(saved),
+            "trainable_keys": len(trainable_keys), "eval_rows": len(eval_rows),
+            "infer_rows": len(infer_rows), "metrics": metrics, "profiled_step": trace,
+            "seconds_first_train": t_train, "seconds": time.perf_counter() - t0, "card": card}
+    print(json.dumps(line), flush=True)
+    if list(first[0]) != TRAIN_LOG_FIELDS or len(first) != 2 * per_epoch:
+        raise RuntimeError(f"trainer: CSV {len(first)} rows of {list(first[0])}")
+    if line["resumed_epochs"] != [2] or len(resumed) != per_epoch:
+        raise RuntimeError(f"trainer: the resume ran epochs {line['resumed_epochs']}")
+    if not best or saved != trainable_keys:
+        raise RuntimeError(f"trainer: best checkpoints {best} hold {len(saved)} keys, "
+                           f"want the {len(trainable_keys)} trainable ones")
+    if len(eval_rows) != n_val or len(infer_rows) != n_train + n_val:
+        raise RuntimeError(f"trainer: {len(eval_rows)} eval and {len(infer_rows)} "
+                           "inference rows")
+    if trace["b13_update_launches"] != 1 or trace["b13_norm_launches"] != 1:
+        raise RuntimeError(f"trainer: the profiled step ran B13 {trace}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1152,13 +1573,14 @@ def main() -> int:
                "train": phase_kernels(smi, TRAIN_B, "train"),
                "vit_train": phase_kernels(smi, VIT_TRAIN_B, "vit_train"),
                "t16": phase_kernels(smi, B, "t16"),
-               "dh128": phase_kernels(smi, VIT_TRAIN_B, "dh128")}
+               **{f"dh{d}": phase_kernels(smi, VIT_TRAIN_B, f"dh{d}") for d in DIM_HEADS}}
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
     launches = {}
     for name, config, method, over, headline in (
             ("serving", CONFIG, "gaviko", None, None), ("vit", VIT_CONFIG, "fft", None, HEADLINE_B),
-            ("t16", VIT_CONFIG, "fft", T16, None), ("dh128", VIT_CONFIG, "fft", DH128, None)):
+            ("t16", VIT_CONFIG, "fft", T16, None),
+            *((f"dh{d}", VIT_CONFIG, "fft", DH[d], None) for d in DIM_HEADS)):
         predictor = make_predictor(config, method, over)
         launches[name], served = phase_serving(predictor, vols)
         phase_plain_check(predictor, vols[:B], served[:B], smi, headline)
@@ -1170,20 +1592,33 @@ def main() -> int:
     # (plain attention with dropout, no attention kernel) and dropout-free
     # (B10 forward, the plain version's VJP backward).
     t16_no_dropout = {**T16, "dropout": 0.0, "emb_dropout": 0.0}
+    adam_shapes = {}
     for name, make_setup, precisions, reported in (
             ("train", train_setup, ("fp32", "bf16"), "fp32"),
             ("vit_train", vit_train_setup, ("fp32", "bf16"), "bf16"),
             ("t16_train", lambda: vit_train_setup(T16), ("fp32", "bf16"), "bf16"),
             ("t16_train_no_dropout", lambda: vit_train_setup(t16_no_dropout), ("bf16",),
              "bf16"),
-            ("dh128_train", lambda: vit_train_setup(DH128), ("fp32", "bf16"), "bf16")):
+            ("dh128_train", lambda: vit_train_setup(DH[128]), ("fp32", "bf16"), "bf16"),
+            ("dh192_train", lambda: vit_train_setup(DH[192]), ("bf16",), "bf16"),
+            ("dh256_train", lambda: vit_train_setup(DH[256]), ("bf16",), "bf16")):
         setup = make_setup()
         runs = {p: phase_train(setup, p, smi) for p in precisions}
+        adam_shapes[name] = runs[reported]["trainable_shapes"]
         for precision, run in runs.items():
             phase_train_check(setup, precision, run, smi)
         launches[name] = runs[reported]["launches"]
         del setup, runs
         torch.cuda.empty_cache()
+
+    # B13 at the trainable leaves of the GAViKO and vit-b16 train runs.
+    adam = {row: phase_adam(smi, row, adam_shapes[run]) for row, run in ADAM_ROWS.items()}
+
+    # The trainer and its CLIs at full width, after the check of its first
+    # two steps against the plain versions.
+    with tempfile.TemporaryDirectory(prefix="gaviko_trainer_") as root:
+        label, trainable_keys = phase_trainer_check(root, smi)
+        phase_trainer(root, label, trainable_keys, smi)
 
     # Each kernel at the shapes of the path LINE_PATH names, with that
     # path's launches: the local attention kernels at GAViKO's B4 fp32 train
@@ -1193,8 +1628,8 @@ def main() -> int:
     # the vit-t16 serving run's launches. Then A, B and B8 at head dim 128
     # (bf16) with the dim_head-128 train or serving run's launches.
     rows = []
-    line_rows = [(n, n, LINE_PATH[n], LINE_PATH[n]) for n in SOURCES]
-    line_rows += [(row, n, "dh128", run) for row, (n, run) in DH128_ROWS.items()]
+    line_rows = [(n, n, LINE_PATH[n], LINE_PATH[n]) for n in SOURCES if n in LINE_PATH]
+    line_rows += [(row, n, run.split("_")[0], run) for row, (n, run) in DH_ROWS.items()]
     for row_name, n, path, run in line_rows:
         src, tpu = SOURCES[n]
         dtype = "torch.float32" if path == "train" else "torch.bfloat16"
@@ -1206,6 +1641,16 @@ def main() -> int:
         if "chain_ms" in line:
             row["chain_ms"] = line["chain_ms"]
         rows.append(row)
+    # B13 at f32 storage (both runs keep f32 masters and moments), with its
+    # run's B13 launches (one a step: its norm kernel, then its update).
+    src, tpu = SOURCES["fused_adam"]
+    for row_name, run in ADAM_ROWS.items():
+        line = adam[row_name]["torch.float32"]
+        rows.append({"name": row_name, "route": "cuda", "source": src, "replaces": tpu,
+                     "launches": launches[run]["fused_adam"],
+                     **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "chain_ms", "dtype",
+                                             "leaves", "elements", "path")}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}),
           flush=True)

@@ -1,0 +1,163 @@
+"""Evaluation entry point of the PyTorch port — the JAX package's contract:
+
+    python -m gaviko_tpu_torch.cli.evaluate --config <yaml> --method <m> \
+        --checkpoint <ckpt> --results_dir <dir> [--device cuda|cpu]
+
+Port of ``gaviko_tpu/cli/evaluate.py``: evaluates on the CSV's ``val``
+subset, overlays the trainable-only checkpoint on the model's params,
+reports accuracy, quadratic Cohen's kappa and macro one-vs-rest ROC-AUC
+(``train/metrics.py``), and writes the versioned
+``{method}_{backbone}_eval_results_v{N}.csv`` and its ``_metrics.txt``.
+``--quantize int8`` (ROADMAP Queue A item 14a) and ``--artifact`` (item 14)
+are not ported and exit with an error naming them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import logging
+import os
+
+import numpy as np
+import torch
+
+from gaviko_tpu_torch.cli.train import resolve_device
+from gaviko_tpu_torch.config import METHODS, apply_method_override, load_config
+from gaviko_tpu_torch.data import transforms as T
+from gaviko_tpu_torch.data.device_prefetch import stage_batch, wait_staged
+from gaviko_tpu_torch.data.pipeline import (
+    dataset_from_dataframe, pick_loader, read_csv, split_dataframe)
+from gaviko_tpu_torch.models.factory import build_model
+from gaviko_tpu_torch.models.pretrained import build_params
+from gaviko_tpu_torch.train.loop import make_steps, split_params
+from gaviko_tpu_torch.train.losses import make_criterion
+from gaviko_tpu_torch.train.metrics import accuracy, cohen_kappa_quadratic, roc_auc_ovr_macro
+from gaviko_tpu_torch.utils.logging import setup_logging
+
+
+def versioned_path(results_dir: str, base: str) -> str:
+    version = 1
+    while True:
+        path = os.path.join(results_dir, base.format(version=version))
+        if not os.path.exists(path):
+            return path
+        version += 1
+
+
+def write_outputs(path: str, mri_paths, outputs) -> None:
+    """The two-column ``mri_path,outputs`` CSV (basenames, class ids), as the
+    JAX package's pandas ``to_csv(index=False)`` writes it."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["mri_path", "outputs"])
+        for p, o in zip(mri_paths, outputs):
+            w.writerow([os.path.basename(p), int(o)])
+
+
+def _finish_eval(valid_df, y_test, y_pred, y_proba, results_dir: str, method: str,
+                 backbone: str) -> dict:
+    """Metrics + versioned CSV + txt."""
+    y_test, y_pred, y_proba = np.asarray(y_test), np.asarray(y_pred), np.asarray(y_proba)
+    test_acc = accuracy(y_test, y_pred)
+    test_qkv = cohen_kappa_quadratic(y_test, y_pred)
+    test_auc = roc_auc_ovr_macro(y_test, y_proba)
+    logging.info(f"Test Accuracy: {test_acc}")
+    logging.info(f"Test Quadratic Kappa: {test_qkv}")
+    logging.info(f"Test AUC: {test_auc}")
+
+    os.makedirs(results_dir, exist_ok=True)
+    csv_path = versioned_path(
+        results_dir, f"{method}_{backbone.replace('-', '_')}_eval_results_v{{version}}.csv")
+    write_outputs(csv_path, [row["mri_path"] for row in valid_df], y_pred.tolist())
+    logging.info(f"Results saved to {csv_path}")
+    with open(os.path.splitext(csv_path)[0] + "_metrics.txt", "w") as f:
+        f.write(f"Test Accuracy: {test_acc}\n")
+        f.write(f"Test Quadratic Kappa: {test_qkv}\n")
+        f.write(f"Test AUC: {test_auc}\n")
+    return {"accuracy": test_acc, "kappa": test_qkv, "auc": test_auc, "csv": csv_path}
+
+
+def load_model(config: dict, device: torch.device):
+    """(model, trainable, frozen) on ``device``: init from seed 0, then the
+    ``utils.checkpoint`` overlay (a missing path is an error)."""
+    model = build_model(config["model"])
+    ckpt = config["utils"].get("checkpoint")
+    if ckpt and not os.path.exists(ckpt):
+        raise FileNotFoundError(f"Model weights not found at {ckpt}. Please check the path.")
+    if not ckpt:
+        logging.info(f"Model path is not provided. {config['model']['method']} weights "
+                     "are initialized randomly.")
+    params = build_params(model, torch.Generator().manual_seed(0),
+                          pretrained_dir=config["model"].get("pretrained_dir", "./pretrained"),
+                          checkpoint_path=ckpt)
+    trainable, frozen = split_params(model, {k: v.to(device) for k, v in params.items()})
+    return model, trainable, frozen
+
+
+def evaluate(config: dict, device="cuda") -> dict:
+    device = resolve_device(device)
+    logging.info(f"Device: {device}")
+    valid_df = split_dataframe(read_csv(config["data"]["data_path"]), "val")
+    if not valid_df:
+        raise ValueError(f"no rows with subset=='val' in {config['data']['data_path']}")
+    ds = dataset_from_dataframe(valid_df, T.eval_transform, False,
+                                config["data"].get("image_folder"))
+    loader = pick_loader(config)(ds, config["data"]["batch_size"], shuffle=False,
+                                 num_workers=config["data"].get("num_workers", 8),
+                                 pad_to_batch=True)
+    model, trainable, frozen = load_model(config, device)
+    _, eval_step, _ = make_steps(model, make_criterion(config["train"]), None)
+
+    y_test, y_pred, y_proba = [], [], []
+    for inputs, labels, n_valid in loader:
+        x, y, event = stage_batch(inputs, labels, device)
+        wait_staged(x, y, event)
+        _, _, logits = eval_step(trainable, frozen, x, y)
+        logits = logits.cpu().numpy()[:n_valid]
+        y_test.extend(labels[:n_valid].tolist())
+        y_pred.extend(np.argmax(logits, axis=1).tolist())
+        p = np.exp(logits - logits.max(-1, keepdims=True))
+        y_proba.extend((p / p.sum(-1, keepdims=True)).tolist())
+
+    return _finish_eval(valid_df, y_test, y_pred, y_proba, config["utils"]["results_dir"],
+                        config["model"]["method"], config["model"]["backbone"])
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Evaluation script for Gaviko model "
+                                                 "(PyTorch port)")
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="not ported yet (ROADMAP Queue A item 14)")
+    parser.add_argument("--results_dir", type=str, default="./outputs")
+    parser.add_argument("--checkpoint", type=str, required=False)
+    parser.add_argument("--method", type=str, default=None, choices=list(METHODS))
+    parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                        help="not ported yet (ROADMAP Queue A item 14a)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu (the plain versions)")
+    args = parser.parse_args(argv)
+
+    if args.artifact is not None:
+        parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
+    if args.quantize is not None:
+        parser.error("--quantize int8 is not ported yet (ROADMAP Queue A item 14a, with "
+                     "the int8 kernels B11)")
+    if args.config is None:
+        parser.error("--config is required")
+    config = load_config(args.config)
+    # No --method and none in the YAML: the reference's default ("gaviko").
+    if args.method is None and not config["model"].get("method"):
+        args.method = "gaviko"
+    apply_method_override(config, args.method)
+    config["utils"]["results_dir"] = args.results_dir or config["utils"].get("results_dir")
+    config["utils"]["checkpoint"] = args.checkpoint
+    os.makedirs(config["utils"]["results_dir"], exist_ok=True)
+    setup_logging(log_dir=config["utils"]["results_dir"])
+    logging.info(f"Config: {config}")
+    return evaluate(config, args.device)
+
+
+if __name__ == "__main__":
+    main()

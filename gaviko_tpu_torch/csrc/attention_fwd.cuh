@@ -26,11 +26,15 @@
 // registers, so only K and V pass through shared memory (V transposed, so
 // both B operands load as conflict-free 32-bit words); the next tile's K
 // and V are fetched into registers while the current one computes. The key
-// tile is 64 keys, 32 at head dim 128, which keeps the q and output
-// fragments and the prefetch under the register limit with no spills.
+// tile is 64 keys, 32 at head dim 128 and 16 at 192 and 256, which keeps the
+// output fragments (HD / 2 registers a thread) and the prefetch under the
+// register limit; at 256 the q fragments (64 registers) move to shared
+// memory as well, each warp staging its own 16 rows once and reading them a
+// chunk at a time.
 // f32 takes a SIMT path (a lane pair owns a row; K, V, S, P and O in shared
-// memory; q in registers up to head dim 64, read from shared memory above),
-// so an f32 check runs in full f32, not TF32.
+// memory; q in registers up to head dim 64, read from shared memory above;
+// 32-key tiles above head dim 128, so the tiles fit the 227 KB of shared
+// memory), so an f32 check runs in full f32, not TF32.
 #pragma once
 
 #include <cstdint>
@@ -69,16 +73,19 @@ struct Tile;
 template <int HD>
 struct Tile<__nv_bfloat16, HD> {
   using T = __nv_bfloat16;
-  static constexpr int BKV = HD >= 128 ? 32 : 64;  // keys a staged tile
-  static constexpr int LDK = HD + 8;   // K rows: 16-byte aligned, conflict-free
+  static constexpr int BKV = HD >= 192 ? 16 : HD >= 128 ? 32 : 64;  // keys a staged tile
+  static constexpr int LDK = HD + 8;   // K and staged q rows: 16-byte aligned, conflict-free
   static constexpr int LDV = BKV + 8;  // rows of V transposed
   static constexpr int KC = HD / 16;   // k chunks of S = Q K^T
   static constexpr int NG = BKV / 8;   // key groups of 8 in S
   static constexpr int PC = BKV / 16;  // k chunks of O = P V
   static constexpr int OG = HD / 8;    // output groups of 8 columns
   static constexpr int CH = BKV * HD / 8 / THREADS;  // 16-byte chunks a thread fetches
+  static constexpr bool kQSmem = HD >= 256;  // q fragments read from shared memory
   static constexpr size_t kSmem =
-      (static_cast<size_t>(BKV) * LDK + static_cast<size_t>(HD) * LDV) * sizeof(T);
+      (static_cast<size_t>(BKV) * LDK + static_cast<size_t>(HD) * LDV +
+       (kQSmem ? static_cast<size_t>(BQ) * LDK : 0)) * sizeof(T);
+  static_assert(CH * THREADS * 8 == BKV * HD, "a key tile splits into whole 16-byte chunks");
 
   static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
                                              uint32_t b1) {
@@ -134,23 +141,40 @@ struct Tile<__nv_bfloat16, HD> {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;  // fragment row group, thread in group
     const int r0 = q0 + warp * 16 + g;     // this thread's rows: r0 and r0 + 8
+    T* qs = vt + HD * LDV + warp * 16 * LDK;  // the warp's 16 staged q rows (kQSmem)
 
-    // q fragments (A operand, 16 rows x HD), times q_mult, rounded to bf16.
-    uint32_t qa[KC][4];
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + (i % 2) * 8;
-        const int c = kc * 16 + (i / 2) * 8 + 2 * t;
+    // q fragments (A operand, 16 rows x HD), times q_mult, rounded to bf16:
+    // in registers, or (kQSmem) staged by the warp and read a chunk at a time.
+    uint32_t qa[kQSmem ? 1 : KC][4];
+    if constexpr (kQSmem) {
+      for (int e = lane; e < 16 * HD / 2; e += 32) {
+        const int r = e / (HD / 2), c = 2 * (e % (HD / 2));
         float lo = 0.0f, hi = 0.0f;
-        if (r < a.n_rows) {
-          const __nv_bfloat162 x =
-              *reinterpret_cast<const __nv_bfloat162*>(a.q + r * a.q_stride + c);
+        if (q0 + warp * 16 + r < a.n_rows) {
+          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+              a.q + (q0 + warp * 16 + r) * a.q_stride + c);
           lo = __low2float(x) * a.q_mult;
           hi = __high2float(x) * a.q_mult;
         }
-        qa[kc][i] = pack(lo, hi);
+        *reinterpret_cast<uint32_t*>(qs + r * LDK + c) = pack(lo, hi);
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + (i % 2) * 8;
+          const int c = kc * 16 + (i / 2) * 8 + 2 * t;
+          float lo = 0.0f, hi = 0.0f;
+          if (r < a.n_rows) {
+            const __nv_bfloat162 x =
+                *reinterpret_cast<const __nv_bfloat162*>(a.q + r * a.q_stride + c);
+            lo = __low2float(x) * a.q_mult;
+            hi = __high2float(x) * a.q_mult;
+          }
+          qa[kc][i] = pack(lo, hi);
+        }
       }
     }
 
@@ -179,8 +203,17 @@ struct Tile<__nv_bfloat16, HD> {
         for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
         const T* kr = ks + (j * 8 + g) * LDK + 2 * t;
 #pragma unroll
-        for (int kc = 0; kc < KC; ++kc)
-          mma(s[j], qa[kc], lds32(kr + kc * 16), lds32(kr + kc * 16 + 8));
+        for (int kc = 0; kc < KC; ++kc) {
+          if constexpr (kQSmem) {
+            uint32_t f[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              f[i] = lds32(qs + (g + (i % 2) * 8) * LDK + kc * 16 + (i / 2) * 8 + 2 * t);
+            mma(s[j], f, lds32(kr + kc * 16), lds32(kr + kc * 16 + 8));
+          } else {
+            mma(s[j], qa[kc], lds32(kr + kc * 16), lds32(kr + kc * 16 + 8));
+          }
+        }
       }
 
       // Row max (over the 4 threads that share a row), rescale.
@@ -272,18 +305,20 @@ struct Tile<__nv_bfloat16, HD> {
 
 template <int HD>
 struct Tile<float, HD> {
-  static constexpr int BKV = 64;       // keys a staged tile
+  static constexpr int BKV = HD > 128 ? 32 : 64;  // keys a staged tile
   static constexpr int LD = HD + 1;    // q, K, V, O rows: odd width, other banks
   static constexpr int LDS = BKV + 1;  // score and probability rows
   static constexpr bool kQInRegs = HD <= 64;
   static constexpr size_t kSmem =
-      (4 * static_cast<size_t>(BQ) * LD + 2 * static_cast<size_t>(BQ) * LDS) * sizeof(float);
+      (2 * static_cast<size_t>(BQ + BKV) * LD + 2 * static_cast<size_t>(BQ) * LDS) *
+      sizeof(float);
 
-  // rows [row0, row0 + 64) x HD columns into shared memory, times mult;
+  // rows [row0, row0 + ROWS) x HD columns into shared memory, times mult;
   // rows >= n_valid become zeros.
+  template <int ROWS>
   static __device__ void load(float* dst, const float* src, long long stride, int row0,
                               int n_valid, float mult) {
-    for (int e = threadIdx.x; e < BKV * HD; e += THREADS) {
+    for (int e = threadIdx.x; e < ROWS * HD; e += THREADS) {
       const int r = e / HD, c = e % HD;
       float x = 0.0f;
       if (row0 + r < n_valid) x = src[(row0 + r) * stride + c];
@@ -304,7 +339,7 @@ struct Tile<float, HD> {
     const int half = threadIdx.x % 2;
     const bool dropping = a.threshold != INT32_MIN;
 
-    load(qs, a.q, a.q_stride, q0, a.n_rows, a.q_mult);
+    load<BQ>(qs, a.q, a.q_stride, q0, a.n_rows, a.q_mult);
     for (int e = threadIdx.x; e < BQ * LD; e += THREADS) os[e] = 0.0f;
     __syncthreads();
     float qr[kQInRegs ? HD : 1];
@@ -317,8 +352,8 @@ struct Tile<float, HD> {
 
     for (int k0 = 0; k0 < a.n_keys; k0 += BKV) {
       __syncthreads();  // the previous tile's K and V are consumed
-      load(ks, a.k, a.k_stride, k0, a.n_keys, 1.0f);
-      load(vs, a.v, a.v_stride, k0, a.n_keys, 1.0f);
+      load<BKV>(ks, a.k, a.k_stride, k0, a.n_keys, 1.0f);
+      load<BKV>(vs, a.v, a.v_stride, k0, a.n_keys, 1.0f);
       __syncthreads();
 
       float mx = -INFINITY;

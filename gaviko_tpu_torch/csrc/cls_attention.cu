@@ -1,7 +1,7 @@
 // Single-query (CLS) attention over the packed [K | V] projection.
 //
 // Replaces gaviko_tpu/ops/cls_attention.py:_cls_attention_kernel
-// (cls_attention). kv is [B, N, 2 * heads * hd] (head dim hd 64 or 128)
+// (cls_attention). kv is [B, N, 2 * heads * hd] (head dim hd 64, 128, 192 or 256)
 // with K in the first inner
 // columns of each row and V in the rest; q0 is [B, inner]. For each (batch,
 // head): s[n] = q0 . K[n] * scale over the keys n < n_true, softmax in f32,
@@ -13,8 +13,10 @@
 // MFLOP, so it is bound by bytes: 0.0074 ms at 3.35 TB/s. The TPU kernel
 // needed a head-indicator matmul to split lanes into heads; here a block of
 // 256 threads owns one (batch, head) and lanes split the hd-wide head row
-// into 16-byte loads (8 bf16 or 4 f32 a lane), so each row of K, then of
-// V, is read once with full 128-byte transactions. Pass 1 writes the scores
+// into 16-byte slots (8 bf16 or 4 f32): a power of two of lanes shares a
+// row, at most 32, and a lane takes every LPR-th slot (3 at head dim 192, 2
+// at f32 256), so each row of K, then of V, is read once with full 128-byte
+// transactions. Pass 1 writes the scores
 // to shared memory (four rows a thread in flight), a block reduction takes
 // the max and the sum of exponentials, pass 2 accumulates p V in registers
 // and one more reduction across row groups in shared memory gives the
@@ -33,6 +35,20 @@ constexpr int UNROLL = 4;     // rows a thread has in flight
 template <typename T>
 struct __align__(16) Vec {
   T x[16 / sizeof(T)];
+};
+
+// How a head row of HD elements of T splits between lanes: 16-byte slots,
+// LPR lanes a row (the largest power of two dividing the slots, at most
+// 32), NV slots a lane, RPP rows a pass of the block.
+template <typename T, int HD>
+struct Split {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int SLOTS = HD / VEC;
+  static constexpr int LPR = SLOTS % 32 == 0 ? 32 : SLOTS % 16 == 0 ? 16
+                             : SLOTS % 8 == 0 ? 8 : SLOTS % 4 == 0 ? 4 : SLOTS % 2 == 0 ? 2 : 1;
+  static constexpr int NV = SLOTS / LPR;
+  static constexpr int RPP = THREADS / LPR;
+  static_assert(HD % VEC == 0 && HD <= THREADS, "head dim");
 };
 
 // Block-wide max or sum of one value per thread (every thread gets it).
@@ -56,9 +72,11 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     cls_attention_kernel(const T* __restrict__ kv, const T* __restrict__ q0,
                          T* __restrict__ out, int N, int heads, int n_true, float scale) {
-  constexpr int VEC = 16 / sizeof(T);  // elements a lane loads at once
-  constexpr int LPR = HD / VEC;        // lanes sharing one row: hd / 8 (bf16) or hd / 4 (f32)
-  constexpr int RPP = THREADS / LPR;   // rows one pass of the block covers
+  using L = Split<T, HD>;
+  constexpr int VEC = L::VEC;  // elements a slot holds
+  constexpr int LPR = L::LPR;  // lanes sharing one row
+  constexpr int NV = L::NV;    // slots a lane takes: c, c + LPR, ...
+  constexpr int RPP = L::RPP;  // rows one pass of the block covers
   extern __shared__ __align__(16) float smem[];
   float* sc = smem;          // [N] scores, then exponentials
   float* part = smem + N;    // [RPP][HD] partial outputs
@@ -71,23 +89,27 @@ __global__ void __launch_bounds__(THREADS)
   const T* vbase = kbase + inner;
   const int c = threadIdx.x % LPR, r0 = threadIdx.x / LPR;
 
-  float q[VEC];
-  {
-    const Vec<T> qv =
-        *reinterpret_cast<const Vec<T>*>(q0 + static_cast<long long>(b) * inner + h * HD + c * VEC);
+  float q[NV * VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) q[j] = to_f32(qv.x[j]);
+  for (int s = 0; s < NV; ++s) {
+    const Vec<T> qv = *reinterpret_cast<const Vec<T>*>(
+        q0 + static_cast<long long>(b) * inner + h * HD + (c + s * LPR) * VEC);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) q[s * VEC + j] = to_f32(qv.x[j]);
   }
 
   // Pass 1: scores. Every lane runs every iteration (the shuffles need the
   // whole warp); rows past n_true compute nothing and write nothing.
   float mx = -INFINITY;
   for (int n0 = 0; n0 < n_true; n0 += UNROLL * RPP) {
-    Vec<T> kr[UNROLL];
+    Vec<T> kr[UNROLL][NV];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int n = n0 + u * RPP + r0;
-      if (n < n_true) kr[u] = *reinterpret_cast<const Vec<T>*>(kbase + n * stride + c * VEC);
+#pragma unroll
+      for (int s = 0; s < NV; ++s)
+        if (n < n_true)
+          kr[u][s] = *reinterpret_cast<const Vec<T>*>(kbase + n * stride + (c + s * LPR) * VEC);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -95,7 +117,9 @@ __global__ void __launch_bounds__(THREADS)
       float d = 0.0f;
       if (n < n_true) {
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) d = fmaf(q[j], to_f32(kr[u].x[j]), d);
+        for (int s = 0; s < NV; ++s)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) d = fmaf(q[s * VEC + j], to_f32(kr[u][s].x[j]), d);
       }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off /= 2) d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -117,15 +141,18 @@ __global__ void __launch_bounds__(THREADS)
   const float l = block_reduce<false>(sum, red);  // also orders the sc writes
 
   // Pass 2: out = sum_n e[n] V[n], this thread's VEC columns over its rows.
-  float acc[VEC];
+  float acc[NV * VEC];
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < NV * VEC; ++j) acc[j] = 0.0f;
   for (int n0 = 0; n0 < n_true; n0 += UNROLL * RPP) {
-    Vec<T> vr[UNROLL];
+    Vec<T> vr[UNROLL][NV];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int n = n0 + u * RPP + r0;
-      if (n < n_true) vr[u] = *reinterpret_cast<const Vec<T>*>(vbase + n * stride + c * VEC);
+#pragma unroll
+      for (int s = 0; s < NV; ++s)
+        if (n < n_true)
+          vr[u][s] = *reinterpret_cast<const Vec<T>*>(vbase + n * stride + (c + s * LPR) * VEC);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -133,12 +160,17 @@ __global__ void __launch_bounds__(THREADS)
       if (n < n_true) {
         const float p = sc[n];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = fmaf(p, to_f32(vr[u].x[j]), acc[j]);
+        for (int s = 0; s < NV; ++s)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            acc[s * VEC + j] = fmaf(p, to_f32(vr[u][s].x[j]), acc[s * VEC + j]);
       }
     }
   }
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) part[r0 * HD + c * VEC + j] = acc[j];
+  for (int s = 0; s < NV; ++s)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) part[r0 * HD + (c + s * LPR) * VEC + j] = acc[s * VEC + j];
   __syncthreads();
   if (threadIdx.x < HD) {
     float o = 0.0f;
@@ -150,7 +182,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int HD>
 int launch(const void* kv, const void* q0, void* out, int B, int N, int heads, int n_true,
            float scale, void* stream) {
-  constexpr int RPP = THREADS / (HD / (16 / sizeof(T)));
+  constexpr int RPP = Split<T, HD>::RPP;
   const size_t smem = (static_cast<size_t>(N) + RPP * HD) * sizeof(float);
   cudaError_t err = gaviko::allow_smem(cls_attention_kernel<T, HD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -169,6 +201,10 @@ int dispatch(const void* kv, const void* q0, void* out, int B, int N, int heads,
       return launch<T, 64>(kv, q0, out, B, N, heads, n_true, scale, stream);
     case 128:
       return launch<T, 128>(kv, q0, out, B, N, heads, n_true, scale, stream);
+    case 192:
+      return launch<T, 192>(kv, q0, out, B, N, heads, n_true, scale, stream);
+    case 256:
+      return launch<T, 256>(kv, q0, out, B, N, heads, n_true, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -178,7 +214,7 @@ int dispatch(const void* kv, const void* q0, void* out, int B, int N, int heads,
 
 // kv [B, N, 2 * heads * dim_head], q0 [B, heads * dim_head] -> out [B,
 // heads * dim_head]; all contiguous and 16-byte aligned, one dtype; dim_head
-// 64 or 128; 1 <= n_true <= N.
+// 64, 128, 192 or 256; 1 <= n_true <= N.
 extern "C" int gaviko_cls_attention_bf16(const void* kv, const void* q0, void* out, int B,
                                          int N, int heads, int dim_head, int n_true,
                                          float scale, void* stream) {

@@ -18,7 +18,10 @@
 // plane offsets multiples of 8 elements, 16-byte aligned), e.g. the head
 // splits of a packed [B, N, 3 * H * D] projection sliced to N rows, so no
 // split or transpose copy is made; o has strides of its own, so the caller
-// can take it as [B, N, H * D] without a copy. Head dims 32, 64 and 128.
+// can take it as [B, N, H * D] without a copy. Head dims 32, 64, 128, 192
+// and 256; the wrapper zero-pads q, k and v along the head dim up to the
+// next of these (zero columns change neither the scores nor the kept
+// columns) and slices the output back.
 //
 // What bounds it on the H100: at vit-t16 serving (B 8, H 3, N 1001, D 64)
 // one call is 4 * 8 * 3 * 1001^2 * 64 = 6.16 GFLOP against 12.3 MB of q, k,
@@ -93,6 +96,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
       return launch<T, 64>(q, k, v, o, B, H, N, qs, ks, vs, os, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, N, qs, ks, vs, os, scale, stream);
+    case 192:
+      return launch<T, 192>(q, k, v, o, B, H, N, qs, ks, vs, os, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, H, N, qs, ks, vs, os, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -101,7 +108,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace
 
 // q, k, v, o [B, H, N, D] of one dtype with the element strides st = (q's
-// batch, head, row strides, then k's, v's and o's); D 32, 64 or 128.
+// batch, head, row strides, then k's, v's and o's); D 32, 64, 128, 192 or 256
+// (the wrapper zero-pads any other head dim up to the next of these).
 extern "C" int gaviko_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                            int B, int H, int N, int D, const long long* st,
                                            float scale, void* stream) {

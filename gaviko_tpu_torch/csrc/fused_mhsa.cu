@@ -12,7 +12,7 @@
 // log2 units, [B, heads, n_pad] f32. The TPU kernel saves m and l apart, with
 // m taken over the pad keys too; only their combination is defined here.
 //
-// qkv [B, n_pad, 3 * heads * hd] (head dim hd 64 or 128) is read in place:
+// qkv [B, n_pad, 3 * heads * hd] (head dim hd 64, 128, 192 or 256) is read in place:
 // head h's q, k and v are the column ranges h*hd, inner + h*hd and
 // 2*inner + h*hd of each row (row stride 3*inner), so no split or transpose
 // copy is made. out is
@@ -91,6 +91,12 @@ int dispatch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads
     case 128:
       return launch<T, 128>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
                             drop_scale, stream);
+    case 192:
+      return launch<T, 192>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
+                            drop_scale, stream);
+    case 256:
+      return launch<T, 256>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
+                            drop_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -99,7 +105,7 @@ int dispatch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads
 }  // namespace
 
 // qkv [B, n_pad, 3 * heads * dim_head] contiguous (16-byte aligned in bf16),
-// dim_head 64 or 128 -> out [B, n_pad, heads * dim_head]; lse [B, heads,
+// dim_head 64, 128, 192 or 256 -> out [B, n_pad, heads * dim_head]; lse [B, heads,
 // n_pad] f32, or nullptr. threshold is hash_dropout._threshold(rate)
 // (INT32_MIN at rate 0: no dropout), drop_scale 1 / (1 - rate).
 extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, float* lse, int B, int n_pad,

@@ -5,7 +5,7 @@
 // forward's dropout mask replayed from (seed, query row, key, b * heads + h)
 // (csrc/fused_mhsa.cu).
 //
-// From qkv [B, n_pad, 3 * heads * hd] (head dim hd 64 or 128), the
+// From qkv [B, n_pad, 3 * heads * hd] (head dim hd 64, 128, 192 or 256), the
 // forward's output O and its per-row statistic lse = m + log2(l)
 // (csrc/fused_mhsa.cu, log2 units, [B, heads, n_pad] f32) and the cotangent
 // dO, it writes dq, dk and dv into the column ranges h*hd, inner + h*hd and
@@ -47,12 +47,15 @@
 // operands sit in registers; at 128 the two output accumulators alone take
 // 128 registers a thread, so the walked tile is 32 rows and the A operands
 // are staged once in shared memory and read a fragment at a time, which
-// keeps the dk/dv pass under the register limit.
-// f32 takes a SIMT path: hd / 32 lanes own a row, each lane 32 of its
-// columns in registers, so a block owns 64 rows at head dim 64 and 32 at
-// 128 (the smaller row tile keeps a lane at 32 columns a tensor); staged
-// tiles are f32 read as shared 16-byte vectors. The f32 check runs in full
-// f32, not TF32.
+// keeps the dk/dv pass under the register limit. Above 128 the output
+// columns of a row tile are split between two blocks (96 or 128 columns
+// each), each recomputing S and dP over the whole head dim, so a thread's
+// accumulators stay at or under the 128 registers of head dim 128.
+// f32 takes a SIMT path: hd / 32 lanes own a row up to head dim 128 (8
+// above), each lane 32 of its columns in registers (24 at 192), so a block
+// owns 64 rows at head dim 64, 32 at 128 and 16 above (the smaller row tile
+// keeps a lane at 32 columns a tensor); staged tiles are f32 read as shared
+// 16-byte vectors. The f32 check runs in full f32, not TF32.
 
 #include <type_traits>
 
@@ -84,12 +87,12 @@ __device__ __forceinline__ float drop_factor(const Args& a, int row, int key, ui
 
 // ------------------------------------------------------------ f32 SIMT ----
 
-constexpr int COLS = 32;  // columns of a row one lane owns
-
 template <int HD>
 struct Simt {
-  static constexpr int LANES = HD / COLS;      // lanes sharing a row
+  static constexpr int LANES = HD <= 128 ? HD / 32 : 8;  // lanes sharing a row
+  static constexpr int COLS = HD / LANES;       // columns of a row one lane owns
   static constexpr int ROWS = THREADS / LANES;  // rows a block owns and stages
+  static_assert(COLS % 4 == 0, "a lane's columns load as 16-byte vectors");
   static constexpr int LD = HD + 4;             // staged row width: 16-byte aligned rows
   static constexpr size_t kSmemDq = 2 * static_cast<size_t>(ROWS) * LD * sizeof(float);
   static constexpr size_t kSmemDkdv =
@@ -110,8 +113,9 @@ __device__ void stage_f32(float* dst, const float* src, long long stride, int ro
   }
 }
 
-// sum over this lane's 32 columns of a[j] * row[j], row a staged f32 row
+// sum over this lane's COLS columns of a[j] * row[j], row a staged f32 row
 // segment (16-byte aligned).
+template <int COLS>
 __device__ __forceinline__ float dot_cols(const float* a, const float* row) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float s = 0.0f;
@@ -126,7 +130,8 @@ __device__ __forceinline__ float dot_cols(const float* a, const float* row) {
   return s;
 }
 
-// acc[j] += w * row[j] over this lane's 32 columns.
+// acc[j] += w * row[j] over this lane's COLS columns.
+template <int COLS>
 __device__ __forceinline__ void axpy_cols(float* acc, float w, const float* row) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
@@ -160,6 +165,7 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_simt(Args a) {
   const int row = threadIdx.x / S::LANES, part = threadIdx.x % S::LANES;
   const int r = q0 + row;
   const bool live = r < a.n_pad;
+  constexpr int COLS = S::COLS;
   const int col = h * HD + part * COLS;  // this lane's first column in a head block
   const float* qkv = static_cast<const float*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
   const long long orow = (static_cast<long long>(b) * a.n_pad + r) * inner + col;
@@ -191,10 +197,10 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_simt(Args a) {
     const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
     for (int c = 0; c < n; ++c) {
       const float* kc = ks + c * S::LD + part * COLS;
-      const float s = row_sum<S::LANES>(dot_cols(qr, kc));
-      const float dp = row_sum<S::LANES>(dot_cols(dor, vs + c * S::LD + part * COLS));
+      const float s = row_sum<S::LANES>(dot_cols<COLS>(qr, kc));
+      const float dp = row_sum<S::LANES>(dot_cols<COLS>(dor, vs + c * S::LD + part * COLS));
       const float ds = exp2f(s - lse) * (drop_factor(a, r, k0 + c, salt) * dp - delta);
-      axpy_cols(acc, ds, kc);
+      axpy_cols<COLS>(acc, ds, kc);
     }
   }
   if (live) {
@@ -220,6 +226,7 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_simt(Args a) {
   const int row = threadIdx.x / S::LANES, part = threadIdx.x % S::LANES;
   const int j = k0 + row;
   const bool live = j < a.n_true;
+  constexpr int COLS = S::COLS;
   const int col = h * HD + part * COLS;
   const float* qkv = static_cast<const float*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
   const float* dout = static_cast<const float*>(a.dout) + static_cast<long long>(b) * a.n_pad * inner;
@@ -251,12 +258,12 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_simt(Args a) {
     const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
     for (int c = 0; c < n; ++c) {
       const int off = c * S::LD + part * COLS;
-      const float s = row_sum<S::LANES>(dot_cols(kr, qs + off));
-      const float dp = row_sum<S::LANES>(dot_cols(vr, dos + off));
+      const float s = row_sum<S::LANES>(dot_cols<COLS>(kr, qs + off));
+      const float dp = row_sum<S::LANES>(dot_cols<COLS>(vr, dos + off));
       const float p = live ? exp2f(s - lse_s[c]) : 0.0f;
       const float f = drop_factor(a, q0 + c, j, salt);
-      axpy_cols(dv, f * p, dos + off);
-      axpy_cols(dk, p * (f * dp - delta_s[c]), qu + off);
+      axpy_cols<COLS>(dv, f * p, dos + off);
+      axpy_cols<COLS>(dk, p * (f * dp - delta_s[c]), qu + off);
     }
   }
   if (j < a.n_pad) {
@@ -283,7 +290,9 @@ struct Mma {
   static constexpr int KC = HD / 16;    // k chunks over the head dim
   static constexpr int NG = WALK / 8;   // column groups over a staged tile
   static constexpr int WC = WALK / 16;  // k chunks over a staged tile
-  static constexpr int OG = HD / 8;     // output column groups
+  static constexpr int SPLIT = HD > 128 ? 2 : 1;  // blocks sharing a row tile's output columns
+  static constexpr int CW = HD / SPLIT;  // output columns a block accumulates
+  static constexpr int OG = CW / 8;      // output column groups
   static constexpr bool kSmemA = HD >= 128;  // the A operands of the walk in shared memory
   // Two row-major and one transposed walked tile (dq pass) or two of each
   // (dk/dv pass), then two resident [OWN][LDR] operands where kSmemA.
@@ -448,7 +457,8 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
   bf16* vs = ks + M::WALK * M::LDR;          // V row-major: B of dP = dO V^T
   bf16* kt = vs + M::WALK * M::LDR;          // K transposed: B of dQ = dS K
   bf16* own = kt + HD * M::LDT;              // q and dO of the block's rows (kSmemA)
-  const int q0 = blockIdx.x * M::OWN, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x / M::SPLIT * M::OWN, h = blockIdx.y, b = blockIdx.z;
+  const int col0 = blockIdx.x % M::SPLIT * M::CW;  // the block's output columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int inner = a.heads * HD;
@@ -487,7 +497,7 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
   }
   const float lse_a = ra < a.n_pad ? a.lse[stat + ra] : 0.0f;
   const float lse_b = rb < a.n_pad ? a.lse[stat + rb] : 0.0f;
-  if (t == 0) {
+  if (t == 0) {  // the SPLIT blocks of a row tile write the same values
     if (ra < a.n_pad) a.delta[stat + ra] = delta_a;
     if (rb < a.n_pad) a.delta[stat + rb] = delta_b;
   }
@@ -520,11 +530,11 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dq_mma(Args a) {
       dsa.f[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
       dsa.f[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
     }
-    mma_rows<M::OG, M::WC>(dq, dsa, kt, M::LDT, g, t);
+    mma_rows<M::OG, M::WC>(dq, dsa, kt + col0 * M::LDT, M::LDT, g, t);
   }
 #pragma unroll
   for (int n = 0; n < M::OG; ++n) {
-    const int c = h * HD + n * 8 + 2 * t;
+    const int c = h * HD + col0 + n * 8 + 2 * t;
     bf16* dst = static_cast<bf16*>(a.dqkv) + static_cast<long long>(b) * a.n_pad * stride + c;
     if (ra < a.n_pad)
       *reinterpret_cast<uint32_t*>(dst + ra * stride) = pack(dq[n][0] * a.scale, dq[n][1] * a.scale);
@@ -545,7 +555,8 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
   bf16* own = dot + HD * M::LDT;             // k and v of the block's keys (kSmemA)
   float* lse_s = reinterpret_cast<float*>(reinterpret_cast<char*>(own) + M::kOwn);
   float* delta_s = lse_s + M::WALK;
-  const int k0 = blockIdx.x * M::OWN, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x / M::SPLIT * M::OWN, h = blockIdx.y, b = blockIdx.z;
+  const int col0 = blockIdx.x % M::SPLIT * M::CW;  // the block's output columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int inner = a.heads * HD;
@@ -598,12 +609,12 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
       dsa.f[j / 2][(j % 2) * 2] = pack(ds[0], ds[1]);
       dsa.f[j / 2][(j % 2) * 2 + 1] = pack(ds[2], ds[3]);
     }
-    mma_rows<M::OG, M::WC>(dv, pa, dot, M::LDT, g, t);
-    mma_rows<M::OG, M::WC>(dk, dsa, qt, M::LDT, g, t);
+    mma_rows<M::OG, M::WC>(dv, pa, dot + col0 * M::LDT, M::LDT, g, t);
+    mma_rows<M::OG, M::WC>(dk, dsa, qt + col0 * M::LDT, M::LDT, g, t);
   }
 #pragma unroll
   for (int n = 0; n < M::OG; ++n) {
-    const int c = h * HD + n * 8 + 2 * t;
+    const int c = h * HD + col0 + n * 8 + 2 * t;
     bf16* dst = static_cast<bf16*>(a.dqkv) + static_cast<long long>(b) * a.n_pad * stride + c;
     if (ka < a.n_pad) {
       *reinterpret_cast<uint32_t*>(dst + ka * stride + inner) =
@@ -631,7 +642,7 @@ int launch(const Args& a, int B, cudaStream_t s) {
   int err;
   if constexpr (gaviko::is_bf16<T>()) {
     using M = Mma<HD>;
-    const dim3 grid((a.n_pad + M::OWN - 1) / M::OWN, a.heads, B);
+    const dim3 grid((a.n_pad + M::OWN - 1) / M::OWN * M::SPLIT, a.heads, B);
     err = run(mhsa_bwd_dq_mma<HD>, grid, M::kSmemDq, s, a);
     if (err != 0) return err;
     return run(mhsa_bwd_dkdv_mma<HD>, grid, M::kSmemDkdv, s, a);
@@ -657,6 +668,10 @@ int dispatch(const void* qkv, const void* out, const void* dout, const float* ls
       return launch<T, 64>(a, B, s);
     case 128:
       return launch<T, 128>(a, B, s);
+    case 192:
+      return launch<T, 192>(a, B, s);
+    case 256:
+      return launch<T, 256>(a, B, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -665,7 +680,7 @@ int dispatch(const void* qkv, const void* out, const void* dout, const float* ls
 }  // namespace
 
 // qkv [B, n_pad, 3 * heads * dim_head], out and dout [B, n_pad, heads *
-// dim_head], all contiguous and of one dtype, dim_head 64 or 128; lse and
+// dim_head], all contiguous and of one dtype, dim_head 64, 128, 192 or 256; lse and
 // delta (scratch) [B, heads, n_pad] f32 -> dqkv [B, n_pad, 3 * heads *
 // dim_head] in qkv's dtype. seed, threshold and drop_scale are the
 // forward's (threshold INT32_MIN: no dropout).

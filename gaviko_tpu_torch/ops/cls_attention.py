@@ -21,7 +21,7 @@ import torch
 from gaviko_tpu_torch.ops import _build
 
 _HP = 128  # the JAX kernel's padded head count
-KERNEL_DIM_HEADS = (64, 128)  # head dims the kernel is compiled for
+KERNEL_DIM_HEADS = (64, 128, 192, 256)  # head dims the kernel is compiled for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_F, _P)

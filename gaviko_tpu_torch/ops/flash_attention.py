@@ -23,9 +23,10 @@ forward and backward are those kernels. ``flash_attention_reference``,
 ``local_bwd_reference`` are the plain PyTorch versions, run on CPU tensors
 and inside ``_build.plain_versions()``.
 
-A and B are compiled for head dims 64 and 128, B10 for 32, 64 and 128; the
-JAX package's fused gate also admits 192 and 256, which raise here (ROADMAP
-Queue C item 4).
+A and B are compiled for head dims 64, 128, 192 and 256, every head dim the
+JAX package's fused gate admits up to 256; B10 for 32, 64, 128, 192 and 256,
+and any other head dim up to 256 reaches it zero-padded to the next of these.
+Head dims above 256 raise on the card (ROADMAP Queue C item 4).
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
 row within the padded stream, key column) in plane ``salt = b * heads +
@@ -51,8 +52,8 @@ from gaviko_tpu_torch.ops.local_attention import local_mask_additive
 NEG_INF = float("-inf")
 LOG2E = math.log2(math.e)
 WHOLE_K_MAX = 2048
-MHSA_DIM_HEADS = (64, 128)  # head dims kernels A and B are compiled for
-FLASH_DIM_HEADS = (32, 64, 128)  # head dims kernel B10 is compiled for
+MHSA_DIM_HEADS = (64, 128, 192, 256)  # head dims kernels A and B are compiled for
+FLASH_DIM_HEADS = (32, 64, 128, 192, 256)  # head dims kernel B10 is compiled for
 MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -83,7 +84,7 @@ def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Te
 
 def fused_mhsa_supported(heads: int, dim_head: int, N: int) -> bool:
     """The JAX package's gate: even heads, 128-lane head pairs, whole-K
-    length. It admits head dims 192 and 256, which the kernels raise on."""
+    length. Of the head dims it admits, those above 256 raise on the card."""
     return heads % 2 == 0 and (2 * dim_head) % 128 == 0 and N <= WHOLE_K_MAX
 
 
@@ -137,14 +138,28 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
     """Kernel B10 on CUDA, :func:`flash_attention_reference` on the CPU; no
     autograd. The kernel writes o in [B, N, H, D] memory and returns it as a
-    [B, H, N, D] view, so merging the heads is no copy."""
+    [B, H, N, D] view, so merging the heads is no copy. A head dim the kernel
+    is not compiled for is zero-padded up to the next one that it is (zero
+    columns change neither the scores nor the kept columns), with the true
+    ``scale``, and the output sliced back."""
     if not _build.use_kernel(q):
         return flash_attention_reference(q, k, v, scale)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one [B, H, N, D] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, N, D = q.shape
-    _check_dim_head("flash_attention", D, FLASH_DIM_HEADS)
+    width = next((w for w in FLASH_DIM_HEADS if w >= D), None)
+    if width is None:
+        _check_dim_head("flash_attention", D, FLASH_DIM_HEADS)
+    if width != D:
+        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
+        return _flash_launch(q, k, v, scale)[..., :D]
+    return _flash_launch(q, k, v, scale)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    B, H, N, D = q.shape
     dtype = _build.dtype_suffix(q)
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:

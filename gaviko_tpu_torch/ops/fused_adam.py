@@ -1,0 +1,171 @@
+"""Global-norm clip + Adam over every trainable tensor: kernel B13.
+
+Port of ``gaviko_tpu/ops/fused_adam.py`` (``_adam_leaf_kernel``, the
+one-pass Adam leaf update) and of the norm pass before it
+(``gaviko_tpu/train/fused_optim.py:step``). On the card one call is two
+launches of ``csrc/fused_adam.cu`` over every leaf at once: a multi-tensor
+sum of squares in f64, then the update, which forms the clip scale from the
+partials on the device and updates the parameters and both moments in
+place. The TPU kernel runs one launch a leaf, bakes b1 in and is gated to
+large leaves; this one takes b1 (the cycled OneCycle beta1) as a per-step
+scalar and has no gate.
+
+:func:`adam_reference` is the plain PyTorch version (the port's per-leaf
+math before the kernel): it returns new tensors and leaves its inputs as
+they are. :func:`fused_adam` runs it on CPU tensors and inside
+``_build.plain_versions()``; on CUDA tensors it launches the kernel, which
+updates ``params``, ``mu`` and ``nu`` in place (the JAX step donates them)
+and returns them.
+
+The kernel's table of leaves (pointers, sizes, chunk starts),
+:class:`AdamTable`, is built once for a set of parameter and moment tensors
+and held by the caller (``train/fused_optim.py`` keeps one with the
+optimizer state); a step rewrites only the grad pointers and the four step
+scalars, with one asynchronous copy from pinned memory, so the step has no
+host sync.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gaviko_tpu_torch.ops import _build
+
+B2 = 0.999  # Adam's beta2, fixed as in the reference
+CHUNK = 4096  # elements a block takes at once (csrc/fused_adam.cu)
+SUM_BLOCKS = 264  # most blocks of the sum of squares: two a streaming multiprocessor
+UPDATE_BLOCKS = 1056  # most blocks of the update: eight a streaming multiprocessor
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGTYPES = (_P, _I, _L, _P, _I, _I, _F, _F, _F, _F, _P)
+
+Tensors = Sequence[torch.Tensor]
+
+
+def global_norm(grads: Tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, summed in f64 and
+    rounded once to f32, on the tensors' device."""
+    return torch.sqrt(sum(g.double().square().sum() for g in grads)).float()
+
+
+@torch.no_grad()
+def adam_reference(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
+                   lr: float, b1: float, c1: float, c2: float, clip: float,
+                   eps: float) -> Tuple[List[torch.Tensor], ...]:
+    """-> (new params, new mu, new nu), new tensors. ``lr``, ``b1``, ``c1``
+    and ``c2`` are the step's f32 scalars; the clip scale is ``1 if gn <
+    clip else clip / gn`` of the global norm, on the device. Every quotient
+    divides by a tensor on the operands' device: PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal, which rounds differently
+    from the kernel's (and JAX's) IEEE division."""
+    if not grads:
+        return [], [], []
+    gn = global_norm(grads)
+    dev = gn.device
+    scale = torch.where(gn < clip, torch.ones_like(gn), torch.full_like(gn, clip) / gn)
+    c1, c2 = (torch.tensor(c, dtype=torch.float32, device=dev) for c in (c1, c2))
+    omb1 = float(np.float32(1.0) - np.float32(b1))
+    new_p, new_m, new_v = [], [], []
+    for g, m, v, p in zip(grads, mu, nu, params):
+        g = g * scale.to(g.dtype)
+        m = b1 * m.float() + omb1 * g.float()
+        v = B2 * v.float() + (1.0 - B2) * g.float().square()
+        update = (m / c1) / (torch.sqrt(v / c2) + eps)
+        # Moments and params keep their storage dtype; the arithmetic is f32.
+        new_p.append(p - (lr * update).to(p.dtype))
+        new_m.append(m.to(p.dtype))
+        new_v.append(v.to(p.dtype))
+    return new_p, new_m, new_v
+
+
+class AdamTable:
+    """The device table of one set of (mu, nu, param) CUDA tensors
+    (csrc/fused_adam.cu's layout) and its f64 partials. It holds the
+    tensors, so their addresses stay valid while it lives."""
+
+    def __init__(self, mu: Tensors, nu: Tensors, params: Tensors):
+        self.dtype, device = params[0].dtype, params[0].device
+        _build.dtype_suffix(params[0])
+        for t in (*mu, *nu, *params):
+            if t.dtype != self.dtype or t.device != device or not t.is_contiguous():
+                raise ValueError("fused_adam: moments and params must be contiguous and "
+                                 f"share one dtype and device; got {t.dtype} on {t.device}, "
+                                 f"want {self.dtype} on {device}")
+        n = len(params)
+        if not (len(mu) == len(nu) == n):
+            raise ValueError("fused_adam: one mu and nu for every param")
+        self.tensors = (tuple(mu), tuple(nu), tuple(params))
+        self.shapes = [p.shape for p in params]
+        self.device_index = device.index
+        numel = np.array([p.numel() for p in params], np.int64)
+        chunks = -(-numel // CHUNK)
+        starts = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
+        words = np.zeros(6 * n + 3, np.int64)
+        words[n + 2:2 * n + 2] = [t.data_ptr() for t in mu]
+        words[2 * n + 2:3 * n + 2] = [t.data_ptr() for t in nu]
+        words[3 * n + 2:4 * n + 2] = [t.data_ptr() for t in params]
+        words[4 * n + 2:5 * n + 2] = numel
+        words[5 * n + 2:] = starts
+        self.n, self.n_chunks = n, int(starts[-1])
+        self.words = torch.from_numpy(words).pin_memory().to(device, non_blocking=True)
+        self.n_sum = min(self.n_chunks, SUM_BLOCKS)
+        self.n_update = min(self.n_chunks, UPDATE_BLOCKS)
+        self.partials = torch.empty(self.n_sum, dtype=torch.float64, device=device)
+
+    def holds(self, mu: Tensors, nu: Tensors, params: Tensors) -> bool:
+        """Whether the table was built for exactly these tensors, in order."""
+        return all(len(ts) == self.n and all(a is b for a, b in zip(ts, mine))
+                   for ts, mine in zip((mu, nu, params), self.tensors))
+
+
+@torch.no_grad()
+def fused_adam(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
+               lr: float, b1: float, c1: float, c2: float, clip: float = 1.0,
+               eps: float = 1e-8, table: AdamTable = None) -> Tuple[List[torch.Tensor], ...]:
+    """One clip + Adam step of every leaf: -> (params, mu, nu).
+
+    Kernel B13 on CUDA tensors (two launches, the update in place: the
+    returned tensors are the ones given); :func:`adam_reference` on CPU
+    tensors and inside ``_build.plain_versions()`` (new tensors). The four
+    step scalars are f32 values. ``table`` is an :class:`AdamTable` that
+    holds ``mu``, ``nu`` and ``params`` (its caller checks
+    :meth:`AdamTable.holds`), kept across steps; without one the call
+    builds its own."""
+    if not params:
+        return [], [], []
+    if not _build.use_kernel(params[0]):
+        return adam_reference(grads, mu, nu, params, lr, b1, c1, c2, clip, eps)
+    if table is None:
+        table = AdamTable(mu, nu, params)
+    grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
+    if len(grads) != table.n or any(
+            g.shape != s or g.dtype is not table.dtype or g.get_device() != table.device_index
+            for g, s in zip(grads, table.shapes)):
+        raise ValueError(f"fused_adam: the {len(grads)} grads do not match the shapes, "
+                         f"dtype {table.dtype} and device cuda:{table.device_index} of the "
+                         f"{table.n} params")
+    n = table.n
+    step = np.empty(n + 2, np.int64)
+    step[:n] = [g.data_ptr() for g in grads]
+    step[n:] = np.array([lr, b1, c1, c2], np.float32).view(np.int64)
+    table.words[:n + 2].copy_(torch.from_numpy(step).pin_memory(), non_blocking=True)
+    launch_table(table, params[0], clip, eps)
+    return list(params), list(mu), list(nu)
+
+
+def launch_table(table: AdamTable, like: torch.Tensor, clip: float, eps: float) -> None:
+    """Launch B13's two kernels on ``table`` as it stands (the step's grad
+    pointers and scalars already copied in), on ``like``'s stream."""
+    dtype = _build.dtype_suffix(like)
+    _build.launch("fused_adam", f"gaviko_fused_adam_{dtype}", _ARGTYPES,
+                  table.words.data_ptr(), table.n, table.n_chunks, table.partials.data_ptr(),
+                  table.n_sum, table.n_update, float(clip), float(np.float32(B2)),
+                  float(np.float32(1.0 - B2)), float(eps), _build.stream_of(like))
+    fused_adam.launches += 1
+
+
+fused_adam.launches = 0  # B13 steps launched (a sum of squares and an update each)

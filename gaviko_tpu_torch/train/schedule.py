@@ -53,6 +53,28 @@ def onecycle_cos(max_lr: float, total_steps: int, pct_start: float = 0.3,
                       initial_lr / final_div_factor)
 
 
+def onecycle_cos_host(max_lr: float, total_steps: int, pct_start: float = 0.3,
+                      div_factor: float = 25.0, final_div_factor: float = 1e4) -> Schedule:
+    """The JAX package's host twin of the lr schedule, which ``run_training``
+    writes into the CSV's ``lr`` column. It differs from :func:`onecycle_cos`
+    only where the warmup is shorter than one step: its pct at step 0 is 0
+    (the initial lr), not 1."""
+    initial_lr = max_lr / div_factor
+    min_lr = initial_lr / final_div_factor
+    up_steps = float(pct_start * total_steps) - 1.0
+    down_steps = float(total_steps - up_steps - 1.0)
+
+    def schedule(count: int) -> float:
+        c = min(float(count), total_steps - 1.0)
+        if c <= up_steps:
+            pct = min(max(c / max(up_steps, 1e-9), 0.0), 1.0)
+            return _anneal(initial_lr, max_lr, pct)
+        pct = min(max((c - up_steps) / max(down_steps, 1e-9), 0.0), 1.0)
+        return _anneal(max_lr, min_lr, pct)
+
+    return schedule
+
+
 def onecycle_beta1(total_steps: int, pct_start: float = 0.3,
                    base_momentum: float = 0.85, max_momentum: float = 0.95) -> Schedule:
     """Adam's beta1 under OneCycleLR: max_momentum at the ends,

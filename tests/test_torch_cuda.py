@@ -714,3 +714,166 @@ def test_vit_t16_and_dim_head_128_forward_and_step_run_the_kernels(dev, backbone
     assert counts == ([0, 0, 0, 0] if t16 else [0, 2, 2, 0])  # vit-t16: dropout's route
     assert torch.isfinite(got).all()
     assert torch.nn.functional.cosine_similarity(got, want, dim=0) >= 0.99
+
+
+# ------------------------------------- head dims 192 and 256 (A, B, B8, B10) ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("B,H,n_pad,n_true,rate", [
+    (2, 4, 136, 130, 0.0), (1, 2, 64, 64, 0.1), (3, 2, 40, 1, 0.0), (2, 2, 72, 65, 0.1),
+])
+def test_fused_mhsa_kernels_at_head_dims_192_and_256(dev, dtype, D, B, H, n_pad, n_true, rate):
+    """Kernels A (output and lse) and B at head dims 192 and 256 against
+    their plain versions, dropout on and off."""
+    seed = 4243
+    gen = torch.Generator(device=dev).manual_seed(18)
+    qkv = _randn(gen, B, n_pad, 3 * H * D, dtype=dtype)
+    dout = _randn(gen, B, n_pad, H * D, dtype=dtype)
+    dout[:, n_true:] = 0
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    out, lse = fused_mhsa(qkv, H, D, D ** -0.5, n_true, rate, with_lse=True, seed=seed)
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, D, D ** -0.5, n_true, rate, seed)
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want, want_lse = mhsa_reference(qkv, H, D, D ** -0.5, n_true, rate, with_lse=True,
+                                    seed=seed)
+    assert _rel_mae(out[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
+    assert float((lse - want_lse).abs().max()) <= (1e-4 if dtype == torch.float32 else 0.1)
+    dwant = mhsa_bwd_reference(qkv, out, lse, dout, H, D, D ** -0.5, n_true, rate, seed)
+    assert torch.isfinite(dqkv).all()
+    assert torch.all(dqkv[:, n_true:] == 0)
+    assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("B,N,H,n_true", [(8, 1008, 12, 1001), (3, 40, 2, 1), (2, 64, 4, 57)])
+def test_cls_attention_kernel_at_head_dims_192_and_256(dev, dtype, D, B, N, H, n_true):
+    gen = torch.Generator(device=dev).manual_seed(19)
+    kv = _randn(gen, B, N, 2 * H * D, dtype=dtype)
+    q0 = _randn(gen, B, H * D, dtype=dtype)
+    before = cls_attention.launches
+    got = cls_attention(kv, q0, H, D, D ** -0.5, n_true)
+    assert cls_attention.launches == before + 1
+    want = cls_attention_reference(kv, q0, H, D, D ** -0.5, n_true)
+    assert torch.isfinite(got).all() and _rel_mae(got, want) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [192, 256, 48, 96, 200])
+def test_flash_attention_kernel_at_any_head_dim_up_to_256(dev, dtype, D):
+    """B10 at its new instances (192, 256) and at head dims it is not
+    compiled for, zero-padded to the next one (48 -> 64, 96 -> 128, 200 ->
+    256), forward and gradient against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q, k, v = (_randn(gen, 2, 3, 77, D, dtype=dtype).requires_grad_(True) for _ in range(3))
+    g = _randn(gen, 2, 3, 77, D, dtype=dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, D ** -0.5)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    dgot = torch.autograd.grad(got, (q, k, v), g)
+    with _build.plain_versions():
+        want = flash_attention(q, k, v, D ** -0.5)
+        dwant = torch.autograd.grad(want, (q, k, v), g)
+    assert _rel_mae(got, want) <= BUDGET[dtype]
+    for a, b in zip(dgot, dwant):
+        assert _rel_mae(a, b) <= BUDGET[dtype]
+    with pytest.raises(NotImplementedError, match="Queue C item 4"):
+        flash_attention(q[..., :1].expand(2, 3, 77, 264).contiguous(), k[..., :1].expand(
+            2, 3, 77, 264).contiguous(), v[..., :1].expand(2, 3, 77, 264).contiguous(), 0.1)
+
+
+# --------------------------------------------------- fused Adam (B13) ----
+
+ADAM_SIZES = (1, 0, 4096, 4097, 3 * 4096, 37, 1000, 8192 + 5)  # one, empty, whole and cut chunks
+
+
+def _adam_leaves(dev, dtype, sizes, grad_std, seed=21):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = [_randn(gen, n, dtype=dtype, std=grad_std) for n in sizes]
+    mu = [_randn(gen, n, dtype=dtype, std=0.01) for n in sizes]
+    nu = [(_randn(gen, n, dtype=torch.float32, std=0.01) ** 2).to(dtype) for n in sizes]
+    params = [_randn(gen, n, dtype=dtype) for n in sizes]
+    return grads, mu, nu, params
+
+
+def _ulps(got, want, mag=None):
+    """|got - want| in units in the last place, in want's dtype (24
+    significant bits in f32, 8 in bf16), of ``mag``: the largest term of the
+    sum that made want (want itself by default), since m' = b1 m + (1 - b1)
+    g and p' = p - lr u can cancel."""
+    if not want.numel():
+        return 0.0
+    bits = 24 if want.dtype == torch.float32 else 8
+    ref = want.double().abs() if mag is None else torch.maximum(want.double().abs(), mag)
+    _, exp = torch.frexp(ref)
+    gap = torch.pow(2.0, (exp - bits).double())
+    return float(((got.double() - want.double()).abs() / gap).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_std", [1e-4, 1.0])  # clip off (gn < 1), clip on
+def test_fused_adam_kernel(dev, dtype, grad_std):
+    """B13 against its plain version: every output within 2 ULP of f32 (1
+    ULP of bf16 under bf16 storage), two runs bit-equal, one B13 launch (its
+    norm and update kernels) a step, and no host sync in the step."""
+    from gaviko_tpu_torch.ops.fused_adam import adam_reference, fused_adam, global_norm
+
+    grads, mu, nu, params = _adam_leaves(dev, dtype, ADAM_SIZES, grad_std)
+    assert (float(global_norm(grads)) < 1.0) == (grad_std < 1e-2)
+    scalars = (3e-4, 0.93, 0.1351, 0.00299)
+    want = adam_reference(grads, mu, nu, params, *scalars, clip=1.0, eps=1e-8)
+    runs = []
+    for _ in range(2):
+        state = [[t.clone() for t in ts] for ts in (mu, nu, params)]
+        before = fused_adam.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_p, got_m, got_v = fused_adam(grads, *state, *scalars, clip=1.0, eps=1e-8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fused_adam.launches == before + 1
+        assert all(a is b for a, b in zip(got_p, state[2]))  # in place
+        runs.append((got_p, got_m, got_v))
+    ulp_budget = 2 if dtype == torch.float32 else 1
+    b1 = scalars[1]
+    for i in range(len(ADAM_SIZES)):
+        mags = ((params[i].double() - want[0][i].double()).abs().maximum(params[i].double().abs()),
+                (b1 * mu[i].double()).abs().maximum(((1 - b1) * grads[i].double()).abs()),
+                None)
+        for got, ref, mag in zip(runs[0], want, mags):
+            assert _ulps(got[i], ref[i], mag) <= ulp_budget
+    for a, b in zip(runs[0], runs[1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_fused_optim_step_runs_b13_and_matches_the_plain_step(dev):
+    """fused_optim.step on CUDA tensors launches B13 (no per-leaf chain),
+    builds the kernel's table of leaves at the first step only, and agrees
+    with the plain step from a carried state, at a cycled b1."""
+    from gaviko_tpu_torch.ops.fused_adam import fused_adam
+    from gaviko_tpu_torch.train import fused_optim, schedule
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    shapes = {"w": (33, 17), "b": (17,), "one": (1,), "big": (3, 4096)}
+    params = {k: _randn(gen, *s, dtype=torch.float32) for k, s in shapes.items()}
+    sched, b1 = schedule.onecycle_cos(3e-4, 10), schedule.onecycle_beta1(10)
+    state = fused_optim.init(params)
+    plain_p, plain_state = {k: v.clone() for k, v in params.items()}, fused_optim.init(params)
+    tables = []
+    for _ in range(3):
+        grads = {k: _randn(gen, *s, dtype=torch.float32) for k, s in shapes.items()}
+        before = fused_adam.launches
+        params, state = fused_optim.step(grads, state, params, sched, b1=b1)
+        assert fused_adam.launches == before + 1
+        tables.append(state.mu.table)
+        with _build.plain_versions():
+            plain_p, plain_state = fused_optim.step(grads, plain_state, plain_p, sched, b1=b1)
+    assert state.count == plain_state.count == 3
+    assert tables[0] is not None and all(t is tables[0] for t in tables)
+    for k in shapes:
+        torch.testing.assert_close(params[k], plain_p[k], rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(state.mu[k], plain_state.mu[k], rtol=1e-6, atol=1e-9)
+        torch.testing.assert_close(state.nu[k], plain_state.nu[k], rtol=1e-6, atol=1e-12)

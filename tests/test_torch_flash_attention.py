@@ -142,28 +142,35 @@ def _fake_card(monkeypatch):
 
 
 def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
-    """A, B and B8 launch at head dims 64 and 128, B10 at 32, 64 and 128;
-    the head dims JAX's fused gate also admits (192, 256) raise and name
-    their ROADMAP item."""
+    """A, B and B8 launch at head dims 64, 128, 192 and 256, B10 at 32, 64,
+    128, 192 and 256, and B10 takes any other head dim up to 256 zero-padded
+    to the next of those (96 launches at 128 and comes back 96 wide); head
+    dims above 256, which JAX's fused gate also admits, raise and name their
+    ROADMAP item. (192 and 256 raised here before ROADMAP Queue C item 4 was
+    repaired; the test's name dates from then.)"""
     calls = _fake_card(monkeypatch)
-    for dh in (64, 128):
+    for dh in (64, 128, 192, 256):
         qkv = torch.zeros(1, 8, 3 * 2 * dh)
         out, lse = tfa.fused_mhsa(qkv, 2, dh, 0.1, 8, with_lse=True)
         tfa.fused_mhsa_bwd(qkv, out, lse, out, 2, dh, 0.1, 8)
         tcls.cls_attention(torch.zeros(1, 8, 2 * 2 * dh), torch.zeros(1, 2 * dh), 2, dh, 0.1, 8)
-    for d in (32, 64, 128):
+    widths = []
+    monkeypatch.setattr(tfa, "_flash_strides", lambda name, t: widths.append(t.shape[-1])
+                        or t.stride()[:3])
+    for d in (32, 64, 128, 192, 256, 96):
         q = torch.zeros(1, 3, 8, d)
-        tfa.flash_attention(q, q, q, 0.1)
+        assert tfa.flash_attention(q, q, q, 0.1).shape == q.shape
     assert calls == ["gaviko_fused_mhsa_f32", "gaviko_fused_mhsa_bwd_f32",
-                     "gaviko_cls_attention_f32"] * 2 + ["gaviko_flash_attention_f32"] * 3
-    for dh in (192, 256):
+                     "gaviko_cls_attention_f32"] * 4 + ["gaviko_flash_attention_f32"] * 6
+    assert widths[::3] == [32, 64, 128, 192, 256, 128]
+    for dh in (320, 384):
         assert tfa.fused_mhsa_supported(2, dh, 64)
         with pytest.raises(NotImplementedError, match="Queue C item 4"):
             tfa.fused_mhsa(torch.zeros(1, 8, 3 * 2 * dh), 2, dh, 0.1, 8)
         with pytest.raises(NotImplementedError, match="Queue C item 4"):
             tcls.cls_attention(torch.zeros(1, 8, 2 * 2 * dh), torch.zeros(1, 2 * dh), 2, dh,
                                0.1, 8)
-    q = torch.zeros(1, 3, 8, 96)
+    q = torch.zeros(1, 3, 8, 264)
     with pytest.raises(NotImplementedError, match="Queue C item 4"):
         tfa.flash_attention(q, q, q, 0.1)
 

@@ -253,11 +253,25 @@ def test_clip_scale_divides_by_the_norm():
 
 
 def test_make_optimizer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.make_optimizer({**TRAIN_CFG, "accumulation_steps": 2}, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Only the optax-chain optimizer (fused_optimizer: false) and the
+    trainer options still unported refuse, naming their ROADMAP item;
+    accumulation_steps > 1 (optax MultiSteps semantics, schedules over the
+    updates) and pure_bf16 are ported."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
         tloop.make_optimizer({**TRAIN_CFG, "fused_optimizer": False}, 10)
+    fused = tloop.make_optimizer({**TRAIN_CFG, "accumulation_steps": 2}, 10)
+    assert fused["accum"] == 2
+    assert fused["sched"](4) == tsched.from_config(SCHED, 5)(4)
+    assert isinstance(tloop.init_opt_state({"a": torch.zeros(2)}, fused),
+                      topt.MultiStepState)
+    for train_over, item in (({"parallel": {"enabled": True}}, "item 13"),
+                             ({"device_augment": True}, "item 10"),
+                             ({"checkpoint_backend": "orbax"}, "item 8")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
+            tloop.unported_options({"train": {**TRAIN_CFG, **train_over}})
+    tloop.unported_options({"train": TRAIN_CFG})
     assert tloop.compute_dtype_of({"precision": "bf16"}) == torch.bfloat16
+    assert tloop.compute_dtype_of({"precision": "pure_bf16"}) == torch.bfloat16
     assert tloop.compute_dtype_of(TRAIN_CFG) == torch.float32
 
 
