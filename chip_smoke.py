@@ -30,7 +30,14 @@ Phases, each printing its own line:
    of the packed qkv, 1001 rows) and streaming at N = 2353, then A, B, B8
    and the packed-qkv VJP of ``fused_mhsa`` at head dim 128 (vit-b16 with
    ``dim_head: 128``, B8), then A, B and B8 at head dims 192 and 256
-   (vit-b16 widths, 12 heads, B8);
+   (vit-b16 widths, 12 heads, B8), then B11 (``csrc/int8_linear.cu``) at
+   the GAViKO vit-l16 B8 int8 serving shapes (8,320 rows: the qkv
+   projection with its LN, the out-projection with its bias, which must be
+   bit-equal to its plain version, the MLP and the last layer's 264-row
+   MLP) and vit-b16's residual MLP, with the max ULP against the plain
+   version, the int8 bound (1,979 TOPS) and the fp chain the route
+   replaces, then the general instances of A, B and B10 at head dims 320
+   and 512 (B2, 4 heads) and of B8 at 96 and 320 (B8);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
@@ -47,7 +54,14 @@ Phases, each printing its own line:
    (relative MAE <= 2e-2), the end-to-end volumes/s of ``predict_logits``
    at B8 bf16, one forward under ``torch.profiler`` (device busy ms, wall
    ms, idle share) and, for vit-b16, one forward at B64 (the JAX bench's
-   headline batch) in CUDA-event ms;
+   headline batch) in CUDA-event ms; then int8 serving: GAViKO vit-l16
+   and vit-b16 fft with ``quantize="int8"`` (bf16 weights quantized after
+   the cast) served as in phase 4 with 2 int8_linear and 1 int8_mlp
+   launches a layer (the vit-b16 CLS-fast last layer deferring to them),
+   the plain check at 1e-2 (vit-b16 at 2e-2), the profiled forward's B11
+   kernels counted by name, and the logits against the bf16 fp
+   predictor's on the same volumes (relative MAE <= 5e-2, argmax agreement
+   reported);
 6. train: the GAViKO vit-l16 model of the same config (random init from
    seed 0, frozen backbone, full depth) through ``split_params``,
    ``make_optimizer`` and ``make_steps``: 3 train steps and one eval step
@@ -108,7 +122,9 @@ B10 at the vit-t16 B8 bf16 serving shapes with the vit-t16 serving run's
 launches; rows ``*_dh128``, ``*_dh192`` and ``*_dh256`` for A, B and B8 at
 those head dims with the dim_head-D bf16 train run's or serving run's
 launches; ``fused_adam_gaviko`` and ``fused_adam_vitb16`` for B13 at f32
-storage with the GAViKO fp32 and vit-b16 bf16 train runs' launches),
+storage with the GAViKO fp32 and vit-b16 bf16 train runs' launches;
+``int8_linear`` and ``int8_mlp`` for B11 at the GAViKO vit-l16 B8 bf16
+int8 serving shapes with that run's launches),
 the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -151,7 +167,7 @@ TRAINER_UPDATE_BUDGET = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
 # input type. f32 runs on the SIMT units, outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "torch.int8": 1979e12}
 SOURCES = {
     "patchify": ("gaviko_tpu_torch/csrc/patchify.cu", "gaviko_tpu/ops/patchify.py:50"),
     "fused_mhsa": ("gaviko_tpu_torch/csrc/fused_mhsa.cu",
@@ -171,7 +187,23 @@ SOURCES = {
     "flash_attention": ("gaviko_tpu_torch/csrc/flash_attention.cu",
                         "gaviko_tpu/ops/flash_attention.py:183"),
     "fused_adam": ("gaviko_tpu_torch/csrc/fused_adam.cu", "gaviko_tpu/ops/fused_adam.py:30"),
+    "int8_linear": ("gaviko_tpu_torch/csrc/int8_linear.cu", "gaviko_tpu/ops/int8_linear.py:66"),
+    "int8_mlp": ("gaviko_tpu_torch/csrc/int8_linear.cu", "gaviko_tpu/ops/int8_linear.py:122"),
 }
+# int8 serving (B11): GAViKO's int8 logits against the same predictor
+# through the plain versions (vit-b16's at SERVE_BUDGET: bf16 rounds at
+# other points in its fp kernels and their plain versions, and a code that
+# moves at a rounding boundary carries through 12 unpooled layers; an H100
+# read 1.79e-2), and each against the bf16 fp predictor's on the same
+# volumes (JAX's own int8-vs-fp budget).
+INT8_PLAIN_BUDGET, INT8_FP_BUDGET = 1e-2, 5e-2
+# B11 cases that must equal their plain version bit for bit (no LN: the
+# same codes, int32 sums and roundings).
+BIT_EQUAL = ("int8_linear_out",)
+# The general instances of A, B, B10 (head dims 320 and 512) and B8 (96,
+# 320): kernel cases only, as no shipped model has those head dims.
+GENERAL_DIM_HEADS = (320, 512)
+GENERAL_CLS = ((96, 8), (320, 4))  # (head dim, heads): heads * dim_head % 128 == 0
 VIT_KERNELS = ("ln_linear", "fused_mlp", "fused_mlp_bwd", "cls_attention", "flash_attention")
 # The kernels of the JSON line by the path whose shapes and launches they
 # are reported at.
@@ -179,7 +211,7 @@ LINE_PATH = {"local_attention": "train", "local_attention_bwd": "train",
              "ln_linear": "vit", "cls_attention": "vit", "patchify": "vit_train",
              "fused_mhsa": "vit_train", "fused_mhsa_bwd": "vit_train",
              "fused_mlp": "vit_train", "fused_mlp_bwd": "vit_train",
-             "flash_attention": "t16"}
+             "flash_attention": "t16", "int8_linear": "int8", "int8_mlp": "int8"}
 # The head-dim-128, 192 and 256 instances of A, B and B8, reported as rows of
 # their own at the vit-b16 dim_head-D shapes: row name -> (kernel, the run
 # whose launches the row carries).
@@ -579,6 +611,132 @@ def _dh_kernel_cases(dtype, gen, batch, D):
     return cases
 
 
+def _int8_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) for B11 at the shapes the GAViKO
+    vit-l16 int8 serving path gives it (1,033 rows padded to 1,040, times
+    the batch: 8,320 at B8): the qkv projection with its LN (1024 -> 3072),
+    the out-projection with its bias (1024 -> 1024), the MLP (1024 -> 4096
+    -> 1024, exact GELU, no residual) and the last layer's MLP on the 33
+    pooled rows a volume; then vit-b16's residual MLP (8,064 rows, 768 ->
+    3072 -> 768). The bytes count each input once (int8 weights, f32
+    scales) and the output once; the operations are int8. ``chain`` is the
+    fp calls the route replaces in the working dtype (F.layer_norm +
+    F.linear; at vit-l16 B9 and B6 are gated off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp, quantize_weight
+
+    dev, dim, mlp, vdim, vmlp = "cuda", 1024, 4096, 768, 3072
+    rows, last, vrows = batch * 1040, batch * 33, batch * 1008
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    def ln(x, g, b):
+        return F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
+
+    def mlp_case(x, d, h, residual):
+        g, b = (1.0 + randn(d, std=0.1)).to(dtype), randn(d, std=0.1)
+        w1, b1 = randn(h, d, std=d ** -0.5), randn(h, std=0.1)
+        w2, b2 = randn(d, h, std=h ** -0.5), randn(d, std=0.1)
+        (q1, s1), (q2, s2) = quantize_weight(w1), quantize_weight(w2)
+        n = x.shape[0]
+
+        def chain():
+            y = F.linear(F.gelu(F.linear(ln(x, g, b), w1, b1)), w2, b2)
+            return x + y if residual else y
+
+        return (lambda: int8_mlp(x, g, b, q1, s1, b1, q2, s2, b2, 1e-5, "exact", residual),
+                (2 * _nbytes(x) + _nbytes(q1, s1, b1, q2, s2, b2, g, b), 4 * n * d * h), chain)
+
+    x = randn(rows, dim)
+    gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
+    w_qkv, w_out, b_out = (randn(3 * dim, dim, std=dim ** -0.5), randn(dim, dim, std=dim ** -0.5),
+                           randn(dim, std=0.1))
+    (q_qkv, s_qkv), (q_out, s_out) = quantize_weight(w_qkv), quantize_weight(w_out)
+    size = x.element_size()
+    cases = [
+        ("int8_linear", lambda: int8_linear(x, q_qkv, s_qkv, gamma=gamma, beta=beta),
+         lambda r: r,
+         (_nbytes(x, q_qkv, s_qkv, gamma, beta) + rows * 3 * dim * size, 2 * rows * dim * 3 * dim),
+         None, lambda: F.linear(ln(x, gamma, beta), w_qkv)),
+        ("int8_linear_out", lambda: int8_linear(x, q_out, s_out, bias=b_out), lambda r: r,
+         (2 * _nbytes(x) + _nbytes(q_out, s_out, b_out), 2 * rows * dim * dim),
+         None, lambda: F.linear(x, w_out, b_out)),
+    ]
+    for name, xs, d, h, residual in (("int8_mlp", x, dim, mlp, False),
+                                     ("int8_mlp_last", x[:last], dim, mlp, False),
+                                     ("int8_mlp_vitb16", randn(vrows, vdim), vdim, vmlp, True)):
+        run, work, chain = mlp_case(xs.contiguous(), d, h, residual)
+        cases.append((name, run, lambda r: r, work, None, chain))
+    return cases
+
+
+def _general_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) for the general instances of A, B
+    and B10 at head dims 320 and 512 (``batch`` x 4 heads, 1001 rows
+    padded to 1008; A with dropout 0.1 and lse, B replaying the mask; B10
+    on the head views of the packed qkv sliced to the real rows) and of B8
+    at 96 (8 heads) and 320 (4 heads), B8."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.cls_attention import cls_attention
+    from gaviko_tpu_torch.ops.flash_attention import (
+        _split_heads, flash_attention, fused_mhsa, fused_mhsa_bwd, mhsa_reference)
+
+    dev, H, n_pad, n_true = "cuda", 4, 1008, 1001
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    key_mask = (torch.arange(n_pad, device=dev) < n_true).view(1, 1, 1, n_pad)
+    cases = []
+    for D in GENERAL_DIM_HEADS:
+        inner, scale = H * D, D ** -0.5
+        qkv = randn(batch, n_pad, 3 * inner)
+        dout = randn(batch, n_pad, inner)
+        dout[:, n_true:] = 0
+        with torch.no_grad():
+            out, lse = mhsa_reference(qkv, H, D, scale, n_true, VIT_RATE, with_lse=True,
+                                      seed=VIT_SEED)
+        heads4 = qkv.view(batch, n_pad, 3, H, D).permute(2, 0, 3, 1, 4)
+        dout4 = dout.view(batch, n_pad, H, D).transpose(1, 2)
+        q, k, v = (t[:, :, :n_true] for t in _split_heads(qkv, H, D))
+        products = batch * H * n_pad * n_true * D
+        size = qkv.element_size()
+        cases += [
+            (f"fused_mhsa_dh{D}", lambda qkv=qkv, D=D: fused_mhsa(
+                qkv, H, D, D ** -0.5, n_true, VIT_RATE, with_lse=True, seed=VIT_SEED),
+             lambda r: (r[0][:, :n_true], r[1]),
+             (_nbytes(qkv) * 4 // 3 + _nbytes(lse), 4 * products),
+             lambda heads4=heads4: F.scaled_dot_product_attention(
+                 *heads4, attn_mask=key_mask, dropout_p=VIT_RATE), None),
+            (f"fused_mhsa_bwd_dh{D}", lambda qkv=qkv, out=out, lse=lse, dout=dout, D=D:
+             fused_mhsa_bwd(qkv, out, lse, dout, H, D, D ** -0.5, n_true, VIT_RATE, VIT_SEED),
+             lambda r: r, (_nbytes(qkv, out, dout, lse, qkv), 10 * products),
+             _sdpa_grad(*heads4, dout4, attn_mask=key_mask, dropout_p=VIT_RATE), None),
+            (f"flash_attention_dh{D}", lambda q=q, k=k, v=v, D=D: flash_attention(
+                q, k, v, D ** -0.5), lambda r: r,
+             (4 * batch * H * n_true * D * size, 4 * batch * H * n_true * n_true * D),
+             lambda q=q, k=k, v=v, D=D: F.scaled_dot_product_attention(
+                 q, k, v, scale=D ** -0.5), None),
+        ]
+    for D, heads in GENERAL_CLS:
+        inner, b8 = heads * D, 8
+        kv, q0 = randn(b8, n_pad, 2 * inner), randn(b8, inner)
+        k4, v4 = kv.view(b8, n_pad, 2, heads, D).permute(2, 0, 3, 1, 4)
+        cases.append((
+            f"cls_attention_dh{D}", lambda kv=kv, q0=q0, D=D, heads=heads: cls_attention(
+                kv, q0, heads, D, D ** -0.5, n_true), lambda r: r,
+            (b8 * n_true * 2 * inner * kv.element_size() + 2 * _nbytes(q0),
+             4 * b8 * n_true * inner),
+            lambda q0=q0, k4=k4, v4=v4, D=D, heads=heads: F.scaled_dot_product_attention(
+                q0.view(b8, heads, 1, D), k4, v4, attn_mask=key_mask), None))
+    return cases
+
+
 def _compare(got, want) -> tuple:
     """(relative MAE, max abs error) of a result or the worst of a tuple."""
     import torch
@@ -608,7 +766,9 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    reps = 5 if path in ("dh192", "dh256") else 20  # their f32 kernel B runs for ~0.1 s
+    # dh192/dh256's f32 kernel B runs for ~0.1 s; the general instances are
+    # slow by design.
+    reps = 5 if path in ("dh192", "dh256") else 3 if path == "general" else 20
     results = {}
     for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
         if path == "vit":
@@ -619,6 +779,10 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _t16_kernel_cases(dtype, gen, batch)
         elif path.startswith("dh"):
             cases = _dh_kernel_cases(dtype, gen, batch, int(path[2:]))
+        elif path == "int8":
+            cases = _int8_kernel_cases(dtype, gen, batch)
+        elif path == "general":
+            cases = _general_kernel_cases(dtype, gen, batch)
         else:
             cases = _kernel_cases(dtype, gen, batch, path == "train")
         for name, run, cut, work, library, chain in cases:
@@ -628,7 +792,7 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                     want = cut(run())
                 torch.cuda.synchronize()
                 rel, max_abs = _compare(got, want)
-                bound_ms, bound_by = _bound(work, dtype)
+                bound_ms, bound_by = _bound(work, torch.int8 if path == "int8" else dtype)
                 line = {"phase": "kernel", "path": path,
                         "name": name, "dtype": str(dtype), "batch": batch,
                         "rel_mae": rel, "max_abs_err": max_abs, "budget": budget,
@@ -640,6 +804,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                         "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
                 if chain is not None:
                     line["chain_ms"] = _median_ms(chain, reps=reps, calls=KERNEL_CALLS)
+                if path == "int8":
+                    line["max_ulp"] = _ulps(got, want)
                 with plain_versions():
                     line["plain_ms"] = _median_ms(run, reps=5, warmup=1,
                                                   calls=KERNEL_CALLS)
@@ -647,6 +813,9 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             print(json.dumps(line), flush=True)
             if not rel <= budget:
                 raise RuntimeError(f"{name} {dtype}: rel MAE {rel} > {budget}")
+            if name in BIT_EQUAL and max_abs != 0.0:
+                raise RuntimeError(f"{name} {dtype}: not bit-equal to its plain version "
+                                   f"(max abs err {max_abs})")
         del cases
         torch.cuda.empty_cache()
     return results
@@ -660,6 +829,7 @@ def _wrappers():
         local_attention_bwd)
     from gaviko_tpu_torch.ops.fused_adam import fused_adam
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp
     from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
     from gaviko_tpu_torch.ops.patchify import patchify_fused
 
@@ -668,7 +838,7 @@ def _wrappers():
             "local_attention_bwd": local_attention_bwd, "ln_linear": fused_ln_linear,
             "fused_mlp": fused_mlp, "fused_mlp_bwd": fused_mlp_bwd,
             "cls_attention": cls_attention, "flash_attention": flash_attention,
-            "fused_adam": fused_adam}
+            "fused_adam": fused_adam, "int8_linear": int8_linear, "int8_mlp": int8_mlp}
 
 
 def _vit_routes(spec, dtype) -> dict:
@@ -690,23 +860,32 @@ def _vit_routes(spec, dtype) -> dict:
             "cls": cls_attention_supported(spec.heads, spec.dim_head, n_pad, dtype)}
 
 
-def serving_launches(spec) -> dict:
+def serving_launches(spec, quantized: bool = False) -> dict:
     """Launches of each kernel in one bf16 serving forward: GAViKO runs
     patchify, then the MHSA and local attention in every layer; the plain
     ViT runs patchify and, in all but the last layer, the fused LN+qkv
     where its gate holds and the fused MHSA (or, where the MHSA gate is
     false, as for vit-t16's 3 heads, the flash attention kernel B10) and
     the fused MLP where its gate holds; in the CLS-fast last layer LN+kv and
-    the CLS attention where their gates hold."""
+    the CLS attention where their gates hold. ``quantized`` (int8
+    sidecars): every layer's qkv (with its LN) and out-projection run
+    int8_linear and its MLP int8_mlp, and the plain ViT's last layer is a
+    full one (the CLS-fast path defers to the int8 kernels)."""
     import torch
 
     want = dict.fromkeys(_wrappers(), 0)
     want["patchify"] = 1
+    if quantized:
+        want.update(int8_linear=2 * spec.depth, int8_mlp=spec.depth)
     if spec.method == "gaviko":
         want.update(fused_mhsa=spec.depth, local_attention=spec.depth)
         return want
-    full = spec.depth - 1
     r = _vit_routes(spec, torch.bfloat16)
+    if quantized:
+        want.update(fused_mhsa=spec.depth * r["fused_mhsa"],
+                    flash_attention=spec.depth * (not r["fused_mhsa"]))
+        return want
+    full = spec.depth - 1
     want.update(ln_linear=full * r["qkv"] + r["kv"],
                 fused_mhsa=full * r["fused_mhsa"], flash_attention=full * (not r["fused_mhsa"]),
                 fused_mlp=full * r["mlp"], cls_attention=int(r["cls"]))
@@ -730,20 +909,20 @@ def _config(config_path: str, method: str, model_over=None) -> dict:
     return config
 
 
-def make_predictor(config_path: str, method: str, model_over=None):
+def make_predictor(config_path: str, method: str, model_over=None, quantize=None):
     from gaviko_tpu_torch.serving import Predictor
 
     config = _config(config_path, method, model_over)
     t0 = time.perf_counter()
     predictor = Predictor(config, batch_size=B, dtype="bfloat16",
-                          pretrained_dir=None, device="cuda:0")
+                          pretrained_dir=None, quantize=quantize, device="cuda:0")
     spec = predictor.spec
     print(json.dumps({"phase": "predictor", "seconds": time.perf_counter() - t0,
                       "method": method, "backbone": spec.backbone, "depth": spec.depth,
                       "dim": spec.dim, "heads": spec.heads, "dim_head": spec.dim_head,
                       "volume": [spec.frames, *spec.image_size],
                       "gelu": spec.gelu, "pool": spec.pool, "batch_size": B,
-                      "dtype": "bfloat16"}), flush=True)
+                      "dtype": "bfloat16", "quantize": quantize}), flush=True)
     return predictor
 
 
@@ -786,8 +965,8 @@ def phase_serving(predictor, vols) -> tuple:
 
     logits = np.asarray([a["logits"] for a in answers], np.float64)
     classes = np.asarray([a["class"] for a in answers])
-    want = {n: c * metrics["batches_total"]
-            for n, c in serving_launches(predictor.spec).items()}
+    want = {n: c * metrics["batches_total"] for n, c in serving_launches(
+        predictor.spec, predictor._quantize == "int8").items()}
     print(json.dumps({"phase": "serving", "method": predictor.spec.method,
                       "requests": len(answers), "seconds": seconds, "launches": launches,
                       "want_launches": want, "metrics": metrics}), flush=True)
@@ -808,11 +987,17 @@ def phase_serving(predictor, vols) -> tuple:
     return launches, logits
 
 
-def phase_plain_check(predictor, vols, served, card: str, headline_batch=None) -> None:
-    """Served logits of one batch against the plain versions on the card,
-    the end-to-end rate of predict_logits at B8 bf16, one forward under the
-    profiler (device busy ms, wall ms and idle share) and, given
-    ``headline_batch``, one forward at that batch in CUDA-event ms."""
+def phase_plain_check(predictor, vols, served, card: str, headline_batch=None,
+                      budget=SERVE_BUDGET, fp_served=None) -> None:
+    """Served logits of one batch against the plain versions on the card
+    (relative MAE <= ``budget``), the end-to-end rate of predict_logits at
+    B8 bf16, one forward under the profiler (device busy ms, wall ms and
+    idle share) and, given ``headline_batch``, one forward at that batch in
+    CUDA-event ms. An int8 predictor's profiled forward must show the B11
+    kernels by name, 2 int8_linear and 1 int8_mlp a layer, and given
+    ``fp_served`` (the bf16 fp predictor's logits of the same volumes) its
+    logits are held to them (relative MAE <= INT8_FP_BUDGET, argmax
+    agreement reported)."""
     from gaviko_tpu_torch.ops._build import plain_versions
     from gaviko_tpu_torch.utils.layouts import put_volume
 
@@ -838,9 +1023,12 @@ def phase_plain_check(predictor, vols, served, card: str, headline_batch=None) -
     with plain_versions():
         plain_fwd = _median_ms(
             lambda: predictor._forward(predictor.params, batch), reps=3, warmup=1)
-    profile = profile_step(lambda: predictor._forward(predictor.params, batch))
+    quantized = predictor._quantize == "int8"
+    names = ("int8_linear_kernel", "int8_mlp_kernel") if quantized else ()
+    profile = profile_step(lambda: predictor._forward(predictor.params, batch), names)
     line = {"phase": "plain_check", "method": predictor.spec.method, "rel_mae": rel,
-            "budget": SERVE_BUDGET, "argmax_agreement": agree, "vol_per_s": kernel_rate,
+            "quantize": predictor._quantize,
+            "budget": budget, "argmax_agreement": agree, "vol_per_s": kernel_rate,
             "plain_vol_per_s": plain_rate, "forward_ms": kernel_fwd,
             "plain_forward_ms": plain_fwd, "batch_size": len(vols), "profile": profile,
             "card": card}
@@ -850,9 +1038,21 @@ def phase_plain_check(predictor, vols, served, card: str, headline_batch=None) -
         line[f"forward_ms_b{headline_batch}"] = _median_ms(
             lambda: predictor._forward(predictor.params, big), reps=5)
         del big
+    if fp_served is not None:
+        line["rel_mae_vs_fp"] = float(np.abs(served - fp_served).mean()
+                                      / max(np.abs(fp_served).mean(), 1e-30))
+        line["argmax_agreement_vs_fp"] = float((served.argmax(-1) == fp_served.argmax(-1)).mean())
+        line["fp_budget"] = INT8_FP_BUDGET
     print(json.dumps(line), flush=True)
-    if not rel <= SERVE_BUDGET:
-        raise RuntimeError(f"served logits vs plain: rel MAE {rel} > {SERVE_BUDGET}")
+    if not rel <= budget:
+        raise RuntimeError(f"served logits vs plain: rel MAE {rel} > {budget}")
+    if quantized:
+        depth = predictor.spec.depth
+        if profile["kernel_counts"] != {names[0]: 2 * depth, names[1]: depth}:
+            raise RuntimeError(f"the profiled int8 forward ran {profile['kernel_counts']}")
+    if fp_served is not None and not line["rel_mae_vs_fp"] <= INT8_FP_BUDGET:
+        raise RuntimeError(f"int8 logits vs bf16 fp: rel MAE {line['rel_mae_vs_fp']} > "
+                           f"{INT8_FP_BUDGET}")
 
 
 def train_setup():
@@ -894,10 +1094,12 @@ def _step_seeds(n_seeds: int) -> list:
 
 def gaviko_train_launches(spec, precision: str) -> dict:
     """GAViKO's frozen-backbone step: patchify once, each of the four
-    attention kernels in every layer, none of the ViT's kernels, and one
-    B13 update (after its norm kernel) over every trainable tensor."""
+    attention kernels in every layer, none of the ViT's kernels nor B11
+    (training ignores int8 sidecars, and the step has none), and one B13
+    update (after its norm kernel) over every trainable tensor."""
     want = dict.fromkeys(_wrappers(), spec.depth)
-    want.update(patchify=1, fused_adam=1, **dict.fromkeys(VIT_KERNELS, 0))
+    want.update(patchify=1, fused_adam=1, int8_linear=0, int8_mlp=0,
+                **dict.fromkeys(VIT_KERNELS, 0))
     return want
 
 
@@ -1028,10 +1230,11 @@ def step1_grads(config, model, params, batches, seeds, launches, precision: str,
     return logits.float(), grads
 
 
-def profile_step(step) -> dict:
+def profile_step(step, count_names=()) -> dict:
     """One more step under torch.profiler: the wall time, the device's busy
     time (the sum of its kernels, which one stream runs one at a time) and
-    so its idle share, and the kernels that took the most device time."""
+    so its idle share, the kernels that took the most device time, and the
+    number of device kernels whose name holds each of ``count_names``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1051,9 +1254,11 @@ def profile_step(step) -> dict:
         n += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    counts = {c: sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and c in e.name) for c in count_names}
     return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms, "device_kernels": n,
-            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}, "kernel_counts": counts}
 
 
 def phase_train(setup, precision: str, card: str) -> dict:
@@ -1573,17 +1778,30 @@ def main() -> int:
                "train": phase_kernels(smi, TRAIN_B, "train"),
                "vit_train": phase_kernels(smi, VIT_TRAIN_B, "vit_train"),
                "t16": phase_kernels(smi, B, "t16"),
-               **{f"dh{d}": phase_kernels(smi, VIT_TRAIN_B, f"dh{d}") for d in DIM_HEADS}}
+               **{f"dh{d}": phase_kernels(smi, VIT_TRAIN_B, f"dh{d}") for d in DIM_HEADS},
+               "int8": phase_kernels(smi, B, "int8"),
+               "general": phase_kernels(smi, 2, "general")}
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
-    launches = {}
+    launches, fp_served = {}, {}
     for name, config, method, over, headline in (
             ("serving", CONFIG, "gaviko", None, None), ("vit", VIT_CONFIG, "fft", None, HEADLINE_B),
             ("t16", VIT_CONFIG, "fft", T16, None),
             *((f"dh{d}", VIT_CONFIG, "fft", DH[d], None) for d in DIM_HEADS)):
         predictor = make_predictor(config, method, over)
+        launches[name], fp_served[name] = phase_serving(predictor, vols)
+        phase_plain_check(predictor, vols[:B], fp_served[name][:B], smi, headline)
+        del predictor
+        torch.cuda.empty_cache()
+    # int8 serving (B11): GAViKO vit-l16 and vit-b16 fft, quantized after
+    # the cast to bf16, against the plain versions and the fp predictors.
+    for name, config, method, fp_name, budget in (
+            ("int8", CONFIG, "gaviko", "serving", INT8_PLAIN_BUDGET),
+            ("vit_int8", VIT_CONFIG, "fft", "vit", SERVE_BUDGET)):
+        predictor = make_predictor(config, method, quantize="int8")
         launches[name], served = phase_serving(predictor, vols)
-        phase_plain_check(predictor, vols[:B], served[:B], smi, headline)
+        phase_plain_check(predictor, vols[:B], served[:B], smi, budget=budget,
+                          fp_served=fp_served[fp_name][:B])
         del predictor
         torch.cuda.empty_cache()
 
@@ -1626,7 +1844,10 @@ def main() -> int:
     # LN+linear (the qkv projection) and CLS attention at the vit-b16 B8
     # bf16 serving shapes; B10 at the vit-t16 B8 bf16 serving shapes with
     # the vit-t16 serving run's launches. Then A, B and B8 at head dim 128
-    # (bf16) with the dim_head-128 train or serving run's launches.
+    # (bf16) with the dim_head-128 train or serving run's launches. B11
+    # (int8_linear: the qkv projection with its LN; int8_mlp: the MLP) at
+    # the GAViKO vit-l16 B8 bf16 int8 serving shapes with that run's
+    # launches.
     rows = []
     line_rows = [(n, n, LINE_PATH[n], LINE_PATH[n]) for n in SOURCES if n in LINE_PATH]
     line_rows += [(row, n, run.split("_")[0], run) for row, (n, run) in DH_ROWS.items()]

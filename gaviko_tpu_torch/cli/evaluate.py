@@ -8,8 +8,9 @@ subset, overlays the trainable-only checkpoint on the model's params,
 reports accuracy, quadratic Cohen's kappa and macro one-vs-rest ROC-AUC
 (``train/metrics.py``), and writes the versioned
 ``{method}_{backbone}_eval_results_v{N}.csv`` and its ``_metrics.txt``.
-``--quantize int8`` (ROADMAP Queue A item 14a) and ``--artifact`` (item 14)
-are not ported and exit with an error naming them.
+``--quantize int8`` evaluates with the int8 backbone GEMMs (the serving
+path's sidecars, added after the checkpoint overlay); ``--artifact``
+(ROADMAP Queue A item 14) is not ported and exits with an error naming it.
 """
 
 from __future__ import annotations
@@ -78,9 +79,10 @@ def _finish_eval(valid_df, y_test, y_pred, y_proba, results_dir: str, method: st
     return {"accuracy": test_acc, "kappa": test_qkv, "auc": test_auc, "csv": csv_path}
 
 
-def load_model(config: dict, device: torch.device):
+def load_model(config: dict, device: torch.device, quantize=None):
     """(model, trainable, frozen) on ``device``: init from seed 0, then the
-    ``utils.checkpoint`` overlay (a missing path is an error)."""
+    ``utils.checkpoint`` overlay (a missing path is an error), then, with
+    ``quantize="int8"``, the int8 sidecars."""
     model = build_model(config["model"])
     ckpt = config["utils"].get("checkpoint")
     if ckpt and not os.path.exists(ckpt):
@@ -91,6 +93,11 @@ def load_model(config: dict, device: torch.device):
     params = build_params(model, torch.Generator().manual_seed(0),
                           pretrained_dir=config["model"].get("pretrained_dir", "./pretrained"),
                           checkpoint_path=ckpt)
+    if quantize == "int8":
+        from gaviko_tpu_torch.ops.int8_linear import quantize_backbone
+
+        logging.info("Evaluating with int8 (w8a8) backbone GEMMs")
+        params = quantize_backbone(params, model.spec.depth)
     trainable, frozen = split_params(model, {k: v.to(device) for k, v in params.items()})
     return model, trainable, frozen
 
@@ -106,7 +113,7 @@ def evaluate(config: dict, device="cuda") -> dict:
     loader = pick_loader(config)(ds, config["data"]["batch_size"], shuffle=False,
                                  num_workers=config["data"].get("num_workers", 8),
                                  pad_to_batch=True)
-    model, trainable, frozen = load_model(config, device)
+    model, trainable, frozen = load_model(config, device, config["utils"].get("quantize"))
     _, eval_step, _ = make_steps(model, make_criterion(config["train"]), None)
 
     y_test, y_pred, y_proba = [], [], []
@@ -134,16 +141,13 @@ def main(argv=None):
     parser.add_argument("--checkpoint", type=str, required=False)
     parser.add_argument("--method", type=str, default=None, choices=list(METHODS))
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
-                        help="not ported yet (ROADMAP Queue A item 14a)")
+                        help="evaluate with int8 (w8a8) backbone GEMMs")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu (the plain versions)")
     args = parser.parse_args(argv)
 
     if args.artifact is not None:
         parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
-    if args.quantize is not None:
-        parser.error("--quantize int8 is not ported yet (ROADMAP Queue A item 14a, with "
-                     "the int8 kernels B11)")
     if args.config is None:
         parser.error("--config is required")
     config = load_config(args.config)
@@ -153,6 +157,8 @@ def main(argv=None):
     apply_method_override(config, args.method)
     config["utils"]["results_dir"] = args.results_dir or config["utils"].get("results_dir")
     config["utils"]["checkpoint"] = args.checkpoint
+    if args.quantize is not None:
+        config["utils"]["quantize"] = args.quantize
     os.makedirs(config["utils"]["results_dir"], exist_ok=True)
     setup_logging(log_dir=config["utils"]["results_dir"])
     logging.info(f"Config: {config}")

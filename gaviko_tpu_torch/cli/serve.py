@@ -5,8 +5,9 @@
 
 POST an .npz body (key ``data``, shape (D, H, W)) to /predict; GET /healthz,
 GET /metrics. The flags are the JAX package's (``gaviko_tpu/cli/serve.py``);
-``--artifact``, ``--quantize`` and ``--mesh`` are not ported yet and exit
-with an error naming their ROADMAP item. The model runs on the CUDA card.
+``--quantize int8`` serves with the int8 backbone GEMMs; ``--artifact`` and
+``--mesh`` are not ported yet and exit with an error naming their ROADMAP
+item. The model runs on the CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def main(argv=None):
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
-                        help="not ported yet (ROADMAP Queue B: int8 kernels)")
+                        help="int8 (w8a8) backbone GEMMs")
     parser.add_argument("--mesh", type=str, default=None,
                         help="not ported yet (ROADMAP Queue A item 13)")
     parser.add_argument("--auth_token", type=str, default=None,
@@ -45,9 +46,8 @@ def main(argv=None):
         parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
     if args.config is None:
         parser.error("--config is required")
-    for flag in ("quantize", "mesh"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not ported yet (see ROADMAP)")
+    if args.mesh is not None:
+        parser.error("--mesh is not ported yet (ROADMAP Queue A item 13)")
 
     from gaviko_tpu_torch.serving import Predictor, serve
 
@@ -59,7 +59,7 @@ def main(argv=None):
         config, checkpoint=args.checkpoint, batch_size=args.batch_size,
         dtype=args.dtype,
         pretrained_dir=config["model"].get("pretrained_dir", "./pretrained"),
-        device="cuda",
+        quantize=args.quantize, device="cuda",
     )
     serve(
         predictor, host=args.host, port=args.port,

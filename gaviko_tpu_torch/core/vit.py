@@ -19,6 +19,11 @@ same route in both packages; the device picks kernel or plain version.
   probabilities when dropout is on. Then dropout after the out-projection.
   The stream may carry tail padding: keys >= ``n_true`` are masked, padded
   rows carry bounded garbage (zeros on the unfused route);
+- int8 serving (``ops/int8_linear.py``, sites carrying ``::int8`` sidecars,
+  inference only; training ignores the sidecars): the qkv projection with
+  its LN, the out-projection with its bias and the whole MLP (the residual
+  fused in for ``_res``) run the int8 kernels, and the CLS-fast last layer
+  defers to them;
 - ``feedforward_block(_res)``: LN -> Linear -> GELU -> Dropout -> Linear ->
   Dropout. The fused MLP kernel (dropout inside it, one seed; the residual
   fused in for ``_res``) wherever ``fused_mlp_supported`` holds, in training
@@ -52,6 +57,8 @@ from gaviko_tpu_torch.ops.attention import self_attention, self_attention_train
 from gaviko_tpu_torch.ops.cls_attention import (
     cls_attention, cls_attention_reference, cls_attention_supported)
 from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_supported
+from gaviko_tpu_torch.ops.int8_linear import (
+    INT8_SUFFIX, SCALE_SUFFIX, has_int8, int8_linear, int8_mlp)
 from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_supported
 from gaviko_tpu_torch.ops.patchify import patchify_fused
 
@@ -104,9 +111,22 @@ def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
         rate = spec.dropout if train else 0.0
         out = self_attention_train(layer_norm(p, f"{prefix}.norm", x), w, spec.heads,
                                    dh, dh ** -0.5, n_true, rate, seeds)
+    elif has_int8(p, f"{prefix}.to_qkv.weight"):
+        qkv = _int8(p, f"{prefix}.to_qkv.weight", x, gamma=p[f"{prefix}.norm.weight"],
+                    beta=p[f"{prefix}.norm.bias"])
+        out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true)
     else:
         out = self_attention(_ln_proj(p, prefix, x, w), spec.heads, dh, dh ** -0.5, n_true)
-    return dropout(linear(p, f"{prefix}.to_out.0", out), spec.dropout, train, seeds)
+    if not train and has_int8(p, f"{prefix}.to_out.0.weight"):
+        out = _int8(p, f"{prefix}.to_out.0.weight", out, bias=p[f"{prefix}.to_out.0.bias"])
+    else:
+        out = linear(p, f"{prefix}.to_out.0", out)
+    return dropout(out, spec.dropout, train, seeds)
+
+
+def _int8(p: Params, key: str, x: torch.Tensor, **kw) -> torch.Tensor:
+    """The int8 serving GEMM of site ``key`` from its sidecars."""
+    return int8_linear(x, p[key + INT8_SUFFIX], p[key + SCALE_SUFFIX], **kw)
 
 
 def attention_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
@@ -114,6 +134,17 @@ def attention_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec
                         n_true: Optional[int] = None) -> torch.Tensor:
     """x + attention branch."""
     return attention_block(p, prefix, x, spec, train=train, seeds=seeds, n_true=n_true) + x
+
+
+def _int8_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
+              residual: bool) -> torch.Tensor:
+    """The int8 serving MLP from the site's sidecars (dropout is off at
+    inference)."""
+    w1, w2 = f"{prefix}.net.1.weight", f"{prefix}.net.4.weight"
+    return int8_mlp(x, p[f"{prefix}.net.0.weight"], p[f"{prefix}.net.0.bias"],
+                    p[w1 + INT8_SUFFIX], p[w1 + SCALE_SUFFIX], p[f"{prefix}.net.1.bias"],
+                    p[w2 + INT8_SUFFIX], p[w2 + SCALE_SUFFIX], p[f"{prefix}.net.4.bias"],
+                    1e-5, spec.gelu, residual=residual)
 
 
 def _mlp_fused(p: Params, prefix: str, x: torch.Tensor) -> bool:
@@ -135,7 +166,10 @@ def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, 
                       seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout branch output;
     dropout (``spec.dropout``) only when ``train``: one seed for the fused
-    kernel's two sites, else one per site."""
+    kernel's two sites, else one per site. At inference int8 sidecars take
+    the int8 MLP kernel."""
+    if not train and has_int8(p, f"{prefix}.net.1.weight"):
+        return _int8_mlp(p, prefix, x, spec, False)
     if _mlp_fused(p, prefix, x):
         return _fused_mlp(p, prefix, x, spec, False, train, seeds)
     h = layer_norm(p, f"{prefix}.net.0", x)
@@ -148,8 +182,10 @@ def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, 
 def feedforward_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                           train: bool = False,
                           seeds: Optional[SeedStream] = None) -> torch.Tensor:
-    """x + MLP branch; on the fused route the residual add runs inside the
-    kernel."""
+    """x + MLP branch; on the fused and int8 routes the residual add runs
+    inside the kernel."""
+    if not train and has_int8(p, f"{prefix}.net.1.weight"):
+        return _int8_mlp(p, prefix, x, spec, True)
     if _mlp_fused(p, prefix, x):
         return _fused_mlp(p, prefix, x, spec, True, train, seeds)
     return feedforward_block(p, prefix, x, spec, train=train, seeds=seeds) + x
@@ -193,6 +229,14 @@ def attention_cls_branch(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpe
     out = cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds)
     out = linear(p, f"{prefix}.to_out.0", out.to(x.dtype))
     return dropout(out, spec.dropout, train, seeds)
+
+
+def _has_int8_last(params: Params, spec: ModelSpec) -> bool:
+    """True when the last layer carries int8 serving weights: the CLS-fast
+    path then defers to the int8 kernels at inference."""
+    pre = f"transformer.layers.{spec.depth - 1}"
+    return (has_int8(params, f"{pre}.0.to_qkv.weight")
+            or has_int8(params, f"{pre}.1.net.1.weight"))
 
 
 def cls_fast_enabled(spec: ModelSpec) -> bool:
@@ -243,8 +287,10 @@ def vit_apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
     last = spec.depth - 1
+    # Training ignores int8 sidecars, so only inference defers to them.
     fast_cls = (cls_fast_enabled(spec)
-                and f"transformer.layers.{last}.0.to_qkv.weight" in params)
+                and f"transformer.layers.{last}.0.to_qkv.weight" in params
+                and (train or not _has_int8_last(params, spec)))
     for i in range(last if fast_cls else spec.depth):
         x = attention_block_res(params, f"transformer.layers.{i}.0", x, spec, train=train,
                                 seeds=seeds, n_true=n_true)

@@ -35,6 +35,19 @@
 // memory; q in registers up to head dim 64, read from shared memory above;
 // 32-key tiles above head dim 128, so the tiles fit the 227 KB of shared
 // memory), so an f32 check runs in full f32, not TF32.
+//
+// Head dims with no specialization (above 256) take the general instance
+// (`General`, both dtypes, dim_head a runtime argument): the output of a
+// row already holds HD / 2 f32 registers a thread at 256, so the grid gets
+// one more dimension, over 64-column chunks of the output. Each block forms
+// the full S = Q K^T of its 64 query rows by walking dim_head in 64-wide
+// chunks through shared memory, runs the online softmax and accumulates
+// P V for its own 64 columns only; chunk 0 writes the lse. The dropout bit
+// depends only on (query row, key, plane), so every chunk replays the same
+// mask. It runs on SIMT (a lane pair owns a row, as the f32 tile above),
+// rounds q * q_mult and P to the input dtype where the bf16 tile does, and
+// recomputes S once per chunk: slow by design, for head dims the shipped
+// models do not use.
 #pragma once
 
 #include <cstdint>
@@ -408,6 +421,117 @@ struct Tile<float, HD> {
       float* dst = a.o + (q0 + row) * a.o_stride;
       const float inv = a.drop_scale / l;
       for (int j = 0; j < HD / 2; ++j) dst[2 * j + half] = os[row * LD + 2 * j + half] * inv;
+    }
+  }
+};
+
+// ------------------------------------------------------ any head dim ----
+
+struct General {
+  static constexpr int BKV = 32;   // keys a staged tile
+  static constexpr int DC = 64;    // head-dim chunk of S = Q K^T
+  static constexpr int COLS = 64;  // output columns a block accumulates
+  static constexpr int LD = DC + 1;
+  static constexpr int LDP = BKV + 1;
+  static constexpr size_t kSmem =
+      (static_cast<size_t>(BQ) * LD + 2 * static_cast<size_t>(BKV) * LD +
+       static_cast<size_t>(BQ) * LDP) * sizeof(float);
+
+  static __host__ __device__ int chunks(int hd) { return (hd + COLS - 1) / COLS; }
+
+  // rows [row0, row0 + ROWS) x columns [c0, c0 + DC) of src (row stride
+  // `stride`) into dst, times mult and rounded to T; rows >= n_valid and
+  // columns >= hd become zeros.
+  template <typename T, int ROWS>
+  static __device__ void load(float* dst, const T* src, long long stride, int row0, int n_valid,
+                              int c0, int hd, float mult) {
+    for (int e = threadIdx.x; e < ROWS * DC; e += THREADS) {
+      const int r = e / DC, c = e % DC;
+      float x = 0.0f;
+      if (row0 + r < n_valid && c0 + c < hd)
+        x = to_f32(from_f32<T>(to_f32(src[(row0 + r) * stride + c0 + c]) * mult));
+      dst[r * LD + c] = x;
+    }
+  }
+
+  // Query rows [q0, q0 + BQ) of plane a, output columns [c0, c0 + COLS).
+  template <typename T>
+  static __device__ void run(const Plane<T>& a, int q0, int c0, int hd, char* smem) {
+    float* qs = reinterpret_cast<float*>(smem);  // [BQ][LD] a chunk of q * q_mult
+    float* ks = qs + BQ * LD;                    // [BKV][LD] a chunk of K
+    float* vs = ks + BKV * LD;                   // [BKV][LD] this block's columns of V
+    float* ps = vs + BKV * LD;                   // [BQ][LDP] P, rounded to T
+    const int row = (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 2;
+    const int half = threadIdx.x % 2;
+    const bool dropping = a.threshold != INT32_MIN;
+    float acc[COLS / 2];
+#pragma unroll
+    for (int j = 0; j < COLS / 2; ++j) acc[j] = 0.0f;
+    float m = -INFINITY, l = 0.0f;
+
+    for (int k0 = 0; k0 < a.n_keys; k0 += BKV) {
+      float s[BKV / 2];
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) s[i] = 0.0f;
+      for (int d0 = 0; d0 < hd; d0 += DC) {
+        __syncthreads();  // every thread is done with the previous chunk
+        load<T, BQ>(qs, a.q, a.q_stride, q0, a.n_rows, d0, hd, a.q_mult);
+        load<T, BKV>(ks, a.k, a.k_stride, k0, a.n_keys, d0, hd, 1.0f);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          const float* kr = ks + (2 * i + half) * LD;
+          float d = s[i];
+#pragma unroll 8
+          for (int c = 0; c < DC; ++c) d = fmaf(qs[row * LD + c], kr[c], d);
+          s[i] = d;
+        }
+      }
+      __syncthreads();  // S is formed: ks may take V
+      load<T, BKV>(vs, a.v, a.v_stride, k0, a.n_keys, c0, hd, 1.0f);
+
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        s[i] = k0 + 2 * i + half < a.n_keys ? s[i] * a.s_mult : -INFINITY;
+        mx = fmaxf(mx, s[i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = exp2f(m - m_new);  // 0 on the first tile
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int c = 2 * i + half;
+        const float p = exp2f(s[i] - m_new);
+        sum += p;  // before dropout
+        const bool keep =
+            !dropping || keep_bit(q0 + row, k0 + c, a.salt, a.seed, a.threshold);
+        ps[row * LDP + c] = keep ? to_f32(from_f32<T>(p)) : 0.0f;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      l = l * alpha + sum;
+      m = m_new;
+      __syncthreads();  // V and P are staged
+
+#pragma unroll
+      for (int j = 0; j < COLS / 2; ++j) acc[j] *= alpha;
+      for (int c = 0; c < BKV; ++c) {
+        const float pc = ps[row * LDP + c];
+#pragma unroll
+        for (int j = 0; j < COLS / 2; ++j) acc[j] = fmaf(pc, vs[c * LD + 2 * j + half], acc[j]);
+      }
+    }
+
+    if (q0 + row < a.n_rows) {
+      if (a.lse != nullptr && c0 == 0 && half == 0) a.lse[q0 + row] = m + log2f(l);
+      T* dst = a.o + (q0 + row) * a.o_stride;
+      const float inv = a.drop_scale / l;
+#pragma unroll
+      for (int j = 0; j < COLS / 2; ++j) {
+        const int c = c0 + 2 * j + half;
+        if (c < hd) dst[c] = from_f32<T>(acc[j] * inv);
+      }
     }
   }
 };

@@ -1,8 +1,9 @@
 // Single-query (CLS) attention over the packed [K | V] projection.
 //
 // Replaces gaviko_tpu/ops/cls_attention.py:_cls_attention_kernel
-// (cls_attention). kv is [B, N, 2 * heads * hd] (head dim hd 64, 128, 192 or 256)
-// with K in the first inner
+// (cls_attention). kv is [B, N, 2 * heads * hd] (head dims 64, 128, 192 and
+// 256 specialized, any other through the general instance below) with K in
+// the first inner
 // columns of each row and V in the rest; q0 is [B, inner]. For each (batch,
 // head): s[n] = q0 . K[n] * scale over the keys n < n_true, softmax in f32,
 // out = sum_n p[n] V[n] in f32, rounded once to the input dtype. Keys >=
@@ -179,6 +180,72 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Any head dim without a specialization (e.g. 96 or 160, which JAX's gate
+// admits whenever heads * dim_head is a multiple of 128): the same two
+// passes with dim_head at run time and scalar loads. q sits in shared
+// memory; a warp takes a key row at a time for the scores (lanes over the
+// head dim, a warp reduction), and in pass 2 each thread owns output
+// columns tid, tid + 256, ... and walks every key, so a warp reads a
+// contiguous stretch of each V row. Slow by design: no shipped model uses it.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    cls_attention_general_kernel(const T* __restrict__ kv, const T* __restrict__ q0,
+                                 T* __restrict__ out, int N, int heads, int hd, int n_true,
+                                 float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* sc = smem;      // [N] scores, then exponentials
+  float* qs = smem + N;  // [hd] q
+  __shared__ float red[THREADS / 32];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int inner = heads * hd;
+  const long long stride = 2LL * inner;
+  const T* kbase = kv + static_cast<long long>(b) * N * stride + h * hd;
+  const T* vbase = kbase + inner;
+  for (int d = threadIdx.x; d < hd; d += THREADS)
+    qs[d] = to_f32(q0[static_cast<long long>(b) * inner + h * hd + d]);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float mx = -INFINITY;
+  for (int n = warp; n < n_true; n += THREADS / 32) {
+    float d = 0.0f;
+    for (int c = lane; c < hd; c += 32) d = fmaf(qs[c], to_f32(kbase[n * stride + c]), d);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) d += __shfl_xor_sync(0xffffffffu, d, off);
+    d *= scale;
+    mx = fmaxf(mx, d);
+    if (lane == 0) sc[n] = d;
+  }
+  const float m = block_reduce<true>(mx, red);  // also orders the sc writes
+
+  float sum = 0.0f;
+  for (int n = threadIdx.x; n < n_true; n += THREADS) {
+    const float e = expf(sc[n] - m);
+    sc[n] = e;
+    sum += e;
+  }
+  const float l = block_reduce<false>(sum, red);  // also orders the sc writes
+
+  for (int c = threadIdx.x; c < hd; c += THREADS) {
+    float o = 0.0f;
+    for (int n = 0; n < n_true; ++n) o = fmaf(sc[n], to_f32(vbase[n * stride + c]), o);
+    out[static_cast<long long>(b) * inner + h * hd + c] = from_f32<T>(o / l);
+  }
+}
+
+template <typename T>
+int launch_general(const void* kv, const void* q0, void* out, int B, int N, int heads, int hd,
+                   int n_true, float scale, void* stream) {
+  const size_t smem = (static_cast<size_t>(N) + hd) * sizeof(float);
+  cudaError_t err = gaviko::allow_smem(cls_attention_general_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(heads, B);
+  cls_attention_general_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(kv), static_cast<const T*>(q0), static_cast<T*>(out), N, heads, hd,
+      n_true, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 int launch(const void* kv, const void* q0, void* out, int B, int N, int heads, int n_true,
            float scale, void* stream) {
@@ -206,15 +273,16 @@ int dispatch(const void* kv, const void* q0, void* out, int B, int N, int heads,
     case 256:
       return launch<T, 256>(kv, q0, out, B, N, heads, n_true, scale, stream);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (dim_head < 1) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_general<T>(kv, q0, out, B, N, heads, dim_head, n_true, scale, stream);
   }
 }
 
 }  // namespace
 
 // kv [B, N, 2 * heads * dim_head], q0 [B, heads * dim_head] -> out [B,
-// heads * dim_head]; all contiguous and 16-byte aligned, one dtype; dim_head
-// 64, 128, 192 or 256; 1 <= n_true <= N.
+// heads * dim_head]; all contiguous and 16-byte aligned, one dtype; any
+// dim_head >= 1 (64, 128, 192 and 256 specialized); 1 <= n_true <= N.
 extern "C" int gaviko_cls_attention_bf16(const void* kv, const void* q0, void* out, int B,
                                          int N, int heads, int dim_head, int n_true,
                                          float scale, void* stream) {

@@ -5,7 +5,7 @@
 // forward's dropout mask replayed from (seed, query row, key, b * heads + h)
 // (csrc/fused_mhsa.cu).
 //
-// From qkv [B, n_pad, 3 * heads * hd] (head dim hd 64, 128, 192 or 256), the
+// From qkv [B, n_pad, 3 * heads * hd] (any head dim hd), the
 // forward's output O and its per-row statistic lse = m + log2(l)
 // (csrc/fused_mhsa.cu, log2 units, [B, heads, n_pad] f32) and the cotangent
 // dO, it writes dq, dk and dv into the column ranges h*hd, inner + h*hd and
@@ -51,6 +51,8 @@
 // columns of a row tile are split between two blocks (96 or 128 columns
 // each), each recomputing S and dP over the whole head dim, so a thread's
 // accumulators stay at or under the 128 registers of head dim 128.
+// Any other head dim takes the general instance (below, SIMT in both
+// dtypes, the column split over 64-column chunks at any head dim).
 // f32 takes a SIMT path: hd / 32 lanes own a row up to head dim 128 (8
 // above), each lane 32 of its columns in registers (24 at 192), so a block
 // owns 64 rows at head dim 64, 32 at 128 and 16 above (the smaller row tile
@@ -77,6 +79,7 @@ struct Args {
   uint32_t seed;
   int32_t threshold;  // INT32_MIN: no dropout
   float drop_scale;   // 1 / (1 - rate)
+  int hd;             // the head dim (read by the general instance)
 };
 
 // f = keep / (1 - rate) of (query row, key) in plane salt; 1 at rate 0.
@@ -629,6 +632,242 @@ __global__ void __launch_bounds__(THREADS) mhsa_bwd_dkdv_mma(Args a) {
   }
 }
 
+// ------------------------------------------------------ any head dim ----
+//
+// Head dims with no specialization: both passes on SIMT with the head dim
+// at run time and the output columns split into 64-column chunks over the
+// grid, as the forward's General (csrc/attention_fwd.cuh). A block owns 64
+// rows (a lane pair a row) and one chunk, recomputes S and dP over the whole
+// head dim in 64-wide chunks through shared memory, and accumulates its own
+// columns of the outputs. q * scale * log2(e), P (times the dropout
+// factor) and dS are rounded to the input dtype where the bf16 mma path
+// rounds them. Slow by design.
+
+namespace general {
+
+constexpr int ROWS = 64;  // rows a block owns
+constexpr int WALK = 32;  // rows of a walked tile
+constexpr int DC = 64;    // head-dim chunk, and the output columns a block owns
+constexpr int LD = DC + 1;
+constexpr int LDW = WALK + 1;
+constexpr size_t kSmemDq =
+    (2 * static_cast<size_t>(ROWS) * LD + 2 * static_cast<size_t>(WALK) * LD +
+     static_cast<size_t>(ROWS) * LDW) * sizeof(float);
+constexpr size_t kSmemDkdv =
+    (2 * static_cast<size_t>(ROWS) * LD + 2 * static_cast<size_t>(WALK) * LD +
+     2 * static_cast<size_t>(ROWS) * LDW + 2 * WALK) * sizeof(float);
+
+__host__ __device__ inline int chunks(int hd) { return (hd + DC - 1) / DC; }
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return gaviko::to_f32(gaviko::from_f32<T>(x));
+}
+
+// rows [row0, row0 + R) x columns [c0, c0 + DC) of src (row stride
+// `stride`) into dst [R][LD], times mult and rounded to T; rows >= n_valid
+// and columns >= hd become zeros.
+template <typename T, int R>
+__device__ void load(float* dst, const T* src, long long stride, int row0, int n_valid, int c0,
+                     int hd, float mult) {
+  for (int e = threadIdx.x; e < R * DC; e += THREADS) {
+    const int r = e / DC, c = e % DC;
+    float x = 0.0f;
+    if (row0 + r < n_valid && c0 + c < hd)
+      x = round_to<T>(gaviko::to_f32(src[(row0 + r) * stride + c0 + c]) * mult);
+    dst[r * LD + c] = x;
+  }
+}
+
+// Pass 1: dq for 64 query rows and one column chunk; chunk 0 also writes
+// delta = rowsum(dO * O) for the dk/dv pass.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
+  extern __shared__ __align__(16) char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [ROWS][LD] a chunk of q * scale * log2(e)
+  float* dos = qs + ROWS * LD;                 // [ROWS][LD] a chunk of dO
+  float* ks = dos + ROWS * LD;                 // [WALK][LD] a chunk of K, then the block's columns
+  float* vs = ks + WALK * LD;                  // [WALK][LD] a chunk of V
+  float* dss = vs + WALK * LD;                 // [ROWS][LDW] dS, rounded to T
+  const int hd = a.hd, nch = chunks(hd);
+  const int q0 = (blockIdx.x / nch) * ROWS, c0 = (blockIdx.x % nch) * DC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int inner = a.heads * hd;
+  const long long stride = 3LL * inner;
+  const T* qkv = static_cast<const T*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
+  const T* dout = static_cast<const T*>(a.dout) + static_cast<long long>(b) * a.n_pad * inner;
+  const T* out = static_cast<const T*>(a.out) + static_cast<long long>(b) * a.n_pad * inner;
+  const int row = (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 2, half = threadIdx.x % 2;
+  const int r = q0 + row;
+  const bool live = r < a.n_pad;
+  const long long srow = (static_cast<long long>(b) * a.heads + h) * a.n_pad + r;
+  const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
+
+  float delta = 0.0f;
+  if (live)
+    for (int c = half; c < hd; c += 2)
+      delta = fmaf(gaviko::to_f32(dout[static_cast<long long>(r) * inner + h * hd + c]),
+                   gaviko::to_f32(out[static_cast<long long>(r) * inner + h * hd + c]), delta);
+  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
+  const float lse = live ? a.lse[srow] : 0.0f;
+  if (live && c0 == 0 && half == 0) a.delta[srow] = delta;
+
+  float acc[DC / 2];
+#pragma unroll
+  for (int j = 0; j < DC / 2; ++j) acc[j] = 0.0f;
+  for (int k0 = 0; k0 < a.n_true; k0 += WALK) {
+    float s[WALK / 2], dp[WALK / 2];
+#pragma unroll
+    for (int i = 0; i < WALK / 2; ++i) s[i] = dp[i] = 0.0f;
+    for (int d0 = 0; d0 < hd; d0 += DC) {
+      __syncthreads();  // every thread is done with the previous chunk
+      load<T, ROWS>(qs, qkv + h * hd, stride, q0, a.n_pad, d0, hd, a.scale_log2e);
+      load<T, ROWS>(dos, dout + h * hd, inner, q0, a.n_pad, d0, hd, 1.0f);
+      load<T, WALK>(ks, qkv + inner + h * hd, stride, k0, a.n_true, d0, hd, 1.0f);
+      load<T, WALK>(vs, qkv + 2 * inner + h * hd, stride, k0, a.n_true, d0, hd, 1.0f);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < WALK / 2; ++i) {
+        const float* kr = ks + (2 * i + half) * LD;
+        const float* vr = vs + (2 * i + half) * LD;
+        float x = s[i], y = dp[i];
+#pragma unroll 8
+        for (int c = 0; c < DC; ++c) {
+          x = fmaf(qs[row * LD + c], kr[c], x);
+          y = fmaf(dos[row * LD + c], vr[c], y);
+        }
+        s[i] = x;
+        dp[i] = y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WALK / 2; ++i) {
+      const int key = k0 + 2 * i + half;
+      float ds = 0.0f;
+      if (key < a.n_true && live)
+        ds = exp2f(s[i] - lse) * (drop_factor(a, r, key, salt) * dp[i] - delta);
+      dss[row * LDW + 2 * i + half] = round_to<T>(ds);
+    }
+    __syncthreads();  // S and dP are formed: ks takes this block's columns of K
+    load<T, WALK>(ks, qkv + inner + h * hd, stride, k0, a.n_true, c0, hd, 1.0f);
+    __syncthreads();
+    for (int c = 0; c < WALK; ++c) {
+      const float d = dss[row * LDW + c];
+#pragma unroll
+      for (int j = 0; j < DC / 2; ++j) acc[j] = fmaf(d, ks[c * LD + 2 * j + half], acc[j]);
+    }
+  }
+  if (live) {
+    T* dst = static_cast<T*>(a.dqkv) + (static_cast<long long>(b) * a.n_pad + r) * stride + h * hd;
+#pragma unroll
+    for (int j = 0; j < DC / 2; ++j) {
+      const int c = c0 + 2 * j + half;
+      if (c < hd) dst[c] = gaviko::from_f32<T>(acc[j] * a.scale);
+    }
+  }
+}
+
+// Pass 2: dk and dv for 64 keys and one column chunk, walking every query
+// row < n_pad; keys >= n_true get zeros.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
+  extern __shared__ __align__(16) char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [ROWS][LD] a chunk of K
+  float* vs = ks + ROWS * LD;                  // [ROWS][LD] a chunk of V
+  float* qs = vs + ROWS * LD;                  // [WALK][LD] q * scale * log2(e), then q
+  float* dos = qs + WALK * LD;                 // [WALK][LD] a chunk of dO
+  float* ps = dos + WALK * LD;                 // [ROWS][LDW] f P, rounded to T
+  float* dss = ps + ROWS * LDW;                // [ROWS][LDW] dS, rounded to T
+  float* lse_s = dss + ROWS * LDW;             // [WALK]
+  float* delta_s = lse_s + WALK;               // [WALK]
+  const int hd = a.hd, nch = chunks(hd);
+  const int k0 = (blockIdx.x / nch) * ROWS, c0 = (blockIdx.x % nch) * DC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int inner = a.heads * hd;
+  const long long stride = 3LL * inner;
+  const T* qkv = static_cast<const T*>(a.qkv) + static_cast<long long>(b) * a.n_pad * stride;
+  const T* dout = static_cast<const T*>(a.dout) + static_cast<long long>(b) * a.n_pad * inner;
+  const long long stat = (static_cast<long long>(b) * a.heads + h) * a.n_pad;
+  const int row = (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 2, half = threadIdx.x % 2;
+  const int j = k0 + row;
+  const bool live = j < a.n_true;
+  const uint32_t salt = static_cast<uint32_t>(b * a.heads + h);
+
+  float dk[DC / 2], dv[DC / 2];
+#pragma unroll
+  for (int c = 0; c < DC / 2; ++c) dk[c] = dv[c] = 0.0f;
+  for (int q0 = 0; q0 < a.n_pad; q0 += WALK) {
+    float s[WALK / 2], dp[WALK / 2];
+#pragma unroll
+    for (int i = 0; i < WALK / 2; ++i) s[i] = dp[i] = 0.0f;
+    for (int d0 = 0; d0 < hd; d0 += DC) {
+      __syncthreads();
+      load<T, ROWS>(ks, qkv + inner + h * hd, stride, k0, a.n_true, d0, hd, 1.0f);
+      load<T, ROWS>(vs, qkv + 2 * inner + h * hd, stride, k0, a.n_true, d0, hd, 1.0f);
+      load<T, WALK>(qs, qkv + h * hd, stride, q0, a.n_pad, d0, hd, a.scale_log2e);
+      load<T, WALK>(dos, dout + h * hd, inner, q0, a.n_pad, d0, hd, 1.0f);
+      if (d0 == 0)
+        for (int e = threadIdx.x; e < WALK; e += THREADS) {
+          const bool in = q0 + e < a.n_pad;
+          lse_s[e] = in ? a.lse[stat + q0 + e] : 0.0f;
+          delta_s[e] = in ? a.delta[stat + q0 + e] : 0.0f;
+        }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < WALK / 2; ++i) {
+        const float* qr = qs + (2 * i + half) * LD;
+        const float* dr = dos + (2 * i + half) * LD;
+        float x = s[i], y = dp[i];
+#pragma unroll 8
+        for (int c = 0; c < DC; ++c) {
+          x = fmaf(ks[row * LD + c], qr[c], x);
+          y = fmaf(vs[row * LD + c], dr[c], y);
+        }
+        s[i] = x;
+        dp[i] = y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WALK / 2; ++i) {
+      const int c = 2 * i + half, q = q0 + c;
+      float fp = 0.0f, ds = 0.0f;
+      if (live && q < a.n_pad) {
+        const float p = exp2f(s[i] - lse_s[c]);
+        const float f = drop_factor(a, q, j, salt);
+        fp = f * p;
+        ds = p * (f * dp[i] - delta_s[c]);
+      }
+      ps[row * LDW + c] = round_to<T>(fp);
+      dss[row * LDW + c] = round_to<T>(ds);
+    }
+    __syncthreads();  // S and dP are formed: qs and dos take this block's columns
+    load<T, WALK>(qs, qkv + h * hd, stride, q0, a.n_pad, c0, hd, 1.0f);
+    load<T, WALK>(dos, dout + h * hd, inner, q0, a.n_pad, c0, hd, 1.0f);
+    __syncthreads();
+    for (int c = 0; c < WALK; ++c) {
+      const float p = ps[row * LDW + c], d = dss[row * LDW + c];
+#pragma unroll
+      for (int x = 0; x < DC / 2; ++x) {
+        dv[x] = fmaf(p, dos[c * LD + 2 * x + half], dv[x]);
+        dk[x] = fmaf(d, qs[c * LD + 2 * x + half], dk[x]);
+      }
+    }
+  }
+  if (j < a.n_pad) {
+    T* dst = static_cast<T*>(a.dqkv) + (static_cast<long long>(b) * a.n_pad + j) * stride + h * hd;
+#pragma unroll
+    for (int x = 0; x < DC / 2; ++x) {
+      const int c = c0 + 2 * x + half;
+      if (c < hd) {
+        dst[inner + c] = gaviko::from_f32<T>(dk[x] * a.scale);
+        dst[2 * inner + c] = gaviko::from_f32<T>(dv[x]);
+      }
+    }
+  }
+}
+
+}  // namespace general
+
 template <typename K>
 int run(K kernel, dim3 grid, size_t smem, cudaStream_t s, const Args& a) {
   cudaError_t err = gaviko::allow_smem(kernel, smem);
@@ -661,7 +900,7 @@ int dispatch(const void* qkv, const void* out, const void* dout, const float* ls
              int seed, int threshold, float drop_scale, void* stream) {
   if (n_true < 1 || n_true > n_pad) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{qkv,   out,  dout, lse, delta, dqkv, n_pad, heads, n_true, scale * 1.4426950408889634f,
-               scale, static_cast<uint32_t>(seed), threshold, drop_scale};
+               scale, static_cast<uint32_t>(seed), threshold, drop_scale, dim_head};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dim_head) {
     case 64:
@@ -672,15 +911,22 @@ int dispatch(const void* qkv, const void* out, const void* dout, const float* ls
       return launch<T, 192>(a, B, s);
     case 256:
       return launch<T, 256>(a, B, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    default: {
+      if (dim_head < 1) return static_cast<int>(cudaErrorInvalidValue);
+      const dim3 grid((n_pad + general::ROWS - 1) / general::ROWS * general::chunks(dim_head),
+                      heads, B);
+      const int err = run(general::dq_kernel<T>, grid, general::kSmemDq, s, a);
+      if (err != 0) return err;
+      return run(general::dkdv_kernel<T>, grid, general::kSmemDkdv, s, a);
+    }
   }
 }
 
 }  // namespace
 
 // qkv [B, n_pad, 3 * heads * dim_head], out and dout [B, n_pad, heads *
-// dim_head], all contiguous and of one dtype, dim_head 64, 128, 192 or 256; lse and
+// dim_head], all contiguous and of one dtype, any dim_head >= 1 (64, 128,
+// 192 and 256 specialized, any other through the general instance); lse and
 // delta (scratch) [B, heads, n_pad] f32 -> dqkv [B, n_pad, 3 * heads *
 // dim_head] in qkv's dtype. seed, threshold and drop_scale are the
 // forward's (threshold INT32_MIN: no dropout).

@@ -7,6 +7,8 @@ the card it runs the kernel in ``csrc/cls_attention.cu``, one block per
 (batch, head) reading K once for the scores and V once for the output;
 ``cls_attention_reference`` is its plain PyTorch version. The TPU kernel's
 head-indicator matmul worked around a Mosaic shape rule and is not ported.
+Head dims 64, 128, 192 and 256 run specialized instances; every other head
+dim the gate admits runs the general one (``cls_instance``).
 
 Scores, softmax and the weighted sum of V run in f32 over the keys below
 ``n_true``; the output is rounded once to the working dtype.
@@ -21,7 +23,7 @@ import torch
 from gaviko_tpu_torch.ops import _build
 
 _HP = 128  # the JAX kernel's padded head count
-KERNEL_DIM_HEADS = (64, 128, 192, 256)  # head dims the kernel is compiled for
+KERNEL_DIM_HEADS = (64, 128, 192, 256)  # head dims the kernel is specialized for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_F, _P)
@@ -36,6 +38,15 @@ def cls_attention_supported(heads: int, dim_head: int, n: int,
         return False
     need = n * 2 * inner * dtype.itemsize + 2 * n * inner * 4
     return need <= 28 * 1024 * 1024
+
+
+def cls_instance(dim_head: int) -> str:
+    """The instance of the kernel a head dim runs on the card: its
+    specialization, else the general one (dim_head at run time; e.g. 96 or
+    160, which the gate admits whenever heads * dim_head % 128 == 0)."""
+    if dim_head < 1:
+        raise ValueError(f"dim_head must be >= 1, got {dim_head}")
+    return "specialized" if dim_head in KERNEL_DIM_HEADS else "general"
 
 
 def cls_attention_reference(kv: torch.Tensor, q0: torch.Tensor, heads: int,
@@ -64,10 +75,7 @@ def cls_attention(kv: torch.Tensor, q0: torch.Tensor, heads: int, dim_head: int,
                        "takes cls_attend's differentiable form", kv, q0)
     B, N, two_inner = kv.shape
     inner = heads * dim_head
-    if dim_head not in KERNEL_DIM_HEADS:
-        raise NotImplementedError(
-            f"cls_attention kernel is compiled for dim_head in {KERNEL_DIM_HEADS}, got "
-            f"{dim_head} (ROADMAP Queue C item 4)")
+    cls_instance(dim_head)
     if two_inner != 2 * inner:
         raise ValueError(f"cls_attention takes a packed (B, N, 2*heads*dim_head) kv; got "
                          f"{tuple(kv.shape)}, heads={heads}, dim_head={dim_head}")

@@ -23,10 +23,13 @@ forward and backward are those kernels. ``flash_attention_reference``,
 ``local_bwd_reference`` are the plain PyTorch versions, run on CPU tensors
 and inside ``_build.plain_versions()``.
 
-A and B are compiled for head dims 64, 128, 192 and 256, every head dim the
-JAX package's fused gate admits up to 256; B10 for 32, 64, 128, 192 and 256,
-and any other head dim up to 256 reaches it zero-padded to the next of these.
-Head dims above 256 raise on the card (ROADMAP Queue C item 4).
+A and B are specialized for head dims 64, 128, 192 and 256; B10 for 32,
+64, 128, 192 and 256, and any other head dim up to 256 reaches it
+zero-padded to the next of these. Every other head dim (A and B: the
+multiples of 64 above 256 that the JAX package's fused gate admits; B10:
+any above 256) runs a general instance of the same kernel, with dim_head
+at run time and the output split into 64-column chunks over the grid
+(``mhsa_instance``, ``flash_instance``).
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
 row within the padded stream, key column) in plane ``salt = b * heads +
@@ -66,11 +69,27 @@ _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
 _LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
 
 
-def _check_dim_head(name: str, dim_head: int, compiled) -> None:
-    if dim_head not in compiled:
-        raise NotImplementedError(
-            f"{name} kernel is compiled for dim_head in {compiled}, got {dim_head} "
-            "(ROADMAP Queue C item 4)")
+def mhsa_instance(dim_head: int) -> str:
+    """The instance of kernels A and B a head dim runs on the card: its
+    specialization ("specialized", head dims 64, 128, 192 and 256), else the
+    general one ("general": dim_head at run time, the output split into
+    64-column chunks over the grid)."""
+    if dim_head < 1:
+        raise ValueError(f"dim_head must be >= 1, got {dim_head}")
+    return "specialized" if dim_head in MHSA_DIM_HEADS else "general"
+
+
+def flash_instance(dim_head: int) -> Tuple[str, int]:
+    """(instance, width) of kernel B10 for a head dim: "specialized" at a
+    compiled head dim, "padded" to the next compiled one up to 256 (zero
+    columns change neither the scores nor the kept columns), "general"
+    above 256; ``width`` is the head dim the kernel runs at."""
+    if dim_head < 1:
+        raise ValueError(f"dim_head must be >= 1, got {dim_head}")
+    if dim_head in FLASH_DIM_HEADS:
+        return "specialized", dim_head
+    width = next((w for w in FLASH_DIM_HEADS if w >= dim_head), None)
+    return ("padded", width) if width is not None else ("general", dim_head)
 
 
 def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
@@ -84,7 +103,7 @@ def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Te
 
 def fused_mhsa_supported(heads: int, dim_head: int, N: int) -> bool:
     """The JAX package's gate: even heads, 128-lane head pairs, whole-K
-    length. Of the head dims it admits, those above 256 raise on the card."""
+    length. Every head dim it admits reaches an instance of A and B."""
     return heads % 2 == 0 and (2 * dim_head) % 128 == 0 and N <= WHOLE_K_MAX
 
 
@@ -148,10 +167,8 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v must be one [B, H, N, D] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, N, D = q.shape
-    width = next((w for w in FLASH_DIM_HEADS if w >= D), None)
-    if width is None:
-        _check_dim_head("flash_attention", D, FLASH_DIM_HEADS)
-    if width != D:
+    instance, width = flash_instance(D)
+    if instance == "padded":
         q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
         return _flash_launch(q, k, v, scale)[..., :D]
     return _flash_launch(q, k, v, scale)
@@ -165,9 +182,12 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v must share device and dtype")
     o = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *_flash_strides("q", q), *_flash_strides("k", k), *_flash_strides("v", v),
-        *o.stride()[:3])
+    if flash_instance(D)[0] == "general":  # scalar loads: any strides
+        st = [x for t in (q, k, v, o) for x in t.stride()[:3]]
+    else:
+        st = [*_flash_strides("q", q), *_flash_strides("k", k), *_flash_strides("v", v),
+              *o.stride()[:3]]
+    strides = (ctypes.c_longlong * 12)(*st)
     _build.launch("flash_attention", f"gaviko_flash_attention_{dtype}", _FLASH_ARGTYPES,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, N, D,
                   strides, scale, _build.stream_of(q))
@@ -235,7 +255,7 @@ def _mhsa_forward(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
         return mhsa_reference(qkv, heads, dim_head, scale, n_true, dropout_rate,
                               with_lse=with_lse, seed=seed)
     B, n_pad, three_inner = qkv.shape
-    _check_dim_head("fused_mhsa", dim_head, MHSA_DIM_HEADS)
+    mhsa_instance(dim_head)
     if three_inner != 3 * heads * dim_head:
         raise ValueError(f"fused_mhsa takes a packed [B, N, 3*heads*dim_head] qkv; got "
                          f"{tuple(qkv.shape)}, heads={heads}, dim_head={dim_head}")
@@ -329,7 +349,7 @@ def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                                   dropout_rate, seed)
     B, n_pad, three_inner = qkv.shape
     inner = heads * dim_head
-    _check_dim_head("fused_mhsa_bwd", dim_head, MHSA_DIM_HEADS)
+    mhsa_instance(dim_head)
     if three_inner != 3 * inner:
         raise ValueError(f"fused_mhsa_bwd takes a packed qkv; got {tuple(qkv.shape)}, "
                          f"heads={heads}, dim_head={dim_head}")

@@ -8,7 +8,10 @@ Port of ``gaviko_tpu/serving.py``:
   time; here one warm-up forward at construction does what that did: it
   builds the CUDA kernels and runs every shape once, so the first request
   pays no build. ``reload_checkpoint`` swaps weights atomically (in-flight
-  calls finish on the old dict).
+  calls finish on the old dict). ``quantize="int8"`` adds int8 sidecars to
+  the backbone's GEMM weights after the cast to the serving dtype, so the
+  forward runs the int8 kernels (``ops/int8_linear.py``); the warm-up
+  builds them and ``reload_checkpoint`` quantizes anew.
 - ``BatchQueue``: concurrent requests coalesce into one device batch (up to
   ``batch_size``, flushed after ``max_wait_ms``); one dispatcher thread owns
   the device.
@@ -55,9 +58,8 @@ class Predictor:
         from gaviko_tpu_torch.data.transforms import eval_transform
         from gaviko_tpu_torch.models.factory import build_model
 
-        if quantize is not None:
-            raise NotImplementedError(
-                "quantize='int8' is not ported yet (ROADMAP Queue B: int8 kernels)")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"Unknown quantize mode: {quantize!r}")
         if mesh_shape is not None:
             raise NotImplementedError(
                 "mesh_shape is not ported yet (ROADMAP Queue A item 13)")
@@ -69,6 +71,7 @@ class Predictor:
         self.spec = self.model.spec
         self._pretrained_dir = pretrained_dir
         self._cdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        self._quantize = quantize
         self.params = self._load_params(checkpoint)
         self._transform = eval_transform
         spec = self.spec
@@ -83,10 +86,17 @@ class Predictor:
         params = build_params(
             self.model, torch.Generator().manual_seed(0),
             pretrained_dir=self._pretrained_dir, checkpoint_path=checkpoint)
-        return {
+        params = {
             k: (t.to(self._cdtype) if t.dtype == torch.float32 else t).to(self.device)
             for k, t in params.items()
         }
+        if self._quantize == "int8":
+            from gaviko_tpu_torch.ops.int8_linear import quantize_backbone
+
+            # After the cast, as the JAX package does: codes of the serving
+            # dtype's weights, f32 scales.
+            params = quantize_backbone(params, self.spec.depth)
+        return params
 
     def _forward(self, params, batch: torch.Tensor) -> np.ndarray:
         with torch.inference_mode():

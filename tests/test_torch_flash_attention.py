@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from gaviko_tpu.core.layers import RngStream
 from gaviko_tpu.ops import attention as jattn
+from gaviko_tpu.ops import cls_attention as jcls
 from gaviko_tpu.ops import flash_attention as jfa
 from gaviko_tpu_torch.core.layers import SeedStream
 from gaviko_tpu_torch.ops import _build
@@ -144,10 +145,12 @@ def _fake_card(monkeypatch):
 def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
     """A, B and B8 launch at head dims 64, 128, 192 and 256, B10 at 32, 64,
     128, 192 and 256, and B10 takes any other head dim up to 256 zero-padded
-    to the next of those (96 launches at 128 and comes back 96 wide); head
-    dims above 256, which JAX's fused gate also admits, raise and name their
-    ROADMAP item. (192 and 256 raised here before ROADMAP Queue C item 4 was
-    repaired; the test's name dates from then.)"""
+    to the next of those (96 launches at 128 and comes back 96 wide). Every
+    other head dim JAX's gates admit (A and B above 256, B8 at e.g. 96, B10
+    above 256) launches the same entry point, which runs its general
+    instance; B10's general instance takes any strides. (Head dims above 256
+    raised here before ROADMAP Queue C item 4 was repaired; the test's name
+    dates from then.)"""
     calls = _fake_card(monkeypatch)
     for dh in (64, 128, 192, 256):
         qkv = torch.zeros(1, 8, 3 * 2 * dh)
@@ -163,16 +166,47 @@ def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
     assert calls == ["gaviko_fused_mhsa_f32", "gaviko_fused_mhsa_bwd_f32",
                      "gaviko_cls_attention_f32"] * 4 + ["gaviko_flash_attention_f32"] * 6
     assert widths[::3] == [32, 64, 128, 192, 256, 128]
+    del calls[:]
     for dh in (320, 384):
         assert tfa.fused_mhsa_supported(2, dh, 64)
-        with pytest.raises(NotImplementedError, match="Queue C item 4"):
-            tfa.fused_mhsa(torch.zeros(1, 8, 3 * 2 * dh), 2, dh, 0.1, 8)
-        with pytest.raises(NotImplementedError, match="Queue C item 4"):
-            tcls.cls_attention(torch.zeros(1, 8, 2 * 2 * dh), torch.zeros(1, 2 * dh), 2, dh,
-                               0.1, 8)
-    q = torch.zeros(1, 3, 8, 264)
-    with pytest.raises(NotImplementedError, match="Queue C item 4"):
-        tfa.flash_attention(q, q, q, 0.1)
+        assert tfa.mhsa_instance(dh) == "general" and tcls.cls_instance(dh) == "general"
+        qkv = torch.zeros(1, 8, 3 * 2 * dh)
+        out, lse = tfa.fused_mhsa(qkv, 2, dh, 0.1, 8, with_lse=True)
+        assert out.shape == (1, 8, 2 * dh)
+        tfa.fused_mhsa_bwd(qkv, out, lse, out, 2, dh, 0.1, 8)
+        tcls.cls_attention(torch.zeros(1, 8, 2 * 2 * dh), torch.zeros(1, 2 * dh), 2, dh,
+                           0.1, 8)
+    assert tcls.cls_attention_supported(4, 96, 8, torch.float32)
+    tcls.cls_attention(torch.zeros(1, 8, 2 * 4 * 96), torch.zeros(1, 4 * 96), 4, 96, 0.1, 8)
+    q = torch.zeros(1, 3, 8, 264)[..., 1:]  # 263 wide: no 16-byte rows
+    assert tfa.flash_instance(263) == ("general", 263)
+    assert tfa.flash_attention(q, q, q, 0.1).shape == q.shape
+    assert calls == ["gaviko_fused_mhsa_f32", "gaviko_fused_mhsa_bwd_f32",
+                     "gaviko_cls_attention_f32"] * 2 + ["gaviko_cls_attention_f32",
+                                                        "gaviko_flash_attention_f32"]
+    assert widths[::3] == [32, 64, 128, 192, 256, 128]  # no alignment check for 263
+
+
+def test_every_head_dim_the_jax_gates_admit_has_an_instance():
+    """Each head dim in 8..1024 that JAX's fused gate or CLS gate admits (at
+    2, 4 and 12 heads, N 1008, bf16) picks an instance of A and B, or of B8,
+    without raising, as does every head dim of B10 (which JAX takes at any
+    width); the specializations keep their own head dims."""
+    admitted = {"mhsa": set(), "cls": set()}
+    for d in range(8, 1025):
+        for heads in (2, 4, 12):
+            if jfa.fused_mhsa_supported(heads, d, 1008):
+                admitted["mhsa"].add(d)
+                assert tfa.mhsa_instance(d) == (
+                    "specialized" if d in tfa.MHSA_DIM_HEADS else "general")
+            if jcls.cls_attention_supported(heads, d, 1008, jnp.bfloat16):
+                admitted["cls"].add(d)
+                assert tcls.cls_instance(d) == (
+                    "specialized" if d in tcls.KERNEL_DIM_HEADS else "general")
+        kind, width = tfa.flash_instance(d)
+        assert width >= d and (kind == "general") == (d > 256)
+        assert (kind == "specialized") == (d in tfa.FLASH_DIM_HEADS)
+    assert {320, 512, 1024} <= admitted["mhsa"] and {96, 160, 320} <= admitted["cls"]
 
 
 def test_flash_attention_on_the_card_reads_head_views_in_place(monkeypatch):

@@ -73,9 +73,14 @@ def test_logits_match_jax_predictor(predictor, ckpt):
 
 
 def test_predictor_rejects_unported_options(ckpt):
-    for kw in ({"quantize": "int8"}, {"mesh_shape": (2, 2)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Predictor(CONFIG, checkpoint=ckpt, pretrained_dir=None, device="cpu", **kw)
+    """mesh_shape is not ported and names its ROADMAP item; quantize takes
+    None or "int8" only, as in the JAX package (int8 itself is served by
+    tests/test_torch_int8.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Predictor(CONFIG, checkpoint=ckpt, pretrained_dir=None, device="cpu",
+                  mesh_shape=(2, 2))
+    with pytest.raises(ValueError, match="quantize"):
+        Predictor(CONFIG, checkpoint=ckpt, pretrained_dir=None, device="cpu", quantize="int4")
 
 
 def test_missing_timm_file_warns_and_continues(tmp_path, caplog):

@@ -32,7 +32,7 @@ Then the port alone: an epoch-boundary resume at epoch 2 of 4 and a
 mid-epoch preemption resume, each bit-equal to the uninterrupted run; and the
 ``train`` -> ``evaluate`` -> ``infer`` CLIs (``--device cpu``), whose files
 and metrics equal JAX's ``evaluate`` and ``inference`` on the same
-checkpoint.
+checkpoint, ``evaluate --quantize int8`` too.
 """
 
 import copy
@@ -335,5 +335,17 @@ def test_cli_train_evaluate_infer_match_jax(tmp_path):
     with open(got_csv) as a, open(want_csv) as b:
         got_rows, want_rows = a.read(), b.read()
     assert got_rows == want_rows and len(got_rows.splitlines()) == 1 + 10
-    with pytest.raises(SystemExit):
-        tcli_eval.main(["--config", path, "--quantize", "int8", "--device", "cpu"])
+
+    # --quantize int8: the same checkpoint with the int8 backbone GEMMs in
+    # both packages (the port's plain versions, JAX's kernels in interpret
+    # mode) gives the same metrics and the same CSV.
+    got = tcli_eval.main(["--config", path, "--method", "fft", "--checkpoint", ckpt,
+                          "--results_dir", port_out, "--quantize", "int8", "--device", "cpu"])
+    jcfg["utils"]["quantize"] = "int8"
+    want = jcli_eval.evaluate(jcfg)
+    assert os.path.basename(got["csv"]) == os.path.basename(want["csv"]) \
+        == "fft_vit_t16_eval_results_v2.csv"
+    for key in ("accuracy", "kappa", "auc"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-6)
+    with open(got["csv"]) as a, open(want["csv"]) as b:
+        assert a.read() == b.read()
