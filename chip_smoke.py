@@ -37,7 +37,13 @@ Phases, each printing its own line:
    MLP) and vit-b16's residual MLP, with the max ULP against the plain
    version, the int8 bound (1,979 TOPS) and the fp chain the route
    replaces, then the general instances of A, B and B10 at head dims 320
-   and 512 (B2, 4 heads) and of B8 at 96 and 320 (B8);
+   and 512 (B2, 4 heads) and of B8 at 96 and 320 (B8), then B12, the LN +
+   linear backward (``csrc/ln_linear_bwd.cu``), at the shapes the two
+   hybrid train runs give it (vit-b16 B8: 8,064 rows, 768 -> 2,304;
+   GAViKO vit-l16 B4: 4,160 rows, 1,024 -> 3,072), with dW and without,
+   beside autograd's chain of the LN + linear backward; then B7's outputs
+   on fixed inputs, bit-equal (sha256) to the kernel's before its passes
+   moved into ``csrc/ln_bwd.cuh``;
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
@@ -86,6 +92,11 @@ Phases, each printing its own line:
    the exact launches a step (bf16: patchify 1 and each of A, B, B6 and B7
    11; fp32, where the fused MLP's gate is false: patchify 1, A and B 11),
    then the same steps through the plain versions under ``TRAIN_BUDGET``;
+   then the hybrid train route (``GAVIKO_LNQKV_HYBRID=1``, set for these
+   runs only): the same vit-b16 steps in fp32 and bf16, whose qkv takes B12
+   as its backward in each full layer (11 a step), and GAViKO vit-l16 with
+   ``freeze_vit: false`` at B4 in bf16 (B12 in all 24 global layers), each
+   with its train check;
 9. vit-t16 train and train check: phases 6 and 7 for vit-t16 at B8, with
    the config's dropout 0.1 (plain attention with ``layers.dropout`` on
    the probabilities: no attention kernel) in fp32 and bf16, and
@@ -124,7 +135,9 @@ those head dims with the dim_head-D bf16 train run's or serving run's
 launches; ``fused_adam_gaviko`` and ``fused_adam_vitb16`` for B13 at f32
 storage with the GAViKO fp32 and vit-b16 bf16 train runs' launches;
 ``int8_linear`` and ``int8_mlp`` for B11 at the GAViKO vit-l16 B8 bf16
-int8 serving shapes with that run's launches),
+int8 serving shapes with that run's launches; ``ln_linear_bwd`` and
+``ln_linear_bwd_l16`` for B12 at the vit-b16 and GAViKO vit-l16 bf16
+hybrid train shapes with the bf16 hybrid runs' launches),
 the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -132,6 +145,7 @@ device it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -179,6 +193,8 @@ SOURCES = {
     "local_attention_bwd": ("gaviko_tpu_torch/csrc/local_attention_bwd.cu",
                             "gaviko_tpu/ops/flash_attention.py:946"),
     "ln_linear": ("gaviko_tpu_torch/csrc/ln_linear.cu", "gaviko_tpu/ops/ln_linear.py:58"),
+    "ln_linear_bwd": ("gaviko_tpu_torch/csrc/ln_linear_bwd.cu",
+                      "gaviko_tpu/ops/ln_linear.py:144"),
     "fused_mlp": ("gaviko_tpu_torch/csrc/fused_mlp.cu", "gaviko_tpu/ops/fused_mlp.py:116"),
     "fused_mlp_bwd": ("gaviko_tpu_torch/csrc/fused_mlp_bwd.cu",
                       "gaviko_tpu/ops/fused_mlp.py:340"),
@@ -204,7 +220,6 @@ BIT_EQUAL = ("int8_linear_out",)
 # 320): kernel cases only, as no shipped model has those head dims.
 GENERAL_DIM_HEADS = (320, 512)
 GENERAL_CLS = ((96, 8), (320, 4))  # (head dim, heads): heads * dim_head % 128 == 0
-VIT_KERNELS = ("ln_linear", "fused_mlp", "fused_mlp_bwd", "cls_attention", "flash_attention")
 # The kernels of the JSON line by the path whose shapes and launches they
 # are reported at.
 LINE_PATH = {"local_attention": "train", "local_attention_bwd": "train",
@@ -232,6 +247,20 @@ DH = {d: {"dim_head": d} for d in DIM_HEADS}
 # moments): row name -> the run whose leaves and launches the row carries.
 ADAM_ROWS = {"fused_adam_gaviko": "train", "fused_adam_vitb16": "vit_train"}
 ADAM_STEP = 40  # the step count whose lr and cycled beta1 the B13 cases take
+# B12 at the shapes of the two runs with GAVIKO_LNQKV_HYBRID=1: (rows, dim,
+# out) of vit-b16 B8 (8 x 1,001 rows padded to 1,008) and GAViKO vit-l16 B4
+# (4 x 1,033 padded to 1,040), by row-name suffix; each with dW and without.
+LN_BWD_SHAPES = {"": (8 * 1008, 768, 2304), "_l16": (4 * 1040, 1024, 3072)}
+# The B12 rows of the JSON line (bf16): row name -> the run whose launches
+# it carries.
+LN_BWD_ROWS = {"ln_linear_bwd": "vit_train_hybrid", "ln_linear_bwd_l16": "gaviko_trainable_hybrid"}
+# sha256 of B7's seven outputs on the inputs of ``b7_digests`` (rows 2,002,
+# dim 768, mlp 3,072, exact GELU, the residual, dropout 0.1), as the kernel
+# gave them before its passes moved into csrc/ln_bwd.cuh (read on an NVIDIA
+# H100 80GB HBM3, CUDA 12.8): the move must leave them bit-equal.
+B7_DIGESTS = {
+    "torch.bfloat16": "0fafb8dceeb84fe4a90aed185f006363fe2d3fc8cf887b4399c8d2b1c38125c4",
+    "torch.float32": "db353d983285098dd06d9a47dc9eae934302de5f0ab0d2fcdddfe22bd73fe62c"}
 TRAINER_VOLUMES = (8, 4)  # train and val volumes of the trainer phase
 
 
@@ -516,6 +545,88 @@ def _vit_train_kernel_cases(dtype, gen, batch):
     ]
 
 
+def _ln_linear_chain_grad(x, gamma, beta, w, dy, need_dw):
+    """One autograd backward of ``F.linear(F.layer_norm(x), w)`` (the graph
+    is built once, outside the timed call); W a leaf only when ``need_dw``."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta)]
+    wl = w.detach().requires_grad_(need_dw)
+    with torch.enable_grad():
+        y = F.linear(F.layer_norm(leaves[0], (x.shape[-1],), leaves[1], leaves[2], 1e-5), wl)
+    targets = leaves + [wl] if need_dw else leaves
+    return lambda: torch.autograd.grad(y, targets, dy, retain_graph=True)
+
+
+def _ln_bwd_kernel_cases(dtype, gen):
+    """Cases (as in :func:`_kernel_cases`) for B12 at LN_BWD_SHAPES, with
+    dW and without (a frozen W): x, gamma, beta, W and a cotangent dy whose
+    rows have about unit norm. No one PyTorch call computes this function;
+    the chain is autograd's backward of LN and the linear."""
+    import torch
+
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_bwd
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    cases = []
+    for suffix, (rows, dim, out) in LN_BWD_SHAPES.items():
+        x = randn(rows, dim)
+        gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
+        w, dy = randn(out, dim, std=dim ** -0.5), randn(rows, out, std=out ** -0.5)
+        for need_dw in (True, False):
+            outs = (x, gamma, beta, w) if need_dw else (x, gamma, beta)
+            cases.append((
+                f"ln_linear_bwd{suffix}" + ("" if need_dw else "_no_dw"),
+                lambda x=x, gamma=gamma, beta=beta, w=w, dy=dy, need_dw=need_dw: ln_linear_bwd(
+                    x, gamma, beta, w, dy, 1e-5, need_dw),
+                lambda r: tuple(t for t in r if t is not None),
+                (_nbytes(x, gamma, beta, w, dy, *outs), 2 * (1 + need_dw) * rows * out * dim),
+                None, _ln_linear_chain_grad(x, gamma, beta, w, dy, need_dw)))
+    return cases
+
+
+def b7_digests() -> dict:
+    """sha256 of B7's seven outputs, by dtype, on inputs made with numpy
+    (see B7_DIGESTS); two calls must agree bit for bit."""
+    import hashlib
+
+    import torch
+
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_bwd
+
+    rows, dim, mlp = 2002, 768, 3072
+    rng = np.random.RandomState(0)
+    arrays = (rng.randn(rows, dim), 1.0 + 0.1 * rng.randn(dim), 0.1 * rng.randn(dim),
+              rng.randn(mlp, dim) * dim ** -0.5, 0.1 * rng.randn(mlp),
+              rng.randn(dim, mlp) * mlp ** -0.5, 0.1 * rng.randn(dim), rng.randn(rows, dim),
+              rng.randn(rows, mlp))
+    digests = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
+        runs = []
+        for _ in range(2):
+            h = hashlib.sha256()
+            for t in fused_mlp_bwd(*args, 1e-5, "exact", VIT_RATE, True, VIT_SEED):
+                h.update(t.float().cpu().numpy().tobytes())
+            runs.append(h.hexdigest())
+        if runs[0] != runs[1]:
+            raise RuntimeError(f"B7 {dtype}: two calls differ")
+        digests[str(dtype)] = runs[0]
+    return digests
+
+
+def phase_b7_bits(card: str) -> None:
+    """B7 bit-equal to its outputs from before the move of its passes."""
+    got = b7_digests()
+    print(json.dumps({"phase": "b7_bits", "digests": got, "want": B7_DIGESTS,
+                      "card": card}), flush=True)
+    if got != B7_DIGESTS:
+        raise RuntimeError(f"B7 outputs changed: {got} != {B7_DIGESTS}")
+
+
 def _t16_kernel_cases(dtype, gen, batch):
     """Cases (as in :func:`_kernel_cases`) for B10: at the shapes the vit-t16
     serving path gives it (the head views of the packed qkv sliced to the
@@ -756,8 +867,10 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     """Every case of ``path`` ("serving" and "train": GAViKO vit-l16; "vit"
     and "vit_train": vit-b16 serving and training; "t16": B10 at vit-t16
     serving and streaming; "dh128", "dh192", "dh256": A, B and B8 at vit-b16
-    with dim_head 128, 192 or 256) in bf16 and fp32 (TF32
-    off): kernel vs plain version on the same inputs, then the times.
+    with dim_head 128, 192 or 256; "int8": B11; "general": the general
+    head-dim instances; "ln_bwd": B12 at LN_BWD_SHAPES, batch None) in
+    bf16 and fp32 (TF32 off): kernel vs plain version on the same inputs,
+    then the times.
     Returns the lines by (name, dtype)."""
     import torch
 
@@ -783,6 +896,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _int8_kernel_cases(dtype, gen, batch)
         elif path == "general":
             cases = _general_kernel_cases(dtype, gen, batch)
+        elif path == "ln_bwd":
+            cases = _ln_bwd_kernel_cases(dtype, gen)
         else:
             cases = _kernel_cases(dtype, gen, batch, path == "train")
         for name, run, cut, work, library, chain in cases:
@@ -830,12 +945,13 @@ def _wrappers():
     from gaviko_tpu_torch.ops.fused_adam import fused_adam
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
     from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp
-    from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear
+    from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_bwd
     from gaviko_tpu_torch.ops.patchify import patchify_fused
 
     return {"patchify": patchify_fused, "fused_mhsa": fused_mhsa,
             "local_attention": flash_local_attention, "fused_mhsa_bwd": fused_mhsa_bwd,
             "local_attention_bwd": local_attention_bwd, "ln_linear": fused_ln_linear,
+            "ln_linear_bwd": ln_linear_bwd,
             "fused_mlp": fused_mlp, "fused_mlp_bwd": fused_mlp_bwd,
             "cls_attention": cls_attention, "flash_attention": flash_attention,
             "fused_adam": fused_adam, "int8_linear": int8_linear, "int8_mlp": int8_mlp}
@@ -843,13 +959,14 @@ def _wrappers():
 
 def _vit_routes(spec, dtype) -> dict:
     """Which kernel each of the plain ViT's sites takes, by the port's
-    gates (the JAX package's): the stream is padded to a multiple of 8."""
-    import torch
-
+    gates (the JAX package's): the stream is padded to a multiple of 8;
+    "hybrid" is the train route's qkv under GAVIKO_LNQKV_HYBRID (as set
+    now)."""
+    from gaviko_tpu_torch.core.vit import lnqkv_hybrid_enabled
     from gaviko_tpu_torch.ops.cls_attention import cls_attention_supported
     from gaviko_tpu_torch.ops.flash_attention import fused_mhsa_supported
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_supported
-    from gaviko_tpu_torch.ops.ln_linear import ln_linear_supported
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_hybrid_supported, ln_linear_supported
 
     n_pad = -(-(spec.num_patches + 1) // 8) * 8
     inner = spec.heads * spec.dim_head
@@ -857,7 +974,9 @@ def _vit_routes(spec, dtype) -> dict:
             "qkv": ln_linear_supported(spec.dim, 3 * inner, dtype),
             "kv": ln_linear_supported(spec.dim, 2 * inner, dtype),
             "mlp": fused_mlp_supported(spec.dim, spec.mlp_dim, dtype),
-            "cls": cls_attention_supported(spec.heads, spec.dim_head, n_pad, dtype)}
+            "cls": cls_attention_supported(spec.heads, spec.dim_head, n_pad, dtype),
+            "hybrid": (lnqkv_hybrid_enabled()
+                       and ln_linear_hybrid_supported(spec.dim, 3 * inner, dtype))}
 
 
 def serving_launches(spec, quantized: bool = False) -> dict:
@@ -1055,22 +1174,33 @@ def phase_plain_check(predictor, vols, served, card: str, headline_batch=None,
                            f"{INT8_FP_BUDGET}")
 
 
-def train_setup():
-    """The vit-l16 GAViKO model of the shipped config (random init from seed
-    0, on the card), TRAIN_STEPS synthetic batches and each step's dropout
-    seeds (two a layer, the local branch's)."""
+def train_setup(model_over=None):
+    """The vit-l16 GAViKO model of the shipped config (or as ``model_over``
+    changes it; random init from seed 0, on the card), TRAIN_STEPS
+    synthetic batches and each step's dropout seeds: two a layer, the local
+    branch's, with the backbone frozen; with it trainable also the two
+    embedding sites and, a layer, two in the attention (the MHSA kernel, the
+    out-projection) and one in the MLP on the fused route or two on the
+    plain one."""
     import torch
 
-    from gaviko_tpu_torch.config import apply_method_override, load_config
     from gaviko_tpu_torch.models.factory import build_model
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_supported
 
-    config = apply_method_override(load_config(CONFIG), "gaviko")
+    config = _config(CONFIG, "gaviko", model_over)
     model = build_model(config["model"])
+    spec = model.spec
     params = {k: v.to("cuda") for k, v in
-              model.init(torch.Generator().manual_seed(0), model.spec).items()}
-    seeds = _step_seeds(2 * model.spec.depth)
-    return (config, model, params, _batches(TRAIN_B, 0), {"fp32": seeds, "bf16": seeds},
-            gaviko_train_launches)
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+
+    def n_seeds(precision):
+        if spec.freeze_vit:
+            return 2 * spec.depth
+        mlp = 1 if fused_mlp_supported(spec.dim, spec.mlp_dim, _dtype(precision)) else 2
+        return 2 + (4 + mlp) * spec.depth
+
+    seeds = {p: _step_seeds(n_seeds(p)) for p in ("fp32", "bf16")}
+    return config, model, params, _batches(TRAIN_B, 0), seeds, gaviko_train_launches
 
 
 def _batches(batch: int, seed: int) -> list:
@@ -1093,13 +1223,23 @@ def _step_seeds(n_seeds: int) -> list:
 
 
 def gaviko_train_launches(spec, precision: str) -> dict:
-    """GAViKO's frozen-backbone step: patchify once, each of the four
-    attention kernels in every layer, none of the ViT's kernels nor B11
-    (training ignores int8 sidecars, and the step has none), and one B13
-    update (after its norm kernel) over every trainable tensor."""
-    want = dict.fromkeys(_wrappers(), spec.depth)
-    want.update(patchify=1, fused_adam=1, int8_linear=0, int8_mlp=0,
-                **dict.fromkeys(VIT_KERNELS, 0))
+    """A GAViKO step: patchify once, each of the four attention kernels in
+    every layer, and one B13 update (after its norm kernel) over every
+    trainable tensor. With the backbone frozen, the global layers run
+    ``train=False`` under a gradient: B9 and B12 for the qkv where B9's gate
+    holds (not at vit-l16); trainable, B12 for the qkv where the hybrid
+    route is on (GAVIKO_LNQKV_HYBRID) and its gate holds. B6 and B7 where
+    the fused MLP's gate holds (not at vit-l16); no CLS attention, B10 or
+    B11 (training ignores int8 sidecars, and the step has none)."""
+    d = spec.depth
+    r = _vit_routes(spec, _dtype(precision))
+    want = dict.fromkeys(_wrappers(), 0)
+    want.update(patchify=1, fused_adam=1, fused_mhsa=d, local_attention=d, fused_mhsa_bwd=d,
+                local_attention_bwd=d, fused_mlp=d * r["mlp"], fused_mlp_bwd=d * r["mlp"])
+    if spec.freeze_vit:
+        want.update(ln_linear=d * r["qkv"], ln_linear_bwd=d * r["qkv"])
+    else:
+        want.update(ln_linear_bwd=d * r["hybrid"])
     return want
 
 
@@ -1116,13 +1256,15 @@ def vit_train_launches(spec, precision: str) -> dict:
     kernel where it is on (plain attention with dropout); B6 and B7 there
     too where the fused MLP's gate holds (bf16 at vit-b16, never at
     vit-t16); the CLS-fast last layer runs plain PyTorch in training; one
-    B13 update over every trainable tensor."""
+    B13 update over every trainable tensor; with GAVIKO_LNQKV_HYBRID=1, B12
+    in every full layer where the hybrid gate holds (its forward is LN and a
+    GEMM: no kernel)."""
     full = spec.depth - 1
     r = _vit_routes(spec, _dtype(precision))
     want = dict.fromkeys(_wrappers(), 0)
     want.update(patchify=1, fused_adam=1, fused_mhsa=full * r["fused_mhsa"],
                 fused_mhsa_bwd=full * r["fused_mhsa"], fused_mlp=full * r["mlp"],
-                fused_mlp_bwd=full * r["mlp"],
+                fused_mlp_bwd=full * r["mlp"], ln_linear_bwd=full * r["hybrid"],
                 flash_attention=full * (not r["fused_mhsa"] and spec.dropout == 0.0))
     return want
 
@@ -1746,6 +1888,20 @@ def phase_trainer(root: str, label: int, trainable_keys, card: str) -> dict:
     return line
 
 
+@contextlib.contextmanager
+def _lnqkv_hybrid(on: bool):
+    """GAVIKO_LNQKV_HYBRID set to "1" (on) or "0" for one run, then restored."""
+    prev = os.environ.get("GAVIKO_LNQKV_HYBRID")
+    os.environ["GAVIKO_LNQKV_HYBRID"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["GAVIKO_LNQKV_HYBRID"]
+        else:
+            os.environ["GAVIKO_LNQKV_HYBRID"] = prev
+
+
 def main() -> int:
     import torch
 
@@ -1780,7 +1936,9 @@ def main() -> int:
                "t16": phase_kernels(smi, B, "t16"),
                **{f"dh{d}": phase_kernels(smi, VIT_TRAIN_B, f"dh{d}") for d in DIM_HEADS},
                "int8": phase_kernels(smi, B, "int8"),
-               "general": phase_kernels(smi, 2, "general")}
+               "general": phase_kernels(smi, 2, "general"),
+               "ln_bwd": phase_kernels(smi, None, "ln_bwd")}  # LN_BWD_SHAPES
+    phase_b7_bits(smi)
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
     launches, fp_served = {}, {}
@@ -1806,25 +1964,31 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # Train runs: (name, setup, precisions, the precision whose launches the
-    # kernels line reports). vit-t16 trains with the config's dropout 0.1
-    # (plain attention with dropout, no attention kernel) and dropout-free
-    # (B10 forward, the plain version's VJP backward).
+    # kernels line reports, GAVIKO_LNQKV_HYBRID for the run). vit-t16 trains
+    # with the config's dropout 0.1 (plain attention with dropout, no
+    # attention kernel) and dropout-free (B10 forward, the plain version's
+    # VJP backward). The hybrid runs take B12 as the qkv's backward: vit-b16
+    # fft and GAViKO vit-l16 with a trainable backbone.
     t16_no_dropout = {**T16, "dropout": 0.0, "emb_dropout": 0.0}
     adam_shapes = {}
-    for name, make_setup, precisions, reported in (
-            ("train", train_setup, ("fp32", "bf16"), "fp32"),
-            ("vit_train", vit_train_setup, ("fp32", "bf16"), "bf16"),
-            ("t16_train", lambda: vit_train_setup(T16), ("fp32", "bf16"), "bf16"),
+    for name, make_setup, precisions, reported, hybrid in (
+            ("train", train_setup, ("fp32", "bf16"), "fp32", False),
+            ("vit_train", vit_train_setup, ("fp32", "bf16"), "bf16", False),
+            ("vit_train_hybrid", vit_train_setup, ("fp32", "bf16"), "bf16", True),
+            ("gaviko_trainable_hybrid", lambda: train_setup({"freeze_vit": False}),
+             ("bf16",), "bf16", True),
+            ("t16_train", lambda: vit_train_setup(T16), ("fp32", "bf16"), "bf16", False),
             ("t16_train_no_dropout", lambda: vit_train_setup(t16_no_dropout), ("bf16",),
-             "bf16"),
-            ("dh128_train", lambda: vit_train_setup(DH[128]), ("fp32", "bf16"), "bf16"),
-            ("dh192_train", lambda: vit_train_setup(DH[192]), ("bf16",), "bf16"),
-            ("dh256_train", lambda: vit_train_setup(DH[256]), ("bf16",), "bf16")):
-        setup = make_setup()
-        runs = {p: phase_train(setup, p, smi) for p in precisions}
-        adam_shapes[name] = runs[reported]["trainable_shapes"]
-        for precision, run in runs.items():
-            phase_train_check(setup, precision, run, smi)
+             "bf16", False),
+            ("dh128_train", lambda: vit_train_setup(DH[128]), ("fp32", "bf16"), "bf16", False),
+            ("dh192_train", lambda: vit_train_setup(DH[192]), ("bf16",), "bf16", False),
+            ("dh256_train", lambda: vit_train_setup(DH[256]), ("bf16",), "bf16", False)):
+        with _lnqkv_hybrid(hybrid):
+            setup = make_setup()
+            runs = {p: phase_train(setup, p, smi) for p in precisions}
+            adam_shapes[name] = runs[reported]["trainable_shapes"]
+            for precision, run in runs.items():
+                phase_train_check(setup, precision, run, smi)
         launches[name] = runs[reported]["launches"]
         del setup, runs
         torch.cuda.empty_cache()
@@ -1847,10 +2011,12 @@ def main() -> int:
     # (bf16) with the dim_head-128 train or serving run's launches. B11
     # (int8_linear: the qkv projection with its LN; int8_mlp: the MLP) at
     # the GAViKO vit-l16 B8 bf16 int8 serving shapes with that run's
-    # launches.
+    # launches. B12 (with dW) at the vit-b16 and GAViKO vit-l16 bf16 hybrid
+    # train shapes with those runs' launches.
     rows = []
     line_rows = [(n, n, LINE_PATH[n], LINE_PATH[n]) for n in SOURCES if n in LINE_PATH]
     line_rows += [(row, n, run.split("_")[0], run) for row, (n, run) in DH_ROWS.items()]
+    line_rows += [(row, "ln_linear_bwd", "ln_bwd", run) for row, run in LN_BWD_ROWS.items()]
     for row_name, n, path, run in line_rows:
         src, tpu = SOURCES[n]
         dtype = "torch.float32" if path == "train" else "torch.bfloat16"

@@ -83,15 +83,22 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def site_seed(rate: float, seeds: Optional[SeedStream]) -> Optional[int]:
+    """The seed of one dropout site; None, consuming no seed, at rate 0."""
+    if rate == 0.0:
+        return None
+    if seeds is None:
+        raise ValueError("dropout requested but no seed stream was given")
+    return seeds.next_seed()
+
+
 def dropout(x: torch.Tensor, rate: float, enabled: bool,
             seeds: Optional[SeedStream]) -> torch.Tensor:
     """Inverted dropout over x flattened to [rows, last]; a no-op that
     consumes no seed when disabled or when rate == 0."""
     if not enabled or rate == 0.0:
         return x
-    if seeds is None:
-        raise ValueError("dropout requested but no seed stream was given")
-    seed = seeds.next_seed()
+    seed = site_seed(rate, seeds)
     rows = x.numel() // x.shape[-1]
     mask = keep_mask((rows, x.shape[-1]), seed, rate, device=x.device)
     return torch.where(mask.reshape(x.shape), x / (1.0 - rate), torch.zeros_like(x))

@@ -6,19 +6,24 @@ same route in both packages; the device picks kernel or plain version.
 
 - ``patchify_embed``: the Conv3d(kernel=stride=patch) embed as the patchify
   kernel, with optional positional rows in its epilogue;
-- ``attention_block``: pre-norm MHSA. At inference (no gradient) the qkv
-  projection is the fused LN+linear kernel where ``ln_linear_supported``
-  holds (vit-b16 and smaller in bf16), else LN and a plain GEMM. Where
-  ``fused_mhsa_supported`` holds, attention reads the packed qkv through
-  the fused MHSA kernel; in training, or when a gradient is needed, the
+- ``attention_block``: pre-norm MHSA, the qkv source picked in the JAX
+  package's order (``_qkv``): int8 sidecars when not training; the fused
+  LN+linear kernel B9 when not training where ``ln_linear_supported``
+  holds (vit-b16 and smaller in bf16, vit-s16 in fp32), with B12 as its
+  backward when a gradient flows (GAViKO's frozen global layers); in
+  training with ``GAVIKO_LNQKV_HYBRID=1``, ``ln_linear_hybrid`` (LN and a
+  GEMM forward, B12 backward) where its gate holds; elsewhere LN, and the
   projection and attention run under ``mhsa_qkv_proj`` (dropout inside the
-  kernel, one seed), whose backward is the fused MHSA backward kernel.
-  Elsewhere (vit-t16's 3 heads, N > 2048) the rows are sliced to
-  ``n_true`` and ``ops/attention.multi_head_attention`` runs the flash
-  attention kernel, or plain attention with ``layers.dropout`` on the
-  probabilities when dropout is on. Then dropout after the out-projection.
-  The stream may carry tail padding: keys >= ``n_true`` are masked, padded
-  rows carry bounded garbage (zeros on the unfused route);
+  kernel, one seed; its backward is the fused MHSA backward kernel) in
+  training or under a gradient, or a plain GEMM at inference. A packed qkv
+  goes through the fused MHSA kernel where ``fused_mhsa_supported`` holds
+  (its backward kernel B under a gradient). Elsewhere (vit-t16's 3 heads,
+  N > 2048) the rows are sliced to ``n_true`` and
+  ``ops/attention.multi_head_attention`` runs the flash attention kernel,
+  or plain attention with ``layers.dropout`` on the probabilities when
+  dropout is on. Then dropout after the out-projection. The stream may
+  carry tail padding: keys >= ``n_true`` are masked, padded rows carry
+  bounded garbage (zeros on the unfused route);
 - int8 serving (``ops/int8_linear.py``, sites carrying ``::int8`` sidecars,
   inference only; training ignores the sidecars): the qkv projection with
   its LN, the out-projection with its bias and the whole MLP (the residual
@@ -51,7 +56,7 @@ import torch.nn.functional as F
 from gaviko_tpu_torch.config import ModelSpec
 from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core.layers import (
-    Params, SeedStream, dropout, gelu_spec, layer_norm, linear)
+    Params, SeedStream, dropout, gelu_spec, layer_norm, linear, site_seed)
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.attention import self_attention, self_attention_train
 from gaviko_tpu_torch.ops.cls_attention import (
@@ -59,7 +64,8 @@ from gaviko_tpu_torch.ops.cls_attention import (
 from gaviko_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_supported
 from gaviko_tpu_torch.ops.int8_linear import (
     INT8_SUFFIX, SCALE_SUFFIX, has_int8, int8_linear, int8_mlp)
-from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_supported
+from gaviko_tpu_torch.ops.ln_linear import (
+    fused_ln_linear, ln_linear_hybrid, ln_linear_hybrid_supported, ln_linear_supported)
 from gaviko_tpu_torch.ops.patchify import patchify_fused
 
 
@@ -76,23 +82,40 @@ def patchify_embed(p: Params, prefix: str, img: torch.Tensor, spec: ModelSpec,
 
 def _ln_proj(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
              train: bool = False) -> torch.Tensor:
-    """LN(x) @ w.T: the fused kernel at inference where the JAX package's
-    gate holds (and no gradient is needed: it has no backward), else LN and
-    a plain GEMM."""
+    """LN(x) @ w.T: when not training, the fused kernel where the JAX
+    package's gate holds (B9; under a gradient B12 is its backward), else LN
+    and a plain GEMM."""
     gamma, beta = p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]
-    if (not train and not _build.needs_grad(x, w, gamma, beta) and w.dtype == x.dtype
+    if (not train and w.dtype == x.dtype
             and ln_linear_supported(x.shape[-1], w.shape[0], x.dtype)):
         return fused_ln_linear(x, gamma, beta, w)
     return F.linear(layer_norm(p, f"{prefix}.norm", x), w)
 
 
-def _drop_seed(rate: float, seeds: Optional[SeedStream]) -> Optional[int]:
-    """One seed for a dropout site inside a kernel; none at rate 0."""
-    if rate == 0.0:
+def lnqkv_hybrid_enabled() -> bool:
+    """The JAX package's ``GAVIKO_LNQKV_HYBRID`` switch, read per call."""
+    return os.environ.get("GAVIKO_LNQKV_HYBRID", "0") == "1"
+
+
+def _qkv(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
+         train: bool) -> Optional[torch.Tensor]:
+    """The packed qkv, in the JAX package's order of routes: the int8
+    kernel when not training where the site has sidecars; the fused LN+linear
+    (B9, with B12 as its backward under a gradient) when not training where
+    its gate holds; in training with ``GAVIKO_LNQKV_HYBRID=1``, the hybrid
+    route (LN and a GEMM, B12 backward) where its gate holds. None elsewhere:
+    ``mhsa_qkv_proj`` then owns the GEMM."""
+    gamma, beta = p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]
+    dim, out = x.shape[-1], w.shape[0]
+    if not train and has_int8(p, f"{prefix}.to_qkv.weight"):
+        return _int8(p, f"{prefix}.to_qkv.weight", x, gamma=gamma, beta=beta)
+    if w.dtype != x.dtype:
         return None
-    if seeds is None:
-        raise ValueError("dropout requested but no seed stream was given")
-    return seeds.next_seed()
+    if not train and ln_linear_supported(dim, out, x.dtype):
+        return fused_ln_linear(x, gamma, beta, w)
+    if train and lnqkv_hybrid_enabled() and ln_linear_hybrid_supported(dim, out, x.dtype):
+        return ln_linear_hybrid(x, gamma, beta, w)
+    return None
 
 
 def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
@@ -100,23 +123,22 @@ def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                     n_true: Optional[int] = None) -> torch.Tensor:
     """Pre-norm MHSA branch output (the caller adds the residual). In
     training the attention drops probabilities (one seed) and the
-    out-projection's output is dropped (a second seed). At inference the
-    CUDA kernel takes any row count, so no per-call pad; in training a
-    fused-route stream whose length is no multiple of 8 is padded around
-    ``fused_mhsa``, as in the JAX package."""
+    out-projection's output is dropped (a second seed). A fused-route
+    stream whose length is no multiple of 8 is padded around the fused
+    MHSA, as in the JAX package."""
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
     w = p[f"{prefix}.to_qkv.weight"]
-    if train or _build.needs_grad(x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]):
-        rate = spec.dropout if train else 0.0
+    rate = spec.dropout if train else 0.0
+    qkv = _qkv(p, prefix, x, w, train)
+    if qkv is None and (train or _build.needs_grad(
+            x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"])):
         out = self_attention_train(layer_norm(p, f"{prefix}.norm", x), w, spec.heads,
                                    dh, dh ** -0.5, n_true, rate, seeds)
-    elif has_int8(p, f"{prefix}.to_qkv.weight"):
-        qkv = _int8(p, f"{prefix}.to_qkv.weight", x, gamma=p[f"{prefix}.norm.weight"],
-                    beta=p[f"{prefix}.norm.bias"])
-        out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true)
     else:
-        out = self_attention(_ln_proj(p, prefix, x, w), spec.heads, dh, dh ** -0.5, n_true)
+        if qkv is None:
+            qkv = F.linear(layer_norm(p, f"{prefix}.norm", x), w)
+        out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true, rate, seeds)
     if not train and has_int8(p, f"{prefix}.to_out.0.weight"):
         out = _int8(p, f"{prefix}.to_out.0.weight", out, bias=p[f"{prefix}.to_out.0.bias"])
     else:
@@ -158,7 +180,7 @@ def _fused_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
     return fused_mlp(x, p[f"{prefix}.net.0.weight"], p[f"{prefix}.net.0.bias"],
                      p[f"{prefix}.net.1.weight"], p[f"{prefix}.net.1.bias"],
                      p[f"{prefix}.net.4.weight"], p[f"{prefix}.net.4.bias"],
-                     1e-5, spec.gelu, rate, residual, _drop_seed(rate, seeds))
+                     1e-5, spec.gelu, rate, residual, site_seed(rate, seeds))
 
 
 def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,

@@ -34,8 +34,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("patchify", "fused_mhsa", "fused_mhsa_bwd", "local_attention",
-           "local_attention_bwd", "ln_linear", "fused_mlp", "fused_mlp_bwd",
-           "cls_attention", "flash_attention", "fused_adam", "int8_linear")
+           "local_attention_bwd", "ln_linear", "ln_linear_bwd", "fused_mlp",
+           "fused_mlp_bwd", "cls_attention", "flash_attention", "fused_adam",
+           "int8_linear")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,9 +13,9 @@ tensor launches the kernels, a CPU tensor runs their plain versions.
   (``layers.dropout`` on the flattened probabilities, as the JAX package
   runs XLA there); the output is padded back with zero rows.
 
-:func:`self_attention` takes a packed qkv and needs no gradient (eval);
-:func:`self_attention_train` takes the LN output and the qkv weight and is
-differentiable, with dropout drawn from a seed stream.
+:func:`self_attention` takes a packed qkv; :func:`self_attention_train` takes
+the LN output and the qkv weight. Both are differentiable, with dropout
+drawn from a seed stream.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gaviko_tpu_torch.core.layers import SeedStream, dropout
+from gaviko_tpu_torch.core.layers import SeedStream, dropout, site_seed
 from gaviko_tpu_torch.ops.flash_attention import (
     _split_heads,
     flash_attention,
@@ -66,12 +66,25 @@ def _unfused(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_true:
 
 
 def self_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-                   n_true: int) -> torch.Tensor:
-    """Packed qkv [B, N_pad, 3*heads*dim_head] -> [B, N_pad, heads*dim_head],
-    keys >= n_true masked (eval: no dropout)."""
-    if fused_mhsa_supported(heads, dim_head, qkv.shape[1]):
-        return fused_mhsa(qkv, heads, dim_head, scale, n_true)
-    return _unfused(qkv, heads, dim_head, scale, n_true, 0.0, None)
+                   n_true: int, dropout_rate: float = 0.0,
+                   seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    """Packed qkv [B, N, 3*heads*dim_head] -> [B, N, heads*dim_head], keys
+    >= n_true masked, dropout on the probabilities at rate > 0 (one seed from
+    ``seeds``), differentiable in qkv.
+
+    On the fused route a stream whose length is no multiple of 8 is padded
+    to one around ``fused_mhsa`` (its backward is kernel B) and sliced back,
+    as in the JAX package."""
+    n = qkv.shape[1]
+    if not fused_mhsa_supported(heads, dim_head, n):
+        return _unfused(qkv, heads, dim_head, scale, n_true, dropout_rate, seeds)
+    seed = site_seed(dropout_rate, seeds)
+    pad = (-n) % 8
+    if pad:
+        qkv = F.pad(qkv, (0, 0, 0, pad))
+    out = fused_mhsa(qkv, heads, dim_head, scale, n_true, dropout_rate,
+                     seed=0 if seed is None else seed)
+    return out[:, :n] if pad else out
 
 
 def self_attention_train(h: torch.Tensor, w: torch.Tensor, heads: int,
@@ -83,20 +96,11 @@ def self_attention_train(h: torch.Tensor, w: torch.Tensor, heads: int,
     probabilities (one seed from ``seeds`` at rate > 0).
 
     As in the JAX package: on the fused route a stream whose length is a
-    multiple of 8 goes through ``mhsa_qkv_proj``; any other length is padded
-    to one, runs ``fused_mhsa`` on the packed qkv (its backward is kernel B)
-    and is sliced back."""
+    multiple of 8 goes through ``mhsa_qkv_proj``; elsewhere the packed qkv
+    goes through :func:`self_attention`."""
     n = h.shape[1]
-    if not fused_mhsa_supported(heads, dim_head, n):
-        return _unfused(F.linear(h, w), heads, dim_head, scale, n_true, dropout_rate, seeds)
-    seed = None
-    if dropout_rate > 0.0:
-        if seeds is None:
-            raise ValueError("dropout requested but no seed stream was given")
-        seed = seeds.next_seed()
-    pad = (-n) % 8
-    if pad == 0:
-        return mhsa_qkv_proj(h, w, heads, dim_head, scale, n_true, dropout_rate, seed)
-    qkv = F.pad(F.linear(h, w), (0, 0, 0, pad))
-    return fused_mhsa(qkv, heads, dim_head, scale, n_true, dropout_rate,
-                      seed=0 if seed is None else seed)[:, :n]
+    if not fused_mhsa_supported(heads, dim_head, n) or n % 8:
+        return self_attention(F.linear(h, w), heads, dim_head, scale, n_true, dropout_rate,
+                              seeds)
+    seed = site_seed(dropout_rate, seeds)
+    return mhsa_qkv_proj(h, w, heads, dim_head, scale, n_true, dropout_rate, seed)

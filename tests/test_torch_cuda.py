@@ -36,7 +36,8 @@ from gaviko_tpu_torch.ops.flash_attention import (
     mhsa_bwd_reference, mhsa_qkv_proj, mhsa_reference)
 from gaviko_tpu_torch.ops.fused_mlp import (
     fused_mlp, fused_mlp_bwd, fused_mlp_forward, mlp_bwd_reference, mlp_reference)
-from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_reference
+from gaviko_tpu_torch.ops.ln_linear import (
+    fused_ln_linear, ln_linear_bwd, ln_linear_bwd_reference, ln_linear_reference)
 from gaviko_tpu_torch.ops.patchify import (
     patch_rows, patchify_fused, patchify_kernel, patchify_reference)
 
@@ -266,14 +267,17 @@ def test_gaviko_train_gradients_run_the_kernels(dev):
         return torch.cat([torch.zeros_like(p[k]).flatten() if g is None else g.flatten()
                           for k, g in zip(names, grads)])
 
-    wrappers = (fused_mhsa, fused_mhsa_bwd, flash_local_attention, local_attention_bwd)
+    # The frozen global layers run train=False under a gradient: at vit-s16
+    # fp32 the qkv is B9, whose backward is B12.
+    wrappers = (fused_mhsa, fused_mhsa_bwd, flash_local_attention, local_attention_bwd,
+                fused_ln_linear, ln_linear_bwd)
     for w in wrappers:
         w.launches = 0
     got = trainable_grads()
     counts = [w.launches for w in wrappers]
     with _build.plain_versions():
         want = trainable_grads()
-    assert counts == [model.spec.depth] * 4
+    assert counts == [model.spec.depth] * 6
     assert [w.launches for w in wrappers] == counts
     assert _rel_mae(got, want) <= 1e-4
 
@@ -339,14 +343,18 @@ def test_cls_attention_kernel(dev, dtype, B, N, H, n_true):
 
 
 def test_new_wrappers_refuse_a_gradient_and_mlp_dropout(dev):
-    """The inference-only kernels (LN+linear, CLS attention) and the raw
-    fused MLP forward refuse a gradient; ``fused_mlp`` takes dropout and a
-    gradient (B6 then B7)."""
+    """The inference-only CLS attention kernel and the raw fused MLP
+    forward refuse a gradient; ``fused_ln_linear`` takes one (B9, then B12
+    as its backward), and ``fused_mlp`` takes dropout and a gradient (B6
+    then B7)."""
     x = torch.zeros(1, 8, 128, device=dev, requires_grad=True)
     g, b = torch.ones(128, device=dev), torch.zeros(128, device=dev)
     w = torch.zeros(256, 128, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_ln_linear(x, g, b, w)
+    before = (fused_ln_linear.launches, ln_linear_bwd.launches)
+    fused_ln_linear(x, g, b, w).sum().backward()
+    assert (fused_ln_linear.launches, ln_linear_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(x.grad, torch.zeros_like(x))  # zero weights
+    x.grad = None
     w1, b1 = torch.zeros(256, 128, device=dev), torch.zeros(256, device=dev)
     w2 = torch.zeros(128, 256, device=dev)
     with pytest.raises(NotImplementedError, match="through fused_mlp"):
@@ -566,6 +574,92 @@ def test_vit_b16_train_step_runs_the_backward_kernels(dev, dtype):
         want = grads()
     fused = 2 if dtype == torch.bfloat16 else 0
     assert counts == [1, 2, 2, fused, fused]
+    assert [w.launches for w in wrappers] == counts
+    assert torch.isfinite(got).all()
+    assert _rel_mae(got, want) <= {torch.float32: 1e-4, torch.bfloat16: 5e-2}[dtype]
+
+
+# ------------------------------------------------ LN + linear backward (B12) ----
+
+# (rows, dim, out): the vit-b16 B8 hybrid train step's qkv (8 x 1,008 rows),
+# GAViKO vit-l16 B4's (4 x 1,040), and ragged rows with a small out.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,dim,out", [(8064, 768, 2304), (4160, 1024, 3072), (74, 256, 136)])
+@pytest.mark.parametrize("need_dw", [True, False])
+def test_ln_linear_bwd_kernel(dev, dtype, rows, dim, out, need_dw):
+    """B12 against its plain version, every output; a second call bit-equal
+    (no atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = _randn(gen, rows, dim, dtype=dtype, std=2.0) + 0.5
+    gamma, beta = _ln_params(gen, dim, dtype)
+    w = _randn(gen, out, dim, dtype=dtype, std=dim ** -0.5)
+    dy = _randn(gen, rows, out, dtype=dtype, std=out ** -0.5)
+    before = ln_linear_bwd.launches
+    got = ln_linear_bwd(x, gamma, beta, w, dy, 1e-5, need_dw)
+    assert ln_linear_bwd.launches == before + 1
+    want = ln_linear_bwd_reference(x, gamma, beta, w, dy, 1e-5, need_dw)
+    assert (got[3] is None) is (not need_dw)
+    for name, g, wt in zip(("dx", "dgamma", "dbeta", "dw"), got, want):
+        if wt is None:
+            continue
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        assert _rel_mae(g, wt) <= BUDGET[dtype], name
+    again = ln_linear_bwd(x, gamma, beta, w, dy, 1e-5, need_dw)
+    for g, a in zip(got, again):
+        if g is not None:
+            assert torch.equal(g, a)
+
+
+def test_fused_mlp_bwd_bit_equal_to_before_the_move(dev):
+    """B7's outputs are bit-equal to the kernel's before its passes moved
+    into csrc/ln_bwd.cuh (``chip_smoke.b7_digests`` and B7_DIGESTS)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.b7_digests() == smoke.B7_DIGESTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_vit_s16_fft_step_runs_b12(dev, dtype, monkeypatch):
+    """With GAVIKO_LNQKV_HYBRID=1 the vit-s16 fft train step (depth 3, B2,
+    dropout 0.1) takes the hybrid qkv in each full layer: B12 once a full
+    layer, A and B on the packed qkv; the gradients of every tensor match
+    the plain versions' (1e-4 / 5e-2 relative MAE)."""
+    import dataclasses
+
+    monkeypatch.setenv("GAVIKO_LNQKV_HYBRID", "1")
+    cfg = dict(image_size=32, image_patch_size=16, frames=24, frame_patch_size=12,
+               num_classes=5, channels=1, pool="cls", backbone="vit-s16", method="fft",
+               dropout=0.1, emb_dropout=0.1)
+    model = build_model(cfg)
+    spec = dataclasses.replace(model.spec, depth=3)
+    params = {k: v.to(dev, dtype) for k, v in
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+    x = torch.rand(2, 1, 24, 32, 32, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    n = 1 + 3 * 2 + 4  # the fused MLP's gate holds at vit-s16 in both dtypes
+    seeds = [int(s) for s in torch.randint(-2 ** 31, 2 ** 31, (n,),
+                                           generator=torch.Generator().manual_seed(2))]
+
+    def grads():
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        stream = SeedStream(seeds)
+        out = model.apply(p, x, spec, train=True, seeds=stream)
+        assert stream.count == n
+        g = torch.autograd.grad(out.float().square().sum(), list(p.values()))
+        return torch.cat([t.float().flatten() for t in g])
+
+    wrappers = (ln_linear_bwd, fused_ln_linear, fused_mhsa, fused_mhsa_bwd)
+    for w in wrappers:
+        w.launches = 0
+    got = grads()
+    counts = [w.launches for w in wrappers]
+    with _build.plain_versions():
+        want = grads()
+    assert counts == [2, 0, 2, 2]
     assert [w.launches for w in wrappers] == counts
     assert torch.isfinite(got).all()
     assert _rel_mae(got, want) <= {torch.float32: 1e-4, torch.bfloat16: 5e-2}[dtype]

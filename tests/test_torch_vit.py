@@ -138,10 +138,11 @@ def test_other_last_layers_match_jax(monkeypatch, pool, fast):
 
 def test_gradient_needed_keeps_the_plain_routes(monkeypatch):
     """A forward that needs a gradient takes the JAX package's routes: the
-    fused MLP (its backward is kernel B7) and the MHSA through
-    ``self_attention_train`` (kernel B) in every full layer, patchify with
-    its weight gradient; never the inference-only LN+linear or CLS attention
-    kernels, which have no backward."""
+    fused MLP (its backward is kernel B7), and, as the layers run with
+    ``train=False``, the fused LN+linear (its backward is B12) for the qkv
+    of every full layer and the last layer's kv, the packed qkv through
+    ``self_attention`` (kernel B), patchify with its weight gradient; never
+    the inference-only CLS attention kernel, which has no backward."""
     _, _, tm, spec = _models(TINY, "fft")
     params = {k: v.requires_grad_(True) for k, v in
               tm.init(torch.Generator().manual_seed(0), spec).items()}
@@ -151,8 +152,8 @@ def test_gradient_needed_keeps_the_plain_routes(monkeypatch):
                                      "patchify_fused"])
     tm.apply(params, x, spec).sum().backward()
     d = spec.depth
-    assert counts == {"fused_ln_linear": 0, "fused_mlp": d - 1, "self_attention": 0,
-                      "self_attention_train": d - 1, "cls_attention": 0, "patchify_fused": 1}
+    assert counts == {"fused_ln_linear": d, "fused_mlp": d - 1, "self_attention": d - 1,
+                      "self_attention_train": 0, "cls_attention": 0, "patchify_fused": 1}
     assert all(params[k].grad is not None for k in ("conv_proj.0.weight", "mlp_head.bias",
                                                    "transformer.layers.0.0.to_qkv.weight",
                                                    "transformer.layers.0.1.net.1.weight"))
