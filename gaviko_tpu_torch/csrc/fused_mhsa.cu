@@ -7,167 +7,76 @@
 // (csrc/common.cuh). The row sum l is taken before dropout, so the lse below
 // is unchanged by it, and 1 / (1 - rate) folds into the output. At rate 0
 // (threshold INT32_MIN) no bit is computed. When asked (lse != nullptr) it
-// also writes each row's softmax
-// statistic for the backward (csrc/fused_mhsa_bwd.cu): lse = m + log2(l) in
-// log2 units, [B, heads, n_pad] f32. The TPU kernel saves m and l apart, with
-// m taken over the pad keys too; only their combination is defined here.
+// also writes each row's softmax statistic for the backward
+// (csrc/fused_mhsa_bwd.cu): lse = m + log2(l) in log2 units, [B, heads,
+// n_pad] f32. The TPU kernel saves m and l apart, with m taken over the pad
+// keys too; only their combination is defined here.
 //
-// qkv [B, n_pad, 3 * heads * hd] is read in place (head dims 64, 128, 192
-// and 256 specialized, any other through the general instance):
-// head h's q, k and v are the column ranges h*hd, inner + h*hd and
-// 2*inner + h*hd of each row (row stride 3*inner), so no split or transpose
-// copy is made. out is
-// [B, n_pad, inner]. Keys >= n_true are skipped outright (exact; the TPU
-// kernel's additive-bias mask needed bounded pad keys); rows >= n_true are
-// computed but are padding by contract. q is scaled by scale*log2(e) and
-// rounded to the input dtype once, as on the TPU, so the softmax is a bare
-// exp2 in f32.
+// qkv [B, n_pad, 3 * heads * hd] is read in place: head h's q, k and v are
+// the [B, heads, rows, hd] views at columns h*hd, inner + h*hd and
+// 2*inner + h*hd of each row (row stride 3*inner), one TMA descriptor each
+// (q over the n_pad rows, k and v over the n_true real ones, so the pad
+// keys arrive as zeros and are masked), so no split or transpose copy is
+// made. out is [B, n_pad, inner]. Rows >= n_true are computed but are
+// padding by contract. q is scaled by scale*log2(e) and rounded to the
+// input dtype once, in shared memory, as on the TPU, so the softmax is a
+// bare exp2 in f32. Any head dim of whole 16-byte columns (a multiple of 8;
+// JAX's fused gate admits multiples of 64, the wrapper pads any other)
+// runs the tile the caller's plan names (ops/flash_attention.py:
+// attention_plan): a compile-time instance up to 256 columns (128 in f32),
+// the general one above (the output in slices over the grid).
 //
 // What bounds it on the H100: at GAViKO vit-l16 B8 one call is
 // 4 * 1040^2 * 64 * 16 * 8 = 35 GFLOP against 25 MB of qkv, so it is bound
-// by compute and the two products must run on the tensor cores. One block
-// of 4 warps takes a (batch, head, 64-row q tile) and walks the key tiles
-// with an online softmax (csrc/attention_fwd.cuh, shared with B10's
-// csrc/flash_attention.cu): in bf16 on mma.sync with q, S, P and the output
-// in registers and only K and V through shared memory; f32 on SIMT, so the
-// f32 check runs in full f32, not TF32. No wgmma or TMA yet.
+// by compute and the two products must run on the tensor cores while K and
+// V stream in: the tile of csrc/attention_fwd.cuh (shared with B10's
+// csrc/flash_attention.cu) runs them on wgmma in bf16 with a TMA ring of
+// K / V chunk tiles filled by a producer warp, and in f32 on the tensor
+// cores as 3xTF32 (~f32 accuracy, within the f32 budget).
 
 #include "attention_fwd.cuh"
 
 namespace {
 
-using gaviko::attn::BQ;
-using gaviko::attn::General;
-using gaviko::attn::Plane;
-using gaviko::attn::THREADS;
-using gaviko::attn::Tile;
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-    fused_mhsa_kernel(const T* qkv, T* out, float* lse, int n_pad, int heads, int n_true,
-                      float scale_log2e, uint32_t seed, int32_t threshold, float drop_scale) {
-  extern __shared__ __align__(128) char smem[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int inner = heads * HD;
-  const long long stride = 3LL * inner;
-  const T* base = qkv + static_cast<long long>(b) * n_pad * stride + h * HD;
-  Plane<T> a;
-  a.q = base;
-  a.k = base + inner;
-  a.v = base + 2 * inner;
-  a.q_stride = a.k_stride = a.v_stride = stride;
-  a.o = out + static_cast<long long>(b) * n_pad * inner + h * HD;
-  a.o_stride = inner;
-  a.lse = lse == nullptr ? nullptr : lse + (static_cast<long long>(b) * heads + h) * n_pad;
-  a.n_rows = n_pad;
-  a.n_keys = n_true;
-  a.q_mult = scale_log2e;
-  a.s_mult = 1.0f;
-  a.seed = seed;
-  a.salt = static_cast<uint32_t>(b * heads + h);
-  a.threshold = threshold;
-  a.drop_scale = drop_scale;
-  Tile<T, HD>::run(a, blockIdx.x * BQ, smem);
-}
-
-// Any head dim without a specialization: attention_fwd.cuh's General, one
-// block per (64 query rows x 64-column chunk of the output, head, batch).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_mhsa_general_kernel(const T* qkv, T* out, float* lse, int n_pad, int heads, int hd,
-                              int n_true, float scale_log2e, uint32_t seed, int32_t threshold,
-                              float drop_scale) {
-  extern __shared__ __align__(128) char smem[];
-  const int nch = General::chunks(hd);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int inner = heads * hd;
-  const long long stride = 3LL * inner;
-  const T* base = qkv + static_cast<long long>(b) * n_pad * stride + h * hd;
-  Plane<T> a;
-  a.q = base;
-  a.k = base + inner;
-  a.v = base + 2 * inner;
-  a.q_stride = a.k_stride = a.v_stride = stride;
-  a.o = out + static_cast<long long>(b) * n_pad * inner + h * hd;
-  a.o_stride = inner;
-  a.lse = lse == nullptr ? nullptr : lse + (static_cast<long long>(b) * heads + h) * n_pad;
-  a.n_rows = n_pad;
-  a.n_keys = n_true;
-  a.q_mult = scale_log2e;
-  a.s_mult = 1.0f;
-  a.seed = seed;
-  a.salt = static_cast<uint32_t>(b * heads + h);
-  a.threshold = threshold;
-  a.drop_scale = drop_scale;
-  General::run(a, (blockIdx.x / nch) * BQ, (blockIdx.x % nch) * General::COLS, hd, smem);
-}
-
-template <typename T>
-int launch_general(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int hd,
-                   int n_true, float scale, int seed, int threshold, float drop_scale,
-                   void* stream) {
-  constexpr size_t smem = General::kSmem;
-  cudaError_t err = gaviko::allow_smem(fused_mhsa_general_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n_pad + BQ - 1) / BQ * General::chunks(hd), heads, B);
-  fused_mhsa_general_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), lse, n_pad, heads, hd, n_true,
-      scale * 1.4426950408889634f, static_cast<uint32_t>(seed), threshold, drop_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int HD>
-int launch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int n_true,
-           float scale, int seed, int threshold, float drop_scale, void* stream) {
-  constexpr size_t smem = Tile<T, HD>::kSmem;
-  cudaError_t err = gaviko::allow_smem(fused_mhsa_kernel<T, HD>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n_pad + BQ - 1) / BQ, heads, B);
-  fused_mhsa_kernel<T, HD><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), lse, n_pad, heads, n_true,
-      scale * 1.4426950408889634f, static_cast<uint32_t>(seed), threshold, drop_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int dim_head,
-             int n_true, float scale, int seed, int threshold, float drop_scale, void* stream) {
-  switch (dim_head) {
-    case 64:
-      return launch<T, 64>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
-                           drop_scale, stream);
-    case 128:
-      return launch<T, 128>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
-                            drop_scale, stream);
-    case 192:
-      return launch<T, 192>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
-                            drop_scale, stream);
-    case 256:
-      return launch<T, 256>(qkv, out, lse, B, n_pad, heads, n_true, scale, seed, threshold,
-                            drop_scale, stream);
-    default:
-      if (dim_head < 1) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_general<T>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, scale, seed,
-                               threshold, drop_scale, stream);
-  }
+int run(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int dim_head,
+        int n_true, const int* plan, float scale, int seed, int threshold, float drop_scale,
+        void* stream) {
+  using gaviko::attn::View;
+  if (dim_head < 1 || dim_head % 8 || heads < 1 || n_true < 1 || n_true > n_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long inner = static_cast<long long>(heads) * dim_head, row = 3 * inner;
+  const T* base = static_cast<const T*>(qkv);
+  const View q{base, n_pad * row, dim_head, row, n_pad};
+  const View k{base + inner, n_pad * row, dim_head, row, n_true};
+  const View v{base + 2 * inner, n_pad * row, dim_head, row, n_true};
+  return gaviko::attn::forward<T>(
+      q, k, v, static_cast<T*>(out), n_pad * inner, dim_head, inner, lse,
+      static_cast<long long>(heads) * n_pad, n_pad, B, heads, dim_head, n_true, plan,
+      scale * gaviko::attn::LOG2E, 1.0f, static_cast<uint32_t>(seed), threshold, drop_scale,
+      stream);
 }
 
 }  // namespace
 
-// qkv [B, n_pad, 3 * heads * dim_head] contiguous (16-byte aligned in bf16),
-// any dim_head >= 1 (64, 128, 192 and 256 specialized) -> out [B, n_pad,
-// heads * dim_head]; lse [B, heads, n_pad] f32, or nullptr. threshold is hash_dropout._threshold(rate)
-// (INT32_MIN at rate 0: no dropout), drop_scale 1 / (1 - rate).
+// qkv [B, n_pad, 3 * heads * dim_head] contiguous and 16-byte aligned,
+// dim_head a multiple of 8 -> out [B, n_pad, heads * dim_head]; lse [B,
+// heads, n_pad] f32, or nullptr. plan is the tile's (groups, general, slice
+// chunks, rows) (csrc/attention_fwd.cuh:forward). threshold is
+// hash_dropout._threshold(rate) (INT32_MIN at rate 0: no dropout),
+// drop_scale 1 / (1 - rate).
 extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, float* lse, int B, int n_pad,
-                                      int heads, int dim_head, int n_true, float scale,
-                                      int seed, int threshold, float drop_scale, void* stream) {
-  return dispatch<__nv_bfloat16>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, scale, seed,
-                                 threshold, drop_scale, stream);
+                                      int heads, int dim_head, int n_true, const int* plan,
+                                      float scale, int seed, int threshold, float drop_scale,
+                                      void* stream) {
+  return run<__nv_bfloat16>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, plan, scale,
+                            seed, threshold, drop_scale, stream);
 }
 
 extern "C" int gaviko_fused_mhsa_f32(const void* qkv, void* out, float* lse, int B, int n_pad,
-                                     int heads, int dim_head, int n_true, float scale, int seed,
-                                     int threshold, float drop_scale, void* stream) {
-  return dispatch<float>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, scale, seed,
-                         threshold, drop_scale, stream);
+                                     int heads, int dim_head, int n_true, const int* plan,
+                                     float scale, int seed, int threshold, float drop_scale,
+                                     void* stream) {
+  return run<float>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, plan, scale, seed,
+                    threshold, drop_scale, stream);
 }

@@ -23,13 +23,20 @@ forward and backward are those kernels. ``flash_attention_reference``,
 ``local_bwd_reference`` are the plain PyTorch versions, run on CPU tensors
 and inside ``_build.plain_versions()``.
 
-A and B are specialized for head dims 64, 128, 192 and 256; B10 for 32,
-64, 128, 192 and 256, and any other head dim up to 256 reaches it
-zero-padded to the next of these. Every other head dim (A and B: the
-multiples of 64 above 256 that the JAX package's fused gate admits; B10:
-any above 256) runs a general instance of the same kernel, with dim_head
-at run time and the output split into 64-column chunks over the grid
-(``mhsa_instance``, ``flash_instance``).
+A and B10 share one forward tile (``csrc/attention_fwd.cuh``): bf16 on
+``wgmma`` with a TMA ring of K / V chunk tiles, f32 on the tensor cores as
+3xTF32. Each operand is read in place through a TMA descriptor, so A's q,
+k and v are the head views of the packed qkv and B10's may be any strided
+views with 16-byte rows; a head dim that is not a multiple of 8 is
+zero-padded to one (a copy, with the true scale) and the output sliced
+back. Head dims up to 256 (128 in f32) run one of the compile-time
+instances (1 to 4 groups of 64 columns; a head dim between two of them
+reads its missing columns as zeros, no copy); above that the general
+instance splits the output over the grid into slices of at most that
+width and recomputes S once a slice. :func:`attention_plan`
+is that plan, made only here and handed to the kernel on every launch.
+Kernel B keeps its own instances (``mhsa_instance``: 64, 128, 192 and 256
+specialized, a general one for any other head dim).
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
 row within the padded stream, key column) in plane ``salt = b * heads +
@@ -42,8 +49,9 @@ rate)`` folds into the output. The backward replays the mask and forms
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,41 +63,109 @@ from gaviko_tpu_torch.ops.local_attention import local_mask_additive
 NEG_INF = float("-inf")
 LOG2E = math.log2(math.e)
 WHOLE_K_MAX = 2048
-MHSA_DIM_HEADS = (64, 128, 192, 256)  # head dims kernels A and B are compiled for
-FLASH_DIM_HEADS = (32, 64, 128, 192, 256)  # head dims kernel B10 is compiled for
+MHSA_DIM_HEADS = (64, 128, 192, 256)  # B's specializations; A and B10's compiled bf16 tiles
+# The forward tile of A and B10 (csrc/attention_fwd.cuh): a chunk of the
+# head dim is 128 bytes (a TMA box's row, the swizzle span), the K / V ring
+# 64 KB of chunk tiles, in at most the 227 KB of shared memory a CTA can
+# take.
+CHUNK_BYTES, RING_BYTES, SMEM_LIMIT = 128, 65536, 232448
 MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
-_MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
 _MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_F,) + _DROP + (_P,)
-_FLASH_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P, _F, _P)
+_FLASH_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P, _P, _F, _P)
 _LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P)
 _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
 _LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
 
 
 def mhsa_instance(dim_head: int) -> str:
-    """The instance of kernels A and B a head dim runs on the card: its
+    """The instance of kernel B a head dim runs on the card: its
     specialization ("specialized", head dims 64, 128, 192 and 256), else the
-    general one ("general": dim_head at run time, the output split into
-    64-column chunks over the grid)."""
+    general one ("general": dim_head at run time, the output split over the
+    grid in 64-column chunks). Kernel A's is :func:`attention_plan`'s."""
     if dim_head < 1:
         raise ValueError(f"dim_head must be >= 1, got {dim_head}")
     return "specialized" if dim_head in MHSA_DIM_HEADS else "general"
 
 
-def flash_instance(dim_head: int) -> Tuple[str, int]:
-    """(instance, width) of kernel B10 for a head dim: "specialized" at a
-    compiled head dim, "padded" to the next compiled one up to 256 (zero
-    columns change neither the scores nor the kept columns), "general"
-    above 256; ``width`` is the head dim the kernel runs at."""
+class AttentionPlan(NamedTuple):
+    """How the forward tile of A and B10 runs a head dim, as their C entry
+    points take it: ``instance`` "specialized" (a compiled head dim),
+    "padded" (the tile of the next compiled width, the missing columns read
+    as zeros) or "general"; ``groups`` the groups of 64 output columns a
+    CTA's accumulators hold; ``width`` the columns the tile spans;
+    ``chunk`` the columns of a 128-byte chunk (a TMA box, a k-chunk of S);
+    ``slices`` the (first column, columns) of D each CTA of a query tile
+    writes; ``rows`` the query rows of a CTA, ``keys`` of a key tile;
+    ``smem`` a CTA's shared memory."""
+
+    instance: str
+    groups: int
+    width: int
+    chunk: int
+    slices: Tuple[Tuple[int, int], ...]
+    rows: int
+    keys: int
+    smem: int
+
+    @property
+    def tile(self) -> Tuple[int, int, int, int]:
+        """The ``plan`` argument of ``csrc/attention_fwd.cuh:forward``:
+        (groups, general, chunks of a slice, rows)."""
+        general = self.instance == "general"
+        cols = self.slices[0][1] if general else self.width
+        return self.groups, int(general), cols // self.chunk, self.rows
+
+
+@functools.lru_cache(maxsize=None)  # read on every launch of A and B10
+def attention_plan(dim_head: int, dtype: torch.dtype = torch.bfloat16) -> AttentionPlan:
+    """The plan the forward tile of A and B10 runs for a head dim (their
+    wrappers hand it to the kernel; it is made nowhere else): up to 4
+    groups of 64 columns in bf16 (2 in f32, whose P V also holds P's TF32
+    halves) one compile-time instance and one output slice; wider head dims
+    the general instance, D's chunks split into the fewest slices of at
+    most that width, as even as whole chunks allow, 64 query rows a CTA (32
+    in f32 where 64 rows of Q do not fit). Raises for a head dim whose Q
+    chunks and ring exceed a CTA's shared memory."""
     if dim_head < 1:
         raise ValueError(f"dim_head must be >= 1, got {dim_head}")
-    if dim_head in FLASH_DIM_HEADS:
-        return "specialized", dim_head
-    width = next((w for w in FLASH_DIM_HEADS if w >= dim_head), None)
-    return ("padded", width) if width is not None else ("general", dim_head)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    chunk = CHUNK_BYTES // (2 if bf16 else 4)
+    max_groups = 4 if bf16 else 2
+    groups = -(-dim_head // 64)
+    keys = 128 if bf16 and groups <= 2 else 64
+    stages = RING_BYTES // (keys * CHUNK_BYTES)
+    if groups <= max_groups:
+        instance = "specialized" if dim_head in MHSA_DIM_HEADS else "padded"
+        width = 64 * groups
+        n_chunks = per = width // chunk
+    else:
+        instance, groups, width = "general", max_groups, dim_head
+        n_chunks = -(-dim_head // chunk)
+        per = -(-n_chunks // -(-dim_head // (64 * max_groups)))
+    slices = tuple((c * chunk, min(dim_head, (c + per) * chunk) - c * chunk)
+                   for c in range(0, n_chunks, per))
+    for rows in (64, 32) if instance == "general" and not bf16 else (64,):
+        smem = 1024 + n_chunks * rows * CHUNK_BYTES + RING_BYTES + 8 * (2 * stages + 1)
+        if smem <= SMEM_LIMIT:
+            break
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"head dim {dim_head} ({dtype}): the forward tile's Q chunks and ring take "
+            f"{smem} bytes of shared memory, above {SMEM_LIMIT}")
+    return AttentionPlan(instance, groups, width, chunk, slices, rows, keys, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_arg(dim_head: int, dtype: torch.dtype):
+    """The plan's ``tile`` as the C int array the entry points read (made
+    once a head dim and dtype; the kernel only reads it)."""
+    return (ctypes.c_int * 4)(*attention_plan(dim_head, dtype).tile)
 
 
 def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
@@ -143,33 +219,35 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_strides(name: str, t: torch.Tensor):
-    """(batch, head, row) strides of a [B, H, N, D] operand the kernel can
-    read: unit column stride, 16-byte rows and planes."""
-    sb, sh, sn, sd = t.stride()
-    if sd != 1 or any(x % 8 for x in (sb, sh, sn)) or t.data_ptr() % 16:
+    """(batch, head, row) strides of a [B, H, N, D] operand the kernel's TMA
+    descriptors can read: unit column stride, 16-byte aligned data and
+    strides that are multiples of 8 elements (a dimension of extent 1 has
+    no stride to check)."""
+    strides = t.stride()
+    if (strides[3] != 1 or t.data_ptr() % 16
+            or any(x % 8 for x, n in zip(strides[:3], t.shape[:3]) if n > 1)):
         raise ValueError(f"{name}: flash_attention takes unit column stride, strides "
                          f"that are multiples of 8 and 16-byte aligned data; got "
                          f"strides {t.stride()}")
-    return sb, sh, sn
+    return strides[:3]
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
     """Kernel B10 on CUDA, :func:`flash_attention_reference` on the CPU; no
-    autograd. The kernel writes o in [B, N, H, D] memory and returns it as a
-    [B, H, N, D] view, so merging the heads is no copy. A head dim the kernel
-    is not compiled for is zero-padded up to the next one that it is (zero
-    columns change neither the scores nor the kept columns), with the true
-    ``scale``, and the output sliced back."""
+    autograd. The kernel reads q, k and v in place and writes o in [B, N, H,
+    D] memory, returned as a [B, H, N, D] view, so merging the heads is no
+    copy. A head dim that is not a multiple of 8 is zero-padded to the next
+    one (a copy; zero columns change neither the scores nor the kept
+    columns), with the true ``scale``, and the output sliced back."""
     if not _build.use_kernel(q):
         return flash_attention_reference(q, k, v, scale)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one [B, H, N, D] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, N, D = q.shape
-    instance, width = flash_instance(D)
-    if instance == "padded":
-        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
+    D = q.shape[-1]
+    if D % 8:
+        q, k, v = (F.pad(t, (0, (-D) % 8)) for t in (q, k, v))
         return _flash_launch(q, k, v, scale)[..., :D]
     return _flash_launch(q, k, v, scale)
 
@@ -181,16 +259,14 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v must share device and dtype")
+    plan = _tile_arg(D, q.dtype)
     o = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
-    if flash_instance(D)[0] == "general":  # scalar loads: any strides
-        st = [x for t in (q, k, v, o) for x in t.stride()[:3]]
-    else:
-        st = [*_flash_strides("q", q), *_flash_strides("k", k), *_flash_strides("v", v),
-              *o.stride()[:3]]
+    st = [*_flash_strides("q", q), *_flash_strides("k", k), *_flash_strides("v", v),
+          *o.stride()[:3]]
     strides = (ctypes.c_longlong * 12)(*st)
     _build.launch("flash_attention", f"gaviko_flash_attention_{dtype}", _FLASH_ARGTYPES,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, N, D,
-                  strides, scale, _build.stream_of(q))
+                  plan, strides, scale, _build.stream_of(q))
     flash_attention.launches += 1
     return o
 
@@ -255,12 +331,29 @@ def _mhsa_forward(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
         return mhsa_reference(qkv, heads, dim_head, scale, n_true, dropout_rate,
                               with_lse=with_lse, seed=seed)
     B, n_pad, three_inner = qkv.shape
-    mhsa_instance(dim_head)
     if three_inner != 3 * heads * dim_head:
         raise ValueError(f"fused_mhsa takes a packed [B, N, 3*heads*dim_head] qkv; got "
                          f"{tuple(qkv.shape)}, heads={heads}, dim_head={dim_head}")
     if not 1 <= n_true <= n_pad:
         raise ValueError(f"n_true {n_true} outside [1, {n_pad}]")
+    if dim_head % 8:
+        # TMA reads whole 16-byte head columns: zero-pad each head (a copy;
+        # zero columns change neither the scores nor the kept columns), with
+        # the true scale, and slice the output back.
+        wide = dim_head + (-dim_head) % 8
+        padded = F.pad(qkv.reshape(B, n_pad, 3 * heads, dim_head), (0, wide - dim_head))
+        out, lse = _mhsa_launch(padded.reshape(B, n_pad, 3 * heads * wide), heads, wide,
+                                scale, n_true, with_lse, drop)
+        out = out.reshape(B, n_pad, heads, wide)[..., :dim_head].reshape(B, n_pad, -1)
+    else:
+        out, lse = _mhsa_launch(qkv, heads, dim_head, scale, n_true, with_lse, drop)
+    return (out, lse) if with_lse else out
+
+
+def _mhsa_launch(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_true: int,
+                 with_lse: bool, drop):
+    B, n_pad, _ = qkv.shape
+    plan = _tile_arg(dim_head, qkv.dtype)
     _build.check_cuda("fused_mhsa", qkv)
     out = torch.empty((B, n_pad, heads * dim_head), device=qkv.device,
                       dtype=qkv.dtype)
@@ -270,9 +363,9 @@ def _mhsa_forward(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
         "fused_mhsa", f"gaviko_fused_mhsa_{_build.dtype_suffix(qkv)}",
         _MHSA_ARGTYPES, qkv.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, n_pad, heads, dim_head, n_true,
-        scale, *drop, _build.stream_of(qkv))
+        plan, scale, *drop, _build.stream_of(qkv))
     fused_mhsa.launches += 1
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
 class _FusedMhsa(torch.autograd.Function):

@@ -1166,3 +1166,62 @@ def test_fused_optim_step_runs_b13_and_matches_the_plain_step(dev):
         torch.testing.assert_close(params[k], plain_p[k], rtol=1e-6, atol=1e-7)
         torch.testing.assert_close(state.mu[k], plain_state.mu[k], rtol=1e-6, atol=1e-9)
         torch.testing.assert_close(state.nu[k], plain_state.nu[k], rtol=1e-6, atol=1e-12)
+
+
+# ------------------ the forward tile of A and B10 (csrc/attention_fwd.cuh) ----
+
+TILE_DIMS = [64, 128, 192, 256, 320, 384, 512, 1024]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [36, 96] + TILE_DIMS)
+@pytest.mark.parametrize("n_pad,n_true", [(1008, 1001), (1040, 1033), (8, 7)])
+def test_fused_mhsa_forward_tile_at_every_instance(dev, dtype, D, n_pad, n_true):
+    """Kernel A at every instance of the shared forward tile (64 to 256
+    compiled, above that the general one; 96 on the 128-column tile, its
+    missing columns read as zeros; 36, whose head columns are not whole 16
+    bytes, on a copy padded to 40), ragged n_true, dropout 0.1:
+    output and lse against the plain version (whose mask is the hash's, so a
+    wrong bit shows), a rerun bit-equal, one launch a call, and kernel B's
+    packed dqkv, which replays the mask from the seed and reads A's lse,
+    against its plain version."""
+    H, seed, scale = 2, 31, D ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(26)
+    qkv = _randn(gen, 1, n_pad, 3 * H * D, dtype=dtype)
+    dout = _randn(gen, 1, n_pad, H * D, dtype=dtype)
+    dout[:, n_true:] = 0
+    before = fused_mhsa.launches
+    out, lse = fused_mhsa(qkv, H, D, scale, n_true, 0.1, with_lse=True, seed=seed)
+    again = fused_mhsa(qkv, H, D, scale, n_true, 0.1, with_lse=True, seed=seed)
+    assert fused_mhsa.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    want, want_lse = mhsa_reference(qkv, H, D, scale, n_true, 0.1, with_lse=True, seed=seed)
+    assert torch.isfinite(out[:, :n_true]).all()
+    assert _rel_mae(out[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
+    lse_err = float((lse[..., :n_true] - want_lse[..., :n_true]).abs().max())
+    assert lse_err <= (1e-4 if dtype == torch.float32 else 0.1)
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, D, scale, n_true, 0.1, seed)
+    dwant = mhsa_bwd_reference(qkv, out, lse, dout, H, D, scale, n_true, 0.1, seed)
+    assert torch.isfinite(dqkv).all() and _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 96, 263] + TILE_DIMS)
+@pytest.mark.parametrize("n_pad,n_true", [(1008, 1001), (8, 7)])
+def test_flash_attention_forward_tile_at_every_instance(dev, dtype, D, n_pad, n_true):
+    """Kernel B10 at every instance of the shared forward tile and at head
+    dims between them (32 and 96 on the tiles of 64 and 128, their missing
+    columns read as zeros; 263, whose rows are not whole 16 bytes, padded
+    to 264), on the head views of a packed projection sliced to the real
+    rows (strided, read in place): against the plain version, a rerun
+    bit-equal, one launch a call."""
+    H = 3
+    gen = torch.Generator(device=dev).manual_seed(27)
+    qkv = _randn(gen, 2, n_pad, 3 * H * D, dtype=dtype)
+    q, k, v = (t[:, :, :n_true] for t in _split_heads(qkv, H, D))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, D ** -0.5)
+    again = flash_attention(q, k, v, D ** -0.5)
+    assert flash_attention.launches == before + 2
+    assert got.shape == q.shape and torch.isfinite(got).all() and torch.equal(got, again)
+    assert _rel_mae(got, flash_attention_reference(q, k, v, D ** -0.5)) <= BUDGET[dtype]

@@ -143,14 +143,15 @@ def _fake_card(monkeypatch):
 
 
 def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
-    """A, B and B8 launch at head dims 64, 128, 192 and 256, B10 at 32, 64,
-    128, 192 and 256, and B10 takes any other head dim up to 256 zero-padded
-    to the next of those (96 launches at 128 and comes back 96 wide). Every
-    other head dim JAX's gates admit (A and B above 256, B8 at e.g. 96, B10
-    above 256) launches the same entry point, which runs its general
-    instance; B10's general instance takes any strides. (Head dims above 256
-    raised here before ROADMAP Queue C item 4 was repaired; the test's name
-    dates from then.)"""
+    """A, B and B8 launch at head dims 64, 128, 192 and 256, and B10 at any
+    head dim that is a multiple of 8, in place (32 and 96 run on the tiles
+    of 64 and 128, which read the missing columns as zeros: no padding
+    copy). Every other head dim JAX's gates admit (A and B above 256, B8 at
+    e.g. 96, B10 above 256) launches the same entry point, which runs its
+    general instance; B10 pads a head dim that is not a multiple of 8 (263
+    to 264, the view there having no 16-byte rows) and checks the strides
+    of what it launches on. (Head dims above 256 raised here before ROADMAP
+    Queue C item 4 was repaired; the test's name dates from then.)"""
     calls = _fake_card(monkeypatch)
     for dh in (64, 128, 192, 256):
         qkv = torch.zeros(1, 8, 3 * 2 * dh)
@@ -165,7 +166,7 @@ def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
         assert tfa.flash_attention(q, q, q, 0.1).shape == q.shape
     assert calls == ["gaviko_fused_mhsa_f32", "gaviko_fused_mhsa_bwd_f32",
                      "gaviko_cls_attention_f32"] * 4 + ["gaviko_flash_attention_f32"] * 6
-    assert widths[::3] == [32, 64, 128, 192, 256, 128]
+    assert widths[::3] == [32, 64, 128, 192, 256, 96]
     del calls[:]
     for dh in (320, 384):
         assert tfa.fused_mhsa_supported(2, dh, 64)
@@ -179,12 +180,13 @@ def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
     assert tcls.cls_attention_supported(4, 96, 8, torch.float32)
     tcls.cls_attention(torch.zeros(1, 8, 2 * 4 * 96), torch.zeros(1, 4 * 96), 4, 96, 0.1, 8)
     q = torch.zeros(1, 3, 8, 264)[..., 1:]  # 263 wide: no 16-byte rows
-    assert tfa.flash_instance(263) == ("general", 263)
+    plan = tfa.attention_plan(264)
+    assert (plan.instance, plan.width) == ("general", 264)
     assert tfa.flash_attention(q, q, q, 0.1).shape == q.shape
     assert calls == ["gaviko_fused_mhsa_f32", "gaviko_fused_mhsa_bwd_f32",
                      "gaviko_cls_attention_f32"] * 2 + ["gaviko_cls_attention_f32",
                                                         "gaviko_flash_attention_f32"]
-    assert widths[::3] == [32, 64, 128, 192, 256, 128]  # no alignment check for 263
+    assert widths[::3] == [32, 64, 128, 192, 256, 96, 264]  # 263 padded, then checked
 
 
 def test_every_head_dim_the_jax_gates_admit_has_an_instance():
@@ -203,9 +205,11 @@ def test_every_head_dim_the_jax_gates_admit_has_an_instance():
                 admitted["cls"].add(d)
                 assert tcls.cls_instance(d) == (
                     "specialized" if d in tcls.KERNEL_DIM_HEADS else "general")
-        kind, width = tfa.flash_instance(d)
+        wide = d + (-d) % 8  # B10 pads a head dim to whole 16-byte rows
+        plan = tfa.attention_plan(wide)
+        kind, width = plan.instance, plan.width
         assert width >= d and (kind == "general") == (d > 256)
-        assert (kind == "specialized") == (d in tfa.FLASH_DIM_HEADS)
+        assert (kind == "specialized") == (wide in tfa.MHSA_DIM_HEADS)
     assert {320, 512, 1024} <= admitted["mhsa"] and {96, 160, 320} <= admitted["cls"]
 
 
