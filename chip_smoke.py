@@ -11,7 +11,8 @@ Phases, each printing its own line:
    one process per source, in parallel) and prints the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (relative MAE <= 1e-2) and fp32 with TF32 off (<= 1e-4), with median
-   CUDA-event times (per call, over 10 back-to-back calls) of kernel, plain
+   CUDA-event times (per call, over 10 back-to-back calls; for B8 also over
+   10 calls replayed as one CUDA graph, ``graph_ms``) of kernel, plain
    version and the one PyTorch call that
    computes the same function (``library_ms``; timed here only, the port
    never calls it) or, where no one call does, the chain of calls
@@ -38,15 +39,19 @@ Phases, each printing its own line:
    MLP) and vit-b16's residual MLP, with the max ULP against the plain
    version, the int8 bound (1,979 TOPS) and the fp chain the route
    replaces, then the general instances of A, B and B10 at head dims 320
-   and 512 (B2, 4 heads) and of B8 at 96 and 320 (B8), then B12, the LN +
+   and 512 (B2, 4 heads) and of B8 at 96 and 320 (B8), then A and B at 16
+   heads of 1344 and B10 at 1352 (B1: the forward tile's streamed-Q plan,
+   B's streamed owned rows), then B12, the LN +
    linear backward (``csrc/ln_linear_bwd.cu``), at the shapes the two
    hybrid train runs give it (vit-b16 B8: 8,064 rows, 768 -> 2,304;
    GAViKO vit-l16 B4: 4,160 rows, 1,024 -> 3,072), with dW and without,
    beside autograd's chain of the LN + linear backward; then B7's outputs
    on fixed inputs, bit-equal (sha256) to the kernel's before its passes
-   moved into ``csrc/ln_bwd.cuh``. Every case of A and B10 (their shared
-   forward tile, ``csrc/attention_fwd.cuh``) also runs again and must be
-   bit-equal to its first run;
+   moved into ``csrc/ln_bwd.cuh``, and A's and B10's outputs on fixed
+   inputs bit-equal (sha256) to the tile's before Q's chunks could stream.
+   Every case of A, B10, B and B8 also runs again and must be bit-equal to
+   its first run; A, B10 and B in fp32 are bounded at 495 / 3 TFLOP/s (each
+   product as three TF32 ones);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
@@ -182,11 +187,15 @@ TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
 # the plain path's (H100 readings 3.6e-7 and 2.0e-6; 1 for no update).
 TRAINER_UPDATE_BUDGET = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
-# input type. f32 is held to the SIMT rate, but for A and B10, which run
-# each f32 product as three TF32 ones on the tensor cores (495e12 / 3).
+# input type. f32 is held to the SIMT rate, but for A, B10 and B, which
+# run each f32 product as three TF32 ones on the tensor cores (495e12 / 3).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "torch.int8": 1979e12,
             "3xtf32": 495e12 / 3}
+# Head dims above what the forward tile holds resident (ROADMAP Queue C 6):
+# A and B at 16 heads of 1344 (JAX's fused gate admits it), B10 at 1352,
+# one batch of 1,001 rows padded to 1,008.
+WIDE_MHSA, WIDE_FLASH, WIDE_HEADS = 1344, 1352, 16
 SOURCES = {
     "patchify": ("gaviko_tpu_torch/csrc/patchify.cu", "gaviko_tpu/ops/patchify.py:50"),
     "fused_mhsa": ("gaviko_tpu_torch/csrc/fused_mhsa.cu",
@@ -266,7 +275,34 @@ LN_BWD_ROWS = {"ln_linear_bwd": "vit_train_hybrid", "ln_linear_bwd_l16": "gaviko
 B7_DIGESTS = {
     "torch.bfloat16": "0fafb8dceeb84fe4a90aed185f006363fe2d3fc8cf887b4399c8d2b1c38125c4",
     "torch.float32": "db353d983285098dd06d9a47dc9eae934302de5f0ab0d2fcdddfe22bd73fe62c"}
+# sha256 of A's and B10's outputs on the inputs of ``attention_digests``, as
+# the forward tile gave them before Q's chunks could stream and its pieces
+# moved into csrc/hopper.cuh (read on an NVIDIA H100 80GB HBM3, CUDA 12.8):
+# the instances that fit resident must stay bit-equal.
+ATTN_DIGESTS = {
+    "fused_mhsa_serving_bf16": "c49cf64d79922116a7dceb19fde170e28f06c8f22bbd696f5660460bcf14682b",
+    "fused_mhsa_train_f32": "fec69a322de58182853a9669f620c7d2920528d405360145a52c54523c9c0131",
+    "flash_attention_t16_bf16": "0121f4fa7ddf7c6350ba37db01d4e88bb4a30b442ebd94048e3c1f9b09d65ac5",
+    "flash_attention_t16_f32": "9c4fd498b4adbd72e44a100b0865ff36cbac19b9b60d66fdbe036e1337d1b8a7",
+    "fused_mhsa_dh512_bf16": "508e52df9a782ff71fe93b7df4c3938ab148811909af6160e52b34c6c215d253",
+    "flash_attention_dh512_bf16": "306fd9a38aac45ad940eeaf80104e216f5a0ea05fe323256cc02c32641b4ba79",
+}
 TRAINER_VOLUMES = (8, 4)  # train and val volumes of the trainer phase
+
+
+def _ptxas(log: str) -> list:
+    """Each kernel's registers and spills from nvcc's ``-Xptxas -v`` log, as
+    "<template arguments of its mangled name>: <what ptxas said>"."""
+    import re
+
+    out, kernel = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            match = re.search(r"kernelI(.*?)EEEv", line)
+            kernel = match.group(1) if match else line.split("'")[1][-40:]
+        elif "registers" in line or "spill" in line:
+            out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def _nvidia_smi() -> str:
@@ -303,10 +339,48 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
     return statistics.median(times)
 
 
-def _attention_forward(name: str) -> bool:
-    """A case of the forward tile of A and B10 (``csrc/attention_fwd.cuh``)."""
-    return name.startswith(("fused_mhsa", "flash_attention")) and not name.startswith(
-        ("fused_mhsa_bwd", "fused_mhsa_vjp"))
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Median device ms per call of ``fn``, KERNEL_CALLS calls captured in
+    one CUDA graph and replayed: no host time between launches (what a
+    short kernel such as B8 takes on the card, apart from the host's
+    enqueueing, which ``_median_ms`` includes where it is the longer)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(KERNEL_CALLS):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / KERNEL_CALLS)
+    return statistics.median(times)
+
+
+def _tensor_core_f32(name: str) -> bool:
+    """A case whose f32 products run as three TF32 ones on the tensor cores
+    (A, B10, B and the packed-qkv VJP of A then B), bounded at 495 / 3
+    TFLOP/s."""
+    return name.startswith(("fused_mhsa", "flash_attention"))
+
+
+def _rerun_bit_equal(name: str) -> bool:
+    """A case whose rerun must be bit-equal: no atomics in A, B10 and B, and
+    B8's partials combined in split order."""
+    return name.startswith(("fused_mhsa", "flash_attention", "cls_attention"))
 
 
 def _bound(work, dtype) -> tuple:
@@ -638,6 +712,66 @@ def phase_b7_bits(card: str) -> None:
         raise RuntimeError(f"B7 outputs changed: {got} != {B7_DIGESTS}")
 
 
+def attention_digests() -> dict:
+    """sha256 of A's and B10's outputs on inputs made with numpy, by case
+    (see ATTN_DIGESTS): A at GAViKO vit-l16 serving B8 bf16 (16 heads of
+    64, 1,033 rows padded to 1,040) and train B4 fp32 with lse and dropout
+    0.1, B10 at vit-t16 B8 (the head views of the packed qkv, 3 heads of
+    64, 1,001 rows) in bf16 and fp32, and both at head dim 512 (B2, 4
+    heads: the general instance) in bf16; two calls must agree bit for
+    bit."""
+    import hashlib
+
+    import torch
+
+    from gaviko_tpu_torch.ops.flash_attention import _split_heads, flash_attention, fused_mhsa
+
+    rng = np.random.RandomState(11)
+
+    def packed(*shape, dtype):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+
+    serve = packed(8, 1040, 3 * 1024, dtype=torch.bfloat16)
+    train = packed(4, 1040, 3 * 1024, dtype=torch.float32)
+    t16 = {dt: packed(8, 1008, 3 * 192, dtype=dt) for dt in (torch.bfloat16, torch.float32)}
+    wide = packed(2, 1008, 3 * 2048, dtype=torch.bfloat16)
+    views = {dt: [t[:, :, :1001] for t in _split_heads(x, 3, 64)] for dt, x in t16.items()}
+    wide_views = [t[:, :, :1001] for t in _split_heads(wide, 4, 512)]
+    cases = {
+        "fused_mhsa_serving_bf16": lambda: fused_mhsa(serve, 16, 64, 0.125, 1033),
+        "fused_mhsa_train_f32": lambda: fused_mhsa(train, 16, 64, 0.125, 1033, VIT_RATE,
+                                                   with_lse=True, seed=VIT_SEED),
+        "flash_attention_t16_bf16": lambda: flash_attention(*views[torch.bfloat16], 0.125),
+        "flash_attention_t16_f32": lambda: flash_attention(*views[torch.float32], 0.125),
+        "fused_mhsa_dh512_bf16": lambda: fused_mhsa(wide, 4, 512, 512 ** -0.5, 1001),
+        "flash_attention_dh512_bf16": lambda: flash_attention(*wide_views, 512 ** -0.5),
+    }
+    digests = {}
+    for name, run in cases.items():
+        runs = []
+        for _ in range(2):
+            got = run()
+            h = hashlib.sha256()
+            for t in got if isinstance(got, tuple) else (got,):
+                h.update(t.float().cpu().numpy().tobytes())
+            runs.append(h.hexdigest())
+        if runs[0] != runs[1]:
+            raise RuntimeError(f"{name}: two calls differ")
+        digests[name] = runs[0]
+    return digests
+
+
+def phase_attention_bits(card: str) -> None:
+    """A and B10 bit-equal to their outputs before the repair of the head
+    dims above 1280 (the tile's streamed-Q instance) and the move of the
+    tile's pieces into csrc/hopper.cuh."""
+    got = attention_digests()
+    print(json.dumps({"phase": "attention_bits", "digests": got, "want": ATTN_DIGESTS,
+                      "card": card}), flush=True)
+    if got != ATTN_DIGESTS:
+        raise RuntimeError(f"A / B10 outputs changed: {got} != {ATTN_DIGESTS}")
+
+
 def _t16_kernel_cases(dtype, gen, batch):
     """Cases (as in :func:`_kernel_cases`) for B10: at the shapes the vit-t16
     serving path gives it (the head views of the packed qkv sliced to the
@@ -746,6 +880,51 @@ def _dh_kernel_cases(dtype, gen, batch, D):
         cases.append(("fused_mhsa_vjp_dh128", vjp, lambda r: r,
                       (_nbytes(qkv, dout, qkv), 14 * products), None, None))
     return cases
+
+
+def _wide_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) for A and B at WIDE_HEADS heads of
+    WIDE_MHSA (A with dropout 0.1 and lse, B replaying the mask) and B10 at
+    WIDE_FLASH on [batch, 3, 1001, D]: the forward tile's streamed-Q plan
+    and B's streamed owned rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.flash_attention import (
+        flash_attention, fused_mhsa, fused_mhsa_bwd, mhsa_reference)
+
+    dev, H, D, n_pad, n_true = "cuda", WIDE_HEADS, WIDE_MHSA, 1008, 1001
+    inner, scale = H * D, D ** -0.5
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    qkv = randn(batch, n_pad, 3 * inner)
+    dout = randn(batch, n_pad, inner)
+    dout[:, n_true:] = 0
+    with torch.no_grad():
+        out, lse = mhsa_reference(qkv, H, D, scale, n_true, VIT_RATE, with_lse=True,
+                                  seed=VIT_SEED)
+    heads4 = qkv.view(batch, n_pad, 3, H, D).permute(2, 0, 3, 1, 4)
+    dout4 = dout.view(batch, n_pad, H, D).transpose(1, 2)
+    key_mask = (torch.arange(n_pad, device=dev) < n_true).view(1, 1, 1, n_pad)
+    products = batch * H * n_pad * n_true * D
+    q, k, v = (randn(batch, 3, n_true, WIDE_FLASH) for _ in range(3))
+    return [
+        (f"fused_mhsa_dh{D}", lambda: fused_mhsa(qkv, H, D, scale, n_true, VIT_RATE,
+                                                 with_lse=True, seed=VIT_SEED),
+         lambda r: (r[0][:, :n_true], r[1]),
+         (_nbytes(qkv) * 4 // 3 + _nbytes(lse), 4 * products),
+         lambda: F.scaled_dot_product_attention(*heads4, attn_mask=key_mask,
+                                                dropout_p=VIT_RATE), None),
+        (f"fused_mhsa_bwd_dh{D}", lambda: fused_mhsa_bwd(qkv, out, lse, dout, H, D, scale,
+                                                         n_true, VIT_RATE, VIT_SEED),
+         lambda r: r, (_nbytes(qkv, out, dout, lse, qkv), 10 * products),
+         _sdpa_grad(*heads4, dout4, attn_mask=key_mask, dropout_p=VIT_RATE), None),
+        (f"flash_attention_dh{WIDE_FLASH}", lambda: flash_attention(q, k, v, WIDE_FLASH ** -0.5),
+         lambda r: r, (_nbytes(q, k, v, q), 4 * batch * 3 * n_true * n_true * WIDE_FLASH),
+         lambda: F.scaled_dot_product_attention(q, k, v, scale=WIDE_FLASH ** -0.5), None),
+    ]
 
 
 def _int8_kernel_cases(dtype, gen, batch):
@@ -907,7 +1086,7 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # dh192/dh256's f32 kernel B runs for ~0.1 s; the general instances are
     # slow by design.
-    reps = 5 if path in ("dh192", "dh256") else 3 if path == "general" else 20
+    reps = 5 if path in ("dh192", "dh256", "wide") else 3 if path == "general" else 20
     results = {}
     for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
         if path == "vit":
@@ -922,6 +1101,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _int8_kernel_cases(dtype, gen, batch)
         elif path == "general":
             cases = _general_kernel_cases(dtype, gen, batch)
+        elif path == "wide":
+            cases = _wide_kernel_cases(dtype, gen, batch)
         elif path == "ln_bwd":
             cases = _ln_bwd_kernel_cases(dtype, gen)
         else:
@@ -934,12 +1115,12 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                 torch.cuda.synchronize()
                 rel, max_abs = _compare(got, want)
                 rerun_equal = None
-                if _attention_forward(name):  # no atomics: a rerun is bit-equal
+                if _rerun_bit_equal(name):
                     again = cut(run())
                     pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
                     rerun_equal = all(torch.equal(a, b) for a, b in pairs)
                 rate = (torch.int8 if path == "int8" else "3xtf32" if dtype == torch.float32
-                        and _attention_forward(name) else dtype)
+                        and _tensor_core_f32(name) else dtype)
                 bound_ms, bound_by = _bound(work, rate)
                 line = {"phase": "kernel", "path": path,
                         "name": name, "dtype": str(dtype), "batch": batch,
@@ -952,6 +1133,9 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                         "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
                 if chain is not None:
                     line["chain_ms"] = _median_ms(chain, reps=reps, calls=KERNEL_CALLS)
+                if name.startswith("cls_attention"):  # a few µs: the host may set ms
+                    line["graph_ms"] = _graph_ms(run)
+                    line["library_graph_ms"] = _graph_ms(library)
                 if path == "int8":
                     line["max_ulp"] = _ulps(got, want)
                 if rerun_equal is not None:
@@ -1989,9 +2173,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
-                      "ptxas": {n: [x.split(":", 1)[-1].strip() for x in log.splitlines()
-                                    if "registers" in x or "spill" in x]
-                                for n, log in logs.items()}}), flush=True)
+                      "ptxas": {n: _ptxas(log) for n, log in logs.items()}}), flush=True)
 
     kernels = {"serving": phase_kernels(smi, B, "serving"),
                "vit": phase_kernels(smi, B, "vit"),
@@ -2001,8 +2183,10 @@ def main() -> int:
                **{f"dh{d}": phase_kernels(smi, VIT_TRAIN_B, f"dh{d}") for d in DIM_HEADS},
                "int8": phase_kernels(smi, B, "int8"),
                "general": phase_kernels(smi, 2, "general"),
+               "wide": phase_kernels(smi, 1, "wide"),
                "ln_bwd": phase_kernels(smi, None, "ln_bwd")}  # LN_BWD_SHAPES
     phase_b7_bits(smi)
+    phase_attention_bits(smi)
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
     launches, fp_served = {}, {}

@@ -52,9 +52,9 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
 }  // namespace
 
 // q, k, v, o [B, H, N, D] of one dtype; plan the tile's (groups, general,
-// slice chunks, rows) (csrc/attention_fwd.cuh:forward); the element strides
-// st = (q's batch, head, row strides, then k's, v's and o's); D even; q, k
-// and v 16-byte aligned with strides of whole 16 bytes.
+// slice chunks, rows, Q streamed) (csrc/attention_fwd.cuh:forward); the
+// element strides st = (q's batch, head, row strides, then k's, v's and
+// o's); D even; q, k and v 16-byte aligned with strides of whole 16 bytes.
 extern "C" int gaviko_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                            int B, int H, int N, int D, const int* plan,
                                            const long long* st, float scale, void* stream) {

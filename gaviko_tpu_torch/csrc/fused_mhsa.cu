@@ -62,7 +62,7 @@ int run(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int
 // qkv [B, n_pad, 3 * heads * dim_head] contiguous and 16-byte aligned,
 // dim_head a multiple of 8 -> out [B, n_pad, heads * dim_head]; lse [B,
 // heads, n_pad] f32, or nullptr. plan is the tile's (groups, general, slice
-// chunks, rows) (csrc/attention_fwd.cuh:forward). threshold is
+// chunks, rows, Q streamed) (csrc/attention_fwd.cuh:forward). threshold is
 // hash_dropout._threshold(rate) (INT32_MIN at rate 0: no dropout),
 // drop_scale 1 / (1 - rate).
 extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, float* lse, int B, int n_pad,

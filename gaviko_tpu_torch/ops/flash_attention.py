@@ -33,10 +33,15 @@ back. Head dims up to 256 (128 in f32) run one of the compile-time
 instances (1 to 4 groups of 64 columns; a head dim between two of them
 reads its missing columns as zeros, no copy); above that the general
 instance splits the output over the grid into slices of at most that
-width and recomputes S once a slice. :func:`attention_plan`
-is that plan, made only here and handed to the kernel on every launch.
-Kernel B keeps its own instances (``mhsa_instance``: 64, 128, 192 and 256
-specialized, a general one for any other head dim).
+width and recomputes S once a slice; above 1280 columns Q's chunks stream
+through the ring beside K's. :func:`attention_plan` is that plan, made
+only here and handed to the kernel on every launch.
+
+Kernel B is built from the same pieces (``csrc/hopper.cuh``): two passes
+with no atomics, the dq pass over the key tiles and the dk/dv pass over
+the query tiles, bf16 on ``wgmma``, f32 as 3xTF32, each pass's output
+columns in the fewest slices its accumulators hold. :func:`mhsa_bwd_plan`
+is its plan, made only here.
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
 row within the padded stream, key column) in plane ``salt = b * heads +
@@ -63,7 +68,7 @@ from gaviko_tpu_torch.ops.local_attention import local_mask_additive
 NEG_INF = float("-inf")
 LOG2E = math.log2(math.e)
 WHOLE_K_MAX = 2048
-MHSA_DIM_HEADS = (64, 128, 192, 256)  # B's specializations; A and B10's compiled bf16 tiles
+MHSA_DIM_HEADS = (64, 128, 192, 256)  # A and B10's compiled bf16 tiles
 # The forward tile of A and B10 (csrc/attention_fwd.cuh): a chunk of the
 # head dim is 128 bytes (a TMA box's row, the swizzle span), the K / V ring
 # 64 KB of chunk tiles, in at most the 227 KB of shared memory a CTA can
@@ -74,21 +79,11 @@ MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
 _MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
-_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
 _FLASH_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P, _P, _F, _P)
 _LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P)
 _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
 _LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
-
-
-def mhsa_instance(dim_head: int) -> str:
-    """The instance of kernel B a head dim runs on the card: its
-    specialization ("specialized", head dims 64, 128, 192 and 256), else the
-    general one ("general": dim_head at run time, the output split over the
-    grid in 64-column chunks). Kernel A's is :func:`attention_plan`'s."""
-    if dim_head < 1:
-        raise ValueError(f"dim_head must be >= 1, got {dim_head}")
-    return "specialized" if dim_head in MHSA_DIM_HEADS else "general"
 
 
 class AttentionPlan(NamedTuple):
@@ -100,7 +95,8 @@ class AttentionPlan(NamedTuple):
     ``chunk`` the columns of a 128-byte chunk (a TMA box, a k-chunk of S);
     ``slices`` the (first column, columns) of D each CTA of a query tile
     writes; ``rows`` the query rows of a CTA, ``keys`` of a key tile;
-    ``smem`` a CTA's shared memory."""
+    ``smem`` a CTA's shared memory; ``q_stream`` whether Q's chunks stream
+    through the ring beside K's (where they do not fit resident)."""
 
     instance: str
     groups: int
@@ -110,14 +106,15 @@ class AttentionPlan(NamedTuple):
     rows: int
     keys: int
     smem: int
+    q_stream: bool = False
 
     @property
-    def tile(self) -> Tuple[int, int, int, int]:
+    def tile(self) -> Tuple[int, int, int, int, int]:
         """The ``plan`` argument of ``csrc/attention_fwd.cuh:forward``:
-        (groups, general, chunks of a slice, rows)."""
+        (groups, general, chunks of a slice, rows, Q streamed)."""
         general = self.instance == "general"
         cols = self.slices[0][1] if general else self.width
-        return self.groups, int(general), cols // self.chunk, self.rows
+        return self.groups, int(general), cols // self.chunk, self.rows, int(self.q_stream)
 
 
 @functools.lru_cache(maxsize=None)  # read on every launch of A and B10
@@ -128,8 +125,9 @@ def attention_plan(dim_head: int, dtype: torch.dtype = torch.bfloat16) -> Attent
     halves) one compile-time instance and one output slice; wider head dims
     the general instance, D's chunks split into the fewest slices of at
     most that width, as even as whole chunks allow, 64 query rows a CTA (32
-    in f32 where 64 rows of Q do not fit). Raises for a head dim whose Q
-    chunks and ring exceed a CTA's shared memory."""
+    in f32 where 64 rows of Q do not fit); where no rows of Q fit beside
+    the ring (above 1280 columns), Q's chunks stream through it, 64 rows a
+    CTA. Any head dim >= 1 has a plan."""
     if dim_head < 1:
         raise ValueError(f"dim_head must be >= 1, got {dim_head}")
     if dtype not in (torch.bfloat16, torch.float32):
@@ -150,22 +148,87 @@ def attention_plan(dim_head: int, dtype: torch.dtype = torch.bfloat16) -> Attent
         per = -(-n_chunks // -(-dim_head // (64 * max_groups)))
     slices = tuple((c * chunk, min(dim_head, (c + per) * chunk) - c * chunk)
                    for c in range(0, n_chunks, per))
+    barriers = 8 * (2 * stages + 1)
     for rows in (64, 32) if instance == "general" and not bf16 else (64,):
-        smem = 1024 + n_chunks * rows * CHUNK_BYTES + RING_BYTES + 8 * (2 * stages + 1)
+        smem = 1024 + n_chunks * rows * CHUNK_BYTES + RING_BYTES + barriers
         if smem <= SMEM_LIMIT:
-            break
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"head dim {dim_head} ({dtype}): the forward tile's Q chunks and ring take "
-            f"{smem} bytes of shared memory, above {SMEM_LIMIT}")
-    return AttentionPlan(instance, groups, width, chunk, slices, rows, keys, smem)
+            return AttentionPlan(instance, groups, width, chunk, slices, rows, keys, smem)
+    return AttentionPlan(instance, groups, width, chunk, slices, 64, keys,
+                         1024 + RING_BYTES + barriers, q_stream=True)
+
+
+class MhsaBwdPlan(NamedTuple):
+    """How kernel B runs a head dim: for each pass, ``dq`` and ``dkdv``, the
+    (first column, columns) of each output slice, one CTA a slice of an
+    owned row tile; ``groups`` the groups of 64 columns a CTA's accumulators
+    hold in each pass; ``chunk`` the columns of a 128-byte chunk;
+    ``own_stream`` whether the owned rows' chunks stream through the ring
+    (where they do not fit resident); ``smem`` a CTA's shared memory."""
+
+    chunk: int
+    dq: Tuple[Tuple[int, int], ...]
+    dkdv: Tuple[Tuple[int, int], ...]
+    groups: Tuple[int, int]
+    own_stream: bool
+    smem: int
+
+    @property
+    def arg(self) -> Tuple[int, int, int, int, int]:
+        """The ``plan`` argument of ``csrc/fused_mhsa_bwd.cu:backward``:
+        (groups, chunks of a slice) of the dq pass and of the dk/dv pass, then
+        the owned rows streamed."""
+        return (self.groups[0], -(-self.dq[0][1] // self.chunk), self.groups[1],
+                -(-self.dkdv[0][1] // self.chunk), int(self.own_stream))
+
+
+def _slices(dim_head: int, chunk: int, widest: int) -> Tuple[Tuple[int, int], ...]:
+    """D's chunks in the fewest slices of at most ``widest`` columns, as even
+    as whole chunks allow: (first column, columns) each."""
+    n_chunks = -(-dim_head // chunk)
+    per = -(-n_chunks // -(-dim_head // widest))
+    return tuple((c * chunk, min(dim_head, (c + per) * chunk) - c * chunk)
+                 for c in range(0, n_chunks, per))
+
+
+@functools.lru_cache(maxsize=None)  # read on every launch of B
+def mhsa_bwd_plan(dim_head: int, dtype: torch.dtype = torch.bfloat16) -> MhsaBwdPlan:
+    """The plan kernel B runs for a head dim (a multiple of 8; the wrapper
+    pads any other) (its wrapper hands it to the kernel; it is made nowhere
+    else). The dq pass holds one output of at most 256 columns in bf16 (128
+    in f32, whose products hold the TF32 halves of their operands); the
+    dk/dv pass holds two, dK and dV, of at most 128 columns each (64 in
+    f32). Each pass splits D into the fewest slices of that width and
+    recomputes S and dP once a slice. The owned rows' chunks (Q and dO, or
+    K and V: two of 64 rows each a chunk) stay resident beside the 64 KB
+    ring where they fit, and stream through it otherwise, so every head dim
+    has a plan."""
+    if dim_head < 1 or dim_head % 8:
+        raise ValueError(f"dim_head must be a positive multiple of 8, got {dim_head}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    chunk = CHUNK_BYTES // (2 if bf16 else 4)
+    widest = (256, 128) if bf16 else (128, 64)
+    dq, dkdv = (_slices(dim_head, chunk, w) for w in widest)
+    groups = tuple(-(-s[0][1] // 64) for s in (dq, dkdv))
+    n_chunks = -(-dim_head // chunk)
+    fixed = 1024 + RING_BYTES + 8 * (2 * (RING_BYTES // (64 * CHUNK_BYTES)) + 1) + 1024
+    resident = fixed + 2 * n_chunks * 64 * CHUNK_BYTES
+    own_stream = resident > SMEM_LIMIT
+    return MhsaBwdPlan(chunk, dq, dkdv, groups, own_stream, fixed if own_stream else resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_arg(dim_head: int, dtype: torch.dtype):
+    """The plan's ``arg`` as the C int array the entry points read."""
+    return (ctypes.c_int * 5)(*mhsa_bwd_plan(dim_head, dtype).arg)
 
 
 @functools.lru_cache(maxsize=None)
 def _tile_arg(dim_head: int, dtype: torch.dtype):
     """The plan's ``tile`` as the C int array the entry points read (made
     once a head dim and dtype; the kernel only reads it)."""
-    return (ctypes.c_int * 4)(*attention_plan(dim_head, dtype).tile)
+    return (ctypes.c_int * 5)(*attention_plan(dim_head, dtype).tile)
 
 
 def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
@@ -435,14 +498,17 @@ def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
 def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                    dout: torch.Tensor, heads: int, dim_head: int, scale: float,
                    n_true: int, dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """Same contract as :func:`mhsa_bwd_reference`; kernel B on CUDA."""
+    """Same contract as :func:`mhsa_bwd_reference`; kernel B on CUDA (two
+    passes in one call of its entry point). A head dim that is not a
+    multiple of 8 runs on copies of qkv, out and dout with each head
+    zero-padded to one (zero columns change neither the scores nor the kept
+    columns), and dqkv is sliced back."""
     drop = dropout_args(dropout_rate, seed)
     if not _build.use_kernel(qkv):
         return mhsa_bwd_reference(qkv, out, lse, dout, heads, dim_head, scale, n_true,
                                   dropout_rate, seed)
     B, n_pad, three_inner = qkv.shape
     inner = heads * dim_head
-    mhsa_instance(dim_head)
     if three_inner != 3 * inner:
         raise ValueError(f"fused_mhsa_bwd takes a packed qkv; got {tuple(qkv.shape)}, "
                          f"heads={heads}, dim_head={dim_head}")
@@ -455,13 +521,29 @@ def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         raise ValueError(f"lse must be float32 {(B, heads, n_pad)}")
     _build.check_cuda("fused_mhsa_bwd", qkv, out, dout)
     _build.check_cuda("fused_mhsa_bwd", lse)
+    if dim_head % 8:
+        wide = dim_head + (-dim_head) % 8
+
+        def pad(t, n):
+            return F.pad(t.reshape(B, n_pad, n, dim_head), (0, wide - dim_head)).reshape(
+                B, n_pad, n * wide)
+
+        dqkv = _mhsa_bwd_launch(pad(qkv, 3 * heads), pad(out, heads), pad(dout, heads), lse,
+                                heads, wide, scale, n_true, drop)
+        return dqkv.reshape(B, n_pad, 3 * heads, wide)[..., :dim_head].reshape(B, n_pad, -1)
+    return _mhsa_bwd_launch(qkv, out, dout, lse, heads, dim_head, scale, n_true, drop)
+
+
+def _mhsa_bwd_launch(qkv, out, dout, lse, heads, dim_head, scale, n_true, drop):
+    B, n_pad, _ = qkv.shape
+    plan = _bwd_arg(dim_head, qkv.dtype)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
     _build.launch(
         "fused_mhsa_bwd", f"gaviko_fused_mhsa_bwd_{_build.dtype_suffix(qkv)}",
         _MHSA_BWD_ARGTYPES, qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, n_pad, heads,
-        dim_head, n_true, scale, *drop, _build.stream_of(qkv))
+        dim_head, n_true, plan, scale, *drop, _build.stream_of(qkv))
     fused_mhsa_bwd.launches += 1
     return dqkv
 

@@ -1,7 +1,8 @@
-"""Host microseconds a call of kernels A and B10 spends enqueueing.
+"""Host microseconds a call of kernels A, B10 and B spends enqueueing.
 
-Times the wrappers ``fused_mhsa`` (A) and ``flash_attention`` (B10) of the
-``gaviko_tpu_torch`` in the checkout this file lies in: the checks, the
+Times the wrappers ``fused_mhsa`` (A), ``flash_attention`` (B10) and
+``fused_mhsa_bwd`` (B) of the ``gaviko_tpu_torch`` in the checkout this
+file lies in: the checks, the
 allocations, the argument packing (the TMA descriptor encodes, where the
 kernel has them) and the launch, over back-to-back calls with no
 synchronisation between them. A host-bound step pays this for every launch.
@@ -49,10 +50,13 @@ def _cases(dtype):
     """(name, call): A at GAViKO vit-l16 (16 heads of 64, 1,033 rows padded
     to 1,040) serving B8 and train B4 with lse and dropout 0.2, B10 at
     vit-t16 B8 on the head views of the packed qkv (3 heads of 64, 1,001
-    rows), and both at head dim 512 (B2, 4 heads: the general instance)."""
+    rows), both at head dim 512 (B2, 4 heads: the general instance), and B
+    at GAViKO train B4 (the train case's output, lse and a cotangent) and
+    at head dim 512."""
     import torch
 
-    from gaviko_tpu_torch.ops.flash_attention import _split_heads, flash_attention, fused_mhsa
+    from gaviko_tpu_torch.ops.flash_attention import (
+        _split_heads, flash_attention, fused_mhsa, fused_mhsa_bwd)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -63,6 +67,8 @@ def _cases(dtype):
                                 randn(8, 1008, 3 * 192), randn(2, 1008, 3 * 2048))
     q, k, v = (t[:, :, :1001] for t in _split_heads(t16, 3, 64))
     qg, kg, vg = (t[:, :, :1001] for t in _split_heads(gen_a, 4, 512))
+    out, lse = fused_mhsa(train, 16, 64, 0.125, 1033, 0.2, with_lse=True, seed=7)
+    out_g, lse_g = fused_mhsa(gen_a, 4, 512, 512 ** -0.5, 1001, with_lse=True)
     return [
         ("fused_mhsa_serving", lambda: fused_mhsa(serve, 16, 64, 0.125, 1033)),
         ("fused_mhsa_train", lambda: fused_mhsa(train, 16, 64, 0.125, 1033, 0.2,
@@ -70,6 +76,10 @@ def _cases(dtype):
         ("flash_attention_t16", lambda: flash_attention(q, k, v, 0.125)),
         ("fused_mhsa_gen512", lambda: fused_mhsa(gen_a, 4, 512, 512 ** -0.5, 1001)),
         ("flash_attention_gen512", lambda: flash_attention(qg, kg, vg, 512 ** -0.5)),
+        ("fused_mhsa_bwd_train", lambda: fused_mhsa_bwd(train, out, lse, out, 16, 64, 0.125,
+                                                        1033, 0.2, 7)),
+        ("fused_mhsa_bwd_gen512", lambda: fused_mhsa_bwd(gen_a, out_g, lse_g, out_g, 4, 512,
+                                                         512 ** -0.5, 1001)),
     ]
 
 

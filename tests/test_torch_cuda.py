@@ -1225,3 +1225,108 @@ def test_flash_attention_forward_tile_at_every_instance(dev, dtype, D, n_pad, n_
     assert flash_attention.launches == before + 2
     assert got.shape == q.shape and torch.isfinite(got).all() and torch.equal(got, again)
     assert _rel_mae(got, flash_attention_reference(q, k, v, D ** -0.5)) <= BUDGET[dtype]
+
+
+# ---------------- head dims above 1280 (Q streamed), B's and B8's redesign ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_tile_streams_q_at_head_dim_1344(dev, dtype):
+    """A at 16 heads of 1344 (JAX's fused gate admits it; Q's chunks do not
+    fit beside the ring, so they stream through it) with dropout 0.1, and
+    B10 at 1352, against their plain versions; B at 1344 replaying the
+    mask against its plain version."""
+    H, D, n_pad, n_true, seed = 16, 1344, 40, 33, 41
+    gen = torch.Generator(device=dev).manual_seed(31)
+    qkv = _randn(gen, 1, n_pad, 3 * H * D, dtype=dtype)
+    dout = _randn(gen, 1, n_pad, H * D, dtype=dtype)
+    dout[:, n_true:] = 0
+    out, lse = fused_mhsa(qkv, H, D, D ** -0.5, n_true, 0.1, with_lse=True, seed=seed)
+    want, want_lse = mhsa_reference(qkv, H, D, D ** -0.5, n_true, 0.1, with_lse=True, seed=seed)
+    assert _rel_mae(out[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
+    assert float((lse - want_lse).abs().max()) <= (1e-4 if dtype == torch.float32 else 0.1)
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, D, D ** -0.5, n_true, 0.1, seed)
+    dwant = mhsa_bwd_reference(qkv, out, lse, dout, H, D, D ** -0.5, n_true, 0.1, seed)
+    assert torch.isfinite(dqkv).all() and _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+    q, k, v = (_randn(gen, 1, 3, 77, 1352, dtype=dtype) for _ in range(3))
+    got = flash_attention(q, k, v, 1352 ** -0.5)
+    assert _rel_mae(got, flash_attention_reference(q, k, v, 1352 ** -0.5)) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_mhsa_bwd_reruns_bit_equal_at_gaviko_b4(dev, dtype, rate):
+    """B at GAViKO vit-l16 train B4 (16 heads of 64, 1,033 rows padded to
+    1,040): one launch a call, within budget of its plain version, pad keys
+    getting dK = dV = 0, and a rerun bit-equal (no atomics: every sum in a
+    fixed order)."""
+    H, D, n_pad, n_true, seed = 16, 64, 1040, 1033, 17
+    gen = torch.Generator(device=dev).manual_seed(32)
+    qkv = _randn(gen, 4, n_pad, 3 * H * D, dtype=dtype)
+    dout = _randn(gen, 4, n_pad, H * D, dtype=dtype)
+    dout[:, n_true:] = 0
+    out, lse = fused_mhsa(qkv, H, D, 0.125, n_true, rate, with_lse=True, seed=seed)
+    before = fused_mhsa_bwd.launches
+    dqkv = fused_mhsa_bwd(qkv, out, lse, dout, H, D, 0.125, n_true, rate, seed)
+    again = fused_mhsa_bwd(qkv, out, lse, dout, H, D, 0.125, n_true, rate, seed)
+    assert fused_mhsa_bwd.launches == before + 2 and torch.equal(dqkv, again)
+    want = mhsa_bwd_reference(qkv, out, lse, dout, H, D, 0.125, n_true, rate, seed)
+    assert torch.all(dqkv[:, n_true:, H * D:] == 0)
+    assert _rel_mae(dqkv, want) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D,n_true", [
+    (1, 1008, 2, 64, 1001), (2, 1008, 4, 96, 999), (1, 2048, 1, 320, 2041), (3, 96, 2, 36, 95),
+])
+def test_cls_attention_splits_the_keys(dev, dtype, B, N, H, D, n_true):
+    """B8 with several runs of keys (n_true not a multiple of the run), the
+    last CTA of each (batch, head) combining them: one launch a call,
+    within budget of the plain version, a rerun bit-equal (the tickets are
+    zero again after each call); 36 columns take the scalar loads."""
+    from gaviko_tpu_torch.ops.cls_attention import cls_plan
+
+    splits, chunk, _ = cls_plan(B, H, n_true, D, dtype)
+    assert splits > 1 and n_true % chunk
+    gen = torch.Generator(device=dev).manual_seed(33)
+    kv = _randn(gen, B, N, 2 * H * D, dtype=dtype)
+    q0 = _randn(gen, B, H * D, dtype=dtype)
+    before = cls_attention.launches
+    got = cls_attention(kv, q0, H, D, D ** -0.5, n_true)
+    again = cls_attention(kv, q0, H, D, D ** -0.5, n_true)
+    assert cls_attention.launches == before + 2 and torch.equal(got, again)
+    want = cls_attention_reference(kv, q0, H, D, D ** -0.5, n_true)
+    assert torch.isfinite(got).all() and _rel_mae(got, want) <= BUDGET[dtype]
+
+
+def test_kernels_launch_from_a_fresh_thread(dev):
+    """A, B10 and B launch from a thread that has made no CUDA runtime call
+    yet (their tensor-map encode is a driver call that needs a current
+    context; ROADMAP Queue C item 7), and give there what they give on the
+    main thread, bit for bit."""
+    import threading
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    qkv = _randn(gen, 2, 40, 3 * 2 * 64, dtype=torch.bfloat16)
+    dout = _randn(gen, 2, 40, 2 * 64, dtype=torch.bfloat16)
+    q, k, v = (t[:, :, :37] for t in _split_heads(qkv, 2, 64))
+
+    def calls():
+        out, lse = fused_mhsa(qkv, 2, 64, 0.125, 37, with_lse=True)
+        return (out, lse, flash_attention(q, k, v, 0.125),
+                fused_mhsa_bwd(qkv, out, lse, dout, 2, 64, 0.125, 37))
+
+    on_main = calls()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(calls())
+            torch.cuda.synchronize()
+        except Exception as e:  # the assert below reports it
+            errors.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert errors == [] and len(got) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got[0], on_main))

@@ -147,8 +147,10 @@ def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
     head dim that is a multiple of 8, in place (32 and 96 run on the tiles
     of 64 and 128, which read the missing columns as zeros: no padding
     copy). Every other head dim JAX's gates admit (A and B above 256, B8 at
-    e.g. 96, B10 above 256) launches the same entry point, which runs its
-    general instance; B10 pads a head dim that is not a multiple of 8 (263
+    e.g. 96, B10 above 256) launches the same entry point, which runs A and
+    B10's general instance, B's plan of slices (two of the dq pass and
+    three of the dk/dv pass at 320 and 384 in bf16) and B8's one design;
+    B10 pads a head dim that is not a multiple of 8 (263
     to 264, the view there having no 16-byte rows) and checks the strides
     of what it launches on. (Head dims above 256 raised here before ROADMAP
     Queue C item 4 was repaired; the test's name dates from then.)"""
@@ -170,7 +172,7 @@ def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
     del calls[:]
     for dh in (320, 384):
         assert tfa.fused_mhsa_supported(2, dh, 64)
-        assert tfa.mhsa_instance(dh) == "general" and tcls.cls_instance(dh) == "general"
+        assert len(tfa.mhsa_bwd_plan(dh).dq) == 2 and len(tfa.mhsa_bwd_plan(dh).dkdv) == 3
         qkv = torch.zeros(1, 8, 3 * 2 * dh)
         out, lse = tfa.fused_mhsa(qkv, 2, dh, 0.1, 8, with_lse=True)
         assert out.shape == (1, 8, 2 * dh)
@@ -190,27 +192,32 @@ def test_kernels_take_the_head_dims_they_are_compiled_for(monkeypatch):
 
 
 def test_every_head_dim_the_jax_gates_admit_has_an_instance():
-    """Each head dim in 8..1024 that JAX's fused gate or CLS gate admits (at
-    2, 4 and 12 heads, N 1008, bf16) picks an instance of A and B, or of B8,
-    without raising, as does every head dim of B10 (which JAX takes at any
-    width); the specializations keep their own head dims."""
+    """Each head dim in 8..2048 that JAX's fused gate or CLS gate admits (at
+    2, 4 and 12 heads, N 1008, bf16) has a plan of A and B in both dtypes,
+    or of B8 (a split of the keys), without raising, as does every head dim
+    of B10 (which JAX takes at any width); the compiled forward tiles keep
+    their own head dims. (The range stopped at 1024 while A and B10 refused
+    head dims above 1280, ROADMAP Queue C item 6.)"""
     admitted = {"mhsa": set(), "cls": set()}
-    for d in range(8, 1025):
+    for d in range(8, 2049):
         for heads in (2, 4, 12):
             if jfa.fused_mhsa_supported(heads, d, 1008):
                 admitted["mhsa"].add(d)
-                assert tfa.mhsa_instance(d) == (
-                    "specialized" if d in tfa.MHSA_DIM_HEADS else "general")
+                for dtype in (torch.bfloat16, torch.float32):
+                    assert tfa.attention_plan(d, dtype).smem <= tfa.SMEM_LIMIT
+                    assert tfa.mhsa_bwd_plan(d, dtype).smem <= tfa.SMEM_LIMIT
             if jcls.cls_attention_supported(heads, d, 1008, jnp.bfloat16):
                 admitted["cls"].add(d)
-                assert tcls.cls_instance(d) == (
-                    "specialized" if d in tcls.KERNEL_DIM_HEADS else "general")
+                for dtype in (torch.bfloat16, torch.float32):
+                    splits, chunk, _ = tcls.cls_plan(8, heads, 1001, d, dtype)
+                    assert (splits - 1) * chunk < 1001 <= splits * chunk
         wide = d + (-d) % 8  # B10 pads a head dim to whole 16-byte rows
         plan = tfa.attention_plan(wide)
         kind, width = plan.instance, plan.width
         assert width >= d and (kind == "general") == (d > 256)
         assert (kind == "specialized") == (wide in tfa.MHSA_DIM_HEADS)
-    assert {320, 512, 1024} <= admitted["mhsa"] and {96, 160, 320} <= admitted["cls"]
+    assert {320, 512, 1024, 1344, 2048} <= admitted["mhsa"]
+    assert {96, 160, 320} <= admitted["cls"]
 
 
 def test_flash_attention_on_the_card_reads_head_views_in_place(monkeypatch):
