@@ -48,10 +48,12 @@ Phases, each printing its own line:
    beside autograd's chain of the LN + linear backward; then B7's outputs
    on fixed inputs, bit-equal (sha256) to the kernel's before its passes
    moved into ``csrc/ln_bwd.cuh``, and A's and B10's outputs on fixed
-   inputs bit-equal (sha256) to the tile's before Q's chunks could stream.
-   Every case of A, B10, B and B8 also runs again and must be bit-equal to
-   its first run; A, B10 and B in fp32 are bounded at 495 / 3 TFLOP/s (each
-   product as three TF32 ones);
+   inputs bit-equal (sha256) to the tile's before Q's chunks could stream,
+   then C and D (dropout 0.2, B4) at a latent of 64 on GAViKO's grid and at
+   GAViKO's grid for image_size 224 (10x14x14), beside SDPA with the dense
+   window mask. Every case of A, B10, B, B8, C and D also runs again and
+   must be bit-equal to its first run; A, B10, B, C and D in fp32 are
+   bounded at 495 / 3 TFLOP/s (each product as three TF32 ones);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
@@ -292,14 +294,23 @@ TRAINER_VOLUMES = (8, 4)  # train and val volumes of the trainer phase
 
 def _ptxas(log: str) -> list:
     """Each kernel's registers and spills from nvcc's ``-Xptxas -v`` log, as
-    "<template arguments of its mangled name>: <what ptxas said>"."""
+    "<kernel name><template arguments of its mangled name>: <what ptxas
+    said>"."""
     import re
+
+    def name(line):  # the length-prefixed "<...>kernel" of the mangled name, then its arguments
+        for run in re.finditer(r"\d+", line):
+            for k in range(len(run.group())):
+                at, n = run.end(), int(run.group()[k:])
+                if line[at:at + n].endswith("kernel") and line[at + n:at + n + 1] == "I":
+                    args = re.match(r"I(.*?)EEEv", line[at + n:])
+                    return line[at:at + n] + (args.group(1) if args else "")
+        return line.split("'")[1][-40:]
 
     out, kernel = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            match = re.search(r"kernelI(.*?)EEEv", line)
-            kernel = match.group(1) if match else line.split("'")[1][-40:]
+            kernel = name(line)
         elif "registers" in line or "spill" in line:
             out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -372,15 +383,17 @@ def _graph_ms(fn, reps: int = 20) -> float:
 
 def _tensor_core_f32(name: str) -> bool:
     """A case whose f32 products run as three TF32 ones on the tensor cores
-    (A, B10, B and the packed-qkv VJP of A then B), bounded at 495 / 3
-    TFLOP/s."""
-    return name.startswith(("fused_mhsa", "flash_attention"))
+    (A, B10, B and the packed-qkv VJP of A then B; C and D), bounded at 495 /
+    3 TFLOP/s."""
+    return name.startswith(("fused_mhsa", "flash_attention", "local_attention"))
 
 
 def _rerun_bit_equal(name: str) -> bool:
-    """A case whose rerun must be bit-equal: no atomics in A, B10 and B, and
-    B8's partials combined in split order."""
-    return name.startswith(("fused_mhsa", "flash_attention", "cls_attention"))
+    """A case whose rerun must be bit-equal: no atomics in A, B10, B, C and
+    D, and the partials of B8 and of C and D's split warps combined in a
+    fixed order."""
+    return name.startswith(("fused_mhsa", "flash_attention", "cls_attention",
+                            "local_attention"))
 
 
 def _bound(work, dtype) -> tuple:
@@ -510,6 +523,49 @@ def _kernel_cases(dtype, gen, batch, train):
          _sdpa_grad(q[:, None], k[:, None], v[:, None], ldout[:, None],
                     attn_mask=win_mask, scale=local_scale), None),
     ]
+    return cases
+
+
+def _local_kernel_cases(dtype, gen, batch):
+    """Cases (as in :func:`_kernel_cases`) for kernels C and D (dropout
+    0.2) at shapes they refused before ROADMAP Queue C item 8 was repaired:
+    GAViKO's 10x10x10 grid with a latent of 64 (q, k, v views of [B, 1000,
+    192]), and GAViKO's grid at image_size 224 (10x14x14, 1960 rows) with
+    its latent of 20. Kernel cases only: no shipped config has them. The
+    library call is SDPA with the dense additive window mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.flash_attention import (
+        flash_local_attention, local_attention_bwd, local_reference)
+    from gaviko_tpu_torch.ops.local_attention import local_mask_additive
+
+    dev, local_k, scale = "cuda", (6, 6, 6), 1024 ** -0.5
+    cases = []
+    for tag, DHW, dl in (("dl64", (10, 10, 10), 64), ("g224", (10, 14, 14), 20)):
+        n_tok = DHW[0] * DHW[1] * DHW[2]
+        q, k, v = torch.randn(batch, n_tok, 3 * dl, generator=gen, device=dev).to(
+            dtype).split(dl, dim=-1)
+        dout = torch.randn(batch, n_tok, dl, generator=gen, device=dev).to(dtype)
+        with torch.no_grad():
+            out, lse = local_reference(q, k, v, scale, DHW, local_k, LOCAL_RATE, LOCAL_SEED,
+                                       with_lse=True)
+        pairs = batch * _window_pairs(DHW, local_k)
+        mask = local_mask_additive(DHW, local_k, device=dev).to(dtype)
+        size = q.element_size()
+        cases += [
+            (f"local_attention_{tag}", lambda q=q, k=k, v=v, DHW=DHW: flash_local_attention(
+                q, k, v, scale, DHW, local_k, LOCAL_RATE, LOCAL_SEED), lambda r: r,
+             (4 * batch * n_tok * dl * size + batch * n_tok * 4, 4 * dl * pairs),
+             lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+                 q[:, None], k[:, None], v[:, None], attn_mask=mask, scale=scale), None),
+            (f"local_attention_bwd_{tag}", lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout,
+             DHW=DHW: local_attention_bwd(q, k, v, out, lse, dout, scale, DHW, local_k,
+                                          LOCAL_RATE, LOCAL_SEED), lambda r: r,
+             (_nbytes(q, k, v, out, dout, lse) + 3 * _nbytes(dout), 10 * dl * pairs),
+             _sdpa_grad(q[:, None], k[:, None], v[:, None], dout[:, None], attn_mask=mask,
+                        scale=scale), None),
+        ]
     return cases
 
 
@@ -1073,7 +1129,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     and "vit_train": vit-b16 serving and training; "t16": B10 at vit-t16
     serving and streaming; "dh128", "dh192", "dh256": A, B and B8 at vit-b16
     with dim_head 128, 192 or 256; "int8": B11; "general": the general
-    head-dim instances; "ln_bwd": B12 at LN_BWD_SHAPES, batch None) in
+    head-dim instances; "ln_bwd": B12 at LN_BWD_SHAPES, batch None;
+    "local": C and D at a latent of 64 and at the 10x14x14 grid) in
     bf16 and fp32 (TF32 off): kernel vs plain version on the same inputs,
     then the times.
     Returns the lines by (name, dtype)."""
@@ -1105,6 +1162,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _wide_kernel_cases(dtype, gen, batch)
         elif path == "ln_bwd":
             cases = _ln_bwd_kernel_cases(dtype, gen)
+        elif path == "local":
+            cases = _local_kernel_cases(dtype, gen, batch)
         else:
             cases = _kernel_cases(dtype, gen, batch, path == "train")
         for name, run, cut, work, library, chain in cases:
@@ -1133,9 +1192,11 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                         "cudnn_tf32": torch.backends.cudnn.allow_tf32, "card": card}
                 if chain is not None:
                     line["chain_ms"] = _median_ms(chain, reps=reps, calls=KERNEL_CALLS)
-                if name.startswith("cls_attention"):  # a few µs: the host may set ms
+                if name.startswith(("cls_attention", "local_attention")):  # the host may set ms
                     line["graph_ms"] = _graph_ms(run)
-                    line["library_graph_ms"] = _graph_ms(library)
+                    # autograd's backward (D's library call) runs on its
+                    # engine's thread, outside the capture
+                    line["library_graph_ms"] = None if "bwd" in name else _graph_ms(library)
                 if path == "int8":
                     line["max_ulp"] = _ulps(got, want)
                 if rerun_equal is not None:
@@ -2184,6 +2245,7 @@ def main() -> int:
                "int8": phase_kernels(smi, B, "int8"),
                "general": phase_kernels(smi, 2, "general"),
                "wide": phase_kernels(smi, 1, "wide"),
+               "local": phase_kernels(smi, TRAIN_B, "local"),
                "ln_bwd": phase_kernels(smi, None, "ln_bwd")}  # LN_BWD_SHAPES
     phase_b7_bits(smi)
     phase_attention_bits(smi)

@@ -1,4 +1,4 @@
-// GAViKO local attention backward: dq, dk and dv of the 3-D-window
+// GAViKO local attention backward (kernel D): dq, dk and dv of the 3-D-window
 // single-head attention with dropout on the probabilities.
 //
 // Replaces the backward of gaviko_tpu/ops/flash_attention.py:
@@ -12,32 +12,37 @@
 //   delta_n = dO_n . O_n
 //   dP_nj   = keep_nj / (1 - r) * (dO_n . v_j)
 //   dS_nj   = P_nj (dP_nj - delta_n)
-//   dq_n = scale * sum_j dS_nj k_j      (pass 1: a thread per query)
-//   dk_j = scale * sum_n dS_nj q_n      (pass 2: a thread per key)
+//   dq_n = scale * sum_j dS_nj k_j      (pass 1: query tiles, key tiles streamed)
+//   dk_j = scale * sum_n dS_nj q_n      (pass 2: key tiles, query tiles streamed)
 //   dv_j = sum_n keep_nj / (1 - r) * P_nj dO_n
 //
-// Blocks run in no order, so the sums over queries (dk, dv) are taken by a
-// second pass in which each thread owns a key and walks the mirrored window
-// (the queries whose window holds it), reading the delta and lse that pass 1
-// wrote: no atomics, and every sum runs in one fixed order. dq, dk and dv
-// are written into the column ranges [0, dl), [dl, 2 dl) and [2 dl, 3 dl) of
-// one packed dqkv [B, N, 3 dl], the layout of the qkv projection that q, k
-// and v are views of.
+// Two passes and no atomics, so every sum runs in one fixed order and reruns
+// are bit-equal. Pass 1 owns a tile of query rows (Q, dO, their lse and the
+// delta it computes and writes) and streams the key tiles of the window's
+// (d, h) bounding box (K and V): S = Q K^T and dP = dO V^T on the tensor
+// cores, dS in registers, dQ += dS K. Pass 2 owns a tile of key rows (K,
+// V) and streams the query tiles of the mirrored window (Q, dO, lse, delta):
+// S^T = K Q^T and dP^T = V dO^T, P rebuilt from each query column's lse,
+// dV += (f P)^T dO and dK += dS^T Q. The tiles, the cp.async double
+// buffering, the split of the streamed tiles across warps (combined in warp
+// order) and the column slices of wide outputs are those of the forward
+// (local_window.cuh); one plan (ops/flash_attention.py:local_plan) sets
+// both passes. dq, dk and dv are written into the column ranges [0, dl),
+// [dl, 2 dl) and [2 dl, 3 dl) of one packed dqkv [B, N, 3 dl], the layout
+// of the qkv projection that q, k and v are views of.
 //
-// What bounds it on the H100: at GAViKO vit-l16 B4 the call is about 0.15
-// GFLOP and 0.7 MB, so, like the forward, it is bound by latency. Each pass
-// stages the rows its block reaches (keys and values for pass 1; queries,
-// cotangents, lse and delta for pass 2) in shared memory as f32 and keeps
-// its own row's vectors and accumulators in registers.
+// What bounds it on the H100: at GAViKO vit-l16 B4 the call is ~0.7 MB and
+// a few tenths of a GFLOP computed densely over the tiles, so, like the
+// forward, it is bound by latency and parallelism. bf16 runs the products
+// on mma.sync m16n8k16; the A operands formed in registers (dS, f P) go in
+// as bf16 plus their bf16 remainder (two products), so they carry ~16 bits
+// as the plain version's f32 does. fp32 runs every product as 3xTF32.
 
 #include "local_window.cuh"
 
-using gaviko::from_f32;
-using gaviko::keep_bit;
-using gaviko::to_f32;
-using namespace gaviko::local;
-
-namespace {
+namespace gaviko {
+namespace local {
+namespace {  // internal linkage, as hopper.cuh says
 
 struct Ptrs {
   const void *q, *k, *v, *out, *dout;  // out and dout [B, N, dl] contiguous
@@ -46,194 +51,467 @@ struct Ptrs {
   void* dqkv;                           // [B, N, 3 dl]
 };
 
-// The multiplier of P in dv and of dO . v in dP: keep / (1 - rate).
-__device__ __forceinline__ float drop_factor(const Geom& g, int n, int key, int b) {
-  if (!g.dropout) return 1.0f;
-  return keep_bit(n, key, b, g.seed, g.threshold) ? g.drop_scale : 0.0f;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) local_bwd_dq_kernel(Ptrs p, Geom g) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const int first = blockIdx.x * THREADS;
-  int start, end;
-  key_span(g, first, &start, &end);
-  const int ld = ld_of(g.dl);
-  float* ks = smem;
-  float* vs = smem + (end - start) * ld;
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  for (int e = threadIdx.x; e < (end - start) * g.dl; e += THREADS) {
-    const int r = e / g.dl, c = e % g.dl;
-    const long long key = start + r;
-    ks[r * ld + c] = to_f32(k[b * g.k_bs + key * g.k_rs + c]);
-    vs[r * ld + c] = to_f32(v[b * g.v_bs + key * g.v_rs + c]);
-  }
-  __syncthreads();
-
-  const int n = first + threadIdx.x;
-  if (n >= g.N) return;
-  const long long row = static_cast<long long>(b) * g.N + n;
-  const T* q = static_cast<const T*>(p.q);
-  const T* out = static_cast<const T*>(p.out) + row * g.dl;
-  const T* dout = static_cast<const T*>(p.dout) + row * g.dl;
-  float qv[MAXDL], dov[MAXDL], acc[MAXDL];
-  float delta = 0.0f;
+// The split warps' partials of `count` accumulators of 16 x cols, summed
+// into warp 0 in warp order. Returns false for the other warps, which are
+// done.
+template <int OB, int COUNT>
+__device__ __forceinline__ bool combine(float (&acc)[COUNT][OB][4], char* ring, const Pass& p,
+                                        int warp, int ob, int gi, int ti) {
+  if (p.split == 1) return true;
+  const int stride = COUNT * 16 * p.cols;
+  float* mine = reinterpret_cast<float*>(ring) + warp * stride;
 #pragma unroll
-  for (int j = 0; j < MAXDL; ++j) {
-    qv[j] = j < g.dl ? to_f32(q[b * g.q_bs + n * g.q_rs + j]) : 0.0f;
-    dov[j] = j < g.dl ? to_f32(dout[j]) : 0.0f;
-    if (j < g.dl) delta = fmaf(dov[j], to_f32(out[j]), delta);
-    acc[j] = 0.0f;
-  }
-  p.delta[row] = delta;
-  const float lse = p.lse[row];
-  const int d = n / (g.H * g.W), h = (n / g.W) % g.H, w = n % g.W;
-  for (int d2 = imax(0, d + lo(g.kd)); d2 <= imin(g.D - 1, d + hi(g.kd)); ++d2) {
-    for (int h2 = imax(0, h + lo(g.kh)); h2 <= imin(g.H - 1, h + hi(g.kh)); ++h2) {
-      for (int w2 = imax(0, w + lo(g.kw)); w2 <= imin(g.W - 1, w + hi(g.kw)); ++w2) {
-        const int key = (d2 * g.H + h2) * g.W + w2;
-        const float* kr = ks + (key - start) * ld;
-        const float* vr = vs + (key - start) * ld;
-        float s = 0.0f, dp = 0.0f;
+  for (int a = 0; a < COUNT; ++a)
 #pragma unroll
-        for (int j = 0; j < MAXDL; ++j) {
-          if (j < g.dl) {
-            s = fmaf(qv[j], kr[j], s);
-            dp = fmaf(dov[j], vr[j], dp);
-          }
-        }
-        const float ds = expf(s * g.scale - lse) * (drop_factor(g, n, key, b) * dp - delta);
-#pragma unroll
-        for (int j = 0; j < MAXDL; ++j)
-          if (j < g.dl) acc[j] = fmaf(ds, kr[j], acc[j]);
+    for (int n = 0; n < OB; ++n) {
+      if (n < ob) {
+        float* x = mine + a * 16 * p.cols + gi * p.cols + 8 * n + 2 * ti;
+        x[0] = acc[a][n][0];
+        x[1] = acc[a][n][1];
+        x[8 * p.cols] = acc[a][n][2];
+        x[8 * p.cols + 1] = acc[a][n][3];
       }
     }
-  }
-  T* dst = static_cast<T*>(p.dqkv) + row * 3 * g.dl;
+  __syncthreads();
+  if (warp != 0) return false;
+  for (int s = 1; s < p.split; ++s) {
+    const float* theirs = reinterpret_cast<const float*>(ring) + s * stride;
 #pragma unroll
-  for (int j = 0; j < MAXDL; ++j)
-    if (j < g.dl) dst[j] = from_f32<T>(acc[j] * g.scale);
+    for (int a = 0; a < COUNT; ++a)
+#pragma unroll
+      for (int n = 0; n < OB; ++n) {
+        if (n < ob) {
+          const float* x = theirs + a * 16 * p.cols + gi * p.cols + 8 * n + 2 * ti;
+          acc[a][n][0] += x[0];
+          acc[a][n][1] += x[1];
+          acc[a][n][2] += x[8 * p.cols];
+          acc[a][n][3] += x[8 * p.cols + 1];
+        }
+      }
+  }
+  return true;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) local_bwd_dkdv_kernel(Ptrs p, Geom g) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const int first = blockIdx.x * THREADS;
-  int start, end;
-  query_span(g, first, &start, &end);
-  const int ld = ld_of(g.dl);
-  const int rows = end - start;
-  float* qs = smem;
-  float* dos = qs + rows * ld;
-  float* lse_s = dos + rows * ld;
+// Columns [c0, c0 + 8 ob) of acc, times mult, into the two rows of dst this
+// thread holds (row stride 3 dl), below dl, for rows below the tile's end.
+template <typename T, int OB>
+__device__ __forceinline__ void store(T* dst, const float (&acc)[OB][4], int row0, int n_rows,
+                                      int c0, int ob, int dl, float mult, int gi, int ti) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int n = row0 + gi + 8 * row;
+    if (n >= n_rows) continue;
+    T* d = dst + static_cast<long long>(n) * 3 * dl;
+#pragma unroll
+    for (int nb = 0; nb < OB; ++nb) {
+      const int c = c0 + 8 * nb + 2 * ti;
+      if (nb < ob && c < dl) d[c] = from_f32<T>(acc[nb][2 * row] * mult);
+      if (nb < ob && c + 1 < dl) d[c + 1] = from_f32<T>(acc[nb][2 * row + 1] * mult);
+    }
+  }
+}
+
+template <typename T, int OB>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+    local_bwd_dq_kernel(Ptrs ptr, Geom g, Pass p, int vw, Limits lim) {
+  extern __shared__ __align__(16) char smem[];
+  const Layout L = layout(1, p, sizeof(T));
+  uint64_t* bars = p.rs ? reinterpret_cast<uint64_t*>(smem + L.bar_off) : nullptr;
+  zero_smem(smem, L.bytes, bars, p.stages * p.split + 1);
+  const int b = blockIdx.z, c0 = blockIdx.y * p.cols, rows = ROWS;
+  int n0, n1;
+  owned_rows(g, blockIdx.x, &n0, &n1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, ti = lane & 3;
+  const int ob = p.cols / 8;
+  const T* q = static_cast<const T*>(ptr.q);
+  const T* k = static_cast<const T*>(ptr.k);
+  const T* v = static_cast<const T*>(ptr.v);
+  const T* out = static_cast<const T*>(ptr.out);
+  const T* dout = static_cast<const T*>(ptr.dout);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + rows * L.ld;
+  float* lse_s = reinterpret_cast<float*>(dos + rows * L.ld);
   float* delta_s = lse_s + rows;
-  const T* q = static_cast<const T*>(p.q);
-  const T* dout = static_cast<const T*>(p.dout) + static_cast<long long>(b) * g.N * g.dl;
-  for (int e = threadIdx.x; e < rows * g.dl; e += THREADS) {
-    const int r = e / g.dl, c = e % g.dl;
-    const long long n = start + r;
-    qs[r * ld + c] = to_f32(q[b * g.q_bs + n * g.q_rs + c]);
-    dos[r * ld + c] = to_f32(dout[n * g.dl + c]);
-  }
-  for (int r = threadIdx.x; r < rows; r += THREADS) {
-    lse_s[r] = p.lse[static_cast<long long>(b) * g.N + start + r];
-    delta_s[r] = p.delta[static_cast<long long>(b) * g.N + start + r];
-  }
-  __syncthreads();
+  char* ring = smem + L.own;
+  const long long row0 = static_cast<long long>(b) * g.N + n0;
+  const Reach reach_ = reach(g, n0, n1, false);
+  const int rounds = (reach_.tiles + p.split - 1) / p.split;
 
-  const int key = first + threadIdx.x;
-  if (key >= g.N) return;
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  float kv[MAXDL], vv[MAXDL], dk[MAXDL], dv[MAXDL];
-#pragma unroll
-  for (int j = 0; j < MAXDL; ++j) {
-    kv[j] = j < g.dl ? to_f32(k[b * g.k_bs + key * g.k_rs + j]) : 0.0f;
-    vv[j] = j < g.dl ? to_f32(v[b * g.v_bs + key * g.v_rs + j]) : 0.0f;
-    dk[j] = 0.0f;
-    dv[j] = 0.0f;
-  }
-  const int d = key / (g.H * g.W), h = (key / g.W) % g.H, w = key % g.W;
-  // Query n attends this key iff key - n lies in [lo, hi] per axis.
-  for (int d2 = imax(0, d - hi(g.kd)); d2 <= imin(g.D - 1, d - lo(g.kd)); ++d2) {
-    for (int h2 = imax(0, h - hi(g.kh)); h2 <= imin(g.H - 1, h - lo(g.kh)); ++h2) {
-      for (int w2 = imax(0, w - hi(g.kw)); w2 <= imin(g.W - 1, w - lo(g.kw)); ++w2) {
-        const int n = (d2 * g.H + h2) * g.W + w2;
-        const int r = n - start;
-        const float* qr = qs + r * ld;
-        const float* dor = dos + r * ld;
-        float s = 0.0f, dp = 0.0f;
-#pragma unroll
-        for (int j = 0; j < MAXDL; ++j) {
-          if (j < g.dl) {
-            s = fmaf(qr[j], kv[j], s);
-            dp = fmaf(dor[j], vv[j], dp);
-          }
-        }
-        const float pr = expf(s * g.scale - lse_s[r]);
-        const float f = drop_factor(g, n, key, b);
-        const float ds = pr * (f * dp - delta_s[r]);
-#pragma unroll
-        for (int j = 0; j < MAXDL; ++j) {
-          if (j < g.dl) {
-            dv[j] = fmaf(f * pr, dor[j], dv[j]);
-            dk[j] = fmaf(ds, qr[j], dk[j]);
-          }
-        }
+  // The owned rows: Q and dO element-wise, each row's lse (in log2 units)
+  // and delta = dO . O (summed in column order; slice 0 writes it for pass
+  // 2) from global memory; or Q, dO, O and lse as stripes, read below.
+  const T* q_row0 = q + b * g.q_bs + n0 * g.q_rs;
+  uint64_t* own_bar = p.rs ? &bars[p.stages * p.split] : nullptr;
+  auto scalars = [&](const T* o_rows, const T* do_rows, const float* lse_rows) {
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      float l2 = 0.0f, dsum = 0.0f;
+      if (n0 + i < n1) {
+        for (int c = 0; c < g.dl; ++c)
+          dsum = fmaf(to_f32(do_rows[i * g.dl + c]), to_f32(o_rows[i * g.dl + c]), dsum);
+        l2 = lse_rows[i] * LOG2E;
+        if (blockIdx.y == 0) ptr.delta[row0 + i] = dsum;
       }
+      lse_s[i] = l2;
+      delta_s[i] = dsum;
     }
+  };
+  if (!p.rs) {
+    copy_rows(qs, L.ld, q_row0, g.q_rs, rows, n1 - n0, g.dl, vw);
+    copy_rows(dos, L.ld, dout + row0 * g.dl, static_cast<long long>(g.dl), rows, n1 - n0, g.dl,
+              vw);
+    scalars(out + row0 * g.dl, dout + row0 * g.dl, ptr.lse + row0);
+  } else if (threadIdx.x == 0) {
+    fence_async();
+    const int row = g.dl * sizeof(T);
+    const Stripe xq = stripe_of(q_row0, g.q_rs * sizeof(T), n1 - n0, row, lim.end[0]);
+    const Stripe xd = stripe_of(dout + row0 * g.dl, row, n1 - n0, row, lim.end[3]);
+    const Stripe xo = stripe_of(out + row0 * g.dl, row, n1 - n0, row, lim.end[6]);
+    const Stripe xl = stripe_of(ptr.lse + row0, 4, n1 - n0, 4, lim.end[4]);
+    attn::mbar_expect_tx(own_bar, xq.bytes + xd.bytes + xo.bytes + xl.bytes);
+    stripe_copy(smem + L.stage_off, xq, own_bar);
+    stripe_copy(smem + L.stage_off + L.stage_len, xd, own_bar);
+    stripe_copy(smem + L.stage_off + 2 * L.stage_len, xo, own_bar);
+    stripe_copy(smem + L.stage_off + 3 * L.stage_len, xl, own_bar);
   }
-  T* dst = static_cast<T*>(p.dqkv) + (static_cast<long long>(b) * g.N + key) * 3 * g.dl;
+  auto k_row = [&](int start) { return k + b * g.k_bs + start * g.k_rs; };
+  auto v_row = [&](int start) { return v + b * g.v_bs + start * g.v_rs; };
+  auto load_round = [&](int r, int stage) {
+    if (p.rs && threadIdx.x == 0) fence_async();
+    for (int s = 0; s < p.split; ++s) {
+      const int t = r * p.split + s;
+      if (t >= reach_.tiles) break;
+      char* tile = ring + (stage * p.split + s) * L.tile;
+      const Tile x = tile_at(g, reach_, t);
+      if (p.kv) {  // K's rows through V's: one stripe
+        if (threadIdx.x == 0) {
+          const int row = static_cast<int>(reinterpret_cast<const char*>(v_row(x.start)) -
+                                           reinterpret_cast<const char*>(k_row(x.start))) +
+                          g.dl * static_cast<int>(sizeof(T));
+          const Stripe kvs =
+              stripe_of(k_row(x.start), g.k_rs * sizeof(T), x.count, row, lim.end[1]);
+          uint64_t* bar = &bars[stage * p.split + s];
+          attn::mbar_expect_tx(bar, kvs.bytes);
+          stripe_copy(tile, kvs, bar);
+        }
+      } else if (p.rs) {
+        if (threadIdx.x == 0) {
+          const int row = g.dl * sizeof(T);
+          const Stripe ks = stripe_of(k_row(x.start), g.k_rs * sizeof(T), x.count, row, lim.end[1]);
+          const Stripe vs = stripe_of(v_row(x.start), g.v_rs * sizeof(T), x.count, row, lim.end[2]);
+          uint64_t* bar = &bars[stage * p.split + s];
+          attn::mbar_expect_tx(bar, ks.bytes + vs.bytes);
+          stripe_copy(tile, ks, bar);
+          stripe_copy(tile + L.b_off, vs, bar);
+        }
+      } else {
+        copy_rows(reinterpret_cast<T*>(tile), L.ld, k_row(x.start), g.k_rs, KT,
+                  x.count, g.dl, vw);
+        copy_rows(reinterpret_cast<T*>(tile + L.b_off), L.ld, v_row(x.start), g.v_rs, KT,
+                  x.count, g.dl, vw);
+      }
+      tile_coords(reinterpret_cast<int*>(tile + L.c_off), g, reach_, x);
+    }
+  };
+
+  const int qrow[2] = {n0 + gi, n0 + gi + 8};
+  const Win qw[2] = {row_win(g, qrow[0] < n1 ? coord_of(g, qrow[0]) : -1, false),
+                     row_win(g, qrow[1] < n1 ? coord_of(g, qrow[1]) : -1, false)};
+  const float sl2 = g.scale * LOG2E;
+  float acc[1][OB][4];
 #pragma unroll
-  for (int j = 0; j < MAXDL; ++j) {
-    if (j < g.dl) {
-      dst[g.dl + j] = from_f32<T>(dk[j] * g.scale);
-      dst[2 * g.dl + j] = from_f32<T>(dv[j]);
-    }
+  for (int n = 0; n < OB; ++n) acc[0][n][0] = acc[0][n][1] = acc[0][n][2] = acc[0][n][3] = 0.0f;
+
+  for (int r = 0; r + 1 < p.stages && r < rounds; ++r) load_round(r, r);
+  cp_commit();
+  if (p.rs) {
+    attn::mbar_wait(own_bar, 0);
+    const char* st = smem + L.stage_off;
+    const T* so = reinterpret_cast<const T*>(st + 2 * L.stage_len + stripe_pre(out + row0 * g.dl));
+    const T* sd = reinterpret_cast<const T*>(st + L.stage_len + stripe_pre(dout + row0 * g.dl));
+    repack(qs, L.ld, reinterpret_cast<const T*>(st + stripe_pre(q_row0)), g.q_rs, n1 - n0, g.dl);
+    repack(dos, L.ld, sd, static_cast<long long>(g.dl), n1 - n0, g.dl);
+    scalars(so, sd,
+            reinterpret_cast<const float*>(st + 3 * L.stage_len + stripe_pre(ptr.lse + row0)));
   }
+  for (int r = 0; r < rounds; ++r) {
+    const int stage = r % p.stages;
+    if (r + p.stages - 1 < rounds) load_round(r + p.stages - 1, (r + p.stages - 1) % p.stages);
+    cp_commit();
+    cp_wait_n(p.stages - 1);
+    const int t = r * p.split + warp;
+    if (p.rs && t < reach_.tiles)
+      attn::mbar_wait(&bars[stage * p.split + warp], (r / p.stages) & 1);
+    __syncthreads();
+    if (t < reach_.tiles) {
+      const char* tile = ring + (stage * p.split + warp) * L.tile;
+      const int* kc = reinterpret_cast<const int*>(tile + L.c_off);
+      const int start = tile_at(g, reach_, t).start;
+      // The tile's K and V rows: in place in their stripes, or staged.
+      const T* ks = reinterpret_cast<const T*>(
+          tile + (p.rs ? stripe_pre(k_row(start)) : 0));
+      const T* vs = reinterpret_cast<const T*>(
+          p.kv ? reinterpret_cast<const char*>(ks) + (reinterpret_cast<const char*>(v_row(start)) -
+                                                      reinterpret_cast<const char*>(k_row(start)))
+               : tile + L.b_off + (p.rs ? stripe_pre(v_row(start)) : 0));
+      const int ldk = p.rs ? static_cast<int>(g.k_rs) : L.ld;
+      const int ldv = p.rs ? static_cast<int>(g.v_rs) : L.ld;
+      float s[KT / 8][4], dp[KT / 8][4];
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+      mma_abt<T, KT / 8>(s, qs, L.ld, ks, ldk, p.width, gi, ti);
+      mma_abt<T, KT / 8>(dp, dos, L.ld, vs, ldv, p.width, gi, ti);
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e >> 1, col = col_of<T>(j, e, ti), i = gi + 8 * row;
+          float ds = 0.0f;
+          if (in_win(g, qw[row], kc[col])) {
+            const float pr = ex2(s[j][e] * sl2 - lse_s[i]);
+            ds = pr * (drop_factor(g, qrow[row], start + col, b) * dp[j][e] - delta_s[i]);
+          }
+          s[j][e] = ds;
+        }
+      mma_pv<T, KT / 8, OB, gaviko::is_bf16<T>()>(acc[0], s, ks + c0, ldk, ob, gi, ti);
+    }
+    __syncthreads();
+  }
+  if (!combine<OB, 1>(acc, ring, p, warp, ob, gi, ti)) return;
+  store<T, OB>(static_cast<T*>(ptr.dqkv) + static_cast<long long>(b) * g.N * 3 * g.dl, acc[0],
+               n0, n1, c0, ob, g.dl, g.scale, gi, ti);
+}
+
+template <typename T, int OB>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+    local_bwd_dkdv_kernel(Ptrs ptr, Geom g, Pass p, int vw, Limits lim) {
+  extern __shared__ __align__(16) char smem[];
+  const Layout L = layout(2, p, sizeof(T));
+  uint64_t* bars = p.rs ? reinterpret_cast<uint64_t*>(smem + L.bar_off) : nullptr;
+  zero_smem(smem, L.bytes, bars, p.stages * p.split + 1);
+  const int b = blockIdx.z, c0 = blockIdx.y * p.cols, rows = ROWS;
+  int k0, k1;
+  owned_rows(g, blockIdx.x, &k0, &k1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, ti = lane & 3;
+  const int ob = p.cols / 8;
+  const T* q = static_cast<const T*>(ptr.q);
+  const T* k = static_cast<const T*>(ptr.k);
+  const T* v = static_cast<const T*>(ptr.v);
+  const T* dout = static_cast<const T*>(ptr.dout);
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + rows * L.ld;
+  char* ring = smem + L.own;
+  const long long plane = static_cast<long long>(b) * g.N;
+  const Reach reach_ = reach(g, k0, k1, true);
+  const int rounds = (reach_.tiles + p.split - 1) / p.split;
+
+  // The owned K and V rows: element-wise, or as stripes repacked below.
+  const T* k_row0 = k + b * g.k_bs + k0 * g.k_rs;
+  const T* v_row0 = v + b * g.v_bs + k0 * g.v_rs;
+  uint64_t* own_bar = p.rs ? &bars[p.stages * p.split] : nullptr;
+  if (!p.rs) {
+    copy_rows(ks, L.ld, k_row0, g.k_rs, rows, k1 - k0, g.dl, vw);
+    copy_rows(vs, L.ld, v_row0, g.v_rs, rows, k1 - k0, g.dl, vw);
+  } else if (threadIdx.x == 0) {
+    fence_async();
+    const int row = g.dl * sizeof(T);
+    const Stripe xk = stripe_of(k_row0, g.k_rs * sizeof(T), k1 - k0, row, lim.end[1]);
+    const Stripe xv = stripe_of(v_row0, g.v_rs * sizeof(T), k1 - k0, row, lim.end[2]);
+    attn::mbar_expect_tx(own_bar, xk.bytes + xv.bytes);
+    stripe_copy(smem + L.stage_off, xk, own_bar);
+    stripe_copy(smem + L.stage_off + L.stage_len, xv, own_bar);
+  }
+  auto q_row = [&](int start) { return q + b * g.q_bs + start * g.q_rs; };
+  auto do_row = [&](int start) { return dout + (plane + start) * g.dl; };
+  auto load_round = [&](int r, int stage) {
+    if (p.rs && threadIdx.x == 0) fence_async();
+    for (int s = 0; s < p.split; ++s) {
+      const int t = r * p.split + s;
+      if (t >= reach_.tiles) break;
+      char* tile = ring + (stage * p.split + s) * L.tile;
+      const Tile x = tile_at(g, reach_, t);
+      if (p.rs) {
+        if (threadIdx.x == 0) {
+          const int row = g.dl * sizeof(T);
+          const Stripe qs = stripe_of(q_row(x.start), g.q_rs * sizeof(T), x.count, row, lim.end[0]);
+          const Stripe ds = stripe_of(do_row(x.start), row, x.count, row, lim.end[3]);
+          const Stripe ls = stripe_of(ptr.lse + plane + x.start, 4, x.count, 4, lim.end[4]);
+          const Stripe es = stripe_of(ptr.delta + plane + x.start, 4, x.count, 4, lim.end[5]);
+          uint64_t* bar = &bars[stage * p.split + s];
+          attn::mbar_expect_tx(bar, qs.bytes + ds.bytes + ls.bytes + es.bytes);
+          stripe_copy(tile, qs, bar);
+          stripe_copy(tile + L.b_off, ds, bar);
+          stripe_copy(tile + L.s_off, ls, bar);
+          stripe_copy(tile + L.s_off + L.f_len, es, bar);
+        }
+      } else {
+        copy_rows(reinterpret_cast<T*>(tile), L.ld, q_row(x.start), g.q_rs, KT,
+                  x.count, g.dl, vw);
+        copy_rows(reinterpret_cast<T*>(tile + L.b_off), L.ld, do_row(x.start),
+                  static_cast<long long>(g.dl), KT, x.count, g.dl, vw);
+        float* f = reinterpret_cast<float*>(tile + L.s_off);
+        copy_floats(f, ptr.lse + plane + x.start, x.count, KT);
+        copy_floats(f + KT, ptr.delta + plane + x.start, x.count, KT);
+      }
+      tile_coords(reinterpret_cast<int*>(tile + L.c_off), g, reach_, x);
+    }
+  };
+
+  const int krow[2] = {k0 + gi, k0 + gi + 8};
+  const Win kw[2] = {row_win(g, krow[0] < k1 ? coord_of(g, krow[0]) : -1, true),
+                     row_win(g, krow[1] < k1 ? coord_of(g, krow[1]) : -1, true)};
+  const float sl2 = g.scale * LOG2E;
+  float acc[2][OB][4];  // dK, dV
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int n = 0; n < OB; ++n) acc[a][n][0] = acc[a][n][1] = acc[a][n][2] = acc[a][n][3] = 0.0f;
+
+  for (int r = 0; r + 1 < p.stages && r < rounds; ++r) load_round(r, r);
+  cp_commit();
+  if (p.rs) {
+    attn::mbar_wait(own_bar, 0);
+    const char* st = smem + L.stage_off;
+    repack(ks, L.ld, reinterpret_cast<const T*>(st + stripe_pre(k_row0)), g.k_rs, k1 - k0, g.dl);
+    repack(vs, L.ld, reinterpret_cast<const T*>(st + L.stage_len + stripe_pre(v_row0)), g.v_rs,
+           k1 - k0, g.dl);
+  }
+  for (int r = 0; r < rounds; ++r) {
+    const int stage = r % p.stages;
+    if (r + p.stages - 1 < rounds) load_round(r + p.stages - 1, (r + p.stages - 1) % p.stages);
+    cp_commit();
+    cp_wait_n(p.stages - 1);
+    const int t = r * p.split + warp;
+    if (p.rs && t < reach_.tiles)
+      attn::mbar_wait(&bars[stage * p.split + warp], (r / p.stages) & 1);
+    __syncthreads();
+    if (t < reach_.tiles) {
+      const char* tile = ring + (stage * p.split + warp) * L.tile;
+      const int* qc = reinterpret_cast<const int*>(tile + L.c_off);
+      const int start = tile_at(g, reach_, t).start;
+      // The tile's Q and dO rows and its queries' lse and delta: in place in
+      // their stripes, or staged.
+      const long long row = plane + start;
+      const T* qt = reinterpret_cast<const T*>(
+          tile + (p.rs ? stripe_pre(q_row(start)) : 0));
+      const T* dot = reinterpret_cast<const T*>(
+          tile + L.b_off + (p.rs ? stripe_pre(do_row(start)) : 0));
+      const float* lse_t = reinterpret_cast<const float*>(
+          tile + L.s_off + (p.rs ? stripe_pre(ptr.lse + row) : 0));
+      const float* delta_t = reinterpret_cast<const float*>(
+          tile + L.s_off + L.f_len + (p.rs ? stripe_pre(ptr.delta + row) : 0));
+      const int ldq = p.rs ? static_cast<int>(g.q_rs) : L.ld;
+      const int lddo = p.rs ? g.dl : L.ld;
+      float st[KT / 8][4], dpt[KT / 8][4];  // rows: owned keys; columns: the tile's queries
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+      mma_abt<T, KT / 8>(st, ks, L.ld, qt, ldq, p.width, gi, ti);
+      mma_abt<T, KT / 8>(dpt, vs, L.ld, dot, lddo, p.width, gi, ti);
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e >> 1, col = col_of<T>(j, e, ti);
+          float ds = 0.0f, fp = 0.0f;
+          if (in_win(g, kw[row], qc[col])) {
+            const float pr = ex2(st[j][e] * sl2 - lse_t[col] * LOG2E);
+            const float f = drop_factor(g, start + col, krow[row], b);
+            ds = pr * (f * dpt[j][e] - delta_t[col]);
+            fp = f * pr;
+          }
+          st[j][e] = ds;
+          dpt[j][e] = fp;
+        }
+      mma_pv<T, KT / 8, OB, gaviko::is_bf16<T>()>(acc[0], st, qt + c0, ldq, ob, gi, ti);
+      mma_pv<T, KT / 8, OB, gaviko::is_bf16<T>()>(acc[1], dpt, dot + c0, lddo, ob, gi, ti);
+    }
+    __syncthreads();
+  }
+  if (!combine<OB, 2>(acc, ring, p, warp, ob, gi, ti)) return;
+  T* dst = static_cast<T*>(ptr.dqkv) + plane * 3 * g.dl;
+  store<T, OB>(dst + g.dl, acc[0], k0, k1, c0, ob, g.dl, g.scale, gi, ti);
+  store<T, OB>(dst + 2 * g.dl, acc[1], k0, k1, c0, ob, g.dl, 1.0f, gi, ti);
+}
+
+template <typename T, int OB>
+cudaError_t run_dq(const Ptrs& ptr, const Geom& g, const Pass& p, int vw, const Limits& lim,
+                   cudaStream_t s) {
+  cudaError_t err = gaviko::attn::opt_in<local_bwd_dq_kernel<T, OB>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(row_tiles(g), p.slices, g.B);
+  local_bwd_dq_kernel<T, OB><<<grid, 32 * p.split, layout(1, p, sizeof(T)).bytes, s>>>(
+      ptr, g, p, vw, lim);
+  return cudaGetLastError();
+}
+
+template <typename T, int OB>
+cudaError_t run_dkdv(const Ptrs& ptr, const Geom& g, const Pass& p, int vw, const Limits& lim,
+                     cudaStream_t s) {
+  cudaError_t err = gaviko::attn::opt_in<local_bwd_dkdv_kernel<T, OB>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(row_tiles(g), p.slices, g.B);
+  local_bwd_dkdv_kernel<T, OB>
+      <<<grid, 32 * p.split, layout(2, p, sizeof(T)).bytes, s>>>(ptr, g, p, vw, lim);
+  return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const Ptrs& p, const Geom& g, void* stream) {
-  if (!valid(g)) return static_cast<int>(cudaErrorInvalidValue);
-  const int ld = ld_of(g.dl);
-  const size_t smem_dq = 2 * static_cast<size_t>(max_span(g, key_span)) * ld * sizeof(float);
-  const size_t smem_dkdv =
-      static_cast<size_t>(max_span(g, query_span)) * (2 * ld + 2) * sizeof(float);
-  if (smem_dq > 227 * 1024 || smem_dkdv > 227 * 1024)
+int launch(const Ptrs& ptr, const Geom& g, const int* plan, const void* const* ends,
+           void* stream) {
+  const Pass dq{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
+  const Pass dkdv{plan[7], plan[8], plan[9], plan[10], plan[11], plan[12], plan[13]};
+  const void* ptrs[4] = {ptr.q, ptr.k, ptr.v, ptr.dout};
+  const long long strides[8] = {g.q_bs, g.q_rs, g.k_bs, g.k_rs, g.v_bs, g.v_rs,
+                                static_cast<long long>(g.N) * g.dl, g.dl};
+  if (!valid(g, dq, 1, sizeof(T)) || !valid(g, dkdv, 2, sizeof(T)) ||
+      !stripes_fit(dq, ptrs, strides, 4, sizeof(T)) ||
+      !stripes_fit(dkdv, ptrs, strides, 4, sizeof(T)) ||
+      !kv_fit(dq, g, ptr.k, ptr.v, ends[1], ends[2], sizeof(T)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = gaviko::allow_smem(local_bwd_dq_kernel<T>, smem_dq);
-  if (err == cudaSuccess) err = gaviko::allow_smem(local_bwd_dkdv_kernel<T>, smem_dkdv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((g.N + THREADS - 1) / THREADS, g.B);
+  const int vw = load_width(ptrs, strides, 4, sizeof(T));
+  Limits lim;
+  for (int i = 0; i < 7; ++i) lim.end[i] = static_cast<const char*>(ends[i]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  local_bwd_dq_kernel<T><<<grid, THREADS, smem_dq, s>>>(p, g);
-  err = cudaGetLastError();
+  cudaError_t err;
+  switch (instance_of(dq.cols)) {
+    case 4: err = run_dq<T, 4>(ptr, g, dq, vw, lim, s); break;
+    case 8: err = run_dq<T, 8>(ptr, g, dq, vw, lim, s); break;
+    default: err = run_dq<T, 16>(ptr, g, dq, vw, lim, s); break;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  local_bwd_dkdv_kernel<T><<<grid, THREADS, smem_dkdv, s>>>(p, g);
-  return static_cast<int>(cudaGetLastError());
+  err = instance_of(dkdv.cols) == 4 ? run_dkdv<T, 4>(ptr, g, dkdv, vw, lim, s)
+                                    : run_dkdv<T, 8>(ptr, g, dkdv, vw, lim, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
+}  // namespace local
+}  // namespace gaviko
 
 // q, k, v as for the forward (strided views, unit column stride); out, dout
 // [B, N, dl] contiguous; lse and delta (scratch) [B, N] f32 -> dqkv
-// [B, N, 3 dl] contiguous. Dropout arguments as for the forward.
+// [B, N, 3 dl] contiguous. Dropout arguments as for the forward; plan the
+// fourteen ints of local_plan(...).bwd_arg (the dq pass's seven, then the
+// dk/dv pass's); ends the first byte past the storage of q, k, v, dout, lse,
+// delta and out.
 #define GAVIKO_LOCAL_BWD(SUFFIX, T)                                                            \
   extern "C" int gaviko_local_attention_bwd_##SUFFIX(                                          \
       const void* q, const void* k, const void* v, const void* out, const void* dout,          \
       const float* lse, float* delta, void* dqkv, int B, int N, int dl, int D, int H, int W,   \
       int kd, int kh, int kw, long long q_bs, long long q_rs, long long k_bs, long long k_rs,  \
       long long v_bs, long long v_rs, float scale, int seed, int threshold, float drop_scale,  \
-      void* stream) {                                                                          \
-    const Ptrs p{q, k, v, out, dout, lse, delta, dqkv};                                        \
-    return launch<T>(p,                                                                        \
-                     make_geom(B, N, dl, D, H, W, kd, kh, kw, q_bs, q_rs, k_bs, k_rs, v_bs,    \
-                               v_rs, scale, seed, threshold, drop_scale),                      \
-                     stream);                                                                  \
+      const int* plan, const void* const* ends, void* stream) {                                \
+    const gaviko::local::Ptrs p{q, k, v, out, dout, lse, delta, dqkv};                         \
+    return gaviko::local::launch<T>(                                                           \
+        p,                                                                                     \
+        gaviko::local::make_geom(B, N, dl, D, H, W, kd, kh, kw, q_bs, q_rs, k_bs, k_rs, v_bs,  \
+                                 v_rs, scale, seed, threshold, drop_scale),                    \
+        plan, ends, stream);                                                                   \
   }
 
 GAVIKO_LOCAL_BWD(bf16, __nv_bfloat16)

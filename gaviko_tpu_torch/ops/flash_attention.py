@@ -13,9 +13,11 @@ Port of ``gaviko_tpu/ops/flash_attention.py``. Five CUDA kernels:
   qkv, its backward being kernel B;
 - ``fused_mhsa_bwd`` (``csrc/fused_mhsa_bwd.cu``, B): its backward, dq, dk
   and dv into one packed ``[B, N, 3 * inner]`` buffer;
-- ``flash_local_attention``'s forward (``csrc/local_attention.cu``): the 3-D
-  window attention of the latent stream with hash dropout, writing ``lse``;
-- ``local_attention_bwd`` (``csrc/local_attention_bwd.cu``): its backward.
+- ``flash_local_attention``'s forward (``csrc/local_attention.cu``, C): the
+  3-D window attention of the latent stream with hash dropout, writing
+  ``lse``;
+- ``local_attention_bwd`` (``csrc/local_attention_bwd.cu``, D): its
+  backward, two passes in one call of its entry point.
 
 ``mhsa_qkv_proj`` and ``flash_local_attention`` are autograd functions whose
 forward and backward are those kernels. ``flash_attention_reference``,
@@ -42,6 +44,19 @@ with no atomics, the dq pass over the key tiles and the dk/dv pass over
 the query tiles, bf16 on ``wgmma``, f32 as 3xTF32, each pass's output
 columns in the fewest slices its accumulators hold. :func:`mhsa_bwd_plan`
 is its plan, made only here.
+
+Kernels C and D (``csrc/local_window.cuh``) run on the tensor cores too:
+a CTA owns up to 16 rows of one depth slab and streams tiles of 32 rows of
+the other side (keys in C and D's dq pass, queries in D's dk/dv pass) from
+the slabs and h-rows the window reaches, split across 4 warps and combined
+in warp order (reruns bit-equal), bf16 on ``mma.sync`` and f32 as 3xTF32.
+Each tile's rows are one contiguous byte range of the packed projection,
+copied by one bulk copy (the rows are 8-byte aligned, too narrow for a
+tensor map); the window, the online softmax and the dropout bit are
+applied per element of the accumulators. Any ``local_dim`` up to 1152
+(bf16) / 576 (f32) and any patch grid under 1024 high and wide runs:
+:func:`local_plan` splits the output into column slices and sizes every
+pass's shared memory, which does not grow with the grid.
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
 row within the padded stream, key column) in plane ``salt = b * heads +
@@ -74,14 +89,16 @@ MHSA_DIM_HEADS = (64, 128, 192, 256)  # A and B10's compiled bf16 tiles
 # 64 KB of chunk tiles, in at most the 227 KB of shared memory a CTA can
 # take.
 CHUNK_BYTES, RING_BYTES, SMEM_LIMIT = 128, 65536, 232448
-MAX_LOCAL_DL = 32  # widest latent the local attention kernels take
+# Kernels C and D (csrc/local_window.cuh): rows of a streamed tile, warps of
+# a CTA, the card's SMs and each SM's shared memory.
+LOCAL_KEYS, LOCAL_WARPS, SMS, SM_SMEM = 32, 4, 132, 233472
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
 _MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
 _MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
 _FLASH_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P, _P, _F, _P)
-_LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P)
+_LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P, _P, _P)
 _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
 _LOCAL_BWD_ARGTYPES = (_P,) * 8 + _LOCAL_GEOM
 
@@ -649,22 +666,199 @@ def local_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat([dq, dk, dv], dim=-1).to(q.dtype)
 
 
+class LocalPass(NamedTuple):
+    """One pass of kernels C and D as ``csrc/local_window.cuh`` takes it. A
+    CTA owns up to 16 rows of one depth slab (query rows in C and D's dq
+    pass, key rows in D's dk/dv pass); ``split`` warps take its streamed
+    tiles of LOCAL_KEYS rows on ``mma.sync``, each every split-th tile,
+    combined in warp order; ``stages`` rounds of tiles in flight (2:
+    double-buffered); ``width`` the columns of
+    a staged row (dl padded to S's depth, and far enough for every slice);
+    ``cols`` the output columns a CTA accumulates and ``slices`` the CTAs
+    that share the output's columns, each recomputing S; ``rs`` the row
+    stride (elements) the streamed tiles' stripes are sized for, each tile's
+    rows one bulk copy of their contiguous bytes (0: element-wise copies);
+    ``kv`` whether K and V share one stripe (C and the dq pass, on views of
+    one packed projection); ``smem`` a CTA's shared memory."""
+
+    split: int
+    stages: int
+    width: int
+    cols: int
+    slices: int
+    rs: int
+    kv: int
+    smem: int
+
+    @property
+    def arg(self) -> Tuple[int, ...]:
+        """The seven ints of the kernels' ``Pass``."""
+        return self.split, self.stages, self.width, self.cols, self.slices, self.rs, self.kv
+
+
+class LocalPlan(NamedTuple):
+    """The passes of kernel C (``fwd``) and of kernel D (``dq``, ``dkdv``)."""
+
+    fwd: LocalPass
+    dq: LocalPass
+    dkdv: LocalPass
+
+    @property
+    def bwd_arg(self) -> Tuple[int, ...]:
+        """D's ``plan`` argument: the dq pass's seven ints, then the dk/dv pass's."""
+        return self.dq.arg + self.dkdv.arg
+
+
+def _local_ld(width: int, size: int) -> int:
+    """Elements of a staged row (``csrc/local_window.cuh:ld_of``): whole
+    16-byte units, 4 words past a multiple of 8 (conflict-free fragments)."""
+    words = width * size // 4
+    words += (12 - words % 8) % 8
+    return words * 4 // size
+
+
+def _stripe_region(rs_bytes: int, read_bytes: int, rows: int = LOCAL_KEYS) -> int:
+    """Bytes of a stripe of ``rows`` rows (``csrc/local_window.cuh:stripe_region``)."""
+    return (32 + (rows - 1) * rs_bytes + read_bytes + 16 + 15) // 16 * 16
+
+
+def _local_smem(kind: str, split: int, stages: int, width: int, cols: int, size: int,
+                rs: int = 0, kv: bool = False) -> int:
+    """A CTA's shared memory (``csrc/local_window.cuh:layout``): the owned
+    rows (C: Q; dq: Q, dO and two floats a row; dk/dv: K and V), then the
+    larger of ``stages`` x ``split`` streamed tiles (C: K and V's slice; dq:
+    K and V; dk/dv: Q, dO and two floats a row; as stripes at row stride
+    ``rs``, or element-wise with ``rs`` 0; K and V as one stripe with ``kv``;
+    each with a coordinate a row) and the split warps' partials for the
+    combine, then the mbarriers."""
+    rows, kt, ld = 16, LOCAL_KEYS, _local_ld(width, size)
+    own = rows * ld * size if kind == "fwd" else (
+        2 * rows * ld * size + (8 * rows if kind == "dq" else 0))
+    if rs:
+        own += ({"fwd": 1, "dq": 3, "dkdv": 2}[kind] * _stripe_region(rs * size, width * size, rows)
+                + (_stripe_region(4, 4, rows) if kind == "dq" else 0))
+        read_b = cols if kind == "fwd" else width
+        floats = 2 * _stripe_region(4, 4) if kind == "dkdv" else 0
+        b_rs = width if kind == "dkdv" else rs  # dO's rows are dl <= width apart
+        rows_b = (_stripe_region(rs * size, (rs + width) * size) if kv else
+                  _stripe_region(rs * size, width * size)
+                  + _stripe_region(b_rs * size, read_b * size))
+        tile = rows_b + floats + 4 * kt
+    else:
+        ld_b = _local_ld(cols, size) if kind == "fwd" else ld
+        tile = kt * (ld + ld_b) * size + (8 * kt if kind == "dkdv" else 0) + 4 * kt
+    partial = cols + 2 if kind == "fwd" else cols if kind == "dq" else 2 * cols
+    return own + max(stages * split * tile, split * 16 * 4 * partial) + 8 * 4 * LOCAL_WARPS
+
+
+@functools.lru_cache(maxsize=None)  # read on every launch of C and D
+def local_plan(DHW: Tuple[int, int, int], local_k: Tuple[int, int, int], dl: int,
+               dtype: torch.dtype = torch.bfloat16, B: int = 1, rs: int = 0,
+               kv: bool = False) -> LocalPlan:
+    """The plan kernels C and D run for a grid, window, latent width, dtype
+    and batch (their wrappers hand it to the kernels; it is made nowhere
+    else). Each pass splits dl into the fewest column slices of at most 128
+    columns (C and the dq pass; 64 in f32) or 64 (the dk/dv pass, which
+    holds dK and dV; 32 in f32). A CTA owns up to 16 rows of one depth slab
+    with the streamed tiles split across 4 warps (GAViKO's B4: 280 CTAs; on
+    the card 16 rows beat 32 and 64 a CTA, and 4 warps beat 2 and 8, at B4
+    and B8), double-buffered where the grid's CTAs still fit one wave of
+    the SMs' shared memory (a third stage bought nothing); where a CTA's
+    shared memory runs short it gives up the second stage, then split
+    warps. With ``rs`` (the streamed views' row stride, elements; the
+    wrappers give it where their rows may be read in place) the streamed
+    tiles are stripes at that stride, else, or where no such plan fits,
+    element-wise copies; with ``kv`` (K and V views of one packed
+    projection) C and the dq pass take K and V in one stripe. Shared memory
+    does not grow with the grid; the window does not change the plan. Every
+    dl up to 1152 in bf16 and 576 in f32 has one."""
+    D, H, W = (int(x) for x in DHW)
+    if dl < 1:
+        raise ValueError(f"local_dim must be >= 1, got {dl}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    if min(D, H, W) < 1 or max(H, W) > 1023 or min(int(x) for x in local_k) < 1:
+        raise ValueError(f"grid {DHW} (H and W 1..1023) or window {local_k} (>= 1)")
+    bf16 = dtype == torch.bfloat16
+    size, step = (2, 16) if bf16 else (4, 8)
+    depth = -(-dl // step) * step
+    N = D * H * W
+
+    def one(kind: str, widest: int) -> LocalPass:
+        slices = _slices(dl, 8, widest)
+        cols = -(-slices[0][1] // 8) * 8
+        width = depth if kind == "fwd" else -(-max(depth, len(slices) * cols) // step) * step
+        joint = int(kv and kind != "dkdv")
+        per_sm = -(-B * D * -(-H * W // 16) * len(slices) // SMS)  # CTAs an SM holds in a wave
+        for stride in ((rs, 0) if rs else (0,)):
+            for split in (4, 2, 1):
+                for stages in (2, 1):
+                    smem = _local_smem(kind, split, stages, width, cols, size, stride,
+                                       joint and stride > 0)
+                    if smem > SMEM_LIMIT or (stages > 1 and per_sm * (smem + 1024) > SM_SMEM):
+                        continue
+                    return LocalPass(split, stages, width, cols, len(slices), stride,
+                                     joint if stride else 0, smem)
+        raise ValueError(f"local_dim {dl} in {dtype}: a staged row of {width} columns leaves "
+                         f"no tile in a CTA's shared memory")
+
+    wide = (128, 64) if bf16 else (64, 32)
+    return LocalPlan(one("fwd", wide[0]), one("dq", wide[0]), one("dkdv", wide[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _local_arg(DHW, local_k, dl: int, dtype: torch.dtype, B: int, rs: int, kv: bool,
+               bwd: bool):
+    """C's (``bwd`` False) or D's plan argument as the C int array the entry
+    points read."""
+    plan = local_plan(DHW, local_k, dl, dtype, B, rs, kv)
+    ints = plan.bwd_arg if bwd else plan.fwd.arg
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def _local_geometry(q, k, v, DHW, local_k):
-    B, N, dl = q.shape
+    """The kernels' geometry arguments. Runs on every launch of C and D, so
+    it reads each tensor's shape and strides once, as tuples (indexing a
+    tensor's ``shape`` or ``stride(i)`` costs microseconds of host time)."""
+    shape = tuple(q.shape)
+    B, N, dl = shape
     D, H, W = (int(x) for x in DHW)
     kd, kh, kw = (int(x) for x in local_k)
     if N != D * H * W:
         raise ValueError(f"N={N} must equal prod(DHW)={D * H * W}")
-    for t in (q, k, v):
-        if (t.shape != q.shape or t.device != q.device or t.dtype != q.dtype
-                or t.stride(2) != 1):
+    strides = [t.stride() for t in (q, k, v)]
+    for t, st in zip((k, v), strides[1:]):
+        if tuple(t.shape) != shape or t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v must share shape, device and dtype, with "
                              "unit column stride")
-    if not 1 <= dl <= MAX_LOCAL_DL:
-        raise NotImplementedError(
-            f"local attention kernel takes dl <= {MAX_LOCAL_DL}, got {dl}")
-    return (B, N, dl, D, H, W, kd, kh, kw, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    if any(st[2] != 1 for st in strides):
+        raise ValueError("q, k, v must share shape, device and dtype, with "
+                         "unit column stride")
+    (qb, qr, _), (kb, kr, _), (vb, vr, _) = strides
+    return B, N, dl, D, H, W, kd, kh, kw, qb, qr, kb, kr, vb, vr
+
+
+def _local_plan_arg(geom, views, bwd: bool):
+    """The plan argument for these views (q, k, v, and dout for D): streamed
+    tiles as stripes at the widest row stride where every view's rows lie on
+    4-byte words (the kernels read bf16 pairs), else element-wise."""
+    B, _, dl, D, H, W, kd, kh, kw = geom[:9]
+    size = views[0].element_size()
+    strides = [t.stride() for t in views]
+    words = all(t.data_ptr() % 4 == 0 and st[0] * size % 4 == 0 and st[1] * size % 4 == 0
+                for t, st in zip(views, strides))
+    rs = max(st[1] for st in strides) if words else 0
+    k, v = views[1], views[2]
+    off = v.data_ptr() - k.data_ptr()
+    kv = (rs > 0 and strides[1] == strides[2] and off >= 0 and off // size + dl <= strides[1][1]
+          and k.untyped_storage().data_ptr() == v.untyped_storage().data_ptr())
+    return _local_arg((D, H, W), (kd, kh, kw), dl, views[0].dtype, B, rs, kv, bwd)
+
+
+def _storage_ends(*tensors):
+    """The first byte past each tensor's storage: bulk copies stop there."""
+    ends = [t.untyped_storage().data_ptr() + t.untyped_storage().nbytes() for t in tensors]
+    return (ctypes.c_void_p * 7)(*ends, *([None] * (7 - len(ends))))
 
 
 def _local_forward(q, k, v, scale, DHW, local_k, dropout_rate, seed):
@@ -680,7 +874,8 @@ def _local_forward(q, k, v, scale, DHW, local_k, dropout_rate, seed):
     _build.launch(
         "local_attention", f"gaviko_local_attention_{_build.dtype_suffix(q)}",
         _LOCAL_ARGTYPES, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *geom, scale, *drop, _build.stream_of(q))
+        lse.data_ptr(), *geom, scale, *drop, _local_plan_arg(geom, (q, k, v), False),
+        _storage_ends(q, k, v), _build.stream_of(q))
     flash_local_attention.launches += 1
     return out, lse
 
@@ -711,7 +906,8 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         f"gaviko_local_attention_bwd_{_build.dtype_suffix(q)}", _LOCAL_BWD_ARGTYPES,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), *geom, scale, *drop,
-        _build.stream_of(q))
+        _local_plan_arg(geom, (q, k, v, dout), True),
+        _storage_ends(q, k, v, dout, lse, delta, out), _build.stream_of(q))
     local_attention_bwd.launches += 1
     return dqkv
 

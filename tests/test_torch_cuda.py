@@ -12,6 +12,7 @@ fp32 with TF32 off to 1e-4 relative MAE (the sums only reorder), bf16 to
 Dropout is bit-exact, so the rate-0.2 cases keep the rate-0 budgets.
 """
 
+import dataclasses
 import io
 import json
 import math
@@ -31,9 +32,9 @@ from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.cls_attention import cls_attention, cls_attention_reference
 from gaviko_tpu_torch.ops.flash_attention import (
-    _split_heads, flash_attention, flash_attention_reference, flash_local_attention,
-    fused_mhsa, fused_mhsa_bwd, local_attention_bwd, local_bwd_reference, local_reference,
-    mhsa_bwd_reference, mhsa_qkv_proj, mhsa_reference)
+    _local_forward, _split_heads, flash_attention, flash_attention_reference,
+    flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd, local_bwd_reference,
+    local_reference, mhsa_bwd_reference, mhsa_qkv_proj, mhsa_reference)
 from gaviko_tpu_torch.ops.fused_mlp import (
     fused_mlp, fused_mlp_bwd, fused_mlp_forward, mlp_bwd_reference, mlp_reference)
 from gaviko_tpu_torch.ops.ln_linear import (
@@ -97,10 +98,20 @@ def test_fused_mhsa_kernel(dev, dtype, B, H, n_pad, n_true):
     assert _rel_mae(got[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
 
 
+# Kernels C and D: GAViKO-like shapes, then (ROADMAP Queue C item 8) latents
+# wider than 32 and GAViKO's patch grid at image_size 224 (10 x 14 x 14),
+# which the kernels refused before their key tiles streamed; an odd latent
+# (21: rows off 4-byte words in bf16, copied element-wise) and one above a
+# slice (136: several column slices).
+LOCAL_WIDE = [((4, 5, 6), (6, 6, 6), 40), ((3, 5, 7), (6, 6, 6), 64),
+              ((4, 4, 6), (3, 6, 6), 128), ((10, 14, 14), (6, 6, 6), 20),
+              ((3, 4, 5), (6, 6, 6), 21), ((3, 4, 5), (2, 3, 1), 136)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("DHW,local_k,dl", [
     ((4, 5, 6), (6, 6, 6), 20), ((4, 5, 6), (3, 6, 6), 8), ((10, 10, 10), (2, 3, 1), 20),
-    ((3, 2, 30), (6, 6, 6), 32),
+    ((3, 2, 30), (6, 6, 6), 32), *LOCAL_WIDE,
 ])
 def test_local_attention_kernel(dev, dtype, DHW, local_k, dl):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -114,9 +125,11 @@ def test_local_attention_kernel(dev, dtype, DHW, local_k, dl):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    """Strided qkv, float16, a head dim below 1 and a latent wider than 32.
-    (Any head dim >= 1 reaches kernel A since ROADMAP Queue C item 4 was
-    repaired: dim_head 32 raised here before it runs the general instance.)"""
+    """Strided qkv, float16 and a head dim below 1 raise. (Any head dim >= 1
+    reaches kernel A since ROADMAP Queue C item 4 was repaired: dim_head 32
+    raised here before it runs the general instance. A latent wider than 32
+    raised here too until Queue C item 8 was repaired: it now launches
+    kernel C once, within budget.)"""
     qkv = torch.zeros(1, 8, 3 * 2 * 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         fused_mhsa(torch.zeros(1, 16, 3 * 2 * 64, device=dev)[:, ::2], 2, 64, 0.125, 8)
@@ -124,9 +137,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_mhsa(qkv.half(), 2, 64, 0.125, 8)
     with pytest.raises(ValueError, match="dim_head"):
         fused_mhsa(torch.zeros(1, 8, 0, device=dev), 2, 0, 0.125, 8)
-    q = torch.zeros(1, 8, 40, device=dev)
-    with pytest.raises(NotImplementedError, match="dl <= 32"):
-        flash_local_attention(q, q, q, 1.0, (2, 2, 2), (2, 2, 2))
+    q = _randn(torch.Generator(device=dev).manual_seed(9), 1, 8, 40, dtype=torch.float32)
+    before = flash_local_attention.launches
+    got = flash_local_attention(q, q, q, 0.2, (2, 2, 2), (2, 2, 2))
+    assert flash_local_attention.launches == before + 1
+    assert _rel_mae(got, local_reference(q, q, q, 0.2, (2, 2, 2), (2, 2, 2))) <= 1e-4
 
 
 def test_gaviko_forward_runs_the_kernels(dev):
@@ -207,6 +222,7 @@ def test_mhsa_qkv_proj_runs_kernels_a_and_b(dev, dtype):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("DHW,local_k,dl", [
     ((4, 5, 6), (6, 6, 6), 20), ((4, 5, 6), (3, 6, 6), 8), ((10, 10, 10), (2, 3, 1), 20),
+    *LOCAL_WIDE,
 ])
 def test_local_attention_dropout_and_backward_kernels(dev, dtype, rate, DHW, local_k, dl):
     """Kernels C and D against their plain versions, dropout on and off."""
@@ -225,6 +241,47 @@ def test_local_attention_dropout_and_backward_kernels(dev, dtype, rate, DHW, loc
     dwant = local_bwd_reference(q, k, v, got, lse, dout, 0.05, DHW, local_k, rate, seed)
     assert torch.isfinite(dqkv).all()
     assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("DHW,dl,B", [((10, 10, 10), 20, 4), ((10, 14, 14), 20, 2),
+                                      ((4, 5, 6), 64, 3)])
+def test_local_attention_kernels_rerun_bit_equal(dev, dtype, DHW, dl, B):
+    """C's out and lse and D's dqkv are bit-equal from one call to the next,
+    dropout on: the split warps' partials combine in warp order and D's two
+    passes use no atomics."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n = DHW[0] * DHW[1] * DHW[2]
+    q, k, v = _randn(gen, B, n, 3 * dl, dtype=dtype, std=3.0).chunk(3, dim=-1)
+    dout = _randn(gen, B, n, dl, dtype=dtype)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            out, lse = _local_forward(q, k, v, 0.05, DHW, (6, 6, 6), 0.2, 77)
+            dqkv = local_attention_bwd(q, k, v, out, lse, dout, 0.05, DHW, (6, 6, 6), 0.2, 77)
+        runs.append((out, lse, dqkv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_attention_kernels_take_q_k_v_from_separate_tensors(dev, dtype):
+    """q, k and v as three tensors (K and V then take a stripe each) and as
+    views with a row stride wider than the packed projection's: C and D
+    against their plain versions, dropout on."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    DHW, n, dl = (4, 5, 6), 120, 24
+    wide = _randn(gen, 2, n, 5 * dl, dtype=dtype, std=3.0)
+    cases = [[_randn(gen, 2, n, dl, dtype=dtype, std=3.0) for _ in range(3)],
+             [wide[..., :dl], wide[..., 2 * dl:3 * dl], wide[..., 4 * dl:]]]
+    dout = _randn(gen, 2, n, dl, dtype=dtype)
+    for q, k, v in cases:
+        got = flash_local_attention(q, k, v, 0.05, DHW, (6, 6, 6), 0.2, 3)
+        want, lse = local_reference(q, k, v, 0.05, DHW, (6, 6, 6), 0.2, 3, with_lse=True)
+        assert _rel_mae(got, want) <= BUDGET[dtype]
+        dqkv = local_attention_bwd(q, k, v, got, lse, dout, 0.05, DHW, (6, 6, 6), 0.2, 3)
+        dwant = local_bwd_reference(q, k, v, got, lse, dout, 0.05, DHW, (6, 6, 6), 0.2, 3)
+        assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
 
 
 def test_wrappers_without_a_backward_kernel_refuse_a_gradient(dev):
@@ -280,6 +337,48 @@ def test_gaviko_train_gradients_run_the_kernels(dev):
     assert counts == [model.spec.depth] * 6
     assert [w.launches for w in wrappers] == counts
     assert _rel_mae(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gaviko_step_at_image_size_224_runs_c_and_d(dev, dtype):
+    """GAViKO at ``image_size: 224`` (patch grid 10 x 14 x 14, 1960 rows,
+    which kernel D refused before ROADMAP Queue C item 8 was repaired), built
+    in memory at depth 2 with vit-s16 widths: the train step's gradients
+    launch C and D once a layer and agree with the plain versions."""
+    cfg = dict(image_size=224, image_patch_size=16, frames=120, frame_patch_size=12,
+               num_classes=5, channels=1, pool="cls", backbone="vit-s16",
+               method="gaviko", num_prompts=4, prompt_latent_dim=8, local_dim=20,
+               local_k=(6, 6, 6), freeze_vit=True)
+    model = build_model(cfg)
+    spec = dataclasses.replace(model.spec, depth=2)
+    assert spec.DHW == (10, 14, 14)
+    params = {k: v.to(dev, dtype) for k, v in
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+    x = torch.rand(2, 1, 120, 224, 224, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    seeds = [int(s) for s in torch.randint(-2 ** 31, 2 ** 31, (2 * spec.depth,),
+                                           generator=torch.Generator().manual_seed(2))]
+
+    def trainable_grads():
+        p = {k: v.clone().requires_grad_(True) if model.trainable(k) else v
+             for k, v in params.items()}
+        names = model.trainable_names(p)
+        out = model.apply(p, x, spec, train=True, seeds=SeedStream(seeds))
+        grads = torch.autograd.grad(out.float().square().sum(), [p[k] for k in names],
+                                    allow_unused=True)
+        return torch.cat([torch.zeros_like(p[k]).flatten() if g is None else g.flatten()
+                          for k, g in zip(names, grads)])
+
+    wrappers = (flash_local_attention, local_attention_bwd)
+    for w in wrappers:
+        w.launches = 0
+    got = trainable_grads()
+    counts = [w.launches for w in wrappers]
+    with _build.plain_versions():
+        want = trainable_grads()
+    assert counts == [spec.depth, spec.depth]
+    assert [w.launches for w in wrappers] == counts
+    assert torch.isfinite(got).all()
+    assert _rel_mae(got, want) <= (1e-4 if dtype == torch.float32 else 5e-2)
 
 
 def _ln_params(gen, dim, dtype):

@@ -135,7 +135,9 @@ def test_feedforward_block_training_dropout_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-LOCAL_CASES = [((4, 4, 4), (6, 6, 6), 20), ((2, 3, 5), (2, 2, 3), 8)]
+# The last case is a latent wider than kernels C and D took before ROADMAP
+# Queue C item 8 was repaired.
+LOCAL_CASES = [((4, 4, 4), (6, 6, 6), 20), ((2, 3, 5), (2, 2, 3), 8), ((4, 4, 4), (6, 6, 6), 40)]
 
 
 def _local_inputs(DHW, dl, B=2, seed=6):

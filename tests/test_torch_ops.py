@@ -106,9 +106,14 @@ def test_fused_mhsa_supported(heads, dim_head, n, ok):
     assert jfa.fused_mhsa_supported(heads, dim_head, n) is ok
 
 
-@pytest.mark.parametrize("local_k", [(6, 6, 6), (3, 6, 6)])
-def test_local_reference_matches_jax_flash_local(local_k):
-    B, DHW, dl = 2, (4, 4, 4), 20
+# dl 48: a latent wider than kernels C and D took before ROADMAP Queue C
+# item 8 was repaired (the JAX kernel has no width gate).
+@pytest.mark.parametrize("local_k,dl", [
+    pytest.param((6, 6, 6), 20, id="local_k0"), pytest.param((3, 6, 6), 20, id="local_k1"),
+    pytest.param((6, 6, 6), 48, id="dl48"),
+])
+def test_local_reference_matches_jax_flash_local(local_k, dl):
+    B, DHW = 2, (4, 4, 4)
     rng = np.random.RandomState(2)
     q, k, v = (rng.randn(B, 64, dl).astype(np.float32) * 3.0 for _ in range(3))
     scale = 384 ** -0.5
