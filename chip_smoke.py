@@ -46,14 +46,16 @@ Phases, each printing its own line:
    hybrid train runs give it (vit-b16 B8: 8,064 rows, 768 -> 2,304;
    GAViKO vit-l16 B4: 4,160 rows, 1,024 -> 3,072), with dW and without,
    beside autograd's chain of the LN + linear backward; then B7's outputs
-   on fixed inputs, bit-equal (sha256) to the kernel's before its passes
-   moved into ``csrc/ln_bwd.cuh``, and A's and B10's outputs on fixed
+   on fixed inputs, bit-equal (sha256) to the digests of the kernel on
+   ``csrc/gemm_sm90.cuh``, B12's bit-equal to its outputs from before B6
+   and B7 moved there, and A's and B10's outputs on fixed
    inputs bit-equal (sha256) to the tile's before Q's chunks could stream,
    then C and D (dropout 0.2, B4) at a latent of 64 on GAViKO's grid and at
    GAViKO's grid for image_size 224 (10x14x14), beside SDPA with the dense
-   window mask. Every case of A, B10, B, B8, C and D also runs again and
-   must be bit-equal to its first run; A, B10, B, C and D in fp32 are
-   bounded at 495 / 3 TFLOP/s (each product as three TF32 ones);
+   window mask. Every case of A, B10, B, B8, C, D, B6 and B7 also runs
+   again and must be bit-equal to its first run; A, B10, B, C, D, B6 and B7
+   in fp32 are bounded at 495 / 3 TFLOP/s (each product as three TF32
+   ones);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
@@ -189,8 +191,9 @@ TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
 # the plain path's (H100 readings 3.6e-7 and 2.0e-6; 1 for no update).
 TRAINER_UPDATE_BUDGET = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
-# input type. f32 is held to the SIMT rate, but for A, B10 and B, which
-# run each f32 product as three TF32 ones on the tensor cores (495e12 / 3).
+# input type. f32 is held to the SIMT rate, but for A, B10, B, C, D, B6 and
+# B7, which run each f32 product as three TF32 ones on the tensor cores
+# (495e12 / 3).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "torch.int8": 1979e12,
             "3xtf32": 495e12 / 3}
@@ -272,11 +275,19 @@ LN_BWD_SHAPES = {"": (8 * 1008, 768, 2304), "_l16": (4 * 1040, 1024, 3072)}
 LN_BWD_ROWS = {"ln_linear_bwd": "vit_train_hybrid", "ln_linear_bwd_l16": "gaviko_trainable_hybrid"}
 # sha256 of B7's seven outputs on the inputs of ``b7_digests`` (rows 2,002,
 # dim 768, mlp 3,072, exact GELU, the residual, dropout 0.1), as the kernel
-# gave them before its passes moved into csrc/ln_bwd.cuh (read on an NVIDIA
-# H100 80GB HBM3, CUDA 12.8): the move must leave them bit-equal.
+# redesigned on csrc/gemm_sm90.cuh gives them (read on an NVIDIA H100 80GB
+# HBM3, CUDA 12.8; the redesign changed the order of its sums, so the bits
+# before it are not these).
 B7_DIGESTS = {
-    "torch.bfloat16": "0fafb8dceeb84fe4a90aed185f006363fe2d3fc8cf887b4399c8d2b1c38125c4",
-    "torch.float32": "db353d983285098dd06d9a47dc9eae934302de5f0ab0d2fcdddfe22bd73fe62c"}
+    "torch.bfloat16": "8f8cc55a30525e5318d4d0f91ad48ae3d6f57a388e7c31bf69319e202480f68c",
+    "torch.float32": "19689bd4e03480e473fb903cb25b0389e5a081df7936da4dbb02c9d682c40529"}
+# sha256 of B12's outputs on the inputs of ``b12_digests``, as the kernel gave
+# them before B6 and B7 moved to csrc/gemm_sm90.cuh (read on an NVIDIA H100
+# 80GB HBM3, CUDA 12.8, from the tree before the move): B12's sources did not
+# change, so its outputs must not.
+B12_DIGESTS = {
+    "torch.bfloat16": "1b9a0f49660d1c5e172b3411515238dcdfa6fa19f0e7cf0abb145125f208fee2",
+    "torch.float32": "b72ac7876ad071702069a27abd13124224bd060ad816f896cbf0f4b98a6b00d7"}
 # sha256 of A's and B10's outputs on the inputs of ``attention_digests``, as
 # the forward tile gave them before Q's chunks could stream and its pieces
 # moved into csrc/hopper.cuh (read on an NVIDIA H100 80GB HBM3, CUDA 12.8):
@@ -383,17 +394,17 @@ def _graph_ms(fn, reps: int = 20) -> float:
 
 def _tensor_core_f32(name: str) -> bool:
     """A case whose f32 products run as three TF32 ones on the tensor cores
-    (A, B10, B and the packed-qkv VJP of A then B; C and D), bounded at 495 /
-    3 TFLOP/s."""
-    return name.startswith(("fused_mhsa", "flash_attention", "local_attention"))
+    (A, B10, B and the packed-qkv VJP of A then B; C and D; B6 and B7),
+    bounded at 495 / 3 TFLOP/s."""
+    return name.startswith(("fused_mhsa", "flash_attention", "local_attention", "fused_mlp"))
 
 
 def _rerun_bit_equal(name: str) -> bool:
-    """A case whose rerun must be bit-equal: no atomics in A, B10, B, C and
-    D, and the partials of B8 and of C and D's split warps combined in a
-    fixed order."""
+    """A case whose rerun must be bit-equal: no atomics in A, B10, B, C, D, B6
+    and B7, and the partials of B8, of C and D's split warps and of B7's
+    column sums and row splits combined in a fixed order."""
     return name.startswith(("fused_mhsa", "flash_attention", "cls_attention",
-                            "local_attention"))
+                            "local_attention", "fused_mlp"))
 
 
 def _bound(work, dtype) -> tuple:
@@ -729,13 +740,33 @@ def _ln_bwd_kernel_cases(dtype, gen):
     return cases
 
 
-def b7_digests() -> dict:
-    """sha256 of B7's seven outputs, by dtype, on inputs made with numpy
-    (see B7_DIGESTS); two calls must agree bit for bit."""
+def _digests(name: str, call, arrays) -> dict:
+    """sha256 of the outputs of ``call(*tensors)``, by dtype, on ``arrays``
+    (numpy) put on the card in bf16 and fp32; two calls must agree bit for
+    bit."""
     import hashlib
 
     import torch
 
+    digests = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
+        runs = []
+        for _ in range(2):
+            h = hashlib.sha256()
+            for t in call(*args):
+                if t is not None:
+                    h.update(t.float().cpu().numpy().tobytes())
+            runs.append(h.hexdigest())
+        if runs[0] != runs[1]:
+            raise RuntimeError(f"{name} {dtype}: two calls differ")
+        digests[str(dtype)] = runs[0]
+    return digests
+
+
+def b7_digests() -> dict:
+    """sha256 of B7's seven outputs, by dtype, on inputs made with numpy
+    (see B7_DIGESTS); two calls must agree bit for bit."""
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_bwd
 
     rows, dim, mlp = 2002, 768, 3072
@@ -744,28 +775,33 @@ def b7_digests() -> dict:
               rng.randn(mlp, dim) * dim ** -0.5, 0.1 * rng.randn(mlp),
               rng.randn(dim, mlp) * mlp ** -0.5, 0.1 * rng.randn(dim), rng.randn(rows, dim),
               rng.randn(rows, mlp))
-    digests = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        args = [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
-        runs = []
-        for _ in range(2):
-            h = hashlib.sha256()
-            for t in fused_mlp_bwd(*args, 1e-5, "exact", VIT_RATE, True, VIT_SEED):
-                h.update(t.float().cpu().numpy().tobytes())
-            runs.append(h.hexdigest())
-        if runs[0] != runs[1]:
-            raise RuntimeError(f"B7 {dtype}: two calls differ")
-        digests[str(dtype)] = runs[0]
-    return digests
+    return _digests("B7", lambda *t: fused_mlp_bwd(*t, 1e-5, "exact", VIT_RATE, True, VIT_SEED),
+                    arrays)
+
+
+def b12_digests() -> dict:
+    """sha256 of B12's four outputs (with dW), by dtype, at the vit-b16
+    hybrid shapes on inputs made with numpy (see B12_DIGESTS); two calls
+    must agree bit for bit."""
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_bwd
+
+    rows, dim, out = LN_BWD_SHAPES[""]
+    rng = np.random.RandomState(1)
+    arrays = (2.0 * rng.randn(rows, dim) + 0.5, 1.0 + 0.1 * rng.randn(dim), 0.1 * rng.randn(dim),
+              rng.randn(out, dim) * dim ** -0.5, rng.randn(rows, out) * out ** -0.5)
+    return _digests("B12", lambda *t: ln_linear_bwd(*t, 1e-5, True), arrays)
 
 
 def phase_b7_bits(card: str) -> None:
-    """B7 bit-equal to its outputs from before the move of its passes."""
-    got = b7_digests()
-    print(json.dumps({"phase": "b7_bits", "digests": got, "want": B7_DIGESTS,
-                      "card": card}), flush=True)
-    if got != B7_DIGESTS:
-        raise RuntimeError(f"B7 outputs changed: {got} != {B7_DIGESTS}")
+    """B7's outputs on fixed inputs bit-equal to the redesigned kernel's
+    (B7_DIGESTS), and B12's to its outputs from before B6 and B7 moved to
+    csrc/gemm_sm90.cuh (B12_DIGESTS): B12's sources did not change."""
+    got = {"b7": b7_digests(), "b12": b12_digests()}
+    want = {"b7": B7_DIGESTS, "b12": B12_DIGESTS}
+    print(json.dumps({"phase": "b7_bits", "digests": got, "want": want, "card": card}),
+          flush=True)
+    if got != want:
+        raise RuntimeError(f"B7 or B12 outputs changed: {got} != {want}")
 
 
 def attention_digests() -> dict:

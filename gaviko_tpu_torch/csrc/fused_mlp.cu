@@ -6,7 +6,8 @@
 // the torch layout. Rounding order of the TPU kernel: LN as in
 // csrc/row_gemm.cuh; fc1 in f32, + b1, the GELU and the dropout in f32,
 // rounded to the input dtype; fc2 in f32, + b2, the dropout and + x in f32,
-// rounded once. GELU modes as in csrc/gelu.cuh. Dropout is the TPU kernel's
+// rounded once. GELU modes as in csrc/gelu.cuh (gelu_and_grad, as the
+// backward recomputes it). Dropout is the TPU kernel's
 // hash: salt 0 on the hidden at (row, hidden column), salt 1 on the fc2
 // output at (row, output column), row the flat row of x; kept values are
 // scaled by 1 / (1 - rate). When asked (a != nullptr) it also writes the
@@ -15,395 +16,141 @@
 //
 // What bounds it on the H100: at vit-b16 B8 (M = 8064, dim 768, mlp 3072)
 // one call is 76 GFLOP against ~34 MB of x, W1, W2 and out: bound by the
-// tensor cores, 0.077 ms at 989 TFLOP/s. The TPU kernel keeps both weights
-// (9.4 MB) and the whole (rows, mlp) hidden in VMEM; no SM can. Here a
-// block owns 32 rows: it normalises them once into shared memory, then
-// walks the hidden dimension in 128-column chunks. For each chunk, fc1
-// (32 x 128, K = dim) runs on mma.sync m16n8k16 with 8 warps as 2 x 4, the
-// bias and GELU are applied in registers and the rounded chunk is staged in
-// shared memory; then fc2 adds that chunk's contribution to the (32, dim)
-// f32 output, which stays in registers for the whole walk (8 warps as
-// 2 x 4, each 16 rows x dim / 4 columns: 96 accumulators a thread at dim
-// 768). So the hidden never reaches device memory. Fragments load by
-// ldmatrix. Both weights stream through one 8-stage cp.async ring of
-// 128 x 64 tiles from L2: every block re-reads all 9.4 MB of weights, ~2.4
-// GB from L2 a call at B8, which bounds this design above the tensor-core
-// bound (a later PR can share weight tiles across a cluster with TMA
-// multicast). On an H100 it runs at ~10% of the tensor-core rate
-// (PERF.md), and neither the ring depth, ldmatrix nor staggered walks over
-// the weights moved it: 8 warps of 16 x 32 tiles give each scheduler few
-// independent products; wgmma with 64-row warpgroup tiles is the next
-// step. f32 inputs take a SIMT path with the same walk, so the f32 check
-// runs in full f32, not TF32.
+// tensor cores, 0.077 ms at 989 TFLOP/s in bf16 (f32 as three TF32
+// products: 0.461 ms at 495 / 3). The TPU kernel keeps both weights and the
+// whole (rows, mlp) hidden in VMEM. No SM can keep the fc2 accumulator of
+// a 64-row warpgroup tile at dim 768 in registers (384 a thread against
+// 255), and recomputing fc1 for slices of the output doubles the products,
+// so the hidden g passes through device memory (49.5 MB written and read at
+// B8 bf16, ~0.03 ms at 3.35 TB/s; in training `a` is written anyway) and
+// the call is three launches:
+//   1. h = LN(x) * gamma + beta into scratch, a warp a row, 16-byte loads;
+//   2. fc1 on csrc/gemm_sm90.cuh (h and W1 both K-major; wgmma fed by TMA
+//      in bf16, 3xTF32 on mma.sync in f32) with + b1, `a`, the GELU, the
+//      hidden's dropout and the rounding of g in its epilogue;
+//   3. fc2 on the same GEMM (g and W2 both K-major) with + b2, the output's
+//      dropout and + x in its epilogue.
+// The tensor maps are encoded once a call.
 
-#include "gelu.cuh"
-#include "row_gemm.cuh"
+#include "mlp.cuh"
 
-using gaviko::from_f32;
-using gaviko::gelu;
-using gaviko::to_f32;
-
+namespace gaviko {
+namespace mlp {
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 32;    // rows per block
-constexpr int HC = 128;   // hidden columns per chunk
-constexpr int MAX_NT = 8;  // dim / 128 up to 1024
-
 struct Args {
-  const void* x;
-  const void* gamma;
-  const void* beta;
-  const void* w1;
-  const void* b1;
-  const void* w2;
-  const void* b2;
-  void* out;
-  void* a;  // [M, mlp] pre-GELU hidden, or nullptr
+  const void *x, *gamma, *beta, *w1, *b1, *w2, *b2;
+  void *out, *a, *h, *g;  // a: [M, mlp] or nullptr; h [M, dim], g [M, mlp]: scratch
   int M, dim, mlp, gelu, residual;
   float eps;
-  gaviko::Drop drop;
+  Drop drop;
 };
 
-// ---------------------------------------------------------------- bf16 ----
-
-namespace bf16 {
-
-using T = __nv_bfloat16;
-constexpr int BK = 64, LDW = BK + 8, LDH = HC + 8, STAGES = 8;  // 222 KB at dim 1024
-constexpr int TILE = 128 * LDW;  // one ring stage: 128 rows x 64 columns
-
-__host__ __device__ inline int ldx(int dim) { return dim + 8; }
-inline size_t smem_bytes(int dim) {
-  return (static_cast<size_t>(BM) * ldx(dim) + BM * LDH + STAGES * TILE) * sizeof(T);
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS) ln_kernel(const T* x, const T* gamma, const T* beta,
+                                                         T* h, int M, int dim, float eps) {
+  const int m = blockIdx.x * (ROW_THREADS / 32) + threadIdx.x / 32;
+  if (m >= M) return;
+  const long long off = static_cast<long long>(m) * dim;
+  float mean, rstd;
+  ln_row(x + off, gamma, beta, h + off, dim, eps, mean, rstd);
 }
 
-// Per chunk c, tiles 0 .. 2NT-1 are W1 rows [c*128, +128) x k [t*64, +64);
-// tiles 2NT .. 4NT-1 are W2 rows [rr*128, +128) x k [c*128 + kt*64, +64)
-// for rr = u / 2, kt = u % 2. Tile idx goes to ring stage idx % STAGES.
-template <int NT>
-__device__ __forceinline__ void load_tile(T* ring, const T* w1, const T* w2, int idx,
-                                          int total, int mlp) {
-  if (idx < total) {
-    constexpr int dim = NT * 128, PER = 4 * NT;
-    const int c = idx / PER, t = idx % PER;
-    const T* src;
-    long long ld;
-    if (t < 2 * NT) {
-      src = w1 + static_cast<long long>(c) * HC * dim + t * BK;
-      ld = dim;
-    } else {
-      const int u = t - 2 * NT;
-      src = w2 + static_cast<long long>(u / 2) * 128 * mlp + c * HC + (u % 2) * BK;
-      ld = mlp;
-    }
-    T* dst = ring + (idx % STAGES) * TILE;
+// fc1's epilogue: v + b1 -> a (when asked), then g = round(f0 GELU(v + b1)).
+template <typename T>
+struct Fc1Epi {
+  static constexpr bool kColsum = false;
+  const T* b1;
+  T *a, *g;
+  int ld, gelu;
+  Drop drop;
+  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8]) const {
+    const long long off = static_cast<long long>(row) * ld + col;
+    float b[8];
+    load8(b1 + col, b);
 #pragma unroll
-    for (int i = 0; i < 128 * BK / 8 / THREADS; ++i) {
-      const int e = threadIdx.x + THREADS * i;
-      const int r = e / 8, cc = e % 8;
-      gaviko::cp_async16(dst + r * LDW + cc * 8, src + r * ld + cc * 8, true);
+    for (int j = 0; j < 8; ++j) v[j] += b[j];
+    if (a != nullptr) store8(a + off, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float dg;
+      gelu_and_grad(v[j], gelu, b[j], dg);
+      b[j] *= drop.factor(row, col + j, 0);
     }
+    store8(g + off, b);
   }
-  gaviko::cp_async_commit();
-}
+};
 
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
-  constexpr int dim = NT * 128;
-  extern __shared__ __align__(128) char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* hs = xs + BM * ldx(dim);
-  T* ring = hs + BM * LDH;
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const int m0 = blockIdx.x * BM;
-  const int total = (a.mlp / HC) * 4 * NT;
-  for (int s = 0; s < STAGES - 1; ++s) load_tile<NT>(ring, w1, w2, s, total, a.mlp);
-  gaviko::layer_norm_rows<T, MAX_NT * 128 / 8 / 32>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.gamma), static_cast<const T*>(a.beta),
-      xs, ldx(dim), m0, BM, a.M, dim, a.eps);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;  // 16 rows x 32 columns of each 128-wide tile
-  float oacc[NT][4][4] = {};
-
-  int idx = 0;
-  // Wait for tile idx, let every warp finish tile idx - 1, queue the next one.
-  auto next = [&]() -> const T* {
-    gaviko::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    load_tile<NT>(ring, w1, w2, idx + STAGES - 1, total, a.mlp);
-    return ring + (idx++ % STAGES) * TILE;
-  };
-
-  for (int c = 0; c < a.mlp / HC; ++c) {
-    float hacc[4][4] = {};
-    for (int kt = 0; kt < 2 * NT; ++kt) {  // fc1: hidden chunk = LN(x) W1[chunk]^T
-      const T* wt = next();
+// fc2's epilogue: out = round(f1 (v + b2) [+ x]).
+template <typename T>
+struct Fc2Epi {
+  static constexpr bool kColsum = false;
+  const T *b2, *x;
+  T* y;
+  int ld, residual;
+  Drop drop;
+  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8]) const {
+    const long long off = static_cast<long long>(row) * ld + col;
+    float b[8], xv[8] = {};
+    load8(b2 + col, b);
+    if (residual) load8(x + off, xv);
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t af[4], bf[2][4];
-        gaviko::load_a(af, xs, ldx(dim), wm * 16, kt * BK + ks * 16);
-        gaviko::load_b2(bf[0], wt, LDW, wn * 32, ks * 16);
-        gaviko::load_b2(bf[1], wt, LDW, wn * 32 + 16, ks * 16);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          gaviko::mma_bf16(hacc[ni], af, bf[ni / 2][ni % 2 * 2], bf[ni / 2][ni % 2 * 2 + 1]);
-      }
-    }
-    // + b1 (saved when asked), GELU, dropout, round; the chunk goes to
-    // shared memory as fc2's A operand (read after the next tile's barrier).
-    const T* b1 = static_cast<const T*>(a.b1) + c * HC;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = wn * 32 + ni * 8 + 2 * t;
-      const int hcol = c * HC + col;
-      const float bb0 = to_f32(b1[col]), bb1 = to_f32(b1[col + 1]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 16 + g + 8 * h;
-        const float v0 = hacc[ni][2 * h] + bb0, v1 = hacc[ni][2 * h + 1] + bb1;
-        if (a.a != nullptr && row < a.M)
-          *reinterpret_cast<uint32_t*>(static_cast<T*>(a.a) +
-                                       static_cast<long long>(row) * a.mlp + hcol) =
-              gaviko::pack_bf16(v0, v1);
-        *reinterpret_cast<uint32_t*>(hs + (wm * 16 + g + 8 * h) * LDH + col) =
-            gaviko::pack_bf16(gelu(v0, a.gelu) * a.drop.factor(row, hcol, 0),
-                              gelu(v1, a.gelu) * a.drop.factor(row, hcol + 1, 0));
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < NT; ++rr) {  // fc2: out[:, rr*128 .. +128] += chunk W2^T
-#pragma unroll
-      for (int kt = 0; kt < 2; ++kt) {
-        const T* wt = next();
-#pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks) {
-          uint32_t af[4], bf[2][4];
-          gaviko::load_a(af, hs, LDH, wm * 16, kt * BK + ks * 16);
-          gaviko::load_b2(bf[0], wt, LDW, wn * 32, ks * 16);
-          gaviko::load_b2(bf[1], wt, LDW, wn * 32 + 16, ks * 16);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            gaviko::mma_bf16(oacc[rr][ni], af, bf[ni / 2][ni % 2 * 2], bf[ni / 2][ni % 2 * 2 + 1]);
-        }
-      }
-    }
+    for (int j = 0; j < 8; ++j) v[j] = (v[j] + b[j]) * drop.factor(row, col + j, 1) + xv[j];
+    store8(y + off, v);
   }
+};
 
+template <typename T>
+int forward(const Args& a, void* stream) {
+  if (a.M < 1 || a.dim < 1 || a.dim % gemm::BN || a.mlp < 1 || a.mlp % gemm::BN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* x = static_cast<const T*>(a.x);
-  const T* b2 = static_cast<const T*>(a.b2);
-  T* out = static_cast<T*>(a.out);
-#pragma unroll
-  for (int rr = 0; rr < NT; ++rr) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = rr * 128 + wn * 32 + ni * 8 + 2 * t;
-      const float bb0 = to_f32(b2[col]), bb1 = to_f32(b2[col + 1]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 16 + g + 8 * h;
-        if (row >= a.M) continue;
-        const long long off = static_cast<long long>(row) * dim + col;
-        float y0 = (oacc[rr][ni][2 * h] + bb0) * a.drop.factor(row, col, 1);
-        float y1 = (oacc[rr][ni][2 * h + 1] + bb1) * a.drop.factor(row, col + 1, 1);
-        if (a.residual) {
-          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + off);
-          y0 += __low2float(xv);
-          y1 += __high2float(xv);
-        }
-        *reinterpret_cast<uint32_t*>(out + off) = gaviko::pack_bf16(y0, y1);
-      }
-    }
-  }
-}
-
-}  // namespace bf16
-
-// ----------------------------------------------------------------- f32 ----
-
-namespace f32 {
-
-using T = float;
-constexpr int BK = 32, LDT = 128 + 4, LDH = HC + 4;
-
-__host__ __device__ inline int ldx(int dim) { return dim + 4; }
-inline size_t smem_bytes(int dim) {
-  return (static_cast<size_t>(BM) * ldx(dim) + BM * LDH + BK * LDT) * sizeof(T);
-}
-
-// Tiles per chunk c: W1 rows [c*128, +128) x k [t*32, +32) for t < 4NT,
-// then W2 rows [rr*128, +128) x k [c*128 + kt*32, +32) for u = t - 4NT,
-// rr = u / 4, kt = u % 4. One float4 a thread 4 times.
-template <int NT>
-__device__ __forceinline__ void fetch(float4* r, const T* w1, const T* w2, int idx, int mlp) {
-  constexpr int dim = NT * 128, PER = 8 * NT;
-  const int c = idx / PER, t = idx % PER;
-  const T* src;
-  long long ld;
-  if (t < 4 * NT) {
-    src = w1 + static_cast<long long>(c) * HC * dim + t * BK;
-    ld = dim;
-  } else {
-    const int u = t - 4 * NT;
-    src = w2 + static_cast<long long>(u / 4) * 128 * mlp + c * HC + (u % 4) * BK;
-    ld = mlp;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = threadIdx.x + THREADS * i;
-    r[i] = *reinterpret_cast<const float4*>(src + (e / 8) * ld + (e % 8) * 4);
-  }
-}
-
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
-  constexpr int dim = NT * 128;
-  extern __shared__ __align__(128) char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* hs = xs + BM * ldx(dim);
-  T* wt = hs + BM * LDH;  // [k][n]: the current weight tile, transposed
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const int m0 = blockIdx.x * BM;
-  const int total = (a.mlp / HC) * 8 * NT;
-  float4 nxt[4];
-  fetch<NT>(nxt, w1, w2, 0, a.mlp);
-  gaviko::layer_norm_rows<T, MAX_NT * 128 / 4 / 32>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.gamma), static_cast<const T*>(a.beta),
-      xs, ldx(dim), m0, BM, a.M, dim, a.eps);
-
-  const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;  // rows ty + 8i, cols tx + 32j
-  float oacc[NT][4][4] = {};
-  int idx = 0;
-  auto next = [&]() {
-    __syncthreads();  // every thread is done with the previous tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = threadIdx.x + THREADS * i;
-      const int n = e / 8, k = (e % 8) * 4;
-      wt[(k + 0) * LDT + n] = nxt[i].x;
-      wt[(k + 1) * LDT + n] = nxt[i].y;
-      wt[(k + 2) * LDT + n] = nxt[i].z;
-      wt[(k + 3) * LDT + n] = nxt[i].w;
-    }
-    __syncthreads();
-    if (++idx < total) fetch<NT>(nxt, w1, w2, idx, a.mlp);
-  };
-  // acc[i][j] += sum_k A[ty + 8i][k0 + k] * tile[k][tx + 32j]
-  auto product = [&](float (*acc)[4], const T* A, int lda, int k0) {
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = A[(ty + 8 * i) * lda + k0 + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = wt[k * LDT + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  };
-
-  for (int c = 0; c < a.mlp / HC; ++c) {
-    float hacc[4][4] = {};
-    for (int kt = 0; kt < 4 * NT; ++kt) {
-      next();
-      product(hacc, xs, ldx(dim), kt * BK);
-    }
-    const T* b1 = static_cast<const T*>(a.b1) + c * HC;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty + 8 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int hcol = c * HC + tx + 32 * j;
-        const float v = hacc[i][j] + b1[tx + 32 * j];
-        if (a.a != nullptr && row < a.M)
-          static_cast<T*>(a.a)[static_cast<long long>(row) * a.mlp + hcol] = v;
-        hs[(ty + 8 * i) * LDH + tx + 32 * j] = gelu(v, a.gelu) * a.drop.factor(row, hcol, 0);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < NT; ++rr) {
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt) {
-        next();
-        product(oacc[rr], hs, LDH, kt * BK);
-      }
-    }
-  }
-
-  const T* x = static_cast<const T*>(a.x);
-  const T* b2 = static_cast<const T*>(a.b2);
-  T* out = static_cast<T*>(a.out);
-#pragma unroll
-  for (int rr = 0; rr < NT; ++rr) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty + 8 * i;
-      if (row >= a.M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = rr * 128 + tx + 32 * j;
-        const long long off = static_cast<long long>(row) * dim + col;
-        float y = (oacc[rr][i][j] + b2[col]) * a.drop.factor(row, col, 1);
-        if (a.residual) y += x[off];
-        out[off] = y;
-      }
-    }
-  }
-}
-
-}  // namespace f32
-
-template <typename K>
-int run(K kernel, size_t smem, const Args& a, void* stream) {
-  cudaError_t err = gaviko::allow_smem(kernel, smem);
+  T* h = static_cast<T*>(a.h);
+  T* g = static_cast<T*>(a.g);
+  constexpr int WARPS = ROW_THREADS / 32;
+  ln_kernel<T><<<(a.M + WARPS - 1) / WARPS, ROW_THREADS, 0, s>>>(
+      x, static_cast<const T*>(a.gamma), static_cast<const T*>(a.beta), h, a.M, a.dim, a.eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(a.M + BM - 1) / BM, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
 
-template <int NT>
-int launch_nt(const Args& a, bool is_bf16, void* stream) {
-  if (is_bf16) return run(bf16::kernel<NT>, bf16::smem_bytes(NT * 128), a, stream);
-  return run(f32::kernel<NT>, f32::smem_bytes(NT * 128), a, stream);
-}
-
-int launch(const Args& a, bool is_bf16, void* stream) {
-  switch (a.dim / 128) {
-    case 1: return launch_nt<1>(a, is_bf16, stream);
-    case 2: return launch_nt<2>(a, is_bf16, stream);
-    case 3: return launch_nt<3>(a, is_bf16, stream);
-    case 4: return launch_nt<4>(a, is_bf16, stream);
-    case 5: return launch_nt<5>(a, is_bf16, stream);
-    case 6: return launch_nt<6>(a, is_bf16, stream);
-    case 7: return launch_nt<7>(a, is_bf16, stream);
-    case 8: return launch_nt<8>(a, is_bf16, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  gemm::Params<Fc1Epi<T>> p1{};
+  gemm::Params<Fc2Epi<T>> p2{};
+  err = gemm::encode_matrix<T>(&p1.a[0], h, a.M, a.dim);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p1.b[0], a.w1, a.mlp, a.dim);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p2.a[0], g, a.M, a.mlp);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p2.b[0], a.w2, a.dim, a.mlp);
+  if (err == cudaSuccess)
+    err = gemm::problem(&p1.prob[0], a.M, a.mlp, a.dim,
+                        Fc1Epi<T>{static_cast<const T*>(a.b1), static_cast<T*>(a.a), g, a.mlp,
+                                  a.gelu, a.drop});
+  if (err == cudaSuccess) err = gemm::run<T, false, false>(p1, 1, s);
+  if (err == cudaSuccess)
+    err = gemm::problem(&p2.prob[0], a.M, a.dim, a.mlp,
+                        Fc2Epi<T>{static_cast<const T*>(a.b2), x, static_cast<T*>(a.out), a.dim,
+                                  a.residual, a.drop});
+  if (err == cudaSuccess) err = gemm::run<T, false, false>(p2, 1, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
+}  // namespace mlp
+}  // namespace gaviko
 
 // x and out [M, dim], gamma, beta and b2 [dim], w1 [mlp, dim], b1 [mlp], w2
-// [dim, mlp], a [M, mlp] or null; all contiguous, 16-byte aligned, one
-// dtype; dim and mlp multiples of 128, dim up to 1024. gelu: 0 exact, 1
-// tanh, 2 erf_fast. threshold is hash_dropout._threshold(rate) (INT32_MIN
-// at rate 0: no dropout), drop_scale 1 / (1 - rate).
-#define GAVIKO_FUSED_MLP(NAME, BF16)                                                          \
-  extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,     \
-                      const void* b1, const void* w2, const void* b2, void* out, void* a_out, \
-                      int M, int dim, int mlp, int gelu, int residual, float eps, int seed,   \
-                      int threshold, float drop_scale, void* stream) {                        \
-    const Args a{x,   gamma, beta, w1,       b1,  w2,  b2,                                   \
-                 out, a_out, M,    dim,      mlp, gelu, residual,                            \
-                 eps, {static_cast<uint32_t>(seed), threshold, drop_scale}};                  \
-    return launch(a, BF16, stream);                                                           \
+// [dim, mlp], a [M, mlp] or null, scratch h [M, dim] and g [M, mlp]; all
+// contiguous, 16-byte aligned, one dtype; dim and mlp multiples of 128.
+// gelu: 0 exact, 1 tanh, 2 erf_fast. threshold is hash_dropout._threshold(
+// rate) (INT32_MIN at rate 0: no dropout), drop_scale 1 / (1 - rate).
+#define GAVIKO_FUSED_MLP(NAME, T)                                                               \
+  extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,       \
+                      const void* b1, const void* w2, const void* b2, void* out, void* a_out,   \
+                      void* h, void* g, int M, int dim, int mlp, int gelu, int residual,        \
+                      float eps, int seed, int threshold, float drop_scale, void* stream) {     \
+    const gaviko::mlp::Args a{x,   gamma, beta, w1,  b1,   w2,       b2,  out, a_out,          \
+                              h,   g,     M,    dim, mlp,  gelu, residual, eps,                \
+                              {static_cast<uint32_t>(seed), threshold, drop_scale}};           \
+    return gaviko::mlp::forward<T>(a, stream);                                                  \
   }
-GAVIKO_FUSED_MLP(gaviko_fused_mlp_bf16, true)
-GAVIKO_FUSED_MLP(gaviko_fused_mlp_f32, false)
+GAVIKO_FUSED_MLP(gaviko_fused_mlp_bf16, __nv_bfloat16)
+GAVIKO_FUSED_MLP(gaviko_fused_mlp_f32, float)

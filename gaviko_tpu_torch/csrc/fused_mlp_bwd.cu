@@ -7,7 +7,7 @@
 // the TPU kernel's, with f the dropout factor keep / (1 - rate) of salt 0
 // (hidden) or 1 (output) at (row, column), replayed from the seed:
 //
-//   h    = LN(x) * gamma + beta, rounded as in the forward (csrc/row_gemm.cuh)
+//   h    = LN(x) * gamma + beta, rounded as in the forward (csrc/mlp.cuh)
 //   dout = f1 dy;       db2 = sum_rows dout;           dout16 = round(dout)
 //   gd16 = round(f0 GELU(a))
 //   dW2  = dout16^T gd16                                       (dim, mlp)
@@ -21,180 +21,398 @@
 //
 // What bounds it on the H100: at vit-b16 B8 (M = 8064, dim 768, mlp 3072)
 // the four products are 4 * 2 * M * dim * mlp = 152 GFLOP, 0.154 ms at 989
-// TFLOP/s in bf16, against ~0.2 GB of inputs and outputs: bound by the
-// tensor cores. The TPU kernel walks the rows in order and carries the
-// weight gradients in VMEM scratch; blocks on the H100 run in no order, so
-// the work is split into passes with no atomics, each reduction taken in a
-// fixed order (deterministic):
-//   1. a row pass (32 rows a block): h, the row statistics, dout16 and
-//      gd16 to device memory, and db2's per-block column partials;
-//   2. four products on one tiled GEMM kernel: dg (rows x mlp, with f0,
-//      GELU' and db1's per-block partials in its epilogue), dh (rows x dim,
-//      f32), and the weight gradients dW2 and dW1, whose depth is the rows,
-//      read through transposed fragment loads;
-//   3. a row pass for dx and the dgamma / dbeta partials;
-//   4. one column reduction over the partials for each of db2, db1, dgamma
-//      and dbeta.
-// The intermediates (dout16, gd16, da16 and h in the working dtype, dh in
-// f32) pass through device memory: ~0.25 GB a call at B8 bf16, which the
-// TPU kernel kept in VMEM; the products stay the larger cost. The LN row
-// pass, the GEMM kernel, pass 3 and the column reduction are shared with
-// the LN + linear backward (csrc/ln_bwd.cuh): bf16 products run on mma.sync
-// m16n8k16 with ldmatrix, 128 x 128 output tiles, 8 warps of 64 x 32, a
-// two-stage cp.async ring of 32-deep k tiles; f32 inputs take a SIMT path
-// (64 x 64 tiles, 4 x 4 outputs a thread) so the f32 check runs in full
-// f32, not TF32.
+// TFLOP/s in bf16 (f32 as three TF32 products: 0.922 ms at 495 / 3),
+// against ~0.2 GB of inputs and outputs: bound by the tensor cores. The TPU
+// kernel walks the rows in order and carries the weight gradients in VMEM
+// scratch; CTAs on the H100 run in no order, so the work is five launches
+// with no atomics, each reduction in a fixed order (reruns are bit-equal):
+//   1. a row pass (16 rows a block, a warp a row, 16-byte loads): h, the
+//      row statistics, dout16, and db2's per-block column partials;
+//   2. dg on csrc/gemm_sm90.cuh (dout16 K-major, W2 read MN-major), with
+//      f0, GELU'(a), da16, gd16 and db1's per-tile column partials in its
+//      epilogue (a is read once);
+//   3. in one launch, dW2 = dout16^T gd16 and dW1 = da16^T h (both operands
+//      read MN-major, each CTA summing its tile over all the rows, in the
+//      weight dtype), then dh = da16 W1 (W1 read MN-major) into f32, whose
+//      tiles fill the weight gradients' last wave (splitting the rows of
+//      the weight gradients in two or three, with f32 partials summed in
+//      split order, measured slower on the card once dh shares the launch);
+//   4. a row pass for dx and the dgamma / dbeta partials (16-byte loads);
+//   5. one launch of the column sums of the partials (db2, db1, dgamma,
+//      dbeta), in a fixed order.
+// The GEMM runs bf16 on wgmma fed by TMA and f32 as 3xTF32 on mma.sync. The
+// six tensor maps are encoded once a call (dout16 and da16 each serve two
+// products). The intermediates (dout16, gd16, da16 and h in the working
+// dtype, dh in f32) pass through device memory, which the TPU kernel kept in
+// VMEM.
 
-#include "gelu.cuh"
-#include "ln_bwd.cuh"
+#include "mlp.cuh"
 
-using gaviko::from_f32;
-using gaviko::to_f32;
-
+namespace gaviko {
+namespace mlp {
 namespace {
 
-using namespace gaviko::lnb;
+using attn::store2;
 
 // ------------------------------------------------------------ row passes ----
 
+// Four f32 at p (16-byte aligned) to or from v[0..3], in registers.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
 template <typename T>
 struct PrepArgs {
-  const T *x, *gamma, *beta, *dy, *a;
-  T *h, *dout, *gd;
+  const T *x, *gamma, *beta, *dy;
+  T *h, *dout;
   float *mean, *rstd, *part_db2;
-  int M, dim, mlp, gelu;
+  int M, dim;
   float eps;
-  gaviko::Drop drop;
+  Drop drop;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) prep_kernel(PrepArgs<T> p) {
+__global__ void __launch_bounds__(ROW_THREADS) prep_kernel(PrepArgs<T> p) {
+  constexpr int N = Vec<T>::N;
   const int m0 = blockIdx.x * RB;
-  // h = LN(x) * gamma + beta, a warp a row; mean and rstd kept for pass 3.
-  ln_rows<T>(p.x, p.gamma, p.beta, p.h, p.mean, p.rstd, p.M, p.dim, p.eps, m0);
-  // dout = f1 dy (rounded copy), and this block's column sums of it.
-  for (int c = threadIdx.x; c < p.dim; c += THREADS) {
-    float s = 0.0f;
-    for (int r = 0; r < RB && m0 + r < p.M; ++r) {
-      const long long off = static_cast<long long>(m0 + r) * p.dim + c;
-      const float v = to_f32(p.dy[off]) * p.drop.factor(m0 + r, c, 1);
-      p.dout[off] = from_f32<T>(v);
-      s += v;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // h = LN(x) * gamma + beta and dout16 = round(f1 dy), a warp a row.
+  for (int r = warp; r < RB && m0 + r < p.M; r += ROW_THREADS / 32) {
+    const int m = m0 + r;
+    const long long off = static_cast<long long>(m) * p.dim;
+    float mean, rstd;
+    ln_row(p.x + off, p.gamma, p.beta, p.h + off, p.dim, p.eps, mean, rstd);
+    if (lane == 0) {
+      p.mean[m] = mean;
+      p.rstd[m] = rstd;
     }
-    p.part_db2[static_cast<long long>(blockIdx.x) * p.dim + c] = s;
+    for (int c = lane * N; c < p.dim; c += 32 * N) {
+      float v[N];
+      load16(p.dy + off + c, v);
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] *= p.drop.factor(m, c + j, 1);
+      store16(p.dout + off + c, v);
+    }
   }
-  // gd = f0 GELU(a), rounded.
-  for (int c = threadIdx.x; c < p.mlp; c += THREADS) {
+  // This block's column sums of dout (f32, unrounded), rows in order.
+  for (int c = threadIdx.x * N; c < p.dim; c += ROW_THREADS * N) {
+    float s[N] = {};
+#pragma unroll 4
     for (int r = 0; r < RB && m0 + r < p.M; ++r) {
-      const long long off = static_cast<long long>(m0 + r) * p.mlp + c;
-      p.gd[off] = from_f32<T>(gaviko::gelu(to_f32(p.a[off]), p.gelu) *
-                              p.drop.factor(m0 + r, c, 0));
+      float v[N];
+      load16(p.dy + static_cast<long long>(m0 + r) * p.dim + c, v);
+#pragma unroll
+      for (int j = 0; j < N; ++j) s[j] += v[j] * p.drop.factor(m0 + r, c + j, 1);
+    }
+    float* dst = p.part_db2 + static_cast<long long>(blockIdx.x) * p.dim + c;
+#pragma unroll
+    for (int j = 0; j < N; j += 4) store4(dst + j, s + j);
+  }
+}
+
+template <typename T>
+struct LnArgs {
+  const T *x, *gamma, *dy;
+  const float *dh, *mean, *rstd;
+  T* dx;
+  float *part_dg, *part_db;
+  int M, dim, residual;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS) ln_bwd_kernel(LnArgs<T> p) {
+  constexpr int N = Vec<T>::N;
+  const int m0 = blockIdx.x * RB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < RB && m0 + r < p.M; r += ROW_THREADS / 32) {
+    const int m = m0 + r;
+    const long long off = static_cast<long long>(m) * p.dim;
+    const float mean = p.mean[m], rstd = p.rstd[m];
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int c = lane * N; c < p.dim; c += 32 * N) {
+      float xv[N], gm[N], d[N];
+      load16(p.x + off + c, xv);
+      load16(p.gamma + c, gm);
+#pragma unroll
+      for (int j = 0; j < N; j += 4) load4(p.dh + off + c + j, d + j);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float dxh = d[j] * gm[j];
+        s1 += dxh;
+        s2 += dxh * (xv[j] - mean) * rstd;
+      }
+    }
+    const float m1 = warp_sum(s1) / p.dim, m2 = warp_sum(s2) / p.dim;
+    for (int c = lane * N; c < p.dim; c += 32 * N) {
+      float xv[N], gm[N], d[N], dyv[N];
+      load16(p.x + off + c, xv);
+      load16(p.gamma + c, gm);
+#pragma unroll
+      for (int j = 0; j < N; j += 4) load4(p.dh + off + c + j, d + j);
+      if (p.residual) load16(p.dy + off + c, dyv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = (xv[j] - mean) * rstd;
+        d[j] = rstd * (d[j] * gm[j] - m1 - xh * m2);
+        if (p.residual) d[j] += dyv[j];
+      }
+      store16(p.dx + off + c, d);
+    }
+  }
+  // This block's column sums of dh xhat and dh, rows in order.
+  for (int c = threadIdx.x * N; c < p.dim; c += ROW_THREADS * N) {
+    float sg[N] = {}, sb[N] = {};
+#pragma unroll 4
+    for (int r = 0; r < RB && m0 + r < p.M; ++r) {
+      const int m = m0 + r;
+      const long long off = static_cast<long long>(m) * p.dim + c;
+      const float mean = p.mean[m], rstd = p.rstd[m];
+      float xv[N], d[N];
+      load16(p.x + off, xv);
+#pragma unroll
+      for (int j = 0; j < N; j += 4) load4(p.dh + off + j, d + j);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        sg[j] += d[j] * ((xv[j] - mean) * rstd);
+        sb[j] += d[j];
+      }
+    }
+    const long long dst = static_cast<long long>(blockIdx.x) * p.dim + c;
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      store4(p.part_dg + dst + j, sg + j);
+      store4(p.part_db + dst + j, sb + j);
     }
   }
 }
 
-// ------------------------------------------------------------- products ----
+// out[c] = sum over p < P of part[p][c] for each segment (db2, db1, dgamma,
+// dbeta), four columns a thread: where P is long, `chunks` threads (8 or 32)
+// take a run of rows each and the block adds their sums in run order; else
+// one thread takes every row. The order is fixed either way.
+constexpr int MAX_SEGMENTS = 4;
+constexpr int SUM_THREADS = 256;
+
+struct Sums {
+  const float* part[MAX_SEGMENTS];
+  void* out[MAX_SEGMENTS];
+  int P[MAX_SEGMENTS];
+  int chunks[MAX_SEGMENTS];          // 1 or a divisor of SUM_THREADS
+  long long N[MAX_SEGMENTS];         // a multiple of 4
+  long long blocks_end[MAX_SEGMENTS];  // the running sum of the segments' blocks
+  int count;
+};
 
 template <typename T>
-struct DaEpi {  // da = f0 dg GELU'(a) -> da16; db1's partials sum da
+__global__ void __launch_bounds__(SUM_THREADS) sums_kernel(const __grid_constant__ Sums s) {
+  __shared__ float4 red[SUM_THREADS];
+  int k = 0;
+  while (blockIdx.x >= s.blocks_end[k]) ++k;
+  const long long b = blockIdx.x - (k > 0 ? s.blocks_end[k - 1] : 0);
+  const int C = s.chunks[k], V = SUM_THREADS / C, P = s.P[k];
+  const int vi = threadIdx.x % V, c = threadIdx.x / V;
+  const long long v = b * V + vi, nvec = s.N[k] / 4;
+  const int R = (P + C - 1) / C, q1 = min(P, (c + 1) * R);
+  float acc[4] = {};
+  if (v < nvec) {
+    const float* src = s.part[k] + 4 * v;
+#pragma unroll 8
+    for (int q = c * R; q < q1; ++q) {
+      float x[4];
+      load4(src + q * s.N[k], x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += x[j];
+    }
+  }
+  if (C > 1) {  // uniform over the block: one segment a block
+    red[threadIdx.x] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    __syncthreads();
+    if (c > 0) return;
+    for (int cc = 1; cc < C; ++cc) {
+      const float4 x = red[cc * V + vi];
+      acc[0] += x.x;
+      acc[1] += x.y;
+      acc[2] += x.z;
+      acc[3] += x.w;
+    }
+  }
+  if (v >= nvec) return;
+  T* out = static_cast<T*>(s.out[k]) + 4 * v;
+  store2(out, acc[0], acc[1]);
+  store2(out + 2, acc[2], acc[3]);
+}
+
+// ------------------------------------------------------------- products ----
+
+// dg's epilogue: da = f0 dg GELU'(a) -> da16 (db1's partials sum da);
+// gd16 = round(f0 GELU(a)).
+template <typename T>
+struct DgEpi {
+  static constexpr bool kColsum = true;
   const T* a;
-  T* da;
+  T *da, *gd;
+  float* colsum;
   int ld, gelu;
-  gaviko::Drop drop;
-  __device__ __forceinline__ float operator()(int row, int col, float v) const {
+  Drop drop;
+  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8]) const {
     const long long off = static_cast<long long>(row) * ld + col;
-    const float d = v * drop.factor(row, col, 0) * gaviko::gelu_grad(to_f32(a[off]), gelu);
-    da[off] = from_f32<T>(d);
-    return d;
+    float av[8];
+    load8(a + off, av);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float f = drop.factor(row, col + j, 0);
+      float g, dg;
+      gelu_and_grad(av[j], gelu, g, dg);
+      v[j] = v[j] * f * dg;
+      av[j] = g * f;
+    }
+    store8(da + off, v);
+    store8(gd + off, av);
+  }
+};
+
+// The output as it is, at out [rows][ld]: in f32 (dh) or rounded to T (the
+// weight gradients).
+template <typename T>
+struct OutEpi {
+  static constexpr bool kColsum = false;
+  void* out;
+  int ld, f32;
+  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8]) const {
+    const long long off = static_cast<long long>(row) * ld + col;
+    if (f32)
+      store8(static_cast<float*>(out) + off, v);
+    else
+      store8(static_cast<T*>(out) + off, v);
   }
 };
 
 struct Ptrs {
-  const void *x, *gamma, *beta, *w1, *w2, *dy, *a;                 // inputs
-  void *dx, *dgamma, *dbeta, *dw1, *db1, *dw2, *db2;                // outputs
-  void *h, *dout, *gd, *da;                                        // [M, *] working dtype
+  const void *x, *gamma, *beta, *w1, *w2, *dy, *a;      // inputs
+  void *dx, *dgamma, *dbeta, *dw1, *db1, *dw2, *db2;     // outputs
+  void *h, *dout, *gd, *da;                             // [M, *] working dtype
   float *dh, *mean, *rstd, *part_db2, *part_db1, *part_dg, *part_db;  // f32 scratch
 };
 
 template <typename T>
-int launch(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, float eps,
-           gaviko::Drop drop, void* stream) {
-  if (M < 1 || dim % 128 || mlp % 128) return static_cast<int>(cudaErrorInvalidValue);
+int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, float eps,
+             Drop drop, void* stream) {
+  if (M < 1 || dim % gemm::BN || dim < 1 || mlp % gemm::BN || mlp < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int row_blocks = (M + RB - 1) / RB;
   const T* x = static_cast<const T*>(p.x);
-  const T* w1 = static_cast<const T*>(p.w1);
-  const T* w2 = static_cast<const T*>(p.w2);
+  const T* gamma = static_cast<const T*>(p.gamma);
   T* h = static_cast<T*>(p.h);
   T* dout = static_cast<T*>(p.dout);
   T* gd = static_cast<T*>(p.gd);
   T* da = static_cast<T*>(p.da);
 
-  const PrepArgs<T> prep{x,    static_cast<const T*>(p.gamma), static_cast<const T*>(p.beta),
-                         static_cast<const T*>(p.dy), static_cast<const T*>(p.a), h, dout, gd,
-                         p.mean, p.rstd, p.part_db2, M, dim, mlp, gelu, eps, drop};
-  prep_kernel<T><<<row_blocks, THREADS, 0, s>>>(prep);
-  GAVIKO_RETURN_IF_ERROR();
-  // dg = dout16 W2 -> da16 (+ db1 partials); dh = da16 W1.
-  Gemm<T>::template run<false>(dout, dim, w2, mlp, M, mlp, dim,
-                               DaEpi<T>{static_cast<const T*>(p.a), da, mlp, gelu, drop},
-                               p.part_db1, s);
-  GAVIKO_RETURN_IF_ERROR();
-  Gemm<T>::template run<false>(da, mlp, w1, dim, M, dim, mlp, StoreEpi<float>{p.dh, dim},
-                               nullptr, s);
-  GAVIKO_RETURN_IF_ERROR();
-  // dW2 = dout16^T gd16, dW1 = da16^T h: depth M, A read transposed.
-  Gemm<T>::template run<true>(dout, dim, gd, mlp, dim, mlp, M,
-                              StoreEpi<T>{static_cast<T*>(p.dw2), mlp}, nullptr, s);
-  GAVIKO_RETURN_IF_ERROR();
-  Gemm<T>::template run<true>(da, mlp, h, dim, mlp, dim, M,
-                              StoreEpi<T>{static_cast<T*>(p.dw1), dim}, nullptr, s);
-  GAVIKO_RETURN_IF_ERROR();
-  const LnArgs<T> ln{x,      static_cast<const T*>(p.gamma), static_cast<const T*>(p.dy),
-                     p.dh,   p.mean, p.rstd, static_cast<T*>(p.dx), p.part_dg, p.part_db, M,
-                     dim,    residual};
-  ln_bwd_kernel<T><<<row_blocks, THREADS, 0, s>>>(ln);
-  GAVIKO_RETURN_IF_ERROR();
-  const int gemm_row_blocks = (M + Gemm<T>::BM - 1) / Gemm<T>::BM;
-  const struct {
-    const float* part;
-    int P, N;
-    void* out;
-  } sums[4] = {{p.part_db2, row_blocks, dim, p.db2},
-               {p.part_db1, gemm_row_blocks, mlp, p.db1},
-               {p.part_dg, row_blocks, dim, p.dgamma},
-               {p.part_db, row_blocks, dim, p.dbeta}};
-  for (const auto& c : sums) {
-    colsum_kernel<T><<<(c.N + 255) / 256, 256, 0, s>>>(c.part, c.P, c.N, static_cast<T*>(c.out));
-    GAVIKO_RETURN_IF_ERROR();
+  const PrepArgs<T> prep{x,      gamma,  static_cast<const T*>(p.beta), static_cast<const T*>(p.dy),
+                         h,      dout,   p.mean, p.rstd, p.part_db2, M, dim, eps, drop};
+  prep_kernel<T><<<row_blocks, ROW_THREADS, 0, s>>>(prep);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // The six maps, each encoded once: dout16 and da16 serve two products each.
+  CUtensorMap m_dout, m_w2, m_da, m_w1, m_gd, m_h;
+  err = gemm::encode_matrix<T>(&m_dout, dout, M, dim);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&m_w2, p.w2, dim, mlp);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&m_da, da, M, mlp);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&m_w1, p.w1, mlp, dim);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&m_gd, gd, M, mlp);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&m_h, h, M, dim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // dg = dout16 W2 -> da16, gd16 (+ db1 partials).
+  {
+    gemm::Params<DgEpi<T>> q{};
+    q.a[0] = m_dout;
+    q.b[0] = m_w2;
+    err = gemm::problem(&q.prob[0], M, mlp, dim,
+                        DgEpi<T>{static_cast<const T*>(p.a), da, gd, p.part_db1, mlp, gelu, drop});
+    if (err == cudaSuccess) err = gemm::run<T, false, true>(q, 1, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  // dW2 = dout16^T gd16 and dW1 = da16^T h (depth M, A read [K][M]), then
+  // dh = da16 W1, in one launch: dh's tiles fill the weight gradients' last
+  // wave.
+  {
+    gemm::Params<OutEpi<T>> q{};
+    q.a[0] = m_dout;
+    q.b[0] = m_gd;
+    q.a[1] = m_da;
+    q.b[1] = m_h;
+    q.a[2] = m_da;
+    q.b[2] = m_w1;
+    err = gemm::problem(&q.prob[0], dim, mlp, M, OutEpi<T>{p.dw2, mlp, 0}, true);
+    if (err == cudaSuccess)
+      err = gemm::problem(&q.prob[1], mlp, dim, M, OutEpi<T>{p.dw1, dim, 0}, true);
+    if (err == cudaSuccess) err = gemm::problem(&q.prob[2], M, dim, mlp, OutEpi<T>{p.dh, dim, 1});
+    if (err == cudaSuccess) err = gemm::run<T, true, true>(q, 3, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const LnArgs<T> ln{x,      gamma,  static_cast<const T*>(p.dy), p.dh, p.mean, p.rstd,
+                     static_cast<T*>(p.dx), p.part_dg, p.part_db, M, dim, residual};
+  ln_bwd_kernel<T><<<row_blocks, ROW_THREADS, 0, s>>>(ln);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  Sums sums{};
+  const int tile_rows = (M + gemm::BM - 1) / gemm::BM;  // dg's rows of db1 partials
+  auto add = [&](const float* part, int P, long long N, void* out) {
+    const int k = sums.count++;
+    sums.part[k] = part;
+    sums.P[k] = P;
+    sums.chunks[k] = P > 128 ? 32 : P > 16 ? 8 : 1;
+    sums.N[k] = N;
+    sums.out[k] = out;
+    const long long per_block = SUM_THREADS / sums.chunks[k];
+    sums.blocks_end[k] = (k > 0 ? sums.blocks_end[k - 1] : 0) + (N / 4 + per_block - 1) / per_block;
+  };
+  add(p.part_db2, row_blocks, dim, p.db2);
+  add(p.part_db1, tile_rows, mlp, p.db1);
+  add(p.part_dg, row_blocks, dim, p.dgamma);
+  add(p.part_db, row_blocks, dim, p.dbeta);
+  const long long blocks = sums.blocks_end[sums.count - 1];
+  sums_kernel<T><<<static_cast<unsigned>(blocks), SUM_THREADS, 0, s>>>(sums);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+}  // namespace mlp
+}  // namespace gaviko
 
 // Inputs x, dy [M, dim], gamma, beta [dim], w1 [mlp, dim], w2 [dim, mlp], a
 // [M, mlp]; outputs dx [M, dim], dgamma, dbeta, db2 [dim], dw1 [mlp, dim],
 // db1 [mlp], dw2 [dim, mlp]; scratch h, dout [M, dim], gd, da [M, mlp] in
 // the same dtype and dh [M, dim], mean, rstd [M], part_db2, part_dg, part_db
-// [ceil(M / 32), dim], part_db1 [ceil(M / 32), mlp] f32 (the products
-// write one row of db1 partials for each 128-row (bf16) or 64-row (f32)
-// tile, fewer). All contiguous and 16-byte aligned; dim and mlp multiples of
-// 128. gelu: 0 exact, 1 tanh, 2 erf_fast. seed, threshold and drop_scale are
-// the forward's (threshold INT32_MIN: no dropout).
+// [ceil(M / 16), dim] and part_db1 [ceil(M / 128), mlp] f32. All contiguous
+// and 16-byte aligned; dim and mlp multiples of 128. gelu: 0 exact, 1 tanh,
+// 2 erf_fast. seed, threshold and drop_scale are the forward's (threshold
+// INT32_MIN: no dropout).
 #define GAVIKO_FUSED_MLP_BWD(NAME, T)                                                          \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,      \
                       const void* w2, const void* dy, const void* a, void* dx, void* dgamma,   \
                       void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* h,        \
                       void* dout, void* gd, void* da, float* dh, float* mean, float* rstd,     \
-                      float* part_db2, float* part_db1, float* part_dg, float* part_db, int M, \
-                      int dim, int mlp, int gelu, int residual, float eps, int seed,           \
+                      float* part_db2, float* part_db1, float* part_dg, float* part_db,        \
+                      int M, int dim, int mlp, int gelu, int residual, float eps, int seed,    \
                       int threshold, float drop_scale, void* stream) {                         \
-    const Ptrs p{x,   gamma, beta, w1,   w2,   dy,   a,        dx,       dgamma,  dbeta,      \
-                 dw1, db1,   dw2,  db2,  h,    dout, gd,       da,       dh,      mean,       \
-                 rstd, part_db2, part_db1, part_dg, part_db};                                  \
-    return launch<T>(p, M, dim, mlp, gelu, residual, eps,                                      \
-                     {static_cast<uint32_t>(seed), threshold, drop_scale}, stream);            \
+    const gaviko::mlp::Ptrs p{x,    gamma, beta, w1,   w2,       dy,       a,       dx,        \
+                              dgamma, dbeta, dw1, db1, dw2,      db2,      h,       dout,      \
+                              gd,   da,    dh,   mean, rstd,     part_db2, part_db1, part_dg,  \
+                              part_db};                                                        \
+    return gaviko::mlp::backward<T>(p, M, dim, mlp, gelu, residual, eps,                       \
+                                    {static_cast<uint32_t>(seed), threshold, drop_scale},      \
+                                    stream);                                                   \
   }
 GAVIKO_FUSED_MLP_BWD(gaviko_fused_mlp_bwd_bf16, __nv_bfloat16)
 GAVIKO_FUSED_MLP_BWD(gaviko_fused_mlp_bwd_f32, float)

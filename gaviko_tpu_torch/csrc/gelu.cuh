@@ -1,8 +1,9 @@
 // The GELU modes of the fused MLP kernels (csrc/fused_mlp.cu and
-// csrc/fused_mlp_bwd.cu) and their derivatives, in f32, as the TPU kernels
-// compute them (gaviko_tpu/ops/fused_mlp.py): 0 exact (the Abramowitz &
-// Stegun erf, not erff, so both packages compute one function), 1 tanh,
-// 2 erf_fast. Each derivative is that of the function computed.
+// csrc/fused_mlp_bwd.cu: gelu_and_grad; csrc/int8_linear.cu: gelu) and the
+// derivative, in f32, as the TPU kernels compute them
+// (gaviko_tpu/ops/fused_mlp.py): 0 exact (the Abramowitz & Stegun erf, not
+// erff, so both packages compute one function), 1 tanh, 2 erf_fast. The
+// derivative is that of the function computed.
 #pragma once
 
 #include "common.cuh"
@@ -39,23 +40,40 @@ __device__ __forceinline__ float gelu(float x, int mode) {
   return x * 0.5f * (1.0f + e);
 }
 
-__device__ __forceinline__ float gelu_grad(float x, int mode) {
+// gelu(x, mode) and its derivative at once, sharing what both compute:
+// the erf and its exponential (exact; exp(-z^2) at z = x / sqrt(2) is the
+// pdf's exp(-x^2 / 2)) or the tanh (tanh, erf_fast). The exact mode's
+// exponential and reciprocal are the hardware's approximations (a few ulp,
+// far inside the A&S erf's own 2.5e-6): the fused MLP's epilogues spend
+// their time here. A caller that needs only g leaves dg unused.
+__device__ __forceinline__ void gelu_and_grad(float x, int mode, float& g, float& dg) {
   if (mode == 1) {
     const float c = 0.7978845608028654f;
     const float t = tanhf(c * (x + 0.044715f * x * x * x));
-    const float du = c * (1.0f + 3.0f * 0.044715f * x * x);
-    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+    g = 0.5f * x * (1.0f + t);
+    dg = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
+    return;
   }
+  const float z = x * 0.7071067811865476f;
+  const float a = fabsf(z);
   if (mode == 2) {
-    const float z = x * 0.7071067811865476f;
-    const float a = fabsf(z), a2 = a * a;
+    const float a2 = a * a;
     const float t = tanhf(a * (kEfC1 + a2 * (kEfC3 + a2 * kEfC5)));
     const float e = z > 0.0f ? t : (z < 0.0f ? -t : 0.0f);
     const float dp = kEfC1 + a2 * (3.0f * kEfC3 + a2 * (5.0f * kEfC5));
-    return 0.5f * (1.0f + e) + x * 0.5f * (1.0f - t * t) * dp * 0.7071067811865476f;
+    g = x * 0.5f * (1.0f + e);
+    dg = 0.5f * (1.0f + e) + x * 0.5f * (1.0f - t * t) * dp * 0.7071067811865476f;
+    return;
   }
-  const float phi = expf(-0.5f * x * x) * 0.3989422804014327f;  // N(0, 1) pdf
-  return 0.5f * (1.0f + erf_as(x * 0.7071067811865476f)) + x * phi;
+  const float t = __fdividef(1.0f, 1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float ex = __expf(-a * a);
+  const float y = 1.0f - poly * ex;
+  const float e = z > 0.0f ? y : (z < 0.0f ? -y : 0.0f);
+  g = x * 0.5f * (1.0f + e);
+  dg = 0.5f * (1.0f + e) + x * (ex * 0.3989422804014327f);
 }
 
 // keep / (1 - rate) of element (row, col) of plane salt, 1 at rate 0

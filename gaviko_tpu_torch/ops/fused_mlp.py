@@ -1,14 +1,16 @@
 """Fused transformer MLP: LN -> fc1 + b1 -> GELU -> drop -> fc2 + b2 -> drop
 (+ x), forward and backward.
 
-Port of ``gaviko_tpu/ops/fused_mlp.py``. On the card the forward runs the
-kernel in ``csrc/fused_mlp.cu``: a block keeps a tile of normalised rows in
-shared memory, walks the hidden dimension in chunks, stages each GELU'd
-chunk in shared memory and accumulates the fc2 output in registers, so the
-``(rows, mlp_dim)`` hidden never reaches device memory. The backward runs
-``csrc/fused_mlp_bwd.cu`` from the pre-GELU hidden ``a`` the forward saved.
-``mlp_reference`` and ``mlp_bwd_reference`` are their plain PyTorch
-versions.
+Port of ``gaviko_tpu/ops/fused_mlp.py``. On the card the forward runs kernel
+B6 (``csrc/fused_mlp.cu``): an LN row pass into scratch, then fc1 and fc2 on
+the port's Hopper GEMM (``csrc/gemm_sm90.cuh``: bf16 on wgmma fed by TMA,
+f32 as 3xTF32 on the tensor cores), the bias, GELU, dropout, residual and
+roundings in the products' epilogues, the hidden passing through device
+memory. The backward, kernel B7 (``csrc/fused_mlp_bwd.cu``), runs from the
+pre-GELU hidden ``a`` the forward saved: two row passes, its four products
+on the same GEMM and one launch of column sums. :func:`mlp_plan` is their
+plan (launches, tiles, scratch), made only here. ``mlp_reference`` and
+``mlp_bwd_reference`` are their plain PyTorch versions.
 
 Rounding order (the TPU kernel's): LN as in ``ops/ln_linear.py``; fc1
 accumulated in f32, ``+ b1``, the GELU and the dropout in f32, then rounded
@@ -21,15 +23,17 @@ Dropout is the TPU kernel's hash (``ops/hash_dropout.py``): salt 0 on the
 hidden at (flat row, hidden column), salt 1 on the fc2 output at (flat row,
 output column), before the residual; the backward replays both masks.
 :func:`fused_mlp` is differentiable: under a gradient the forward saves
-``a`` and the backward is the kernel. B7 keeps its partial sums in device
-memory, so it takes every shape the forward takes and JAX's VMEM gate for its
-backward (``_mlp_bwd_supported``) has no counterpart here.
+``a`` and the backward is the kernel. B6 and B7 keep their intermediates in
+device memory, so they take every width JAX's gate admits (and any multiple
+of 128 beyond it); JAX's VMEM gate for its backward (``_mlp_bwd_supported``)
+has no counterpart here.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,14 +45,152 @@ from gaviko_tpu_torch.ops.ln_linear import layer_norm_rounded
 # The JAX package's weight budget (its VMEM residency gate), kept as is so
 # one configuration takes the same route in both packages.
 _WEIGHT_VMEM_BUDGET = 12_000_000
-KERNEL_MAX_DIM = 1024  # widest row the kernel takes (output tile in registers)
 GELU_MODES = ("exact", "tanh", "erf_fast")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
-_ARGTYPES = (_P,) * 9 + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_ARGTYPES = (_P,) * 11 + (_I,) * 5 + (_F,) + _DROP + (_P,)
 _BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_P,)
-_ROW_BLOCK = 32  # rows a block of the backward kernel's row passes, its finest row tile
+
+# The GEMM of csrc/gemm_sm90.cuh: a CTA's output tile, its ring of k tiles
+# (128 bytes of depth a stage, both operands; bf16 three stages so that two
+# CTAs share an SM, f32 four) and its threads, and the card.
+TILE_M, TILE_N = 128, 128
+STAGES = {torch.bfloat16: 3, torch.float32: 4}
+SMEM_LIMIT = 232_448  # shared memory a CTA may opt in to on an H100
+ROW_BLOCK = 16  # rows a block of B7's row passes (a row of column partials each)
+_SCRATCH_ALIGN = 256
+
+
+class GemmProduct(NamedTuple):
+    """One product C[m, n] = A[m, k] B[k, n] of B6 or B7 on the GEMM, as its
+    CTAs take it: ``tiles_m`` x ``tiles_n`` output tiles of TILE_M x TILE_N,
+    each over the whole depth, n fastest where A is the larger operand."""
+    name: str
+    m: int
+    n: int
+    k: int
+
+    @property
+    def tiles_m(self) -> int:
+        return -(-self.m // TILE_M)
+
+    @property
+    def tiles_n(self) -> int:
+        return self.n // TILE_N
+
+    @property
+    def n_fast(self) -> bool:
+        return self.m >= self.n
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    def tile(self, block: int) -> Tuple[int, int]:
+        """CTA ``block`` of this product -> (first row, first column) of its
+        tile, as the kernel decodes its block index."""
+        if self.n_fast:
+            tm, tn = divmod(block, self.tiles_n)
+        else:
+            tn, tm = divmod(block, self.tiles_m)
+        return tm * TILE_M, tn * TILE_N
+
+
+def launch_tile(launch: Tuple[GemmProduct, ...], block: int) -> Tuple[str, int, int]:
+    """CTA ``block`` of a launch of one or more products (their CTAs in
+    order) -> (product, first row, first column)."""
+    for p in launch:
+        if block < p.blocks:
+            return (p.name, *p.tile(block))
+        block -= p.blocks
+    raise IndexError(block)
+
+
+class MlpPlan(NamedTuple):
+    """What B6 and B7 run for (rows, dim, mlp, dtype): :func:`mlp_plan`."""
+    rows: int
+    dim: int
+    mlp: int
+    dtype: torch.dtype
+    chunk: int       # depth of a k tile: 128 bytes of columns
+    smem: int        # the GEMM's shared memory a CTA, bytes
+    # The GEMM launches, each one or more products: B6's fc1 and fc2 after
+    # its LN pass; B7's dg, then dw2, dw1 and dh in one launch.
+    forward: Tuple[Tuple[GemmProduct, ...], ...]
+    backward: Tuple[Tuple[GemmProduct, ...], ...]
+    fwd_scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
+    bwd_scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
+    fwd_scratch_bytes: int
+    bwd_scratch_bytes: int
+    launches: Tuple[int, int]  # kernel launches a call of B6, of B7
+
+
+def _layout(entries) -> Tuple[Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...], int]:
+    """(name, shape, dtype) -> the same with a byte offset, each aligned to
+    _SCRATCH_ALIGN in one buffer, and the buffer's bytes."""
+    out, at = [], 0
+    for name, shape, dtype in entries:
+        out.append((name, tuple(shape), dtype, at))
+        n = dtype.itemsize
+        for d in shape:
+            n *= d
+        at += -(-n // _SCRATCH_ALIGN) * _SCRATCH_ALIGN
+    return tuple(out), at
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype = torch.bfloat16) -> MlpPlan:
+    """The plan of B6 and B7 for ``rows`` rows of width ``dim`` and an
+    ``mlp``-wide hidden (made only here; the wrappers hand its scratch to
+    the kernels, which take the same tiles). Every product runs on the
+    GEMM's 128 x 128 tiles with k tiles of 128 bytes (64 bf16 / 32 f32
+    columns), each CTA over its product's whole depth; the weight gradients,
+    whose depth is the rows, share a launch with dh, whose tiles fill their
+    last wave. Raises where the kernels cannot run: dim or mlp not a
+    positive multiple of 128, no rows, a dtype other than bf16 / f32, or a
+    matrix of 2**31 elements or more."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    if dim < 1 or mlp < 1 or dim % TILE_N or mlp % TILE_N:
+        raise NotImplementedError(
+            f"fused_mlp kernels take dim and mlp_dim positive multiples of {TILE_N}; got "
+            f"dim {dim}, mlp_dim {mlp}")
+    if rows < 1:
+        raise ValueError(f"fused_mlp: no rows ({rows})")
+    if rows * max(dim, mlp) >= 2 ** 31 or dim * mlp >= 2 ** 31:
+        raise NotImplementedError(
+            f"fused_mlp kernels take matrices under 2**31 elements; got rows {rows}, dim "
+            f"{dim}, mlp_dim {mlp}")
+    chunk = 128 // dtype.itemsize
+    f32, dt = torch.float32, dtype
+    row_blocks, tiles_m = -(-rows // ROW_BLOCK), -(-rows // TILE_M)
+    fwd_scratch, fwd_bytes = _layout((("h", (rows, dim), dt), ("g", (rows, mlp), dt)))
+    bwd = [("h", (rows, dim), dt), ("dout", (rows, dim), dt), ("gd", (rows, mlp), dt),
+           ("da", (rows, mlp), dt), ("dh", (rows, dim), f32), ("mean", (rows,), f32),
+           ("rstd", (rows,), f32), ("part_db2", (row_blocks, dim), f32),
+           ("part_db1", (tiles_m, mlp), f32), ("part_dg", (row_blocks, dim), f32),
+           ("part_db", (row_blocks, dim), f32)]
+    bwd_scratch, bwd_bytes = _layout(bwd)
+    # The ring (the epilogue stages the f32 sums over it), its barriers, and
+    # the column sums' partials of 16 row groups.
+    smem = 1024 + STAGES[dtype] * (2 * TILE_M * 128 + 2 * 8) + 16 * TILE_N * 4
+    g = GemmProduct
+    return MlpPlan(
+        rows, dim, mlp, dtype, chunk, smem,
+        ((g("fc1", rows, mlp, dim),), (g("fc2", rows, dim, mlp),)),
+        ((g("dg", rows, mlp, dim),),
+         (g("dw2", dim, mlp, rows), g("dw1", mlp, dim, rows), g("dh", rows, dim, mlp))),
+        fwd_scratch, bwd_scratch, fwd_bytes, bwd_bytes, (3, 5))
+
+
+def _scratch(layout, nbytes: int, device) -> dict:
+    """One buffer for a call's scratch -> name -> device pointer."""
+    buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    ptrs = {name: base + off for name, _, _, off in layout}
+    ptrs["_buffer"] = buf  # keeps it alive until the launch is queued
+    return ptrs
 
 # erf ~= sign(a) * tanh(C1|a| + C3|a|^3 + C5|a|^5): the JAX package's
 # erf_fast fit.
@@ -189,10 +331,8 @@ def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"gelu mode must be one of {GELU_MODES}, got {mode!r}")
     dim = x.shape[-1]
     mlp_dim = w1.shape[0]
-    if dim % 128 or dim > KERNEL_MAX_DIM or mlp_dim % 128:
-        raise NotImplementedError(
-            f"fused_mlp kernel takes dim a multiple of 128 up to {KERNEL_MAX_DIM} "
-            f"and mlp_dim a multiple of 128; got dim {dim}, mlp_dim {mlp_dim}")
+    rows = x.numel() // dim
+    plan = mlp_plan(rows, dim, mlp_dim, x.dtype)
     if (tuple(w1.shape) != (mlp_dim, dim) or tuple(w2.shape) != (dim, mlp_dim)
             or b1.shape != (mlp_dim,) or b2.shape != (dim,)
             or gamma.shape != (dim,) or beta.shape != (dim,)):
@@ -200,15 +340,15 @@ def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          "gamma and beta (dim,)")
     x = x.contiguous()  # e.g. GAViKO's last layer passes a row slice
     _build.check_cuda("fused_mlp", x, gamma, beta, w1, b1, w2, b2)
-    rows = x.numel() // dim
     out = torch.empty_like(x)
     a = torch.empty((rows, mlp_dim), device=x.device, dtype=x.dtype) if save_a else None
+    scratch = _scratch(plan.fwd_scratch, plan.fwd_scratch_bytes, x.device)
     _build.launch(
         "fused_mlp", f"gaviko_fused_mlp_{_build.dtype_suffix(x)}", _ARGTYPES,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), None if a is None else a.data_ptr(),
-        rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual), eps, *drop,
-        _build.stream_of(x))
+        scratch["h"], scratch["g"], rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual),
+        eps, *drop, _build.stream_of(x))
     fused_mlp.launches += 1
     return (out, a) if save_a else out
 
@@ -314,10 +454,7 @@ def fused_mlp_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"gelu mode must be one of {GELU_MODES}, got {mode!r}")
     dim, mlp_dim = x.shape[-1], w1.shape[0]
     rows = x.numel() // dim
-    if dim % 128 or mlp_dim % 128:
-        raise NotImplementedError(
-            f"fused_mlp_bwd kernel takes dim and mlp_dim multiples of 128; got "
-            f"{dim}, {mlp_dim}")
+    plan = mlp_plan(rows, dim, mlp_dim, x.dtype)
     if (tuple(w1.shape) != (mlp_dim, dim) or tuple(w2.shape) != (dim, mlp_dim)
             or gamma.shape != (dim,) or beta.shape != (dim,)
             or dy.shape != x.shape or a.numel() != rows * mlp_dim):
@@ -325,25 +462,15 @@ def fused_mlp_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          "(dim,), dy like x, a (rows, mlp)")
     x, dy, a = x.contiguous(), dy.contiguous(), a.contiguous()
     _build.check_cuda("fused_mlp_bwd", x, gamma, beta, w1, b1, w2, b2, dy, a)
-    dev, dt = x.device, x.dtype
-
-    def empty(*shape, dtype=dt):
-        return torch.empty(shape, device=dev, dtype=dtype)
-
-    f32 = torch.float32
-    row_blocks = -(-rows // _ROW_BLOCK)  # rows of column partials each pass may write
     outs = (torch.empty_like(x), torch.empty_like(gamma), torch.empty_like(beta),
             torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2),
             torch.empty_like(b2))
-    dx, dgamma, dbeta, dw1, db1, dw2, db2 = outs
-    scratch = (empty(rows, dim), empty(rows, dim), empty(rows, mlp_dim), empty(rows, mlp_dim),
-               empty(rows, dim, dtype=f32), empty(rows, dtype=f32), empty(rows, dtype=f32),
-               empty(row_blocks, dim, dtype=f32), empty(row_blocks, mlp_dim, dtype=f32),
-               empty(row_blocks, dim, dtype=f32), empty(row_blocks, dim, dtype=f32))
+    sc = _scratch(plan.bwd_scratch, plan.bwd_scratch_bytes, x.device)
     _build.launch(
         "fused_mlp_bwd", f"gaviko_fused_mlp_bwd_{_build.dtype_suffix(x)}", _BWD_ARGTYPES,
-        *(t.data_ptr() for t in (x, gamma, beta, w1, w2, dy, a, dx, dgamma, dbeta, dw1,
-                                 db1, dw2, db2, *scratch)),
+        *(t.data_ptr() for t in (x, gamma, beta, w1, w2, dy, a, *outs)),
+        *(sc[n] for n in ("h", "dout", "gd", "da", "dh", "mean", "rstd", "part_db2",
+                          "part_db1", "part_dg", "part_db")),
         rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual), eps, *drop,
         _build.stream_of(x))
     fused_mlp_bwd.launches += 1

@@ -710,8 +710,10 @@ def test_ln_linear_bwd_kernel(dev, dtype, rows, dim, out, need_dw):
 
 
 def test_fused_mlp_bwd_bit_equal_to_before_the_move(dev):
-    """B7's outputs are bit-equal to the kernel's before its passes moved
-    into csrc/ln_bwd.cuh (``chip_smoke.b7_digests`` and B7_DIGESTS)."""
+    """B7's outputs on fixed inputs are bit-equal to the redesigned kernel's
+    digests, two calls agreeing (``chip_smoke.b7_digests`` and B7_DIGESTS),
+    and B12's to its outputs from before B6 and B7 moved to
+    csrc/gemm_sm90.cuh (``chip_smoke.b12_digests`` and B12_DIGESTS)."""
     import importlib.util
     from pathlib import Path
 
@@ -720,6 +722,85 @@ def test_fused_mlp_bwd_bit_equal_to_before_the_move(dev):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert smoke.b7_digests() == smoke.B7_DIGESTS
+    assert smoke.b12_digests() == smoke.B12_DIGESTS
+
+
+# B6 and B7 at the widths of vit-s16 (384, 1,536) and vit-b16 (768, 3,072)
+# and ragged row counts (GAViKO-like 37, 2,002 and vit-b16 B8's 8,064), each
+# GELU mode with and without dropout, the residual on and off.
+MLP_WIDTHS = [(384, 1536), (768, 3072)]
+MLP_ROWS = [37, 2002, 8064]
+MLP_MODES = [("exact", 0.1, True), ("exact", 0.0, False), ("tanh", 0.1, False),
+             ("tanh", 0.0, True), ("erf_fast", 0.1, True), ("erf_fast", 0.0, False)]
+
+
+def _check_mlp(dev, dtype, rows, dim, mlp, gelu, rate, residual, seed=21):
+    """B6 (out and the saved a) and B7 (all seven outputs) against their
+    plain versions within budget; a second call of each bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    args = _mlp_args(gen, 1, rows, dim, mlp, dtype)
+    dy = _randn(gen, 1, rows, dim, dtype=dtype)
+    before = (fused_mlp.launches, fused_mlp_bwd.launches)
+    out, a = fused_mlp_forward(*args, 1e-5, gelu, rate, residual, 13, save_a=True)
+    want, want_a = mlp_reference(*args, 1e-5, gelu, rate, residual, 13, save_a=True)
+    got = fused_mlp_bwd(*args, dy, a, 1e-5, gelu, rate, residual, 13)
+    assert (fused_mlp.launches, fused_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    wants = mlp_bwd_reference(*args, dy, a, 1e-5, gelu, rate, residual, 13)
+    for name, g, w in (("out", out, want), ("a", a, want_a),
+                       *zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), got, wants)):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_mae(g, w) <= BUDGET[dtype], (name, _rel_mae(g, w))
+    again = fused_mlp_forward(*args, 1e-5, gelu, rate, residual, 13, save_a=True)
+    assert torch.equal(again[0], out) and torch.equal(again[1], a)
+    for g, g2 in zip(got, fused_mlp_bwd(*args, dy, a, 1e-5, gelu, rate, residual, 13)):
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim,mlp", MLP_WIDTHS)
+@pytest.mark.parametrize("rows", MLP_ROWS)
+@pytest.mark.parametrize("gelu,rate,residual", MLP_MODES)
+def test_fused_mlp_kernels_at_backbone_widths(dev, dtype, dim, mlp, rows, gelu, rate, residual):
+    """B6 and B7 on csrc/gemm_sm90.cuh against their plain versions at the
+    vit-s16 and vit-b16 widths (vit-t16's 192 is no multiple of 128: JAX's
+    gate and the plan refuse it), reruns bit-equal."""
+    _check_mlp(dev, dtype, rows, dim, mlp, gelu, rate, residual)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_kernels_take_dims_above_1024(dev, dtype):
+    """Queue C 9: dim 1,152 with mlp 256 (JAX's gate admits it) runs B6 and
+    B7 within budget; the forward refused dims above 1,024 before. vit-t16's
+    192 is refused by the plan, as by JAX's gate."""
+    _check_mlp(dev, dtype, 300, 1152, 256, "exact", 0.1, True)
+    args = _mlp_args(torch.Generator(device=dev).manual_seed(3), 1, 8, 192, 768, dtype)
+    with pytest.raises(NotImplementedError, match="multiples of 128"):
+        fused_mlp_forward(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_backward_runs_b7_on_autograd_thread(dev, dtype):
+    """``fused_mlp`` under ``.backward()`` (autograd's thread, where B7
+    encodes its tensor maps) at vit-b16 widths: every gradient within budget
+    of the plain path's."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    args = _mlp_args(gen, 2, 1008, 768, 3072, dtype)
+    dy = _randn(gen, 2, 1008, 768, dtype=dtype)
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        fused_mlp(*leaves, 1e-5, "exact", 0.1, True, seed=9).backward(dy)
+        return [t.grad for t in leaves]
+
+    before = fused_mlp_bwd.launches
+    got = grads()
+    assert fused_mlp_bwd.launches == before + 1
+    with _build.plain_versions():
+        want = grads()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel_mae(g, w) <= BUDGET[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
