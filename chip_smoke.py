@@ -36,9 +36,11 @@ Phases, each printing its own line:
    the GAViKO vit-l16 B8 int8 serving shapes (8,320 rows: the qkv
    projection with its LN, the out-projection with its bias, which must be
    bit-equal to its plain version, the MLP and the last layer's 264-row
-   MLP) and vit-b16's residual MLP, with the max ULP against the plain
-   version, the int8 bound (1,979 TOPS) and the fp chain the route
-   replaces, then the general instances of A, B and B10 at head dims 320
+   MLP), vit-b16's residual MLP and vit-b16's out-projection at
+   ``dim_head`` 192 (2304 -> 768, bit-equal too), with the max ULP against
+   the plain version, the int8 bound (1,979 TOPS), the fp chain the route
+   replaces and ``torch._int_mm`` of the same codes (``int_mm_ms``: the
+   library's int8 products alone, timed only), then the general instances of A, B and B10 at head dims 320
    and 512 (B2, 4 heads) and of B8 at 96 and 320 (B8), then A and B at 16
    heads of 1344 and B10 at 1352 (B1: the forward tile's streamed-Q plan,
    B's streamed owned rows), then B12, the LN +
@@ -52,8 +54,8 @@ Phases, each printing its own line:
    inputs bit-equal (sha256) to the tile's before Q's chunks could stream,
    then C and D (dropout 0.2, B4) at a latent of 64 on GAViKO's grid and at
    GAViKO's grid for image_size 224 (10x14x14), beside SDPA with the dense
-   window mask. Every case of A, B10, B, B8, C, D, B6 and B7 also runs
-   again and must be bit-equal to its first run; A, B10, B, C, D, B6 and B7
+   window mask. Every case of A, B10, B, B8, C, D, B6, B7 and B11 also
+   runs again and must be bit-equal to its first run; A, B10, B, C, D, B6 and B7
    in fp32 are bounded at 495 / 3 TFLOP/s (each product as three TF32
    ones);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
@@ -72,12 +74,14 @@ Phases, each printing its own line:
    (relative MAE <= 2e-2), the end-to-end volumes/s of ``predict_logits``
    at B8 bf16, one forward under ``torch.profiler`` (device busy ms, wall
    ms, idle share) and, for vit-b16, one forward at B64 (the JAX bench's
-   headline batch) in CUDA-event ms; then int8 serving: GAViKO vit-l16
-   and vit-b16 fft with ``quantize="int8"`` (bf16 weights quantized after
-   the cast) served as in phase 4 with 2 int8_linear and 1 int8_mlp
-   launches a layer (the vit-b16 CLS-fast last layer deferring to them),
-   the plain check at 1e-2 (vit-b16 at 2e-2), the profiled forward's B11
-   kernels counted by name, and the logits against the bf16 fp
+   headline batch) in CUDA-event ms; then int8 serving: GAViKO vit-l16,
+   vit-b16 fft and vit-b16 at ``dim_head`` 192 with ``quantize="int8"``
+   (bf16 weights quantized after the cast) served as in phase 4 with 2
+   int8_linear and 1 int8_mlp calls a layer (the vit-b16 CLS-fast last
+   layer deferring to them), the plain check at 1e-2 (vit-b16 at 2e-2),
+   the profiled forward's B11 kernels counted by name (a layer: the row
+   pass 3, the linear GEMM 2, fc1, the hidden's codes and fc2 1 each), and
+   the logits against the bf16 fp
    predictor's on the same volumes (relative MAE <= 5e-2, argmax agreement
    reported);
 6. train: the GAViKO vit-l16 model of the same config (random init from
@@ -234,7 +238,7 @@ SOURCES = {
 INT8_PLAIN_BUDGET, INT8_FP_BUDGET = 1e-2, 5e-2
 # B11 cases that must equal their plain version bit for bit (no LN: the
 # same codes, int32 sums and roundings).
-BIT_EQUAL = ("int8_linear_out",)
+BIT_EQUAL = ("int8_linear_out", "int8_linear_out2304")
 # The general instances of A, B, B10 (head dims 320 and 512) and B8 (96,
 # 320): kernel cases only, as no shipped model has those head dims.
 GENERAL_DIM_HEADS = (320, 512)
@@ -401,10 +405,11 @@ def _tensor_core_f32(name: str) -> bool:
 
 def _rerun_bit_equal(name: str) -> bool:
     """A case whose rerun must be bit-equal: no atomics in A, B10, B, C, D, B6
-    and B7, and the partials of B8, of C and D's split warps and of B7's
-    column sums and row splits combined in a fixed order."""
+    and B7, the partials of B8, of C and D's split warps and of B7's column
+    sums and row splits combined in a fixed order, and B11's int32 sums and
+    row maxima (exact in any order)."""
     return name.startswith(("fused_mhsa", "flash_attention", "cls_attention",
-                            "local_attention", "fused_mlp"))
+                            "local_attention", "fused_mlp", "int8"))
 
 
 def _bound(work, dtype) -> tuple:
@@ -1026,14 +1031,20 @@ def _int8_kernel_cases(dtype, gen, batch):
     the out-projection with its bias (1024 -> 1024), the MLP (1024 -> 4096
     -> 1024, exact GELU, no residual) and the last layer's MLP on the 33
     pooled rows a volume; then vit-b16's residual MLP (8,064 rows, 768 ->
-    3072 -> 768). The bytes count each input once (int8 weights, f32
+    3072 -> 768) and vit-b16's out-projection at ``dim_head`` 192 (2304 ->
+    768, Queue C 10). The bytes count each input once (int8 weights, f32
     scales) and the output once; the operations are int8. ``chain`` is the
     fp calls the route replaces in the working dtype (F.layer_norm +
-    F.linear; at vit-l16 B9 and B6 are gated off)."""
+    F.linear; at vit-l16 B9 and B6 are gated off). Each case carries a
+    seventh entry: ``torch._int_mm`` of the same codes, each product of
+    the function once (the library's int8 product alone, without the
+    quantization, the dequantization or the epilogue; timed only)."""
     import torch
     import torch.nn.functional as F
 
-    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp, quantize_weight
+    from gaviko_tpu_torch.ops.fused_mlp import gelu_by_mode
+    from gaviko_tpu_torch.ops.int8_linear import (
+        _int8_matmul, _ln_f32, _quant_rows, fma_f32, int8_linear, int8_mlp, quantize_weight)
 
     dev, dim, mlp, vdim, vmlp = "cuda", 1024, 4096, 768, 3072
     rows, last, vrows = batch * 1040, batch * 33, batch * 1008
@@ -1044,40 +1055,59 @@ def _int8_kernel_cases(dtype, gen, batch):
     def ln(x, g, b):
         return F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
 
+    def codes(xf):
+        return _quant_rows(xf)[0].to(torch.int8)
+
+    def int_mm(*pairs):
+        return lambda: [torch._int_mm(a, w.t()) for a, w in pairs]
+
     def mlp_case(x, d, h, residual):
         g, b = (1.0 + randn(d, std=0.1)).to(dtype), randn(d, std=0.1)
         w1, b1 = randn(h, d, std=d ** -0.5), randn(h, std=0.1)
         w2, b2 = randn(d, h, std=h ** -0.5), randn(d, std=0.1)
         (q1, s1), (q2, s2) = quantize_weight(w1), quantize_weight(w2)
         n = x.shape[0]
+        hc, sh = _quant_rows(_ln_f32(x.float(), g, b, 1e-5))
+        a = fma_f32(_int8_matmul(hc, q1), sh * s1.reshape(-1), b1.float())
+        gc = codes(gelu_by_mode(a, "exact"))
 
         def chain():
             y = F.linear(F.gelu(F.linear(ln(x, g, b), w1, b1)), w2, b2)
             return x + y if residual else y
 
         return (lambda: int8_mlp(x, g, b, q1, s1, b1, q2, s2, b2, 1e-5, "exact", residual),
-                (2 * _nbytes(x) + _nbytes(q1, s1, b1, q2, s2, b2, g, b), 4 * n * d * h), chain)
+                (2 * _nbytes(x) + _nbytes(q1, s1, b1, q2, s2, b2, g, b), 4 * n * d * h), chain,
+                int_mm((hc.to(torch.int8), q1), (gc, q2)))
 
     x = randn(rows, dim)
     gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
     w_qkv, w_out, b_out = (randn(3 * dim, dim, std=dim ** -0.5), randn(dim, dim, std=dim ** -0.5),
                            randn(dim, std=0.1))
     (q_qkv, s_qkv), (q_out, s_out) = quantize_weight(w_qkv), quantize_weight(w_out)
+    x_wide = randn(vrows, 3 * vdim)
+    w_wide, b_wide = randn(vdim, 3 * vdim, std=(3 * vdim) ** -0.5), randn(vdim, std=0.1)
+    q_wide, s_wide = quantize_weight(w_wide)
     size = x.element_size()
     cases = [
         ("int8_linear", lambda: int8_linear(x, q_qkv, s_qkv, gamma=gamma, beta=beta),
          lambda r: r,
          (_nbytes(x, q_qkv, s_qkv, gamma, beta) + rows * 3 * dim * size, 2 * rows * dim * 3 * dim),
-         None, lambda: F.linear(ln(x, gamma, beta), w_qkv)),
+         None, lambda: F.linear(ln(x, gamma, beta), w_qkv),
+         int_mm((codes(_ln_f32(x.float(), gamma, beta, 1e-5)), q_qkv))),
         ("int8_linear_out", lambda: int8_linear(x, q_out, s_out, bias=b_out), lambda r: r,
          (2 * _nbytes(x) + _nbytes(q_out, s_out, b_out), 2 * rows * dim * dim),
-         None, lambda: F.linear(x, w_out, b_out)),
+         None, lambda: F.linear(x, w_out, b_out), int_mm((codes(x.float()), q_out))),
+        ("int8_linear_out2304", lambda: int8_linear(x_wide, q_wide, s_wide, bias=b_wide),
+         lambda r: r,
+         (_nbytes(x_wide, q_wide, s_wide, b_wide) + vrows * vdim * size,
+          2 * vrows * 3 * vdim * vdim),
+         None, lambda: F.linear(x_wide, w_wide, b_wide), int_mm((codes(x_wide.float()), q_wide))),
     ]
     for name, xs, d, h, residual in (("int8_mlp", x, dim, mlp, False),
                                      ("int8_mlp_last", x[:last], dim, mlp, False),
                                      ("int8_mlp_vitb16", randn(vrows, vdim), vdim, vmlp, True)):
-        run, work, chain = mlp_case(xs.contiguous(), d, h, residual)
-        cases.append((name, run, lambda r: r, work, None, chain))
+        run, work, chain, lib = mlp_case(xs.contiguous(), d, h, residual)
+        cases.append((name, run, lambda r: r, work, None, chain, lib))
     return cases
 
 
@@ -1202,7 +1232,7 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _local_kernel_cases(dtype, gen, batch)
         else:
             cases = _kernel_cases(dtype, gen, batch, path == "train")
-        for name, run, cut, work, library, chain in cases:
+        for name, run, cut, work, library, chain, *int_mm in cases:
             with torch.no_grad():
                 got = cut(run())
                 with plain_versions():
@@ -1235,6 +1265,7 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
                     line["library_graph_ms"] = None if "bwd" in name else _graph_ms(library)
                 if path == "int8":
                     line["max_ulp"] = _ulps(got, want)
+                    line["int_mm_ms"] = _median_ms(int_mm[0], reps=reps, calls=KERNEL_CALLS)
                 if rerun_equal is not None:
                     line["rerun_bit_equal"] = rerun_equal
                 with plain_versions():
@@ -1690,31 +1721,39 @@ def step1_grads(config, model, params, batches, seeds, launches, precision: str,
     return logits.float(), grads
 
 
+# B11's device kernels in one int8 forward, by a part of their names, a
+# layer: int8_linear is the row pass and one GEMM (the qkv projection and the
+# out-projection), int8_mlp the row pass, fc1 (the f32 hidden and its rows'
+# maxima), the hidden's codes and fc2.
+INT8_KERNELS_A_LAYER = {"int8_rows_kernel": 3, "Int8LinearEpi": 2, "Int8Fc1Epi": 1,
+                        "int8_hidden_kernel": 1, "Int8Fc2Epi": 1}
+
+
 def _profile_int8_forward(forward, depth: int) -> dict:
     """:func:`profile_step` of an int8 forward whose trace must show the
-    device kernels B11's wrappers counted launching in it, 2 int8_linear and
-    1 int8_mlp a layer, exactly. A trace that shows fewer of them while the
-    wrappers launched every one has lost device records (once on the H100:
-    1,976 of the forward's 2,063 kernels traced) and is taken again, at
-    most three times; ``attempts`` says how many it took."""
+    device kernels B11's wrappers launched in it, 2 int8_linear and 1
+    int8_mlp calls a layer, exactly: INT8_KERNELS_A_LAYER times the depth
+    by name. A trace that shows fewer of them while the wrappers launched
+    every one has lost device records (once on the H100: 1,976 of the
+    forward's 2,063 kernels traced) and is taken again, at most three
+    times; ``attempts`` says how many it took."""
     from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp
 
-    names = ("int8_linear_kernel", "int8_mlp_kernel")
-    want = {names[0]: 2 * depth, names[1]: depth}
+    want = {n: c * depth for n, c in INT8_KERNELS_A_LAYER.items()}
     for attempt in range(1, 4):
         before = int8_linear.launches, int8_mlp.launches
-        profile = profile_step(forward, names)
-        launched = {names[0]: int8_linear.launches - before[0],
-                    names[1]: int8_mlp.launches - before[1]}
-        if launched != want:
-            raise RuntimeError(f"the int8 forward launched {launched}, not {want}")
+        profile = profile_step(forward, tuple(want))
+        launched = (int8_linear.launches - before[0], int8_mlp.launches - before[1])
+        if launched != (2 * depth, depth):
+            raise RuntimeError(f"the int8 forward made {launched} int8_linear / int8_mlp calls, "
+                               f"not {(2 * depth, depth)}")
         profile["attempts"] = attempt
         counts = profile["kernel_counts"]
         if counts == want:
             return profile
-        if any(counts[n] > want[n] for n in names):
+        if any(counts[n] > want[n] for n in want):
             break
-    raise RuntimeError(f"the profiled int8 forward ran {profile['kernel_counts']}")
+    raise RuntimeError(f"the profiled int8 forward ran {profile['kernel_counts']}, not {want}")
 
 
 def profile_step(step, count_names=()) -> dict:
@@ -2297,12 +2336,14 @@ def main() -> int:
         phase_plain_check(predictor, vols[:B], fp_served[name][:B], smi, headline)
         del predictor
         torch.cuda.empty_cache()
-    # int8 serving (B11): GAViKO vit-l16 and vit-b16 fft, quantized after
+    # int8 serving (B11): GAViKO vit-l16, vit-b16 fft and vit-b16 at
+    # dim_head 192 (out-projections 2304 -> 768, Queue C 10), quantized after
     # the cast to bf16, against the plain versions and the fp predictors.
-    for name, config, method, fp_name, budget in (
-            ("int8", CONFIG, "gaviko", "serving", INT8_PLAIN_BUDGET),
-            ("vit_int8", VIT_CONFIG, "fft", "vit", SERVE_BUDGET)):
-        predictor = make_predictor(config, method, quantize="int8")
+    for name, config, method, over, fp_name, budget in (
+            ("int8", CONFIG, "gaviko", None, "serving", INT8_PLAIN_BUDGET),
+            ("vit_int8", VIT_CONFIG, "fft", None, "vit", SERVE_BUDGET),
+            ("vit_int8_dh192", VIT_CONFIG, "fft", DH[192], "dh192", SERVE_BUDGET)):
+        predictor = make_predictor(config, method, over, quantize="int8")
         launches[name], served = phase_serving(predictor, vols)
         phase_plain_check(predictor, vols[:B], served[:B], smi, budget=budget,
                           fp_served=fp_served[fp_name][:B])
@@ -2371,8 +2412,9 @@ def main() -> int:
                "launches": launches[run][n],
                **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "dtype", "batch", "path")}}
-        if "chain_ms" in line:
-            row["chain_ms"] = line["chain_ms"]
+        for key in ("chain_ms", "int_mm_ms"):
+            if key in line:
+                row[key] = line[key]
         rows.append(row)
     # B13 at f32 storage (both runs keep f32 masters and moments), with its
     # run's B13 launches (one a step: its norm kernel, then its update).

@@ -1,5 +1,6 @@
 // A Hopper GEMM of the port's own, for the fused MLP's products (kernels
-// B6, csrc/fused_mlp.cu, and B7, csrc/fused_mlp_bwd.cu):
+// B6, csrc/fused_mlp.cu, and B7, csrc/fused_mlp_bwd.cu) and the int8
+// serving GEMMs (B11, csrc/int8_linear.cu):
 //
 //   C[M, N] = A[M, K] B[K, N], every output through an epilogue functor.
 //
@@ -21,18 +22,30 @@
 //   csrc/hopper.cuh's split and mma3), each warp 64 rows x 32 columns (each
 //   fragment split once for four products): wgmma's TF32 takes only K-major
 //   operands, and the weight gradients' are not.
+// - int8 (T = int8_t): wgmma m64n128k32 s32.s8.s8, both operands K-major in
+//   shared memory (integer wgmma takes no other layout; AT and BT must be
+//   false), int32 accumulators, exact in any order. A k tile is 128 codes,
+//   four k32 steps whose descriptors advance 32 bytes as bf16's k16 steps
+//   do, so the boxes, the swizzle and the ring are bf16's. The sums reach
+//   the epilogue converted to f32 (cvt.rn.f32.s32).
 //
 // The epilogue functor sees the f32 sums of 8 columns (col .. col + 7) of a
 // row < M at a time (through shared memory, whatever the products' register
 // layout), reads what it needs and writes its outputs itself; where it asks
 // (kColsum) the kernel also writes the tile's column sums of what the
 // functor left in the 8 values, in a fixed order (each thread's rows, then
-// the row groups in order), one row of partials a 128-row tile.
+// the row groups in order), one row of partials a 128-row tile; where it
+// asks (kRowmax) the functor returns a non-negative partial of its row,
+// and the kernel takes each row's maximum over the tile across the 16
+// lanes that hold it and then into the functor's `rowmax` [M] in device
+// memory (atomicMax on the bits: a maximum is the same in any order, so
+// reruns are bit-equal); it may ask for per-row inputs staged in shared
+// memory too (kRowInput).
 // A launch runs up to three problems of one epilogue type (the two weight
 // gradients and dh), each with its own A layout, in order, each problem's
 // tiles rastered so that the CTAs that run together share the larger
-// operand's tiles. Every CTA takes its tile's whole depth. No atomics:
-// reruns are bit-equal.
+// operand's tiles. Every CTA takes its tile's whole depth. No atomics but
+// kRowmax's maxima: reruns are bit-equal.
 #pragma once
 
 #include "hopper.cuh"
@@ -54,17 +67,49 @@ __host__ __device__ constexpr int chunk() {  // columns of 128 bytes: the k tile
   return ROW_BYTES / static_cast<int>(sizeof(T));
 }
 
-// bf16: three stages, so two CTAs share an SM (its registers allow it) and
-// one's epilogue runs beside the other's products; f32 (its 3xTF32
-// fragments take more registers): four stages, one CTA an SM.
+template <typename T>
+__host__ __device__ constexpr bool is_s8() {
+  return std::is_same<T, int8_t>::value;
+}
+// The types whose products run on wgmma (bf16, int8); f32 runs mma.sync.
+template <typename T>
+__host__ __device__ constexpr bool on_wgmma() {
+  return is_bf16<T>() || is_s8<T>();
+}
+
+// bf16 and int8: three stages, so two CTAs share an SM (their registers
+// allow it) and one's epilogue runs beside the other's products; f32 (its
+// 3xTF32 fragments take more registers): four stages, one CTA an SM.
 template <typename T>
 __host__ __device__ constexpr int stages() {
-  return is_bf16<T>() ? 3 : 4;
+  return on_wgmma<T>() ? 3 : 4;
 }
 template <typename T>
 __host__ __device__ constexpr int min_blocks() {
-  return is_bf16<T>() ? 2 : 1;
+  return on_wgmma<T>() ? 2 : 1;
 }
+
+// What an epilogue functor asks for beyond kColsum, each off unless it
+// declares it: kRowmax (it returns its row's partial maximum), kRowInput
+// (row_input(m), a float2 of row m, staged in shared memory for the tile's
+// rows before the loop and handed to each call: per-row scalars without a
+// device-memory load in the loop).
+template <class E, class = void>
+struct RowmaxOf {
+  static constexpr bool value = false;
+};
+template <class E>
+struct RowmaxOf<E, std::void_t<decltype(E::kRowmax)>> {
+  static constexpr bool value = E::kRowmax;
+};
+template <class E, class = void>
+struct RowInputOf {
+  static constexpr bool value = false;
+};
+template <class E>
+struct RowInputOf<E, std::void_t<decltype(E::kRowInput)>> {
+  static constexpr bool value = E::kRowInput;
+};
 
 // The epilogue stages the tile's f32 sums in shared memory over the ring
 // (free by then): rows of BN floats padded by 8, so the fragments' 8-byte
@@ -124,11 +169,55 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 128, s32) += A (64 x 32) B (32 x 128), int8 in shared memory, both
+// K-major (integer wgmma has no transpose).
+__device__ __forceinline__ void wgmma_m64n128_s8(int32_t (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// An accumulator as f32: an int32 sum rounded once (cvt.rn.f32.s32).
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(int32_t v) { return __int2float_rn(v); }
+
+// csrc/hopper.cuh's pin for int32 accumulators.
+__device__ __forceinline__ void pin_s32(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // AT: the launch may hold problems whose A is stored [K][M] (each problem
 // says whether its own is); BT: B is stored [K][N].
 template <typename T, bool AT, bool BT, class Epi>
 struct Gemm {
   static constexpr bool kBf16 = is_bf16<T>();
+  static constexpr bool kS8 = is_s8<T>();
+  static constexpr bool kWgmma = kBf16 || kS8;  // the accumulators in wgmma's layout
+  static constexpr bool kRowmax = RowmaxOf<Epi>::value;
+  static constexpr bool kRowInput = RowInputOf<Epi>::value;
+  static_assert(!(Epi::kColsum && kRowInput), "the row inputs and the column sums share `red`");
+  static_assert(!kS8 || (!AT && !BT), "integer wgmma takes K-major operands only");
+  using Acc = typename std::conditional<kS8, int32_t, float>::type;
   static constexpr int CW = chunk<T>();
   static constexpr int BOX_BYTES = CW * ROW_BYTES;  // one TMA box: CW rows of 128 bytes
   static constexpr int BOXES = BM / CW;             // boxes an operand's k tile
@@ -175,11 +264,13 @@ struct Gemm {
       return;
     }
 
-    float acc[64];
+    Acc acc[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
     const int wg = warp / 4, w = warp % 4;
-    if constexpr (kBf16) {
+    if constexpr (kS8) {
+      mainloop_s8(acc, ring, full, empty, nk, wg, lane);
+    } else if constexpr (kBf16) {
       if (at)
         mainloop_wgmma<AT>(acc, ring, full, empty, nk, wg, lane);
       else
@@ -203,20 +294,37 @@ struct Gemm {
     consumers_sync();  // every warpgroup is done with the ring
 #pragma unroll
     for (int pp = 0; pp < 32; ++pp)
-      *reinterpret_cast<float2*>(stage + (lr0 + row_of(pp, w)) * SROW + lc0 +
-                                 col_of(cpair(pp), w)) = make_float2(acc[2 * pp], acc[2 * pp + 1]);
+      *reinterpret_cast<float2*>(stage + (lr0 + row_of(pp, w)) * SROW + lc0 + col_of(cpair(pp), w)) =
+          make_float2(as_f32(acc[2 * pp]), as_f32(acc[2 * pp + 1]));
+    const int rows = min(BM, pr.M - m0);
+    float2* rowin = reinterpret_cast<float2*>(red);  // [BM]: the rows' inputs (kRowInput)
+    if constexpr (kRowInput) {
+      if (threadIdx.x < rows) rowin[threadIdx.x] = pr.epi.row_input(m0 + threadIdx.x);
+    }
     consumers_sync();
     const int cv = threadIdx.x % (BN / 8), rg = threadIdx.x / (BN / 8);
-    const int rows = min(BM, pr.M - m0);
     float cs[8] = {};
+    // kRowmax: the two row groups of a warp take as many steps (the odd one
+    // past the last row where the even one has a row), so the 16 lanes of
+    // each row can take its maximum together.
+    const int end = rows + (kRowmax ? (rg & 1) : 0);
 #pragma unroll 1
-    for (int r = rg; r < rows; r += EPI_ROWS) {
+    for (int r = rg; r < end; r += EPI_ROWS) {
       float v[8];
-      const float4* src = reinterpret_cast<const float4*>(stage + r * SROW + 8 * cv);
-      const float4 lo = src[0], hi = src[1];
-      v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-      v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-      pr.epi(m0 + r, n0 + 8 * cv, v);
+      if constexpr (kRowmax) {
+        float m = 0.0f;
+        if (r < rows) {
+          stage_row(stage, r, cv, v);
+          m = apply(pr.epi, m0 + r, n0 + 8 * cv, v, rowin, r);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (cv == 0 && r < rows)
+          atomicMax(reinterpret_cast<int*>(pr.epi.rowmax) + m0 + r, __float_as_int(m));
+      } else {
+        stage_row(stage, r, cv, v);
+        apply(pr.epi, m0 + r, n0 + 8 * cv, v, rowin, r);
+      }
       if constexpr (Epi::kColsum) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) cs[j] += v[j];
@@ -237,6 +345,37 @@ struct Gemm {
     }
   }
 
+  // Columns 8 cv .. 8 cv + 7 of tile row r of the staged sums.
+  static __device__ __forceinline__ void stage_row(const float* stage, int r, int cv,
+                                                   float (&v)[8]) {
+    const float4* src = reinterpret_cast<const float4*>(stage + r * SROW + 8 * cv);
+    const float4 lo = src[0], hi = src[1];
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+    v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+  }
+
+  // The functor's call on the 8 values v of tile row r (row `row` of C),
+  // with that row's staged input where it takes one; its row maximum
+  // partial where it gives one (kRowmax), else 0.
+  static __device__ __forceinline__ float apply(const Epi& e, int row, int col, float (&v)[8],
+                                                const float2* rowin, int r) {
+    if constexpr (kRowInput) {
+      if constexpr (kRowmax) {
+        return e(row, col, v, rowin[r]);
+      } else {
+        e(row, col, v, rowin[r]);
+        return 0.0f;
+      }
+    } else {
+      if constexpr (kRowmax) {
+        return e(row, col, v);
+      } else {
+        e(row, col, v);
+        return 0.0f;
+      }
+    }
+  }
+
   // The accumulators' layout. A thread holds 32 pairs: pair p is acc[2 p],
   // acc[2 p + 1] at row wg * 64 + g + row_of(p, w) and columns 2 t +
   // col_of(cpair(p), w) (+ 1) of the tile. bf16 (wgmma's m64n128 layout):
@@ -244,12 +383,12 @@ struct Gemm {
   // row half h. f32 (the mma.sync tiles): warp w's 32 columns x all 64
   // rows, p = 2 (4 mi + ni) + h for row tile mi and column group ni.
   static __device__ __forceinline__ int row_of(int p, int w) {
-    return kBf16 ? 16 * w + 8 * (p % 2) : 16 * (p / 8) + 8 * (p % 2);
+    return kWgmma ? 16 * w + 8 * (p % 2) : 16 * (p / 8) + 8 * (p % 2);
   }
   static __device__ __forceinline__ int cpair(int p) {  // the pair's column group
-    return kBf16 ? p / 2 : (p / 2) % 4;
+    return kWgmma ? p / 2 : (p / 2) % 4;
   }
-  static __device__ __forceinline__ int col_of(int c, int w) { return kBf16 ? 8 * c : 32 * w + 8 * c; }
+  static __device__ __forceinline__ int col_of(int c, int w) { return kWgmma ? 8 * c : 32 * w + 8 * c; }
 
   // One thread: the nk k tiles of A's rows m0.. and B's
   // columns n0.. into the ring, BOXES boxes an operand; TA: A is [K][M].
@@ -321,6 +460,33 @@ struct Gemm {
     if (nk > 0) release(empty, nk - 1, lane);
   }
 
+  // int8: bf16's loop on the integer wgmma (k32 steps of 32 bytes, both
+  // operands K-major).
+  static __device__ __forceinline__ void mainloop_s8(int32_t (&acc)[64], const char* ring,
+                                                     uint64_t* full, uint64_t* empty, int nk,
+                                                     int wg, int lane) {
+#pragma unroll 1
+    for (int i = 0; i < nk; ++i) {
+      const int st = i % STAGES;
+      attn::mbar_wait(&full[st], (i / STAGES) & 1);
+      const char* as = ring + st * STAGE_BYTES;
+      const char* bs = as + OPERAND_BYTES;
+      attn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128_s8(acc, attn::sw128_desc(as + wg * 64 * ROW_BYTES + kk * 32, 16),
+                         attn::sw128_desc(bs + kk * 32, 16));
+      attn::wgmma_commit();
+      if (i > 0) {
+        attn::wgmma_wait_n<1>();
+        release(empty, i - 1, lane);
+      }
+    }
+    attn::wgmma_wait();
+    pin_s32(acc);
+    if (nk > 0) release(empty, nk - 1, lane);
+  }
+
   // f32 as 3xTF32: warpgroup wg's 64 rows x warp w's 32 columns, four
   // m16n8k8 tiles each way, acc[4 (4 mi + ni) + i] the accumulator i of
   // row tile mi and column group ni.
@@ -379,10 +545,10 @@ __global__ void __launch_bounds__(THREADS, min_blocks<T>()) gemm_kernel(const __
 
 // ----------------------------------------------------------- host ----
 
-// The tensor map of a [rows, cols] matrix of T (row-major, 16-byte aligned
-// rows): boxes of 128 bytes x chunk<T>() rows, 128-byte swizzled, what lies
-// past the rows arriving as zeros. One map serves an operand read K-major
-// or MN-major.
+// The tensor map of a [rows, cols] matrix of T (bf16, f32 or int8;
+// row-major, 16-byte aligned rows): boxes of 128 bytes x chunk<T>() rows,
+// 128-byte swizzled, what lies past the rows or the columns arriving as
+// zeros. One map serves an operand read K-major or MN-major.
 template <typename T>
 cudaError_t encode_matrix(CUtensorMap* map, const void* ptr, int rows, int cols) {
   int pos[3];
@@ -393,16 +559,18 @@ cudaError_t encode_matrix(CUtensorMap* map, const void* ptr, int rows, int cols)
   return pos[0] == 1 ? cudaSuccess : cudaErrorInvalidValue;  // rows are the map's dimension 1
 }
 
-// C[M, N] = A[M, K] B[K, N] (N a multiple of BN), as ops/fused_mlp.py:
-// mlp_plan plans it; at: A is stored [K][M].
+// C[M, N] = A[M, K] B[K, N], as ops/fused_mlp.py:mlp_plan and
+// ops/int8_linear.py:int8_plan plan it (where N is no multiple of BN, the
+// last column tile's B rows past N arrive as zeros and its epilogue functor
+// must skip the columns from N on); at: A is stored [K][M].
 template <class Epi>
 cudaError_t problem(Problem<Epi>* pr, int M, int N, int K, const Epi& epi, bool at = false) {
-  if (M < 1 || N < 1 || N % BN || K < 1) return cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
   pr->M = M;
   pr->N = N;
   pr->K = K;
   pr->tiles_m = (M + BM - 1) / BM;
-  pr->tiles_n = N / BN;
+  pr->tiles_n = (N + BN - 1) / BN;
   pr->n_fast = M >= N;
   pr->at = at;
   pr->epi = epi;

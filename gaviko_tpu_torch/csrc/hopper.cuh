@@ -403,8 +403,9 @@ cudaError_t encode(CUtensorMap* map, int* pos, const View& x, int B, int H, int 
     box[i + 1] = d == 0 ? static_cast<cuuint32_t>(box_rows) : 1;
     reach = bytes * ext[d];
   }
-  const CUtensorMapDataType type =
-      es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapDataType type = es == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8  // int8 codes
+                                   : es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUresult r = enc(map, type, 4, const_cast<void*>(x.ptr), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

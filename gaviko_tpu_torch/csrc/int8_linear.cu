@@ -3,96 +3,80 @@
 // Replaces gaviko_tpu/ops/int8_linear.py:_int8_linear_kernel (int8_linear)
 // and _int8_mlp_kernel (int8_mlp). Weights are int8 (out, in) in the torch
 // layout with one f32 scale per output channel (quantize_weight, offline);
-// activations are quantized per row inside the kernel:
+// activations are quantized per row:
 //
 //   sx = max(amax(|x_row|), 1e-12) * (1 / 127),  x_i8 = clip(rint(x * (1 / sx)), +-127)
 //   out = float(x_i8 . w_i8) * (sx * w_scale) [+ bias]
 //
-// with the optional LN prologue in f32 (not rounded to the input dtype
-// before quantizing), round half to even, and the dequantization written
-// with explicit roundings (__fmul_rn, and __fmaf_rn for the bias: one fused
+// with the optional LN in f32 (not rounded to the input dtype before
+// quantizing), round half to even, and the dequantization written with
+// explicit roundings (__fmul_rn, and __fmaf_rn for the bias: one fused
 // multiply-add, as XLA contracts the JAX kernel's `acc * s + bias`), so nvcc
 // contracts nothing else: without LN, int8_linear is bit-equal to its plain
 // version (ops/int8_linear.py, whose fma_f32 rounds that multiply-add once
-// too). int8_mlp is LN -> quantize -> fc1 + b1 -> GELU (the
-// mode of csrc/gelu.cuh) -> quantize the f32 hidden per row -> fc2 + b2
-// (+ x when residual), all in f32 until the one rounding to the output dtype.
-//
-// The product is the card's integer MMA, mma.sync.m16n8k32.row.col.s32.s8.s8
-// with int32 accumulators (exact in any order). Both operands are
-// K-contiguous in torch's (rows, in) x (out, in) layout, so "row.col" reads
-// them in place: each A and B fragment register is 4 consecutive bytes of a
-// staged row, loaded as one 32-bit word.
-//
-// Layout: a block of 8 warps owns 32 rows. It quantizes them once into
-// shared memory (a warp a row, the row in registers), then walks every
-// 128-column tile of W, streaming W in 128 x 128-byte tiles through a
-// 3-stage cp.async ring (W stays in the 50 MB L2 across blocks); the warps
-// sit 2 x 4, each accumulating a 16 x 32 output tile. int8_mlp's per-row
-// quantization of the hidden needs the whole fc1 row (mlp_dim wide) before
-// fc2 can start: fc1's epilogue writes the GELU'd f32 hidden to a device
-// scratch the wrapper allocates and keeps each row's amax in shared memory
-// (atomicMax on the float's bits, all non-negative); then the block
-// quantizes its 32 hidden rows into shared memory (32 x 4 KB at mlp_dim
-// 4096) and runs fc2 from there.
+// too). int8_mlp is LN -> quantize -> fc1 + b1 -> GELU (the mode of
+// csrc/gelu.cuh) -> quantize the f32 hidden per row -> fc2 + b2 (+ x when
+// residual), all in f32 until the one rounding to the output dtype; the
+// hidden's codes are those of the f32 GELU output.
 //
 // What bounds it on the H100: at GAViKO vit-l16 B8 (8,320 rows) the qkv
-// projection is 52.3 G int8 operations against 71 MB (0.026 ms at 1,979
-// TOPS), the out-projection 0.0105 ms of bytes and the MLP 139.6 G
-// operations (0.071 ms). This first version reads W once per 32-row block
-// from L2 (260 blocks) and round-trips the MLP hidden through device
-// memory, so it is bound well above that; wgmma with TMA is the later step.
+// projection is 52.3 G int8 operations (0.026 ms at 1,979 TOPS) against
+// 71 MB, the out-projection 0.0105 ms of bytes and the MLP 139.6 G
+// operations (0.071 ms). The products run on csrc/gemm_sm90.cuh's int8
+// instance: 128 x 128 output tiles, a TMA ring of 128-code k tiles fed by one
+// producer warp, wgmma m64n128k32 s32.s8.s8 with both operands K-major in
+// shared memory (the codes [M][Kp] and the sidecar [N][Kp] as stored), int32
+// sums converted to f32 (cvt.rn.f32.s32) for an epilogue functor, each
+// row's scalars staged in shared memory for it. Each W tile is read by the
+// CTAs of its column from L2, not by every 32-row block as before. A call
+// is:
+//
+//   int8_linear: 1. the row pass (a warp a row, looping over the row, so any
+//                   width: LN when asked, the row's amax, then its codes
+//                   into [M][Kp] scratch, Kp = K rounded up to 16 for TMA's
+//                   strides, the pad zeroed, and its scale);
+//                2. the GEMM, dequantizing (+ bias) in its epilogue.
+//   int8_mlp:    1. the row pass (LN always; it also zeroes the hidden's
+//                   row maxima);
+//                2. fc1, whose epilogue writes the f32 hidden
+//                   GELU(acc * (sx * s1) + b1) to scratch and takes each
+//                   row's amax (across the 16 lanes of a row in a tile, then
+//                   one device atomicMax a row and tile: a maximum is the
+//                   same in any order);
+//                3. the hidden's codes [M][Hp] with each row's scale, a
+//                   warp a row;
+//                4. fc2, with the hidden's scale, + b2 (+ x) in its
+//                   epilogue.
+//   The hidden's scale needs its whole row before any code can be written.
+//   Running fc1 twice instead (the first time for the maxima only, the
+//   second writing codes) moves 272 MB less at GAViKO B8 (the f32 hidden
+//   written and read back) but measured 0.04-0.07 ms slower on an H100: a
+//   128 x 128 tile's fixed cost (its ring filling, its epilogue, the CTAs
+//   of a wave starting and ending together) dominates fc1's 2,080 tiles of
+//   depth 1,024, and fc1 twice paid it twice.
+// Everything is exact or a fixed order: reruns are bit-equal. Weights
+// whose K is no multiple of 16 arrive zero-padded to Kp (ops/int8_linear.py
+// keeps one padded copy a sidecar).
 
-#include <cstdint>
+#include "mlp.cuh"
 
-#include "gelu.cuh"
-#include "row_gemm.cuh"
-
-using gaviko::from_f32;
-using gaviko::to_f32;
-
+namespace gaviko {
+namespace int8 {
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 32;             // rows a block owns
-constexpr int BN = 128;            // output columns a tile
-constexpr int BK = 128;            // k bytes a staged W tile
-constexpr int LDW = BK + 16;       // staged W row stride: conflict-free fragment words
-constexpr int STAGES = 3;
-constexpr int TILE = BN * LDW;     // bytes of one ring stage
-constexpr int MAX_DIM = 2048;      // widest row the LN + quantize prologue holds in registers
-constexpr int MAXV = MAX_DIM / 32;
+using gemm::Params;
 
-__host__ __device__ inline int pad_k(int k) { return (k + BK - 1) / BK * BK; }
-__host__ __device__ inline int ld_rows(int k) { return pad_k(k) + 16; }  // staged row stride
-
-__device__ __forceinline__ void mma_s8(int32_t* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int ROW_THREADS = 256;  // the row pass: 8 warps, a warp a row
 
 // clip(rint(v * inv), -127, 127): round half to even, as jnp.round.
-__device__ __forceinline__ int8_t quant(float v, float inv) {
+__device__ __forceinline__ int quant(float v, float inv) {
   const float r = rintf(__fmul_rn(v, inv));
-  return static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
+  return static_cast<int>(fminf(fmaxf(r, -127.0f), 127.0f));
 }
 
 // max(amax, 1e-12) * (1 / 127): the row scale of _quant_rows.
 __device__ __forceinline__ float row_scale(float amax) {
   return __fmul_rn(fmaxf(amax, 1e-12f), 1.0f / 127.0f);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -101,345 +85,419 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Rows [row0, row0 + BM) of x [M, K] -> int8 codes in xs (row stride
-// ld_rows(K), zeros past K and for rows >= M) and their scales in sx:
-// optionally LN(x) * gamma + beta in f32 first. A warp owns a row, each
-// lane the columns lane + 32 i in registers.
-template <typename T>
-__device__ void quantize_rows(const T* __restrict__ x, const T* __restrict__ gamma,
-                              const T* __restrict__ beta, float eps, int8_t* xs, float* sx,
-                              int row0, int M, int K) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ld = ld_rows(K), kp = pad_k(K);
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int m = row0 + r;
-    int8_t* dst = xs + r * ld;
-    if (m >= M) {
-      for (int c = lane; c < kp; c += 32) dst[c] = 0;
-      if (lane == 0) sx[r] = 0.0f;
-      continue;
-    }
-    const T* src = x + static_cast<long long>(m) * K;
-    float v[MAXV];
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < K ? to_f32(src[c]) : 0.0f;
-    }
-    if (gamma != nullptr) {
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < MAXV; ++i) sum += v[i];
-      const float mean = __fdiv_rn(warp_sum(sum), static_cast<float>(K));
-      float sq = 0.0f;
-#pragma unroll
-      for (int i = 0; i < MAXV; ++i) {
-        if (lane + 32 * i < K) {
-          const float d = __fsub_rn(v[i], mean);
-          sq = __fadd_rn(sq, __fmul_rn(d, d));
-        }
-      }
-      const float var = __fdiv_rn(warp_sum(sq), static_cast<float>(K));
-      const float rstd = rsqrtf(__fadd_rn(var, eps));
-#pragma unroll
-      for (int i = 0; i < MAXV; ++i) {
-        const int c = lane + 32 * i;
-        if (c < K)
-          v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rstd), to_f32(gamma[c])),
-                           to_f32(beta[c]));
-      }
-    }
-    float amax = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i) amax = fmaxf(amax, fabsf(v[i]));
-    const float s = row_scale(warp_max(amax));
-    const float inv = __frcp_rn(s);
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i) {
-      const int c = lane + 32 * i;
-      if (c < kp) dst[c] = c < K ? quant(v[i], inv) : 0;
-    }
-    for (int c = lane + 32 * MAXV; c < kp; c += 32) dst[c] = 0;
-    if (lane == 0) sx[r] = s;
-  }
+// Four codes as one little-endian word.
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) | (static_cast<uint32_t>(d) << 24);
 }
 
-// W tile idx = (column tile ct, k tile kc) of w [N, K] -> ring stage
-// idx % STAGES; rows >= N and bytes >= K become zeros.
-__device__ __forceinline__ void load_tile(int8_t* ring, const int8_t* w, int idx, int total, int nk,
-                                          int K, int N) {
-  if (idx < total) {
-    const int ct = idx / nk, kc = idx % nk;
-    int8_t* dst = ring + (idx % STAGES) * TILE;
-#pragma unroll
-    for (int i = 0; i < BN * BK / 16 / THREADS; ++i) {
-      const int e = threadIdx.x + THREADS * i;
-      const int r = e / (BK / 16), c = e % (BK / 16);
-      const int n = ct * BN + r, k = kc * BK + c * 16;
-      const bool valid = n < N && k < K;
-      gaviko::cp_async16(dst + r * LDW + c * 16,
-                         w + (valid ? static_cast<long long>(n) * K + k : 0), valid);
-    }
-  }
-  gaviko::cp_async_commit();  // an empty group past the end keeps the count
+// V elements of T at p as f32: one 16-byte vector (V = 16 / sizeof(T)), or
+// one element (V = 1, rows whose bytes are no multiple of 16).
+template <int V, typename T>
+__device__ __forceinline__ void load_v(const T* p, float (&v)[V]) {
+  if constexpr (V == 1)
+    v[0] = to_f32(*p);
+  else
+    mlp::load16(p, v);
 }
 
-// out[BM rows, N] = xs[BM, K] (int8, row stride ld_rows(K)) . w[N, K]^T in
-// int32; epi(col_tile, acc) runs once a 128-column tile is complete, with
-// this thread's acc[ni][i] at row wm * 16 + g + 8 (i / 2) and column
-// col_tile * BN + wn * 32 + ni * 8 + 2 t + i % 2.
-template <typename Epi>
-__device__ void gemm(const int8_t* xs, const int8_t* w, int K, int N, int8_t* ring, Epi epi) {
-  const int nk = pad_k(K) / BK, total = nk * ((N + BN - 1) / BN), ld = ld_rows(K);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  for (int s = 0; s < STAGES - 1; ++s) load_tile(ring, w, s, total, nk, K, N);
-  int32_t acc[4][4] = {};
-  for (int idx = 0; idx < total; ++idx) {
-    gaviko::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile idx landed; every warp is done with idx - 1
-    load_tile(ring, w, idx + STAGES - 1, total, nk, K, N);
-    const int8_t* wt = ring + (idx % STAGES) * TILE;
-    const int kc = idx % nk;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      const int8_t* ar = xs + (wm * 16 + g) * ld + kc * BK + ks * 32 + 4 * t;
-      const uint32_t af[4] = {lds32(ar), lds32(ar + 8 * ld), lds32(ar + 16),
-                              lds32(ar + 8 * ld + 16)};
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* br = wt + (wn * 32 + ni * 8 + g) * LDW + ks * 32 + 4 * t;
-        mma_s8(acc[ni], af, lds32(br), lds32(br + 16));
-      }
-    }
-    if (kc == nk - 1) {  // this column tile is complete
-      epi(idx / nk, acc);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[ni][i] = 0;
-    }
-  }
-  gaviko::cp_async_wait<0>();
-  __syncthreads();  // the ring and xs are free again
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float lo, float hi) {
-  if constexpr (gaviko::is_bf16<T>()) {
-    *reinterpret_cast<uint32_t*>(p) = gaviko::pack_bf16(lo, hi);
+// V codes at p (V-byte aligned).
+template <int V>
+__device__ __forceinline__ void store_codes(int8_t* p, const int (&c)[V]) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack4(c[0], c[1], c[2], c[3]),
+                                              pack4(c[4], c[5], c[6], c[7]));
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint32_t*>(p) = pack4(c[0], c[1], c[2], c[3]);
   } else {
-    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+    *p = static_cast<int8_t>(c[0]);
   }
+}
+
+struct RowArgs {
+  const void *x, *gamma, *beta;  // gamma nullptr: no LN
+  int8_t* codes;                 // [M][Kp]
+  float* sx;                     // [M]
+  float* zero;                   // [M] set to 0 (the MLP's hidden maxima), or nullptr
+  int M, K, Kp;
+  float eps;
+};
+
+// The row pass: a warp a row, each lane V columns at a time, the row read
+// once a step (from L1 / L2 after the first): the LN's mean, then its
+// centred sum of squares (each lane's columns in order, then across the
+// warp), the amax of the (normalised) row, then its codes.
+template <typename T, int V>
+__global__ void __launch_bounds__(ROW_THREADS) int8_rows_kernel(RowArgs a) {
+  const int m = blockIdx.x * (ROW_THREADS / 32) + threadIdx.x / 32;
+  if (m >= a.M) return;
+  const int lane = threadIdx.x % 32, K = a.K;
+  const T* x = static_cast<const T*>(a.x) + static_cast<long long>(m) * K;
+  const T* gamma = static_cast<const T*>(a.gamma);
+  const T* beta = static_cast<const T*>(a.beta);
+  float mean = 0.0f, rstd = 0.0f;
+  if (gamma != nullptr) {
+    float s = 0.0f;
+    for (int c = lane * V; c < K; c += 32 * V) {
+      float v[V];
+      load_v<V>(x + c, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) s += v[j];
+    }
+    mean = __fdiv_rn(mlp::warp_sum(s), static_cast<float>(K));
+    float sq = 0.0f;
+    for (int c = lane * V; c < K; c += 32 * V) {
+      float v[V];
+      load_v<V>(x + c, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = __fsub_rn(v[j], mean);
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+    }
+    rstd = rsqrtf(__fadd_rn(__fdiv_rn(mlp::warp_sum(sq), static_cast<float>(K)), a.eps));
+  }
+  // Columns c .. c + V - 1 of the row as the codes see them.
+  auto values = [&](int c, float(&v)[V]) {
+    load_v<V>(x + c, v);
+    if (gamma == nullptr) return;
+    float g[V], b[V];
+    load_v<V>(gamma + c, g);
+    load_v<V>(beta + c, b);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      v[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j], mean), rstd), g[j]), b[j]);
+  };
+  float amax = 0.0f;
+  for (int c = lane * V; c < K; c += 32 * V) {
+    float v[V];
+    values(c, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  }
+  const float s = row_scale(warp_max(amax));
+  const float inv = __frcp_rn(s);
+  int8_t* dst = a.codes + static_cast<long long>(m) * a.Kp;
+  for (int c = lane * V; c < K; c += 32 * V) {
+    float v[V];
+    values(c, v);
+    int q[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) q[j] = quant(v[j], inv);
+    store_codes<V>(dst + c, q);
+  }
+  for (int c = K + lane; c < a.Kp; c += 32) dst[c] = 0;
+  if (lane == 0) {
+    a.sx[m] = s;
+    if (a.zero != nullptr) a.zero[m] = 0.0f;
+  }
+}
+
+template <typename T>
+cudaError_t rows(const RowArgs& a, cudaStream_t stream) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const int blocks = (a.M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
+  if (a.K % VEC == 0)
+    int8_rows_kernel<T, VEC><<<blocks, ROW_THREADS, 0, stream>>>(a);
+  else
+    int8_rows_kernel<T, 1><<<blocks, ROW_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ epilogues ----
+
+// Columns col .. col + 7 (a multiple of 8) of n values of T at p as f32, 0
+// past n; p is 16-byte aligned, or, for a row of a matrix (`row`), where n
+// is a multiple of 8.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, int col, int n, float (&v)[8],
+                                          bool row = false) {
+  if (col + 8 <= n && (!row || n % 8 == 0)) {
+    mlp::load8(p + col, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = col + j < n ? to_f32(p[col + j]) : 0.0f;
+}
+
+// v rounded to T into columns col .. col + 7 (those < n) of a row of n.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int col, int n, const float (&v)[8]) {
+  if (col + 8 <= n && n % 8 == 0) {
+    mlp::store8(row + col, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (col + j < n) row[col + j] = from_f32<T>(v[j]);
+}
+
+// The epilogues below take their rows' scalars staged in shared memory
+// (kRowInput: row_input(m)).
+
+// int8_linear: out = float(acc) * (sx * ws) [+ bias], one rounding.
+template <typename T>
+struct Int8LinearEpi {
+  static constexpr bool kColsum = false;
+  static constexpr bool kRowInput = true;
+  const float *sx, *ws;
+  const T* bias;  // nullptr: none
+  T* out;
+  int N;
+  __device__ __forceinline__ float2 row_input(int m) const { return make_float2(sx[m], 0.0f); }
+  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8], float2 rv) const {
+    if (col >= N) return;
+    float w[8], b[8];
+    load_cols(ws, col, N, w);
+    if (bias != nullptr) load_cols(bias, col, N, b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float m = __fmul_rn(rv.x, w[j]);
+      v[j] = bias != nullptr ? __fmaf_rn(v[j], m, b[j]) : __fmul_rn(v[j], m);
+    }
+    store_cols(out + static_cast<long long>(row) * N, col, N, v);
+  }
+};
+
+// fc1: the f32 hidden GELU(float(acc) * (sx * s1) + b1) into [M][H] scratch,
+// and each row's amax of it (kRowmax). The exact mode's exponential and
+// reciprocal are the hardware's approximations (csrc/gelu.cuh).
+template <typename T>
+struct Int8Fc1Epi {
+  static constexpr bool kColsum = false;
+  static constexpr bool kRowmax = true;
+  static constexpr bool kRowInput = true;
+  const float *sx, *s1;
+  const T* b1;
+  float* hidden;
+  float* rowmax;  // [M], zeroed by the row pass
+  int H, gelu;
+  __device__ __forceinline__ float2 row_input(int m) const { return make_float2(sx[m], 0.0f); }
+  __device__ __forceinline__ float operator()(int row, int col, float (&v)[8], float2 rv) const {
+    if (col >= H) return 0.0f;
+    float w[8], b[8];
+    load_cols(s1, col, H, w);
+    load_cols(b1, col, H, b);
+    float m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float g, dg;
+      gelu_and_grad(__fmaf_rn(v[j], __fmul_rn(rv.x, w[j]), b[j]), gelu, g, dg);
+      v[j] = g;
+      if (col + j < H) m = fmaxf(m, fabsf(g));
+    }
+    store_cols<float>(hidden + static_cast<long long>(row) * H, col, H, v);
+    return m;
+  }
+};
+
+// The hidden's codes [M][Hp] from the f32 hidden [M][H] with each row's
+// scale (the columns from H to Hp get code 0): a warp a row, V columns a
+// lane at a time (4: one 16-byte vector, where H is a multiple of 4).
+template <int V>
+__global__ void __launch_bounds__(ROW_THREADS) int8_hidden_kernel(const float* hidden,
+                                                                  const float* hmax,
+                                                                  int8_t* codes, int M, int H,
+                                                                  int Hp) {
+  const int m = blockIdx.x * (ROW_THREADS / 32) + threadIdx.x / 32;
+  if (m >= M) return;
+  const int lane = threadIdx.x % 32;
+  const float inv = __frcp_rn(row_scale(hmax[m]));
+  const float* src = hidden + static_cast<long long>(m) * H;
+  int8_t* dst = codes + static_cast<long long>(m) * Hp;
+  for (int c = lane * V; c < H; c += 32 * V) {
+    float v[V];
+    load_v<V>(src + c, v);
+    int q[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) q[j] = quant(v[j], inv);
+    store_codes<V>(dst + c, q);
+  }
+  for (int c = H + lane; c < Hp; c += 32) dst[c] = 0;
+}
+
+// fc2: out = float(acc) * (sh * s2) + b2 (one rounding) [+ x].
+template <typename T>
+struct Int8Fc2Epi {
+  static constexpr bool kColsum = false;
+  static constexpr bool kRowInput = true;
+  const float *rowmax, *s2;
+  const T *b2, *x;
+  T* out;
+  int D, residual;
+  __device__ __forceinline__ float2 row_input(int m) const {
+    return make_float2(row_scale(rowmax[m]), 0.0f);
+  }
+  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8], float2 rv) const {
+    if (col >= D) return;
+    float w[8], b[8], xv[8];
+    load_cols(s2, col, D, w);
+    load_cols(b2, col, D, b);
+    const long long off = static_cast<long long>(row) * D;
+    if (residual) load_cols(x + off, col, D, xv, true);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = __fmaf_rn(v[j], __fmul_rn(rv.x, w[j]), b[j]);
+      if (residual) v[j] = __fadd_rn(v[j], xv[j]);
+    }
+    store_cols(out + off, col, D, v);
+  }
+};
+
+// ---------------------------------------------------------------- calls ----
+
+// out[M, N] = codes a [M][Kp] . w [w_rows][Kp]^T through epi; the rows of w
+// past w_rows (up to N) arrive as zeros.
+template <class Epi>
+cudaError_t product(Params<Epi>& p, const int8_t* a, const int8_t* w, int w_rows, int M, int N,
+                    int Kp, const Epi& epi, cudaStream_t stream) {
+  cudaError_t err = gemm::encode_matrix<int8_t>(&p.a[0], a, M, Kp);
+  if (err == cudaSuccess) err = gemm::encode_matrix<int8_t>(&p.b[0], w, w_rows, Kp);
+  if (err == cudaSuccess) err = gemm::problem(&p.prob[0], M, N, Kp, epi);
+  if (err == cudaSuccess) err = gemm::run<int8_t, false, false>(p, 1, stream);
+  return err;
 }
 
 struct LinearArgs {
-  const void* x;
-  const void* gamma;  // nullptr: no LN
-  const void* beta;
-  const int8_t* w;
+  const void *x, *gamma, *beta;  // gamma nullptr: no LN
+  const int8_t* w;               // [N][Kp]
   const float* w_scale;
-  const void* bias;  // nullptr: no bias
+  const void* bias;  // nullptr: none
   void* out;
-  int M, K, N;
+  int8_t* codes;  // [M][Kp] scratch
+  float* sx;      // [M] scratch
+  int M, K, Kp, N;
   float eps;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) int8_linear_kernel(LinearArgs a) {
-  extern __shared__ __align__(128) char smem[];
-  __shared__ float sx[BM];
-  int8_t* ring = reinterpret_cast<int8_t*>(smem);
-  int8_t* xs = ring + STAGES * TILE;
-  const int row0 = blockIdx.x * BM;
-  quantize_rows<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.gamma),
-                   static_cast<const T*>(a.beta), a.eps, xs, sx, row0, a.M, a.K);
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-  T* out = static_cast<T*>(a.out);
-  const T* bias = static_cast<const T*>(a.bias);
-  gemm(xs, a.w, a.K, a.N, ring, [&](int ct, int32_t(&acc)[4][4]) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = ct * BN + wn * 32 + ni * 8 + 2 * t;
-      if (col >= a.N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 16 + g + 8 * h;
-        if (row0 + r >= a.M) continue;
-        float o[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float f = __int2float_rn(acc[ni][2 * h + j]);
-          const float m = __fmul_rn(sx[r], a.w_scale[col + j]);
-          o[j] = bias == nullptr ? __fmul_rn(f, m) : __fmaf_rn(f, m, to_f32(bias[col + j]));
-        }
-        store2(out + static_cast<long long>(row0 + r) * a.N + col, o[0], o[1]);
-      }
-    }
-  });
+int linear(const LinearArgs& a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = rows<T>(
+      RowArgs{a.x, a.gamma, a.beta, a.codes, a.sx, nullptr, a.M, a.K, a.Kp, a.eps}, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params<Int8LinearEpi<T>> p{};
+  err = product(p, a.codes, a.w, a.N, a.M, a.N, a.Kp,
+                Int8LinearEpi<T>{a.sx, a.w_scale, static_cast<const T*>(a.bias),
+                                 static_cast<T*>(a.out), a.N},
+                s);
+  return static_cast<int>(err);
 }
 
 struct MlpArgs {
-  const void* x;
-  const void* gamma;
-  const void* beta;
-  const int8_t* w1;
+  const void *x, *gamma, *beta;
+  const int8_t* w1;  // [H][Dp]
   const float* s1;
   const void* b1;
-  const int8_t* w2;
+  const int8_t* w2;  // [D][Hp]
   const float* s2;
   const void* b2;
-  float* hidden;  // [M, H] f32 scratch
   void* out;
-  int M, D, H;
+  int8_t *codes_x, *codes_h;  // [M][Dp], [M][Hp] scratch
+  float* hidden;              // [M][H] scratch
+  float *sx, *hmax;           // [M] scratch each
+  int M, D, Dp, H, Hp;
   float eps;
-  int gelu_mode;  // csrc/gelu.cuh: 0 exact, 1 tanh, 2 erf_fast
-  int residual;
+  int gelu, residual;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) int8_mlp_kernel(MlpArgs a) {
-  extern __shared__ __align__(128) char smem[];
-  __shared__ float sx[BM];
-  __shared__ float amax[BM];
-  int8_t* ring = reinterpret_cast<int8_t*>(smem);
-  int8_t* xs = ring + STAGES * TILE;  // the x codes, then the hidden codes
-  const int row0 = blockIdx.x * BM;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-  if (threadIdx.x < BM) amax[threadIdx.x] = 0.0f;
-  quantize_rows<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.gamma),
-                   static_cast<const T*>(a.beta), a.eps, xs, sx, row0, a.M, a.D);
-  __syncthreads();
-
-  // fc1 + b1 -> GELU -> the f32 hidden, and each row's amax.
-  const T* b1 = static_cast<const T*>(a.b1);
-  gemm(xs, a.w1, a.D, a.H, ring, [&](int ct, int32_t(&acc)[4][4]) {
-    float mx[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = ct * BN + wn * 32 + ni * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 16 + g + 8 * h;
-        if (col >= a.H || row0 + r >= a.M) continue;
-        float o[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float pre = __fmaf_rn(__int2float_rn(acc[ni][2 * h + j]),
-                                      __fmul_rn(sx[r], a.s1[col + j]), to_f32(b1[col + j]));
-          o[j] = gaviko::gelu(pre, a.gelu_mode);
-          mx[h] = fmaxf(mx[h], fabsf(o[j]));
-        }
-        *reinterpret_cast<float2*>(a.hidden + static_cast<long long>(row0 + r) * a.H + col) =
-            make_float2(o[0], o[1]);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      if (t == 0) atomicMax(reinterpret_cast<int*>(amax) + wm * 16 + g + 8 * h, __float_as_int(mx[h]));
-    }
-  });  // ends in __syncthreads(): the hidden rows and their amax are complete
-
-  // Quantize the block's hidden rows into xs (row stride ld_rows(H)).
-  const int ldh = ld_rows(a.H), hp = pad_k(a.H);
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    int8_t* dst = xs + r * ldh;
-    if (row0 + r >= a.M) {
-      for (int c = lane; c < hp; c += 32) dst[c] = 0;
-      if (lane == 0) sx[r] = 0.0f;
-      continue;
-    }
-    const float s = row_scale(amax[r]);
-    const float inv = __frcp_rn(s);
-    const float* src = a.hidden + static_cast<long long>(row0 + r) * a.H;
-    for (int c = lane; c < hp; c += 32) dst[c] = c < a.H ? quant(src[c], inv) : 0;
-    if (lane == 0) sx[r] = s;
-  }
-  __syncthreads();
-
-  // fc2 + b2 (+ x).
-  const T* x = static_cast<const T*>(a.x);
-  const T* b2 = static_cast<const T*>(a.b2);
-  T* out = static_cast<T*>(a.out);
-  gemm(xs, a.w2, a.H, a.D, ring, [&](int ct, int32_t(&acc)[4][4]) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = ct * BN + wn * 32 + ni * 8 + 2 * t;
-      if (col >= a.D) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 16 + g + 8 * h;
-        if (row0 + r >= a.M) continue;
-        const long long at = static_cast<long long>(row0 + r) * a.D + col;
-        float o[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          o[j] = __fmaf_rn(__int2float_rn(acc[ni][2 * h + j]), __fmul_rn(sx[r], a.s2[col + j]),
-                           to_f32(b2[col + j]));
-          if (a.residual) o[j] = __fadd_rn(o[j], to_f32(x[at + j]));
-        }
-        store2(out + at, o[0], o[1]);
-      }
-    }
-  });
-}
-
-size_t smem_bytes(int k) { return static_cast<size_t>(STAGES) * TILE + static_cast<size_t>(BM) * ld_rows(k); }
-
-template <typename K, typename A>
-int launch(K kernel, size_t smem, int M, const A& a, void* stream) {
-  cudaError_t err = gaviko::allow_smem(kernel, smem);
+int mlp_forward(const MlpArgs& a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = rows<T>(
+      RowArgs{a.x, a.gamma, a.beta, a.codes_x, a.sx, a.hmax, a.M, a.D, a.Dp, a.eps}, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(M + BM - 1) / BM, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  Params<Int8Fc1Epi<T>> p1{};
+  err = product(p1, a.codes_x, a.w1, a.H, a.M, a.H, a.Dp,
+                Int8Fc1Epi<T>{a.sx, a.s1, static_cast<const T*>(a.b1), a.hidden, a.hmax, a.H,
+                              a.gelu},
+                s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (a.M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
+  if (a.H % 4 == 0)
+    int8_hidden_kernel<4><<<blocks, ROW_THREADS, 0, s>>>(a.hidden, a.hmax, a.codes_h, a.M, a.H,
+                                                         a.Hp);
+  else
+    int8_hidden_kernel<1><<<blocks, ROW_THREADS, 0, s>>>(a.hidden, a.hmax, a.codes_h, a.M, a.H,
+                                                         a.Hp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params<Int8Fc2Epi<T>> p2{};
+  err = product(p2, a.codes_h, a.w2, a.D, a.M, a.D, a.Hp,
+                Int8Fc2Epi<T>{a.hmax, a.s2, static_cast<const T*>(a.b2),
+                              static_cast<const T*>(a.x), static_cast<T*>(a.out), a.D,
+                              a.residual},
+                s);
+  return static_cast<int>(err);
 }
 
-bool shapes_ok(int M, int K, int N) {
-  return M >= 1 && K >= 16 && K % 16 == 0 && N >= 2 && N % 2 == 0;
-}
+bool pads_ok(int k, int kp) { return k >= 1 && kp >= k && kp % 16 == 0 && kp - k < 16; }
 
 }  // namespace
+}  // namespace int8
+}  // namespace gaviko
 
-// x [M, K], gamma and beta [K] or nullptr (no LN), w [N, K] int8, w_scale [N]
-// f32, bias [N] or nullptr -> out [M, N]; x, gamma, beta, bias and out of
-// one dtype, all contiguous and 16-byte aligned; K a multiple of 16 up to
-// 2048, N even.
-#define GAVIKO_INT8_LINEAR(SUFFIX, T)                                                            \
-  extern "C" int gaviko_int8_linear_##SUFFIX(const void* x, const void* gamma, const void* beta, \
-                                             const void* w, const void* w_scale,                 \
-                                             const void* bias, void* out, int M, int K, int N,   \
-                                             float eps, void* stream) {                          \
-    if (!shapes_ok(M, K, N) || K > MAX_DIM) return static_cast<int>(cudaErrorInvalidValue);     \
-    const LinearArgs a{x, gamma, beta, static_cast<const int8_t*>(w),                            \
-                       static_cast<const float*>(w_scale), bias, out, M, K, N, eps};             \
-    return launch(int8_linear_kernel<T>, smem_bytes(K), M, a, stream);                           \
+// x [M, K], gamma and beta [K] or nullptr (no LN), w [N, Kp] int8 (K
+// zero-padded to Kp, the next multiple of 16), w_scale [N] f32, bias [N] or
+// nullptr -> out [M, N]; scratch codes [M, Kp] int8 and sx [M] f32; x,
+// gamma, beta, bias and out of one dtype, all contiguous and 16-byte
+// aligned. Two launches: the row pass, then the GEMM.
+#define GAVIKO_INT8_LINEAR(SUFFIX, T)                                                             \
+  extern "C" int gaviko_int8_linear_##SUFFIX(                                                     \
+      const void* x, const void* gamma, const void* beta, const void* w, const void* w_scale,     \
+      const void* bias, void* out, void* codes, void* sx, int M, int K, int Kp, int N, float eps, \
+      void* stream) {                                                                             \
+    if (M < 1 || N < 1 || !gaviko::int8::pads_ok(K, Kp))                                          \
+      return static_cast<int>(cudaErrorInvalidValue);                                             \
+    const gaviko::int8::LinearArgs a{x,     gamma, beta,                                          \
+                                     static_cast<const int8_t*>(w),                               \
+                                     static_cast<const float*>(w_scale),                          \
+                                     bias,  out,   static_cast<int8_t*>(codes),                   \
+                                     static_cast<float*>(sx),                                     \
+                                     M,     K,     Kp,   N,   eps};                               \
+    return gaviko::int8::linear<T>(a, stream);                                                    \
   }
 GAVIKO_INT8_LINEAR(bf16, __nv_bfloat16)
 GAVIKO_INT8_LINEAR(f32, float)
 
-// x [M, D], gamma, beta [D], w1 [H, D] int8, s1 [H] f32, b1 [H], w2 [D, H]
-// int8, s2 [D] f32, b2 [D], hidden [M, H] f32 scratch -> out [M, D]; x,
-// gamma, beta, b1, b2 and out of one dtype, all contiguous and 16-byte
-// aligned; D a multiple of 16 up to 2048, H a multiple of 16 whose staged
-// codes fit shared memory (the wrapper checks).
-#define GAVIKO_INT8_MLP(SUFFIX, T)                                                                \
-  extern "C" int gaviko_int8_mlp_##SUFFIX(const void* x, const void* gamma, const void* beta,     \
-                                          const void* w1, const void* s1, const void* b1,         \
-                                          const void* w2, const void* s2, const void* b2,         \
-                                          void* hidden, void* out, int M, int D, int H, float eps, \
-                                          int gelu_mode, int residual, void* stream) {            \
-    if (!shapes_ok(M, D, H) || !shapes_ok(M, H, D) || D > MAX_DIM)                               \
-      return static_cast<int>(cudaErrorInvalidValue);                                             \
-    const MlpArgs a{x, gamma, beta, static_cast<const int8_t*>(w1), static_cast<const float*>(s1), \
-                    b1, static_cast<const int8_t*>(w2), static_cast<const float*>(s2), b2,       \
-                    static_cast<float*>(hidden), out, M, D, H, eps, gelu_mode, residual};         \
-    return launch(int8_mlp_kernel<T>, smem_bytes(D > H ? D : H), M, a, stream);                  \
+// x [M, D], gamma, beta [D], w1 [H, Dp] int8, s1 [H] f32, b1 [H], w2 [D, Hp]
+// int8, s2 [D] f32, b2 [D] -> out [M, D] (Dp and Hp: D and H rounded up to
+// 16, the weights zero-padded); scratch codes_x [M, Dp] and codes_h [M, Hp]
+// int8, hidden [M, H] f32, sx and hmax [M] f32; x, gamma, beta, b1, b2 and
+// out of one dtype, all contiguous and 16-byte aligned. gelu: 0 exact, 1
+// tanh, 2 erf_fast. Four launches: the row pass, fc1, the hidden's codes,
+// fc2.
+#define GAVIKO_INT8_MLP(SUFFIX, T)                                                                 \
+  extern "C" int gaviko_int8_mlp_##SUFFIX(                                                         \
+      const void* x, const void* gamma, const void* beta, const void* w1, const void* s1,          \
+      const void* b1, const void* w2, const void* s2, const void* b2, void* out, void* codes_x,    \
+      void* codes_h, void* hidden, void* sx, void* hmax, int M, int D, int Dp, int H, int Hp,      \
+      float eps, int gelu, int residual, void* stream) {                                           \
+    if (M < 1 || !gaviko::int8::pads_ok(D, Dp) || !gaviko::int8::pads_ok(H, Hp))                  \
+      return static_cast<int>(cudaErrorInvalidValue);                                              \
+    const gaviko::int8::MlpArgs a{x,                                                               \
+                                  gamma,                                                           \
+                                  beta,                                                            \
+                                  static_cast<const int8_t*>(w1),                                  \
+                                  static_cast<const float*>(s1),                                   \
+                                  b1,                                                              \
+                                  static_cast<const int8_t*>(w2),                                  \
+                                  static_cast<const float*>(s2),                                   \
+                                  b2,                                                              \
+                                  out,                                                             \
+                                  static_cast<int8_t*>(codes_x),                                   \
+                                  static_cast<int8_t*>(codes_h),                                   \
+                                  static_cast<float*>(hidden),                                     \
+                                  static_cast<float*>(sx),                                         \
+                                  static_cast<float*>(hmax),                                       \
+                                  M,                                                               \
+                                  D,                                                               \
+                                  Dp,                                                              \
+                                  H,                                                               \
+                                  Hp,                                                              \
+                                  eps,                                                             \
+                                  gelu,                                                            \
+                                  residual};                                                       \
+    return gaviko::int8::mlp_forward<T>(a, stream);                                                \
   }
 GAVIKO_INT8_MLP(bf16, __nv_bfloat16)
 GAVIKO_INT8_MLP(f32, float)

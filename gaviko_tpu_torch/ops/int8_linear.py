@@ -4,12 +4,17 @@ Port of ``gaviko_tpu/ops/int8_linear.py``. Symmetric per-output-channel
 int8 weights (offline, :func:`quantize_weight`, kept beside the originals
 as ``<key>::int8`` / ``<key>::int8_scale`` sidecars by
 :func:`quantize_backbone`) and symmetric per-row dynamic int8 activations
-(inside the kernel). On the card :func:`int8_linear` and :func:`int8_mlp`
-run the kernels of ``csrc/int8_linear.cu`` (int32 accumulation on the
-card's integer MMA, dequantized in f32 before bias, GELU and residual);
-``int8_linear_reference`` and ``int8_mlp_reference`` are their plain
-PyTorch versions. Serving only, as in the JAX package: a call that needs a
-gradient raises.
+(a row pass). On the card :func:`int8_linear` and :func:`int8_mlp` run the
+kernels of ``csrc/int8_linear.cu``: a row pass (LN when asked, then each
+row's int8 codes and scale into scratch), then the products on the port's
+Hopper GEMM (``csrc/gemm_sm90.cuh``: s8 wgmma fed by TMA, int32 sums),
+dequantized in f32 before bias, GELU and residual in their epilogues; the
+MLP's fc1 writes its f32 GELU output and each row's amax, a row pass turns
+it into codes, and fc2 follows. :func:`int8_plan` is their plan
+(launches, tiles, padding, scratch), made only here; they take every width
+JAX's functions take. ``int8_linear_reference`` and ``int8_mlp_reference``
+are their plain PyTorch versions. Serving only, as in the JAX package: a
+call that needs a gradient raises.
 
 Numerics, the JAX kernel's to the bit: weight scales divide
 (``max(amax, 1e-12) / 127``, then ``w / scale``), activation scales
@@ -28,13 +33,16 @@ K = 1041), and run on either device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import logging
-from typing import Optional
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from gaviko_tpu_torch.ops import _build
-from gaviko_tpu_torch.ops.fused_mlp import GELU_MODES, gelu_by_mode, gelu_mode
+from gaviko_tpu_torch.ops.fused_mlp import (
+    GELU_MODES, STAGES, TILE_M, TILE_N, GemmProduct, _layout, _scratch, gelu_by_mode, gelu_mode)
 
 # Sidecar param-key suffixes carrying the quantized backbone (the JAX
 # package's names, so a quantized dict moves between the packages as is).
@@ -45,13 +53,15 @@ SCALE_SUFFIX = "::int8_scale"
 # ViT's transformer.layers.{i}.{0,1}.*, GAViKO's transformer.attns/mlps.{i}).
 _SITE_SUFFIXES = (".to_qkv.weight", ".to_out.0.weight", ".net.1.weight", ".net.4.weight")
 
-KERNEL_MAX_DIM = 2048  # widest row the kernels' LN + quantize prologue takes
-_BM, _BK, _RING = 32, 128, 3 * 128 * 144  # the kernels' row block, k tile, ring bytes
-_SMEM_LIMIT = 232_448 - 1024  # an H100 block's shared memory, less the static arrays
+# The codes' and the weights' row strides are multiples of this many bytes
+# (TMA's global strides); a row pass's block takes ROW_BLOCK rows, a warp
+# each.
+K_ALIGN = 16
+ROW_BLOCK = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LINEAR_ARGTYPES = (_P,) * 7 + (_I,) * 3 + (_F, _P)
-_MLP_ARGTYPES = (_P,) * 11 + (_I,) * 3 + (_F, _I, _I, _P)
+_LINEAR_ARGTYPES = (_P,) * 9 + (_I,) * 4 + (_F, _P)
+_MLP_ARGTYPES = (_P,) * 15 + (_I,) * 5 + (_F, _I, _I, _P)
 _SERVING_ONLY = "int8 is serving-only, as in the JAX package: training ignores the sidecars"
 
 
@@ -178,48 +188,149 @@ def _check_weight(name: str, w_i8: torch.Tensor, w_scale: torch.Tensor, din: int
     return dout
 
 
-def _check_dims(name: str, k: int, n: int) -> None:
-    if k % 16 or k > KERNEL_MAX_DIM or n % 2:
+class Int8Product(GemmProduct):
+    """One product of B11 on the GEMM's int8 instance: as
+    :class:`~gaviko_tpu_torch.ops.fused_mlp.GemmProduct`, but any output
+    width: the last column tile reads zeros past ``n`` and its epilogue
+    writes only the columns below it."""
+
+    @property
+    def tiles_n(self) -> int:
+        return -(-self.n // TILE_N)
+
+
+class Int8Plan(NamedTuple):
+    """What B11 runs for one call: :func:`int8_plan`."""
+    kind: str        # "linear" or "mlp"
+    rows: int
+    k: int           # the in-width (the MLP's dim)
+    n: int           # the out-width (the MLP's mlp_dim)
+    dtype: torch.dtype
+    k_pad: int       # k rounded up to K_ALIGN: the row stride of the codes and the weight
+    n_pad: int       # the MLP's hidden rounded up to K_ALIGN (its codes, fc2's depth); linear: n
+    row_vector: int  # elements a lane of the row pass loads at once (16 bytes, or 1)
+    row_blocks: int  # blocks of the row pass
+    # The GEMM launches: int8_linear's product after its row pass; the
+    # MLP's fc1 after its row pass, then fc2 after the hidden's codes.
+    products: Tuple[Tuple[Int8Product, ...], ...]
+    padded: Tuple[str, ...]  # the weights that take a zero-padded copy (K not a multiple)
+    scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
+    scratch_bytes: int
+    smem: int        # the GEMM's shared memory a CTA, bytes
+    launches: int    # kernel launches a call
+
+
+def _pad(k: int) -> int:
+    return -(-k // K_ALIGN) * K_ALIGN
+
+
+@functools.lru_cache(maxsize=256)
+def int8_plan(kind: str, rows: int, k: int, n: int,
+              dtype: torch.dtype = torch.bfloat16) -> Int8Plan:
+    """The plan of B11 for ``rows`` rows: int8_linear (``kind`` "linear")
+    from ``k`` to ``n`` columns, or int8_mlp ("mlp") of width ``k`` with an
+    ``n``-wide hidden (made only here; the wrappers hand its scratch and
+    padded weights to the kernels, which take the same tiles). Any widths:
+    the row pass loops over a row, the products run on 128 x 128 tiles with
+    128-code k tiles (TMA zero-fills past the edges), and a width that is no
+    multiple of 16 is padded to one (codes written by the row pass, weights
+    copied once). Raises only where no kernel can run: no rows or columns,
+    a dtype other than bf16 / f32, or a matrix of 2**31 elements or
+    more."""
+    if kind not in ("linear", "mlp"):
+        raise ValueError(f"int8_plan: kind is 'linear' or 'mlp', got {kind!r}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    if rows < 1 or k < 1 or n < 1:
+        raise ValueError(f"int8_{kind}: no rows or columns (rows {rows}, {k} -> {n})")
+    k_pad = _pad(k)
+    n_pad = _pad(n) if kind == "mlp" else n
+    if max(rows, n) * max(k_pad, n_pad) >= 2 ** 31:
         raise NotImplementedError(
-            f"{name} kernel takes rows a multiple of 16 wide up to {KERNEL_MAX_DIM} "
-            f"and an even output width; got {k} -> {n}")
+            f"int8_{kind} kernels take matrices under 2**31 elements; got rows {rows}, "
+            f"{k} -> {n}")
+    vec = 16 // dtype.itemsize
+    i8, f32 = torch.int8, torch.float32
+    P = Int8Product
+    if kind == "linear":
+        products = ((P("linear", rows, n, k_pad),),)
+        padded = ("w",) if k_pad != k else ()
+        scratch = (("codes", (rows, k_pad), i8), ("sx", (rows,), f32))
+    else:
+        products = ((P("fc1", rows, n, k_pad),), (P("fc2", rows, k, n_pad),))
+        padded = tuple(w for w, kk in (("w1", k), ("w2", n)) if _pad(kk) != kk)
+        scratch = (("codes_x", (rows, k_pad), i8), ("codes_h", (rows, n_pad), i8),
+                   ("hidden", (rows, n), f32), ("sx", (rows,), f32), ("hmax", (rows,), f32))
+    layout, nbytes = _layout(scratch)
+    # The ring (the epilogue stages the f32 sums over it) and its barriers,
+    # and 16 x 128 f32 of reductions (the rows' staged inputs).
+    smem = 1024 + STAGES[torch.bfloat16] * (2 * TILE_M * 128 + 2 * 8) + 16 * TILE_N * 4
+    # The row pass before the products; the MLP's hidden codes between them.
+    launches = 1 + len(products) + (kind == "mlp")
+    return Int8Plan(kind, rows, k, n, dtype, k_pad, n_pad, vec if k % vec == 0 else 1,
+                    -(-rows // ROW_BLOCK), products, padded, layout, nbytes, smem, launches)
 
 
-def _smem_bytes(k: int) -> int:
-    return _RING + _BM * (-(-k // _BK) * _BK + 16)
+# Zero-padded copies of sidecars whose K is no multiple of K_ALIGN, one a
+# sidecar: id -> (a weak reference to it, its version, the copy). An entry
+# goes when its sidecar does.
+_PADDED: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+def padded_codes(w_i8: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """``w_i8`` (out, in) with its rows zero-padded to ``k_pad`` codes (TMA
+    reads rows whose bytes are a multiple of 16): the tensor itself where
+    they already are, else its copy, made once and kept while the sidecar
+    lives and is not written to."""
+    if w_i8.shape[1] == k_pad:
+        return w_i8
+    key = id(w_i8)
+    version = 0 if w_i8.is_inference() else w_i8._version  # inference tensors keep none
+    hit = _PADDED.get(key)
+    if hit is not None and hit[0]() is w_i8 and hit[1] == version:
+        return hit[2]
+    pad = torch.zeros((w_i8.shape[0], k_pad), dtype=torch.int8, device=w_i8.device)
+    pad[:, :w_i8.shape[1]] = w_i8
+    if hit is None:
+        weakref.finalize(w_i8, _PADDED.pop, key, None)
+    _PADDED[key] = (weakref.ref(w_i8), version, pad)
+    return pad
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
                 beta: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
-    """Same contract as :func:`int8_linear_reference`; the kernel on CUDA.
-    Refuses a gradient on either device."""
+    """Same contract as :func:`int8_linear_reference`; the kernels on CUDA
+    (two launches: the row pass, then the GEMM). Refuses a gradient on
+    either device."""
     _build.refuse_grad("int8_linear", _SERVING_ONLY, x, bias, gamma, beta)
     if not _build.use_kernel(x):
         return int8_linear_reference(x, w_i8, w_scale, bias, gamma, beta, eps)
     din = x.shape[-1]
     dout = _check_weight("int8_linear", w_i8, w_scale, din)
-    _check_dims("int8_linear", din, dout)
     if (gamma is None) != (beta is None):
         raise ValueError("int8_linear: gamma and beta come together")
+    plan = int8_plan("linear", x.numel() // max(din, 1), din, dout, x.dtype)
     x, w_scale = x.contiguous(), w_scale.float().contiguous()
     floats = [t for t in (x, gamma, beta, bias) if t is not None]
     _build.check_cuda("int8_linear", *floats)
-    _build.check_cuda("int8_linear", w_i8)
-    _build.check_cuda("int8_linear", w_scale)
     for t, n in ((gamma, din), (beta, din), (bias, dout)):
         if t is not None and t.numel() != n:
             raise ValueError(f"int8_linear: expected {n} entries, got {tuple(t.shape)}")
-    rows = x.numel() // din
+    w = padded_codes(w_i8, plan.k_pad)
+    _build.check_cuda("int8_linear", w)
+    _build.check_cuda("int8_linear", w_scale)
     out = torch.empty((*x.shape[:-1], dout), device=x.device, dtype=x.dtype)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    scratch = _scratch(plan.scratch, plan.scratch_bytes, x.device)
     _build.launch(
         "int8_linear", f"gaviko_int8_linear_{_build.dtype_suffix(x)}", _LINEAR_ARGTYPES,
-        x.data_ptr(), ptr(gamma), ptr(beta), w_i8.data_ptr(), w_scale.data_ptr(), ptr(bias),
-        out.data_ptr(), rows, din, dout, eps, _build.stream_of(x))
+        x.data_ptr(), _ptr(gamma), _ptr(beta), w.data_ptr(), w_scale.data_ptr(), _ptr(bias),
+        out.data_ptr(), scratch["codes"], scratch["sx"], plan.rows, din, plan.k_pad, dout, eps,
+        _build.stream_of(x))
     int8_linear.launches += 1
     return out
 
@@ -231,9 +342,9 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              w1_i8: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
              w2_i8: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
              eps: float = 1e-5, approximate="exact", residual: bool = False) -> torch.Tensor:
-    """Same contract as :func:`int8_mlp_reference`; the kernel on CUDA (one
-    launch; the f32 hidden passes through a device scratch). Refuses a
-    gradient on either device."""
+    """Same contract as :func:`int8_mlp_reference`; the kernels on CUDA (four
+    launches: the row pass, fc1 writing the f32 hidden and its rows' maxima,
+    the hidden's codes, fc2). Refuses a gradient on either device."""
     _build.refuse_grad("int8_mlp", _SERVING_ONLY, x, gamma, beta, b1, b2)
     if not _build.use_kernel(x):
         return int8_mlp_reference(x, gamma, beta, w1_i8, s1, b1, w2_i8, s2, b2, eps,
@@ -242,27 +353,24 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     mlp_dim = _check_weight("int8_mlp fc1", w1_i8, s1, dim)
     if _check_weight("int8_mlp fc2", w2_i8, s2, mlp_dim) != dim:
         raise ValueError(f"int8_mlp: fc2 must map {mlp_dim} -> {dim}")
-    _check_dims("int8_mlp", dim, mlp_dim)
-    if mlp_dim % 16 or _smem_bytes(max(dim, mlp_dim)) > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"int8_mlp kernel stages a block's {_BM} hidden rows in shared memory; "
-            f"mlp_dim {mlp_dim} does not fit (or is no multiple of 16)")
+    plan = int8_plan("mlp", x.numel() // max(dim, 1), dim, mlp_dim, x.dtype)
     x, s1, s2 = x.contiguous(), s1.float().contiguous(), s2.float().contiguous()
     _build.check_cuda("int8_mlp", x, gamma, beta, b1, b2)
-    for t in (w1_i8, w2_i8, s1, s2):
-        _build.check_cuda("int8_mlp", t)
     if gamma.numel() != dim or beta.numel() != dim or b1.numel() != mlp_dim \
             or b2.numel() != dim:
         raise ValueError("int8_mlp: gamma, beta, b2 must be (dim,) and b1 (mlp_dim,)")
-    rows = x.numel() // dim
-    hidden = torch.empty((rows, mlp_dim), device=x.device, dtype=torch.float32)
+    w1, w2 = padded_codes(w1_i8, plan.k_pad), padded_codes(w2_i8, plan.n_pad)
+    for t in (w1, w2, s1, s2):
+        _build.check_cuda("int8_mlp", t)
     out = torch.empty_like(x)
+    scratch = _scratch(plan.scratch, plan.scratch_bytes, x.device)
     _build.launch(
         "int8_linear", f"gaviko_int8_mlp_{_build.dtype_suffix(x)}", _MLP_ARGTYPES,
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1_i8.data_ptr(), s1.data_ptr(),
-        b1.data_ptr(), w2_i8.data_ptr(), s2.data_ptr(), b2.data_ptr(), hidden.data_ptr(),
-        out.data_ptr(), rows, dim, mlp_dim, eps, GELU_MODES.index(gelu_mode(approximate)),
-        int(residual), _build.stream_of(x))
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        scratch["codes_x"], scratch["codes_h"], scratch["hidden"], scratch["sx"],
+        scratch["hmax"], plan.rows, dim, plan.k_pad, mlp_dim, plan.n_pad, eps,
+        GELU_MODES.index(gelu_mode(approximate)), int(residual), _build.stream_of(x))
     int8_mlp.launches += 1
     return out
 

@@ -1201,6 +1201,133 @@ def test_int8_mlp_kernel(dev, dtype, rows, dim, mlp, gelu, residual):
     assert _rel_mae(got, want) <= BUDGET[dtype]
 
 
+def _int8_mlp_case(dev, dtype, rows, dim, mlp, seed=26):
+    from gaviko_tpu_torch.ops.int8_linear import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(gen, rows, dim, dtype=dtype)
+    gamma = (1.0 + _randn(gen, dim, dtype=torch.float32, std=0.1)).to(dtype)
+    beta = _randn(gen, dim, dtype=dtype, std=0.1)
+    w1, s1 = quantize_weight(_randn(gen, mlp, dim, dtype=dtype, std=dim ** -0.5))
+    w2, s2 = quantize_weight(_randn(gen, dim, mlp, dtype=dtype, std=mlp ** -0.5))
+    b1, b2 = _randn(gen, mlp, dtype=dtype, std=0.1), _randn(gen, dim, dtype=dtype, std=0.1)
+    return x, gamma, beta, w1, s1, b1, w2, s2, b2
+
+
+def _int8_against_plain(dtype, fn, *args, bit_equal=False, **kw):
+    """One call of B11's wrapper ``fn`` against its plain version: finite,
+    a rerun bit-equal to the first run, and bit-equal to the plain version
+    (no LN) or within the budget."""
+    with torch.no_grad():
+        before = fn.launches
+        got = fn(*args, **kw)
+        again = fn(*args, **kw)
+        assert fn.launches == before + 2
+        with _build.plain_versions():
+            want = fn(*args, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    if bit_equal:
+        assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    else:
+        assert _rel_mae(got, want) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,din,dout", [
+    (1040, 2304, 768),  # vit-b16 at dim_head 192: the out-projection
+    (1040, 3072, 768),  # vit-b16 at dim_head 256
+    (1040, 3072, 1024),  # vit-l16 at dim_head 192
+    (264, 4096, 1024),  # vit-l16 at dim_head 256, the last layer's rows
+])
+def test_int8_linear_takes_out_projections_above_2048(dev, dtype, rows, din, dout):
+    """Queue C 10: out-projections whose in-width passes 2,048, which JAX's
+    int8_linear serves and the row-in-registers prologue refused: with the
+    bias bit-equal to the plain version, with LN within the budget, reruns
+    bit-equal."""
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear
+
+    x, w_i8, scale, bias, gamma, beta = _int8_linear_case(dev, dtype, rows, din, dout)
+    _int8_against_plain(dtype, int8_linear, x, w_i8, scale, bias=bias, bit_equal=True)
+    _int8_against_plain(dtype, int8_linear, x, w_i8, scale, gamma=gamma, beta=beta)
+
+
+INT8_BACKBONES = {"vit-s16": (384, 1536), "vit-b16": (768, 3072), "vit-l16": (1024, 4096)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backbone", list(INT8_BACKBONES))
+@pytest.mark.parametrize("rows", [264, 1033, 8320])  # the last layer's rows, a volume, B8
+def test_int8_kernels_at_backbone_widths(dev, dtype, backbone, rows):
+    """B11 at a backbone's widths: the qkv projection with its LN, the
+    out-projection with its bias (bit-equal) and without, and the MLP in
+    every GELU mode with the residual and without, each against its plain
+    version with reruns bit-equal."""
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp
+
+    dim, mlp = INT8_BACKBONES[backbone]
+    x, w_qkv, s_qkv, _, gamma, beta = _int8_linear_case(dev, dtype, rows, dim, 3 * dim)
+    _int8_against_plain(dtype, int8_linear, x, w_qkv, s_qkv, gamma=gamma, beta=beta)
+    x, w_out, s_out, bias, _, _ = _int8_linear_case(dev, dtype, rows, dim, dim, seed=27)
+    _int8_against_plain(dtype, int8_linear, x, w_out, s_out, bias=bias, bit_equal=True)
+    _int8_against_plain(dtype, int8_linear, x, w_out, s_out, bit_equal=True)
+    args = _int8_mlp_case(dev, dtype, rows, dim, mlp)
+    for gelu in ("exact", "tanh", "erf_fast"):
+        for residual in (False, True):
+            _int8_against_plain(dtype, int8_mlp, *args, 1e-5, gelu, residual)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,dim,inner,mlp", [
+    (37, 60, 60, 100),  # 3 heads x 20, an MLP of 100
+    (130, 200, 60, 520),
+    (5, 7, 21, 9),  # widths under one vector
+])
+def test_int8_kernels_take_widths_not_multiples_of_16(dev, dtype, rows, dim, inner, mlp):
+    """Widths that are no multiple of 16, as JAX takes them: the row pass
+    pads the codes, the sidecars take one zero-padded copy each (made once,
+    then reused), the last column tile is masked. The qkv projection (dim
+    -> 3 inner) with LN, the out-projection (inner -> dim) with its bias
+    bit-equal, and the MLP, against the plain versions."""
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp, int8_plan, padded_codes
+
+    x, w_qkv, s_qkv, _, gamma, beta = _int8_linear_case(dev, dtype, rows, dim, 3 * inner)
+    _int8_against_plain(dtype, int8_linear, x, w_qkv, s_qkv, gamma=gamma, beta=beta)
+    o, w_out, s_out, bias, _, _ = _int8_linear_case(dev, dtype, rows, inner, dim, seed=27)
+    _int8_against_plain(dtype, int8_linear, o, w_out, s_out, bias=bias, bit_equal=True)
+    k_pad = int8_plan("linear", rows, inner, dim, dtype).k_pad
+    assert padded_codes(w_out, k_pad) is padded_codes(w_out, k_pad)
+    args = _int8_mlp_case(dev, dtype, rows, dim, mlp)
+    for residual in (False, True):
+        _int8_against_plain(dtype, int8_mlp, *args, 1e-5, "exact", residual)
+
+
+def test_int8_predictor_serves_vit_b16_at_dim_head_192(dev):
+    """Queue C 10 end to end: vit-b16 with ``model.dim_head: 192`` (its
+    out-projections 2,304 -> 768) served by ``Predictor(quantize="int8")``
+    at bf16: every layer runs B11 (2 int8_linear and 1 int8_mlp), and the
+    logits agree with the plain versions' within 2e-2 (the vit-b16 int8
+    serving budget)."""
+    from gaviko_tpu_torch.config import apply_method_override, load_config
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp
+    from gaviko_tpu_torch.serving import Predictor
+
+    config = apply_method_override(load_config("gaviko_tpu/configs/vit.yaml"), "fft")
+    config["model"]["dim_head"] = 192
+    predictor = Predictor(config, batch_size=2, dtype="bfloat16", pretrained_dir=None,
+                          quantize="int8", device="cuda")
+    rng = np.random.RandomState(0)
+    vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(2)]
+    before = (int8_linear.launches, int8_mlp.launches)
+    got = predictor.predict_logits(vols)
+    depth = predictor.spec.depth
+    assert (int8_linear.launches - before[0], int8_mlp.launches - before[1]) == (2 * depth, depth)
+    with _build.plain_versions():
+        want = predictor.predict_logits(vols)
+    assert got.shape == (2, 5) and np.isfinite(got).all()
+    assert float(np.abs(got - want).mean() / np.abs(want).mean()) <= 2e-2
+
+
 def test_int8_wrappers_refuse_a_gradient_on_the_card(dev):
     from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp, quantize_weight
 

@@ -8,7 +8,8 @@ and the port's (the plain versions of ``csrc/int8_linear.cu``):
   weights: key set, codes and scales, GAViKO's ``attns``/``mlps`` sites,
   the ``.local_attns.`` exclusion and the SSF refusal;
 - ``int8_linear`` without LN equal to JAX (bit for bit without a bias,
-  within 1 ULP of the largest term with one); with LN, and
+  within 1 ULP of the largest term with one), also at an out-projection
+  wider than 2,048 (2,304 -> 64); with LN, and
   ``int8_mlp`` (residual both ways, GELU ``tanh`` and ``exact``), within
   1e-5 relative MAE (the LN's sums run in another order);
 - fp32 logits of GAViKO (JAX's own ``tests/test_int8.py`` config) and of
@@ -183,6 +184,25 @@ def test_int8_linear_with_ln_matches_jax(dtype):
                       .astype(jnp.float32))
     got = _np(tq.int8_linear(tx, tw, ts, gamma=tg, beta=tbe))
     assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_int8_linear_above_2048_matches_jax(dtype):
+    """An out-projection wider than 2,048 (vit-b16's 2,304 at ``dim_head``
+    192), which JAX's int8_linear serves: the port's plain version, what
+    the redesigned kernels compute, against JAX's interpret-mode kernel,
+    with the bias as in the narrow case (1 ULP) and with LN (1e-5)."""
+    (jx, w_i8, scale, jb, jg, jbe), (tx, tw, ts, tb, tg, tbe) = _linear_case(
+        np.random.RandomState(4), dtype, din=2304, dout=64, rows=(1, 5))
+    want = np.asarray(jq.int8_linear(jx, w_i8, scale, bias=jb).astype(jnp.float32))
+    got = _np(tq.int8_linear(tx, tw, ts, bias=tb))
+    assert got.shape == want.shape == (1, 5, 64)
+    codes, sx = tq._quant_rows(tx.float())
+    prod = (tq._int8_matmul(codes, tw) * (sx * ts.reshape(-1))).numpy()
+    mag = np.maximum(np.maximum(np.abs(prod), np.abs(_np(tb))), np.abs(want))
+    assert _ulps(got, want, dtype, mag) <= 1.0
+    want = np.asarray(jq.int8_linear(jx, w_i8, scale, gamma=jg, beta=jbe).astype(jnp.float32))
+    assert _rel(_np(tq.int8_linear(tx, tw, ts, gamma=tg, beta=tbe)), want) <= 1e-5
 
 
 @pytest.mark.parametrize("gelu", ["tanh", "exact"])
