@@ -47,17 +47,19 @@ Phases, each printing its own line:
    linear backward (``csrc/ln_linear_bwd.cu``), at the shapes the two
    hybrid train runs give it (vit-b16 B8: 8,064 rows, 768 -> 2,304;
    GAViKO vit-l16 B4: 4,160 rows, 1,024 -> 3,072), with dW and without,
-   beside autograd's chain of the LN + linear backward; then B7's outputs
+   beside autograd's chain of the LN + linear backward, then B9 and B12 at
+   widths above 1,024 that JAX's gates admit (Queue C 11: 8,064 rows, 1,152
+   -> 1,152, 2,048 -> 768 and 1,280 -> 768); then B7's outputs
    on fixed inputs, bit-equal (sha256) to the digests of the kernel on
-   ``csrc/gemm_sm90.cuh``, B12's bit-equal to its outputs from before B6
-   and B7 moved there, and A's and B10's outputs on fixed
+   ``csrc/gemm_sm90.cuh``, B12's bit-equal to the digests of B12 on the
+   same GEMM, and A's and B10's outputs on fixed
    inputs bit-equal (sha256) to the tile's before Q's chunks could stream,
    then C and D (dropout 0.2, B4) at a latent of 64 on GAViKO's grid and at
    GAViKO's grid for image_size 224 (10x14x14), beside SDPA with the dense
-   window mask. Every case of A, B10, B, B8, C, D, B6, B7 and B11 also
-   runs again and must be bit-equal to its first run; A, B10, B, C, D, B6 and B7
-   in fp32 are bounded at 495 / 3 TFLOP/s (each product as three TF32
-   ones);
+   window mask. Every case of A, B10, B, B8, C, D, B6, B7, B9, B12 and
+   B11 also runs again and must be bit-equal to its first run; A, B10, B,
+   C, D, B6, B7, B9 and B12 in fp32 are bounded at 495 / 3 TFLOP/s (each
+   product as three TF32 ones);
 4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
    plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
@@ -195,9 +197,9 @@ TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
 # the plain path's (H100 readings 3.6e-7 and 2.0e-6; 1 for no update).
 TRAINER_UPDATE_BUDGET = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
-# input type. f32 is held to the SIMT rate, but for A, B10, B, C, D, B6 and
-# B7, which run each f32 product as three TF32 ones on the tensor cores
-# (495e12 / 3).
+# input type. f32 is held to the SIMT rate, but for A, B10, B, C, D, B6, B7,
+# B9 and B12, which run each f32 product as three TF32 ones on the tensor
+# cores (495e12 / 3).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "torch.int8": 1979e12,
             "3xtf32": 495e12 / 3}
@@ -277,6 +279,10 @@ LN_BWD_SHAPES = {"": (8 * 1008, 768, 2304), "_l16": (4 * 1040, 1024, 3072)}
 # The B12 rows of the JSON line (bf16): row name -> the run whose launches
 # it carries.
 LN_BWD_ROWS = {"ln_linear_bwd": "vit_train_hybrid", "ln_linear_bwd_l16": "gaviko_trainable_hybrid"}
+# B9 and B12 at widths above 1,024 that JAX's gates admit (Queue C 11), at
+# vit-b16 B8's rows: (rows, dim, out) by case-name suffix; B12 at the first.
+C11_SHAPES = {"_c11": (8 * 1008, 1152, 1152), "_c11_2048": (8 * 1008, 2048, 768),
+              "_c11_1280": (8 * 1008, 1280, 768)}
 # sha256 of B7's seven outputs on the inputs of ``b7_digests`` (rows 2,002,
 # dim 768, mlp 3,072, exact GELU, the residual, dropout 0.1), as the kernel
 # redesigned on csrc/gemm_sm90.cuh gives them (read on an NVIDIA H100 80GB
@@ -285,13 +291,13 @@ LN_BWD_ROWS = {"ln_linear_bwd": "vit_train_hybrid", "ln_linear_bwd_l16": "gaviko
 B7_DIGESTS = {
     "torch.bfloat16": "8f8cc55a30525e5318d4d0f91ad48ae3d6f57a388e7c31bf69319e202480f68c",
     "torch.float32": "19689bd4e03480e473fb903cb25b0389e5a081df7936da4dbb02c9d682c40529"}
-# sha256 of B12's outputs on the inputs of ``b12_digests``, as the kernel gave
-# them before B6 and B7 moved to csrc/gemm_sm90.cuh (read on an NVIDIA H100
-# 80GB HBM3, CUDA 12.8, from the tree before the move): B12's sources did not
-# change, so its outputs must not.
+# sha256 of B12's outputs on the inputs of ``b12_digests``, as the kernel
+# redesigned on csrc/gemm_sm90.cuh gives them (read on an NVIDIA H100 80GB
+# HBM3, CUDA 12.8; the redesign changed the order of its sums, so the bits
+# before it are not these).
 B12_DIGESTS = {
-    "torch.bfloat16": "1b9a0f49660d1c5e172b3411515238dcdfa6fa19f0e7cf0abb145125f208fee2",
-    "torch.float32": "b72ac7876ad071702069a27abd13124224bd060ad816f896cbf0f4b98a6b00d7"}
+    "torch.bfloat16": "a4228266c2b75d7ff18e30b08425e99f4a04754c9ec2e843cd29b314f18a08b3",
+    "torch.float32": "f49d3962ce0f76bd898d77f74c8b1b9aaba849b861706fe873b4e7407c98d2c0"}
 # sha256 of A's and B10's outputs on the inputs of ``attention_digests``, as
 # the forward tile gave them before Q's chunks could stream and its pieces
 # moved into csrc/hopper.cuh (read on an NVIDIA H100 80GB HBM3, CUDA 12.8):
@@ -398,18 +404,19 @@ def _graph_ms(fn, reps: int = 20) -> float:
 
 def _tensor_core_f32(name: str) -> bool:
     """A case whose f32 products run as three TF32 ones on the tensor cores
-    (A, B10, B and the packed-qkv VJP of A then B; C and D; B6 and B7),
-    bounded at 495 / 3 TFLOP/s."""
-    return name.startswith(("fused_mhsa", "flash_attention", "local_attention", "fused_mlp"))
+    (A, B10, B and the packed-qkv VJP of A then B; C and D; B6 and B7; B9
+    and B12), bounded at 495 / 3 TFLOP/s."""
+    return name.startswith(("fused_mhsa", "flash_attention", "local_attention", "fused_mlp",
+                            "ln_linear"))
 
 
 def _rerun_bit_equal(name: str) -> bool:
-    """A case whose rerun must be bit-equal: no atomics in A, B10, B, C, D, B6
-    and B7, the partials of B8, of C and D's split warps and of B7's column
-    sums and row splits combined in a fixed order, and B11's int32 sums and
-    row maxima (exact in any order)."""
+    """A case whose rerun must be bit-equal: no atomics in A, B10, B, C, D,
+    B6, B7, B9 and B12, the partials of B8, of C and D's split warps and of
+    B7's and B12's column sums combined in a fixed order, and B11's int32
+    sums and row maxima (exact in any order)."""
     return name.startswith(("fused_mhsa", "flash_attention", "cls_attention",
-                            "local_attention", "fused_mlp", "int8"))
+                            "local_attention", "fused_mlp", "int8", "ln_linear"))
 
 
 def _bound(work, dtype) -> tuple:
@@ -745,6 +752,42 @@ def _ln_bwd_kernel_cases(dtype, gen):
     return cases
 
 
+def _c11_kernel_cases(dtype, gen):
+    """Cases (as in :func:`_kernel_cases`) for B9 at C11_SHAPES and B12 (with
+    dW) at the first: widths above 1,024 that JAX's gates admit, which the
+    port refused before its LN + linear kernels moved to the GEMM (Queue C
+    11). No shipped backbone has them; their chains are PyTorch's LN and
+    linear, and autograd's backward of them."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_bwd
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    cases = []
+    for suffix, (rows, dim, out) in C11_SHAPES.items():
+        x = randn(rows, dim, std=2.0) + 0.5
+        gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
+        w = randn(out, dim, std=dim ** -0.5)
+        cases.append((
+            f"ln_linear{suffix}", lambda x=x, gamma=gamma, beta=beta, w=w: fused_ln_linear(
+                x, gamma, beta, w), lambda r: r,
+            (_nbytes(x, gamma, beta, w) + rows * out * x.element_size(), 2 * rows * dim * out),
+            None, lambda x=x, gamma=gamma, beta=beta, w=w: F.linear(
+                F.layer_norm(x, (x.shape[-1],), gamma, beta, 1e-5), w)))
+        if suffix == "_c11":
+            dy = randn(rows, out, std=out ** -0.5)
+            cases.append((
+                f"ln_linear_bwd{suffix}", lambda x=x, gamma=gamma, beta=beta, w=w, dy=dy:
+                ln_linear_bwd(x, gamma, beta, w, dy, 1e-5, True),
+                lambda r: r, (_nbytes(x, gamma, beta, w, dy, x, gamma, beta, w),
+                              4 * rows * out * dim),
+                None, _ln_linear_chain_grad(x, gamma, beta, w, dy, True)))
+    return cases
+
+
 def _digests(name: str, call, arrays) -> dict:
     """sha256 of the outputs of ``call(*tensors)``, by dtype, on ``arrays``
     (numpy) put on the card in bf16 and fp32; two calls must agree bit for
@@ -798,9 +841,8 @@ def b12_digests() -> dict:
 
 
 def phase_b7_bits(card: str) -> None:
-    """B7's outputs on fixed inputs bit-equal to the redesigned kernel's
-    (B7_DIGESTS), and B12's to its outputs from before B6 and B7 moved to
-    csrc/gemm_sm90.cuh (B12_DIGESTS): B12's sources did not change."""
+    """B7's and B12's outputs on fixed inputs bit-equal to the digests of
+    their kernels on csrc/gemm_sm90.cuh (B7_DIGESTS, B12_DIGESTS)."""
     got = {"b7": b7_digests(), "b12": b12_digests()}
     want = {"b7": B7_DIGESTS, "b12": B12_DIGESTS}
     print(json.dumps({"phase": "b7_bits", "digests": got, "want": want, "card": card}),
@@ -1195,7 +1237,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
     and "vit_train": vit-b16 serving and training; "t16": B10 at vit-t16
     serving and streaming; "dh128", "dh192", "dh256": A, B and B8 at vit-b16
     with dim_head 128, 192 or 256; "int8": B11; "general": the general
-    head-dim instances; "ln_bwd": B12 at LN_BWD_SHAPES, batch None;
+    head-dim instances; "ln_bwd": B12 at LN_BWD_SHAPES, batch None; "c11":
+    B9 and B12 at C11_SHAPES, batch None;
     "local": C and D at a latent of 64 and at the 10x14x14 grid) in
     bf16 and fp32 (TF32 off): kernel vs plain version on the same inputs,
     then the times.
@@ -1228,6 +1271,8 @@ def phase_kernels(card: str, batch: int, path: str) -> dict:
             cases = _wide_kernel_cases(dtype, gen, batch)
         elif path == "ln_bwd":
             cases = _ln_bwd_kernel_cases(dtype, gen)
+        elif path == "c11":
+            cases = _c11_kernel_cases(dtype, gen)
         elif path == "local":
             cases = _local_kernel_cases(dtype, gen, batch)
         else:
@@ -2321,7 +2366,8 @@ def main() -> int:
                "general": phase_kernels(smi, 2, "general"),
                "wide": phase_kernels(smi, 1, "wide"),
                "local": phase_kernels(smi, TRAIN_B, "local"),
-               "ln_bwd": phase_kernels(smi, None, "ln_bwd")}  # LN_BWD_SHAPES
+               "ln_bwd": phase_kernels(smi, None, "ln_bwd"),  # LN_BWD_SHAPES
+               "c11": phase_kernels(smi, None, "c11")}  # C11_SHAPES
     phase_b7_bits(smi)
     phase_attention_bits(smi)
     rng = np.random.RandomState(0)

@@ -4,7 +4,7 @@
 // Replaces gaviko_tpu/ops/fused_mlp.py:_mlp_kernel (fused_mlp, and its
 // forward with save_a). x is [M, dim], W1 [mlp, dim] and W2 [dim, mlp] in
 // the torch layout. Rounding order of the TPU kernel: LN as in
-// csrc/row_gemm.cuh; fc1 in f32, + b1, the GELU and the dropout in f32,
+// csrc/mlp.cuh; fc1 in f32, + b1, the GELU and the dropout in f32,
 // rounded to the input dtype; fc2 in f32, + b2, the dropout and + x in f32,
 // rounded once. GELU modes as in csrc/gelu.cuh (gelu_and_grad, as the
 // backward recomputes it). Dropout is the TPU kernel's
@@ -45,16 +45,6 @@ struct Args {
   float eps;
   Drop drop;
 };
-
-template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS) ln_kernel(const T* x, const T* gamma, const T* beta,
-                                                         T* h, int M, int dim, float eps) {
-  const int m = blockIdx.x * (ROW_THREADS / 32) + threadIdx.x / 32;
-  if (m >= M) return;
-  const long long off = static_cast<long long>(m) * dim;
-  float mean, rstd;
-  ln_row(x + off, gamma, beta, h + off, dim, eps, mean, rstd);
-}
 
 // fc1's epilogue: v + b1 -> a (when asked), then g = round(f0 GELU(v + b1)).
 template <typename T>
@@ -108,10 +98,8 @@ int forward(const Args& a, void* stream) {
   const T* x = static_cast<const T*>(a.x);
   T* h = static_cast<T*>(a.h);
   T* g = static_cast<T*>(a.g);
-  constexpr int WARPS = ROW_THREADS / 32;
-  ln_kernel<T><<<(a.M + WARPS - 1) / WARPS, ROW_THREADS, 0, s>>>(
-      x, static_cast<const T*>(a.gamma), static_cast<const T*>(a.beta), h, a.M, a.dim, a.eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = ln_pass<T>(x, static_cast<const T*>(a.gamma), static_cast<const T*>(a.beta), h,
+                               nullptr, nullptr, a.M, a.dim, a.eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   gemm::Params<Fc1Epi<T>> p1{};

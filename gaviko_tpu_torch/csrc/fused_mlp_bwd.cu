@@ -37,9 +37,10 @@
 //      tiles fill the weight gradients' last wave (splitting the rows of
 //      the weight gradients in two or three, with f32 partials summed in
 //      split order, measured slower on the card once dh shares the launch);
-//   4. a row pass for dx and the dgamma / dbeta partials (16-byte loads);
+//   4. the LN backward's row pass of csrc/mlp.cuh: dx and the dgamma /
+//      dbeta partials (16-byte loads);
 //   5. one launch of the column sums of the partials (db2, db1, dgamma,
-//      dbeta), in a fixed order.
+//      dbeta), in a fixed order (csrc/mlp.cuh's sums_kernel).
 // The GEMM runs bf16 on wgmma fed by TMA and f32 as 3xTF32 on mma.sync. The
 // six tensor maps are encoded once a call (dout16 and da16 each serve two
 // products). The intermediates (dout16, gd16, da16 and h in the working
@@ -52,21 +53,7 @@ namespace gaviko {
 namespace mlp {
 namespace {
 
-using attn::store2;
-
 // ------------------------------------------------------------ row passes ----
-
-// Four f32 at p (16-byte aligned) to or from v[0..3], in registers.
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  v[0] = f.x;
-  v[1] = f.y;
-  v[2] = f.z;
-  v[3] = f.w;
-}
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
 
 template <typename T>
 struct PrepArgs {
@@ -117,138 +104,6 @@ __global__ void __launch_bounds__(ROW_THREADS) prep_kernel(PrepArgs<T> p) {
   }
 }
 
-template <typename T>
-struct LnArgs {
-  const T *x, *gamma, *dy;
-  const float *dh, *mean, *rstd;
-  T* dx;
-  float *part_dg, *part_db;
-  int M, dim, residual;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS) ln_bwd_kernel(LnArgs<T> p) {
-  constexpr int N = Vec<T>::N;
-  const int m0 = blockIdx.x * RB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < RB && m0 + r < p.M; r += ROW_THREADS / 32) {
-    const int m = m0 + r;
-    const long long off = static_cast<long long>(m) * p.dim;
-    const float mean = p.mean[m], rstd = p.rstd[m];
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int c = lane * N; c < p.dim; c += 32 * N) {
-      float xv[N], gm[N], d[N];
-      load16(p.x + off + c, xv);
-      load16(p.gamma + c, gm);
-#pragma unroll
-      for (int j = 0; j < N; j += 4) load4(p.dh + off + c + j, d + j);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float dxh = d[j] * gm[j];
-        s1 += dxh;
-        s2 += dxh * (xv[j] - mean) * rstd;
-      }
-    }
-    const float m1 = warp_sum(s1) / p.dim, m2 = warp_sum(s2) / p.dim;
-    for (int c = lane * N; c < p.dim; c += 32 * N) {
-      float xv[N], gm[N], d[N], dyv[N];
-      load16(p.x + off + c, xv);
-      load16(p.gamma + c, gm);
-#pragma unroll
-      for (int j = 0; j < N; j += 4) load4(p.dh + off + c + j, d + j);
-      if (p.residual) load16(p.dy + off + c, dyv);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xh = (xv[j] - mean) * rstd;
-        d[j] = rstd * (d[j] * gm[j] - m1 - xh * m2);
-        if (p.residual) d[j] += dyv[j];
-      }
-      store16(p.dx + off + c, d);
-    }
-  }
-  // This block's column sums of dh xhat and dh, rows in order.
-  for (int c = threadIdx.x * N; c < p.dim; c += ROW_THREADS * N) {
-    float sg[N] = {}, sb[N] = {};
-#pragma unroll 4
-    for (int r = 0; r < RB && m0 + r < p.M; ++r) {
-      const int m = m0 + r;
-      const long long off = static_cast<long long>(m) * p.dim + c;
-      const float mean = p.mean[m], rstd = p.rstd[m];
-      float xv[N], d[N];
-      load16(p.x + off, xv);
-#pragma unroll
-      for (int j = 0; j < N; j += 4) load4(p.dh + off + j, d + j);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        sg[j] += d[j] * ((xv[j] - mean) * rstd);
-        sb[j] += d[j];
-      }
-    }
-    const long long dst = static_cast<long long>(blockIdx.x) * p.dim + c;
-#pragma unroll
-    for (int j = 0; j < N; j += 4) {
-      store4(p.part_dg + dst + j, sg + j);
-      store4(p.part_db + dst + j, sb + j);
-    }
-  }
-}
-
-// out[c] = sum over p < P of part[p][c] for each segment (db2, db1, dgamma,
-// dbeta), four columns a thread: where P is long, `chunks` threads (8 or 32)
-// take a run of rows each and the block adds their sums in run order; else
-// one thread takes every row. The order is fixed either way.
-constexpr int MAX_SEGMENTS = 4;
-constexpr int SUM_THREADS = 256;
-
-struct Sums {
-  const float* part[MAX_SEGMENTS];
-  void* out[MAX_SEGMENTS];
-  int P[MAX_SEGMENTS];
-  int chunks[MAX_SEGMENTS];          // 1 or a divisor of SUM_THREADS
-  long long N[MAX_SEGMENTS];         // a multiple of 4
-  long long blocks_end[MAX_SEGMENTS];  // the running sum of the segments' blocks
-  int count;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(SUM_THREADS) sums_kernel(const __grid_constant__ Sums s) {
-  __shared__ float4 red[SUM_THREADS];
-  int k = 0;
-  while (blockIdx.x >= s.blocks_end[k]) ++k;
-  const long long b = blockIdx.x - (k > 0 ? s.blocks_end[k - 1] : 0);
-  const int C = s.chunks[k], V = SUM_THREADS / C, P = s.P[k];
-  const int vi = threadIdx.x % V, c = threadIdx.x / V;
-  const long long v = b * V + vi, nvec = s.N[k] / 4;
-  const int R = (P + C - 1) / C, q1 = min(P, (c + 1) * R);
-  float acc[4] = {};
-  if (v < nvec) {
-    const float* src = s.part[k] + 4 * v;
-#pragma unroll 8
-    for (int q = c * R; q < q1; ++q) {
-      float x[4];
-      load4(src + q * s.N[k], x);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] += x[j];
-    }
-  }
-  if (C > 1) {  // uniform over the block: one segment a block
-    red[threadIdx.x] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    __syncthreads();
-    if (c > 0) return;
-    for (int cc = 1; cc < C; ++cc) {
-      const float4 x = red[cc * V + vi];
-      acc[0] += x.x;
-      acc[1] += x.y;
-      acc[2] += x.z;
-      acc[3] += x.w;
-    }
-  }
-  if (v >= nvec) return;
-  T* out = static_cast<T*>(s.out[k]) + 4 * v;
-  store2(out, acc[0], acc[1]);
-  store2(out + 2, acc[2], acc[3]);
-}
-
 // ------------------------------------------------------------- products ----
 
 // dg's epilogue: da = f0 dg GELU'(a) -> da16 (db1's partials sum da);
@@ -275,22 +130,6 @@ struct DgEpi {
     }
     store8(da + off, v);
     store8(gd + off, av);
-  }
-};
-
-// The output as it is, at out [rows][ld]: in f32 (dh) or rounded to T (the
-// weight gradients).
-template <typename T>
-struct OutEpi {
-  static constexpr bool kColsum = false;
-  void* out;
-  int ld, f32;
-  __device__ __forceinline__ void operator()(int row, int col, float (&v)[8]) const {
-    const long long off = static_cast<long long>(row) * ld + col;
-    if (f32)
-      store8(static_cast<float*>(out) + off, v);
-    else
-      store8(static_cast<T*>(out) + off, v);
   }
 };
 
@@ -367,23 +206,11 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
 
   Sums sums{};
   const int tile_rows = (M + gemm::BM - 1) / gemm::BM;  // dg's rows of db1 partials
-  auto add = [&](const float* part, int P, long long N, void* out) {
-    const int k = sums.count++;
-    sums.part[k] = part;
-    sums.P[k] = P;
-    sums.chunks[k] = P > 128 ? 32 : P > 16 ? 8 : 1;
-    sums.N[k] = N;
-    sums.out[k] = out;
-    const long long per_block = SUM_THREADS / sums.chunks[k];
-    sums.blocks_end[k] = (k > 0 ? sums.blocks_end[k - 1] : 0) + (N / 4 + per_block - 1) / per_block;
-  };
-  add(p.part_db2, row_blocks, dim, p.db2);
-  add(p.part_db1, tile_rows, mlp, p.db1);
-  add(p.part_dg, row_blocks, dim, p.dgamma);
-  add(p.part_db, row_blocks, dim, p.dbeta);
-  const long long blocks = sums.blocks_end[sums.count - 1];
-  sums_kernel<T><<<static_cast<unsigned>(blocks), SUM_THREADS, 0, s>>>(sums);
-  return static_cast<int>(cudaGetLastError());
+  sums.add(p.part_db2, row_blocks, dim, p.db2);
+  sums.add(p.part_db1, tile_rows, mlp, p.db1);
+  sums.add(p.part_dg, row_blocks, dim, p.dgamma);
+  sums.add(p.part_db, row_blocks, dim, p.dbeta);
+  return static_cast<int>(sum_columns<T>(sums, s));
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // A Hopper GEMM of the port's own, for the fused MLP's products (kernels
-// B6, csrc/fused_mlp.cu, and B7, csrc/fused_mlp_bwd.cu) and the int8
-// serving GEMMs (B11, csrc/int8_linear.cu):
+// B6, csrc/fused_mlp.cu, and B7, csrc/fused_mlp_bwd.cu), the LN + linear
+// products (B9, csrc/ln_linear.cu, and B12, csrc/ln_linear_bwd.cu) and the
+// int8 serving GEMMs (B11, csrc/int8_linear.cu):
 //
 //   C[M, N] = A[M, K] B[K, N], every output through an epilogue functor.
 //
@@ -41,10 +42,10 @@
 // memory (atomicMax on the bits: a maximum is the same in any order, so
 // reruns are bit-equal); it may ask for per-row inputs staged in shared
 // memory too (kRowInput).
-// A launch runs up to three problems of one epilogue type (the two weight
-// gradients and dh), each with its own A layout, in order, each problem's
-// tiles rastered so that the CTAs that run together share the larger
-// operand's tiles. Every CTA takes its tile's whole depth. No atomics but
+// A launch runs up to three problems of one epilogue type (B7's two weight
+// gradients and dh, B12's dW and dh), each with its own A layout, in order,
+// each problem's tiles rastered so that the CTAs that run together share
+// the larger operand's tiles. Every CTA takes its tile's whole depth. No atomics but
 // kRowmax's maxima: reruns are bit-equal.
 #pragma once
 
@@ -559,10 +560,11 @@ cudaError_t encode_matrix(CUtensorMap* map, const void* ptr, int rows, int cols)
   return pos[0] == 1 ? cudaSuccess : cudaErrorInvalidValue;  // rows are the map's dimension 1
 }
 
-// C[M, N] = A[M, K] B[K, N], as ops/fused_mlp.py:mlp_plan and
-// ops/int8_linear.py:int8_plan plan it (where N is no multiple of BN, the
-// last column tile's B rows past N arrive as zeros and its epilogue functor
-// must skip the columns from N on); at: A is stored [K][M].
+// C[M, N] = A[M, K] B[K, N], as ops/gemm_plan.py's GemmProduct and the
+// plans built on it (mlp_plan, ln_linear_plan, int8_plan) take it (where N
+// is no multiple of BN, the last column tile's B rows past N arrive as
+// zeros and its epilogue functor must skip the columns from N on); at: A
+// is stored [K][M].
 template <class Epi>
 cudaError_t problem(Problem<Epi>* pr, int M, int N, int K, const Epi& epi, bool at = false) {
   if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;

@@ -65,6 +65,7 @@ namespace int8 {
 namespace {
 
 using gemm::Params;
+using mlp::store_cols;
 
 constexpr int ROW_THREADS = 256;  // the row pass: 8 warps, a warp a row
 
@@ -217,18 +218,6 @@ __device__ __forceinline__ void load_cols(const T* p, int col, int n, float (&v)
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = col + j < n ? to_f32(p[col + j]) : 0.0f;
-}
-
-// v rounded to T into columns col .. col + 7 (those < n) of a row of n.
-template <typename T>
-__device__ __forceinline__ void store_cols(T* row, int col, int n, const float (&v)[8]) {
-  if (col + 8 <= n && n % 8 == 0) {
-    mlp::store8(row + col, v);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (col + j < n) row[col + j] = from_f32<T>(v[j]);
 }
 
 // The epilogues below take their rows' scalars staged in shared memory

@@ -13,38 +13,35 @@
 //   dgamma = sum_rows dh xhat;  dbeta = sum_rows dh   (xhat unrounded)
 //   dx     = rstd (dh gamma - mean(dh gamma) - xhat mean(dh gamma xhat))
 //
-// What bounds it on the H100: at vit-b16 B8 (M = 8,008, dim 768, out 2,304)
-// the two products are 2 * 2 * M * out * dim = 56.7 GFLOP, 0.057 ms at 989
-// TFLOP/s in bf16 (0.85 ms at 67 TFLOP/s in f32 on SIMT), against ~60 MB
-// of inputs and outputs (0.02 ms): bound by the tensor cores. The TPU
-// kernel walks the rows in order and carries dW, dgamma and dbeta in VMEM
-// scratch; blocks on the H100 run in no order, so the work is the passes of
-// csrc/ln_bwd.cuh (those of the fused MLP backward), with no atomics and
-// every reduction in a fixed order (deterministic):
-//   1. a row pass: each row's mean and rstd and, when dW is wanted, h;
-//   2. dh = dy W on the tiled GEMM kernel (W's (out, dim) layout is the
-//      [k][n] operand as stored), written in f32;
-//   3. dW = dy^T h on the same kernel, its depth the rows, dy read through
-//      transposed fragment loads (skipped when dW is not wanted);
-//   4. a row pass for dx and the per-block dgamma / dbeta partials;
-//   5. one column reduction each for dgamma and dbeta.
-// h (working dtype) and dh (f32) pass through device memory, which the TPU
-// kernel kept in VMEM: ~37 MB a call at vit-b16 B8 bf16.
+// What bounds it on the H100: at vit-b16 B8 (M = 8,064, dim 768, out 2,304)
+// the two products are 2 * 2 * M * out * dim = 57.1 GFLOP, 0.058 ms at 989
+// TFLOP/s in bf16 (f32 as three TF32 products: 0.346 ms at 495 / 3),
+// against ~60 MB of inputs and outputs (0.02 ms): bound by the tensor
+// cores. The TPU kernel walks the rows in order and carries dW, dgamma and
+// dbeta in VMEM scratch; CTAs on the H100 run in no order, so a call is
+// four launches (as ops/ln_linear.py:ln_linear_plan plans them) with no
+// atomics, every reduction in a fixed order (reruns are bit-equal):
+//   1. the LN pass of csrc/mlp.cuh: each row's mean and rstd and, when dW
+//      is wanted, h;
+//   2. one launch on csrc/gemm_sm90.cuh of dW = dy^T h (dy and h read
+//      MN-major, its depth the rows, written in W's dtype), then dh = dy W
+//      (dy K-major, W read MN-major, written in f32), whose tiles fill dW's
+//      last wave: at vit-b16 B8, 108 tiles 8,064 deep, then 378 tiles 2,304
+//      deep (B7's grouped launch); without dW, dh alone;
+//   3. the LN backward's row pass of csrc/mlp.cuh: dx, and one row of
+//      dgamma / dbeta partials a block of 16 rows;
+//   4. one launch of the partials' column sums, in a fixed order.
+// The three tensor maps are encoded once a call (dy's serves both
+// products). h (working dtype) and dh (f32) pass through device memory,
+// which the TPU kernel kept in VMEM: ~37 MB a call at vit-b16 B8 bf16.
 
-#include "ln_bwd.cuh"
+#include "mlp.cuh"
 
+namespace gaviko {
+namespace mlp {
 namespace {
 
-using namespace gaviko::lnb;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) rows_kernel(const T* x, const T* gamma, const T* beta,
-                                                       T* h, float* mean, float* rstd, int M,
-                                                       int dim, float eps) {
-  ln_rows<T>(x, gamma, beta, h, mean, rstd, M, dim, eps, blockIdx.x * RB);
-}
-
-struct Ptrs {
+struct BwdPtrs {
   const void *x, *gamma, *beta, *w, *dy;  // inputs
   void *dx, *dgamma, *dbeta, *dw;         // outputs (dw null: not wanted)
   void* h;                                // [M, dim] working dtype (null with dw)
@@ -52,58 +49,69 @@ struct Ptrs {
 };
 
 template <typename T>
-int launch(const Ptrs& p, int M, int dim, int out, float eps, void* stream) {
-  if (M < 1 || dim % 128 || out < 8 || out % 8 || (p.dw != nullptr) != (p.h != nullptr))
+int ln_linear_bwd(const BwdPtrs& p, int M, int dim, int out, float eps, void* stream) {
+  if (M < 1 || dim < 1 || out < 1 || dim * sizeof(T) % 16 || out * sizeof(T) % 16 ||
+      (p.dw != nullptr) != (p.h != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int row_blocks = (M + RB - 1) / RB;
   const T* x = static_cast<const T*>(p.x);
   const T* gamma = static_cast<const T*>(p.gamma);
-  const T* w = static_cast<const T*>(p.w);
-  const T* dy = static_cast<const T*>(p.dy);
   T* h = static_cast<T*>(p.h);
 
-  rows_kernel<T><<<row_blocks, THREADS, 0, s>>>(x, gamma, static_cast<const T*>(p.beta), h,
-                                                p.mean, p.rstd, M, dim, eps);
-  GAVIKO_RETURN_IF_ERROR();
-  // dh = dy W: rows x dim, depth out.
-  Gemm<T>::template run<false>(dy, out, w, dim, M, dim, out, StoreEpi<float>{p.dh, dim},
-                               nullptr, s);
-  GAVIKO_RETURN_IF_ERROR();
+  cudaError_t err = ln_pass<T>(x, gamma, static_cast<const T*>(p.beta), h, p.mean, p.rstd, M,
+                               dim, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // dW = dy^T h (out x dim, depth M, both read [K][*]), then dh = dy W (M x
+  // dim, depth out, W read [K][N]), in one launch.
+  CUtensorMap m_dy, m_w, m_h;
+  err = gemm::encode_matrix<T>(&m_dy, p.dy, M, out);
+  if (err == cudaSuccess) err = gemm::encode_matrix<T>(&m_w, p.w, out, dim);
+  if (err == cudaSuccess && h != nullptr) err = gemm::encode_matrix<T>(&m_h, h, M, dim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gemm::Params<OutEpi<T>> q{};
+  int count = 0;
   if (p.dw != nullptr) {
-    // dW = dy^T h: out x dim, depth M, dy read transposed.
-    Gemm<T>::template run<true>(dy, out, h, dim, out, dim, M,
-                                StoreEpi<T>{static_cast<T*>(p.dw), dim}, nullptr, s);
-    GAVIKO_RETURN_IF_ERROR();
+    q.a[0] = m_dy;
+    q.b[0] = m_h;
+    err = gemm::problem(&q.prob[0], out, dim, M, OutEpi<T>{p.dw, dim, 0}, true);
+    count = 1;
   }
-  const LnArgs<T> ln{x, gamma, nullptr, p.dh, p.mean, p.rstd, static_cast<T*>(p.dx),
-                     p.part_dg, p.part_db, M, dim, 0};
-  ln_bwd_kernel<T><<<row_blocks, THREADS, 0, s>>>(ln);
-  GAVIKO_RETURN_IF_ERROR();
-  colsum_kernel<T><<<(dim + 255) / 256, 256, 0, s>>>(p.part_dg, row_blocks, dim,
-                                                     static_cast<T*>(p.dgamma));
-  GAVIKO_RETURN_IF_ERROR();
-  colsum_kernel<T><<<(dim + 255) / 256, 256, 0, s>>>(p.part_db, row_blocks, dim,
-                                                     static_cast<T*>(p.dbeta));
-  GAVIKO_RETURN_IF_ERROR();
-  return 0;
+  q.a[count] = m_dy;
+  q.b[count] = m_w;
+  if (err == cudaSuccess) err = gemm::problem(&q.prob[count], M, dim, out, OutEpi<T>{p.dh, dim, 1});
+  if (err == cudaSuccess) err = gemm::run<T, true, true>(q, count + 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const LnArgs<T> ln{x,      gamma,      nullptr,    p.dh, p.mean, p.rstd, static_cast<T*>(p.dx),
+                     p.part_dg, p.part_db, M,        dim,  0};
+  ln_bwd_kernel<T><<<(M + RB - 1) / RB, ROW_THREADS, 0, s>>>(ln);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Sums sums{};
+  sums.add(p.part_dg, (M + RB - 1) / RB, dim, p.dgamma);
+  sums.add(p.part_db, (M + RB - 1) / RB, dim, p.dbeta);
+  return static_cast<int>(sum_columns<T>(sums, s));
 }
 
 }  // namespace
+}  // namespace mlp
+}  // namespace gaviko
 
 // Inputs x [M, dim], gamma, beta [dim], w [out, dim], dy [M, out]; outputs
 // dx [M, dim], dgamma, dbeta [dim] and dw [out, dim] (null: not computed);
 // scratch h [M, dim] in the same dtype (null exactly when dw is), dh [M,
-// dim], mean, rstd [M] and part_dg, part_db [ceil(M / 32), dim] f32. All
-// contiguous and 16-byte aligned; dim a multiple of 128, out of 8.
+// dim], mean, rstd [M] and part_dg, part_db [ceil(M / 16), dim] f32. All
+// contiguous and 16-byte aligned; rows of dim and of out a multiple of 16
+// bytes.
 #define GAVIKO_LN_LINEAR_BWD(NAME, T)                                                          \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w,       \
                       const void* dy, void* dx, void* dgamma, void* dbeta, void* dw, void* h,  \
                       float* dh, float* mean, float* rstd, float* part_dg, float* part_db,     \
                       int M, int dim, int out, float eps, void* stream) {                      \
-    const Ptrs p{x, gamma, beta, w, dy, dx, dgamma, dbeta, dw, h, dh, mean, rstd, part_dg,     \
-                 part_db};                                                                     \
-    return launch<T>(p, M, dim, out, eps, stream);                                             \
+    const gaviko::mlp::BwdPtrs p{x,  gamma, beta, w,    dy,   dx,      dgamma, dbeta,          \
+                                 dw, h,     dh,   mean, rstd, part_dg, part_db};               \
+    return gaviko::mlp::ln_linear_bwd<T>(p, M, dim, out, eps, stream);                         \
   }
 GAVIKO_LN_LINEAR_BWD(gaviko_ln_linear_bwd_bf16, __nv_bfloat16)
 GAVIKO_LN_LINEAR_BWD(gaviko_ln_linear_bwd_f32, float)

@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops.gemm_plan import (  # noqa: F401 (SMEM_LIMIT, launch_tile: the plan's API)
+    ROW_BLOCK, SMEM_LIMIT, TILE_M, TILE_N, GemmProduct, _layout, _scratch, gemm_smem, launch_tile)
 from gaviko_tpu_torch.ops.hash_dropout import dropout_args, keep_mask
 from gaviko_tpu_torch.ops.ln_linear import layer_norm_rounded
 
@@ -51,60 +53,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
 _ARGTYPES = (_P,) * 11 + (_I,) * 5 + (_F,) + _DROP + (_P,)
 _BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_P,)
-
-# The GEMM of csrc/gemm_sm90.cuh: a CTA's output tile, its ring of k tiles
-# (128 bytes of depth a stage, both operands; bf16 three stages so that two
-# CTAs share an SM, f32 four) and its threads, and the card.
-TILE_M, TILE_N = 128, 128
-STAGES = {torch.bfloat16: 3, torch.float32: 4}
-SMEM_LIMIT = 232_448  # shared memory a CTA may opt in to on an H100
-ROW_BLOCK = 16  # rows a block of B7's row passes (a row of column partials each)
-_SCRATCH_ALIGN = 256
-
-
-class GemmProduct(NamedTuple):
-    """One product C[m, n] = A[m, k] B[k, n] of B6 or B7 on the GEMM, as its
-    CTAs take it: ``tiles_m`` x ``tiles_n`` output tiles of TILE_M x TILE_N,
-    each over the whole depth, n fastest where A is the larger operand."""
-    name: str
-    m: int
-    n: int
-    k: int
-
-    @property
-    def tiles_m(self) -> int:
-        return -(-self.m // TILE_M)
-
-    @property
-    def tiles_n(self) -> int:
-        return self.n // TILE_N
-
-    @property
-    def n_fast(self) -> bool:
-        return self.m >= self.n
-
-    @property
-    def blocks(self) -> int:
-        return self.tiles_m * self.tiles_n
-
-    def tile(self, block: int) -> Tuple[int, int]:
-        """CTA ``block`` of this product -> (first row, first column) of its
-        tile, as the kernel decodes its block index."""
-        if self.n_fast:
-            tm, tn = divmod(block, self.tiles_n)
-        else:
-            tn, tm = divmod(block, self.tiles_m)
-        return tm * TILE_M, tn * TILE_N
-
-
-def launch_tile(launch: Tuple[GemmProduct, ...], block: int) -> Tuple[str, int, int]:
-    """CTA ``block`` of a launch of one or more products (their CTAs in
-    order) -> (product, first row, first column)."""
-    for p in launch:
-        if block < p.blocks:
-            return (p.name, *p.tile(block))
-        block -= p.blocks
-    raise IndexError(block)
 
 
 class MlpPlan(NamedTuple):
@@ -124,19 +72,6 @@ class MlpPlan(NamedTuple):
     fwd_scratch_bytes: int
     bwd_scratch_bytes: int
     launches: Tuple[int, int]  # kernel launches a call of B6, of B7
-
-
-def _layout(entries) -> Tuple[Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...], int]:
-    """(name, shape, dtype) -> the same with a byte offset, each aligned to
-    _SCRATCH_ALIGN in one buffer, and the buffer's bytes."""
-    out, at = [], 0
-    for name, shape, dtype in entries:
-        out.append((name, tuple(shape), dtype, at))
-        n = dtype.itemsize
-        for d in shape:
-            n *= d
-        at += -(-n // _SCRATCH_ALIGN) * _SCRATCH_ALIGN
-    return tuple(out), at
 
 
 @functools.lru_cache(maxsize=256)
@@ -172,9 +107,7 @@ def mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype = torch.bfloat16)
            ("part_db1", (tiles_m, mlp), f32), ("part_dg", (row_blocks, dim), f32),
            ("part_db", (row_blocks, dim), f32)]
     bwd_scratch, bwd_bytes = _layout(bwd)
-    # The ring (the epilogue stages the f32 sums over it), its barriers, and
-    # the column sums' partials of 16 row groups.
-    smem = 1024 + STAGES[dtype] * (2 * TILE_M * 128 + 2 * 8) + 16 * TILE_N * 4
+    smem = gemm_smem(dtype)
     g = GemmProduct
     return MlpPlan(
         rows, dim, mlp, dtype, chunk, smem,
@@ -183,14 +116,6 @@ def mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype = torch.bfloat16)
          (g("dw2", dim, mlp, rows), g("dw1", mlp, dim, rows), g("dh", rows, dim, mlp))),
         fwd_scratch, bwd_scratch, fwd_bytes, bwd_bytes, (3, 5))
 
-
-def _scratch(layout, nbytes: int, device) -> dict:
-    """One buffer for a call's scratch -> name -> device pointer."""
-    buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
-    base = buf.data_ptr()
-    ptrs = {name: base + off for name, _, _, off in layout}
-    ptrs["_buffer"] = buf  # keeps it alive until the launch is queued
-    return ptrs
 
 # erf ~= sign(a) * tanh(C1|a| + C3|a|^3 + C5|a|^5): the JAX package's
 # erf_fast fit.

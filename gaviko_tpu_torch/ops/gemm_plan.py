@@ -1,0 +1,96 @@
+"""The plans of the kernels on the port's Hopper GEMM (``csrc/gemm_sm90.cuh``):
+B6 and B7 (``ops/fused_mlp.py:mlp_plan``), B9 and B12
+(``ops/ln_linear.py:ln_linear_plan``) and B11 (``ops/int8_linear.py:int8_plan``)
+share its tile, the way its CTAs take a launch of one or more products, and
+one buffer for a call's scratch."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+# A CTA's output tile, its ring of k tiles (128 bytes of depth a stage, both
+# operands; bf16 and int8 three stages so that two CTAs share an SM, f32
+# four), and the card's shared memory a CTA may opt in to on an H100.
+TILE_M, TILE_N = 128, 128
+STAGES = {torch.bfloat16: 3, torch.int8: 3, torch.float32: 4}
+SMEM_LIMIT = 232_448
+ROW_BLOCK = 16  # rows a block of the LN backward's row pass (a row of column partials each)
+_SCRATCH_ALIGN = 256
+
+
+def gemm_smem(dtype: torch.dtype) -> int:
+    """The GEMM's shared memory a CTA for operands of ``dtype``: the ring
+    (the epilogue stages the f32 sums over it), its barriers, and 16 x 128
+    f32 of reductions (the column sums' partials or the rows' inputs)."""
+    return 1024 + STAGES[dtype] * (2 * TILE_M * 128 + 2 * 8) + 16 * TILE_N * 4
+
+
+class GemmProduct(NamedTuple):
+    """One product C[m, n] = A[m, k] B[k, n] on the GEMM, as its CTAs take
+    it: ``tiles_m`` x ``tiles_n`` output tiles of TILE_M x TILE_N, each over
+    the whole depth, n fastest where A is the larger operand. Any n: the
+    last column tile reads zeros past it and its epilogue writes only the
+    columns below it."""
+    name: str
+    m: int
+    n: int
+    k: int
+
+    @property
+    def tiles_m(self) -> int:
+        return -(-self.m // TILE_M)
+
+    @property
+    def tiles_n(self) -> int:
+        return -(-self.n // TILE_N)
+
+    @property
+    def n_fast(self) -> bool:
+        return self.m >= self.n
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    def tile(self, block: int) -> Tuple[int, int]:
+        """CTA ``block`` of this product -> (first row, first column) of its
+        tile, as the kernel decodes its block index."""
+        if self.n_fast:
+            tm, tn = divmod(block, self.tiles_n)
+        else:
+            tn, tm = divmod(block, self.tiles_m)
+        return tm * TILE_M, tn * TILE_N
+
+
+def launch_tile(launch: Tuple[GemmProduct, ...], block: int) -> Tuple[str, int, int]:
+    """CTA ``block`` of a launch of one or more products (their CTAs in
+    order) -> (product, first row, first column)."""
+    for p in launch:
+        if block < p.blocks:
+            return (p.name, *p.tile(block))
+        block -= p.blocks
+    raise IndexError(block)
+
+
+def _layout(entries) -> Tuple[Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...], int]:
+    """(name, shape, dtype) -> the same with a byte offset, each aligned to
+    _SCRATCH_ALIGN in one buffer, and the buffer's bytes."""
+    out, at = [], 0
+    for name, shape, dtype in entries:
+        out.append((name, tuple(shape), dtype, at))
+        n = dtype.itemsize
+        for d in shape:
+            n *= d
+        at += -(-n // _SCRATCH_ALIGN) * _SCRATCH_ALIGN
+    return tuple(out), at
+
+
+def _scratch(layout, nbytes: int, device) -> dict:
+    """One buffer for a call's scratch -> name -> device pointer."""
+    buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    ptrs = {name: base + off for name, _, _, off in layout}
+    ptrs["_buffer"] = buf  # keeps it alive until the launch is queued
+    return ptrs

@@ -41,8 +41,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from gaviko_tpu_torch.ops import _build
-from gaviko_tpu_torch.ops.fused_mlp import (
-    GELU_MODES, STAGES, TILE_M, TILE_N, GemmProduct, _layout, _scratch, gelu_by_mode, gelu_mode)
+from gaviko_tpu_torch.ops.fused_mlp import GELU_MODES, gelu_by_mode, gelu_mode
+from gaviko_tpu_torch.ops.gemm_plan import GemmProduct, _layout, _scratch, gemm_smem
 
 # Sidecar param-key suffixes carrying the quantized backbone (the JAX
 # package's names, so a quantized dict moves between the packages as is).
@@ -188,17 +188,6 @@ def _check_weight(name: str, w_i8: torch.Tensor, w_scale: torch.Tensor, din: int
     return dout
 
 
-class Int8Product(GemmProduct):
-    """One product of B11 on the GEMM's int8 instance: as
-    :class:`~gaviko_tpu_torch.ops.fused_mlp.GemmProduct`, but any output
-    width: the last column tile reads zeros past ``n`` and its epilogue
-    writes only the columns below it."""
-
-    @property
-    def tiles_n(self) -> int:
-        return -(-self.n // TILE_N)
-
-
 class Int8Plan(NamedTuple):
     """What B11 runs for one call: :func:`int8_plan`."""
     kind: str        # "linear" or "mlp"
@@ -212,7 +201,7 @@ class Int8Plan(NamedTuple):
     row_blocks: int  # blocks of the row pass
     # The GEMM launches: int8_linear's product after its row pass; the
     # MLP's fc1 after its row pass, then fc2 after the hidden's codes.
-    products: Tuple[Tuple[Int8Product, ...], ...]
+    products: Tuple[Tuple[GemmProduct, ...], ...]
     padded: Tuple[str, ...]  # the weights that take a zero-padded copy (K not a multiple)
     scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
     scratch_bytes: int
@@ -251,7 +240,7 @@ def int8_plan(kind: str, rows: int, k: int, n: int,
             f"{k} -> {n}")
     vec = 16 // dtype.itemsize
     i8, f32 = torch.int8, torch.float32
-    P = Int8Product
+    P = GemmProduct
     if kind == "linear":
         products = ((P("linear", rows, n, k_pad),),)
         padded = ("w",) if k_pad != k else ()
@@ -262,9 +251,7 @@ def int8_plan(kind: str, rows: int, k: int, n: int,
         scratch = (("codes_x", (rows, k_pad), i8), ("codes_h", (rows, n_pad), i8),
                    ("hidden", (rows, n), f32), ("sx", (rows,), f32), ("hmax", (rows,), f32))
     layout, nbytes = _layout(scratch)
-    # The ring (the epilogue stages the f32 sums over it) and its barriers,
-    # and 16 x 128 f32 of reductions (the rows' staged inputs).
-    smem = 1024 + STAGES[torch.bfloat16] * (2 * TILE_M * 128 + 2 * 8) + 16 * TILE_N * 4
+    smem = gemm_smem(torch.int8)
     # The row pass before the products; the MLP's hidden codes between them.
     launches = 1 + len(products) + (kind == "mlp")
     return Int8Plan(kind, rows, k, n, dtype, k_pad, n_pad, vec if k % vec == 0 else 1,

@@ -1,14 +1,22 @@
 """LayerNorm + bias-free Linear, ``LN(x) @ W^T``, forward and backward kernels.
 
-Port of ``gaviko_tpu/ops/ln_linear.py``. Two kernels:
+Port of ``gaviko_tpu/ops/ln_linear.py``. Two kernels, both on the port's
+Hopper GEMM (``csrc/gemm_sm90.cuh``: bf16 on wgmma fed by TMA, f32 as
+3xTF32 on the tensor cores):
 
-- B9, the forward (``csrc/ln_linear.cu``), normalises a row tile once into
-  shared memory and walks the output columns, so the normalised
-  activations never reach device memory; ``ln_linear_reference`` is its
-  plain PyTorch version;
+- B9, the forward (``csrc/ln_linear.cu``): an LN pass writes the
+  normalised activations into scratch, then one product with W as stored,
+  rounded once in its epilogue (2 launches a call);
+  ``ln_linear_reference`` is its plain PyTorch version;
 - B12, the backward (``csrc/ln_linear_bwd.cu``, :func:`ln_linear_bwd`):
   dx, dgamma, dbeta and dW from x, W and the incoming gradient, LN
-  recomputed; ``ln_linear_bwd_reference`` is its plain version.
+  recomputed: a row pass, dW and dh in one GEMM launch, the LN backward's
+  row pass and the column sums (4 launches);
+  ``ln_linear_bwd_reference`` is its plain version.
+
+:func:`ln_linear_plan` is their plan (launches, tiles, scratch), made only
+here. They take any width whose rows are whole 16-byte vectors (every shape
+JAX's gates admit, and wider), so no width is refused for shared memory.
 
 Two entry points, as in the JAX package:
 
@@ -32,22 +40,23 @@ dy W in f32 without rounding it, and rounds dW (f32 sums of dy^T h) once.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops.gemm_plan import ROW_BLOCK, GemmProduct, _layout, _scratch, gemm_smem
 
 # The JAX package's weight budget (its VMEM residency gate) and the hybrid
 # backward's (weights and an f32 dW accumulator resident). Kept as they are
 # so one configuration takes the same route in both packages.
 _WEIGHT_BUDGET = 4_000_000
 _HYBRID_BUDGET = 45_000_000
-KERNEL_MAX_DIM = 1024  # widest row the forward kernel stages in shared memory
-_ROW_BLOCK = 32  # rows a block of B12's row passes (its column partials)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 5 + (_I,) * 3 + (_F, _P)
+_ARGTYPES = (_P,) * 6 + (_I,) * 3 + (_F, _P)
 _BWD_ARGTYPES = (_P,) * 15 + (_I,) * 3 + (_F, _P)
 
 
@@ -61,6 +70,77 @@ def ln_linear_hybrid_supported(dim: int, out_dim: int, dtype: torch.dtype) -> bo
     backward's VMEM fit: the weight and an f32 dW accumulator)."""
     return (dim % 128 == 0 and out_dim % 128 == 0
             and dim * out_dim * (dtype.itemsize + 4) <= _HYBRID_BUDGET)
+
+
+class LnLinearPlan(NamedTuple):
+    """What B9 or B12 runs for one call: :func:`ln_linear_plan`."""
+    kind: str        # one of KINDS
+    rows: int
+    dim: int
+    out: int
+    dtype: torch.dtype
+    chunk: int       # depth of a k tile: 128 bytes of columns
+    smem: int        # the GEMM's shared memory a CTA, bytes
+    # The GEMM launches, each one or more products: B9's h W^T after its LN
+    # pass; B12's dW and dh (or dh alone) in one launch after its row pass.
+    products: Tuple[Tuple[GemmProduct, ...], ...]
+    row_blocks: int  # blocks of B12's LN-backward row pass (a row of partials each); B9: 0
+    scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
+    scratch_bytes: int
+    launches: int    # kernel launches a call
+
+
+# B9; B12 with dW; B12 without (a frozen W).
+KINDS = ("forward", "backward", "backward_dh")
+
+
+@functools.lru_cache(maxsize=256)
+def ln_linear_plan(kind: str, rows: int, dim: int, out: int,
+                   dtype: torch.dtype = torch.bfloat16) -> LnLinearPlan:
+    """The plan of B9 (``kind`` "forward") or B12 ("backward", or
+    "backward_dh" without dW) for ``rows`` rows of width ``dim`` and an
+    ``out``-wide projection (made only here; the wrappers hand its scratch
+    to the kernels, which take the same tiles). Every product runs on the
+    GEMM's 128 x 128 tiles with k tiles of 128 bytes (64 bf16 / 32 f32
+    columns), each CTA over its product's whole depth, TMA zero-filling
+    past every edge; B12's dW, whose depth is the rows, shares a launch with
+    dh, whose tiles fill its last wave. Raises only where no kernel can run:
+    a dtype other than bf16 / f32, no rows or columns, a K stride (the rows
+    of x and W, and for B12 of dy) that is no multiple of 16 bytes (TMA's
+    global strides), or a matrix of 2**31 elements or more."""
+    if kind not in KINDS:
+        raise ValueError(f"ln_linear_plan: kind is one of {KINDS}, got {kind!r}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    if rows < 1 or dim < 1 or out < 1:
+        raise ValueError(f"ln_linear: no rows or columns (rows {rows}, {dim} -> {out})")
+    strides = {"dim": dim} if kind == "forward" else {"dim": dim, "out": out}
+    for name, n in strides.items():
+        if n * dtype.itemsize % 16:
+            raise NotImplementedError(
+                f"ln_linear kernels take rows of whole 16-byte vectors (TMA's strides): "
+                f"{name} {n} in {dtype}")
+    if max(rows * dim, rows * out, out * dim) >= 2 ** 31:
+        raise NotImplementedError(
+            f"ln_linear kernels take matrices under 2**31 elements; got rows {rows}, "
+            f"{dim} -> {out}")
+    P, dt, f32 = GemmProduct, dtype, torch.float32
+    if kind == "forward":
+        products = ((P("linear", rows, out, dim),),)
+        row_blocks = 0
+        scratch = (("h", (rows, dim), dt),)
+        launches = 2  # the LN pass, the GEMM
+    else:
+        dh = P("dh", rows, dim, out)
+        products = ((P("dw", out, dim, rows), dh),) if kind == "backward" else ((dh,),)
+        row_blocks = -(-rows // ROW_BLOCK)
+        scratch = ((("h", (rows, dim), dt),) if kind == "backward" else ()) + (
+            ("dh", (rows, dim), f32), ("mean", (rows,), f32), ("rstd", (rows,), f32),
+            ("part_dg", (row_blocks, dim), f32), ("part_db", (row_blocks, dim), f32))
+        launches = 4  # the row pass, the GEMM, the LN backward's row pass, the sums
+    layout, nbytes = _layout(scratch)
+    return LnLinearPlan(kind, rows, dim, out, dtype, 128 // dtype.itemsize, gemm_smem(dtype),
+                        products, row_blocks, layout, nbytes, launches)
 
 
 def layer_norm_rounded(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -87,23 +167,19 @@ def _ln_linear_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """B9 on CUDA (its output has no backward), the plain version on the CPU."""
     if not _build.use_kernel(x):
         return ln_linear_reference(x, gamma, beta, w, eps)
-    dim = x.shape[-1]
-    out_dim = w.shape[0]
-    if dim % 64 or dim > KERNEL_MAX_DIM or out_dim % 8 or w.shape[1] != dim:
-        raise NotImplementedError(
-            f"fused_ln_linear kernel takes dim a multiple of 64 up to "
-            f"{KERNEL_MAX_DIM} and out a multiple of 8; got x {tuple(x.shape)}, "
-            f"w {tuple(w.shape)}")
-    if gamma.shape != (dim,) or beta.shape != (dim,):
-        raise ValueError(f"gamma and beta must be ({dim},)")
+    dim, out_dim = x.shape[-1], w.shape[0]
+    if tuple(w.shape) != (out_dim, dim) or gamma.shape != (dim,) or beta.shape != (dim,):
+        raise ValueError(f"fused_ln_linear: w (out, {dim}), gamma and beta ({dim},); got "
+                         f"w {tuple(w.shape)}")
+    plan = ln_linear_plan("forward", x.numel() // max(dim, 1), dim, out_dim, x.dtype)
     x = x.contiguous()
     _build.check_cuda("fused_ln_linear", x, gamma, beta, w)
-    rows = x.numel() // dim
     out = torch.empty((*x.shape[:-1], out_dim), device=x.device, dtype=x.dtype)
+    sc = _scratch(plan.scratch, plan.scratch_bytes, x.device)
     _build.launch(
         "ln_linear", f"gaviko_ln_linear_{_build.dtype_suffix(x)}", _ARGTYPES,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), out.data_ptr(),
-        rows, dim, out_dim, eps, _build.stream_of(x))
+        sc["h"], plan.rows, dim, out_dim, eps, _build.stream_of(x))
     fused_ln_linear.launches += 1
     return out
 
@@ -139,37 +215,30 @@ def ln_linear_bwd_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Te
 def ln_linear_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5,
                   need_dw: bool = True):
-    """Same contract as :func:`ln_linear_bwd_reference`; B12 on CUDA. Rows
-    take any count; dim a multiple of 128 and out a multiple of 8 (every
-    shape the hybrid gate admits), else it raises."""
+    """Same contract as :func:`ln_linear_bwd_reference`; B12 on CUDA (four
+    launches: the row pass, dW and dh in one GEMM launch, the LN backward's
+    row pass, the column sums), at every shape :func:`ln_linear_plan`
+    takes, else it raises."""
     if not _build.use_kernel(x):
         return ln_linear_bwd_reference(x, gamma, beta, w, dy, eps, need_dw)
     dim, out_dim = x.shape[-1], w.shape[0]
-    rows = x.numel() // dim
-    if dim % 128 or out_dim % 8 or rows < 1:
-        raise NotImplementedError(
-            f"ln_linear_bwd kernel takes dim a multiple of 128, out a multiple of 8 "
-            f"and at least one row; got x {tuple(x.shape)}, w {tuple(w.shape)}")
     if (tuple(w.shape) != (out_dim, dim) or gamma.shape != (dim,) or beta.shape != (dim,)
             or tuple(dy.shape) != (*x.shape[:-1], out_dim)):
         raise ValueError("ln_linear_bwd: w (out, dim), gamma and beta (dim,), "
                          "dy x's shape with out columns")
+    plan = ln_linear_plan("backward" if need_dw else "backward_dh", x.numel() // max(dim, 1),
+                          dim, out_dim, x.dtype)
     x, dy = x.contiguous(), dy.contiguous()
     _build.check_cuda("ln_linear_bwd", x, gamma, beta, w, dy)
-    dev, f32 = x.device, torch.float32
     dx, dgamma, dbeta = torch.empty_like(x), torch.empty_like(gamma), torch.empty_like(beta)
     dw = torch.empty_like(w) if need_dw else None
-    h = torch.empty((rows, dim), device=dev, dtype=x.dtype) if need_dw else None
-    row_blocks = -(-rows // _ROW_BLOCK)
-    scratch = (torch.empty((rows, dim), device=dev, dtype=f32),
-               torch.empty(rows, device=dev, dtype=f32), torch.empty(rows, device=dev, dtype=f32),
-               torch.empty((row_blocks, dim), device=dev, dtype=f32),
-               torch.empty((row_blocks, dim), device=dev, dtype=f32))
+    sc = _scratch(plan.scratch, plan.scratch_bytes, x.device)
     _build.launch(
         "ln_linear_bwd", f"gaviko_ln_linear_bwd_{_build.dtype_suffix(x)}", _BWD_ARGTYPES,
         *(t.data_ptr() for t in (x, gamma, beta, w, dy, dx, dgamma, dbeta)),
-        None if dw is None else dw.data_ptr(), None if h is None else h.data_ptr(),
-        *(t.data_ptr() for t in scratch), rows, dim, out_dim, eps, _build.stream_of(x))
+        None if dw is None else dw.data_ptr(), sc.get("h"),
+        *(sc[n] for n in ("dh", "mean", "rstd", "part_dg", "part_db")),
+        plan.rows, dim, out_dim, eps, _build.stream_of(x))
     ln_linear_bwd.launches += 1
     return dx, dgamma, dbeta, dw
 

@@ -387,12 +387,17 @@ def _ln_params(gen, dim, dtype):
 
 
 # (B, N, dim, out): the vit-b16 B8 qkv and kv projections, then ragged rows
-# (tiles cut by the row edge) and an out width that is no multiple of 128.
+# (tiles cut by the row edge) and an out width that is no multiple of 128;
+# vit-s16's qkv at B8 and vit-l16's qkv and kv at GAViKO B4 widths; and the
+# widths above 1,024 that JAX's gates admit (Queue C 11).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,dim,out", [
     (8, 1008, 768, 2304), (8, 1008, 768, 1536), (3, 37, 384, 1152), (2, 5, 128, 136),
+    (8, 1008, 384, 1152), (4, 1040, 1024, 3072), (4, 1040, 1024, 2048),
+    (2, 300, 1152, 1152), (1, 70, 2048, 768), (2, 100, 1152, 768), (1, 130, 1280, 768),
 ])
 def test_ln_linear_kernel(dev, dtype, B, N, dim, out):
+    """B9 against its plain version; a second call bit-equal (no atomics)."""
     gen = torch.Generator(device=dev).manual_seed(6)
     x = _randn(gen, B, N, dim, dtype=dtype, std=2.0) + 0.5
     gamma, beta = _ln_params(gen, dim, dtype)
@@ -402,6 +407,7 @@ def test_ln_linear_kernel(dev, dtype, B, N, dim, out):
     assert fused_ln_linear.launches == before + 1
     assert got.shape == (B, N, out) and torch.isfinite(got).all()
     assert _rel_mae(got, ln_linear_reference(x, gamma, beta, w)) <= BUDGET[dtype]
+    assert torch.equal(fused_ln_linear(x, gamma, beta, w), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -681,9 +687,13 @@ def test_vit_b16_train_step_runs_the_backward_kernels(dev, dtype):
 # ------------------------------------------------ LN + linear backward (B12) ----
 
 # (rows, dim, out): the vit-b16 B8 hybrid train step's qkv (8 x 1,008 rows),
-# GAViKO vit-l16 B4's (4 x 1,040), and ragged rows with a small out.
+# GAViKO vit-l16 B4's (4 x 1,040), ragged rows with a small out, vit-s16's
+# qkv at B2 (GAViKO's frozen layers there), and the widths above 1,024 that
+# JAX's hybrid gate admits (Queue C 11).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,dim,out", [(8064, 768, 2304), (4160, 1024, 3072), (74, 256, 136)])
+@pytest.mark.parametrize("rows,dim,out", [(8064, 768, 2304), (4160, 1024, 3072), (74, 256, 136),
+                                          (2066, 384, 1152), (300, 1152, 1152),
+                                          (200, 2048, 768), (37, 1280, 768)])
 @pytest.mark.parametrize("need_dw", [True, False])
 def test_ln_linear_bwd_kernel(dev, dtype, rows, dim, out, need_dw):
     """B12 against its plain version, every output; a second call bit-equal
@@ -712,8 +722,8 @@ def test_ln_linear_bwd_kernel(dev, dtype, rows, dim, out, need_dw):
 def test_fused_mlp_bwd_bit_equal_to_before_the_move(dev):
     """B7's outputs on fixed inputs are bit-equal to the redesigned kernel's
     digests, two calls agreeing (``chip_smoke.b7_digests`` and B7_DIGESTS),
-    and B12's to its outputs from before B6 and B7 moved to
-    csrc/gemm_sm90.cuh (``chip_smoke.b12_digests`` and B12_DIGESTS)."""
+    and B12's to the digests of B12 on the same GEMM
+    (``chip_smoke.b12_digests`` and B12_DIGESTS)."""
     import importlib.util
     from pathlib import Path
 
@@ -801,6 +811,36 @@ def test_fused_mlp_backward_runs_b7_on_autograd_thread(dev, dtype):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert _rel_mae(g, w) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_ln_linear_backward_runs_b12_on_autograd_thread(dev, dtype, hybrid):
+    """``fused_ln_linear`` and ``ln_linear_hybrid`` under ``.backward()``
+    (autograd's thread, where B12 encodes its tensor maps) at vit-b16 B2
+    widths: B12 once, every gradient within budget of the plain path's."""
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_hybrid
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = _randn(gen, 2, 1008, 768, dtype=dtype, std=2.0) + 0.5
+    gamma, beta = _ln_params(gen, 768, dtype)
+    w = _randn(gen, 2304, 768, dtype=dtype, std=768 ** -0.5)
+    dy = _randn(gen, 2, 1008, 2304, dtype=dtype, std=2304 ** -0.5)
+    fn = ln_linear_hybrid if hybrid else fused_ln_linear
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, gamma, beta, w)]
+        fn(*leaves).backward(dy)
+        return [t.grad for t in leaves]
+
+    before = ln_linear_bwd.launches
+    got = grads()
+    assert ln_linear_bwd.launches == before + 1
+    with _build.plain_versions():
+        want = grads()
+    for g, wt in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel_mae(g, wt) <= BUDGET[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
