@@ -28,7 +28,9 @@
 // bf16 before P V, as the plain version rounds the probabilities to v's
 // dtype; fp32 runs every product as 3xTF32. An output wider than the
 // accumulators (plan.cols) is split over the grid into column slices, each
-// recomputing S.
+// recomputing S. A latent too wide for a staged row of S's whole depth
+// (local_window.cuh: ROADMAP Queue C 12) takes the chunked instance, which
+// accumulates S over chunks of the depth before the same softmax.
 
 #include "local_window.cuh"
 
@@ -36,13 +38,64 @@ namespace gaviko {
 namespace local {
 namespace {  // internal linkage, as hopper.cuh says
 
+// One streamed tile's scores s (the warp's 16 owned rows x KT keys,
+// unscaled) into the online softmax: the window, the running maximum m and
+// sum l, the dropout bits, then o += P V with V's rows at vs (stride ldv).
 template <typename T, int OB>
+__device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4], float (&o)[OB][4],
+                                           float (&m)[2], float (&l)[2], const Geom& g,
+                                           const Win (&qw)[2], const int (&qrow)[2],
+                                           const int* kc, int start, int b, const T* vs,
+                                           int ldv, int ob, int gi, int ti) {
+  const float sl2 = g.scale * LOG2E;
+  float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e >> 1;
+      s[j][e] = in_win(g, qw[row], kc[col_of<T>(j, e, ti)]) ? s[j][e] * sl2 : -INFINITY;
+      mt[row] = fmaxf(mt[row], s[j][e]);
+    }
+  float alpha[2], base[2];
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const float mn = fmaxf(m[row], quad_max(mt[row]));
+    alpha[row] = mn == m[row] ? 1.0f : ex2(m[row] - mn);  // 0 from m = -inf
+    m[row] = mn;
+    base[row] = mn == -INFINITY ? 0.0f : mn;  // a row with no key yet keeps exp finite
+    l[row] *= alpha[row];
+  }
+#pragma unroll
+  for (int n = 0; n < OB; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e >> 1;
+      float pr = ex2(s[j][e] - base[row]);
+      l[row] += pr;  // the softmax sum is taken before dropout
+      if (g.dropout &&
+          !keep_bit(qrow[row], start + col_of<T>(j, e, ti), b, g.seed, g.threshold))
+        pr = 0.0f;
+      s[j][e] = pr;
+    }
+  mma_pv<T, KT / 8, OB, false>(o, s, vs, ldv, ob, gi, ti);
+}
+
+// CHUNK: S's depth streams through in chunks of p.width columns.
+template <typename T, int OB, bool CHUNK>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
     local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            float* __restrict__ lse, Geom g, Pass p, int vw, Limits lim) {
   extern __shared__ __align__(16) char smem[];
-  const Layout L = layout(0, p, sizeof(T));
+  const Layout L = layout(0, p, sizeof(T), CHUNK);
   uint64_t* bars = p.rs ? reinterpret_cast<uint64_t*>(smem + L.bar_off) : nullptr;
   zero_smem(smem, L.bytes, bars, p.stages * p.split + 1);
   const int b = blockIdx.z, c0 = blockIdx.y * p.cols, rows = ROWS;
@@ -56,17 +109,20 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   const Reach reach_ = reach(g, n0, n1, false);
   const int rounds = (reach_.tiles + p.split - 1) / p.split;
 
-  // The owned Q rows: element-wise, or as a stripe repacked below.
+  // The owned Q rows: element-wise, or as a stripe repacked below (chunked:
+  // a chunk each round, below).
   const T* q_row0 = q + b * g.q_bs + n0 * g.q_rs;
   uint64_t* own_bar = p.rs ? &bars[p.stages * p.split] : nullptr;
-  if (!p.rs) {
-    copy_rows(qs, L.ld, q_row0, g.q_rs, rows, n1 - n0, g.dl, vw);
-  } else if (threadIdx.x == 0) {
-    fence_async();
-    const Stripe x =
-        stripe_of(q_row0, g.q_rs * sizeof(T), n1 - n0, g.dl * sizeof(T), lim.end[0]);
-    attn::mbar_expect_tx(own_bar, x.bytes);
-    stripe_copy(smem + L.stage_off, x, own_bar);
+  if constexpr (!CHUNK) {
+    if (!p.rs) {
+      copy_rows(qs, L.ld, q_row0, g.q_rs, rows, n1 - n0, g.dl, vw);
+    } else if (threadIdx.x == 0) {
+      fence_async();
+      const Stripe x =
+          stripe_of(q_row0, g.q_rs * sizeof(T), n1 - n0, g.dl * sizeof(T), lim.end[0]);
+      attn::mbar_expect_tx(own_bar, x.bytes);
+      stripe_copy(smem + L.stage_off, x, own_bar);
+    }
   }
   // A tile's first K row and first V row (at the slice's first column).
   auto k_row = [&](int start) { return k + b * g.k_bs + start * g.k_rs; };
@@ -113,86 +169,90 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   const int qrow[2] = {n0 + gi, n0 + gi + 8};
   const Win qw[2] = {row_win(g, qrow[0] < n1 ? coord_of(g, qrow[0]) : -1, false),
                      row_win(g, qrow[1] < n1 ? coord_of(g, qrow[1]) : -1, false)};
-  const float sl2 = g.scale * LOG2E;
   float o[OB][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int n = 0; n < OB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 
-  // Group 0 holds Q and the rounds before the first prefetch; each round
-  // commits one more group, empty when there is nothing left to prefetch.
-  for (int r = 0; r + 1 < p.stages && r < rounds; ++r) load_round(r, r);
-  cp_commit();
-  if (p.rs) {
-    attn::mbar_wait(own_bar, 0);
-    repack(qs, L.ld, reinterpret_cast<const T*>(smem + L.stage_off + stripe_pre(q_row0)),
-           g.q_rs, n1 - n0, g.dl);
-  }
-  for (int r = 0; r < rounds; ++r) {
-    const int stage = r % p.stages;
-    if (r + p.stages - 1 < rounds) load_round(r + p.stages - 1, (r + p.stages - 1) % p.stages);
-    cp_commit();
-    cp_wait_n(p.stages - 1);
-    const int t = r * p.split + warp;
-    if (p.rs && t < reach_.tiles)
-      attn::mbar_wait(&bars[stage * p.split + warp], (r / p.stages) & 1);
-    __syncthreads();
-    if (t < reach_.tiles) {
-      const char* tile = ring + (stage * p.split + warp) * L.tile;
-      const int* kc = reinterpret_cast<const int*>(tile + L.c_off);
-      const int start = tile_at(g, reach_, t).start;
-      // The tile's K and V rows: in place in their stripes, or staged.
-      const T* ks = reinterpret_cast<const T*>(
-          tile + (p.rs ? stripe_pre(k_row(start)) : 0));
-      const T* vs = reinterpret_cast<const T*>(
-          p.kv ? reinterpret_cast<const char*>(ks) + (reinterpret_cast<const char*>(v_row(start)) -
-                                                      reinterpret_cast<const char*>(k_row(start)))
-               : tile + L.b_off + (p.rs ? stripe_pre(v_row(start)) : 0));
-      const int ldk = p.rs ? static_cast<int>(g.k_rs) : L.ld;
-      const int ldv = p.rs ? static_cast<int>(g.v_rs) : L.ldv;
+  if constexpr (CHUNK) {
+    // Each round: for each chunk of S's depth, the owned Q rows' chunk and
+    // each warp's K tile's, then the products; V's slice and the keys'
+    // coordinates with the first chunk.
+    for (int r = 0; r < rounds; ++r) {
+      const int t = r * p.split + warp;
       float s[KT / 8][4];
 #pragma unroll
       for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      mma_abt<T, KT / 8>(s, qs, L.ld, ks, ldk, p.width, gi, ti);
-      float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e >> 1;
-          s[j][e] = in_win(g, qw[row], kc[col_of<T>(j, e, ti)]) ? s[j][e] * sl2 : -INFINITY;
-          mt[row] = fmaxf(mt[row], s[j][e]);
+      for (int c = 0; c < g.dl; c += p.width) {
+        const int cc = imin(p.width, g.dl - c);
+        copy_chunk(qs, L.ld, q_row0 + c, g.q_rs, rows, n1 - n0, cc, p.width, vw);
+        for (int w = 0; w < p.split && r * p.split + w < reach_.tiles; ++w) {
+          char* tile = ring + w * L.tile;
+          const Tile x = tile_at(g, reach_, r * p.split + w);
+          copy_chunk(reinterpret_cast<T*>(tile), L.ld, k_row(x.start) + c, g.k_rs, KT, x.count,
+                     cc, p.width, vw);
+          if (c == 0) {
+            copy_rows(reinterpret_cast<T*>(tile + L.b_off), L.ldv, v_row(x.start), g.v_rs, KT,
+                      x.count, vcols, vw);
+            tile_coords(reinterpret_cast<int*>(tile + L.c_off), g, reach_, x);
+          }
         }
-      float alpha[2], base[2];
-#pragma unroll
-      for (int row = 0; row < 2; ++row) {
-        const float mn = fmaxf(m[row], quad_max(mt[row]));
-        alpha[row] = mn == m[row] ? 1.0f : ex2(m[row] - mn);  // 0 from m = -inf
-        m[row] = mn;
-        base[row] = mn == -INFINITY ? 0.0f : mn;  // a row with no key yet keeps exp finite
-        l[row] *= alpha[row];
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (t < reach_.tiles)
+          mma_abt<T, KT / 8>(s, qs, L.ld, reinterpret_cast<const T*>(ring + warp * L.tile), L.ld,
+                             p.width, gi, ti);
+        __syncthreads();
       }
-#pragma unroll
-      for (int n = 0; n < OB; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
+      if (t < reach_.tiles) {
+        const char* tile = ring + warp * L.tile;
+        softmax_pv<T, OB>(s, o, m, l, g, qw, qrow, reinterpret_cast<const int*>(tile + L.c_off),
+                          tile_at(g, reach_, t).start, b,
+                          reinterpret_cast<const T*>(tile + L.b_off), L.ldv, ob, gi, ti);
       }
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e >> 1;
-          float pr = ex2(s[j][e] - base[row]);
-          l[row] += pr;  // the softmax sum is taken before dropout
-          if (g.dropout &&
-              !keep_bit(qrow[row], start + col_of<T>(j, e, ti), b, g.seed, g.threshold))
-            pr = 0.0f;
-          s[j][e] = pr;
-        }
-      mma_pv<T, KT / 8, OB, false>(o, s, vs, ldv, ob, gi, ti);
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    // Group 0 holds Q and the rounds before the first prefetch; each round
+    // commits one more group, empty when there is nothing left to prefetch.
+    for (int r = 0; r + 1 < p.stages && r < rounds; ++r) load_round(r, r);
+    cp_commit();
+    if (p.rs) {
+      attn::mbar_wait(own_bar, 0);
+      repack(qs, L.ld, reinterpret_cast<const T*>(smem + L.stage_off + stripe_pre(q_row0)),
+             g.q_rs, n1 - n0, g.dl);
+    }
+    for (int r = 0; r < rounds; ++r) {
+      const int stage = r % p.stages;
+      if (r + p.stages - 1 < rounds) load_round(r + p.stages - 1, (r + p.stages - 1) % p.stages);
+      cp_commit();
+      cp_wait_n(p.stages - 1);
+      const int t = r * p.split + warp;
+      if (p.rs && t < reach_.tiles)
+        attn::mbar_wait(&bars[stage * p.split + warp], (r / p.stages) & 1);
+      __syncthreads();
+      if (t < reach_.tiles) {
+        const char* tile = ring + (stage * p.split + warp) * L.tile;
+        const int* kc = reinterpret_cast<const int*>(tile + L.c_off);
+        const int start = tile_at(g, reach_, t).start;
+        // The tile's K and V rows: in place in their stripes, or staged.
+        const T* ks = reinterpret_cast<const T*>(
+            tile + (p.rs ? stripe_pre(k_row(start)) : 0));
+        const T* vs = reinterpret_cast<const T*>(
+            p.kv ? reinterpret_cast<const char*>(ks) +
+                       (reinterpret_cast<const char*>(v_row(start)) -
+                        reinterpret_cast<const char*>(k_row(start)))
+                 : tile + L.b_off + (p.rs ? stripe_pre(v_row(start)) : 0));
+        const int ldk = p.rs ? static_cast<int>(g.k_rs) : L.ld;
+        const int ldv = p.rs ? static_cast<int>(g.v_rs) : L.ldv;
+        float s[KT / 8][4];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+        mma_abt<T, KT / 8>(s, qs, L.ld, ks, ldk, p.width, gi, ti);
+        softmax_pv<T, OB>(s, o, m, l, g, qw, qrow, kc, start, b, vs, ldv, ob, gi, ti);
+      }
+      __syncthreads();
+    }
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
@@ -267,17 +327,24 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   }
 }
 
-template <typename T, int OB>
-cudaError_t run(const void* q, const void* k, const void* v, void* out, float* lse,
-                const Geom& g, const Pass& p, int vw, const Limits& lim, cudaStream_t stream) {
-  cudaError_t err = gaviko::attn::opt_in<local_attention_kernel<T, OB>>();
+template <typename T, int OB, bool CHUNK>
+cudaError_t run_as(const void* q, const void* k, const void* v, void* out, float* lse,
+                   const Geom& g, const Pass& p, int vw, const Limits& lim, cudaStream_t stream) {
+  cudaError_t err = gaviko::attn::opt_in<local_attention_kernel<T, OB, CHUNK>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(row_tiles(g), p.slices, g.B);
-  local_attention_kernel<T, OB>
-      <<<grid, 32 * p.split, layout(0, p, sizeof(T)).bytes, stream>>>(
+  local_attention_kernel<T, OB, CHUNK>
+      <<<grid, 32 * p.split, layout(0, p, sizeof(T), CHUNK).bytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<T*>(out), lse, g, p, vw, lim);
   return cudaGetLastError();
+}
+
+template <typename T, int OB>
+cudaError_t run(const void* q, const void* k, const void* v, void* out, float* lse,
+                const Geom& g, const Pass& p, int vw, const Limits& lim, cudaStream_t stream) {
+  return chunked(p, g.dl) ? run_as<T, OB, true>(q, k, v, out, lse, g, p, vw, lim, stream)
+                          : run_as<T, OB, false>(q, k, v, out, lse, g, p, vw, lim, stream);
 }
 
 template <typename T>

@@ -44,6 +44,17 @@
 // rows past the grid zero filled, columns past dl zero from the CTA's
 // first store to shared memory.
 //
+// Any latent width (ROADMAP Queue C 12): where no staged row of S's whole
+// depth leaves a tile in shared memory (D's passes stage two such rows a
+// streamed row: above dl 576 in f32, 1152 in bf16), the plan's `width`
+// falls below dl and the pass streams S's depth (and D's dP's) through in
+// chunks of `width` columns (128 bf16, 64 f32): each round copies the
+// owned rows' and the streamed tiles' chunk element-wise, one round in
+// flight, and accumulates the scores over the chunks in column order,
+// while the output's B operand (C: V; dq: K; dk/dv: Q and dO) comes with
+// the first chunk as its column slice apart. No staged row then grows with
+// dl; the passes that fit whole keep their tiles as they were.
+//
 // Products: bf16 on mma.sync m16n8k16 (S's depth padded to 16), fp32 as
 // 3xTF32 on mma.sync m16n8k8 (split / mma3 of hopper.cuh). For fp32 the B
 // rows of S = A B^T are taken in the order perm8 within each group of 8, so
@@ -86,14 +97,17 @@ struct Geom {
 
 // One pass's plan: warps that share the streamed tiles, rounds of tiles in
 // flight (2: double-buffered; 1), the columns of a staged row (S's depth,
-// padded), the width and count of the output column slices (one CTA a
-// slice), the row stride (elements) the stripes of streamed tiles are sized
-// for (0: element-wise copies), and whether K and V share one stripe (C and
-// the dq pass, where they are views of one packed projection: V's columns
-// lie in K's rows).
+// padded; below dl, the chunk S's depth streams through in), the width and
+// count of the output column slices (one CTA a slice), the row stride
+// (elements) the stripes of streamed tiles are sized for (0: element-wise
+// copies), and whether K and V share one stripe (C and the dq pass, where
+// they are views of one packed projection: V's columns lie in K's rows).
 struct Pass {
   int split, stages, width, cols, slices, rs, kv;
 };
+
+// Whether S's depth streams through in chunks of p.width columns.
+__host__ __device__ inline bool chunked(const Pass& p, int dl) { return p.width < dl; }
 
 // The end of each view's storage (bulk copies are clamped to it): q, k, v,
 // dout, lse, delta, out.
@@ -130,7 +144,9 @@ __host__ __device__ inline int stripe_region(int rows, long long rs_bytes, int r
 // dO; D's dk/dv pass also its queries' lse and delta; then the rows'
 // coordinates); after the last tile the ring holds the split warps'
 // partials for the combine. Then one mbarrier for each tile of the ring and
-// one for the owned rows.
+// one for the owned rows. A chunked pass's tiles also hold, after the
+// coordinates, their rows' slice of the output's B operand apart (dq: K's;
+// dk/dv: Q's, then dO's).
 struct Layout {
   int ld, ldv;          // staged row strides (elements): width, V's slice (C)
   int stage_off;        // offset of the owned rows' stripes
@@ -141,12 +157,13 @@ struct Layout {
   int s_off;            // offset in a tile of the per-row floats (D's dk/dv: lse, delta)
   int f_len;            // bytes of each of those two
   int c_off;            // offset in a tile of the rows' packed coordinates
+  int x_off, ldx;       // offset in a tile of the B operand's slices, and their row stride
   int bar_off;          // offset of the tiles' mbarriers
   int bytes;            // the CTA's dynamic shared memory
 };
 
-// kind 0: C; 1: D's dq pass; 2: D's dk/dv pass.
-__host__ __device__ inline Layout layout(int kind, const Pass& p, int es) {
+// kind 0: C; 1: D's dq pass; 2: D's dk/dv pass; `chunk`: S's depth chunked.
+__host__ __device__ inline Layout layout(int kind, const Pass& p, int es, bool chunk = false) {
   Layout L;
   const int rows = ROWS;  // owned rows
   L.ld = ld_of(p.width, es);
@@ -174,7 +191,9 @@ __host__ __device__ inline Layout layout(int kind, const Pass& p, int es) {
     L.f_len = kind == 2 ? 4 * KT : 0;
   }
   L.c_off = L.s_off + 2 * L.f_len;
-  L.tile = L.c_off + 4 * KT;
+  L.x_off = L.c_off + 4 * KT;
+  L.ldx = ld_of(p.cols, es);
+  L.tile = L.x_off + (chunk ? kind * KT * L.ldx * es : 0);
   const int ring = p.stages * p.split * L.tile;
   const int comb = p.split * ROWS * 4 *
                    (kind == 0 ? p.cols + 2 : kind == 1 ? p.cols : 2 * p.cols);
@@ -183,15 +202,17 @@ __host__ __device__ inline Layout layout(int kind, const Pass& p, int es) {
   return L;
 }
 
+// A chunked pass copies element-wise (no stripes) with one round in flight.
 inline bool valid(const Geom& g, const Pass& p, int kind, int es) {
+  const bool chunk = chunked(p, g.dl);
   return g.dl >= 1 && g.B >= 1 && g.N == g.D * g.H * g.W && g.N >= 1 && g.H < 1024 &&
          g.W < 1024 && g.kd >= 1 && g.kh >= 1 && g.kw >= 1 && p.split >= 1 &&
          p.split <= MAX_WARPS && (p.stages == 1 || p.stages == 2) && p.cols >= 8 &&
          p.cols % 8 == 0 && p.slices >= 1 && (p.slices - 1) * p.cols < g.dl &&
-         p.width >= g.dl && p.width % (es == 2 ? 16 : 8) == 0 &&
-         (kind == 0 || p.width >= p.slices * p.cols) && p.rs >= 0 &&
-         (p.kv == 0 || (p.kv == 1 && p.rs > 0 && kind != 2)) &&
-         layout(kind, p, es).bytes <= SMEM_LIMIT;
+         p.width >= 1 && p.width % (es == 2 ? 16 : 8) == 0 &&
+         (chunk ? p.rs == 0 && p.stages == 1 : kind == 0 || p.width >= p.slices * p.cols) &&
+         p.rs >= 0 && (p.kv == 0 || (p.kv == 1 && p.rs > 0 && kind != 2)) &&
+         layout(kind, p, es, chunk).bytes <= SMEM_LIMIT;
 }
 
 // Stripes need the row strides of the streamed views within plan.rs and,
@@ -398,6 +419,17 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, long lon
       }
     }
   }
+}
+
+// copy_rows, then columns [cols, width) of the rows zero: a chunk of S's
+// depth, the last of which may be narrower than the staged row.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, int ld, const T* src, long long rs, int rows,
+                                           int valid, int cols, int width, int vw) {
+  copy_rows(dst, ld, src, rs, rows, valid, cols, vw);
+  const int pad = width - cols;
+  for (int i = threadIdx.x; i < rows * pad; i += blockDim.x)
+    dst[(i / pad) * ld + cols + i % pad] = from_f32<T>(0.0f);
 }
 
 // The stripe of rows [0, count) of a view whose first row starts at src

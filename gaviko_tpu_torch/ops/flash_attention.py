@@ -673,9 +673,11 @@ class LocalPass(NamedTuple):
     tiles of LOCAL_KEYS rows on ``mma.sync``, each every split-th tile,
     combined in warp order; ``stages`` rounds of tiles in flight (2:
     double-buffered); ``width`` the columns of
-    a staged row (dl padded to S's depth, and far enough for every slice);
-    ``cols`` the output columns a CTA accumulates and ``slices`` the CTAs
-    that share the output's columns, each recomputing S; ``rs`` the row
+    a staged row: dl padded to S's depth, and far enough for every slice,
+    or, below dl, the chunk in which S's depth (and D's dP's) streams
+    through (see :func:`local_plan`); ``cols`` the output columns a CTA
+    accumulates and ``slices`` the CTAs that share the output's columns,
+    each recomputing S; ``rs`` the row
     stride (elements) the streamed tiles' stripes are sized for, each tile's
     rows one bulk copy of their contiguous bytes (0: element-wise copies);
     ``kv`` whether K and V share one stripe (C and the dq pass, on views of
@@ -723,14 +725,18 @@ def _stripe_region(rs_bytes: int, read_bytes: int, rows: int = LOCAL_KEYS) -> in
 
 
 def _local_smem(kind: str, split: int, stages: int, width: int, cols: int, size: int,
-                rs: int = 0, kv: bool = False) -> int:
+                rs: int = 0, kv: bool = False, chunked: bool = False) -> int:
     """A CTA's shared memory (``csrc/local_window.cuh:layout``): the owned
     rows (C: Q; dq: Q, dO and two floats a row; dk/dv: K and V), then the
     larger of ``stages`` x ``split`` streamed tiles (C: K and V's slice; dq:
     K and V; dk/dv: Q, dO and two floats a row; as stripes at row stride
     ``rs``, or element-wise with ``rs`` 0; K and V as one stripe with ``kv``;
     each with a coordinate a row) and the split warps' partials for the
-    combine, then the mbarriers."""
+    combine, then the mbarriers. With ``chunked`` (S's depth streamed in
+    chunks of ``width`` columns, element-wise) every staged row is a chunk
+    and the streamed tiles also hold the rows' slice of the output's B
+    operand apart (dq: K's; dk/dv: Q's and dO's), so nothing grows with
+    dl."""
     rows, kt, ld = 16, LOCAL_KEYS, _local_ld(width, size)
     own = rows * ld * size if kind == "fwd" else (
         2 * rows * ld * size + (8 * rows if kind == "dq" else 0))
@@ -747,6 +753,8 @@ def _local_smem(kind: str, split: int, stages: int, width: int, cols: int, size:
     else:
         ld_b = _local_ld(cols, size) if kind == "fwd" else ld
         tile = kt * (ld + ld_b) * size + (8 * kt if kind == "dkdv" else 0) + 4 * kt
+        if chunked:
+            tile += {"fwd": 0, "dq": 1, "dkdv": 2}[kind] * kt * _local_ld(cols, size) * size
     partial = cols + 2 if kind == "fwd" else cols if kind == "dq" else 2 * cols
     return own + max(stages * split * tile, split * 16 * 4 * partial) + 8 * 4 * LOCAL_WARPS
 
@@ -770,8 +778,18 @@ def local_plan(DHW: Tuple[int, int, int], local_k: Tuple[int, int, int], dl: int
     tiles are stripes at that stride, else, or where no such plan fits,
     element-wise copies; with ``kv`` (K and V views of one packed
     projection) C and the dq pass take K and V in one stripe. Shared memory
-    does not grow with the grid; the window does not change the plan. Every
-    dl up to 1152 in bf16 and 576 in f32 has one."""
+    does not grow with the grid; the window does not change the plan.
+
+    Where no staged row of S's whole depth leaves a tile in shared memory
+    (the dq and dk/dv passes above dl 576 in f32 and 1152 in bf16, which
+    stage two such rows a streamed key or query; ROADMAP Queue C 12), the
+    pass streams S's depth (and D's dP's) through in chunks of ``width`` =
+    128 columns in bf16 (64 in f32), below dl: each round copies the owned
+    rows' and the streamed tiles' chunk element-wise, one round in flight,
+    and accumulates S over the chunks, while the output's B operand (C: V;
+    dq: K; dk/dv: Q and dO) comes as its column slice apart. No staged row
+    then grows with dl, so every dl >= 1 has a plan; the passes that fit
+    whole keep it."""
     D, H, W = (int(x) for x in DHW)
     if dl < 1:
         raise ValueError(f"local_dim must be >= 1, got {dl}")
@@ -799,6 +817,11 @@ def local_plan(DHW: Tuple[int, int, int], local_k: Tuple[int, int, int], dl: int
                         continue
                     return LocalPass(split, stages, width, cols, len(slices), stride,
                                      joint if stride else 0, smem)
+        chunk = 256 // size  # S's depth a chunk: 256 bytes a row, 128 bf16 / 64 f32
+        for split in (4, 2, 1):
+            smem = _local_smem(kind, split, 1, chunk, cols, size, chunked=True)
+            if chunk < dl and smem <= SMEM_LIMIT:
+                return LocalPass(split, 1, chunk, cols, len(slices), 0, 0, smem)
         raise ValueError(f"local_dim {dl} in {dtype}: a staged row of {width} columns leaves "
                          f"no tile in a CTA's shared memory")
 

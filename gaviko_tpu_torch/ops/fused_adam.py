@@ -2,13 +2,16 @@
 
 Port of ``gaviko_tpu/ops/fused_adam.py`` (``_adam_leaf_kernel``, the
 one-pass Adam leaf update) and of the norm pass before it
-(``gaviko_tpu/train/fused_optim.py:step``). On the card one call is two
-launches of ``csrc/fused_adam.cu`` over every leaf at once: a multi-tensor
-sum of squares in f64, then the update, which forms the clip scale from the
+(``gaviko_tpu/train/fused_optim.py:step``). On the card one call runs
+``csrc/fused_adam.cu`` over every leaf at once: a multi-tensor sum of
+squares in f64, then the update, which forms the clip scale from the
 partials on the device and updates the parameters and both moments in
-place. The TPU kernel runs one launch a leaf, bakes b1 in and is gated to
-large leaves; this one takes b1 (the cycled OneCycle beta1) as a per-step
-scalar and has no gate.
+place, 16 bytes a load where a leaf's tensors line up. Where the gradients
+fit in L2 (:data:`ONE_PASS_BYTES`: GAViKO's) both run in one cooperative
+launch with a grid-wide barrier between them, else in two launches. The
+TPU kernel runs one launch a leaf, bakes b1 in and is gated to large
+leaves; this one takes b1 (the cycled OneCycle beta1) as a per-step scalar
+and has no gate.
 
 :func:`adam_reference` is the plain PyTorch version (the port's per-leaf
 math before the kernel): it returns new tensors and leaves its inputs as
@@ -17,12 +20,12 @@ they are. :func:`fused_adam` runs it on CPU tensors and inside
 updates ``params``, ``mu`` and ``nu`` in place (the JAX step donates them)
 and returns them.
 
-The kernel's table of leaves (pointers, sizes, chunk starts),
-:class:`AdamTable`, is built once for a set of parameter and moment tensors
-and held by the caller (``train/fused_optim.py`` keeps one with the
-optimizer state); a step rewrites only the grad pointers and the four step
-scalars, with one asynchronous copy from pinned memory, so the step has no
-host sync.
+The kernel's table of leaves (pointers, sizes, chunk starts, each leaf's
+alignment and each chunk's leaf), :class:`AdamTable`, is built once for a
+set of parameter and moment tensors and held by the caller
+(``train/fused_optim.py`` keeps one with the optimizer state); a step
+rewrites only the grad pointers and the four step scalars, with one
+asynchronous copy from pinned memory, so the step has no host sync.
 """
 
 from __future__ import annotations
@@ -39,9 +42,13 @@ B2 = 0.999  # Adam's beta2, fixed as in the reference
 CHUNK = 4096  # elements a block takes at once (csrc/fused_adam.cu)
 SUM_BLOCKS = 264  # most blocks of the sum of squares: two a streaming multiprocessor
 UPDATE_BLOCKS = 1056  # most blocks of the update: eight a streaming multiprocessor
+# Gradients of at most this many bytes take the one-launch step: the update
+# re-reads them from the H100's 50 MB L2, beside the moments and params
+# streaming through it (GAViKO's 604 f32 leaves: 9.1 MB; vit-b16's: 353 MB).
+ONE_PASS_BYTES = 24 << 20
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = (_P, _I, _L, _P, _I, _I, _F, _F, _F, _F, _P)
+_ARGTYPES = (_P, _I, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P)
 
 Tensors = Sequence[torch.Tensor]
 
@@ -82,10 +89,27 @@ def adam_reference(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
     return new_p, new_m, new_v
 
 
+def leaf_phases(mu: Tensors, nu: Tensors, params: Tensors) -> np.ndarray:
+    """Each leaf's byte offset modulo 16 that its moments and param share,
+    or -1 where they do not: the step moves a leaf's elements as 16-byte
+    vectors where its gradient shares the offset too (csrc/fused_adam.cu)."""
+    ptrs = np.array([[t.data_ptr() for t in ts] for ts in (mu, nu, params)], np.int64) % 16
+    return np.where((ptrs == ptrs[0]).all(axis=0), ptrs[0], -1).astype(np.int64)
+
+
+def one_pass(nbytes: int) -> bool:
+    """Whether a step over gradients of ``nbytes`` bytes takes the one-launch
+    kernel (they fit in L2 beside the update's streams)."""
+    return nbytes <= ONE_PASS_BYTES
+
+
 class AdamTable:
-    """The device table of one set of (mu, nu, param) CUDA tensors
-    (csrc/fused_adam.cu's layout) and its f64 partials. It holds the
-    tensors, so their addresses stay valid while it lives."""
+    """The device table of one set of (mu, nu, param) tensors
+    (csrc/fused_adam.cu's layout), its f64 partials and its grid barrier.
+    It holds the tensors, so their addresses stay valid while it lives.
+    ``phases`` is each leaf's alignment (:func:`leaf_phases`); ``one_pass``
+    whether a step is one launch. Built from CPU tensors it stays on the
+    CPU (its host side, for inspection)."""
 
     def __init__(self, mu: Tensors, nu: Tensors, params: Tensors):
         self.dtype, device = params[0].dtype, params[0].device
@@ -104,17 +128,26 @@ class AdamTable:
         numel = np.array([p.numel() for p in params], np.int64)
         chunks = -(-numel // CHUNK)
         starts = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
-        words = np.zeros(6 * n + 3, np.int64)
+        self.n, self.n_chunks = n, int(starts[-1])
+        self.phases = leaf_phases(mu, nu, params)
+        leaf_of = np.repeat(np.arange(n, dtype=np.int32), chunks)
+        words = np.zeros(7 * n + 2 + -(-self.n_chunks // 2), np.int64)
         words[n + 2:2 * n + 2] = [t.data_ptr() for t in mu]
         words[2 * n + 2:3 * n + 2] = [t.data_ptr() for t in nu]
         words[3 * n + 2:4 * n + 2] = [t.data_ptr() for t in params]
         words[4 * n + 2:5 * n + 2] = numel
-        words[5 * n + 2:] = starts
-        self.n, self.n_chunks = n, int(starts[-1])
-        self.words = torch.from_numpy(words).pin_memory().to(device, non_blocking=True)
+        words[5 * n + 2:6 * n + 2] = starts[:-1]
+        words[6 * n + 2:7 * n + 2] = self.phases
+        words[7 * n + 2:].view(np.int32)[:self.n_chunks] = leaf_of
+        self.words = torch.from_numpy(words)
+        if device.type == "cuda":
+            self.words = self.words.pin_memory().to(device, non_blocking=True)
+        self.one_pass = one_pass(int(numel.sum()) * self.dtype.itemsize)
         self.n_sum = min(self.n_chunks, SUM_BLOCKS)
         self.n_update = min(self.n_chunks, UPDATE_BLOCKS)
-        self.partials = torch.empty(self.n_sum, dtype=torch.float64, device=device)
+        self.partials = torch.empty(max(self.n_sum, self.n_update), dtype=torch.float64,
+                                    device=device)
+        self.barrier = torch.zeros(2, dtype=torch.int32, device=device)
 
     def holds(self, mu: Tensors, nu: Tensors, params: Tensors) -> bool:
         """Whether the table was built for exactly these tensors, in order."""
@@ -128,8 +161,8 @@ def fused_adam(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
                eps: float = 1e-8, table: AdamTable = None) -> Tuple[List[torch.Tensor], ...]:
     """One clip + Adam step of every leaf: -> (params, mu, nu).
 
-    Kernel B13 on CUDA tensors (two launches, the update in place: the
-    returned tensors are the ones given); :func:`adam_reference` on CPU
+    Kernel B13 on CUDA tensors (one launch or two, the update in place:
+    the returned tensors are the ones given); :func:`adam_reference` on CPU
     tensors and inside ``_build.plain_versions()`` (new tensors). The four
     step scalars are f32 values. ``table`` is an :class:`AdamTable` that
     holds ``mu``, ``nu`` and ``params`` (its caller checks
@@ -158,14 +191,16 @@ def fused_adam(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
 
 
 def launch_table(table: AdamTable, like: torch.Tensor, clip: float, eps: float) -> None:
-    """Launch B13's two kernels on ``table`` as it stands (the step's grad
-    pointers and scalars already copied in), on ``like``'s stream."""
+    """Launch B13 on ``table`` as it stands (the step's grad pointers and
+    scalars already copied in), on ``like``'s stream: one kernel where
+    ``table.one_pass``, else the sum of squares and the update."""
     dtype = _build.dtype_suffix(like)
     _build.launch("fused_adam", f"gaviko_fused_adam_{dtype}", _ARGTYPES,
                   table.words.data_ptr(), table.n, table.n_chunks, table.partials.data_ptr(),
-                  table.n_sum, table.n_update, float(clip), float(np.float32(B2)),
-                  float(np.float32(1.0 - B2)), float(eps), _build.stream_of(like))
+                  table.barrier.data_ptr(), table.n_sum, table.n_update, int(table.one_pass),
+                  float(clip), float(np.float32(B2)), float(np.float32(1.0 - B2)), float(eps),
+                  _build.stream_of(like))
     fused_adam.launches += 1
 
 
-fused_adam.launches = 0  # B13 steps launched (a sum of squares and an update each)
+fused_adam.launches = 0  # B13 steps launched (one kernel or two each)

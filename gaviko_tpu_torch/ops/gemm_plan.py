@@ -1,11 +1,13 @@
 """The plans of the kernels on the port's Hopper GEMM (``csrc/gemm_sm90.cuh``):
 B6 and B7 (``ops/fused_mlp.py:mlp_plan``), B9 and B12
-(``ops/ln_linear.py:ln_linear_plan``) and B11 (``ops/int8_linear.py:int8_plan``)
-share its tile, the way its CTAs take a launch of one or more products, and
-one buffer for a call's scratch."""
+(``ops/ln_linear.py:ln_linear_plan``), B11 (``ops/int8_linear.py:int8_plan``)
+and patchify (:func:`patchify_plan`, here) share its tile, the way its CTAs
+take a launch of one or more products, and one buffer for a call's
+scratch."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -94,3 +96,56 @@ def _scratch(layout, nbytes: int, device) -> dict:
     ptrs = {name: base + off for name, _, _, off in layout}
     ptrs["_buffer"] = buf  # keeps it alive until the launch is queued
     return ptrs
+
+
+class PatchifyPlan(NamedTuple):
+    """What patchify (``csrc/patchify.cu``) runs for one call:
+    :func:`patchify_plan`."""
+    rows: int        # B * n_tok: the patch matrix's rows
+    k: int           # C * pd * ph * pw: its columns
+    kp: int          # k rounded up to whole 16-byte rows (zero columns past k)
+    dim: int
+    dtype: torch.dtype
+    vector: int      # elements a thread of the rows pass moves: 16 bytes, or 1
+    smem: int        # the GEMM's shared memory a CTA, bytes
+    products: Tuple[Tuple[GemmProduct, ...], ...]  # the GEMM's launch: rows W^T
+    scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
+    scratch_bytes: int
+    launches: int    # kernel launches a call: the rows pass, the GEMM
+
+
+@functools.lru_cache(maxsize=64)
+def patchify_plan(B: int, C: int, DHW: Tuple[int, int, int], patch: Tuple[int, int, int],
+                  dim: int, dtype: torch.dtype = torch.bfloat16,
+                  save_rows: bool = False) -> PatchifyPlan:
+    """The plan of patchify for B volumes of C x DHW cut into patches of
+    ``patch`` and embedded in ``dim`` columns (made only here; the wrapper
+    hands it to the kernels): a rows pass writes the patch matrix [B * n_tok,
+    kp], its columns in (c, pd, ph, pw) order and zero from k to kp, kp the
+    fewest columns of whole 16-byte rows (TMA's strides), 16 bytes a thread
+    where the patch width and the volume width are whole vectors (then kp
+    is k), else an element; then one product of it with the weight [dim,
+    kp] (padded with zero columns where kp > k) on the GEMM's 128 x 128
+    tiles with k tiles of 128 bytes, each CTA over the whole depth. The
+    matrix is scratch unless ``save_rows`` asks for it (the weight's
+    gradient reads it). Raises where no kernel can run: a dtype other than
+    bf16 / f32, a volume the patch does not divide, or a matrix of 2**31
+    elements or more."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
+    (D, H, W), (pd, ph, pw) = DHW, patch
+    if min(B, C, D, H, W, pd, ph, pw, dim) < 1 or D % pd or H % ph or W % pw:
+        raise ValueError(f"patchify: volume {B} x {C} x {tuple(DHW)} in patches "
+                         f"{tuple(patch)} to {dim}")
+    size = dtype.itemsize
+    rows, k = B * (D // pd) * (H // ph) * (W // pw), C * pd * ph * pw
+    kp = -(-k * size // 16) * 16 // size
+    if max(rows * kp, dim * kp) >= 2 ** 31:
+        raise NotImplementedError(f"patchify takes matrices under 2**31 elements; got "
+                                  f"{rows} x {kp} and {dim} x {kp}")
+    vec = 16 // size
+    vector = vec if pw % vec == 0 and W % vec == 0 else 1
+    scratch = () if save_rows else (("rows", (rows, kp), dtype),)
+    layout, nbytes = _layout(scratch)
+    return PatchifyPlan(rows, k, kp, dim, dtype, vector, gemm_smem(dtype),
+                        ((GemmProduct("patchify", rows, dim, kp),),), layout, nbytes, 2)

@@ -1,19 +1,23 @@
 """Patchify embed: non-overlapping Conv3d (kernel == stride) as one GEMM.
 
-Port of ``gaviko_tpu/ops/patchify.py``. On the card it runs the
-implicit-GEMM kernel in ``csrc/patchify.cu``, which reads every patch straight
-from the volume; ``patchify_reference`` is its plain PyTorch version.
+Port of ``gaviko_tpu/ops/patchify.py``. On the card a call is two launches
+of ``csrc/patchify.cu``, as ``ops/gemm_plan.py:patchify_plan`` plans them: a
+rows pass that gathers the patch matrix from the volume, then one product
+of it with the weight on the port's Hopper GEMM (``csrc/gemm_sm90.cuh``:
+wgmma fed by TMA in bf16, 3xTF32 on the tensor cores in f32), pos and the
+bias added in its epilogue. ``patchify_reference`` is its plain PyTorch
+version, and :func:`rows_reference` the rows pass's.
 
 Both compute ``(x @ W^T + pos).to(dtype) + bias`` with an f32 accumulator,
 where row ``(b, t)`` of ``x`` is patch ``t`` of volume ``b`` in ``(d, h, w)``
 token order and columns in ``(c, pd, ph, pw)`` order.
 
 :func:`patchify_fused` is differentiable, as the JAX package's custom VJP:
-when the weight needs a gradient the kernel also emits that patch matrix
-(``save_rows``), and dW is one product ``rows^T dy`` (JAX computes it outside
-its kernel too); dpos is the sum of dy over the batch and dbias the sum of
-dpos. The gradient with respect to the volume, which training never asks
-for, goes through the plain version's autograd.
+when the weight needs a gradient the rows pass writes that patch matrix as
+an output (``save_rows``), and dW is one product ``rows^T dy`` (JAX computes
+it outside its kernel too); dpos is the sum of dy over the batch and dbias
+the sum of dpos. The gradient with respect to the volume, which training
+never asks for, goes through the plain version's autograd.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops.gemm_plan import _scratch, patchify_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 6 + (_I,) * 9 + (_P,)
+_ARGTYPES = (_P,) * 6 + (_I,) * 11 + (_P,)
 
 
 def _geometry(img: torch.Tensor, weight: torch.Tensor):
@@ -51,6 +57,14 @@ def patch_rows(img: torch.Tensor, patch) -> torch.Tensor:
     return x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, gd * gh * gw, -1)
 
 
+def rows_reference(img: torch.Tensor, patch, kp: int) -> torch.Tensor:
+    """The rows pass's plain version: the patch matrix [B * N, kp] of
+    :func:`patch_rows`, zero in its columns past C * pd * ph * pw."""
+    x = patch_rows(img, patch)
+    x = x.reshape(-1, x.shape[-1])
+    return F.pad(x, (0, kp - x.shape[1]))
+
+
 def patchify_reference(img: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor,
                        pos: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -68,7 +82,8 @@ def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     pos: Optional[torch.Tensor] = None, save_rows: bool = False):
     """Same contract as :func:`patchify_reference`, with no gradient; the
     kernel on CUDA. With ``save_rows`` it returns (out, rows), rows the patch
-    matrix [B * N, C * pd * ph * pw] (on the CPU from :func:`patch_rows`)."""
+    matrix [B * N, C * pd * ph * pw] (on the card a view of the rows pass's
+    [B * N, kp]; on the CPU from :func:`patch_rows`)."""
     B, C, D, H, W, dim, pd, ph, pw = _geometry(img, weight)
     if not _build.use_kernel(img):
         out = patchify_reference(img, weight, bias, pos)
@@ -78,8 +93,12 @@ def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _build.refuse_grad("patchify_kernel", "the gradient goes through patchify_fused",
                        *(t for t in (img, weight, bias, pos) if t is not None))
     dt = img.dtype
-    weight, bias = weight.to(dt).contiguous(), bias.to(dt).contiguous()
-    n_tok = (D // pd) * (H // ph) * (W // pw)
+    plan = patchify_plan(B, C, (D, H, W), (pd, ph, pw), dim, dt, save_rows)
+    weight = weight.to(dt).reshape(dim, plan.k)
+    if plan.kp > plan.k:
+        weight = F.pad(weight, (0, plan.kp - plan.k))
+    weight, bias = weight.contiguous(), bias.to(dt).contiguous()
+    n_tok = plan.rows // B
     tensors = [img, weight, bias]
     if pos is not None:
         pos = pos.to(dt).contiguous()
@@ -88,16 +107,19 @@ def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         tensors.append(pos)
     _build.check_cuda("patchify_fused", *tensors)
     out = torch.empty((B, n_tok, dim), device=img.device, dtype=dt)
-    rows = (torch.empty((B * n_tok, C * pd * ph * pw), device=img.device, dtype=dt)
-            if save_rows else None)
+    if save_rows:
+        rows = torch.empty((plan.rows, plan.kp), device=img.device, dtype=dt)
+        rows_ptr = rows.data_ptr()
+    else:
+        sc = _scratch(plan.scratch, plan.scratch_bytes, img.device)
+        rows_ptr = sc["rows"]
     _build.launch(
         "patchify", f"gaviko_patchify_{_build.dtype_suffix(img)}", _ARGTYPES,
         img.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        None if pos is None else pos.data_ptr(), out.data_ptr(),
-        None if rows is None else rows.data_ptr(),
-        B, C, D, H, W, pd, ph, pw, dim, _build.stream_of(img))
+        None if pos is None else pos.data_ptr(), out.data_ptr(), rows_ptr,
+        B, C, D, H, W, pd, ph, pw, dim, plan.kp, plan.vector, _build.stream_of(img))
     patchify_fused.launches += 1
-    return (out, rows) if save_rows else out
+    return (out, rows[:, :plan.k]) if save_rows else out
 
 
 class _Patchify(torch.autograd.Function):

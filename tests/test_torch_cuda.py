@@ -34,7 +34,7 @@ from gaviko_tpu_torch.ops.cls_attention import cls_attention, cls_attention_refe
 from gaviko_tpu_torch.ops.flash_attention import (
     _local_forward, _split_heads, flash_attention, flash_attention_reference,
     flash_local_attention, fused_mhsa, fused_mhsa_bwd, local_attention_bwd, local_bwd_reference,
-    local_reference, mhsa_bwd_reference, mhsa_qkv_proj, mhsa_reference)
+    local_plan, local_reference, mhsa_bwd_reference, mhsa_qkv_proj, mhsa_reference)
 from gaviko_tpu_torch.ops.fused_mlp import (
     fused_mlp, fused_mlp_bwd, fused_mlp_forward, mlp_bwd_reference, mlp_reference)
 from gaviko_tpu_torch.ops.ln_linear import (
@@ -71,6 +71,7 @@ def _randn(gen, *shape, dtype, std=1.0):
     (2, 130, True, (24, 32, 48), (12, 16, 16)),
     (1, 72, True, (4, 8, 12), (2, 4, 4)),  # runs too short for 16-byte loads in bf16
     (3, 40, False, (3, 6, 10), (1, 3, 5)),  # odd widths: element loads in both dtypes
+    (3, 36, True, (6, 10, 14), (3, 5, 7)),  # K = 315: rows padded to whole 16 bytes
 ])
 def test_patchify_kernel(dev, dtype, C, dim, with_pos, vol, patch):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -83,6 +84,30 @@ def test_patchify_kernel(dev, dtype, C, dim, with_pos, vol, patch):
     got = patchify_fused(img, w, b, pos)
     assert patchify_fused.launches == before + 1
     assert _rel_mae(got, patchify_reference(img, w, b, pos)) <= BUDGET[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("save_rows", [False, True])
+@pytest.mark.parametrize("B,C,dim,vol,patch", [
+    (8, 1, 1024, (24, 160, 160), (12, 16, 16)),  # GAViKO's patch and width, 2 slabs
+    (2, 3, 36, (6, 10, 14), (3, 5, 7)),  # K = 315: rows padded to whole 16 bytes
+])
+def test_patchify_kernel_reruns_bit_equal(dev, dtype, save_rows, B, C, dim, vol, patch):
+    """The rows pass and the GEMM (no atomics): two calls give the same
+    bits, the patch rows too; one wrapper launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    img = torch.rand(B, C, *vol, generator=gen, device=dev).to(dtype)
+    n_tok = (vol[0] // patch[0]) * (vol[1] // patch[1]) * (vol[2] // patch[2])
+    args = (_randn(gen, dim, C, *patch, dtype=dtype, std=0.02), _randn(gen, dim, dtype=dtype),
+            _randn(gen, n_tok, dim, dtype=dtype))
+    before = patchify_fused.launches
+    with torch.no_grad():
+        runs = [patchify_kernel(img, *args, save_rows=save_rows) for _ in range(2)]
+    assert patchify_fused.launches == before + 2
+    first, second = ((r,) if not save_rows else r for r in runs)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert _rel_mae(first[0], patchify_reference(img, *args)) <= BUDGET[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -262,6 +287,40 @@ def test_local_attention_kernels_rerun_bit_equal(dev, dtype, DHW, dl, B):
         runs.append((out, lse, dqkv))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ROADMAP Queue C 12: latents whose staged rows of S's whole depth leave no
+# tile in shared memory, which the plan refused before: GAViKO's grid at B4
+# (dl 640 in f32: D's passes chunked; 1,168 in bf16: D's dk/dv pass
+# chunked), and on a small grid latents wide enough to chunk C too.
+LOCAL_C12 = [(torch.float32, (10, 10, 10), 4, 640), (torch.bfloat16, (10, 10, 10), 4, 1168),
+             (torch.float32, (3, 4, 5), 2, 1300), (torch.bfloat16, (3, 4, 5), 2, 2400)]
+
+
+@pytest.mark.parametrize("dtype,DHW,B,dl", LOCAL_C12)
+def test_local_attention_kernels_at_wide_latents(dev, dtype, DHW, B, dl):
+    """C and D at Queue C 12's widths, dropout 0.2, against their plain
+    versions at the usual budgets, and reruns bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n = DHW[0] * DHW[1] * DHW[2]
+    q, k, v = _randn(gen, B, n, 3 * dl, dtype=dtype).chunk(3, dim=-1)
+    dout = _randn(gen, B, n, dl, dtype=dtype)
+    scale = dl ** -0.5
+    plan = local_plan(DHW, (6, 6, 6), dl, dtype, B, 3 * dl, True)
+    assert any(p.width < dl for p in plan)  # a chunked pass runs
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            out, lse = _local_forward(q, k, v, scale, DHW, (6, 6, 6), 0.2, 77)
+            dqkv = local_attention_bwd(q, k, v, out, lse, dout, scale, DHW, (6, 6, 6), 0.2, 77)
+        runs.append((out, lse, dqkv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    want, wlse = local_reference(q, k, v, scale, DHW, (6, 6, 6), 0.2, 77, with_lse=True)
+    assert _rel_mae(out, want) <= BUDGET[dtype]
+    dwant = local_bwd_reference(q, k, v, out, lse, dout, scale, DHW, (6, 6, 6), 0.2, 77)
+    assert torch.isfinite(dqkv).all()
+    assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -617,6 +676,7 @@ def test_fused_mlp_bwd_kernel(dev, dtype, B, N, dim, mlp, gelu, residual, rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,dim,vol,patch", [
     (1, 200, (24, 32, 48), (12, 16, 16)), (3, 40, (3, 6, 10), (1, 3, 5)),
+    (3, 36, (6, 10, 14), (3, 5, 7)),
 ])
 def test_patchify_save_rows_and_backward(dev, dtype, C, dim, vol, patch):
     """The patch rows the kernel saves are the patch matrix exactly, and the
@@ -1452,8 +1512,9 @@ def _ulps(got, want, mag=None):
 @pytest.mark.parametrize("grad_std", [1e-4, 1.0])  # clip off (gn < 1), clip on
 def test_fused_adam_kernel(dev, dtype, grad_std):
     """B13 against its plain version: every output within 2 ULP of f32 (1
-    ULP of bf16 under bf16 storage), two runs bit-equal, one B13 launch (its
-    norm and update kernels) a step, and no host sync in the step."""
+    ULP of bf16 under bf16 storage), two runs bit-equal, one B13 launch (one
+    kernel here, or its norm and update kernels) a step, and no host sync in
+    the step."""
     from gaviko_tpu_torch.ops.fused_adam import adam_reference, fused_adam, global_norm
 
     grads, mu, nu, params = _adam_leaves(dev, dtype, ADAM_SIZES, grad_std)
@@ -1481,6 +1542,67 @@ def test_fused_adam_kernel(dev, dtype, grad_std):
                 None)
         for got, ref, mag in zip(runs[0], want, mags):
             assert _ulps(got[i], ref[i], mag) <= ulp_budget
+    for a, b in zip(runs[0], runs[1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _same_phase_copy(t):
+    skip = (t.data_ptr() % 16) // t.element_size()
+    out = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)[skip:skip + t.numel()]
+    return out.view(t.shape).copy_(t)
+
+
+def _offset_leaves(dev, dtype, sizes, layout, grad_std, seed=23):
+    """(grads, mu, nu, params) as views of one buffer each: "aligned" at
+    16-byte offsets, "unaligned" every leaf's four at one odd element offset
+    (16-byte vectors after a scalar head), "mixed" every other leaf's grad
+    one element off its moments and param (element by element)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    starts = [0]
+    for n in sizes[:-1]:  # each leaf at a multiple of 16 elements, one spare between
+        starts.append(-(-(starts[-1] + n + 1) // 16) * 16)
+    out = []
+    for which, std in enumerate((grad_std, 0.01, 0.01, 1.0)):
+        buf = _randn(gen, starts[-1] + sizes[-1] + 16, dtype=dtype, std=std)
+        if which == 2:
+            buf = (buf.float() ** 2).to(dtype)
+        leaves = []
+        for i, (at, n) in enumerate(zip(starts, sizes)):
+            shift = {"aligned": 0, "unaligned": 1,
+                     "mixed": int(which == 0 and i % 2 == 1)}[layout]
+            leaves.append(buf[at + shift:at + shift + n])
+        out.append(leaves)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["aligned", "unaligned", "mixed"])
+@pytest.mark.parametrize("one_pass", [True, False])
+def test_fused_adam_kernel_bit_equal_on_any_alignment(dev, monkeypatch, dtype, layout, one_pass):
+    """B13's vector and element paths, in one launch and in two (the
+    threshold moved to force the second), against its plain version bit
+    for bit (0 ULP), clipping on, and reruns bit-equal."""
+    from gaviko_tpu_torch.ops import fused_adam as fa
+
+    monkeypatch.setattr(fa, "ONE_PASS_BYTES", fa.ONE_PASS_BYTES if one_pass else 0)
+    grads, mu, nu, params = _offset_leaves(dev, dtype, ADAM_SIZES, layout, 1.0)
+    table = fa.AdamTable(mu, nu, params)
+    assert table.one_pass == one_pass
+    # moments and params share a phase: 0, or one element in ("unaligned")
+    held = [i for i, n in enumerate(ADAM_SIZES) if n]  # an empty leaf has no phase of note
+    assert (table.phases[held] == (mu[0].element_size() if layout == "unaligned" else 0)).all()
+    scalars = (3e-4, 0.93, 0.1351, 0.00299)
+    want = fa.adam_reference(grads, mu, nu, params, *scalars, clip=1.0, eps=1e-8)
+    runs = []
+    for _ in range(2):
+        # copies at the leaves' offsets (a clone would start aligned)
+        state = [[_same_phase_copy(t) for t in ts] for ts in (mu, nu, params)]
+        assert (fa.leaf_phases(*state)[held] == table.phases[held]).all()
+        got = fa.fused_adam(grads, *state, *scalars, clip=1.0, eps=1e-8)
+        runs.append(got)
+    for got, ref in zip(runs[0], want):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
     for a, b in zip(runs[0], runs[1]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 

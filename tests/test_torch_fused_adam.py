@@ -21,6 +21,10 @@ the CPU.
   ~6e-8 here);
 - ``fused_optim.multi_step`` against optax ``MultiSteps`` around JAX's
   clip -> cycled Adam -> lr chain (``accumulation_steps: 2``), 1e-6;
+- ``AdamTable`` (B13's table of leaves, built here on CPU tensors for its
+  host side): each leaf's alignment, the byte offset modulo 16 its moments
+  and param share (-1 where they do not), on leaves built as views at odd
+  element offsets of one buffer, and each chunk's leaf;
 - resume files in JAX's npz layout load in both packages both ways (the
   fused state and the accumulating one), and a ``.pt`` the port writes
   loads in JAX's ``load_pt`` and ``build_params``.
@@ -111,6 +115,41 @@ def test_adam_reference_matches_jax_adam_leaf(dtype, grad_std):
         for got, w, mag, budget in zip((got_p[i], got_m[i], got_v[i]), want, mags, budgets):
             assert got.dtype == tdt
             assert _ulps(_as_np(got), np.asarray(w.astype(jnp.float32)), bits, mag) <= budget
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_adam_table_records_each_leaf_alignment(dtype):
+    """Leaves as views of one buffer at element offsets 0, 1, 3, 8 and 16:
+    a leaf whose moments and param sit at one offset modulo 16 bytes gets
+    that offset (the kernel moves it as 16-byte vectors where its gradient
+    sits there too), a leaf whose three differ gets -1 (element by
+    element). The table's words hold the phases and every chunk's leaf
+    (one lookup a chunk), and a GAViKO-sized step is one launch where
+    vit-b16's is two."""
+    size = torch.empty((), dtype=dtype).element_size()
+    sizes, offsets = (5, 4096, 9000, 7, 4097), (0, 1, 3, 8, 16)
+    bufs = [torch.zeros(40_000, dtype=dtype) for _ in range(3)]
+    views = [[buf[o:o + n] for o, n in zip(offsets, sizes)] for buf in bufs]
+    views[2][3] = torch.zeros(8, dtype=dtype)[1:]  # leaf 3's param: one element in
+    table = tadam.AdamTable(*views)
+    base = [buf.data_ptr() % 16 for buf in bufs]
+    want = []
+    for i, o in enumerate(offsets):
+        ptrs = [v[i].data_ptr() % 16 for v in views]
+        want.append(ptrs[0] if len(set(ptrs)) == 1 else -1)
+    assert table.phases.tolist() == want
+    assert base == [0, 0, 0]  # fresh allocations: 16-byte aligned
+    assert want[0] == 0 and want[1] == (size % 16) and want[2] == (3 * size) % 16
+    assert want[3] == -1 and want[4] == (16 * size) % 16 == 0
+    n = len(sizes)
+    words = table.words.numpy()
+    assert words[6 * n + 2:7 * n + 2].tolist() == want
+    chunks = [-(-s // tadam.CHUNK) for s in sizes]
+    leaf_of = words[7 * n + 2:].view(np.int32)[:table.n_chunks]
+    assert leaf_of.tolist() == [i for i, c in enumerate(chunks) for _ in range(c)]
+    assert words[5 * n + 2:6 * n + 2].tolist() == np.cumsum([0] + chunks[:-1]).tolist()
+    assert table.one_pass  # 26 K elements
+    assert tadam.one_pass(2_270_000 * 4) and not tadam.one_pass(88_200_000 * 4)
 
 
 @pytest.mark.parametrize("grad_std", [1e-3, 0.7])  # clip off, clip on

@@ -15,13 +15,25 @@ launches on a faked card, on the CPU.
   280 CTAs on the 132 SMs (the one-thread-a-row kernels launched 32 blocks);
 - on a faked CUDA tensor C and D are one launch each with their entry
   points' arguments, the plan among them, at dl 40 and on the 10x14x14
-  grid.
+  grid;
+- latents too wide for a staged row of S's whole depth (ROADMAP Queue C
+  12: dl 640 and 1,152 in f32, 1,168 and 2,304 in bf16, on GAViKO's grid
+  at B4): the passes that no longer fit whole stream S's depth in chunks,
+  within a CTA's shared memory, and C and D take those widths on a faked
+  card; the plain versions match JAX's interpret-mode kernel and its
+  reference's VJP at dl 640 (atol 1e-5, as the other local tests). Before
+  the repair the plan raised there.
 """
 
 import itertools
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+
+from gaviko_tpu.ops import flash_attention as jfa
 
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops import flash_attention as tfa
@@ -97,10 +109,12 @@ def test_local_plan_smem_does_not_grow_with_the_grid(dtype):
 
 
 def test_local_plan_raises_on_what_the_kernels_cannot_take():
-    """A latent below 1, float16, a grid 1024 high or wide (the kernels
-    pack h and w in 10 bits each), and a latent whose staged rows leave no
-    tile in shared memory: above 1152 in bf16 and 576 in f32 (the dk/dv
-    pass's owned K and V beside one streamed tile of Q and dO)."""
+    """A latent below 1, float16 and a grid 1024 high or wide (the kernels
+    pack h and w in 10 bits each) raise. The widest latents whose dk/dv
+    pass still stages S's whole depth (1152 in bf16, 576 in f32: its owned
+    K and V beside one streamed tile of Q and dO) keep it; one column more
+    raised here until ROADMAP Queue C 12 was repaired, and now streams the
+    depth in chunks."""
     with pytest.raises(ValueError, match="local_dim"):
         tfa.local_plan((2, 2, 2), (2, 2, 2), 0)
     with pytest.raises(NotImplementedError, match="float16"):
@@ -108,11 +122,11 @@ def test_local_plan_raises_on_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="grid"):
         tfa.local_plan((1, 1, 1024), (2, 2, 2), 20)
     assert tfa.local_plan((1024, 2, 2), (2, 2, 2), 20).fwd.smem <= tfa.SMEM_LIMIT
-    assert tfa.local_plan((10, 10, 10), (6, 6, 6), 1152, torch.bfloat16).dkdv.stages == 1
-    assert tfa.local_plan((10, 10, 10), (6, 6, 6), 576, torch.float32).dkdv.stages == 1
-    for dl, dtype in ((1153, torch.bfloat16), (577, torch.float32)):
-        with pytest.raises(ValueError, match="no tile"):
-            tfa.local_plan((10, 10, 10), (6, 6, 6), dl, dtype)
+    for dl, dtype in ((1152, torch.bfloat16), (576, torch.float32)):
+        whole = tfa.local_plan((10, 10, 10), (6, 6, 6), dl, dtype).dkdv
+        assert whole.stages == 1 and whole.width >= dl
+        wider = tfa.local_plan((10, 10, 10), (6, 6, 6), dl + 1, dtype).dkdv
+        assert wider.width < dl + 1 and wider.smem <= tfa.SMEM_LIMIT
 
 
 def _fake_card(monkeypatch):
@@ -178,3 +192,80 @@ def test_local_kernels_copy_element_wise_where_words_do_not_line_up(monkeypatch)
     q, k, v = (torch.zeros(1, 24, 20) for _ in range(3))
     tfa._local_forward(q, k, v, 0.05, (2, 3, 4), (6, 6, 6), 0.0, 0)
     assert tuple(calls[-1][2][24])[5:] == (20, 0)
+
+
+# ROADMAP Queue C 12: latents whose staged rows of S's whole depth leave no
+# tile in shared memory (the plan raised "no tile" at each of these).
+C12 = [(640, torch.float32), (1152, torch.float32), (1168, torch.bfloat16),
+       (2304, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dl,dtype", C12, ids=["f32_640", "f32_1152", "bf16_1168", "bf16_2304"])
+def test_local_plan_streams_the_depth_of_wide_latents(dl, dtype):
+    """GAViKO's grid and window at B4, read element-wise and from the packed
+    projection: a plan within a CTA's shared memory, whose passes either
+    stage S's whole depth as before or stream it in chunks of 256 bytes a
+    row (128 bf16 / 64 f32 columns, below dl), element-wise, one round in
+    flight, with the output's B operand sliced apart (the chunked layout of
+    ``_local_smem``); the slices still cover dl."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    for rs in (0, 3 * dl):
+        plan = tfa.local_plan((10, 10, 10), (6, 6, 6), dl, dtype, 4, rs, rs > 0)
+        assert any(p.width < dl for p in plan[1:])  # the dq and dk/dv passes hold two rows
+        for kind, p in zip(("fwd", "dq", "dkdv"), plan):
+            assert p.smem <= tfa.SMEM_LIMIT
+            assert (p.slices - 1) * p.cols < dl <= p.slices * p.cols
+            if p.width >= dl:
+                assert p.smem == tfa._local_smem(kind, p.split, p.stages, p.width, p.cols,
+                                                 size, p.rs, bool(p.kv))
+                continue
+            assert (p.width, p.stages, p.rs, p.kv) == (256 // size, 1, 0, 0)
+            assert p.smem == tfa._local_smem(kind, p.split, 1, p.width, p.cols, size,
+                                             chunked=True)
+            assert p.smem < tfa._local_smem(kind, p.split, 1, dl, p.cols, size)
+        assert len(plan.bwd_arg) == 14
+
+
+@pytest.mark.parametrize("dl,dtype,suffix", [(640, torch.float32, "f32"),
+                                             (1168, torch.bfloat16, "bf16")])
+def test_local_kernels_take_wide_latents_on_a_faked_card(monkeypatch, dl, dtype, suffix):
+    """C and D at Queue C 12's widths on GAViKO's grid at B4: one launch
+    each, with the plan of those widths (the chunked passes among it)."""
+    calls = _fake_card(monkeypatch)
+    DHW, B = (10, 10, 10), 4
+    q, k, v = torch.zeros(B, 1000, 3 * dl, dtype=dtype).split(dl, dim=-1)
+    out, lse = tfa._local_forward(q, k, v, 0.05, DHW, (6, 6, 6), 0.2, 9)
+    tfa.local_attention_bwd(q, k, v, out, lse, torch.zeros_like(out), 0.05, DHW, (6, 6, 6),
+                            0.2, 9)
+    plan = tfa.local_plan(DHW, (6, 6, 6), dl, dtype, B, 3 * dl, True)
+    (_, symbol, args), (_, bsymbol, bargs) = calls
+    assert (symbol, bsymbol) == (f"gaviko_local_attention_{suffix}",
+                                 f"gaviko_local_attention_bwd_{suffix}")
+    assert tuple(args[24]) == plan.fwd.arg and tuple(bargs[27]) == plan.bwd_arg
+    assert any(p.width < dl for p in plan)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_local_plain_versions_match_jax_at_a_wide_latent(rate):
+    """At dl 640 (a chunked latent in f32) on a tiny grid: the plain
+    version of C against JAX's Pallas kernel in interpret mode, and the
+    forward and VJP (D's plain version) against JAX's local_reference,
+    atol 1e-5, dropout off and on."""
+    DHW, local_k, dl = (2, 3, 3), (3, 3, 3), 640
+    rng = np.random.RandomState(13)
+    q, k, v = (rng.randn(1, 18, dl).astype(np.float32) for _ in range(3))
+    g = rng.randn(1, 18, dl).astype(np.float32)
+    scale, seed = dl ** -0.5, 4321
+    jseed = jnp.asarray([seed], jnp.int32)
+    kernel = jfa.flash_local_attention(*(jnp.asarray(t) for t in (q, k, v)), jseed, scale,
+                                       DHW, local_k, rate)
+    want, vjp = jax.vjp(
+        lambda a, b, c: jfa.local_reference(a, b, c, jseed, scale, DHW, local_k, rate),
+        *(jnp.asarray(t) for t in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    got = tfa.flash_local_attention(tq, tk, tv, scale, DHW, local_k, rate, seed)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(kernel), atol=1e-5)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    for t, w in zip((tq, tk, tv), vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5)
