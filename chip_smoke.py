@@ -150,7 +150,16 @@ Phases, each printing its own line:
    the 15-field CSV with a row a step, the resume at epoch 2, the
    trainable-only checkpoint, 4 eval and 12 inference rows, and the
    profiled step's ms, volumes/s, idle share and launches (B13's too: one
-   kernel, its leaves' gradients fitting in L2).
+   kernel, its leaves' gradients fitting in L2);
+14. the rest of the PEFT zoo (``ZOO``: deep and shallow VPT, AdaptFormer,
+   SSF, MeLO, DVPT, EVP), each from its shipped config (vit-b16, full
+   width and depth, random init from seed 0; shallow VPT is vpt.yaml with
+   ``deep_prompt: false``): one B8 bf16 batch through ``predict_logits``
+   with the launches ``zoo_launches`` derives from the gates, against the
+   plain versions (relative MAE <= 2e-2), and one profiled forward; then 3
+   train steps and one eval step at B8 in fp32 (TF32 off) and bf16 with
+   exact launches a step and a profiled step, each with its train check
+   under ``TRAIN_BUDGET``.
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
@@ -165,7 +174,9 @@ storage with the GAViKO fp32 and vit-b16 bf16 train runs' launches;
 ``int8_linear`` and ``int8_mlp`` for B11 at the GAViKO vit-l16 B8 bf16
 int8 serving shapes with that run's launches; ``ln_linear_bwd`` and
 ``ln_linear_bwd_l16`` for B12 at the vit-b16 and GAViKO vit-l16 bf16
-hybrid train shapes with the bf16 hybrid runs' launches),
+hybrid train shapes with the bf16 hybrid runs' launches; each row's
+``zoo_launches`` the launches a forward or a step of every zoo run that
+launched it),
 the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -331,6 +342,15 @@ LOCAL_DIGESTS = {
     "dl64_f32": "cdc2f4932f28c2f77ad0c7185072281b9fa1e81f0d8350a5d14fce60e666d053",
 }
 TRAINER_VOLUMES = (8, 4)  # train and val volumes of the trainer phase
+# The PEFT zoo's shipped configs (vit-b16, B8): (method, config, model
+# entries replaced in memory); shallow VPT is vpt.yaml with deep_prompt off.
+ZOO = (("deep_vpt", "gaviko_tpu/configs/vpt.yaml", None),
+       ("shallow_vpt", "gaviko_tpu/configs/vpt.yaml", {"deep_prompt": False}),
+       ("adaptformer", "gaviko_tpu/configs/adaptformer.yaml", None),
+       ("ssf", "gaviko_tpu/configs/ssf.yaml", None),
+       ("melo", "gaviko_tpu/configs/melo.yaml", None),
+       ("dvpt", "gaviko_tpu/configs/dvpt.yaml", None),
+       ("evp", "gaviko_tpu/configs/evp.yaml", None))
 
 
 def _ptxas(log: str) -> list:
@@ -1710,6 +1730,86 @@ def vit_train_launches(spec, precision: str) -> dict:
     return want
 
 
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def zoo_launches(spec, dtype, train: bool) -> dict:
+    """Launches of each kernel in one forward of a PEFT method (``train``
+    False: serving, no gradient) or in one train step (the forward under a
+    gradient with the method's train flags, its backward, one B13 update),
+    by the port's gates (the JAX package's), for the shipped
+    ``freeze_vit: true`` (MeLO trains its whole backbone in train mode).
+
+    A layer's attention takes B9 for its qkv where the layer runs
+    ``train=False``, no override, weights of the stream's dtype and B9's
+    gate hold, with B12 as its backward where a gradient reaches it and the
+    hybrid gate holds; then A (B under a gradient) where the fused MHSA's
+    gate holds at the stream's length, else B10 unless dropout is live. Its
+    MLP takes B6 (B7 under a gradient) where the fused MLP's gate holds at
+    the stream's dtype. The CLS-fast last layer takes B9 for its kv as
+    above (not SSF's or MeLO's plain GEMMs) and B8 without a gradient where
+    B8's gate holds at the stream's length. Streams: VPT 1 + P + N rows
+    (deep: fresh prompts replace prompt_dim rows a layer), AdaptFormer, SSF
+    and MeLO N + 1 padded to a multiple of 8, DVPT P + 1 + N, EVP N + 1; EVP
+    in bf16 runs an f32 stream on bf16 weights (two patchify calls). A
+    gradient reaches every layer but AdaptFormer's first (its adapter
+    follows the layer's attention and MLP)."""
+    import torch
+
+    from gaviko_tpu_torch.core.vit import cls_fast_enabled
+    from gaviko_tpu_torch.ops.cls_attention import cls_attention_supported
+    from gaviko_tpu_torch.ops.flash_attention import fused_mhsa_supported
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_supported
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_hybrid_supported, ln_linear_supported
+
+    m = spec.method
+    if m != "melo" and not spec.freeze_vit:
+        raise ValueError("zoo_launches counts the shipped freeze_vit: true")
+    train_mode = train and m == "melo"  # the layers' own train flag
+    inner = spec.heads * spec.dim_head
+    stream = torch.float32 if m == "evp" else dtype
+    same = stream == dtype  # weights of the stream's dtype
+    n0 = spec.num_patches + 1
+    want = dict.fromkeys(_wrappers(), 0)
+    want.update(patchify=2 if m == "evp" else 1, fused_adam=int(train))
+
+    def b9(out: int, grad: bool) -> None:
+        if not train_mode and same and ln_linear_supported(spec.dim, out, stream):
+            want["ln_linear"] += 1
+            want["ln_linear_bwd"] += grad and ln_linear_hybrid_supported(spec.dim, out, stream)
+
+    def layer(n: int, grad: bool) -> None:
+        if m not in ("ssf", "melo"):
+            b9(3 * inner, grad)
+        if fused_mhsa_supported(spec.heads, spec.dim_head, n):
+            want["fused_mhsa"] += 1
+            want["fused_mhsa_bwd"] += grad
+        elif not (train_mode and spec.dropout > 0.0):
+            want["flash_attention"] += 1
+        if m != "ssf" and fused_mlp_supported(spec.dim, spec.mlp_dim, stream):
+            want["fused_mlp"] += 1
+            want["fused_mlp_bwd"] += grad
+
+    if m in ("deep_vpt", "shallow_vpt"):
+        rows = [n0 + spec.num_prompts]
+        for _ in range(1, spec.depth):
+            rows.append(rows[-1] - spec.prompt_dim + spec.num_prompts if spec.deep_prompt
+                        else rows[-1])
+    else:
+        n = {"dvpt": n0 + spec.num_prompts, "evp": n0}.get(m, _pad8(n0))
+        rows = [n] * spec.depth
+    fast = m != "dvpt" and cls_fast_enabled(spec)
+    for i, n in enumerate(rows[:-1] if fast else rows):
+        layer(n, train and not (m == "adaptformer" and i == 0))
+    if fast:
+        if m not in ("ssf", "melo"):
+            b9(2 * inner, train)
+        want["cls_attention"] += not train and cls_attention_supported(
+            spec.heads, spec.dim_head, rows[-1], stream)
+    return want
+
+
 def vit_train_setup(model_over=None):
     """The ViT of vit.yaml, method fft (vit-b16, or as ``model_over``
     changes it; random init from seed 0, on the card), TRAIN_STEPS
@@ -2412,6 +2512,78 @@ def phase_trainer(root: str, label: int, trainable_keys, card: str, one_pass: bo
     return line
 
 
+def zoo_train_setup(method: str, config_path: str, model_over=None):
+    """A PEFT method of its shipped config (vit-b16, random init from seed
+    0, on the card), TRAIN_STEPS synthetic B8 batches and each step's
+    dropout seeds: with the backbone frozen only the prompts' (deep VPT one
+    a layer, shallow VPT one); MeLO trains its backbone in train mode (the
+    embedding, then as the plain ViT's fft step); none for the others."""
+    import torch
+
+    from gaviko_tpu_torch.models.factory import build_model
+
+    config = _config(config_path, method, model_over)
+    model = build_model(config["model"])
+    spec = model.spec
+    params = {k: v.to("cuda") for k, v in
+              model.init(torch.Generator().manual_seed(0), spec).items()}
+
+    def n_seeds(precision):
+        if method in ("deep_vpt", "shallow_vpt"):
+            return int(spec.prompt_dropout > 0.0) * (spec.depth if spec.deep_prompt else 1)
+        if method == "melo":
+            mlp = 1 if _vit_routes(spec, _dtype(precision))["mlp"] else 2
+            return (int(spec.emb_dropout > 0.0)
+                    + int(spec.dropout > 0.0) * ((spec.depth - 1) * (2 + mlp) + 4))
+        return 0
+
+    seeds = {p: _step_seeds(n_seeds(p)) for p in ("fp32", "bf16")}
+    return (config, model, params, _batches(VIT_TRAIN_B, 2), seeds,
+            lambda s, precision: zoo_launches(s, _dtype(precision), True))
+
+
+def phase_zoo_serving(config_path: str, method: str, model_over, vols, card: str) -> dict:
+    """One bf16 B8 batch through ``predict_logits`` with every kernel's
+    launches counted (``zoo_launches``), against the same params through
+    the plain versions on the card (relative MAE <= SERVE_BUDGET), and one
+    forward under the profiler. Returns the launches."""
+    import torch
+
+    from gaviko_tpu_torch.ops._build import plain_versions
+    from gaviko_tpu_torch.utils.layouts import put_volume
+
+    predictor = make_predictor(config_path, method, model_over)
+    spec = predictor.spec
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    served = predictor.predict_logits(vols).astype(np.float64)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    with plain_versions():
+        plain = predictor.predict_logits(vols).astype(np.float64)
+    rel = float(np.abs(served - plain).mean() / max(np.abs(plain).mean(), 1e-30))
+    batch = put_volume(np.stack([v[None] for v in vols]), torch.bfloat16, predictor.device)
+    forward_ms = _median_ms(lambda: predictor._forward(predictor.params, batch), reps=5)
+    profile = profile_step(lambda: predictor._forward(predictor.params, batch))
+    want = zoo_launches(spec, torch.bfloat16, False)
+    print(json.dumps({"phase": "zoo_serving", "method": method, "backbone": spec.backbone,
+                      "depth": spec.depth, "batch_size": len(vols), "dtype": "bfloat16",
+                      "rel_mae": rel, "budget": SERVE_BUDGET,
+                      "argmax_agreement": float((served.argmax(-1) == plain.argmax(-1)).mean()),
+                      "forward_ms": forward_ms, "launches": launches, "want_launches": want,
+                      "profile": profile, "card": card}), flush=True)
+    del predictor
+    torch.cuda.empty_cache()
+    if served.shape != (len(vols), spec.num_classes) or not np.isfinite(served).all():
+        raise RuntimeError(f"{method}: served logits {served.shape}, finite "
+                           f"{np.isfinite(served).all()}")
+    if launches != want:
+        raise RuntimeError(f"{method} serving launched {launches}, want {want}")
+    if not rel <= SERVE_BUDGET:
+        raise RuntimeError(f"{method} served logits vs plain: rel MAE {rel} > {SERVE_BUDGET}")
+    return launches
+
+
 @contextlib.contextmanager
 def _lnqkv_hybrid(on: bool):
     """GAVIKO_LNQKV_HYBRID set to "1" (on) or "0" for one run, then restored."""
@@ -2532,6 +2704,24 @@ def main() -> int:
         phase_trainer(root, label, trainable_keys, smi,
                       adam["fused_adam_gaviko"]["torch.float32"]["one_pass"])
 
+    # The rest of the PEFT zoo at vit-b16, full width and depth, each from
+    # its shipped config: served in bf16 at B8, then trained in fp32 and
+    # bf16 at B8 with the train check.
+    zoo = {}
+    for method, config, over in ZOO:
+        t_method = time.perf_counter()
+        zoo[f"{method}_serve"] = phase_zoo_serving(config, method, over, vols[:B], smi)
+        setup = zoo_train_setup(method, config, over)
+        for precision in ("fp32", "bf16"):
+            run = phase_train(setup, precision, smi)
+            phase_train_check(setup, precision, run, smi)
+            zoo[f"{method}_train_{precision}"] = {n: c // TRAIN_STEPS
+                                                  for n, c in run["launches"].items()}
+        del setup, run
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase": "zoo_method_done", "method": method,
+                          "seconds": time.perf_counter() - t_method}), flush=True)
+
     # Each kernel at the shapes of the path LINE_PATH names, with that
     # path's launches: the local attention kernels at GAViKO's B4 fp32 train
     # shapes; patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes;
@@ -2558,6 +2748,7 @@ def main() -> int:
         for key in ("chain_ms", "int_mm_ms"):
             if key in line:
                 row[key] = line[key]
+        row["zoo_launches"] = {run: c[n] for run, c in zoo.items() if c[n]}
         rows.append(row)
     # B13 at f32 storage (both runs keep f32 masters and moments), with its
     # run's B13 launches (one a step: its norm kernel, then its update).
@@ -2568,7 +2759,9 @@ def main() -> int:
                      "launches": launches[run]["fused_adam"],
                      **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "chain_ms", "dtype",
-                                             "leaves", "elements", "path")}})
+                                             "leaves", "elements", "path")},
+                     "zoo_launches": {run: c["fused_adam"] for run, c in zoo.items()
+                                      if c["fused_adam"]}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}),
           flush=True)

@@ -77,3 +77,14 @@ def trunc_normal(gen: torch.Generator, shape: Sequence[int], std: float,
     """Normal(0, std) then clamp to +-clamp_mult*std (ref: gaviko.py:455-456
     draws normal then clamps; NOT a resampled truncated normal)."""
     return normal(gen, shape, std).clamp_(-clamp_mult * std, clamp_mult * std)
+
+
+def timm_style_trunc_normal(gen: torch.Generator, shape: Sequence[int], std: float = 0.02,
+                            a: float = -2.0, b: float = 2.0) -> torch.Tensor:
+    """A true truncated normal by the inverse CDF (ref: evp.py:165-218):
+    U(2l - 1, 2u - 1) through erfinv, scaled, clamped to [a, b]."""
+    lo = (1.0 + math.erf(a / std / math.sqrt(2.0))) / 2.0
+    hi = (1.0 + math.erf(b / std / math.sqrt(2.0))) / 2.0
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    t.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+    return (torch.erfinv(t) * (std * math.sqrt(2.0))).clamp_(a, b)

@@ -53,9 +53,28 @@ class SeedStream:
         return self._seeds[self.count - 1]
 
 
+def _promoted(x: torch.Tensor, *ts: Optional[torch.Tensor]):
+    """x and ts cast to their common dtype where it differs from x's, as JAX
+    promotes a product's mixed operands (a bf16 weight on an f32 input
+    computes in f32); ``F.linear`` does not promote."""
+    if all(t is None or t.dtype == x.dtype for t in ts):
+        return (x, *ts)
+    dt = x.dtype
+    for t in ts:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return (x.to(dt), *(None if t is None else t.to(dt) for t in ts))
+
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ W^T, bias-free, with JAX's dtype promotion."""
+    return F.linear(*_promoted(x, w))
+
+
 def linear(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W^T + b with torch (out, in) weight layout."""
-    return F.linear(x, p[f"{prefix}.weight"], p.get(f"{prefix}.bias"))
+    """y = x @ W^T + b with torch (out, in) weight layout and JAX's dtype
+    promotion."""
+    return F.linear(*_promoted(x, p[f"{prefix}.weight"], p.get(f"{prefix}.bias")))
 
 
 def layer_norm(p: Params, prefix: str, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -81,6 +100,19 @@ def gelu_spec(x: torch.Tensor, mode: str) -> torch.Tensor:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x) (ref: gaviko.py:15-17)."""
     return x * torch.sigmoid(1.702 * x)
+
+
+def ssf_ada(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """SSF's scale-and-shift: along the last dim where it matches the
+    scale's length, else along dim 1 (ref: ssf.py:24-31)."""
+    if scale.shape != shift.shape:
+        raise ValueError("ssf_ada: scale and shift differ in shape")
+    if x.shape[-1] == scale.shape[0]:
+        return x * scale + shift
+    if x.dim() >= 2 and x.shape[1] == scale.shape[0]:
+        sh = (1, -1) + (1,) * (x.dim() - 2)
+        return x * scale.reshape(sh) + shift.reshape(sh)
+    raise ValueError("the input tensor shape does not match the shape of the scale factor.")
 
 
 def site_seed(rate: float, seeds: Optional[SeedStream]) -> Optional[int]:

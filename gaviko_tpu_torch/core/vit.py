@@ -6,7 +6,9 @@ same route in both packages; the device picks kernel or plain version.
 
 - ``patchify_embed``: the Conv3d(kernel=stride=patch) embed as the patchify
   kernel, with optional positional rows in its epilogue;
-- ``attention_block``: pre-norm MHSA, the qkv source picked in the JAX
+- ``attention_block``: pre-norm MHSA. Given ``qkv_override`` (MeLO's
+  LoRA-augmented projection) the packed qkv is that function of LN(x);
+  else the qkv source is picked in the JAX
   package's order (``_qkv``): int8 sidecars when not training; the fused
   LN+linear kernel B9 when not training where ``ln_linear_supported``
   holds (vit-b16 and smaller in bf16, vit-s16 in fp32), with B12 as its
@@ -23,7 +25,9 @@ same route in both packages; the device picks kernel or plain version.
   or plain attention with ``layers.dropout`` on the probabilities when
   dropout is on. Then dropout after the out-projection. The stream may
   carry tail padding: keys >= ``n_true`` are masked, padded rows carry
-  bounded garbage (zeros on the unfused route);
+  bounded garbage (zeros on the unfused route). Weights of another dtype
+  than the stream's (EVP's f32 stream in bf16) are promoted, as JAX
+  promotes mixed operands;
 - int8 serving (``ops/int8_linear.py``, sites carrying ``::int8`` sidecars,
   inference only; training ignores the sidecars): the qkv projection with
   its LN, the out-projection with its bias and the whole MLP (the residual
@@ -48,7 +52,7 @@ same route in both packages; the device picks kernel or plain version.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +60,7 @@ import torch.nn.functional as F
 from gaviko_tpu_torch.config import ModelSpec
 from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core.layers import (
-    Params, SeedStream, dropout, gelu_spec, layer_norm, linear, site_seed)
+    Params, SeedStream, dropout, gelu_spec, layer_norm, linear, proj, site_seed)
 from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.attention import self_attention, self_attention_train
 from gaviko_tpu_torch.ops.cls_attention import (
@@ -89,7 +93,7 @@ def _ln_proj(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
     if (not train and w.dtype == x.dtype
             and ln_linear_supported(x.shape[-1], w.shape[0], x.dtype)):
         return fused_ln_linear(x, gamma, beta, w)
-    return F.linear(layer_norm(p, f"{prefix}.norm", x), w)
+    return proj(layer_norm(p, f"{prefix}.norm", x), w)
 
 
 def lnqkv_hybrid_enabled() -> bool:
@@ -120,24 +124,31 @@ def _qkv(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
 
 def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                     train: bool = False, seeds: Optional[SeedStream] = None,
-                    n_true: Optional[int] = None) -> torch.Tensor:
+                    n_true: Optional[int] = None,
+                    qkv_override: Optional[Callable] = None) -> torch.Tensor:
     """Pre-norm MHSA branch output (the caller adds the residual). In
     training the attention drops probabilities (one seed) and the
     out-projection's output is dropped (a second seed). A fused-route
     stream whose length is no multiple of 8 is padded around the fused
-    MHSA, as in the JAX package."""
+    MHSA, as in the JAX package. ``qkv_override(LN(x)) -> qkv`` replaces
+    the projection (MeLO's LoRA-augmented qkv; no ``to_qkv.weight`` is
+    looked up), and the packed qkv goes through ``self_attention``."""
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
-    w = p[f"{prefix}.to_qkv.weight"]
     rate = spec.dropout if train else 0.0
-    qkv = _qkv(p, prefix, x, w, train)
+    if qkv_override is not None:
+        w, qkv = None, qkv_override(layer_norm(p, f"{prefix}.norm", x))
+    else:
+        w = p[f"{prefix}.to_qkv.weight"]
+        qkv = _qkv(p, prefix, x, w, train)
     if qkv is None and (train or _build.needs_grad(
             x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"])):
-        out = self_attention_train(layer_norm(p, f"{prefix}.norm", x), w, spec.heads,
-                                   dh, dh ** -0.5, n_true, rate, seeds)
+        h = layer_norm(p, f"{prefix}.norm", x)
+        out = self_attention_train(h, w.to(h.dtype), spec.heads, dh, dh ** -0.5, n_true,
+                                   rate, seeds)
     else:
         if qkv is None:
-            qkv = F.linear(layer_norm(p, f"{prefix}.norm", x), w)
+            qkv = proj(layer_norm(p, f"{prefix}.norm", x), w)
         out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true, rate, seeds)
     if not train and has_int8(p, f"{prefix}.to_out.0.weight"):
         out = _int8(p, f"{prefix}.to_out.0.weight", out, bias=p[f"{prefix}.to_out.0.bias"])
@@ -176,11 +187,12 @@ def _mlp_fused(p: Params, prefix: str, x: torch.Tensor) -> bool:
 
 def _fused_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
                residual: bool, train: bool, seeds: Optional[SeedStream]) -> torch.Tensor:
+    """The fused MLP; weights of another dtype than x's (EVP's f32 stream in
+    bf16) are cast to it, as JAX promotes them."""
     rate = spec.dropout if train else 0.0
-    return fused_mlp(x, p[f"{prefix}.net.0.weight"], p[f"{prefix}.net.0.bias"],
-                     p[f"{prefix}.net.1.weight"], p[f"{prefix}.net.1.bias"],
-                     p[f"{prefix}.net.4.weight"], p[f"{prefix}.net.4.bias"],
-                     1e-5, spec.gelu, rate, residual, site_seed(rate, seeds))
+    ws = [p[f"{prefix}.net.{i}.{leaf}"].to(x.dtype)
+          for i in (0, 1, 4) for leaf in ("weight", "bias")]
+    return fused_mlp(x, *ws, 1e-5, spec.gelu, rate, residual, site_seed(rate, seeds))
 
 
 def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
@@ -247,7 +259,7 @@ def attention_cls_branch(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpe
     inner = spec.heads * spec.dim_head
     wq = p[f"{prefix}.to_qkv.weight"]  # (3*inner, dim); rows = [q | k | v]
     kv = _ln_proj(p, prefix, x, wq[inner:], train)
-    q0 = F.linear(layer_norm(p, f"{prefix}.norm", x[:, 0]), wq[:inner])
+    q0 = proj(layer_norm(p, f"{prefix}.norm", x[:, 0]), wq[:inner])
     out = cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds)
     out = linear(p, f"{prefix}.to_out.0", out.to(x.dtype))
     return dropout(out, spec.dropout, train, seeds)

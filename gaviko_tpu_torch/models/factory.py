@@ -1,9 +1,13 @@
-"""Model factory + trainable-parameter masks.
+"""Model factory + trainable-parameter masks for every method.
 
-Port of ``gaviko_tpu/models/factory.py`` for the methods ported so far:
-``gaviko``, and ``linear`` / ``fft`` / ``bitfit`` (the plain ViT of
-``core/vit.py`` with a trainable-name filter). Every other method raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Port of ``gaviko_tpu/models/factory.py``: each of the eleven methods of
+``config.METHODS`` builds a :class:`Model` with ``init(gen, spec) ->
+params`` (flat dict, the reference's state_dict names), ``apply(params,
+img, spec, train=..., seeds=...) -> logits`` and the reference's
+``requires_grad`` semantics as ``trainable(name)``: ``gaviko``; ``linear``
+/ ``fft`` / ``bitfit`` (the plain ViT of ``core/vit.py`` with a
+trainable-name filter); ``deep_vpt`` / ``shallow_vpt``, ``adaptformer``,
+``ssf``, ``melo``, ``dvpt`` and ``evp`` (``models/<method>.py``).
 """
 
 from __future__ import annotations
@@ -18,16 +22,6 @@ from gaviko_tpu_torch.core import vit as vit_core
 from gaviko_tpu_torch.core.layers import Params
 
 _BACKBONE_NAMES = ("transformer", "cls_token", "conv_proj", "pos_embedding")
-
-_NOT_PORTED = {
-    "deep_vpt": "Queue A item 11 (models/vpt.py)",
-    "shallow_vpt": "Queue A item 11 (models/vpt.py)",
-    "adaptformer": "Queue A item 11 (models/adaptformer.py)",
-    "ssf": "Queue A item 11 (models/ssf.py)",
-    "melo": "Queue A item 11 (models/melo.py)",
-    "dvpt": "Queue A item 11 (models/dvpt.py)",
-    "evp": "Queue A item 11 (models/evp.py)",
-}
 
 
 def _is_backbone(name: str) -> bool:
@@ -67,6 +61,47 @@ def _trainable_gaviko(name: str, spec: ModelSpec) -> bool:
     return trainable
 
 
+def _trainable_vpt(name: str, spec: ModelSpec) -> bool:
+    # ref: vpt.py:91-94 — freezes backbone names *inside* the wrapped ViT.
+    if not spec.freeze_vit:
+        return True
+    if name.startswith("vision_transformer."):
+        return not _is_backbone(name[len("vision_transformer."):])
+    return True
+
+
+def _frozen_backbone_but(*keep: str) -> Callable[[str, ModelSpec], bool]:
+    """The masks of adaptformer (ref: adaptformer.py:164-169), dvpt
+    (dvpt.py:156-161), evp (evp.py:322-327) and ssf (ssf.py:204-209): with
+    ``freeze_vit`` every backbone name is frozen, then names holding one
+    of ``keep`` train again; other names keep their ctor default
+    (trainable: evp's and ssf's heads)."""
+    def mask(name: str, spec: ModelSpec) -> bool:
+        if not spec.freeze_vit:
+            return True
+        return not _is_backbone(name) or any(k in name for k in keep)
+
+    return mask
+
+
+def _trainable_melo(name: str, spec: ModelSpec) -> bool:
+    # ref: melo.py:62-91 — everything frozen except the LoRA A/B factors and
+    # the freshly replaced head.
+    return "linear_a_" in name or "linear_b_" in name or "mlp_head" in name
+
+
+# method -> (module under gaviko_tpu_torch/models, trainable mask)
+_PEFT = {
+    "deep_vpt": ("vpt", _trainable_vpt),
+    "shallow_vpt": ("vpt", _trainable_vpt),
+    "adaptformer": ("adaptformer", _frozen_backbone_but("adapter", "head")),
+    "dvpt": ("dvpt", _frozen_backbone_but("prompt", "head")),
+    "ssf": ("ssf", _frozen_backbone_but("scale", "shift")),
+    "evp": ("evp", _frozen_backbone_but("prompt_generator")),
+    "melo": ("melo", _trainable_melo),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     spec: ModelSpec
@@ -94,8 +129,10 @@ def build_model(model_cfg: dict) -> Model:
         from gaviko_tpu_torch.models import gaviko
 
         return Model(spec, gaviko.init, gaviko.apply, _trainable_gaviko)
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to PyTorch yet: ROADMAP "
-            f"{_NOT_PORTED[method]}")
+    if method in _PEFT:
+        import importlib
+
+        name, mask = _PEFT[method]
+        module = importlib.import_module(f"gaviko_tpu_torch.models.{name}")
+        return Model(spec, module.init, module.apply, mask)
     raise ValueError(f"Unknown method: {method} (known: {METHODS})")

@@ -26,6 +26,18 @@ TIMM_MODEL_NAMES = {
 }
 
 
+def pretrained_key_prefix(method: str) -> str:
+    """The prefix the converted timm keys take to reach a wrapped model's
+    inner ViT: ``vision_transformer.`` for the VPTs, ``lora_vit.`` for
+    MeLO, none elsewhere (the reference loads the inner ViT inside its own
+    ctor before wrapping it)."""
+    if method in ("deep_vpt", "shallow_vpt"):
+        return "vision_transformer."
+    if method == "melo":
+        return "lora_vit."
+    return ""
+
+
 def _timm_file(backbone: str, pretrained_dir: str) -> Optional[str]:
     name = TIMM_MODEL_NAMES.get(backbone.lower().replace("_", "-"))
     if name is None:
@@ -43,7 +55,9 @@ def build_params(model: Model, gen: torch.Generator,
     """init (f32, on ``gen``'s device) -> optional checkpoint overlay."""
     params = model.init(gen, model.spec)
     spec = model.spec
-    state = {}  # the converted timm backbone goes here once A12 is ported
+    # The converted timm backbone goes here once A12 is ported, its keys
+    # under pretrained_key_prefix(spec.method).
+    state = {}
     if spec.backbone is not None and pretrained_dir is not None:
         path = _timm_file(spec.backbone, pretrained_dir)
         if path is not None:

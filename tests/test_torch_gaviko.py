@@ -91,14 +91,6 @@ def test_from_jax_copies_and_casts():
     assert float(out["a"][0, 0]) == 0.0
 
 
-@pytest.mark.parametrize("method", ["deep_vpt", "shallow_vpt", "adaptformer", "ssf",
-                                    "melo", "dvpt", "evp"])
-def test_unported_methods_name_their_roadmap_item(method):
-    cfg = {**BASE, **GEOMETRIES["tiny"][0], "method": method}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
-
-
 def test_training_is_not_ported():
     """Training with a trainable backbone (freeze_vit: false) is ported: the
     backbone's dropout sites draw seeds too (two embedding sites, then per

@@ -349,3 +349,73 @@ def test_cli_train_evaluate_infer_match_jax(tmp_path):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-6)
     with open(got["csv"]) as a, open(want["csv"]) as b:
         assert a.read() == b.read()
+
+
+def test_cli_train_evaluate_infer_prefixed_method(tmp_path):
+    """MeLO, whose params carry the ``lora_vit.`` prefix and, in its
+    adapted layers, the nested ``to_qkv.qkv`` name, through the three CLIs
+    (``--device cpu``): the trainable-only best checkpoint holds exactly the
+    LoRA factors and the head under those names, ``evaluate`` and ``infer``
+    overlay it onto the seed-0 backbone (every checkpoint tensor lands,
+    nothing is left over) and write their files, and the JAX package's
+    ``build_params`` loads the same checkpoint into its own MeLO. The
+    labels are the class the untrained model predicts for the first val
+    volume, so that epoch 1's validation accuracy is above 0 and the best
+    checkpoint is written."""
+    import csv as csv_mod
+
+    from gaviko_tpu.models.pretrained import build_params as jax_build_params
+    from gaviko_tpu_torch.weights.torch_io import load_checkpoint
+
+    root = str(tmp_path)
+    config = _config(root, method="melo")
+    config["data"]["batch_size"] = 4
+    path = os.path.join(root, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    untrained = tcli_eval.main(["--config", path, "--method", "melo", "--results_dir",
+                                os.path.join(root, "untrained"), "--device", "cpu"])
+    label = int(_rows(untrained["csv"])[0]["outputs"])
+    labels = os.path.join(root, "labels.csv")
+    rows = _rows(labels)
+    with open(labels, "w", newline="") as f:
+        writer = csv_mod.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows({**r, "kl_grade": label} for r in rows)
+
+    weights = os.path.join(root, "weights")
+    result = tcli_train.main(["--config", path, "--method", "melo", "--results_dir", weights,
+                              "--device", "cpu"])
+    ckpt = result["best_ckpt_path"]
+    assert ckpt and os.path.basename(ckpt).startswith("melo_vit_t16_best_model_epoch")
+    saved = load_checkpoint(ckpt)
+    model = build_model(config["model"])
+    names = [k for k in model.init(torch.Generator().manual_seed(0), model.spec)
+             if model.trainable(k)]
+    assert sorted(saved) == sorted(names)
+    assert all(k.startswith("lora_vit.") for k in saved)
+    assert any(".to_qkv.linear_b_q." in k for k in saved)
+    assert any(np.abs(np.asarray(v)).max() > 0 for k, v in saved.items() if "linear_b_" in k)
+
+    _, trainable, frozen = tcli_eval.load_model({**config, "utils": {
+        **config["utils"], "checkpoint": ckpt}}, torch.device("cpu"))
+    assert sorted(trainable) == sorted(saved)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(trainable[k].numpy(), np.asarray(v), err_msg=k)
+    assert "lora_vit.transformer.layers.0.0.to_qkv.qkv.weight" in frozen
+
+    out = os.path.join(root, "port_out")
+    got = tcli_eval.main(["--config", path, "--method", "melo", "--checkpoint", ckpt,
+                          "--results_dir", out, "--device", "cpu"])
+    assert os.path.basename(got["csv"]) == "melo_vit_t16_eval_results_v1.csv"
+    assert len(_rows(got["csv"])) == 4 and 0.0 <= got["accuracy"] <= 1.0
+    got_csv = tcli_infer.main(["--config", path, "--method", "melo", "--checkpoint", ckpt,
+                               "--results_dir", out, "--device", "cpu"])
+    assert os.path.basename(got_csv) == "melo_vit_t16_inference_results_v1.csv"
+    assert len(_rows(got_csv)) == 10
+
+    jm = jax_build_model(config["model"])
+    jparams = jax_build_params(jm, jax.random.PRNGKey(0), pretrained_dir=None,
+                               checkpoint_path=ckpt)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(np.asarray(jparams[k]), np.asarray(v), err_msg=k)
