@@ -159,7 +159,26 @@ Phases, each printing its own line:
    plain versions (relative MAE <= 2e-2), and one profiled forward; then 3
    train steps and one eval step at B8 in fp32 (TF32 off) and bf16 with
    exact launches a step and a profiled step, each with its train check
-   under ``TRAIN_BUDGET``.
+   under ``TRAIN_BUDGET``;
+15. weights: a synthetic vit-l16 timm file (timm's in21k inventory and
+   shapes, 1.3 GB, from seed 0) converted by ``weights/convert.py`` and
+   loaded onto the card by ``build_params`` for GAViKO: every landed key
+   bit-equal to the converted array, the 24 to_qkv biases dropped, the
+   seconds writing, converting and loading;
+16. augment: ``ops/augment.train_augment`` at GAViKO's B4 (4, 1, 120, 160,
+   160) f32, every volume warped, both methods against the same call on
+   the CPU (<= 1e-5 absolute), ms a batch; the GAViKO B4 bf16 train step's
+   ms with and without device augmentation;
+17. loader (host): the C++ loader core's rescale and int16 widening GB/s
+   against numpy on one volume; one epoch of the 12 synthetic volumes
+   through the threaded loader, ``grain`` on threads and on 2 processes,
+   raw and with the host train transform, volumes/s, batches bit-equal;
+18. trainer_input: ``cli.train`` in this process on gaviko.yaml switched as
+   gaviko_tpu.yaml switches it (``data.loader: grain`` on 2 processes,
+   ``train.device_augment``, bf16), starting from phase 15's timm file, 1
+   epoch: a CSV row a step, each train step's wrapped-kernel launches
+   exactly ``gaviko_train_launches(spec, "bf16")``, the frozen backbone
+   still the converted tensors, the profiled step's trace.
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
@@ -176,8 +195,8 @@ int8 serving shapes with that run's launches; ``ln_linear_bwd`` and
 ``ln_linear_bwd_l16`` for B12 at the vit-b16 and GAViKO vit-l16 bf16
 hybrid train shapes with the bf16 hybrid runs' launches; each row's
 ``zoo_launches`` the launches a forward or a step of every zoo run that
-launched it),
-the nvidia-smi line, and as its last line ``{"ok": true, "device":
+launched it, and ``trainer_input_launches`` its launches in the last train
+step of phase 18), the nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -2598,6 +2617,344 @@ def _lnqkv_hybrid(on: bool):
             os.environ["GAVIKO_LNQKV_HYBRID"] = prev
 
 
+# ---------------------------------------------------------------------------
+# The trainer's input and starting weights: timm conversion, on-device
+# augmentation, the host loader engines, and the trainer on all three.
+# ---------------------------------------------------------------------------
+
+TIMM_WIDTHS = {"vit-t16": (192, 12), "vit-s16": (384, 12), "vit-b16": (768, 12),
+               "vit-l16": (1024, 24)}
+AUGMENT_B = 4  # GAViKO's train batch
+AUGMENT_BUDGET = 1e-5  # largest |card - CPU| of an augmented batch in [0, 1]
+
+
+def timm_in21k_state(backbone: str, seed: int = 0) -> dict:
+    """timm's ``<backbone>_patch16_224_in21k`` inventory (every key and shape,
+    ``pre_logits.fc`` and the 21,843-way head included), float32 values from
+    ``seed``: N(0, 0.02^2) weights and biases, norm weights 1 + N(0, 0.02^2)."""
+    dim, depth = TIMM_WIDTHS[backbone]
+    shapes = {"cls_token": (1, 1, dim), "pos_embed": (1, 197, dim),
+              "patch_embed.proj.weight": (dim, 3, 16, 16), "patch_embed.proj.bias": (dim,)}
+    for i in range(depth):
+        b = f"blocks.{i}"
+        shapes.update({f"{b}.norm1.weight": (dim,), f"{b}.norm1.bias": (dim,),
+                       f"{b}.attn.qkv.weight": (3 * dim, dim),
+                       f"{b}.attn.qkv.bias": (3 * dim,),
+                       f"{b}.attn.proj.weight": (dim, dim), f"{b}.attn.proj.bias": (dim,),
+                       f"{b}.norm2.weight": (dim,), f"{b}.norm2.bias": (dim,),
+                       f"{b}.mlp.fc1.weight": (4 * dim, dim), f"{b}.mlp.fc1.bias": (4 * dim,),
+                       f"{b}.mlp.fc2.weight": (dim, 4 * dim), f"{b}.mlp.fc2.bias": (dim,)})
+    shapes.update({"norm.weight": (dim,), "norm.bias": (dim,),
+                   "pre_logits.fc.weight": (dim, dim), "pre_logits.fc.bias": (dim,),
+                   "head.weight": (21843, dim), "head.bias": (21843,)})
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, shape in shapes.items():
+        v = rng.standard_normal(shape, dtype=np.float32)
+        v *= np.float32(0.02)
+        if k.endswith("norm.weight") or ".norm1.weight" in k or ".norm2.weight" in k:
+            v += np.float32(1.0)
+        state[k] = v
+    return state
+
+
+def phase_weights(root: str, card: str) -> tuple:
+    """A synthetic vit-l16 timm file (``timm_in21k_state``, seed 0, as a
+    ``.pt``) under ``root/pretrained``; ``convert.load_pretrain`` of it, then
+    GAViKO (gaviko.yaml) built on the card by ``build_params`` from it. Every
+    converted key that lands must equal the converted array bit for bit;
+    the to_qkv biases drop (no destination: PARITY #3). Returns
+    (pretrained_dir, a few converted tensors to check the trainer's start
+    against)."""
+    import torch
+
+    from gaviko_tpu_torch.models.factory import build_model
+    from gaviko_tpu_torch.models.pretrained import build_params
+    from gaviko_tpu_torch.weights import convert
+
+    config = _config(CONFIG, "gaviko")
+    model = build_model(config["model"])
+    spec = model.spec
+    pretrained = os.path.join(root, "pretrained")
+    os.makedirs(pretrained, exist_ok=True)
+    t0 = time.perf_counter()
+    state = timm_in21k_state(spec.backbone, 0)
+    path = os.path.join(pretrained, convert.TIMM_MODEL_NAMES[spec.backbone] + ".pt")
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    t_write = time.perf_counter() - t0
+    n_timm = len(state)
+    del state
+    t0 = time.perf_counter()
+    conv = convert.load_pretrain(spec.backbone, spec.num_patches, spec.frame_patch_size,
+                                 pretrained)
+    t_convert = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = build_params(model, torch.Generator("cuda").manual_seed(0),
+                          pretrained_dir=pretrained, require_pretrained=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    landed = [k for k in conv if k in params]
+    dropped = sorted(set(conv) - set(landed))
+    mismatched = [k for k in landed
+                  if not torch.equal(params[k].cpu(), torch.from_numpy(conv[k]))]
+    devices = sorted({str(params[k].device) for k in landed})
+    keep = ("pos_embedding", "conv_proj.0.weight", "transformer.attns.0.to_qkv.weight",
+            f"transformer.mlps.{spec.depth - 1}.net.4.weight")
+    sample = {k: torch.from_numpy(conv[k].copy()) for k in keep}
+    line = {"phase": "weights", "backbone": spec.backbone, "method": spec.method,
+            "timm_file": os.path.basename(path), "timm_keys": n_timm,
+            "timm_bytes": os.path.getsize(path), "converted_keys": len(conv),
+            "landed_keys": len(landed), "dropped_keys": len(dropped),
+            "dropped_kinds": sorted({k.split(".")[-2] + "." + k.split(".")[-1]
+                                     for k in dropped}),
+            "landed_bytes": int(sum(conv[k].nbytes for k in landed)),
+            "mismatched": mismatched[:5], "devices": devices,
+            "seconds_write": t_write, "seconds_convert": t_convert,
+            "seconds_build_params": t_build, "card": card}
+    print(json.dumps(line), flush=True)
+    del params, conv
+    torch.cuda.empty_cache()
+    if mismatched:
+        raise RuntimeError(f"weights: {len(mismatched)} landed keys differ from the "
+                           f"converted arrays, e.g. {mismatched[:3]}")
+    if devices != ["cuda:0"] or len(landed) != 6 + 11 * spec.depth or \
+            any(not k.endswith("to_qkv.bias") for k in dropped):
+        raise RuntimeError(f"weights: {len(landed)} keys landed on {devices}, dropped "
+                           f"{dropped[:4]}")
+    return pretrained, sample
+
+
+def phase_augment(card: str) -> dict:
+    """``ops/augment.train_augment`` at GAViKO's B4 (4, 1, 120, 160, 160)
+    f32 on the card, one draw of parameters from seed 0 with every volume
+    warped (p_affine 1) and the first and third flipped, each method
+    against the same call on the CPU (AUGMENT_BUDGET), ms per batch (CUDA
+    events, median of 10) and the bytes bound; then the GAViKO vit-l16
+    train step at B4 bf16 (random init) without and with device
+    augmentation in turns, 4 steps each after a warm-up of each, ms a step
+    (CUDA events; the step is host-bound, so this is close to its wall
+    time)."""
+    import torch
+
+    from gaviko_tpu_torch.ops.augment import draw_augment_params, train_augment
+    from gaviko_tpu_torch.train import loop
+    from gaviko_tpu_torch.train.losses import make_criterion
+
+    x_cpu = torch.from_numpy(
+        np.random.RandomState(0).rand(AUGMENT_B, 1, 120, 160, 160).astype(np.float32) * 900)
+    x = x_cpu.cuda()
+    params = draw_augment_params(torch.Generator().manual_seed(0), AUGMENT_B, p_affine=1.0)
+    params = params._replace(flip=torch.arange(AUGMENT_B) % 2 == 0)
+    line = {"phase": "augment", "batch": list(x.shape), "flips": int(params.flip.sum()),
+            "card": card}
+    for method in ("shear", "gather"):
+        got = train_augment(x, params, method).cpu()
+        want = train_augment(x_cpu, params, method)
+        err = float((got - want).abs().max())
+        ms = _median_ms(lambda: train_augment(x, params, method), reps=10, warmup=2)
+        line[method] = {"max_abs_err": err, "ms": ms, "finite": bool(torch.isfinite(got).all()),
+                        "bound_ms": 1e3 * 2 * x.numel() * 4 / HBM_BYTES_PER_S}
+    config, model, params0, batches, seeds, _ = train_setup()
+    train_cfg = config["train"]
+    criterion = make_criterion(train_cfg)
+    fused = loop.make_optimizer(train_cfg, TRAIN_TOTAL_STEPS)
+    trainable, frozen = loop.split_params(model, params0)
+    state = loop.init_opt_state(trainable, fused)
+    draw = loop.default_step_augment(0)
+    xb, yb = batches[0]
+    steps = {on: loop.make_steps(model, criterion, fused, torch.bfloat16,
+                                 device_augment=on)[0] for on in (False, True)}
+
+    def step(on):
+        nonlocal trainable, state
+        trainable, state, _, _ = steps[on](trainable, state, frozen, xb, yb, seeds["bf16"][0],
+                                           draw(0, xb.shape[0]) if on else None)
+
+    step_ms = {False: [], True: []}
+    for on in (False, True):
+        step(on)
+    for _ in range(4):
+        for on in (False, True):
+            step_ms[on].append(_median_ms(lambda: step(on), reps=1, warmup=0))
+    line["train_step_b4_bf16_ms"] = {
+        "without": statistics.median(step_ms[False]), "with_augment": statistics.median(step_ms[True]),
+        "without_runs": step_ms[False], "with_augment_runs": step_ms[True]}
+    print(json.dumps(line), flush=True)
+    del params0, batches, x
+    torch.cuda.empty_cache()
+    for method in ("shear", "gather"):
+        if not (line[method]["finite"] and line[method]["max_abs_err"] <= AUGMENT_BUDGET):
+            raise RuntimeError(f"augment {method}: card vs CPU {line[method]}")
+    return line
+
+
+def _engine_epoch(make, ds, batch: int) -> tuple:
+    """One epoch of a loader engine: (seconds, seconds to the first batch,
+    volumes, batches)."""
+    loader = make(ds, batch, shuffle=True, num_workers=8, seed=0, pad_to_batch=True)
+    t0 = time.perf_counter()
+    batches, first = [], None
+    for item in loader:
+        batches.append(item)
+        first = first or time.perf_counter() - t0
+    return time.perf_counter() - t0, first, sum(b[2] for b in batches), batches
+
+
+def phase_loader(folder: str, card: str) -> dict:
+    """The host side: the C++ core's min-max rescale and int16 widening on one
+    (1, 120, 160, 160) volume against numpy (host clock, median of 5; GB/s
+    of the bytes each must move: the rescale reads the volume and writes it,
+    the widening reads 2 bytes and writes 4 an element), then one epoch of
+    the synthetic volumes through the threaded ``Loader``, ``grain`` on
+    threads and ``grain`` on 2 processes (their start included), with the
+    raw transform of ``device_augment`` and with the host train transform
+    (after one warm-up epoch of the threaded loader: the files cached, the
+    imports done); every engine's batches bit-equal to the threaded
+    loader's."""
+    import functools
+
+    from gaviko_tpu_torch.data import native_loader as nl
+    from gaviko_tpu_torch.data import pipeline, transforms
+    from gaviko_tpu_torch.data.grain_pipeline import GrainLoader
+
+    def host_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    rng = np.random.RandomState(0)
+    vol = rng.rand(1, 120, 160, 160).astype(np.float32) * 900
+    raw = (rng.rand(1, 120, 160, 160) * 3000).astype(np.int16)
+    n = vol.size
+    line = {"phase": "loader", "threads": nl.DEFAULT_THREADS, "cpu_count": os.cpu_count(),
+            "rescale_bit_equal": bool(np.array_equal(nl.rescale_intensity_native(vol),
+                                                     nl.rescale_intensity_numpy(vol))),
+            "card": card}
+    for name, core, plain, nbytes in (
+            ("rescale", lambda: nl.rescale_intensity_native(vol),
+             lambda: nl.rescale_intensity_numpy(vol), 8 * n),
+            ("widen_i16", lambda: nl.widen_f32(raw), lambda: raw.astype(np.float32), 6 * n)):
+        core_ms, numpy_ms = host_ms(core), host_ms(plain)
+        line[name] = {"core_ms": core_ms, "numpy_ms": numpy_ms,
+                      "core_gb_s": nbytes / core_ms / 1e6, "numpy_gb_s": nbytes / numpy_ms / 1e6}
+    paths = sorted(os.path.join(folder, f) for f in os.listdir(folder) if f.endswith(".npz"))
+    labels = np.zeros(len(paths), np.int64)
+    engines = {"loader": pipeline.Loader,
+               "grain_threads": functools.partial(GrainLoader, processes=0),
+               "grain_2_processes": functools.partial(GrainLoader, processes=2)}
+    same = True
+    for tf_name, tf in (("raw", transforms.raw_volume), ("train", transforms.train_transform)):
+        ds = pipeline.VolumeDataset(paths, labels, tf, train=True)
+        _engine_epoch(pipeline.Loader, ds, TRAIN_B)
+        ref = None
+        line[tf_name] = {}
+        for name, make in engines.items():
+            secs, first, vols, batches = _engine_epoch(make, ds, TRAIN_B)
+            line[tf_name][name] = {"seconds": secs, "first_batch_s": first, "volumes": vols,
+                                   "vol_per_s": vols / secs}
+            if ref is None:
+                ref = batches
+            else:
+                same = same and len(ref) == len(batches) and all(
+                    np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(ref, batches))
+    line["engines_bit_equal"] = same
+    print(json.dumps(line), flush=True)
+    if not (same and line["rescale_bit_equal"]):
+        raise RuntimeError(f"loader: engines bit-equal {same}, core vs numpy "
+                           f"{line['rescale_bit_equal']}")
+    return line
+
+
+@contextlib.contextmanager
+def _count_train_steps(record: list):
+    """Within: every train step that ``loop.make_steps`` builds appends the
+    launches of each kernel wrapper during that step (counts set to 0 just
+    before it, read just after) to ``record``."""
+    from gaviko_tpu_torch.train import loop
+
+    wrappers, inner = _wrappers(), loop.make_steps
+
+    def make_steps(*args, **kwargs):
+        train_step, eval_step, predict_step = inner(*args, **kwargs)
+
+        def counted(*a, **kw):
+            for w in wrappers.values():
+                w.launches = 0
+            out = train_step(*a, **kw)
+            record.append({n: w.launches for n, w in wrappers.items()})
+            return out
+
+        return counted, eval_step, predict_step
+
+    loop.make_steps = make_steps
+    try:
+        yield
+    finally:
+        loop.make_steps = inner
+
+
+def phase_trainer_input(root: str, pretrained: str, sample: dict, card: str) -> dict:
+    """``gaviko_tpu_torch.cli.train`` (in this process) with gaviko.yaml
+    switched as gaviko_tpu.yaml switches it: ``data.loader: grain`` on 2
+    processes, ``train.device_augment``, ``train.precision: bf16``, starting
+    from the converted vit-l16 timm file of phase ``weights``; 1 epoch on the
+    synthetic volumes (B4), the second step profiled. Checks a CSV row a
+    step, each train step's wrapped-kernel launches equal to
+    ``gaviko_train_launches(spec, "bf16")``, and the frozen backbone equal
+    to the converted tensors at the end."""
+    import torch
+    import yaml
+
+    from gaviko_tpu_torch.cli import train as cli_train
+    from gaviko_tpu_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    cfg_path, config, folder = _trainer_files(root, 0)
+    config["data"].update(loader="grain", grain_processes=2)
+    config["model"]["pretrained_dir"] = pretrained
+    config["train"].update(num_epochs=1, device_augment=True, precision="bf16",
+                           save_dir=os.path.join(root, "weights_input"))
+    config["utils"]["log_dir"] = os.path.join(root, "log_input")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    record = []
+    with _count_train_steps(record):
+        result = cli_train.main(["--config", cfg_path, "--method", "gaviko"])
+    seconds = time.perf_counter() - t0
+    spec = build_model(config["model"]).spec
+    want = gaviko_train_launches(spec, "bf16")
+    log_dir = config["utils"]["log_dir"]
+    rows = _csv_rows(result["csv_log"])
+    n_train, n_val = TRAINER_VOLUMES
+    batch = config["data"]["batch_size"]
+    n_steps = -(-n_train // batch)
+    trace = _trace_stats(os.path.join(log_dir, "profile", "trace.json"))
+    params = result["params"]
+    start_kept = {k: bool(torch.equal(params[k].detach().cpu(), v)) for k, v in sample.items()}
+    line = {"phase": "trainer_input", "loader": "grain", "grain_processes": 2,
+            "device_augment": True, "precision": "bf16", "csv_rows": len(rows),
+            "want_rows": n_steps + -(-n_val // batch), "train_steps": len(record),
+            "step_launches": record, "want_launches": want, "profiled_step": trace,
+            "start_from_timm": start_kept, "seconds": seconds, "card": card}
+    print(json.dumps(line), flush=True)
+    del result, params
+    torch.cuda.empty_cache()
+    if len(rows) != line["want_rows"] or len(record) != n_steps:
+        raise RuntimeError(f"trainer_input: {len(rows)} CSV rows, {len(record)} train steps")
+    if any(r != want for r in record):
+        raise RuntimeError(f"trainer_input: launches {record}, want {want} a step")
+    if not all(start_kept.values()):
+        raise RuntimeError(f"trainer_input: frozen backbone moved from the timm file "
+                           f"{start_kept}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -2722,6 +3079,17 @@ def main() -> int:
         print(json.dumps({"phase": "zoo_method_done", "method": method,
                           "seconds": time.perf_counter() - t_method}), flush=True)
 
+    # The trainer's input and starting weights: the vit-l16 timm file
+    # converted onto the card, the augmentation on the card, the host loader
+    # engines, then the GAViKO trainer on all of them (grain on 2 processes,
+    # device augmentation, bf16).
+    with tempfile.TemporaryDirectory(prefix="gaviko_input_") as root:
+        pretrained, sample = phase_weights(root, smi)
+        phase_augment(smi)
+        phase_loader(_trainer_files(root, 0)[2], smi)
+        trainer_input = phase_trainer_input(root, pretrained, sample, smi)
+    input_launches = trainer_input["step_launches"][-1]
+
     # Each kernel at the shapes of the path LINE_PATH names, with that
     # path's launches: the local attention kernels at GAViKO's B4 fp32 train
     # shapes; patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes;
@@ -2749,6 +3117,7 @@ def main() -> int:
             if key in line:
                 row[key] = line[key]
         row["zoo_launches"] = {run: c[n] for run, c in zoo.items() if c[n]}
+        row["trainer_input_launches"] = input_launches[n]
         rows.append(row)
     # B13 at f32 storage (both runs keep f32 masters and moments), with its
     # run's B13 launches (one a step: its norm kernel, then its update).
@@ -2761,7 +3130,8 @@ def main() -> int:
                                              "bound_by", "library_ms", "chain_ms", "dtype",
                                              "leaves", "elements", "path")},
                      "zoo_launches": {run: c["fused_adam"] for run, c in zoo.items()
-                                      if c["fused_adam"]}})
+                                      if c["fused_adam"]},
+                     "trainer_input_launches": input_launches["fused_adam"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}),
           flush=True)

@@ -45,12 +45,17 @@ def make_loaders(config: dict):
     """CSV split -> train / val loaders (ref: train.py:33-78)."""
     df = read_csv(config["data"]["data_path"])
     image_folder = config["data"].get("image_folder")
-    train_tf = functools.partial(T.train_transform,
-                                 intensity_augs=config["data"].get("intensity_augs", False))
+    if config["train"].get("device_augment"):
+        # Raw volumes to the card; the step augments and rescales them there
+        # (ops/augment.py).
+        train_tf, val_tf = T.raw_volume, T.raw_volume
+    else:
+        train_tf = functools.partial(T.train_transform,
+                                     intensity_augs=config["data"].get("intensity_augs", False))
+        val_tf = T.eval_transform
     train_ds = dataset_from_dataframe(split_dataframe(df, "train"), train_tf, True,
                                       image_folder)
-    val_ds = dataset_from_dataframe(split_dataframe(df, "val"), T.eval_transform, False,
-                                    image_folder)
+    val_ds = dataset_from_dataframe(split_dataframe(df, "val"), val_tf, False, image_folder)
     bs = config["data"]["batch_size"]
     nw = config["data"].get("num_workers", 8)
     loader_cls = pick_loader(config)

@@ -14,15 +14,18 @@ numpy loader). Contract preserved:
 The batch order and every augmentation draw are the JAX package's: the
 shuffle of epoch E is ``RandomState(seed + E)`` and sample ``i`` of it draws
 from ``RandomState(((seed + E + 1) * 1_000_003 + i) % 2**31)``, so both
-packages yield the same batches from the same files. The JAX package's other engines
-(``data.loader: grain``, the native C++ core, multi-host sharding) are not
-ported (ROADMAP Queue A items 10 and 13).
+packages yield the same batches from the same files. Volumes widen and
+rescale on the C++ loader core (``data/native_loader.py``), as in the JAX
+package. ``data.loader: grain`` selects the same stream on PyTorch's
+runtime (``data/grain_pipeline.py``); multi-host sharding is not ported
+(ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import csv
+import functools
 import os
 import queue
 import threading
@@ -30,6 +33,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from gaviko_tpu_torch.data.native_loader import widen_f32
 
 Frame = List[Dict[str, str]]  # CSV rows, column -> text
 
@@ -47,7 +52,8 @@ class VolumeDataset:
     def load(self, i: int, rng: Optional[np.random.RandomState] = None) -> np.ndarray:
         with np.load(self.paths[i]) as z:
             vol = z["data"]
-        vol = np.expand_dims(np.asarray(vol, dtype=np.float32), 0)  # (1, D, H, W)
+        # int16 / uint16 raw MRI volumes widen on the multithreaded C++ core.
+        vol = np.expand_dims(widen_f32(vol), 0)  # (1, D, H, W) float32
         if self.train:
             return self.transform(vol, rng or np.random.RandomState())
         return self.transform(vol)
@@ -77,6 +83,29 @@ def scan_folder(image_folder: str) -> Frame:
     in ``os.listdir`` order as the JAX package takes it."""
     return [{"mri_path": os.path.join(image_folder, f)}
             for f in os.listdir(image_folder) if f.endswith(".npz")]
+
+
+def assemble_batch(ds: VolumeDataset, bidx, batch_size: int, pad_to_batch: bool,
+                   epoch_seed: int, map_fn=map) -> Tuple[np.ndarray, Optional[np.ndarray], int]:
+    """One batch of the stream: the volumes of dataset indices ``bidx``
+    (loaded through ``map_fn``), sample ``i`` drawing from
+    ``RandomState((epoch_seed * 1_000_003 + i) % 2**31)``; with
+    ``pad_to_batch`` zero volumes labelled -100 (the losses' ignore_index)
+    fill the batch. Returns (inputs, labels | None, n_valid)."""
+    idxs = [int(i) for i in bidx]
+    rngs = [np.random.RandomState((epoch_seed * 1_000_003 + i) % (2 ** 31)) for i in idxs]
+    vols = list(map_fn(ds.load, idxs, rngs))
+    n_valid = len(idxs)
+    n_pad = batch_size - n_valid if pad_to_batch else 0
+    if n_pad:
+        vols = vols + [np.zeros_like(vols[0])] * n_pad
+    inputs = np.stack(vols)
+    labels = None
+    if ds.labels is not None:
+        labels = np.asarray(ds.labels[idxs], dtype=np.int32)
+        if n_pad:
+            labels = np.concatenate([labels, np.full(n_pad, -100, np.int32)])
+    return inputs, labels, n_valid
 
 
 class Loader:
@@ -141,21 +170,8 @@ class Loader:
         stop = threading.Event()
 
         def assemble(bidx):
-            idxs = [int(i) for i in bidx]
-            rngs = [np.random.RandomState((epoch_seed * 1_000_003 + i) % (2 ** 31))
-                    for i in idxs]
-            vols = list(pool.map(self.ds.load, idxs, rngs))
-            n_valid = len(idxs)
-            n_pad = self.batch_size - n_valid if self.pad_to_batch else 0
-            if n_pad:
-                vols = vols + [np.zeros_like(vols[0])] * n_pad
-            inputs = np.stack(vols)
-            labels = None
-            if self.ds.labels is not None:
-                labels = np.asarray(self.ds.labels[idxs], dtype=np.int32)
-                if n_pad:
-                    labels = np.concatenate([labels, np.full(n_pad, -100, np.int32)])
-            return inputs, labels, n_valid
+            return assemble_batch(self.ds, bidx, self.batch_size, self.pad_to_batch,
+                                  epoch_seed, pool.map)
 
         def put(item) -> bool:
             # Never block forever on a full queue: a consumer that abandons
@@ -197,12 +213,15 @@ class Loader:
 
 def pick_loader(config: dict):
     """Loader engine from ``data.loader``: "native" (the default, the
-    threaded loader above). "grain" is not ported (ROADMAP Queue A item 10)."""
+    threaded loader above) or "grain" (the same stream on PyTorch's runtime,
+    ``data/grain_pipeline.py``), whose ``data.grain_processes`` > 0 selects
+    process workers. Returns a callable with Loader's signature."""
     kind = config.get("data", {}).get("loader", "native")
     if kind == "native":
         return Loader
     if kind == "grain":
-        raise NotImplementedError(
-            "data.loader: grain is not ported; the port has the native threaded "
-            "loader only (ROADMAP Queue A item 10)")
+        from gaviko_tpu_torch.data.grain_pipeline import GrainLoader
+
+        procs = int(config.get("data", {}).get("grain_processes", 0))
+        return functools.partial(GrainLoader, processes=procs)
     raise ValueError(f"Unknown data.loader: {kind!r} (native | grain)")

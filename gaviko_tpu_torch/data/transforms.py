@@ -10,23 +10,35 @@ Port of ``gaviko_tpu/data/transforms.py``. Reference transform stacks
 torchio RandomAffine(degrees=15) keeps its default scales=0.1 (random
 scaling in [0.9, 1.1]), reproduced. The augmentations draw from a numpy
 ``RandomState`` in the JAX package's order, so the same per-sample state
-gives the same volume in both packages; the rescale is a numpy min-max.
-They run on host numpy in the loader's worker threads.
+gives the same volume in both packages; the rescale runs on the C++ loader
+core (``data/native_loader.py``), as the JAX package's does, so the two
+agree to the bit. They run on host numpy in the loader's workers.
+
+With ``train.device_augment`` the loader hands the step raw volumes
+(:func:`raw_volume`) and the augmentation runs on the card
+(``ops/augment.py``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+
+from gaviko_tpu_torch.data import native_loader
 
 
 def rescale_intensity(x: np.ndarray, out_min: float = 0.0, out_max: float = 1.0) -> np.ndarray:
-    """Min-max rescale to [out_min, out_max] (torchio RescaleIntensity)."""
-    x = np.asarray(x, dtype=np.float32)
-    lo = x.min()
-    hi = x.max()
-    if hi == lo:
-        return np.zeros_like(x) + out_min
-    return (x - lo) / (hi - lo) * (out_max - out_min) + out_min
+    """Min-max rescale to [out_min, out_max] (torchio RescaleIntensity), on
+    the multithreaded C++ core."""
+    return native_loader.rescale_intensity_native(x, out_min, out_max)
+
+
+def raw_volume(x: np.ndarray, rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """The identity transform of ``train.device_augment`` (train and eval):
+    the raw float32 volume, augmented and rescaled on the card. A module-level
+    function, so that the loader's process workers can pickle it."""
+    return np.ascontiguousarray(x, dtype=np.float32)
 
 
 def random_flip(x: np.ndarray, rng: np.random.RandomState, p: float = 0.5) -> np.ndarray:

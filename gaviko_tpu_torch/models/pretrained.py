@@ -1,29 +1,32 @@
-"""Assemble model params: init, then an optional checkpoint overlay.
+"""Assemble params: init, the timm-converted backbone, a checkpoint overlay.
 
-Port of ``gaviko_tpu/models/pretrained.py``. A missing timm backbone file
-warns and continues with random init, as in the JAX package; converting a
-timm file that is present is not ported yet (ROADMAP Queue A item 12), so
-that raises rather than silently serving random weights.
+Port of ``gaviko_tpu/models/pretrained.py``, the reference's loading
+topology:
+- at build time each model loads the converted timm dict
+  (``weights/convert.py``) with strict=False name intersection, so only the
+  keys that match land (SURVEY §3.5);
+- for wrapped models the converted keys take the wrapper's module name
+  (``vision_transformer.`` for VPT, ``lora_vit.`` for MeLO) to reach the
+  inner ViT, because the reference loads the inner ViT inside its own ctor
+  before wrapping it;
+- evaluation, inference and serving overlay the trainable-only checkpoint
+  ({**vanilla, **ckpt}, load_pretrained.py:150-156).
+
+A missing timm file warns and continues with random init, as in the JAX
+package, unless ``require_pretrained`` is set.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from typing import Optional
 
 import torch
 
 from gaviko_tpu_torch.core.layers import Params
 from gaviko_tpu_torch.models.factory import Model
+from gaviko_tpu_torch.weights import convert
 from gaviko_tpu_torch.weights.state_dict import load_state_dict, merge_states
-
-TIMM_MODEL_NAMES = {
-    "vit-b16": "vit_base_patch16_224_in21k",
-    "vit-t16": "vit_tiny_patch16_224_in21k",
-    "vit-s16": "vit_small_patch16_224_in21k",
-    "vit-l16": "vit_large_patch16_224_in21k",
-}
 
 
 def pretrained_key_prefix(method: str) -> str:
@@ -38,36 +41,26 @@ def pretrained_key_prefix(method: str) -> str:
     return ""
 
 
-def _timm_file(backbone: str, pretrained_dir: str) -> Optional[str]:
-    name = TIMM_MODEL_NAMES.get(backbone.lower().replace("_", "-"))
-    if name is None:
-        raise ValueError(f"Unsupported backbone: {backbone}")
-    for cand in (name, name + ".pt", name + ".npz"):
-        path = os.path.join(pretrained_dir, cand)
-        if os.path.exists(path):
-            return path
-    return None
-
-
 def build_params(model: Model, gen: torch.Generator,
                  pretrained_dir: Optional[str] = "./pretrained",
-                 checkpoint_path: Optional[str] = None) -> Params:
-    """init (f32, on ``gen``'s device) -> optional checkpoint overlay."""
+                 checkpoint_path: Optional[str] = None,
+                 require_pretrained: bool = False) -> Params:
+    """init (f32, on ``gen``'s device) -> the timm-converted backbone from
+    ``pretrained_dir`` if a file is there -> optional checkpoint overlay."""
     params = model.init(gen, model.spec)
     spec = model.spec
-    # The converted timm backbone goes here once A12 is ported, its keys
-    # under pretrained_key_prefix(spec.method).
     state = {}
     if spec.backbone is not None and pretrained_dir is not None:
-        path = _timm_file(spec.backbone, pretrained_dir)
-        if path is not None:
-            raise NotImplementedError(
-                f"found {path}, but converting timm weights is not ported yet "
-                "(ROADMAP Queue A item 12); pass pretrained_dir=None to serve "
-                "random init plus a checkpoint")
-        logging.warning(
-            f"No pretrained weights for {spec.backbone} under {pretrained_dir} "
-            "— continuing with random init.")
+        try:
+            conv = convert.load_pretrain(spec.backbone, spec.num_patches,
+                                         spec.frame_patch_size, pretrained_dir)
+            prefix = pretrained_key_prefix(spec.method)
+            state = {prefix + k: v for k, v in conv.items()}
+            logging.info(f"Loaded pretrained {spec.backbone} from {pretrained_dir}")
+        except FileNotFoundError as e:
+            if require_pretrained:
+                raise
+            logging.warning(f"{e} — continuing with random init.")
     if checkpoint_path:
         from gaviko_tpu_torch.weights.torch_io import load_checkpoint
 

@@ -24,7 +24,11 @@ Port of ``gaviko_tpu/train/loop.py``:
 A step takes its dropout seeds as an input (a ``SeedStream``, or the seeds
 themselves), the counterpart of the JAX step's ``rng``; ``run_training``
 draws each step's from a ``torch.Generator`` keyed by ``train.seed`` and the
-global step, or from ``step_seeds`` (tests feed the JAX package's).
+global step, or from ``step_seeds`` (tests feed the JAX package's). With
+``train.device_augment`` the loader yields raw volumes: the train step
+augments its batch on the device (``ops/augment.py``) with the draws it is
+given, drawn the same way (``step_augment``), and eval and predict rescale
+on the device.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import torch
 
 from gaviko_tpu_torch.core.layers import SeedStream
 from gaviko_tpu_torch.models.factory import Model
+from gaviko_tpu_torch.ops.augment import (AugmentParams, draw_augment_params, eval_rescale,
+                                          train_augment)
 from gaviko_tpu_torch.train import fused_optim
 from gaviko_tpu_torch.train import schedule as schedule_lib
 from gaviko_tpu_torch.train.losses import make_criterion
@@ -105,13 +111,22 @@ def _seed_stream(seeds: Seeds) -> Optional[SeedStream]:
 
 
 def make_loss_and_grads(model: Model, criterion: Callable,
-                        compute_dtype: torch.dtype = torch.float32) -> Callable:
-    """``loss_and_grads(trainable, frozen, inputs, labels, seeds) -> (loss,
-    logits, grads)``: the differentiated part of a train step, gradients
-    with respect to the f32 trainable masters."""
+                        compute_dtype: torch.dtype = torch.float32,
+                        device_augment: bool = False) -> Callable:
+    """``loss_and_grads(trainable, frozen, inputs, labels, seeds, augment=None)
+    -> (loss, logits, grads)``: the differentiated part of a train step,
+    gradients with respect to the f32 trainable masters. With
+    ``device_augment`` the inputs are raw volumes, augmented first with the
+    draws ``augment``."""
 
     def loss_and_grads(trainable: Params, frozen: Params, inputs: torch.Tensor,
-                       labels: torch.Tensor, seeds: Seeds):
+                       labels: torch.Tensor, seeds: Seeds,
+                       augment: Optional[AugmentParams] = None):
+        if device_augment:
+            if augment is None:
+                raise ValueError("train.device_augment: the train step needs its "
+                                 "augmentation draws (AugmentParams)")
+            inputs = train_augment(inputs, augment)
         leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
         with torch.enable_grad():
             logits = _forward(model, compute_dtype, {**frozen, **leaves}, inputs,
@@ -135,25 +150,32 @@ def _forward(model: Model, compute_dtype: torch.dtype, params: Params,
 
 
 def make_steps(model: Model, criterion: Callable, fused: dict,
-               compute_dtype: torch.dtype = torch.float32):
+               compute_dtype: torch.dtype = torch.float32, device_augment: bool = False):
     """-> (train_step, eval_step, predict_step).
 
-    ``train_step(trainable, opt_state, frozen, inputs, labels, seeds) ->
-    (trainable, opt_state, loss, correct)``;
+    ``train_step(trainable, opt_state, frozen, inputs, labels, seeds,
+    augment=None) -> (trainable, opt_state, loss, correct)``;
     ``eval_step(trainable, frozen, inputs, labels) -> (loss, correct,
     logits)``; ``predict_step(trainable, frozen, inputs) -> logits`` (f32).
-    Loss and counts stay on the device: reading them waits for it."""
-    loss_and_grads = make_loss_and_grads(model, criterion, compute_dtype)
+    Loss and counts stay on the device: reading them waits for it.
 
-    def train_step(trainable, opt_state, frozen, inputs, labels, seeds):
-        loss, logits, grads = loss_and_grads(trainable, frozen, inputs, labels, seeds)
+    ``device_augment``: the inputs are RAW volumes. The train step warps,
+    flips and rescales them on their device with the draws ``augment``
+    (``ops/augment.train_augment``, in f32 before the cast to the compute
+    dtype); eval and predict rescale them (``eval_rescale``)."""
+    loss_and_grads = make_loss_and_grads(model, criterion, compute_dtype, device_augment)
+    prepare = eval_rescale if device_augment else (lambda x: x)
+
+    def train_step(trainable, opt_state, frozen, inputs, labels, seeds, augment=None):
+        loss, logits, grads = loss_and_grads(trainable, frozen, inputs, labels, seeds,
+                                             augment)
         trainable, opt_state = apply_optimizer(fused, grads, opt_state, trainable)
         correct = (logits.float().argmax(dim=1) == labels).sum()
         return trainable, opt_state, loss, correct
 
     @torch.no_grad()
     def eval_step(trainable, frozen, inputs, labels):
-        logits = _forward(model, compute_dtype, {**frozen, **trainable}, inputs,
+        logits = _forward(model, compute_dtype, {**frozen, **trainable}, prepare(inputs),
                           False, None).float()
         loss = criterion(logits, labels)
         correct = (logits.argmax(dim=1) == labels).sum()
@@ -161,7 +183,7 @@ def make_steps(model: Model, criterion: Callable, fused: dict,
 
     @torch.no_grad()
     def predict_step(trainable, frozen, inputs):
-        return _forward(model, compute_dtype, {**frozen, **trainable}, inputs,
+        return _forward(model, compute_dtype, {**frozen, **trainable}, prepare(inputs),
                         False, None).float()
 
     return train_step, eval_step, predict_step
@@ -169,17 +191,12 @@ def make_steps(model: Model, criterion: Callable, fused: dict,
 
 def unported_options(config: dict) -> None:
     """Raise on a train option the port does not have yet, naming its
-    ROADMAP item (``fused_optimizer: false`` raises in make_optimizer,
-    ``data.loader: grain`` in pick_loader)."""
+    ROADMAP item (``fused_optimizer: false`` raises in make_optimizer)."""
     train_cfg = config["train"]
     if (train_cfg.get("parallel") or {}).get("enabled"):
         raise NotImplementedError(
             "train.parallel (the mesh-sharded DP x TP step) is not ported "
             "(ROADMAP Queue A item 13)")
-    if train_cfg.get("device_augment"):
-        raise NotImplementedError(
-            "train.device_augment (on-device augmentation, ops/augment.py) is not "
-            "ported (ROADMAP Queue A item 10)")
     if train_cfg.get("checkpoint_backend", "npz") != "npz":
         raise NotImplementedError(
             "train.checkpoint_backend: orbax is not ported; the port writes the npz "
@@ -198,6 +215,18 @@ def default_step_seeds(seed: int) -> Callable[[int], SeedStream]:
     return seeds
 
 
+def default_step_augment(seed: int) -> Callable[[int, int], AugmentParams]:
+    """Each step's augmentation draws (``draw_augment_params``) from a CPU
+    ``torch.Generator`` keyed by ``train.seed`` and the global step, apart
+    from the dropout seeds' (as the JAX step splits its rng in two), so a
+    resumed run draws what the uninterrupted run would have."""
+    def augment(global_step: int, batch: int) -> AugmentParams:
+        key = ((seed * 1_000_003 + global_step) * 2 + 1) % (2 ** 63)
+        return draw_augment_params(torch.Generator().manual_seed(key), batch)
+
+    return augment
+
+
 def _host_stats(step_stats) -> Tuple[np.ndarray, np.ndarray]:
     """One device-to-host transfer for an epoch's (loss, correct) scalars."""
     if not step_stats:
@@ -208,29 +237,34 @@ def _host_stats(step_stats) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def run_training(config: dict, model: Model, params: Params, loaders, time_stamp: str,
-                 step_seeds: Optional[Callable[[int], Seeds]] = None) -> dict:
+                 step_seeds: Optional[Callable[[int], Seeds]] = None,
+                 step_augment: Optional[Callable[[int, int], AugmentParams]] = None) -> dict:
     """The epoch orchestration (ref: train.py:80-504). ``loaders`` is
     (train_loader, val_loader, train_len, val_len) of host batches; the
     params' device is the device the run trains on, and there B13 updates
     the trainable tensors of ``params`` in place (the JAX step donates
     them). ``step_seeds`` maps the global step to that step's dropout seeds
-    (default: :func:`default_step_seeds`).
+    (default: :func:`default_step_seeds`); with ``train.device_augment``,
+    ``step_augment`` maps (global step, batch size) to that step's
+    augmentation draws (default: :func:`default_step_augment`).
 
     Runs under a :class:`PreemptionGuard`: SIGTERM / SIGINT checkpoint the
     full train state at the next step boundary (mid-epoch, with the
     intra-epoch step index) and return with ``result["preempted"] = True``;
     a rerun with ``train.resume: auto`` continues from the exact next batch."""
     with PreemptionGuard() as guard:
-        return _run_training(config, model, params, loaders, time_stamp, guard, step_seeds)
+        return _run_training(config, model, params, loaders, time_stamp, guard, step_seeds,
+                             step_augment)
 
 
 def _run_training(config: dict, model: Model, params: Params, loaders, time_stamp: str,
-                  guard: PreemptionGuard, step_seeds) -> dict:
+                  guard: PreemptionGuard, step_seeds, step_augment) -> dict:
     from gaviko_tpu_torch.data.device_prefetch import DevicePrefetcher, stage_batch, wait_staged
     from gaviko_tpu_torch.utils.checkpoint import load_train_state, save_train_state
     from gaviko_tpu_torch.utils.logging import (
         TRAIN_LOG_FIELDS, CSVLogger, MemoryUsageLogger, analyze_model_computation,
         forward_flops)
+    from gaviko_tpu_torch.weights.state_dict import filter_state
     from gaviko_tpu_torch.weights.torch_io import save_pt
 
     unported_options(config)
@@ -261,8 +295,11 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
     logging.info(f"There are {len(trainable)} trainable params tensors "
                  f"({n_tr:,} elements); {len(frozen)} frozen tensors.")
     opt_state = init_opt_state(trainable, fused)
-    train_step, eval_step, _ = make_steps(model, criterion, fused, compute_dtype)
+    device_augment = bool(train_cfg.get("device_augment", False))
+    train_step, eval_step, _ = make_steps(model, criterion, fused, compute_dtype,
+                                          device_augment)
     step_seeds = step_seeds or default_step_seeds(int(train_cfg.get("seed", 0)))
+    step_augment = step_augment or default_step_augment(int(train_cfg.get("seed", 0)))
 
     # H2D pipelining (train.h2d_prefetch, default on): the next batch
     # uploads on a side stream while the current step computes.
@@ -407,8 +444,11 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                 if not batch_bytes_set:
                     memory_logger.set_sizes(batch_bytes=inputs.numel() * inputs.element_size())
                     batch_bytes_set = True
+                augment = (step_augment(global_step, inputs.shape[0]) if device_augment
+                           else None)
                 trainable, opt_state, loss, correct = train_step(
-                    trainable, opt_state, frozen, inputs, labels, step_seeds(global_step))
+                    trainable, opt_state, frozen, inputs, labels, step_seeds(global_step),
+                    augment)
                 memory_logger.display_after_forward_pass()
                 memory_logger.display_after_backward_pass()
                 memory_logger.display_after_optimization_step()
@@ -466,8 +506,9 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                 loss, correct, _ = eval_step(trainable, frozen, inputs, labels)
                 if (index_val == 0 and train_cfg.get("flops_calculation")
                         and not flops_done):
+                    x = eval_rescale(inputs) if device_augment else inputs
                     flops = forward_flops(lambda p, x: model.apply(p, x, model.spec),
-                                          {**frozen, **trainable}, inputs.to(compute_dtype))
+                                          {**frozen, **trainable}, x.to(compute_dtype))
                     n_total = sum(v.numel() for v in {**frozen, **trainable}.values())
                     analyze_model_computation(n_total, flops, verbose=True)
                     flops_done = True
@@ -509,7 +550,8 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                         f"{method}_{backbone}_best_model_epoch{current_epoch}"
                         f"_acc{val_acc:.4f}.pt")
                     os.makedirs(resume_dir, exist_ok=True)
-                    save_pt(best_ckpt_path, trainable)  # trainable-only (train.py:472-483)
+                    # trainable-only (train.py:472-483)
+                    save_pt(best_ckpt_path, filter_state({**frozen, **trainable}, trainable))
                     logging.info(f"Model saved to {best_ckpt_path}")
                 epoch_since_improvement = 0
             else:

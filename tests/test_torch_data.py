@@ -3,10 +3,10 @@
 The port's ``Loader`` and training transforms against JAX's on one
 synthetic dataset: the same batch order, the same augmentation draws
 (affine, flip and, with ``intensity_augs``, noise and blur), the same
-``skip_batches`` and ``pad_to_batch`` behaviour, volumes within 1e-6 (the
-JAX package rescales through its C++ core where it is built, the port in
-numpy). Also the CSV reading and folder scan without pandas, and the device
-prefetcher on the CPU.
+``skip_batches`` and ``pad_to_batch`` behaviour, volumes bit-equal (both
+packages rescale through the same C++ core arithmetic). Also the CSV reading
+and folder scan without pandas, the device prefetcher on the CPU and
+``pick_loader``'s dispatch.
 """
 
 import functools
@@ -21,6 +21,13 @@ from gaviko_tpu.data import transforms as jtf
 from gaviko_tpu_torch.data import pipeline as tpipe
 from gaviko_tpu_torch.data import transforms as ttf
 from gaviko_tpu_torch.data.device_prefetch import DevicePrefetcher
+from tests.test_torch_native_loader import jax_core_loaded
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_core():
+    """Both packages rescale on their C++ cores (bit-equal batches)."""
+    jax_core_loaded()
 
 
 def _dataset(root, n=7, dhw=(12, 16, 16)):
@@ -50,7 +57,7 @@ def test_transforms_match_jax(name):
             got = getattr(ttf, name)(x, np.random.RandomState(seed), **kw)
             want = getattr(jtf, name)(x, np.random.RandomState(seed), **kw)
         assert got.shape == want.shape and got.dtype == want.dtype
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got, want)
 
 
 def _loaders(tmp_path, batch=2, shuffle=True, pad=True, seed=4):
@@ -74,7 +81,7 @@ def _assert_same_epoch(jl, tl):
     for (jx, jy, jn), (tx, ty, tn) in zip(jb, tb):
         assert jn == tn and tx.shape == jx.shape and tx.dtype == jx.dtype
         np.testing.assert_array_equal(ty, jy)
-        np.testing.assert_allclose(tx, jx, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(tx, jx)
     return tb
 
 
@@ -117,5 +124,10 @@ def test_scan_folder_and_prefetcher_on_the_cpu(tmp_path):
         assert isinstance(x, torch.Tensor) and x.dtype == torch.float32 and y is None
         assert n == pn
         np.testing.assert_array_equal(x.numpy(), px)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tpipe.pick_loader({"data": {"loader": "grain"}})
+    from gaviko_tpu_torch.data.grain_pipeline import GrainLoader
+
+    assert tpipe.pick_loader({}) is tpipe.Loader
+    grain = tpipe.pick_loader({"data": {"loader": "grain", "grain_processes": 2}})
+    assert grain.func is GrainLoader and grain.keywords == {"processes": 2}
+    with pytest.raises(ValueError, match="native | grain"):
+        tpipe.pick_loader({"data": {"loader": "tfdata"}})

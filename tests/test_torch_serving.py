@@ -91,9 +91,30 @@ def test_missing_timm_file_warns_and_continues(tmp_path, caplog):
 
 
 def test_present_timm_file_is_not_silently_ignored(tmp_path):
-    (tmp_path / "vit_small_patch16_224_in21k.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        Predictor(CONFIG, pretrained_dir=str(tmp_path), device="cpu")
+    """A timm file in ``pretrained_dir`` is converted and lands in the
+    Predictor's params (its first block and the embeddings here), as the
+    JAX package's ``weights/convert.py`` converts it."""
+    from gaviko_tpu.weights.convert import convert_timm_state
+
+    rng = np.random.RandomState(0)
+    d = 384
+    timm = {"cls_token": rng.randn(1, 1, d), "pos_embed": rng.randn(1, 197, d),
+            "patch_embed.proj.weight": rng.randn(d, 3, 16, 16),
+            "patch_embed.proj.bias": rng.randn(d), "norm.weight": rng.randn(d),
+            "norm.bias": rng.randn(d), "blocks.0.norm1.weight": rng.randn(d),
+            "blocks.0.attn.qkv.weight": rng.randn(3 * d, d),
+            "blocks.0.attn.qkv.bias": rng.randn(3 * d),
+            "blocks.0.mlp.fc2.weight": rng.randn(d, 4 * d)}
+    timm = {k: v.astype(np.float32) for k, v in timm.items()}
+    np.savez(tmp_path / "vit_small_patch16_224_in21k.npz", **timm)
+    p = Predictor(CONFIG, batch_size=1, dtype="float32", pretrained_dir=str(tmp_path),
+                  device="cpu")
+    want = convert_timm_state(timm, num_patches=8, depth_dim=12)
+    landed = [k for k in want if k in p.params]
+    assert sorted(set(want) - set(landed)) == ["transformer.attns.0.to_qkv.bias"]
+    for k in landed:
+        np.testing.assert_array_equal(p.params[k].numpy(), want[k], err_msg=k)
+    assert p.predict_logits(_vols(1, 1)).shape == (1, 5)
 
 
 @pytest.mark.parametrize("fmt", ["npz", "pt"])
