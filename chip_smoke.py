@@ -169,9 +169,9 @@ Phases, each printing its own line:
    160) f32, every volume warped, both methods against the same call on
    the CPU (<= 1e-5 absolute), ms a batch; the GAViKO B4 bf16 train step's
    ms with and without device augmentation;
-17. loader (host): the C++ loader core's rescale and int16 widening GB/s
-   against numpy on one volume; one epoch of the 12 synthetic volumes
-   through the threaded loader, ``grain`` on threads and on 2 processes,
+17. loader (host): the rescale's and the int16 widening's GB/s on one
+   volume; two epochs of the 12 synthetic volumes (the first with the
+   engine's start) through the threaded loader, ``grain`` on threads and on 2 processes,
    raw and with the host train transform, volumes/s, batches bit-equal;
 18. trainer_input: ``cli.train`` in this process on gaviko.yaml switched as
    gaviko_tpu.yaml switches it (``data.loader: grain`` on 2 processes,
@@ -2622,45 +2622,14 @@ def _lnqkv_hybrid(on: bool):
 # augmentation, the host loader engines, and the trainer on all three.
 # ---------------------------------------------------------------------------
 
-TIMM_WIDTHS = {"vit-t16": (192, 12), "vit-s16": (384, 12), "vit-b16": (768, 12),
-               "vit-l16": (1024, 24)}
 AUGMENT_B = 4  # GAViKO's train batch
 AUGMENT_BUDGET = 1e-5  # largest |card - CPU| of an augmented batch in [0, 1]
 
 
-def timm_in21k_state(backbone: str, seed: int = 0) -> dict:
-    """timm's ``<backbone>_patch16_224_in21k`` inventory (every key and shape,
-    ``pre_logits.fc`` and the 21,843-way head included), float32 values from
-    ``seed``: N(0, 0.02^2) weights and biases, norm weights 1 + N(0, 0.02^2)."""
-    dim, depth = TIMM_WIDTHS[backbone]
-    shapes = {"cls_token": (1, 1, dim), "pos_embed": (1, 197, dim),
-              "patch_embed.proj.weight": (dim, 3, 16, 16), "patch_embed.proj.bias": (dim,)}
-    for i in range(depth):
-        b = f"blocks.{i}"
-        shapes.update({f"{b}.norm1.weight": (dim,), f"{b}.norm1.bias": (dim,),
-                       f"{b}.attn.qkv.weight": (3 * dim, dim),
-                       f"{b}.attn.qkv.bias": (3 * dim,),
-                       f"{b}.attn.proj.weight": (dim, dim), f"{b}.attn.proj.bias": (dim,),
-                       f"{b}.norm2.weight": (dim,), f"{b}.norm2.bias": (dim,),
-                       f"{b}.mlp.fc1.weight": (4 * dim, dim), f"{b}.mlp.fc1.bias": (4 * dim,),
-                       f"{b}.mlp.fc2.weight": (dim, 4 * dim), f"{b}.mlp.fc2.bias": (dim,)})
-    shapes.update({"norm.weight": (dim,), "norm.bias": (dim,),
-                   "pre_logits.fc.weight": (dim, dim), "pre_logits.fc.bias": (dim,),
-                   "head.weight": (21843, dim), "head.bias": (21843,)})
-    rng = np.random.default_rng(seed)
-    state = {}
-    for k, shape in shapes.items():
-        v = rng.standard_normal(shape, dtype=np.float32)
-        v *= np.float32(0.02)
-        if k.endswith("norm.weight") or ".norm1.weight" in k or ".norm2.weight" in k:
-            v += np.float32(1.0)
-        state[k] = v
-    return state
-
-
 def phase_weights(root: str, card: str) -> tuple:
-    """A synthetic vit-l16 timm file (``timm_in21k_state``, seed 0, as a
-    ``.pt``) under ``root/pretrained``; ``convert.load_pretrain`` of it, then
+    """A synthetic vit-l16 timm file (``convert.synthetic_timm_state``, seed
+    0, as a ``.pt``) under ``root/pretrained``; ``convert.load_pretrain`` of
+    it, then
     GAViKO (gaviko.yaml) built on the card by ``build_params`` from it. Every
     converted key that lands must equal the converted array bit for bit;
     the to_qkv biases drop (no destination: PARITY #3). Returns
@@ -2678,7 +2647,7 @@ def phase_weights(root: str, card: str) -> tuple:
     pretrained = os.path.join(root, "pretrained")
     os.makedirs(pretrained, exist_ok=True)
     t0 = time.perf_counter()
-    state = timm_in21k_state(spec.backbone, 0)
+    state = convert.synthetic_timm_state(spec.backbone, 0)
     path = os.path.join(pretrained, convert.TIMM_MODEL_NAMES[spec.backbone] + ".pt")
     torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
     t_write = time.perf_counter() - t0
@@ -2753,7 +2722,8 @@ def phase_augment(card: str) -> dict:
         want = train_augment(x_cpu, params, method)
         err = float((got - want).abs().max())
         ms = _median_ms(lambda: train_augment(x, params, method), reps=10, warmup=2)
-        line[method] = {"max_abs_err": err, "ms": ms, "finite": bool(torch.isfinite(got).all()),
+        line[method] = {"max_abs_err": err, "ms": ms,
+                        "finite": bool(torch.isfinite(got).all()),
                         "bound_ms": 1e3 * 2 * x.numel() * 4 / HBM_BYTES_PER_S}
     config, model, params0, batches, seeds, _ = train_setup()
     train_cfg = config["train"]
@@ -2778,7 +2748,8 @@ def phase_augment(card: str) -> dict:
         for on in (False, True):
             step_ms[on].append(_median_ms(lambda: step(on), reps=1, warmup=0))
     line["train_step_b4_bf16_ms"] = {
-        "without": statistics.median(step_ms[False]), "with_augment": statistics.median(step_ms[True]),
+        "without": statistics.median(step_ms[False]),
+        "with_augment": statistics.median(step_ms[True]),
         "without_runs": step_ms[False], "with_augment_runs": step_ms[True]}
     print(json.dumps(line), flush=True)
     del params0, batches, x
@@ -2789,32 +2760,44 @@ def phase_augment(card: str) -> dict:
     return line
 
 
-def _engine_epoch(make, ds, batch: int) -> tuple:
-    """One epoch of a loader engine: (seconds, seconds to the first batch,
-    volumes, batches)."""
+def _engine_epochs(make, ds, batch: int, epochs: int = 2) -> tuple:
+    """``epochs`` epochs of one loader engine: ([{seconds, first_batch_s,
+    volumes, vol_per_s} an epoch], the batches of every epoch). The first
+    epoch's time includes the engine's start (a process engine spawns its
+    workers there; later epochs reuse them)."""
     loader = make(ds, batch, shuffle=True, num_workers=8, seed=0, pad_to_batch=True)
-    t0 = time.perf_counter()
-    batches, first = [], None
-    for item in loader:
-        batches.append(item)
-        first = first or time.perf_counter() - t0
-    return time.perf_counter() - t0, first, sum(b[2] for b in batches), batches
+    stats, batches = [], []
+    try:
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            first = None
+            for item in loader:
+                batches.append(item)
+                first = first or time.perf_counter() - t0
+            secs = time.perf_counter() - t0
+            vols = sum(b[2] for b in batches[-len(loader):])
+            stats.append({"seconds": secs, "first_batch_s": first, "volumes": vols,
+                          "vol_per_s": vols / secs})
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
+    return stats, batches
 
 
 def phase_loader(folder: str, card: str) -> dict:
-    """The host side: the C++ core's min-max rescale and int16 widening on one
-    (1, 120, 160, 160) volume against numpy (host clock, median of 5; GB/s
-    of the bytes each must move: the rescale reads the volume and writes it,
-    the widening reads 2 bytes and writes 4 an element), then one epoch of
-    the synthetic volumes through the threaded ``Loader``, ``grain`` on
-    threads and ``grain`` on 2 processes (their start included), with the
+    """The host side: the port's min-max rescale (``transforms.
+    rescale_intensity``) and int16 widening (``VolumeDataset.load``'s
+    ``astype``) on one (1, 120, 160, 160) volume (host clock, median of 5;
+    GB/s of the bytes each must move: the rescale reads the volume and
+    writes it, the widening reads 2 bytes and writes 4 an element), then two
+    epochs of the synthetic volumes through the threaded ``Loader``, ``grain``
+    on threads and ``grain`` on 2 processes (the first with their start), with the
     raw transform of ``device_augment`` and with the host train transform
     (after one warm-up epoch of the threaded loader: the files cached, the
     imports done); every engine's batches bit-equal to the threaded
     loader's."""
     import functools
 
-    from gaviko_tpu_torch.data import native_loader as nl
     from gaviko_tpu_torch.data import pipeline, transforms
     from gaviko_tpu_torch.data.grain_pipeline import GrainLoader
 
@@ -2831,17 +2814,12 @@ def phase_loader(folder: str, card: str) -> dict:
     vol = rng.rand(1, 120, 160, 160).astype(np.float32) * 900
     raw = (rng.rand(1, 120, 160, 160) * 3000).astype(np.int16)
     n = vol.size
-    line = {"phase": "loader", "threads": nl.DEFAULT_THREADS, "cpu_count": os.cpu_count(),
-            "rescale_bit_equal": bool(np.array_equal(nl.rescale_intensity_native(vol),
-                                                     nl.rescale_intensity_numpy(vol))),
-            "card": card}
-    for name, core, plain, nbytes in (
-            ("rescale", lambda: nl.rescale_intensity_native(vol),
-             lambda: nl.rescale_intensity_numpy(vol), 8 * n),
-            ("widen_i16", lambda: nl.widen_f32(raw), lambda: raw.astype(np.float32), 6 * n)):
-        core_ms, numpy_ms = host_ms(core), host_ms(plain)
-        line[name] = {"core_ms": core_ms, "numpy_ms": numpy_ms,
-                      "core_gb_s": nbytes / core_ms / 1e6, "numpy_gb_s": nbytes / numpy_ms / 1e6}
+    line = {"phase": "loader", "cpu_count": os.cpu_count(), "card": card}
+    for name, fn, nbytes in (
+            ("rescale", lambda: transforms.rescale_intensity(vol), 8 * n),
+            ("widen_i16", lambda: np.asarray(raw, dtype=np.float32), 6 * n)):
+        ms = host_ms(fn)
+        line[name] = {"ms": ms, "gb_s": nbytes / ms / 1e6}
     paths = sorted(os.path.join(folder, f) for f in os.listdir(folder) if f.endswith(".npz"))
     labels = np.zeros(len(paths), np.int64)
     engines = {"loader": pipeline.Loader,
@@ -2850,13 +2828,11 @@ def phase_loader(folder: str, card: str) -> dict:
     same = True
     for tf_name, tf in (("raw", transforms.raw_volume), ("train", transforms.train_transform)):
         ds = pipeline.VolumeDataset(paths, labels, tf, train=True)
-        _engine_epoch(pipeline.Loader, ds, TRAIN_B)
+        _engine_epochs(pipeline.Loader, ds, TRAIN_B, epochs=1)
         ref = None
         line[tf_name] = {}
         for name, make in engines.items():
-            secs, first, vols, batches = _engine_epoch(make, ds, TRAIN_B)
-            line[tf_name][name] = {"seconds": secs, "first_batch_s": first, "volumes": vols,
-                                   "vol_per_s": vols / secs}
+            line[tf_name][name], batches = _engine_epochs(make, ds, TRAIN_B)
             if ref is None:
                 ref = batches
             else:
@@ -2865,9 +2841,8 @@ def phase_loader(folder: str, card: str) -> dict:
                     for a, b in zip(ref, batches))
     line["engines_bit_equal"] = same
     print(json.dumps(line), flush=True)
-    if not (same and line["rescale_bit_equal"]):
-        raise RuntimeError(f"loader: engines bit-equal {same}, core vs numpy "
-                           f"{line['rescale_bit_equal']}")
+    if not same:
+        raise RuntimeError("loader: the engines' batches differ")
     return line
 
 

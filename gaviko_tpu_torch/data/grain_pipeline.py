@@ -13,13 +13,16 @@ same shuffle of each epoch, sample ``i`` drawing from
 - ``processes == 0``: ``num_workers`` threads assemble whole batches, up to
   ``max(num_workers, prefetch)`` of them ahead of the consumer, delivered
   in order;
-- ``processes > 0``: a ``torch.utils.data.DataLoader`` over the epoch's
-  batch-index arrays, ``batch_size=None``, ``num_workers=processes``
-  *spawned* processes (a fork of a process holding threads or JAX can
-  deadlock), in-order delivery and a ``timeout`` on every batch, so a hung
-  worker raises instead of stalling the run. Every transform must pickle
-  (module-level functions or ``functools.partial``, as in
-  ``data/transforms.py``).
+- ``processes > 0``: one ``torch.utils.data.DataLoader`` for the loader's
+  life, ``num_workers=processes`` *spawned* processes (a fork of a process
+  holding threads or JAX can deadlock) kept across epochs
+  (``persistent_workers``). Its sampler yields each epoch's
+  ``(epoch seed, batch indices)``; a worker assembles that batch, loading
+  its samples on ``num_workers // processes`` threads. Delivery is in order,
+  with a ``timeout`` on every batch, so a hung worker raises instead of
+  stalling the run. Every transform must pickle (module-level functions or
+  ``functools.partial``, as in ``data/transforms.py``). ``close()`` stops
+  the workers; so does dropping the loader.
 
 Select with ``data.loader: grain`` (+ ``data.grain_processes``);
 ``pick_loader`` in ``data/pipeline.py`` dispatches.
@@ -37,25 +40,48 @@ import torch.utils.data
 
 from gaviko_tpu_torch.data.pipeline import Loader, VolumeDataset, assemble_batch
 
+Key = Tuple[int, np.ndarray]  # (epoch seed, dataset indices of one batch)
 
-class EpochBatches(torch.utils.data.Dataset):
-    """One epoch's batches; item ``i`` assembles batch ``i``
-    (``assemble_batch``). Picklable, for the process workers."""
 
-    def __init__(self, ds: VolumeDataset, batches: List[np.ndarray], batch_size: int,
-                 pad_to_batch: bool, epoch_seed: int):
+class BatchAssembler(torch.utils.data.Dataset):
+    """Item ``(epoch_seed, bidx)``: that batch (``assemble_batch``), its
+    samples loaded on ``threads`` threads. Picklable, for the process
+    workers; each process makes its own thread pool."""
+
+    def __init__(self, ds: VolumeDataset, batch_size: int, pad_to_batch: bool,
+                 threads: int = 1):
         self.ds = ds
-        self.batches = batches
         self.batch_size = batch_size
         self.pad_to_batch = pad_to_batch
-        self.epoch_seed = epoch_seed
+        self.threads = threads
+        self._pool = None
+
+    def __getstate__(self):
+        return {**self.__dict__, "_pool": None}
+
+    def __getitem__(self, key: Key):
+        epoch_seed, bidx = key
+        map_fn = map
+        if self.threads > 1:
+            if self._pool is None:
+                self._pool = cf.ThreadPoolExecutor(max_workers=self.threads)
+            map_fn = self._pool.map
+        return assemble_batch(self.ds, bidx, self.batch_size, self.pad_to_batch,
+                              epoch_seed, map_fn)
+
+
+class EpochKeys(torch.utils.data.Sampler):
+    """The current epoch's batch keys, set before each epoch in the main
+    process (where a ``DataLoader`` iterates its sampler)."""
+
+    def __init__(self):
+        self.keys: List[Key] = []
+
+    def __iter__(self):
+        return iter(self.keys)
 
     def __len__(self) -> int:
-        return len(self.batches)
-
-    def __getitem__(self, i: int):
-        return assemble_batch(self.ds, self.batches[i], self.batch_size, self.pad_to_batch,
-                              self.epoch_seed)
+        return len(self.keys)
 
 
 def _as_is(item):
@@ -72,45 +98,52 @@ class GrainLoader(Loader):
         super().__init__(*args, **kwargs)
         self.processes = int(processes)
         self.timeout = float(timeout)
+        self._keys = EpochKeys()
+        self._workers: Optional[torch.utils.data.DataLoader] = None
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray], int]]:
         batches = self._batches()
         self._epoch += 1
         # The epoch's augmentation seed, as Loader's: seed + epoch + 1.
-        epoch = EpochBatches(self.ds, batches, self.batch_size, self.pad_to_batch,
-                             self.seed + self._epoch)
+        keys = [(self.seed + self._epoch, b) for b in batches]
         if self.processes > 0:
-            return self._processes(epoch)
-        return self._threads(epoch)
+            return self._processes(keys)
+        return self._threads(keys)
 
-    def _threads(self, epoch: EpochBatches):
+    def close(self) -> None:
+        """Stop the process workers (a later epoch starts new ones)."""
+        self._workers = None
+
+    def _threads(self, keys: List[Key]):
+        assemble = BatchAssembler(self.ds, self.batch_size, self.pad_to_batch)
         pool = cf.ThreadPoolExecutor(max_workers=self.num_workers)
-        todo = iter(range(len(epoch)))
+        todo = iter(keys)
         ahead = collections.deque(
-            pool.submit(epoch.__getitem__, i)
-            for i in itertools.islice(todo, max(self.num_workers, self.prefetch, 1)))
+            pool.submit(assemble.__getitem__, k)
+            for k in itertools.islice(todo, max(self.num_workers, self.prefetch, 1)))
         try:
             while ahead:
                 item = ahead.popleft().result()  # a load error raises here
                 nxt = next(todo, None)
                 if nxt is not None:
-                    ahead.append(pool.submit(epoch.__getitem__, nxt))
+                    ahead.append(pool.submit(assemble.__getitem__, nxt))
                 yield item
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
 
-    def _processes(self, epoch: EpochBatches):
-        loader = torch.utils.data.DataLoader(
-            epoch, batch_size=None, shuffle=False,
-            num_workers=self.processes, collate_fn=_as_is,
-            multiprocessing_context="spawn", timeout=self.timeout,
-            prefetch_factor=max(self.prefetch, 1), in_order=True)
-        batches_it = iter(loader)
-        try:
-            yield from batches_it
-        finally:
-            # Stop the workers now, at the epoch's end, a load error or an
-            # abandoned epoch: left to the iterator's finaliser, a traceback
-            # that holds this frame keeps them until a later collection,
-            # which then waits seconds on each.
-            batches_it._shutdown_workers()
+    def _processes(self, keys: List[Key]):
+        if self._workers is None:
+            assemble = BatchAssembler(self.ds, self.batch_size, self.pad_to_batch,
+                                      max(1, self.num_workers // self.processes))
+            # Its own generator: the workers' base seeds (unused here) are not
+            # drawn from torch's global RNG.
+            self._workers = torch.utils.data.DataLoader(
+                assemble, batch_size=None, sampler=self._keys,
+                num_workers=self.processes, collate_fn=_as_is,
+                multiprocessing_context="spawn", timeout=self.timeout,
+                prefetch_factor=max(self.prefetch, 1), persistent_workers=True,
+                in_order=True, generator=torch.Generator())
+        self._keys.keys = keys
+        # The workers start at the first epoch; each later one sends them its
+        # keys (an abandoned epoch's leftover batches are dropped).
+        return iter(self._workers)

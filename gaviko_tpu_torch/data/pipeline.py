@@ -14,11 +14,9 @@ numpy loader). Contract preserved:
 The batch order and every augmentation draw are the JAX package's: the
 shuffle of epoch E is ``RandomState(seed + E)`` and sample ``i`` of it draws
 from ``RandomState(((seed + E + 1) * 1_000_003 + i) % 2**31)``, so both
-packages yield the same batches from the same files. Volumes widen and
-rescale on the C++ loader core (``data/native_loader.py``), as in the JAX
-package. ``data.loader: grain`` selects the same stream on PyTorch's
-runtime (``data/grain_pipeline.py``); multi-host sharding is not ported
-(ROADMAP Queue A item 13).
+packages yield the same batches from the same files. ``data.loader: grain``
+selects the same stream on PyTorch's runtime (``data/grain_pipeline.py``);
+multi-host sharding is not ported (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -33,8 +31,6 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
-
-from gaviko_tpu_torch.data.native_loader import widen_f32
 
 Frame = List[Dict[str, str]]  # CSV rows, column -> text
 
@@ -52,8 +48,7 @@ class VolumeDataset:
     def load(self, i: int, rng: Optional[np.random.RandomState] = None) -> np.ndarray:
         with np.load(self.paths[i]) as z:
             vol = z["data"]
-        # int16 / uint16 raw MRI volumes widen on the multithreaded C++ core.
-        vol = np.expand_dims(widen_f32(vol), 0)  # (1, D, H, W) float32
+        vol = np.expand_dims(np.asarray(vol, dtype=np.float32), 0)  # (1, D, H, W)
         if self.train:
             return self.transform(vol, rng or np.random.RandomState())
         return self.transform(vol)

@@ -10,9 +10,10 @@ Port of ``gaviko_tpu/data/transforms.py``. Reference transform stacks
 torchio RandomAffine(degrees=15) keeps its default scales=0.1 (random
 scaling in [0.9, 1.1]), reproduced. The augmentations draw from a numpy
 ``RandomState`` in the JAX package's order, so the same per-sample state
-gives the same volume in both packages; the rescale runs on the C++ loader
-core (``data/native_loader.py``), as the JAX package's does, so the two
-agree to the bit. They run on host numpy in the loader's workers.
+gives the same volume in both packages. The rescale is the arithmetic of
+the JAX package's C++ loader core (``(x - lo) * scale + out_min``, ``scale``
+a float32) in numpy, so the two agree to the bit. They run on host numpy in
+the loader's workers.
 
 With ``train.device_augment`` the loader hands the step raw volumes
 (:func:`raw_volume`) and the augmentation runs on the card
@@ -25,13 +26,20 @@ from typing import Optional
 
 import numpy as np
 
-from gaviko_tpu_torch.data import native_loader
-
 
 def rescale_intensity(x: np.ndarray, out_min: float = 0.0, out_max: float = 1.0) -> np.ndarray:
-    """Min-max rescale to [out_min, out_max] (torchio RescaleIntensity), on
-    the multithreaded C++ core."""
-    return native_loader.rescale_intensity_native(x, out_min, out_max)
+    """Min-max rescale to [out_min, out_max] (torchio RescaleIntensity); a
+    constant volume becomes ``out_min``. Rounds as the JAX package's C++
+    core does: one float32 ``scale``, then a subtract, a multiply and an
+    add, each rounded to float32."""
+    x = np.asarray(x, dtype=np.float32)
+    lo, hi = x.min(), x.max()
+    if hi == lo:
+        return np.full_like(x, out_min)
+    out = x - lo
+    out *= np.float32((out_max - out_min) / (float(hi) - float(lo)))
+    out += np.float32(out_min)
+    return out
 
 
 def raw_volume(x: np.ndarray, rng: Optional[np.random.RandomState] = None) -> np.ndarray:

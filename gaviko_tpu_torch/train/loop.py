@@ -264,7 +264,6 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
     from gaviko_tpu_torch.utils.logging import (
         TRAIN_LOG_FIELDS, CSVLogger, MemoryUsageLogger, analyze_model_computation,
         forward_flops)
-    from gaviko_tpu_torch.weights.state_dict import filter_state
     from gaviko_tpu_torch.weights.torch_io import save_pt
 
     unported_options(config)
@@ -550,8 +549,7 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                         f"{method}_{backbone}_best_model_epoch{current_epoch}"
                         f"_acc{val_acc:.4f}.pt")
                     os.makedirs(resume_dir, exist_ok=True)
-                    # trainable-only (train.py:472-483)
-                    save_pt(best_ckpt_path, filter_state({**frozen, **trainable}, trainable))
+                    save_pt(best_ckpt_path, trainable)  # trainable-only (train.py:472-483)
                     logging.info(f"Model saved to {best_ckpt_path}")
                 epoch_since_improvement = 0
             else:

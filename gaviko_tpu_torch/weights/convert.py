@@ -20,13 +20,14 @@ match GAViKO's layout; both drop at load time in
 drops them.
 
 ``load_pretrain`` reads a local timm-format state dict (.pt through torch,
-or .npz); nothing is downloaded.
+or .npz); nothing is downloaded. ``synthetic_timm_state`` makes a stand-in
+with timm's exact key inventory and shapes, values from a seed.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -37,6 +38,43 @@ TIMM_MODEL_NAMES = {
     "vit-s16": "vit_small_patch16_224_in21k",
     "vit-l16": "vit_large_patch16_224_in21k",
 }
+
+# (width, depth) of each timm in21k ViT.
+TIMM_WIDTHS = {"vit-t16": (192, 12), "vit-s16": (384, 12), "vit-b16": (768, 12),
+               "vit-l16": (1024, 24)}
+
+
+def synthetic_timm_state(backbone: str, seed: int = 0,
+                         depth: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """timm's ``<backbone>_patch16_224_in21k`` inventory (every key and shape,
+    ``pre_logits.fc`` and the 21,843-way head included), its first ``depth``
+    blocks (all by default), float32 values from ``seed``: weights and biases
+    N(0, 0.02^2), norm weights 1 + N(0, 0.02^2). For tests and smoke runs
+    where no downloaded file is at hand."""
+    dim, full_depth = TIMM_WIDTHS[backbone]
+    shapes = {"cls_token": (1, 1, dim), "pos_embed": (1, 197, dim),
+              "patch_embed.proj.weight": (dim, 3, 16, 16), "patch_embed.proj.bias": (dim,)}
+    for i in range(full_depth if depth is None else depth):
+        b = f"blocks.{i}"
+        shapes.update({f"{b}.norm1.weight": (dim,), f"{b}.norm1.bias": (dim,),
+                       f"{b}.attn.qkv.weight": (3 * dim, dim),
+                       f"{b}.attn.qkv.bias": (3 * dim,),
+                       f"{b}.attn.proj.weight": (dim, dim), f"{b}.attn.proj.bias": (dim,),
+                       f"{b}.norm2.weight": (dim,), f"{b}.norm2.bias": (dim,),
+                       f"{b}.mlp.fc1.weight": (4 * dim, dim), f"{b}.mlp.fc1.bias": (4 * dim,),
+                       f"{b}.mlp.fc2.weight": (dim, 4 * dim), f"{b}.mlp.fc2.bias": (dim,)})
+    shapes.update({"norm.weight": (dim,), "norm.bias": (dim,),
+                   "pre_logits.fc.weight": (dim, dim), "pre_logits.fc.bias": (dim,),
+                   "head.weight": (21843, dim), "head.bias": (21843,)})
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, shape in shapes.items():
+        v = rng.standard_normal(shape, dtype=np.float32)
+        v *= np.float32(0.02)
+        if k.endswith(("norm.weight", "norm1.weight", "norm2.weight")):
+            v += np.float32(1.0)
+        state[k] = v
+    return state
 
 
 def _linterp_axis(x: np.ndarray, axis: int, out_size: int) -> np.ndarray:

@@ -8,7 +8,7 @@ take the device and dtype of the params they replace.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import torch
 
@@ -33,12 +33,6 @@ def load_state_dict(params: Params, state: Mapping[str, torch.Tensor],
     if strict and (missing or unexpected):
         raise KeyError(f"missing={missing} unexpected={unexpected}")
     return new, missing, unexpected
-
-
-def filter_state(state: Mapping[str, torch.Tensor], names: Iterable[str]) -> Dict:
-    """The trainable-only checkpoint payload (ref: train.py:472-483)."""
-    names = set(names)
-    return {k: v for k, v in state.items() if k in names}
 
 
 def merge_states(vanilla: Mapping, ckpt: Mapping) -> Dict:

@@ -1,9 +1,10 @@
 """PyTorch port: timm weight conversion (``weights/convert.py``) and the timm
 path of ``models/pretrained.build_params`` against the JAX package's.
 
-The timm state is synthetic, with the exact key inventory and shapes of
-timm's ``vit_tiny_patch16_224_in21k`` (``pre_logits.fc`` and the 21,843-way
-head that the converter drops), values from a seed; nothing is downloaded.
+The timm state is synthetic (``convert.synthetic_timm_state``), with the
+exact key inventory and shapes of timm's ``vit_tiny_patch16_224_in21k``
+(``pre_logits.fc`` and the 21,843-way head that the converter drops),
+values from a seed; nothing is downloaded.
 Checked: the converted dicts have JAX's key set, the pure remaps bit-equal
 and the pos-embedding interpolation and the kernel inflation within 1e-6;
 ``load_pretrain`` reads ``<name>``, ``<name>.pt`` and ``<name>.npz``; the
@@ -30,7 +31,7 @@ from gaviko_tpu.weights.state_dict import load_state_dict as jax_load_state_dict
 from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.models.pretrained import build_params
 from gaviko_tpu_torch.weights import convert as tconv
-from gaviko_tpu_torch.weights.state_dict import filter_state, load_state_dict
+from gaviko_tpu_torch.weights.state_dict import load_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(image_size=32, image_patch_size=16, frames=24, frame_patch_size=12,
@@ -42,28 +43,9 @@ METHODS = {"gaviko": dict(freeze_vit=True, num_prompts=4, prompt_latent_dim=8,
 INTERPOLATED = ("pos_embedding", "conv_proj.0.weight")
 
 
-def timm_in21k_state(dim=192, depth=12, seed=0):
-    """timm's in21k ViT inventory at ``dim`` / ``depth`` (vit-t16 by
-    default), random values."""
-    r = np.random.RandomState(seed)
-    s = {"cls_token": (1, 1, dim), "pos_embed": (1, 197, dim),
-         "patch_embed.proj.weight": (dim, 3, 16, 16), "patch_embed.proj.bias": (dim,),
-         "norm.weight": (dim,), "norm.bias": (dim,), "pre_logits.fc.weight": (dim, dim),
-         "pre_logits.fc.bias": (dim,), "head.weight": (21843, dim), "head.bias": (21843,)}
-    for i in range(depth):
-        b = f"blocks.{i}"
-        s.update({f"{b}.norm1.weight": (dim,), f"{b}.norm1.bias": (dim,),
-                  f"{b}.attn.qkv.weight": (3 * dim, dim), f"{b}.attn.qkv.bias": (3 * dim,),
-                  f"{b}.attn.proj.weight": (dim, dim), f"{b}.attn.proj.bias": (dim,),
-                  f"{b}.norm2.weight": (dim,), f"{b}.norm2.bias": (dim,),
-                  f"{b}.mlp.fc1.weight": (4 * dim, dim), f"{b}.mlp.fc1.bias": (4 * dim,),
-                  f"{b}.mlp.fc2.weight": (dim, 4 * dim), f"{b}.mlp.fc2.bias": (dim,)})
-    return {k: (0.02 * r.randn(*shape)).astype(np.float32) for k, shape in s.items()}
-
-
 @pytest.fixture(scope="module")
 def timm_state():
-    return timm_in21k_state()
+    return tconv.synthetic_timm_state("vit-t16")
 
 
 @pytest.fixture(scope="module")
@@ -171,9 +153,24 @@ def test_build_params_lands_what_jax_lands(pretrained_dir, method):
                      require_pretrained=True)
 
 
-def test_filter_state_keeps_the_named_tensors():
-    state = {"a": torch.ones(1), "b": torch.zeros(2), "c": torch.ones(3)}
-    assert list(filter_state(state, ["c", "a", "z"])) == ["a", "c"]
+@pytest.mark.parametrize("backbone", sorted(tconv.TIMM_WIDTHS))
+def test_synthetic_state_is_timms_inventory(backbone):
+    """``synthetic_timm_state``: timm's in21k keys and shapes (two blocks
+    here), the same values from the same seed, and a state both packages
+    convert to the same keys and shapes."""
+    dim, _ = tconv.TIMM_WIDTHS[backbone]
+    state = tconv.synthetic_timm_state(backbone, seed=3, depth=2)
+    assert len(state) == 10 + 12 * 2 and all(v.dtype == np.float32 for v in state.values())
+    assert state["head.weight"].shape == (21843, dim)
+    assert state["blocks.1.mlp.fc1.weight"].shape == (4 * dim, dim)
+    assert state["blocks.1.attn.qkv.bias"].shape == (3 * dim,)
+    assert abs(float(state["norm.weight"].mean()) - 1.0) < 0.01
+    assert abs(float(state["blocks.0.norm2.bias"].mean())) < 0.01
+    again = tconv.synthetic_timm_state(backbone, seed=3, depth=2)
+    assert all(np.array_equal(state[k], again[k]) for k in state)
+    got = tconv.convert_timm_state(state, 8, 12)
+    want = jconv.convert_timm_state(state, 8, 12)
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
 
 
 def test_convert_command(tmp_path, pretrained_dir, monkeypatch, capsys):

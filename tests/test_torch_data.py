@@ -3,10 +3,10 @@
 The port's ``Loader`` and training transforms against JAX's on one
 synthetic dataset: the same batch order, the same augmentation draws
 (affine, flip and, with ``intensity_augs``, noise and blur), the same
-``skip_batches`` and ``pad_to_batch`` behaviour, volumes bit-equal (both
-packages rescale through the same C++ core arithmetic). Also the CSV reading
-and folder scan without pandas, the device prefetcher on the CPU and
-``pick_loader``'s dispatch.
+``skip_batches`` and ``pad_to_batch`` behaviour, volumes bit-equal (the
+port rescales with the arithmetic of the JAX package's C++ core). Also the
+CSV reading and folder scan without pandas, the device prefetcher on the
+CPU and ``pick_loader``'s dispatch.
 """
 
 import functools
@@ -21,12 +21,12 @@ from gaviko_tpu.data import transforms as jtf
 from gaviko_tpu_torch.data import pipeline as tpipe
 from gaviko_tpu_torch.data import transforms as ttf
 from gaviko_tpu_torch.data.device_prefetch import DevicePrefetcher
-from tests.test_torch_native_loader import jax_core_loaded
+from tests.test_torch_rescale import jax_core_loaded
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_core():
-    """Both packages rescale on their C++ cores (bit-equal batches)."""
+    """The JAX package rescales on its C++ core (bit-equal batches)."""
     jax_core_loaded()
 
 

@@ -2,17 +2,22 @@
 the JAX package's grain loader and the port's ``Loader`` on the CPU.
 
 The port's ``GrainLoader`` runs the stream on PyTorch's runtime (threads,
-or spawned ``DataLoader`` process workers) and never imports grain, which
-imports JAX. Its batches must be bit-equal to JAX's ``GrainLoader`` (grain's
-thread runtime) and to the port's ``Loader`` over 2 epochs with the host
-train transform (affine, flip, rescale), with a padded and an unpadded last
-batch; a load error must reach the consumer in both modes. The process
-workers run with a 60 s ``DataLoader`` timeout, so a hung worker fails the
-test instead of stalling the suite.
+or spawned ``DataLoader`` process workers kept across epochs) and never
+imports grain, which imports JAX. Its batches must be bit-equal to JAX's
+``GrainLoader`` (grain's thread runtime) and to the port's ``Loader`` over 2
+epochs with the host train transform (affine, flip, rescale), with a padded
+and an unpadded last batch, also after an abandoned epoch; the process
+workers must be the same processes in every epoch, and stop on ``close``;
+a load error must reach the consumer in both modes. The process workers
+run with a 60 s ``DataLoader`` timeout, so a hung worker fails the test
+instead of stalling the suite.
 """
 
 import functools
+import gc
+import multiprocessing
 import os
+import time
 
 import numpy as np
 import pytest
@@ -23,14 +28,14 @@ from gaviko_tpu.data import transforms as jtf
 from gaviko_tpu_torch.data import pipeline as tpipe
 from gaviko_tpu_torch.data import transforms as ttf
 from gaviko_tpu_torch.data.grain_pipeline import GrainLoader
-from tests.test_torch_native_loader import jax_core_loaded
+from tests.test_torch_rescale import jax_core_loaded
 
 N, BATCH, TIMEOUT = 7, 3, 60.0
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_core():
-    """Both packages rescale on their C++ cores (bit-equal batches)."""
+    """The JAX package rescales on its C++ core (bit-equal batches)."""
     jax_core_loaded()
 
 
@@ -84,7 +89,40 @@ def test_processes_match_jax_grain(files, pad, epochs):
     kw = dict(shuffle=True, num_workers=2, seed=3, pad_to_batch=pad)
     want = _epochs(jgrain.GrainLoader(jds, BATCH, **kw), epochs)
     loader = GrainLoader(tds, BATCH, processes=2, timeout=TIMEOUT, **kw)
-    _assert_same(_epochs(loader, epochs), want)
+    try:
+        _assert_same(_epochs(loader, epochs), want)
+    finally:
+        loader.close()
+
+
+def _children():
+    return {p.pid for p in multiprocessing.active_children()}
+
+
+def test_process_workers_persist_and_skip_an_abandoned_epoch(files):
+    """The workers spawned for the first epoch serve the next; an epoch left
+    after one batch leaves nothing behind in the next; ``close`` stops
+    them."""
+    jds, tds = _datasets(files)
+    kw = dict(shuffle=True, num_workers=2, seed=3, pad_to_batch=True)
+    want = _epochs(jgrain.GrainLoader(jds, BATCH, **kw), 3)
+    before = _children()
+    loader = GrainLoader(tds, BATCH, processes=2, timeout=TIMEOUT, **kw)
+    try:
+        first = iter(loader)
+        _assert_same([[next(first)]], [want[0][:1]])
+        del first
+        workers = _children() - before
+        assert len(workers) == 2
+        _assert_same(_epochs(loader, 2), want[1:])
+        assert _children() - before == workers
+    finally:
+        loader.close()
+    gc.collect()
+    deadline = time.monotonic() + TIMEOUT
+    while _children() & workers and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not _children() & workers
 
 
 def test_resume_skip_and_epoch_pinning(files):
@@ -105,8 +143,11 @@ def test_load_error_reaches_the_consumer(files, processes):
                                                        "missing.npz")],
                              labels[:5], ttf.eval_transform)
     loader = GrainLoader(ds, 2, processes=processes, timeout=TIMEOUT, num_workers=2)
-    with pytest.raises(FileNotFoundError, match="missing.npz"):
-        list(loader)
+    try:
+        with pytest.raises(FileNotFoundError, match="missing.npz"):
+            list(loader)
+    finally:
+        loader.close()
 
 
 def test_pick_loader_selects_the_engine(files):

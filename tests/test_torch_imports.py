@@ -2,8 +2,7 @@
 
 The port runs where JAX is not installed: importing any of its modules must
 import neither ``jax``, ``grain`` (which imports JAX) nor ``gaviko_tpu``, and
-must not need ``nvcc`` or ``g++`` (the kernels and the loader core build at
-first use).
+must not need ``nvcc`` (the kernels build at first launch).
 """
 
 import os

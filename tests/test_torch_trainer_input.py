@@ -39,7 +39,6 @@ from gaviko_tpu_torch.weights import convert as tconv
 from gaviko_tpu_torch.weights.from_jax import from_jax
 from tests.test_end_to_end import make_synth_dataset, tiny_config
 from tests.test_torch_augment import jax_draws
-from tests.test_torch_convert import timm_in21k_state
 
 DEPTH, SEED = 2, 0
 TS = "20260101_000000"
@@ -80,7 +79,7 @@ def paired_run(tmp_path_factory):
     os.makedirs(pretrained)
     # The blocks a depth-2 model reads, of timm's vit-s16 in21k inventory.
     np.savez(os.path.join(pretrained, "vit_small_patch16_224_in21k.npz"),
-             **timm_in21k_state(dim=384, depth=DEPTH, seed=7))
+             **tconv.synthetic_timm_state("vit-s16", seed=7, depth=DEPTH))
     config = tiny_config(root, csv_path, volumes, method="gaviko", epochs=1)
     config["model"].update(GAVIKO, pretrained_dir=pretrained)
     config["data"].update(loader="grain", grain_processes=0)
