@@ -178,7 +178,30 @@ Phases, each printing its own line:
    ``train.device_augment``, bf16), starting from phase 15's timm file, 1
    epoch: a CSV row a step, each train step's wrapped-kernel launches
    exactly ``gaviko_train_launches(spec, "bf16")``, the frozen backbone
-   still the converted tensors, the profiled step's trace.
+   still the converted tensors, the profiled step's trace;
+19. parallel_one: ``cli.train`` in this process on
+   ``gaviko_tpu/configs/gaviko_tpu.yaml`` as shipped (``train.parallel``
+   on, ``data: auto``: a 1 x 1 mesh; vit-l16 GAViKO, bf16, device
+   augmentation, the grain loader, B8), overridden only in
+   ``checkpoint_backend: npz``, one epoch and the paths (24 train and 8 val
+   synthetic volumes): every train step is ``ParallelTrainer``'s (none from
+   ``make_steps``) with exactly ``gaviko_train_launches(spec, "bf16")``,
+   the CSV, the resume state and the best checkpoint written;
+20. parallel_two: 2 ranks spawned on cuda:0 over gloo (NCCL refuses two
+   ranks on one card): GAViKO vit-l16 (gaviko_tpu.yaml) with data 2 and
+   ZeRO, then model 2 (the frozen backbone's heads and hidden split), then
+   vit.yaml fft at depth 2 with model 2 and ``GAVIKO_LNQKV_HYBRID=1`` (B6,
+   B7, B9, B12 and B8 on their shards): 3 bf16 steps of the global batch 8
+   and one eval step each, against a 1-rank run of the same batches and
+   seeds under the bf16 train-check budgets (per-step loss; the update,
+   mu and nu of the resume state the ranks gather, with the 1-rank state's
+   leaves), each rank's launches a step the 1-rank step's, and the wall and
+   collective seconds a step (gloo through the host: not NCCL figures);
+21. parallel_kernels: A and B on heads 8..15 of vit-l16's 16 (B4, 1,040
+   rows, dropout 0.1) against their plain versions and bit-equal to the
+   whole layer's kernels on those heads; B13's sharded step (its norm
+   kernel into a device scalar, then its update) at GAViKO's trainable
+   leaves bit-equal to its one-launch step.
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
@@ -195,8 +218,11 @@ int8 serving shapes with that run's launches; ``ln_linear_bwd`` and
 ``ln_linear_bwd_l16`` for B12 at the vit-b16 and GAViKO vit-l16 bf16
 hybrid train shapes with the bf16 hybrid runs' launches; each row's
 ``zoo_launches`` the launches a forward or a step of every zoo run that
-launched it, and ``trainer_input_launches`` its launches in the last train
-step of phase 18), the nvidia-smi line, and as its last line ``{"ok": true, "device":
+launched it, ``trainer_input_launches`` its launches in the last train
+step of phase 18 and, on the rows at the parallel runs' head dim and
+widths, ``parallel_launches`` its launches a step in phases 19 and 20 on
+rank 0 and in the vit-b16 tensor-parallel eval step), the
+nvidia-smi line, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -2313,16 +2339,18 @@ def phase_adam(card: str, name: str, shapes) -> dict:
     return lines
 
 
-def _trainer_files(root: str, label: int) -> tuple:
+def _trainer_files(root: str, label: int, volumes=TRAINER_VOLUMES,
+                   config_path: str = CONFIG) -> tuple:
     """The trainer phase's synthetic dataset under ``root``: (120, 160,
-    160) .npz volumes, 8 train and 4 val, and the CSV (every volume of class
-    ``label``), plus a copy of gaviko.yaml pointing at them. Returns
-    (config path, config, volume folder)."""
+    160) .npz volumes, 8 train and 4 val (or ``volumes``), and the CSV
+    (every volume of class ``label``), plus a copy of gaviko.yaml (or
+    ``config_path``) pointing at them. Returns (config path, config, volume
+    folder)."""
     import yaml
 
     from gaviko_tpu_torch.config import load_config
 
-    n_train, n_val = TRAINER_VOLUMES
+    n_train, n_val = volumes
     folder = os.path.join(root, "volumes")
     os.makedirs(folder, exist_ok=True)
     rows = ["mri_path,kl_grade,subset"]
@@ -2335,7 +2363,7 @@ def _trainer_files(root: str, label: int) -> tuple:
         rows.append(f"{name},{label},{'train' if i < n_train else 'val'}")
     with open(os.path.join(root, "labels.csv"), "w") as f:
         f.write("\n".join(rows) + "\n")
-    config = load_config(CONFIG)
+    config = load_config(config_path)
     config["data"].update(data_path=os.path.join(root, "labels.csv"), image_folder=folder,
                           test_data=os.path.join(root, "labels.csv"))
     config["utils"].update(log_dir=os.path.join(root, "log"),
@@ -2930,6 +2958,436 @@ def phase_trainer_input(root: str, pretrained: str, sample: dict, card: str) -> 
     return line
 
 
+PAR_CONFIG = "gaviko_tpu/configs/gaviko_tpu.yaml"
+PAR_B = 8  # gaviko_tpu.yaml's global batch
+PAR_VOLUMES = (24, 8)  # 3 steps and one eval batch at B8
+# The 2-rank runs on cuda:0 (gloo): job -> (data, model) of the mesh.
+PAR_MESH = {"gaviko_dp": (2, 1), "gaviko_tp": (1, 2), "vit_tp": (1, 2)}
+PAR_TIMEOUT_S = 420
+# The worst leaf's own relative MAE of the 2-rank state against one rank's,
+# by model (H100 readings, sound / planted fault, update, mu, nu). vit-b16:
+# 8.0e-3, 1.2e-2, 9.1e-3 / 0.78, 0.74, 0.65 without the model sum of a split
+# block's LN and bias gradients (the all-leaf MAE read 6.5e-3 there). GAViKO,
+# whose prompt projections' small gradients sit near bf16's rounding: 0.29,
+# 0.95, 0.21 / 6.9, 124, 4.3 with copy_in's backward not summed over model.
+PAR_LEAF_BUDGET = {"gaviko": {"params_update": 1.0, "mu": 10.0, "nu": 1.0},
+                   "vit": {"params_update": 0.1, "mu": 0.1, "nu": 0.1}}
+# The parallel runs whose B13 launches each B13 row of the kernels line carries.
+PAR_ADAM_RUNS = {"fused_adam_gaviko": ("parallel_one", "gaviko_dp", "gaviko_tp"),
+                 "fused_adam_vitb16": ("vit_tp",)}
+
+
+def phase_parallel_one(root: str, card: str) -> dict:
+    """``cli.train`` (in this process) on gaviko_tpu.yaml as shipped:
+    ``train.parallel`` on (data auto, model 1, ZeRO), vit-l16 GAViKO in bf16
+    with ``train.device_augment``, the grain loader, B8, flops and memory
+    logging; overridden: ``checkpoint_backend: npz`` (orbax is Queue A item
+    8), one epoch, and the paths (a synthetic dataset of 24 train and 8 val
+    volumes). One process is a 1 x 1 mesh: every train step must be
+    ``ParallelTrainer.train_step`` (none from ``make_steps``), with exactly
+    ``gaviko_train_launches(spec, "bf16")`` a step."""
+    import torch
+    import yaml
+
+    from gaviko_tpu_torch.cli import train as cli_train
+    from gaviko_tpu_torch.config import load_config
+    from gaviko_tpu_torch.models.factory import build_model
+    from gaviko_tpu_torch.parallel import mesh as pmesh
+    from gaviko_tpu_torch.train import loop
+
+    t0 = time.perf_counter()
+    _, _, folder = _trainer_files(root, 1, PAR_VOLUMES)
+    config = load_config(PAR_CONFIG)
+    overrides = {"train.checkpoint_backend": "npz", "train.num_epochs": 1}
+    config["train"].update(checkpoint_backend="npz", num_epochs=1,
+                           save_dir=os.path.join(root, "weights_par"))
+    labels = os.path.join(root, "labels.csv")
+    config["data"].update(data_path=labels, image_folder=folder, test_data=labels)
+    config["utils"].update(log_dir=os.path.join(root, "log_par"),
+                           results_dir=os.path.join(root, "outputs_par"))
+    print(json.dumps({"phase": "parallel_one_config", "config": PAR_CONFIG,
+                      "overrides": overrides, "paths": "a temporary directory",
+                      "train.parallel": config["train"]["parallel"]}), flush=True)
+    cfg_path = os.path.join(root, "gaviko_tpu.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    wrappers, record, made = _wrappers(), [], []
+    inner_step, inner_make = pmesh.ParallelTrainer.train_step, loop.make_steps
+
+    def counted(self, *a, **kw):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_step(self, *a, **kw)
+        torch.cuda.synchronize()
+        record.append({"seconds": time.perf_counter() - t,
+                       "launches": {n: w.launches for n, w in wrappers.items()}})
+        return out
+
+    def make_steps(*a, **kw):
+        made.append(1)
+        return inner_make(*a, **kw)
+
+    pmesh.ParallelTrainer.train_step, loop.make_steps = counted, make_steps
+    try:
+        result = cli_train.main(["--config", cfg_path, "--method", "gaviko"])
+    finally:
+        pmesh.ParallelTrainer.train_step, loop.make_steps = inner_step, inner_make
+    spec = build_model(config["model"]).spec
+    want = gaviko_train_launches(spec, "bf16")
+    rows = _csv_rows(result["csv_log"])
+    resume = os.path.join(config["train"]["save_dir"], "experiments", "gaviko",
+                          "resume_state.npz")
+    line = {"phase": "parallel_one", "mesh": "1 x 1", "train_steps": len(record),
+            "make_steps_calls": len(made), "csv_rows": len(rows),
+            "step_seconds": [r["seconds"] for r in record],
+            "step_launches": [r["launches"] for r in record], "want_launches": want,
+            "resume_state": os.path.exists(resume),
+            "best_checkpoint": bool(result["best_ckpt_path"]),
+            "seconds": time.perf_counter() - t0, "card": card}
+    print(json.dumps(line), flush=True)
+    del result
+    torch.cuda.empty_cache()
+    n_steps = -(-PAR_VOLUMES[0] // PAR_B)
+    if len(record) != n_steps or made:
+        raise RuntimeError(f"parallel_one: {len(record)} parallel steps, make_steps called "
+                           f"{len(made)} times")
+    if any(r["launches"] != want for r in record):
+        raise RuntimeError(f"parallel_one: launches {record}, want {want} a step")
+    if len(rows) != n_steps + 1 or not line["resume_state"] or not line["best_checkpoint"]:
+        raise RuntimeError(f"parallel_one: {len(rows)} CSV rows, resume state "
+                           f"{line['resume_state']}, best {line['best_checkpoint']}")
+    return line
+
+
+def _par_setup(job: str):
+    """(config, model, params, batches, per-step seeds, launches a step) of
+    a parallel run: GAViKO vit-l16 of gaviko_tpu.yaml (frozen backbone, B8
+    raw volumes for the device augmentation) or vit.yaml's fft at depth 2
+    (B8); random init from seed 0 on the card, the same in every process."""
+    import dataclasses
+
+    import torch
+
+    from gaviko_tpu_torch.models.factory import build_model
+
+    if job.startswith("gaviko"):
+        config = _config(PAR_CONFIG, "gaviko")
+        model = build_model(config["model"])
+        n_seeds, launches = 2 * model.spec.depth, gaviko_train_launches
+    else:
+        config = _config(VIT_CONFIG, "fft")
+        model = build_model(config["model"])
+        model = dataclasses.replace(model, spec=dataclasses.replace(model.spec, depth=2))
+        n_seeds, launches = 1 + 3 * (model.spec.depth - 1) + 4, vit_train_launches
+    params = {k: v.to("cuda") for k, v in
+              model.init(torch.Generator().manual_seed(0), model.spec).items()}
+    return config, model, params, _batches(PAR_B, 5), _step_seeds(n_seeds), launches
+
+
+def _timed_collectives(spent: list) -> None:
+    """Add the seconds of every all_reduce and broadcast (the card synced
+    before and after each) to ``spent[0]``: gloo's, through the host."""
+    import torch
+    import torch.distributed as dist
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return out
+
+        return call
+
+    dist.all_reduce, dist.broadcast = timed(dist.all_reduce), timed(dist.broadcast)
+
+
+def _par_run(job: str, world: int) -> dict:
+    """TRAIN_STEPS bf16 train steps and one eval step of ``job``: on one
+    process through ``make_steps``, or as this rank of a ``PAR_MESH[job]``
+    mesh through ``ParallelTrainer`` (its rows of each global batch, the
+    global batch's augmentation draws). Returns the losses, each step's
+    seconds, collective seconds and kernel launches (counts set to 0 just
+    before a step, read just after), the eval's launches, and on rank 0 the
+    whole resume state on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from gaviko_tpu_torch.core.layers import SeedStream
+    from gaviko_tpu_torch.parallel.mesh import ParallelTrainer, make_mesh
+    from gaviko_tpu_torch.train import loop
+    from gaviko_tpu_torch.train.fused_optim import FusedAdamState
+    from gaviko_tpu_torch.train.losses import make_criterion
+
+    config, model, params, batches, seeds, launches = _par_setup(job)
+    train_cfg = {**config["train"], "precision": "bf16"}
+    criterion = make_criterion(train_cfg)
+    fused = loop.make_optimizer(train_cfg, TRAIN_TOTAL_STEPS)
+    cdt = loop.compute_dtype_of(train_cfg)
+    augment_on = bool(train_cfg.get("device_augment"))
+    trainable, frozen = loop.split_params(model, params)
+    out = {"want_launches": launches(model.spec, "bf16"),
+           "start": {k: v.cpu() for k, v in trainable.items()}}
+    draws = loop.default_step_augment(0)
+    if world == 1:
+        step, eval_step, _ = loop.make_steps(model, criterion, fused, cdt, augment_on)
+        opt, rank, rows = loop.init_opt_state(trainable), 0, slice(None)
+    else:
+        mesh = make_mesh(*PAR_MESH[job])
+        par = ParallelTrainer(model, criterion, fused, mesh, trainable, frozen,
+                              compute_dtype=cdt, device_augment=augment_on)
+        step, eval_step = par.train_step, par.eval_step
+        trainable, frozen, opt, rank = par.trainable, par.frozen, par.opt_state, mesh.rank
+        per = PAR_B // mesh.data
+        rows = slice(mesh.d * per, (mesh.d + 1) * per)
+    spent, wrappers = [0.0], _wrappers()
+    if world > 1:
+        _timed_collectives(spent)
+    out.update(losses=[], step_s=[], collective_s=[], launches=[])
+    for i, ((x, y), s) in enumerate(zip(batches, seeds)):
+        for w in wrappers.values():
+            w.launches = 0
+        spent[0] = 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainable, opt, loss, _ = step(trainable, opt, frozen, x[rows], y[rows], SeedStream(s),
+                                       draws(i, PAR_B) if augment_on else None)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t)
+        out["collective_s"].append(spent[0])
+        out["losses"].append(loss)
+        out["launches"].append({n: w.launches for n, w in wrappers.items()})
+    for w in wrappers.values():
+        w.launches = 0
+    eval_loss, _, logits = eval_step(trainable, frozen, *(t[rows] for t in batches[0]))
+    out["eval_loss"], out["eval_launches"] = float(eval_loss), {
+        n: w.launches for n, w in wrappers.items()}
+    out["eval_logits"] = logits.float().cpu()
+    if world > 1:
+        trainable, opt = par.gather_state(trainable, opt)
+    if rank == 0:
+        out["state"] = ({k: v.cpu() for k, v in trainable.items()},
+                        FusedAdamState(opt.count, {k: v.cpu() for k, v in opt.mu.items()},
+                                       {k: v.cpu() for k, v in opt.nu.items()}))
+    if world > 1:
+        dist.barrier()
+    return out
+
+
+def _par_rank(rank: int, world: int, out_dir: str, job: str) -> None:
+    """A spawned rank: joins the gloo group on cuda:0 and runs ``_par_run``."""
+    import torch
+    import torch.distributed as dist
+
+    if job == "vit_tp":
+        os.environ["GAVIKO_LNQKV_HYBRID"] = "1"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", world_size=world,
+                            rank=rank)
+    try:
+        torch.save(_par_run(job, world), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(job: str, world: int, out_dir: str) -> list:
+    """``world`` ranks of ``job``, each joined within PAR_TIMEOUT_S; a rank
+    that dies or hangs fails the phase (the others are killed)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.start_processes(_par_rank, args=(world, out_dir, job), nprocs=world,
+                             start_method="spawn", join=False)
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"parallel {job}: the ranks outlasted {PAR_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _state_diff(got, want, start) -> dict:
+    """The 2-rank resume state against the 1-rank one: same keys, shapes and
+    dtypes; for the params (their update from ``start``), mu and nu, the
+    relative MAE and cosine over every leaf together, and the worst leaf's
+    own relative MAE (and its name)."""
+    (gp, gopt), (wp, wopt) = got, want
+    if set(gp) != set(wp) or any(gp[k].shape != wp[k].shape or gp[k].dtype != wp[k].dtype
+                                 for k in wp) or gopt.count != wopt.count:
+        raise RuntimeError("parallel: the gathered resume state differs in its leaves")
+    out = {}
+    for name, g, w in (("params_update", {k: gp[k] - start[k] for k in wp},
+                        {k: wp[k] - start[k] for k in wp}),
+                       ("mu", gopt.mu, wopt.mu), ("nu", gopt.nu, wopt.nu)):
+        a = np.concatenate([g[k].double().flatten().numpy() for k in sorted(w)])
+        b = np.concatenate([w[k].double().flatten().numpy() for k in sorted(w)])
+        scale = float(np.abs(b).mean())
+        leaf = {k: _rel_mae(g[k], w[k]) for k in w}
+        worst = max(leaf, key=leaf.get)
+        out[name] = {"rel_mae": float(np.abs(a - b).mean()) / scale,
+                     "cosine": float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))),
+                     "worst_leaf": leaf[worst], "worst_leaf_name": worst}
+    return out
+
+
+def phase_parallel_two(root: str, card: str) -> dict:
+    """2 ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
+    card): GAViKO vit-l16 of gaviko_tpu.yaml with data 2 and ZeRO, then data
+    1 x model 2 (the frozen backbone's heads and hidden split), and vit.yaml
+    fft at depth 2 with model 2 and GAVIKO_LNQKV_HYBRID=1 (B6, B7, B9, B12
+    and B8 on their shards): 3 bf16 steps of the global batch 8 and an eval
+    step from the seeds and batches of a 1-rank run of the same global batch
+    (``make_steps``), held to it under the bf16 train-check budgets: per-step
+    loss, the update of the trainable tensors and the whole resume state
+    gathered by the ranks (rank 0 writes it; the same leaves as the 1-rank
+    state), over all leaves and leaf by leaf (PAR_LEAF_BUDGET), and the
+    eval step's logits and loss (B8 and B9 on their shards in vit_tp's).
+    Each step's launches on each rank are the 1-rank step's.
+    Prints the wall and collective seconds a step: gloo through the host,
+    not an NCCL figure."""
+    import torch
+
+    from gaviko_tpu_torch.utils.checkpoint import save_train_state
+
+    loss_budget, _, grad_budget, cos_floor = TRAIN_BUDGET["bf16"]
+    lines = {}
+    for job in PAR_MESH:
+        t0 = time.perf_counter()
+        with _lnqkv_hybrid(job == "vit_tp"):
+            one = _par_run(job, 1)
+        start, want_launches = one["start"], one["want_launches"]
+        torch.cuda.empty_cache()
+        ranks = _spawn_ranks(job, 2, os.path.join(root, job))
+        two = ranks[0]
+        for name, res in (("one", one), ("two", two)):
+            save_train_state(os.path.join(root, f"{job}_{name}.npz"), *res["state"],
+                             meta={"epoch": 1, "global_step": TRAIN_STEPS})
+        with np.load(os.path.join(root, f"{job}_one.npz")) as a, \
+                np.load(os.path.join(root, f"{job}_two.npz")) as b:
+            same_files = (sorted(a.files) == sorted(b.files)
+                          and all(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
+                                  for k in a.files))
+        diff = _state_diff(two["state"], one["state"], start)
+        loss_rel = [abs(x - w) / abs(w) for x, w in zip(two["losses"], one["losses"])]
+        eval_rel = abs(two["eval_loss"] - one["eval_loss"]) / abs(one["eval_loss"])
+        logits_rel = _rel_mae(two["eval_logits"], one["eval_logits"])
+        line = {"phase": "parallel_two", "job": job, "mesh": "x".join(map(str, PAR_MESH[job])),
+                "backend": "gloo, both ranks on cuda:0 (collectives through the host; not "
+                           "an NCCL figure)",
+                "losses": two["losses"], "one_rank_losses": one["losses"],
+                "loss_rel": loss_rel, "eval_loss": two["eval_loss"],
+                "one_rank_eval_loss": one["eval_loss"], "eval_loss_rel": eval_rel,
+                "eval_logits_rel_mae": logits_rel,
+                "state": diff, "resume_files_same_leaves": same_files,
+                "step_s": {f"rank{r}": res["step_s"] for r, res in enumerate(ranks)},
+                "collective_s": {f"rank{r}": res["collective_s"]
+                                 for r, res in enumerate(ranks)},
+                "one_rank_step_s": one["step_s"],
+                "launches": {f"rank{r}": res["launches"][-1] for r, res in enumerate(ranks)},
+                "eval_launches": {f"rank{r}": res["eval_launches"]
+                                  for r, res in enumerate(ranks)},
+                "seconds": time.perf_counter() - t0, "card": card,
+                "budget": {"loss_rel": loss_budget, "rel_mae": grad_budget,
+                           "cosine": cos_floor, "eval_logits_rel_mae": BF16_BUDGET,
+                           "worst_leaf": PAR_LEAF_BUDGET[job.split("_")[0]]}}
+        print(json.dumps(line), flush=True)
+        for r, res in enumerate(ranks):
+            if any(c != want_launches for c in res["launches"]):
+                raise RuntimeError(f"parallel {job}: rank {r} launches {res['launches']}, "
+                                   f"want {want_launches} a step")
+            if res["eval_launches"] != one["eval_launches"]:
+                raise RuntimeError(f"parallel {job}: rank {r} eval launches "
+                                   f"{res['eval_launches']}, one rank {one['eval_launches']}")
+        if max(loss_rel) > loss_budget or not same_files:
+            raise RuntimeError(f"parallel {job}: loss rel {loss_rel}, same leaves {same_files}")
+        if not (eval_rel <= loss_budget and logits_rel <= BF16_BUDGET):
+            raise RuntimeError(f"parallel {job}: eval loss rel {eval_rel}, logits rel MAE "
+                               f"{logits_rel} outside the bf16 budget")
+        for name, d in diff.items():
+            if not (d["rel_mae"] <= grad_budget and d["cosine"] >= cos_floor
+                    and d["worst_leaf"] <= PAR_LEAF_BUDGET[job.split("_")[0]][name]):
+                raise RuntimeError(f"parallel {job}: {name} {d} outside the bf16 budget")
+        lines[job] = line
+        if job == "gaviko_dp":
+            lines["gaviko_trainable_shapes"] = [tuple(v.shape) for v in start.values()]
+    return lines
+
+
+def phase_parallel_kernels(card: str, shapes) -> dict:
+    """A and B on GAViKO's tensor-parallel shard (vit-l16 B4: heads 8..15 of
+    16, 1,040 rows, dropout 0.1 to exercise the head offset's bits) against
+    their plain versions and bit-equal to the whole layer's kernels on those
+    heads; B13's sharded step (norm kernel, a device scalar, update kernel)
+    at GAViKO's trainable leaves bit-equal to its one-launch step (0 ULP)."""
+    import torch
+
+    from gaviko_tpu_torch.ops import fused_adam as fa
+    from gaviko_tpu_torch.ops.flash_attention import (
+        fused_mhsa, fused_mhsa_bwd, mhsa_bwd_reference, mhsa_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, n_pad, n_true, H, heads, head0, D = 4, 1040, 1033, 16, 8, 8, 64
+    dt = torch.bfloat16
+    qkv = (torch.randn(B, n_pad, 3 * H * D, generator=gen, device="cuda")).to(dt)
+    dout = (torch.randn(B, n_pad, H * D, generator=gen, device="cuda")).to(dt)
+    cols = torch.cat([torch.arange(head0 * D, (head0 + heads) * D, device="cuda") + j * H * D
+                      for j in range(3)])
+    part, o = qkv[..., cols].contiguous(), slice(head0 * D, (head0 + heads) * D)
+    pdout = dout[..., o].contiguous()
+    kw = dict(heads_total=H, head0=head0)
+    scale = D ** -0.5
+
+    def fwd():
+        return fused_mhsa(part, heads, D, scale, n_true, 0.1, True, 99, **kw)
+
+    out, lse = fwd()
+    dq = fused_mhsa_bwd(part, out, lse, pdout, heads, D, scale, n_true, 0.1, 99, **kw)
+    want = mhsa_reference(part, heads, D, scale, n_true, 0.1, False, 99, **kw)
+    dwant = mhsa_bwd_reference(part, out, lse, pdout, heads, D, scale, n_true, 0.1, 99, **kw)
+    whole, wlse = fused_mhsa(qkv, H, D, scale, n_true, 0.1, True, 99)
+    wd = fused_mhsa_bwd(qkv, whole, wlse, dout, H, D, scale, n_true, 0.1, 99)
+    line = {"phase": "parallel_kernels", "shard": f"heads {head0}..{head0 + heads - 1} of {H}",
+            "fused_mhsa_rel_mae": _rel_mae(out[:, :n_true], want[:, :n_true]),
+            "fused_mhsa_bwd_rel_mae": _rel_mae(dq, dwant),
+            "fused_mhsa_equal_to_whole_layer": bool(torch.equal(out, whole[..., o])),
+            "fused_mhsa_bwd_equal_to_whole_layer": bool(torch.equal(dq, wd[..., cols])),
+            "fused_mhsa_ms": _median_ms(fwd),
+            "fused_mhsa_bwd_ms": _median_ms(lambda: fused_mhsa_bwd(
+                part, out, lse, pdout, heads, D, scale, n_true, 0.1, 99, **kw))}
+    # B13 at GAViKO's trainable leaves (f32): the sharded step on one rank.
+    grads, mu, nu, params = _adam_leaves(shapes, torch.float32, gen, 1.0)
+    scalars = (3e-4, 0.93, 0.1351, 0.00299)
+    runs = []
+    for reduce in (None, lambda t: None):
+        state = [[t.clone() for t in ts] for ts in (mu, nu, params)]
+        runs.append(fa.fused_adam(grads, *state, *scalars, clip=1.0, eps=1e-8,
+                                  norm_reduce=reduce))
+    line["fused_adam_sharded_equal_to_one_launch"] = all(
+        torch.equal(x, y) for a, b in zip(*runs) for x, y in zip(a, b))
+    line["fused_adam_leaves"] = len(shapes)
+    line["card"] = card
+    print(json.dumps(line), flush=True)
+    if not (line["fused_mhsa_rel_mae"] <= BF16_BUDGET and line["fused_mhsa_bwd_rel_mae"]
+            <= BF16_BUDGET and line["fused_mhsa_equal_to_whole_layer"]
+            and line["fused_mhsa_bwd_equal_to_whole_layer"]
+            and line["fused_adam_sharded_equal_to_one_launch"]):
+        raise RuntimeError(f"parallel_kernels: {line}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -3065,6 +3523,17 @@ def main() -> int:
         trainer_input = phase_trainer_input(root, pretrained, sample, smi)
     input_launches = trainer_input["step_launches"][-1]
 
+    # Multi-device training (parallel/mesh.py): gaviko_tpu.yaml through
+    # cli.train on a 1 x 1 mesh, then 2 ranks on cuda:0 over gloo against
+    # one rank, then A and B on a head shard and B13's sharded step.
+    with tempfile.TemporaryDirectory(prefix="gaviko_parallel_") as root:
+        par_one = phase_parallel_one(root, smi)
+        par_two = phase_parallel_two(root, smi)
+    phase_parallel_kernels(smi, par_two.pop("gaviko_trainable_shapes"))
+    parallel_launches = {"parallel_one": par_one["step_launches"][-1],
+                         **{job: line["launches"]["rank0"] for job, line in par_two.items()},
+                         "vit_tp_eval": par_two["vit_tp"]["eval_launches"]["rank0"]}
+
     # Each kernel at the shapes of the path LINE_PATH names, with that
     # path's launches: the local attention kernels at GAViKO's B4 fp32 train
     # shapes; patchify, A, B, B6 and B7 at the vit-b16 B8 bf16 train shapes;
@@ -3093,6 +3562,9 @@ def main() -> int:
                 row[key] = line[key]
         row["zoo_launches"] = {run: c[n] for run, c in zoo.items() if c[n]}
         row["trainer_input_launches"] = input_launches[n]
+        if row_name == n:  # the parallel runs are at head dim 64 and vit-b16 / vit-l16 widths
+            row["parallel_launches"] = {run: c[n] for run, c in parallel_launches.items()
+                                        if c[n]}
         rows.append(row)
     # B13 at f32 storage (both runs keep f32 masters and moments), with its
     # run's B13 launches (one a step: its norm kernel, then its update).
@@ -3106,7 +3578,9 @@ def main() -> int:
                                              "leaves", "elements", "path")},
                      "zoo_launches": {run: c["fused_adam"] for run, c in zoo.items()
                                       if c["fused_adam"]},
-                     "trainer_input_launches": input_launches["fused_adam"]})
+                     "trainer_input_launches": input_launches["fused_adam"],
+                     "parallel_launches": {run: parallel_launches[run]["fused_adam"]
+                                           for run in PAR_ADAM_RUNS[row_name]}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}),
           flush=True)

@@ -5,9 +5,15 @@
 
 POST an .npz body (key ``data``, shape (D, H, W)) to /predict; GET /healthz,
 GET /metrics. The flags are the JAX package's (``gaviko_tpu/cli/serve.py``);
-``--quantize int8`` serves with the int8 backbone GEMMs; ``--artifact`` and
-``--mesh`` are not ported yet and exit with an error naming their ROADMAP
-item. The model runs on the CUDA card.
+``--quantize int8`` serves with the int8 backbone GEMMs; ``--artifact`` is
+not ported yet and exits with an error naming its ROADMAP item. The model
+runs on the CUDA card.
+
+``--mesh data,tp`` serves on data x tp ranks (``Predictor(mesh_shape=...)``):
+launch that many processes, e.g. ``torchrun --nproc_per_node 2 -m
+gaviko_tpu_torch.cli.serve ... --mesh 1,2``, or give the config's
+``train.parallel`` topology keys. Rank 0 runs the HTTP server and the
+BatchQueue; the other ranks follow its orders until it stops.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ def main(argv=None):
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
                         help="int8 (w8a8) backbone GEMMs")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="not ported yet (ROADMAP Queue A item 13)")
+                        help="data,tp: serve sharded over data x tp ranks")
     parser.add_argument("--auth_token", type=str, default=None,
                         help="require 'Authorization: Bearer <token>' on POSTs")
     parser.add_argument("--checkpoint_dir", type=str, default=None,
@@ -46,8 +52,14 @@ def main(argv=None):
         parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
     if args.config is None:
         parser.error("--config is required")
+    mesh = None
     if args.mesh is not None:
-        parser.error("--mesh is not ported yet (ROADMAP Queue A item 13)")
+        try:
+            mesh = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            mesh = ()
+        if len(mesh) != 2 or min(mesh) < 1:
+            parser.error(f"--mesh takes data,tp (two positive ints), got {args.mesh!r}")
 
     from gaviko_tpu_torch.serving import Predictor, serve
 
@@ -55,17 +67,35 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     config = load_config(args.config)
     apply_method_override(config, args.method)
+    if mesh is not None:
+        from gaviko_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(config.get("train", {}).get("parallel") or {}, "cuda")
     predictor = Predictor(
         config, checkpoint=args.checkpoint, batch_size=args.batch_size,
         dtype=args.dtype,
         pretrained_dir=config["model"].get("pretrained_dir", "./pretrained"),
-        quantize=args.quantize, device="cuda",
+        quantize=args.quantize, mesh_shape=mesh, device="cuda",
     )
-    serve(
-        predictor, host=args.host, port=args.port,
-        auth_token=args.auth_token, checkpoint_dir=args.checkpoint_dir,
-        max_body_bytes=args.max_body_mb * 1024 * 1024,
-    ).serve_forever()
+    try:
+        if mesh is not None and predictor.mesh.rank != 0:
+            predictor.follow()
+            return
+        server = serve(
+            predictor, host=args.host, port=args.port,
+            auth_token=args.auth_token, checkpoint_dir=args.checkpoint_dir,
+            max_body_bytes=args.max_body_mb * 1024 * 1024,
+        )
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+            predictor.close()
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

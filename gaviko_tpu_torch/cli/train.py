@@ -10,6 +10,13 @@ trainable-only best checkpoints; early stopping; resume and preemption
 default); without one it stops with an error unless ``--device cpu`` asks
 for the CPU, where every kernel runs its plain version. wandb is optional and
 gated on ``config['wandb']['enable']``.
+
+With ``train.parallel.enabled`` each process is one rank of the mesh
+(``parallel/mesh.py``): launch N of them, e.g. ``torchrun --nproc_per_node N
+-m gaviko_tpu_torch.cli.train ...``, or give ``train.parallel``'s
+``coordinator_address`` / ``num_processes`` / ``process_id``. Each rank
+trains on ``cuda:(LOCAL_RANK % cards)``; ranks that share a card talk over
+gloo, else NCCL. One process (``data: auto``) is a 1 x 1 mesh.
 """
 
 from __future__ import annotations
@@ -41,8 +48,10 @@ def resolve_device(device: str) -> torch.device:
     return device
 
 
-def make_loaders(config: dict):
-    """CSV split -> train / val loaders (ref: train.py:33-78)."""
+def make_loaders(config: dict, shard=(0, 1)):
+    """CSV split -> train / val loaders (ref: train.py:33-78); ``shard`` is
+    (this rank's index on the data axis, its size): each loader yields that
+    shard's rows of every global batch."""
     df = read_csv(config["data"]["data_path"])
     image_folder = config["data"].get("image_folder")
     if config["train"].get("device_augment"):
@@ -63,14 +72,25 @@ def make_loaders(config: dict):
     # draws); pad_to_batch keeps every batch one shape, pad rows labelled -100.
     seed = int(config.get("train", {}).get("seed", 0))
     train_loader = loader_cls(train_ds, bs, shuffle=True, num_workers=nw, seed=seed,
-                              pad_to_batch=True)
+                              pad_to_batch=True, shard=shard)
     val_loader = loader_cls(val_ds, bs, shuffle=False, num_workers=nw, seed=seed,
-                            pad_to_batch=True)
+                            pad_to_batch=True, shard=shard)
     return train_loader, val_loader, len(train_ds), len(val_ds)
 
 
 def train(config: dict, device="cuda") -> dict:
     device = resolve_device(device)
+    par_cfg = config["train"].get("parallel") or {}
+    shard = (0, 1)
+    if par_cfg.get("enabled"):
+        from gaviko_tpu_torch.parallel.mesh import init_distributed, mesh_axes, rank_device
+
+        rank, world = init_distributed(par_cfg, device.type)
+        data, model_ax = mesh_axes(par_cfg, world)
+        device = rank_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        shard = (rank // model_ax, data)
     time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     if config.get("wandb", {}).get("enable"):
         try:
@@ -86,7 +106,7 @@ def train(config: dict, device="cuda") -> dict:
                  + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logging.info(f"Phase: {config['utils'].get('phase')}")
 
-    loaders = make_loaders(config)
+    loaders = make_loaders(config, shard)
     model = build_model(config["model"])
     gen = torch.Generator().manual_seed(int(config["train"].get("seed", 0)))
     params = build_params(model, gen,
@@ -123,7 +143,13 @@ def main(argv=None):
         config["train"]["resume"] = args.resume
     setup_logging(log_dir=config["utils"]["log_dir"])
     logging.info(f"Config: {config}")
-    result = train(config, args.device)
+    try:
+        result = train(config, args.device)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if result.get("preempted"):
         logging.info("Preempted cleanly. Continue with: python -m gaviko_tpu_torch.cli.train "
                      "--config %s --method %s --resume auto", args.config, args.method)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from gaviko_tpu_torch.ops.fused_mlp import gelu_erf_fast_f32
 from gaviko_tpu_torch.ops.hash_dropout import keep_mask
 from gaviko_tpu_torch.ops.ln_linear import layer_norm_rounded
+from gaviko_tpu_torch.parallel import shard
 
 Params = Dict[str, torch.Tensor]
 
@@ -125,12 +126,16 @@ def site_seed(rate: float, seeds: Optional[SeedStream]) -> Optional[int]:
 
 
 def dropout(x: torch.Tensor, rate: float, enabled: bool,
-            seeds: Optional[SeedStream]) -> torch.Tensor:
+            seeds: Optional[SeedStream], col_offset: int = 0) -> torch.Tensor:
     """Inverted dropout over x flattened to [rows, last]; a no-op that
-    consumes no seed when disabled or when rate == 0."""
+    consumes no seed when disabled or when rate == 0. In a sharded forward
+    (``parallel/shard.py``) the seed folds in this rank's first batch row and
+    ``col_offset``, the site's first column in a split layer, so the bits
+    are the whole batch's."""
     if not enabled or rate == 0.0:
         return x
-    seed = site_seed(rate, seeds)
+    seed = shard.fold_seed(site_seed(rate, seeds), rows=shard.rows_per_sample(x),
+                           col=col_offset)
     rows = x.numel() // x.shape[-1]
     mask = keep_mask((rows, x.shape[-1]), seed, rate, device=x.device)
     return torch.where(mask.reshape(x.shape), x / (1.0 - rate), torch.zeros_like(x))

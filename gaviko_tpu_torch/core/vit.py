@@ -46,7 +46,13 @@ same route in both packages; the device picks kernel or plain version.
 - ``vit_apply`` / ``vit_init``: the plain 3D ViT of methods ``fft``,
   ``linear`` and ``bitfit``; ``train=True`` turns every dropout on, the
   embedding dropout included, drawing seeds in the order of the JAX
-  package's ``RngStream``.
+  package's ``RngStream``;
+- tensor parallelism (``parallel/shard.py``): in a sharded forward a block
+  whose ``to_qkv`` (or ``net.1``) weight is split over the model group runs
+  on its heads (or hidden columns), between ``copy_in`` and
+  ``reduce_out``, with its output bias (and the fused MLP's residual) on
+  model rank 0 only. Every route gate reads the whole layer's widths, so a
+  rank takes the route one process takes.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from gaviko_tpu_torch.ops.int8_linear import (
 from gaviko_tpu_torch.ops.ln_linear import (
     fused_ln_linear, ln_linear_hybrid, ln_linear_hybrid_supported, ln_linear_supported)
 from gaviko_tpu_torch.ops.patchify import patchify_fused
+from gaviko_tpu_torch.parallel import shard
 
 
 def patchify_embed(p: Params, prefix: str, img: torch.Tensor, spec: ModelSpec,
@@ -85,13 +92,15 @@ def patchify_embed(p: Params, prefix: str, img: torch.Tensor, spec: ModelSpec,
 
 
 def _ln_proj(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
-             train: bool = False) -> torch.Tensor:
+             train: bool = False, out_total: Optional[int] = None) -> torch.Tensor:
     """LN(x) @ w.T: when not training, the fused kernel where the JAX
-    package's gate holds (B9; under a gradient B12 is its backward), else LN
-    and a plain GEMM."""
+    package's gate holds for the layer's ``out_total`` rows (w's own by
+    default; B9, and under a gradient B12 as its backward), else LN and a
+    plain GEMM."""
     gamma, beta = p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]
+    out_total = w.shape[0] if out_total is None else out_total
     if (not train and w.dtype == x.dtype
-            and ln_linear_supported(x.shape[-1], w.shape[0], x.dtype)):
+            and ln_linear_supported(x.shape[-1], out_total, x.dtype)):
         return fused_ln_linear(x, gamma, beta, w)
     return proj(layer_norm(p, f"{prefix}.norm", x), w)
 
@@ -102,15 +111,16 @@ def lnqkv_hybrid_enabled() -> bool:
 
 
 def _qkv(p: Params, prefix: str, x: torch.Tensor, w: torch.Tensor,
-         train: bool) -> Optional[torch.Tensor]:
+         train: bool, out: int) -> Optional[torch.Tensor]:
     """The packed qkv, in the JAX package's order of routes: the int8
     kernel when not training where the site has sidecars; the fused LN+linear
     (B9, with B12 as its backward under a gradient) when not training where
     its gate holds; in training with ``GAVIKO_LNQKV_HYBRID=1``, the hybrid
     route (LN and a GEMM, B12 backward) where its gate holds. None elsewhere:
-    ``mhsa_qkv_proj`` then owns the GEMM."""
+    ``mhsa_qkv_proj`` then owns the GEMM. The gates read the layer's ``out``
+    rows (a tensor-parallel rank's w holds a slice of them)."""
     gamma, beta = p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"]
-    dim, out = x.shape[-1], w.shape[0]
+    dim = x.shape[-1]
     if not train and has_int8(p, f"{prefix}.to_qkv.weight"):
         return _int8(p, f"{prefix}.to_qkv.weight", x, gamma=gamma, beta=beta)
     if w.dtype != x.dtype:
@@ -136,25 +146,45 @@ def attention_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
     dh = spec.dim_head
     n_true = x.shape[1] if n_true is None else n_true
     rate = spec.dropout if train else 0.0
+    s = None if qkv_override is not None else shard.part(f"{prefix}.to_qkv.weight")
+    heads, head0 = _local_heads(spec, s)
+    x = shard.copy_in(x, s)
     if qkv_override is not None:
         w, qkv = None, qkv_override(layer_norm(p, f"{prefix}.norm", x))
     else:
         w = p[f"{prefix}.to_qkv.weight"]
-        qkv = _qkv(p, prefix, x, w, train)
+        qkv = _qkv(p, prefix, x, w, train, 3 * spec.heads * dh)
     if qkv is None and (train or _build.needs_grad(
             x, w, p[f"{prefix}.norm.weight"], p[f"{prefix}.norm.bias"])):
         h = layer_norm(p, f"{prefix}.norm", x)
-        out = self_attention_train(h, w.to(h.dtype), spec.heads, dh, dh ** -0.5, n_true,
-                                   rate, seeds)
+        out = self_attention_train(h, w.to(h.dtype), heads, dh, dh ** -0.5, n_true,
+                                   rate, seeds, spec.heads, head0)
     else:
         if qkv is None:
             qkv = proj(layer_norm(p, f"{prefix}.norm", x), w)
-        out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true, rate, seeds)
+        out = self_attention(qkv, heads, dh, dh ** -0.5, n_true, rate, seeds, spec.heads,
+                             head0)
     if not train and has_int8(p, f"{prefix}.to_out.0.weight"):
         out = _int8(p, f"{prefix}.to_out.0.weight", out, bias=p[f"{prefix}.to_out.0.bias"])
     else:
-        out = linear(p, f"{prefix}.to_out.0", out)
+        out = shard.reduce_out(_out_proj(p, f"{prefix}.to_out.0", out, s), s)
     return dropout(out, spec.dropout, train, seeds)
+
+
+def _local_heads(spec: ModelSpec, s: Optional[shard.Shard]):
+    """(heads, first head) of this rank's slice of a layer (all of it unsplit)."""
+    if s is None:
+        return spec.heads, 0
+    heads = spec.heads // s.tp
+    return heads, s.m * heads
+
+
+def _out_proj(p: Params, prefix: str, x: torch.Tensor, s: Optional[shard.Shard]):
+    """The out-projection of a block; on a split block's model ranks > 0 its
+    bias is left out (the all-reduced sum takes it once)."""
+    if shard.rank0(s):
+        return linear(p, prefix, x)
+    return proj(x, p[f"{prefix}.weight"])
 
 
 def _int8(p: Params, key: str, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -180,19 +210,34 @@ def _int8_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
                     1e-5, spec.gelu, residual=residual)
 
 
-def _mlp_fused(p: Params, prefix: str, x: torch.Tensor) -> bool:
-    """The fused MLP route: wherever the JAX package's gate holds."""
-    return fused_mlp_supported(x.shape[-1], p[f"{prefix}.net.1.weight"].shape[0], x.dtype)
+def _mlp_fused(p: Params, prefix: str, x: torch.Tensor,
+               s: Optional[shard.Shard] = None) -> bool:
+    """The fused MLP route: wherever the JAX package's gate holds for the
+    layer's hidden width (a tensor-parallel rank holds 1 / tp of it)."""
+    hidden = p[f"{prefix}.net.1.weight"].shape[0] * (s.tp if s is not None else 1)
+    return fused_mlp_supported(x.shape[-1], hidden, x.dtype)
 
 
 def _fused_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec,
-               residual: bool, train: bool, seeds: Optional[SeedStream]) -> torch.Tensor:
+               residual: bool, train: bool, seeds: Optional[SeedStream],
+               s: Optional[shard.Shard] = None) -> torch.Tensor:
     """The fused MLP; weights of another dtype than x's (EVP's f32 stream in
-    bf16) are cast to it, as JAX promotes them."""
+    bf16) are cast to it, as JAX promotes them. On a split MLP each rank runs
+    its hidden columns (their dropout bits at the layer's columns), with b2
+    and the residual on model rank 0 only, and the outputs are summed."""
     rate = spec.dropout if train else 0.0
     ws = [p[f"{prefix}.net.{i}.{leaf}"].to(x.dtype)
           for i in (0, 1, 4) for leaf in ("weight", "bias")]
-    return fused_mlp(x, *ws, 1e-5, spec.gelu, rate, residual, site_seed(rate, seeds))
+    seed = site_seed(rate, seeds)
+    if seed is not None:
+        seed = shard.fold_seed(seed, rows=shard.rows_per_sample(x))
+    if s is None:
+        return fused_mlp(x, *ws, 1e-5, spec.gelu, rate, residual, seed)
+    if not shard.rank0(s):
+        ws[-1], residual = torch.zeros_like(ws[-1]), False
+    out = fused_mlp(x, *ws, 1e-5, spec.gelu, rate, residual, seed,
+                    hidden_col0=s.m * ws[2].shape[0])
+    return shard.reduce_out(out, s)
 
 
 def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
@@ -204,12 +249,21 @@ def feedforward_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, 
     the int8 MLP kernel."""
     if not train and has_int8(p, f"{prefix}.net.1.weight"):
         return _int8_mlp(p, prefix, x, spec, False)
-    if _mlp_fused(p, prefix, x):
-        return _fused_mlp(p, prefix, x, spec, False, train, seeds)
+    s = shard.part(f"{prefix}.net.1.weight")
+    x = shard.copy_in(x, s)
+    if _mlp_fused(p, prefix, x, s):
+        return _fused_mlp(p, prefix, x, spec, False, train, seeds, s)
+    return _plain_mlp(p, prefix, x, spec, train, seeds, s)
+
+
+def _plain_mlp(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, train: bool,
+               seeds: Optional[SeedStream], s: Optional[shard.Shard]) -> torch.Tensor:
+    """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout in plain GEMMs;
+    on a split MLP, this rank's hidden columns (x already past ``copy_in``)."""
     h = layer_norm(p, f"{prefix}.net.0", x)
     h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
-    h = dropout(h, spec.dropout, train, seeds)
-    h = linear(p, f"{prefix}.net.4", h)
+    h = dropout(h, spec.dropout, train, seeds, col_offset=s.m * h.shape[-1] if s else 0)
+    h = shard.reduce_out(_out_proj(p, f"{prefix}.net.4", h, s), s)
     return dropout(h, spec.dropout, train, seeds)
 
 
@@ -220,24 +274,28 @@ def feedforward_block_res(p: Params, prefix: str, x: torch.Tensor, spec: ModelSp
     inside the kernel."""
     if not train and has_int8(p, f"{prefix}.net.1.weight"):
         return _int8_mlp(p, prefix, x, spec, True)
-    if _mlp_fused(p, prefix, x):
-        return _fused_mlp(p, prefix, x, spec, True, train, seeds)
+    s = shard.part(f"{prefix}.net.1.weight")
+    if _mlp_fused(p, prefix, x, s):
+        return _fused_mlp(p, prefix, shard.copy_in(x, s), spec, True, train, seeds, s)
     return feedforward_block(p, prefix, x, spec, train=train, seeds=seeds) + x
 
 
 def cls_attend(kv: torch.Tensor, q0: torch.Tensor, spec: ModelSpec, *,
                n_true: int, train: bool = False,
-               seeds: Optional[SeedStream] = None) -> torch.Tensor:
+               seeds: Optional[SeedStream] = None, heads: Optional[int] = None,
+               head0: int = 0) -> torch.Tensor:
     """Single-query attention core: kv (B, N, 2*inner) packed [K | V], q0
     (B, inner) -> (B, inner); the kernel at inference where the JAX
     package's gate holds, in training a differentiable form with dropout
     (one seed) on the (B, N, heads) probabilities, else the kernel's plain
-    version (the JAX package's XLA twin)."""
-    heads, dh = spec.heads, spec.dim_head
+    version (the JAX package's XLA twin). ``heads`` and ``head0``: a
+    tensor-parallel rank's heads [head0, head0 + heads) of the layer's."""
+    dh = spec.dim_head
+    heads = spec.heads if heads is None else heads
     B, N, _ = kv.shape
     inner = heads * dh
     if (not train and not _build.needs_grad(kv, q0)
-            and cls_attention_supported(heads, dh, N, kv.dtype)):
+            and cls_attention_supported(spec.heads, dh, N, kv.dtype)):
         return cls_attention(kv, q0, heads, dh, dh ** -0.5, n_true)
     if train and spec.dropout > 0.0:
         k, v = kv[..., :inner].float(), kv[..., inner:].float()
@@ -245,7 +303,7 @@ def cls_attend(kv: torch.Tensor, q0: torch.Tensor, spec: ModelSpec, *,
         if n_true != N:
             s = s.masked_fill((torch.arange(N, device=s.device) >= n_true)[:, None],
                               float("-inf"))
-        a = dropout(torch.softmax(s, dim=1), spec.dropout, train, seeds)
+        a = dropout(torch.softmax(s, dim=1), spec.dropout, train, seeds, col_offset=head0)
         return (v.reshape(B, N, heads, dh) * a[..., None]).sum(1).reshape(B, inner)
     return cls_attention_reference(kv, q0, heads, dh, dh ** -0.5, n_true)
 
@@ -256,12 +314,16 @@ def attention_cls_branch(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpe
     """Attention branch output for query row 0 only, (B, dim): exactly
     ``attention_block(...)[:, 0]``. K and V span every real row; Q, the
     scores and the out-projection are needed for one row."""
-    inner = spec.heads * spec.dim_head
+    s = shard.part(f"{prefix}.to_qkv.weight")
+    heads, head0 = _local_heads(spec, s)
+    inner = heads * spec.dim_head
+    x = shard.copy_in(x, s)
     wq = p[f"{prefix}.to_qkv.weight"]  # (3*inner, dim); rows = [q | k | v]
-    kv = _ln_proj(p, prefix, x, wq[inner:], train)
+    kv = _ln_proj(p, prefix, x, wq[inner:], train, 2 * spec.heads * spec.dim_head)
     q0 = proj(layer_norm(p, f"{prefix}.norm", x[:, 0]), wq[:inner])
-    out = cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds)
-    out = linear(p, f"{prefix}.to_out.0", out.to(x.dtype))
+    out = cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds, heads=heads,
+                     head0=head0)
+    out = shard.reduce_out(_out_proj(p, f"{prefix}.to_out.0", out.to(x.dtype), s), s)
     return dropout(out, spec.dropout, train, seeds)
 
 
@@ -282,10 +344,8 @@ def feedforward_cls_branch(p: Params, prefix: str, c: torch.Tensor,
                            spec: ModelSpec, *, train: bool = False,
                            seeds: Optional[SeedStream] = None) -> torch.Tensor:
     """MLP branch on the pooled (B, dim) CLS rows (last-layer fast path)."""
-    h = layer_norm(p, f"{prefix}.net.0", c)
-    h = gelu_spec(linear(p, f"{prefix}.net.1", h), spec.gelu)
-    h = dropout(h, spec.dropout, train, seeds)
-    return dropout(linear(p, f"{prefix}.net.4", h), spec.dropout, train, seeds)
+    s = shard.part(f"{prefix}.net.1.weight")
+    return _plain_mlp(p, prefix, shard.copy_in(c, s), spec, train, seeds, s)
 
 
 def add_cls_and_pos(p: Params, tokens: torch.Tensor) -> torch.Tensor:

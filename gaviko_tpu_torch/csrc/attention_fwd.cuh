@@ -16,9 +16,11 @@
 // n_keys are -inf, p = exp2(s - m), the row sum l is taken in f32 from the
 // unrounded p before dropout, p is rounded to the input dtype for P V, and
 // out = o * drop_scale / l is rounded once. Dropout (A only, csrc/common.cuh)
-// drops element (query row r, key j) of plane salt = b * heads + h unless
-// keep_bit(r, j, salt, seed); no bit is computed at rate 0 (threshold
-// INT32_MIN). With lse != nullptr each row's m + log2(l) is written for the
+// drops element (query row r, key j) of plane salt = b * heads_total +
+// head0 + h unless keep_bit(r, j, salt, seed): heads_total and head0 place
+// the launch's heads in a wider layer (a tensor-parallel rank's heads
+// [head0, head0 + H) of heads_total), and default to H and 0. No bit is
+// computed at rate 0 (threshold INT32_MIN). With lse != nullptr each row's m + log2(l) is written for the
 // backward (csrc/fused_mhsa_bwd.cu).
 //
 // What bounds it on the H100: at the shipped shapes both products are
@@ -107,6 +109,8 @@ struct Params {
   int nck;        // chunks of S = Q K^T: D in chunks of 128 bytes
   int slice_chunks, n_slices;  // chunks of an output slice (the last may hold fewer)
   int heads;
+  int salt_heads;   // the dropout plane of (b, h) is b * salt_heads + salt0 + h
+  uint32_t salt0;
   float q_mult, s_mult;
   uint32_t seed;
   int32_t threshold;  // INT32_MIN: no dropout
@@ -334,7 +338,7 @@ struct Fwd {
         l0 += e[0] + e[1];
         l1 += e[2] + e[3];
         if (dropping) {
-          const uint32_t col = k0 + 8 * j + 2 * t, ra = r0, salt = b * p.heads + h;
+          const uint32_t col = k0 + 8 * j + 2 * t, ra = r0, salt = b * p.salt_heads + p.salt0 + h;
           if (!keep_bit(ra, col, salt, p.seed, p.threshold)) e[0] = 0.0f;
           if (!keep_bit(ra, col + 1, salt, p.seed, p.threshold)) e[1] = 0.0f;
           if (!keep_bit(ra + 8, col, salt, p.seed, p.threshold)) e[2] = 0.0f;
@@ -453,7 +457,8 @@ template <typename T>
 int forward(const View& q, const View& k, const View& v, T* o, long long o_b, long long o_h,
             long long o_n, float* lse, long long lse_b, long long lse_h, int B, int H, int D,
             int n_keys, const int* plan, float q_mult, float s_mult, uint32_t seed,
-            int32_t threshold, float drop_scale, void* stream) {
+            int32_t threshold, float drop_scale, void* stream, int heads_total = 0,
+            int head0 = 0) {
   constexpr int CW = ROW_BYTES / static_cast<int>(sizeof(T)), MAXG = max_groups<T>();
   const int groups = plan[0], slice_chunks = plan[2], rows = plan[3];
   const bool general = plan[1] != 0, q_stream = plan[4] != 0;
@@ -469,6 +474,8 @@ int forward(const View& q, const View& k, const View& v, T* o, long long o_b, lo
   p.slice_chunks = slice_chunks;
   p.n_slices = (p.nck + slice_chunks - 1) / slice_chunks;
   p.heads = H;
+  p.salt_heads = heads_total > 0 ? heads_total : H;
+  p.salt0 = static_cast<uint32_t>(head0);
   p.q_mult = q_mult;
   p.s_mult = s_mult;
   p.seed = seed;

@@ -32,6 +32,15 @@
 // Every block forms the same gn and scale in the same order, with no
 // atomics and no host round trip, so reruns are bit-equal.
 //
+// A sharded step (train.parallel: a rank updates its ZeRO slices and
+// tensor-parallel shards) needs the norm of the whole gradient, which no
+// rank holds. It runs the two launches apart, as two entry points:
+// gaviko_fused_adam_sumsq writes the sum of squares of the leaves the rank
+// counts (a prefix of its table) to one f64 on the device, in the order the
+// update sums its partials; the caller all-reduces that scalar over the
+// ranks; gaviko_fused_adam_apply runs adam_update on it. With one rank the
+// result is bit-equal to the two-launch step.
+//
 // The table holds, per leaf, the g, m, v and p pointers, the element count,
 // the first chunk index and the byte offset modulo 16 that m, v and p
 // share (-1 where they do not), and the leaf of every chunk, so a block
@@ -407,6 +416,39 @@ int launch(const long long* table, int n, long long n_chunks, double* partials,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One warp sums n_partials partials into *total in step_of's order, so an
+// update that reads *total as its only partial forms the same gn.
+__global__ void adam_total(const double* partials, int n_partials, double* total) {
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n_partials; i += 32) s += __ldcg(partials + i);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (threadIdx.x == 0) *total = s;
+}
+
+template <typename T>
+int launch_sumsq(const long long* table, int n, long long n_chunks, double* partials, int n_sum,
+                 double* total, void* stream) {
+  if (n < 1 || n_chunks < 0 || (n_chunks > 0 && n_sum < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_chunks == 0) return static_cast<int>(cudaMemsetAsync(total, 0, sizeof(double), s));
+  adam_sumsq<T><<<n_sum, THREADS, 0, s>>>(table, n, n_chunks, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  adam_total<<<1, 32, 0, s>>>(partials, n_sum, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_apply(const long long* table, int n, long long n_chunks, const double* total,
+                 int n_update, float clip, float b2, float omb2, float eps, void* stream) {
+  if (n < 1 || n_chunks < 1 || n_update < 1) return static_cast<int>(cudaErrorInvalidValue);
+  adam_update<T><<<n_update, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, n, n_chunks, total, 1, clip, b2, omb2, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // table: the int64 device table above for n leaves of one storage dtype
@@ -425,3 +467,21 @@ int launch(const long long* table, int n, long long n_chunks, double* partials,
   }
 GAVIKO_FUSED_ADAM(gaviko_fused_adam_f32, float)
 GAVIKO_FUSED_ADAM(gaviko_fused_adam_bf16, __nv_bfloat16)
+
+// The sharded step's two halves. sumsq: the sum of squares of the gradients
+// of the table's first n_chunks chunks (0: none) into total (one f64 on the
+// device), on n_sum blocks, partials their scratch. apply: the update of
+// every chunk of the table, its clip scale from the global norm sqrt(*total).
+#define GAVIKO_FUSED_ADAM_SPLIT(SUMSQ, APPLY, T)                                               \
+  extern "C" int SUMSQ(const long long* table, int n, long long n_chunks, double* partials,   \
+                       int n_sum, double* total, void* stream) {                              \
+    return launch_sumsq<T>(table, n, n_chunks, partials, n_sum, total, stream);               \
+  }                                                                                            \
+  extern "C" int APPLY(const long long* table, int n, long long n_chunks, const double* total, \
+                       int n_update, float clip, float b2, float omb2, float eps,             \
+                       void* stream) {                                                         \
+    return launch_apply<T>(table, n, n_chunks, total, n_update, clip, b2, omb2, eps, stream); \
+  }
+GAVIKO_FUSED_ADAM_SPLIT(gaviko_fused_adam_sumsq_f32, gaviko_fused_adam_apply_f32, float)
+GAVIKO_FUSED_ADAM_SPLIT(gaviko_fused_adam_sumsq_bf16, gaviko_fused_adam_apply_bf16,
+                        __nv_bfloat16)

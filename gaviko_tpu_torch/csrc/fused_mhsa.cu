@@ -3,8 +3,10 @@
 // Replaces gaviko_tpu/ops/flash_attention.py:_fused_mhsa_kernel
 // (_fused_mhsa_forward / fused_mhsa / mhsa_qkv_proj's forward), with the
 // TPU kernel's dropout on the probabilities: element (query row r, key j) of
-// batch b and head h is kept iff keep_bit(r, j, salt = b * heads + h, seed)
-// (csrc/common.cuh). The row sum l is taken before dropout, so the lse below
+// batch b and head h is kept iff keep_bit(r, j, salt = b * heads_total +
+// head0 + h, seed) (csrc/common.cuh; heads_total and head0 place a
+// tensor-parallel rank's heads in the whole layer, as the TPU kernel's salt
+// over the whole layer's heads). The row sum l is taken before dropout, so the lse below
 // is unchanged by it, and 1 / (1 - rate) folds into the output. At rate 0
 // (threshold INT32_MIN) no bit is computed. When asked (lse != nullptr) it
 // also writes each row's softmax statistic for the backward
@@ -41,9 +43,10 @@ namespace {
 template <typename T>
 int run(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int dim_head,
         int n_true, const int* plan, float scale, int seed, int threshold, float drop_scale,
-        void* stream) {
+        int heads_total, int head0, void* stream) {
   using gaviko::attn::View;
-  if (dim_head < 1 || dim_head % 8 || heads < 1 || n_true < 1 || n_true > n_pad)
+  if (dim_head < 1 || dim_head % 8 || heads < 1 || n_true < 1 || n_true > n_pad ||
+      heads_total < heads || head0 < 0 || head0 > heads_total - heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long inner = static_cast<long long>(heads) * dim_head, row = 3 * inner;
   const T* base = static_cast<const T*>(qkv);
@@ -54,7 +57,7 @@ int run(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int
       q, k, v, static_cast<T*>(out), n_pad * inner, dim_head, inner, lse,
       static_cast<long long>(heads) * n_pad, n_pad, B, heads, dim_head, n_true, plan,
       scale * gaviko::attn::LOG2E, 1.0f, static_cast<uint32_t>(seed), threshold, drop_scale,
-      stream);
+      stream, heads_total, head0);
 }
 
 }  // namespace
@@ -64,19 +67,21 @@ int run(const void* qkv, void* out, float* lse, int B, int n_pad, int heads, int
 // heads, n_pad] f32, or nullptr. plan is the tile's (groups, general, slice
 // chunks, rows, Q streamed) (csrc/attention_fwd.cuh:forward). threshold is
 // hash_dropout._threshold(rate) (INT32_MIN at rate 0: no dropout),
-// drop_scale 1 / (1 - rate).
+// drop_scale 1 / (1 - rate). heads_total and head0 (heads and 0 for a whole
+// layer): the launch's heads are heads [head0, head0 + heads) of a layer of
+// heads_total, for the dropout planes.
 extern "C" int gaviko_fused_mhsa_bf16(const void* qkv, void* out, float* lse, int B, int n_pad,
                                       int heads, int dim_head, int n_true, const int* plan,
                                       float scale, int seed, int threshold, float drop_scale,
-                                      void* stream) {
+                                      int heads_total, int head0, void* stream) {
   return run<__nv_bfloat16>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, plan, scale,
-                            seed, threshold, drop_scale, stream);
+                            seed, threshold, drop_scale, heads_total, head0, stream);
 }
 
 extern "C" int gaviko_fused_mhsa_f32(const void* qkv, void* out, float* lse, int B, int n_pad,
                                      int heads, int dim_head, int n_true, const int* plan,
                                      float scale, int seed, int threshold, float drop_scale,
-                                     void* stream) {
+                                     int heads_total, int head0, void* stream) {
   return run<float>(qkv, out, lse, B, n_pad, heads, dim_head, n_true, plan, scale, seed,
-                    threshold, drop_scale, stream);
+                    threshold, drop_scale, heads_total, head0, stream);
 }

@@ -2,8 +2,8 @@
 //
 // Replaces gaviko_tpu/ops/flash_attention.py:_fused_mhsa_bwd_kernel
 // (_mhsa_bwd_core, the backward of fused_mhsa and of mhsa_qkv_proj), with the
-// forward's dropout mask replayed from (seed, query row, key, b * heads + h)
-// (csrc/fused_mhsa.cu).
+// forward's dropout mask replayed from (seed, query row, key, b * heads_total
+// + head0 + h) (csrc/fused_mhsa.cu).
 //
 // From qkv [B, n_pad, 3 * heads * hd], the forward's output O and its
 // per-row statistic lse = m + log2(l) (csrc/fused_mhsa.cu, log2 units,
@@ -90,6 +90,8 @@ struct BwdParams {
   int nck;        // chunks of 128 bytes over d
   int slice_chunks, n_slices;  // this pass's output slices (the last may hold fewer)
   int heads, inner;
+  int salt_heads;   // the dropout plane of (b, h) is b * salt_heads + salt0 + h
+  uint32_t salt0;
   float scale_log2e, scale;
   uint32_t seed;
   int32_t threshold;  // INT32_MIN: no dropout
@@ -364,7 +366,7 @@ struct Bwd {
     const int g = lane / 4, t = lane % 4;  // fragment row group, thread in group
     const int wr = warp * 16;              // the warp's first owned row in the CTA
     const int r0 = o0 + wr + g;            // this thread's owned rows: r0 and r0 + 8
-    const uint32_t salt = b * p.heads + h;
+    const uint32_t salt = b * p.salt_heads + p.salt0 + h;
     const long long plane = (static_cast<long long>(b) * p.heads + h) * p.n_pad;
 
     float lse0 = 0.0f, lse1 = 0.0f, dl0 = 0.0f, dl1 = 0.0f;  // the dq pass's owned rows
@@ -568,9 +570,11 @@ cudaError_t pass(int groups, const CUtensorMap (&m)[4], const BwdParams& p, int 
 template <typename T>
 int backward(const void* qkv, const void* out, const void* dout, const float* lse, float* delta,
              void* dqkv, int B, int n_pad, int heads, int dim_head, int n_true, const int* plan,
-             float scale, int seed, int threshold, float drop_scale, void* stream) {
+             float scale, int seed, int threshold, float drop_scale, int heads_total,
+             int head0, void* stream) {
   constexpr int CW = ROW_BYTES / static_cast<int>(sizeof(T));
-  if (B < 1 || heads < 1 || dim_head < 1 || dim_head % 8 || n_true < 1 || n_true > n_pad)
+  if (B < 1 || heads < 1 || dim_head < 1 || dim_head % 8 || n_true < 1 || n_true > n_pad ||
+      heads_total < heads || head0 < 0 || head0 > heads_total - heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nck = (dim_head + CW - 1) / CW;
   for (int k = 0; k < 4; k += 2)  // each pass: a slice its accumulators hold
@@ -594,6 +598,8 @@ int backward(const void* qkv, const void* out, const void* dout, const float* ls
   p.nck = nck;
   p.heads = heads;
   p.inner = static_cast<int>(inner);
+  p.salt_heads = heads_total;
+  p.salt0 = static_cast<uint32_t>(head0);
   p.scale_log2e = scale * LOG2E;
   p.scale = scale;
   p.seed = static_cast<uint32_t>(seed);
@@ -624,24 +630,26 @@ int backward(const void* qkv, const void* out, const void* dout, const float* ls
 // dim_head], all contiguous, 16-byte aligned and of one dtype, dim_head a
 // multiple of 8; lse and delta (scratch) [B, heads, n_pad] f32 -> dqkv [B,
 // n_pad, 3 * heads * dim_head] in qkv's dtype. plan as backward() above
-// says. seed, threshold and drop_scale are the forward's (threshold
-// INT32_MIN: no dropout).
+// says. seed, threshold, drop_scale, heads_total and head0 are the
+// forward's (threshold INT32_MIN: no dropout).
 extern "C" int gaviko_fused_mhsa_bwd_bf16(const void* qkv, const void* out, const void* dout,
                                           const float* lse, float* delta, void* dqkv, int B,
                                           int n_pad, int heads, int dim_head, int n_true,
                                           const int* plan, float scale, int seed, int threshold,
-                                          float drop_scale, void* stream) {
+                                          float drop_scale, int heads_total, int head0,
+                                          void* stream) {
   return gaviko::attn::backward<__nv_bfloat16>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads,
                                                dim_head, n_true, plan, scale, seed, threshold,
-                                               drop_scale, stream);
+                                               drop_scale, heads_total, head0, stream);
 }
 
 extern "C" int gaviko_fused_mhsa_bwd_f32(const void* qkv, const void* out, const void* dout,
                                          const float* lse, float* delta, void* dqkv, int B,
                                          int n_pad, int heads, int dim_head, int n_true,
                                          const int* plan, float scale, int seed, int threshold,
-                                         float drop_scale, void* stream) {
+                                         float drop_scale, int heads_total, int head0,
+                                         void* stream) {
   return gaviko::attn::backward<float>(qkv, out, dout, lse, delta, dqkv, B, n_pad, heads,
                                        dim_head, n_true, plan, scale, seed, threshold, drop_scale,
-                                       stream);
+                                       heads_total, head0, stream);
 }

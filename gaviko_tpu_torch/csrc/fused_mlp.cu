@@ -130,14 +130,18 @@ int forward(const Args& a, void* stream) {
 // contiguous, 16-byte aligned, one dtype; dim and mlp multiples of 128.
 // gelu: 0 exact, 1 tanh, 2 erf_fast. threshold is hash_dropout._threshold(
 // rate) (INT32_MIN at rate 0: no dropout), drop_scale 1 / (1 - rate).
+// hidden_col0: the hidden's first column in the whole layer (0 unless a
+// tensor-parallel rank holds a slice of it), for the hidden's dropout bits.
 #define GAVIKO_FUSED_MLP(NAME, T)                                                               \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,       \
                       const void* b1, const void* w2, const void* b2, void* out, void* a_out,   \
                       void* h, void* g, int M, int dim, int mlp, int gelu, int residual,        \
-                      float eps, int seed, int threshold, float drop_scale, void* stream) {     \
+                      float eps, int seed, int threshold, float drop_scale, int hidden_col0,    \
+                      void* stream) {                                                           \
     const gaviko::mlp::Args a{x,   gamma, beta, w1,  b1,   w2,       b2,  out, a_out,          \
                               h,   g,     M,    dim, mlp,  gelu, residual, eps,                \
-                              {static_cast<uint32_t>(seed), threshold, drop_scale}};           \
+                              {static_cast<uint32_t>(seed), threshold, drop_scale,             \
+                               static_cast<uint32_t>(hidden_col0)}};                           \
     return gaviko::mlp::forward<T>(a, stream);                                                  \
   }
 GAVIKO_FUSED_MLP(gaviko_fused_mlp_bf16, __nv_bfloat16)

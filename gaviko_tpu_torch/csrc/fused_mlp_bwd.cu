@@ -223,8 +223,8 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
 // the same dtype and dh [M, dim], mean, rstd [M], part_db2, part_dg, part_db
 // [ceil(M / 16), dim] and part_db1 [ceil(M / 128), mlp] f32. All contiguous
 // and 16-byte aligned; dim and mlp multiples of 128. gelu: 0 exact, 1 tanh,
-// 2 erf_fast. seed, threshold and drop_scale are the forward's (threshold
-// INT32_MIN: no dropout).
+// 2 erf_fast. seed, threshold, drop_scale and hidden_col0 are the forward's
+// (threshold INT32_MIN: no dropout).
 #define GAVIKO_FUSED_MLP_BWD(NAME, T)                                                          \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,      \
                       const void* w2, const void* dy, const void* a, void* dx, void* dgamma,   \
@@ -232,13 +232,14 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
                       void* dout, void* gd, void* da, float* dh, float* mean, float* rstd,     \
                       float* part_db2, float* part_db1, float* part_dg, float* part_db,        \
                       int M, int dim, int mlp, int gelu, int residual, float eps, int seed,    \
-                      int threshold, float drop_scale, void* stream) {                         \
+                      int threshold, float drop_scale, int hidden_col0, void* stream) {        \
     const gaviko::mlp::Ptrs p{x,    gamma, beta, w1,   w2,       dy,       a,       dx,        \
                               dgamma, dbeta, dw1, db1, dw2,      db2,      h,       dout,      \
                               gd,   da,    dh,   mean, rstd,     part_db2, part_db1, part_dg,  \
                               part_db};                                                        \
     return gaviko::mlp::backward<T>(p, M, dim, mlp, gelu, residual, eps,                       \
-                                    {static_cast<uint32_t>(seed), threshold, drop_scale},      \
+                                    {static_cast<uint32_t>(seed), threshold, drop_scale,       \
+                                     static_cast<uint32_t>(hidden_col0)},                      \
                                     stream);                                                   \
   }
 GAVIKO_FUSED_MLP_BWD(gaviko_fused_mlp_bwd_bf16, __nv_bfloat16)

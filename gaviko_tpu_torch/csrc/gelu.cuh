@@ -82,9 +82,10 @@ struct Drop {
   uint32_t seed;
   int32_t threshold;
   float scale;
+  uint32_t col0;  // the hidden's first column in the whole layer (salt 0 only)
   __device__ __forceinline__ float factor(uint32_t row, uint32_t col, uint32_t salt) const {
     if (threshold == INT32_MIN) return 1.0f;
-    return keep_bit(row, col, salt, seed, threshold) ? scale : 0.0f;
+    return keep_bit(row, salt == 0 ? col + col0 : col, salt, seed, threshold) ? scale : 0.0f;
   }
 };
 

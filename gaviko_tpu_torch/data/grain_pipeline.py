@@ -6,9 +6,9 @@ card's machine has neither, so the port runs the same stream the PyTorch
 way. ``GrainLoader`` keeps ``Loader``'s epoch, batch and seed logic (the
 same shuffle of each epoch, sample ``i`` drawing from
 ``RandomState((epoch_seed * 1_000_003 + i) % 2**31)``, pad rows labelled
--100, ``n_valid`` the batch's real rows), so it yields the same
-``(inputs, labels, n_valid)`` as ``Loader`` and as the JAX package's
-``GrainLoader``:
+-100, ``n_valid`` the batch's real rows, ``shard`` a data shard's rows of each
+batch), so it yields the same ``(inputs, labels, n_valid)`` as ``Loader``
+and as the JAX package's ``GrainLoader``:
 
 - ``processes == 0``: ``num_workers`` threads assemble whole batches, up to
   ``max(num_workers, prefetch)`` of them ahead of the consumer, delivered
@@ -45,11 +45,13 @@ Key = Tuple[int, np.ndarray]  # (epoch seed, dataset indices of one batch)
 
 class BatchAssembler(torch.utils.data.Dataset):
     """Item ``(epoch_seed, bidx)``: that batch (``assemble_batch``), its
-    samples loaded on ``threads`` threads. Picklable, for the process
-    workers; each process makes its own thread pool."""
+    samples loaded on ``threads`` threads, ``shard`` its rows of the batch.
+    Picklable, for the process workers; each process makes its own thread
+    pool."""
 
     def __init__(self, ds: VolumeDataset, batch_size: int, pad_to_batch: bool,
-                 threads: int = 1):
+                 threads: int = 1, shard: Tuple[int, int] = (0, 1)):
+        self.shard = tuple(shard)
         self.ds = ds
         self.batch_size = batch_size
         self.pad_to_batch = pad_to_batch
@@ -67,7 +69,7 @@ class BatchAssembler(torch.utils.data.Dataset):
                 self._pool = cf.ThreadPoolExecutor(max_workers=self.threads)
             map_fn = self._pool.map
         return assemble_batch(self.ds, bidx, self.batch_size, self.pad_to_batch,
-                              epoch_seed, map_fn)
+                              epoch_seed, map_fn, self.shard)
 
 
 class EpochKeys(torch.utils.data.Sampler):
@@ -115,7 +117,8 @@ class GrainLoader(Loader):
         self._workers = None
 
     def _threads(self, keys: List[Key]):
-        assemble = BatchAssembler(self.ds, self.batch_size, self.pad_to_batch)
+        assemble = BatchAssembler(self.ds, self.batch_size, self.pad_to_batch,
+                                  shard=self.shard)
         pool = cf.ThreadPoolExecutor(max_workers=self.num_workers)
         todo = iter(keys)
         ahead = collections.deque(
@@ -134,7 +137,7 @@ class GrainLoader(Loader):
     def _processes(self, keys: List[Key]):
         if self._workers is None:
             assemble = BatchAssembler(self.ds, self.batch_size, self.pad_to_batch,
-                                      max(1, self.num_workers // self.processes))
+                                      max(1, self.num_workers // self.processes), self.shard)
             # Its own generator: the workers' base seeds (unused here) are not
             # drawn from torch's global RNG.
             self._workers = torch.utils.data.DataLoader(

@@ -15,8 +15,11 @@ The batch order and every augmentation draw are the JAX package's: the
 shuffle of epoch E is ``RandomState(seed + E)`` and sample ``i`` of it draws
 from ``RandomState(((seed + E + 1) * 1_000_003 + i) % 2**31)``, so both
 packages yield the same batches from the same files. ``data.loader: grain``
-selects the same stream on PyTorch's runtime (``data/grain_pipeline.py``);
-multi-host sharding is not ported (ROADMAP Queue A item 13).
+selects the same stream on PyTorch's runtime (``data/grain_pipeline.py``).
+``shard=(i, n)`` (a ``train.parallel`` run: the rank's index on the mesh's
+data axis and its size) loads only rows [i * B / n, (i + 1) * B / n) of
+every global batch, pad rows included, while ``n_valid`` stays the global
+batch's count of real rows, as the JAX package's multi-host loader does.
 """
 
 from __future__ import annotations
@@ -80,20 +83,42 @@ def scan_folder(image_folder: str) -> Frame:
             for f in os.listdir(image_folder) if f.endswith(".npz")]
 
 
+def check_shard(shard: Tuple[int, int], batch_size: int, pad_to_batch: bool) -> None:
+    """A sharded loader needs whole batches split evenly over the shards."""
+    i, n = shard
+    if not 0 <= i < n:
+        raise ValueError(f"shard {shard}: index outside [0, {n})")
+    if n > 1 and (not pad_to_batch or batch_size % n):
+        raise ValueError(f"a loader sharded {n} ways needs pad_to_batch=True and a batch "
+                         f"size divisible by {n}; got batch_size {batch_size}, "
+                         f"pad_to_batch {pad_to_batch}")
+
+
 def assemble_batch(ds: VolumeDataset, bidx, batch_size: int, pad_to_batch: bool,
-                   epoch_seed: int, map_fn=map) -> Tuple[np.ndarray, Optional[np.ndarray], int]:
+                   epoch_seed: int, map_fn=map, shard: Tuple[int, int] = (0, 1)
+                   ) -> Tuple[np.ndarray, Optional[np.ndarray], int]:
     """One batch of the stream: the volumes of dataset indices ``bidx``
     (loaded through ``map_fn``), sample ``i`` drawing from
     ``RandomState((epoch_seed * 1_000_003 + i) % 2**31)``; with
     ``pad_to_batch`` zero volumes labelled -100 (the losses' ignore_index)
-    fill the batch. Returns (inputs, labels | None, n_valid)."""
-    idxs = [int(i) for i in bidx]
+    fill the batch. ``shard=(i, n)`` keeps rows [i * B / n, (i + 1) * B / n)
+    of the (padded) batch. Returns (inputs, labels | None, n_valid), n_valid
+    the whole batch's real rows."""
+    pi, pc = shard
+    if pc > 1:
+        per = batch_size // pc
+        rows = range(pi * per, (pi + 1) * per)
+    else:
+        rows = range(batch_size if pad_to_batch else len(bidx))
+    idxs = [int(bidx[r]) for r in rows if r < len(bidx)]
     rngs = [np.random.RandomState((epoch_seed * 1_000_003 + i) % (2 ** 31)) for i in idxs]
     vols = list(map_fn(ds.load, idxs, rngs))
-    n_valid = len(idxs)
-    n_pad = batch_size - n_valid if pad_to_batch else 0
+    n_valid = min(len(bidx), batch_size)
+    n_pad = len(rows) - len(vols)
     if n_pad:
-        vols = vols + [np.zeros_like(vols[0])] * n_pad
+        # A shard of pad rows only takes its shape from the batch's first sample.
+        template = vols[0] if vols else ds.load(int(bidx[0]), np.random.RandomState(0))
+        vols = vols + [np.zeros_like(template)] * n_pad
     inputs = np.stack(vols)
     labels = None
     if ds.labels is not None:
@@ -111,12 +136,15 @@ class Loader:
     The final partial batch is yielded as-is (like torch DataLoader
     drop_last=False), or with ``pad_to_batch=True`` zero-padded to the batch
     size with labels -100 (the losses' ignore_index) on the pad rows;
-    ``n_valid`` counts the real rows.
+    ``n_valid`` counts the real rows. ``shard=(i, n)``: this data shard's
+    rows of every batch (:func:`assemble_batch`).
     """
 
     def __init__(self, ds: VolumeDataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, seed: int = 0, prefetch: int = 2,
-                 pad_to_batch: bool = False):
+                 pad_to_batch: bool = False, shard: Tuple[int, int] = (0, 1)):
+        check_shard(shard, batch_size, pad_to_batch)
+        self.shard = tuple(shard)
         self.ds = ds
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -166,7 +194,7 @@ class Loader:
 
         def assemble(bidx):
             return assemble_batch(self.ds, bidx, self.batch_size, self.pad_to_batch,
-                                  epoch_seed, pool.map)
+                                  epoch_seed, pool.map, self.shard)
 
         def put(item) -> bool:
             # Never block forever on a full queue: a consumer that abandons

@@ -44,6 +44,7 @@ from gaviko_tpu_torch.core import vit as vit_core
 from gaviko_tpu_torch.core.layers import (
     Params, SeedStream, dropout, gelu, layer_norm, linear, quick_gelu)
 from gaviko_tpu_torch.ops.local_attention import masked_local_attention
+from gaviko_tpu_torch.parallel import shard
 
 
 def n_unique(spec: ModelSpec) -> int:
@@ -71,10 +72,12 @@ def _local_self_attention(p: Params, prefix: str, x: torch.Tensor,
     qkv = F.linear(h, p[f"{prefix}.qkv.weight"])  # qkv_bias=False
     q, k, v = qkv.chunk(3, dim=-1)  # strided views; the kernel reads them
     drop = spec.attn_drop if train else 0.0
+    # The kernels' salt is the batch row: a data shard folds its first row in.
     out = masked_local_attention(
         q, k, v, scale=spec.dim ** -0.5,  # full model dim (reference quirk)
         DHW=spec.DHW, local_k=spec.local_k,
-        seed=seeds.next_seed() if drop > 0.0 else None, dropout_rate=drop)
+        seed=shard.fold_seed(seeds.next_seed(), salts=1) if drop > 0.0 else None,
+        dropout_rate=drop)
     out = linear(p, f"{prefix}.proj_up", out)
     return dropout(out, spec.proj_drop, train, seeds)
 

@@ -59,8 +59,11 @@ applied per element of the accumulators. Any ``local_dim`` up to 1152
 pass's shared memory, which does not grow with the grid.
 
 Dropout in the MHSA kernels is the TPU kernel's: the hash bit of (query
-row within the padded stream, key column) in plane ``salt = b * heads +
-head`` drops an unnormalised probability after the row sum ``l`` is taken,
+row within the padded stream, key column) in plane ``salt = b *
+heads_total + head0 + head`` (``heads_total`` and ``head0`` default to the
+call's heads and 0; a tensor-parallel rank holding heads [head0, head0 +
+heads) of a layer of ``heads_total`` passes them, so its bits are the whole
+layer's) drops an unnormalised probability after the row sum ``l`` is taken,
 so the lse the backward reads is the pre-dropout one, and ``1 / (1 -
 rate)`` folds into the output. The backward replays the mask and forms
 ``dS = P~ * dP~ - P * delta`` with ``delta = rowsum(dO * O)``.
@@ -95,8 +98,9 @@ LOCAL_KEYS, LOCAL_WARPS, SMS, SM_SMEM = 32, 4, 132, 233472
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
-_MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
-_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_P, _F) + _DROP + (_P,)
+_SALT = (_I, _I)  # heads_total, head0: the dropout planes of a tensor-parallel shard
+_MHSA_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P, _F) + _DROP + _SALT + (_P,)
+_MHSA_BWD_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_P, _F) + _DROP + _SALT + (_P,)
 _FLASH_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P, _P, _F, _P)
 _LOCAL_GEOM = (_I,) * 9 + (_L,) * 6 + (_F, _I, _I, _F, _P, _P, _P)
 _LOCAL_ARGTYPES = (_P,) * 5 + _LOCAL_GEOM
@@ -248,11 +252,22 @@ def _tile_arg(dim_head: int, dtype: torch.dtype):
     return (ctypes.c_int * 5)(*attention_plan(dim_head, dtype).tile)
 
 
-def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:
+def _salt_args(heads: int, heads_total: Optional[int], head0: int) -> Tuple[int, int]:
+    """(heads_total, head0) of a call on ``heads`` heads, checked."""
+    total = heads if heads_total is None else int(heads_total)
+    if not 0 <= head0 <= total - heads:
+        raise ValueError(f"heads [{head0}, {head0 + heads}) outside a layer of {total}")
+    return total, int(head0)
+
+
+def _mhsa_keep_factor(shape, seed: int, dropout_rate: float, device,
+                      heads_total: Optional[int] = None, head0: int = 0) -> torch.Tensor:
     """keep / (1 - rate) over [B, heads, N, N]: the MHSA kernels' mask at
-    (query row, key column) in plane b * heads + head."""
+    (query row, key column) in plane b * heads_total + head0 + head."""
     B, heads = shape[0], shape[1]
-    salt = torch.arange(B * heads, device=device).reshape(B, heads, 1, 1)
+    total, head0 = _salt_args(heads, heads_total, head0)
+    salt = (torch.arange(B, device=device).reshape(B, 1, 1, 1) * total + head0
+            + torch.arange(heads, device=device).reshape(1, heads, 1, 1))
     keep = keep_mask(shape, seed, dropout_rate, salt=salt, device=device)
     return keep.float() * (1.0 / (1.0 - dropout_rate))
 
@@ -385,7 +400,7 @@ flash_attention.launches = 0
 
 def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
                    n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
-                   seed: int = 0):
+                   seed: int = 0, heads_total: Optional[int] = None, head0: int = 0):
     """qkv [B, N_pad, 3*heads*dim_head] -> [B, N_pad, heads*dim_head]; keys
     >= n_true are masked. f32 scores and softmax, hash dropout on the
     probabilities (``seed``, the module's mask), PV in qkv's dtype. With
@@ -396,7 +411,7 @@ def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     s = _mhsa_scores(q, k, scale, n_true)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
-        p = p * _mhsa_keep_factor(s.shape, seed, dropout_rate, s.device)
+        p = p * _mhsa_keep_factor(s.shape, seed, dropout_rate, s.device, heads_total, head0)
     o = _unheads(torch.matmul(p.to(v.dtype), v))
     if not with_lse:
         return o
@@ -404,12 +419,14 @@ def mhsa_reference(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
 
 
 def _mhsa_forward(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-                  n_true: int, dropout_rate: float, with_lse: bool, seed: int):
+                  n_true: int, dropout_rate: float, with_lse: bool, seed: int,
+                  heads_total: Optional[int] = None, head0: int = 0):
     """Kernel A on CUDA, :func:`mhsa_reference` on the CPU; no autograd."""
-    drop = dropout_args(dropout_rate, seed)
+    drop = dropout_args(dropout_rate, seed) + _salt_args(heads, heads_total, head0)
     if not _build.use_kernel(qkv):
         return mhsa_reference(qkv, heads, dim_head, scale, n_true, dropout_rate,
-                              with_lse=with_lse, seed=seed)
+                              with_lse=with_lse, seed=seed, heads_total=heads_total,
+                              head0=head0)
     B, n_pad, three_inner = qkv.shape
     if three_inner != 3 * heads * dim_head:
         raise ValueError(f"fused_mhsa takes a packed [B, N, 3*heads*dim_head] qkv; got "
@@ -454,11 +471,12 @@ class _FusedMhsa(torch.autograd.Function):
     replayed from the seed) backward, returning the packed dqkv."""
 
     @staticmethod
-    def forward(ctx, qkv, heads, dim_head, scale, n_true, dropout_rate, seed):
+    def forward(ctx, qkv, heads, dim_head, scale, n_true, dropout_rate, seed, heads_total,
+                head0):
         out, lse = _mhsa_forward(qkv, heads, dim_head, scale, n_true, dropout_rate,
-                                 True, seed)
+                                 True, seed, heads_total, head0)
         ctx.save_for_backward(qkv, out, lse)
-        ctx.cfg = (heads, dim_head, scale, n_true, dropout_rate, seed)
+        ctx.cfg = (heads, dim_head, scale, n_true, dropout_rate, seed, heads_total, head0)
         ctx.plain = _build.plain_active()
         ctx.mark_non_differentiable(lse)
         return out, lse
@@ -468,21 +486,22 @@ class _FusedMhsa(torch.autograd.Function):
         qkv, out, lse = ctx.saved_tensors
         with _build.plain_versions(ctx.plain):
             dqkv = fused_mhsa_bwd(qkv, out, lse, g, *ctx.cfg)
-        return dqkv, None, None, None, None, None, None
+        return dqkv, None, None, None, None, None, None, None, None
 
 
 def fused_mhsa(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
                n_true: int, dropout_rate: float = 0.0, with_lse: bool = False,
-               seed: int = 0):
+               seed: int = 0, heads_total: Optional[int] = None, head0: int = 0):
     """Same contract as :func:`mhsa_reference`; kernel A on CUDA. Rows
     >= n_true are padding: their outputs are garbage by contract. When qkv
     needs a gradient the output's backward is kernel B (the lse is not
-    differentiable)."""
+    differentiable). ``heads_total`` and ``head0`` place the call's heads in
+    a wider layer, for the dropout planes only."""
     if not _build.needs_grad(qkv):
         return _mhsa_forward(qkv, heads, dim_head, scale, n_true, dropout_rate,
-                             with_lse, seed)
+                             with_lse, seed, heads_total, head0)
     out, lse = _FusedMhsa.apply(qkv, heads, dim_head, scale, n_true,
-                                float(dropout_rate), int(seed))
+                                float(dropout_rate), int(seed), heads_total, int(head0))
     return (out, lse) if with_lse else out
 
 
@@ -492,7 +511,8 @@ fused_mhsa.launches = 0
 def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                        dout: torch.Tensor, heads: int, dim_head: int,
                        scale: float, n_true: int, dropout_rate: float = 0.0,
-                       seed: int = 0) -> torch.Tensor:
+                       seed: int = 0, heads_total: Optional[int] = None,
+                       head0: int = 0) -> torch.Tensor:
     """The algebra of kernel B in plain PyTorch (f32): from the forward's
     output and lse (log2 units), P = exp2(s - lse), f = keep / (1 - rate)
     (the forward's mask, replayed), delta = rowsum(dO * O), dV = (f P)^T dO,
@@ -501,7 +521,7 @@ def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     q, k, v = (t.float() for t in _split_heads(qkv, heads, dim_head))
     s2 = _mhsa_scores(q, k, scale * LOG2E, n_true)
     p = torch.exp2(s2 - lse.unsqueeze(-1))
-    f = (_mhsa_keep_factor(p.shape, seed, dropout_rate, p.device)
+    f = (_mhsa_keep_factor(p.shape, seed, dropout_rate, p.device, heads_total, head0)
          if dropout_rate > 0.0 else torch.ones_like(p))
     do = _heads(dout, heads, dim_head).float()
     delta = (do * _heads(out, heads, dim_head).float()).sum(-1, keepdim=True)
@@ -514,16 +534,17 @@ def mhsa_bwd_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
 
 def fused_mhsa_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                    dout: torch.Tensor, heads: int, dim_head: int, scale: float,
-                   n_true: int, dropout_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                   n_true: int, dropout_rate: float = 0.0, seed: int = 0,
+                   heads_total: Optional[int] = None, head0: int = 0) -> torch.Tensor:
     """Same contract as :func:`mhsa_bwd_reference`; kernel B on CUDA (two
     passes in one call of its entry point). A head dim that is not a
     multiple of 8 runs on copies of qkv, out and dout with each head
     zero-padded to one (zero columns change neither the scores nor the kept
     columns), and dqkv is sliced back."""
-    drop = dropout_args(dropout_rate, seed)
+    drop = dropout_args(dropout_rate, seed) + _salt_args(heads, heads_total, head0)
     if not _build.use_kernel(qkv):
         return mhsa_bwd_reference(qkv, out, lse, dout, heads, dim_head, scale, n_true,
-                                  dropout_rate, seed)
+                                  dropout_rate, seed, heads_total, head0)
     B, n_pad, three_inner = qkv.shape
     inner = heads * dim_head
     if three_inner != 3 * inner:
@@ -574,12 +595,13 @@ class _MhsaQkvProj(torch.autograd.Function):
     VJP."""
 
     @staticmethod
-    def forward(ctx, h, w, heads, dim_head, scale, n_true, dropout_rate, seed):
+    def forward(ctx, h, w, heads, dim_head, scale, n_true, dropout_rate, seed, heads_total,
+                head0):
         qkv = F.linear(h, w)
         out, lse = fused_mhsa(qkv, heads, dim_head, scale, n_true, dropout_rate,
-                              with_lse=True, seed=seed)
+                              with_lse=True, seed=seed, heads_total=heads_total, head0=head0)
         ctx.save_for_backward(h, w, qkv, out, lse)
-        ctx.cfg = (heads, dim_head, scale, n_true, dropout_rate, seed)
+        ctx.cfg = (heads, dim_head, scale, n_true, dropout_rate, seed, heads_total, head0)
         ctx.plain = _build.plain_active()
         return out
 
@@ -595,20 +617,22 @@ class _MhsaQkvProj(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(dqkv.reshape(-1, dqkv.shape[-1]).t(),
                               h.reshape(-1, h.shape[-1]))
-        return dh, dw, None, None, None, None, None, None
+        return dh, dw, None, None, None, None, None, None, None, None
 
 
 def mhsa_qkv_proj(h: torch.Tensor, w: torch.Tensor, heads: int, dim_head: int,
                   scale: float, n_true: int, dropout_rate: float = 0.0,
-                  seed: Optional[int] = None) -> torch.Tensor:
+                  seed: Optional[int] = None, heads_total: Optional[int] = None,
+                  head0: int = 0) -> torch.Tensor:
     """``fused_mhsa(h @ w.T)`` under one autograd function: h [B, N_pad, dim]
     (the LN output), w [3*heads*dim_head, dim] (torch layout), ``seed`` the
-    int32 dropout seed (unused at rate 0). The backward forms dW only when
-    ``w`` needs a gradient."""
+    int32 dropout seed (unused at rate 0), ``heads_total`` and ``head0`` as
+    :func:`fused_mhsa` takes them. The backward forms dW only when ``w``
+    needs a gradient."""
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout needs a seed")
     return _MhsaQkvProj.apply(h, w, heads, dim_head, scale, n_true, float(dropout_rate),
-                              0 if seed is None else int(seed))
+                              0 if seed is None else int(seed), heads_total, int(head0))
 
 
 def _local_keep(shape, seed: int, dropout_rate: float, device) -> torch.Tensor:

@@ -26,12 +26,19 @@ set of parameter and moment tensors and held by the caller
 (``train/fused_optim.py`` keeps one with the optimizer state); a step
 rewrites only the grad pointers and the four step scalars, with one
 asynchronous copy from pinned memory, so the step has no host sync.
+
+A sharded step (``parallel/mesh.py``: each rank updates its ZeRO slices and
+tensor-parallel shards) passes ``norm_reduce``: the norm launch then writes
+the sum of squares of the leaves the rank counts (the first ``n_counted``)
+to one f64 on the device, ``norm_reduce`` sums it over the ranks in place,
+and the update launch forms the clip scale from it. With one rank that is
+bit-equal to the two-launch step.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +56,8 @@ ONE_PASS_BYTES = 24 << 20
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = (_P, _I, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P)
+_SUMSQ_ARGTYPES = (_P, _I, _L, _P, _I, _P, _P)
+_APPLY_ARGTYPES = (_P, _I, _L, _P, _I, _F, _F, _F, _F, _P)
 
 Tensors = Sequence[torch.Tensor]
 
@@ -59,10 +68,24 @@ def global_norm(grads: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(g.double().square().sum() for g in grads)).float()
 
 
+def sharded_norm(grads: Tensors, norm_reduce, n_counted: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+    """The global norm of a sharded step: the f64 sum of squares of the first
+    ``n_counted`` gradients (the leaves this rank counts), summed over the
+    ranks in place by ``norm_reduce``, then sqrt and rounded once to f32."""
+    counted = list(grads)[:len(grads) if n_counted is None else n_counted]
+    total = torch.zeros((), dtype=torch.float64, device=device or grads[0].device)
+    for g in counted:
+        total = total + g.double().square().sum()
+    norm_reduce(total)
+    return torch.sqrt(total).float()
+
+
 @torch.no_grad()
 def adam_reference(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
                    lr: float, b1: float, c1: float, c2: float, clip: float,
-                   eps: float) -> Tuple[List[torch.Tensor], ...]:
+                   eps: float, norm_reduce=None,
+                   n_counted: Optional[int] = None) -> Tuple[List[torch.Tensor], ...]:
     """-> (new params, new mu, new nu), new tensors. ``lr``, ``b1``, ``c1``
     and ``c2`` are the step's f32 scalars; the clip scale is ``1 if gn <
     clip else clip / gn`` of the global norm, on the device. Every quotient
@@ -71,7 +94,8 @@ def adam_reference(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
     from the kernel's (and JAX's) IEEE division."""
     if not grads:
         return [], [], []
-    gn = global_norm(grads)
+    gn = global_norm(grads) if norm_reduce is None else sharded_norm(grads, norm_reduce,
+                                                                      n_counted)
     dev = gn.device
     scale = torch.where(gn < clip, torch.ones_like(gn), torch.full_like(gn, clip) / gn)
     c1, c2 = (torch.tensor(c, dtype=torch.float32, device=dev) for c in (c1, c2))
@@ -128,6 +152,7 @@ class AdamTable:
         numel = np.array([p.numel() for p in params], np.int64)
         chunks = -(-numel // CHUNK)
         starts = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
+        self.starts = starts
         self.n, self.n_chunks = n, int(starts[-1])
         self.phases = leaf_phases(mu, nu, params)
         leaf_of = np.repeat(np.arange(n, dtype=np.int32), chunks)
@@ -148,6 +173,7 @@ class AdamTable:
         self.partials = torch.empty(max(self.n_sum, self.n_update), dtype=torch.float64,
                                     device=device)
         self.barrier = torch.zeros(2, dtype=torch.int32, device=device)
+        self.total = torch.zeros(1, dtype=torch.float64, device=device)
 
     def holds(self, mu: Tensors, nu: Tensors, params: Tensors) -> bool:
         """Whether the table was built for exactly these tensors, in order."""
@@ -158,7 +184,8 @@ class AdamTable:
 @torch.no_grad()
 def fused_adam(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
                lr: float, b1: float, c1: float, c2: float, clip: float = 1.0,
-               eps: float = 1e-8, table: AdamTable = None) -> Tuple[List[torch.Tensor], ...]:
+               eps: float = 1e-8, table: AdamTable = None, norm_reduce=None,
+               n_counted: Optional[int] = None) -> Tuple[List[torch.Tensor], ...]:
     """One clip + Adam step of every leaf: -> (params, mu, nu).
 
     Kernel B13 on CUDA tensors (one launch or two, the update in place:
@@ -167,11 +194,13 @@ def fused_adam(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
     step scalars are f32 values. ``table`` is an :class:`AdamTable` that
     holds ``mu``, ``nu`` and ``params`` (its caller checks
     :meth:`AdamTable.holds`), kept across steps; without one the call
-    builds its own."""
+    builds its own. ``norm_reduce`` and ``n_counted``: the sharded step (the
+    module's docstring); the norm counts the first ``n_counted`` leaves."""
     if not params:
         return [], [], []
     if not _build.use_kernel(params[0]):
-        return adam_reference(grads, mu, nu, params, lr, b1, c1, c2, clip, eps)
+        return adam_reference(grads, mu, nu, params, lr, b1, c1, c2, clip, eps, norm_reduce,
+                              n_counted)
     if table is None:
         table = AdamTable(mu, nu, params)
     grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
@@ -186,7 +215,11 @@ def fused_adam(grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
     step[:n] = [g.data_ptr() for g in grads]
     step[n:] = np.array([lr, b1, c1, c2], np.float32).view(np.int64)
     table.words[:n + 2].copy_(torch.from_numpy(step).pin_memory(), non_blocking=True)
-    launch_table(table, params[0], clip, eps)
+    if norm_reduce is None:
+        launch_table(table, params[0], clip, eps)
+    else:
+        launch_sharded(table, params[0], clip, eps, norm_reduce,
+                       table.n if n_counted is None else n_counted)
     return list(params), list(mu), list(nu)
 
 
@@ -203,4 +236,25 @@ def launch_table(table: AdamTable, like: torch.Tensor, clip: float, eps: float) 
     fused_adam.launches += 1
 
 
-fused_adam.launches = 0  # B13 steps launched (one kernel or two each)
+def launch_sharded(table: AdamTable, like: torch.Tensor, clip: float, eps: float,
+                   norm_reduce, n_counted: int) -> None:
+    """The sharded step on ``table``: the norm launch over its first
+    ``n_counted`` leaves into ``table.total``, ``norm_reduce(table.total)``
+    (the sum over the ranks), then the update launch."""
+    dtype = _build.dtype_suffix(like)
+    if not 0 <= n_counted <= table.n:
+        raise ValueError(f"fused_adam: n_counted {n_counted} outside [0, {table.n}]")
+    counted = int(table.starts[n_counted])
+    stream = _build.stream_of(like)
+    _build.launch("fused_adam", f"gaviko_fused_adam_sumsq_{dtype}", _SUMSQ_ARGTYPES,
+                  table.words.data_ptr(), table.n, counted, table.partials.data_ptr(),
+                  min(counted, SUM_BLOCKS), table.total.data_ptr(), stream)
+    norm_reduce(table.total)
+    _build.launch("fused_adam", f"gaviko_fused_adam_apply_{dtype}", _APPLY_ARGTYPES,
+                  table.words.data_ptr(), table.n, table.n_chunks, table.total.data_ptr(),
+                  table.n_update, float(clip), float(np.float32(B2)),
+                  float(np.float32(1.0 - B2)), float(eps), stream)
+    fused_adam.launches += 1
+
+
+fused_adam.launches = 0  # B13 steps launched (one kernel, two, or a sharded step's two)

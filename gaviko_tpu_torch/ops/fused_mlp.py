@@ -21,7 +21,9 @@ function.
 
 Dropout is the TPU kernel's hash (``ops/hash_dropout.py``): salt 0 on the
 hidden at (flat row, hidden column), salt 1 on the fc2 output at (flat row,
-output column), before the residual; the backward replays both masks.
+output column), before the residual; the backward replays both masks. A
+tensor-parallel rank holding hidden columns [c0, c0 + mlp) of a wider layer
+passes ``hidden_col0=c0``, so its hidden bits are the whole layer's.
 :func:`fused_mlp` is differentiable: under a gradient the forward saves
 ``a`` and the backward is the kernel. B6 and B7 keep their intermediates in
 device memory, so they take every width JAX's gate admits (and any multiple
@@ -51,8 +53,8 @@ GELU_MODES = ("exact", "tanh", "erf_fast")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
-_ARGTYPES = (_P,) * 11 + (_I,) * 5 + (_F,) + _DROP + (_P,)
-_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_P,)
+_ARGTYPES = (_P,) * 11 + (_I,) * 5 + (_F,) + _DROP + (_I, _P)
+_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_I, _P)
 
 
 class MlpPlan(NamedTuple):
@@ -205,9 +207,10 @@ def fused_mlp_supported(dim: int, mlp_dim: int, dtype: torch.dtype) -> bool:
 
 
 def _keep_factor(rows: int, cols: int, seed: int, rate: float, salt: int,
-                 device) -> torch.Tensor:
-    """keep / (1 - rate) over [rows, cols] at (flat row, column) of ``salt``."""
-    keep = keep_mask((rows, cols), seed, rate, salt=salt, device=device)
+                 device, col0: int = 0) -> torch.Tensor:
+    """keep / (1 - rate) over [rows, cols] at (flat row, col0 + column) of
+    ``salt``."""
+    keep = keep_mask((rows, cols), seed, rate, salt=salt, col_offset=col0, device=device)
     return keep.float() * (1.0 / (1.0 - rate))
 
 
@@ -215,7 +218,7 @@ def mlp_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                   b2: torch.Tensor, eps: float = 1e-5, gelu="exact",
                   dropout_rate: float = 0.0, residual: bool = False, seed: int = 0,
-                  save_a: bool = False):
+                  save_a: bool = False, hidden_col0: int = 0):
     """x [..., dim]; w1 (mlp, dim), w2 (dim, mlp) torch layout -> [..., dim]
     in x's dtype; ``residual`` returns x + branch; ``dropout_rate`` > 0 drops
     the hidden and the output with the int32 ``seed``. With ``save_a`` also
@@ -227,7 +230,7 @@ def mlp_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     a = torch.matmul(h.float(), w1.float().t()) + b1.float()
     g = gelu_by_mode(a, gelu)
     if dropout_rate > 0.0:
-        g = g * _keep_factor(rows, mlp, seed, dropout_rate, 0, x.device)
+        g = g * _keep_factor(rows, mlp, seed, dropout_rate, 0, x.device, hidden_col0)
     out = torch.matmul(g.to(x.dtype).float(), w2.float().t()) + b2.float()
     if dropout_rate > 0.0:
         out = out * _keep_factor(rows, dim, seed, dropout_rate, 1, x.device)
@@ -241,14 +244,15 @@ def mlp_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
-                      residual: bool = False, seed: int = 0, save_a: bool = False):
+                      residual: bool = False, seed: int = 0, save_a: bool = False,
+                      hidden_col0: int = 0):
     """Same contract as :func:`mlp_reference`: kernel B6 on CUDA (its plain
     version on the CPU) -> out, or (out, a) with ``save_a``. Its outputs have
     no backward: the train path differentiates :func:`fused_mlp`."""
-    drop = dropout_args(dropout_rate, seed)
+    drop = dropout_args(dropout_rate, seed) + (int(hidden_col0),)
     if not _build.use_kernel(x):
         return mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate,
-                             residual, seed, save_a)
+                             residual, seed, save_a, hidden_col0)
     _build.refuse_grad("fused_mlp_forward", "the gradient goes through fused_mlp",
                        x, gamma, beta, w1, b1, w2, b2)
     mode = gelu_mode(gelu)
@@ -282,38 +286,40 @@ class _FusedMlp(torch.autograd.Function):
     """Kernel B6 forward, saving ``a``; kernel B7 backward."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate, residual, seed):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate, residual, seed,
+                hidden_col0):
         out, a = fused_mlp_forward(x, gamma, beta, w1, b1, w2, b2, eps, gelu, dropout_rate,
-                                   residual, seed, save_a=True)
+                                   residual, seed, save_a=True, hidden_col0=hidden_col0)
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2, a)
-        ctx.cfg = (eps, gelu, dropout_rate, residual, seed)
+        ctx.cfg = (eps, gelu, dropout_rate, residual, seed, hidden_col0)
         ctx.plain = _build.plain_active()
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta, w1, b1, w2, b2, a = ctx.saved_tensors
-        eps, gelu, rate, residual, seed = ctx.cfg
+        eps, gelu, rate, residual, seed, col0 = ctx.cfg
         with _build.plain_versions(ctx.plain):
             grads = fused_mlp_bwd(x, gamma, beta, w1, b1, w2, b2, g, a, eps, gelu, rate,
-                                  residual, seed)
-        return (*grads, None, None, None, None, None)
+                                  residual, seed, col0)
+        return (*grads, None, None, None, None, None, None)
 
 
 def fused_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
               eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
-              residual: bool = False, seed: Optional[int] = None) -> torch.Tensor:
+              residual: bool = False, seed: Optional[int] = None,
+              hidden_col0: int = 0) -> torch.Tensor:
     """Same contract as :func:`mlp_reference`; kernel B6 on CUDA, and
     differentiable (kernel B7 backward). ``seed`` is the int32 dropout seed
     (unused at rate 0)."""
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout needs a seed")
     args = (x, gamma, beta, w1, b1, w2, b2, eps, gelu, float(dropout_rate), residual,
-            0 if seed is None else int(seed))
+            0 if seed is None else int(seed), int(hidden_col0))
     if _build.needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return _FusedMlp.apply(*args)
-    return fused_mlp_forward(*args)
+    return fused_mlp_forward(*args[:-1], hidden_col0=args[-1])
 
 
 fused_mlp.launches = 0
@@ -323,7 +329,7 @@ def mlp_bwd_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                       b2: torch.Tensor, dy: torch.Tensor, a: torch.Tensor,
                       eps: float = 1e-5, gelu="exact", dropout_rate: float = 0.0,
-                      residual: bool = False, seed: int = 0):
+                      residual: bool = False, seed: int = 0, hidden_col0: int = 0):
     """The algebra of kernel B7 (the JAX package's ``_mlp_bwd_kernel``) in
     plain PyTorch, f32 sums with the kernel's rounding points: from x, the
     incoming gradient dy and the saved pre-GELU hidden a [rows, mlp] ->
@@ -342,7 +348,7 @@ def mlp_bwd_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     dout = dy.reshape(rows, dim).float()
     dx_res = dout if residual else 0.0
     if dropout_rate > 0.0:
-        f0 = _keep_factor(rows, mlp, seed, dropout_rate, 0, x.device)
+        f0 = _keep_factor(rows, mlp, seed, dropout_rate, 0, x.device, hidden_col0)
         gdrop = gdrop * f0
         dout = dout * _keep_factor(rows, dim, seed, dropout_rate, 1, x.device)
     db2 = dout.sum(0)
@@ -368,12 +374,13 @@ def mlp_bwd_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def fused_mlp_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                   dy: torch.Tensor, a: torch.Tensor, eps: float = 1e-5, gelu="exact",
-                  dropout_rate: float = 0.0, residual: bool = False, seed: int = 0):
+                  dropout_rate: float = 0.0, residual: bool = False, seed: int = 0,
+                  hidden_col0: int = 0):
     """Same contract as :func:`mlp_bwd_reference`; kernel B7 on CUDA."""
-    drop = dropout_args(dropout_rate, seed)
+    drop = dropout_args(dropout_rate, seed) + (int(hidden_col0),)
     if not _build.use_kernel(x):
         return mlp_bwd_reference(x, gamma, beta, w1, b1, w2, b2, dy, a, eps, gelu,
-                                 dropout_rate, residual, seed)
+                                 dropout_rate, residual, seed, hidden_col0)
     mode = gelu_mode(gelu)
     if mode not in GELU_MODES:
         raise ValueError(f"gelu mode must be one of {GELU_MODES}, got {mode!r}")

@@ -22,6 +22,15 @@ Port of ``gaviko_tpu/serving.py``:
 Each forward enters ``torch.inference_mode()`` itself and launches on the
 calling thread's current CUDA stream: both are per thread, so it makes no
 difference which thread (constructor, dispatcher, caller) runs it.
+
+``mesh_shape=(data, tp)`` serves on a mesh of ranks (``parallel/infer.py``):
+the process group must hold exactly data x tp ranks (launch that many, e.g.
+with torchrun), every rank builds the Predictor with its shard of the
+weights, rank 0 takes the requests and broadcasts each micro-batch (and
+each reload) to the others, which run :meth:`Predictor.follow` until rank
+0's :meth:`Predictor.close`; the logits come back whole. It runs in the
+serving dtype, as the JAX package's mesh branch does. int8 on a mesh is not
+ported.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import numpy as np
 import torch
 
 from gaviko_tpu_torch.utils.layouts import put_volume
+
+_RECEIVE, _STOP, _FORWARD, _RELOAD = -1, 0, 1, 2  # mesh serving's orders
 
 
 class Predictor:
@@ -60,12 +71,13 @@ class Predictor:
 
         if quantize not in (None, "int8"):
             raise ValueError(f"Unknown quantize mode: {quantize!r}")
-        if mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh_shape is not ported yet (ROADMAP Queue A item 13)")
         if dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {dtype!r}")
         self.device = torch.device(device)
+        self._mesh = None
+        self._lock = threading.Lock()
+        if mesh_shape is not None:
+            self.device = self._join_mesh(mesh_shape, batch_size, quantize)
         self.batch_size = batch_size
         self.model = build_model(config["model"])
         self.spec = self.model.spec
@@ -76,9 +88,42 @@ class Predictor:
         self._transform = eval_transform
         spec = self.spec
         shape = (batch_size, spec.channels, spec.frames, *spec.image_size)
-        self._forward(self.params, put_volume(np.zeros(shape, np.float32),
-                                              self._cdtype, self.device))
+        self._shape = shape
+        warm = put_volume(np.zeros(shape, np.float32), self._cdtype, self.device)
+        if mesh_shape is not None:
+            from gaviko_tpu_torch.parallel.infer import parallel_predictor_fn
+
+            self._pforward, self.params, self._mesh = parallel_predictor_fn(
+                self.model, self.params, *self._mesh_shape)
+            self._pforward(self.params, warm)  # every rank together
+            logging.info(f"Predictor ready: micro-batch {shape}, {dtype}, {self.device}, "
+                         f"mesh data={self._mesh.data} x tp={self._mesh.model}, "
+                         f"rank {self._mesh.rank}")
+            return
+        self._forward(self.params, warm)
         logging.info(f"Predictor ready: micro-batch {shape}, {dtype}, {self.device}")
+
+    def _join_mesh(self, mesh_shape, batch_size: int, quantize) -> torch.device:
+        """Check the process group against ``mesh_shape`` -> this rank's device."""
+        import torch.distributed as dist
+
+        from gaviko_tpu_torch.parallel.mesh import rank_device
+
+        data, tp = (int(x) for x in mesh_shape)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if data < 1 or tp < 1 or data * tp != world:
+            raise RuntimeError(
+                f"mesh_shape {data}x{tp} needs a process group of exactly {data * tp} ranks; "
+                f"this process has {world}. Launch {data * tp} processes, e.g. torchrun "
+                f"--nproc_per_node {data * tp} -m gaviko_tpu_torch.cli.serve --mesh "
+                f"{data},{tp} ...")
+        if quantize is not None:
+            raise NotImplementedError("int8 serving on a mesh is not ported (ROADMAP Queue A "
+                                      "item 16)")
+        if batch_size % data:
+            raise ValueError(f"batch_size {batch_size} does not split over {data} data ranks")
+        self._mesh_shape = (data, tp)
+        return rank_device(self.device)
 
     def _load_params(self, checkpoint: Optional[str]):
         from gaviko_tpu_torch.models.pretrained import build_params
@@ -99,15 +144,75 @@ class Predictor:
         return params
 
     def _forward(self, params, batch: torch.Tensor) -> np.ndarray:
+        if self._mesh is not None:
+            with self._lock:
+                self._order(_FORWARD)
+                return self._mesh_forward(params, batch)
         with torch.inference_mode():
             logits = self.model.apply(params, batch, self.spec)
             return logits.float().cpu().numpy()
 
+    # -- mesh serving: rank 0 leads, the other ranks follow its orders --
+
+    @property
+    def mesh(self):
+        """The ``parallel.mesh.Mesh`` served on, or None."""
+        return self._mesh
+
+    def _order(self, op: int, payload=None):
+        """Rank 0 sends an order to every rank; the others receive it."""
+        import torch.distributed as dist
+
+        if self._mesh.rank != 0 and op != _RECEIVE:
+            raise RuntimeError("on a mesh only rank 0 takes requests; the other ranks run "
+                               "Predictor.follow()")
+        msg = [op, payload]
+        if self._mesh.ctrl_group is not None:  # a 1 x 1 mesh has no one to tell
+            dist.broadcast_object_list(msg, src=0, group=self._mesh.ctrl_group)
+        return msg
+
+    def _mesh_forward(self, params, batch: torch.Tensor) -> np.ndarray:
+        import torch.distributed as dist
+
+        batch = batch.contiguous()
+        if self._mesh.world_group is not None:
+            dist.broadcast(batch, src=0, group=self._mesh.world_group)
+        return self._pforward(params, batch).cpu().numpy()
+
+    def follow(self) -> None:
+        """A rank > 0 of a mesh: run rank 0's forwards and reloads until it
+        closes."""
+        while True:
+            op, payload = self._order(_RECEIVE)
+            if op == _FORWARD:
+                self._mesh_forward(self.params, torch.empty(
+                    self._shape, dtype=self._cdtype, device=self.device))
+            elif op == _RELOAD:
+                self._reload(payload)
+            else:
+                return
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the following ranks (a no-op elsewhere)."""
+        if self._mesh is not None and self._mesh.rank == 0:
+            with self._lock:
+                self._order(_STOP)
+
+    def _reload(self, checkpoint: Optional[str]) -> None:
+        params = self._load_params(checkpoint)
+        self.params = params if self._mesh is None else self._pforward.reshard(params)
+        logging.info(f"Reloaded checkpoint {checkpoint!r}")
+
     def reload_checkpoint(self, checkpoint: Optional[str]) -> None:
         """Hot-swap weights: build the new dict, then replace the reference
-        (in-flight predictions finish on the old one)."""
-        self.params = self._load_params(checkpoint)
-        logging.info(f"Reloaded checkpoint {checkpoint!r}")
+        (in-flight predictions finish on the old one). On a mesh every rank
+        loads and re-shards it."""
+        if self._mesh is not None:
+            with self._lock:
+                self._order(_RELOAD, checkpoint)
+                self._reload(checkpoint)
+            return
+        self._reload(checkpoint)
 
     def predict_logits(self, volumes: Sequence[np.ndarray]) -> np.ndarray:
         """volumes: list of (D, H, W) or (C, D, H, W) arrays -> [n, classes]."""

@@ -29,6 +29,17 @@ global step, or from ``step_seeds`` (tests feed the JAX package's). With
 augments its batch on the device (``ops/augment.py``) with the draws it is
 given, drawn the same way (``step_augment``), and eval and predict rescale
 on the device.
+
+With ``train.parallel.enabled`` the run is one rank of a data x model mesh
+(``parallel/mesh.py``; the process group is joined before, by
+``cli/train.py`` or the caller): each rank trains on its loader shard of
+every global batch through ``ParallelTrainer``'s step (ZeRO-sharded Adam
+with ``zero: true``, tensor-parallel blocks with ``model`` > 1), and the
+augmentation draws are the global batch's. Rank 0 makes the decisions a
+wall clock or a signal drives (the rate-limited resume save, preemption)
+and every rank learns them before any enters the gather of a save; rank 0
+alone writes the CSV log, the resume state and the best checkpoint, each
+gathered whole.
 """
 
 from __future__ import annotations
@@ -193,10 +204,6 @@ def unported_options(config: dict) -> None:
     """Raise on a train option the port does not have yet, naming its
     ROADMAP item (``fused_optimizer: false`` raises in make_optimizer)."""
     train_cfg = config["train"]
-    if (train_cfg.get("parallel") or {}).get("enabled"):
-        raise NotImplementedError(
-            "train.parallel (the mesh-sharded DP x TP step) is not ported "
-            "(ROADMAP Queue A item 13)")
     if train_cfg.get("checkpoint_backend", "npz") != "npz":
         raise NotImplementedError(
             "train.checkpoint_backend: orbax is not ported; the port writes the npz "
@@ -225,6 +232,16 @@ def default_step_augment(seed: int) -> Callable[[int, int], AugmentParams]:
         return draw_augment_params(torch.Generator().manual_seed(key), batch)
 
     return augment
+
+
+class _NoLog:
+    """The CSV log of a rank other than 0 on a mesh: rank 0 writes it."""
+
+    def log(self, data: Dict) -> None:
+        pass
+
+    def get_file_path(self) -> None:
+        return None
 
 
 def _host_stats(step_stats) -> Tuple[np.ndarray, np.ndarray]:
@@ -274,9 +291,19 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
     total_steps = len(train_loader) * num_epochs
     device = next(iter(params.values())).device
 
-    csv_logger = CSVLogger(log_dir=config["utils"]["log_dir"],
-                           filename_prefix=f"{config['model']['method']}_training_log",
-                           fields=TRAIN_LOG_FIELDS)
+    par_cfg = train_cfg.get("parallel") or {}
+    mesh = None
+    if par_cfg.get("enabled"):
+        import torch.distributed as dist
+
+        from gaviko_tpu_torch.parallel.mesh import make_mesh, mesh_axes
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_mesh(*mesh_axes(par_cfg, world))
+    lead = mesh is None or mesh.rank == 0
+    csv_logger = (CSVLogger(log_dir=config["utils"]["log_dir"],
+                            filename_prefix=f"{config['model']['method']}_training_log",
+                            fields=TRAIN_LOG_FIELDS) if lead else _NoLog())
     criterion = make_criterion(train_cfg)
     fused = make_optimizer(train_cfg, total_steps)
     compute_dtype = compute_dtype_of(train_cfg)
@@ -293,10 +320,22 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
     n_tr = sum(v.numel() for v in trainable.values())
     logging.info(f"There are {len(trainable)} trainable params tensors "
                  f"({n_tr:,} elements); {len(frozen)} frozen tensors.")
-    opt_state = init_opt_state(trainable, fused)
     device_augment = bool(train_cfg.get("device_augment", False))
-    train_step, eval_step, _ = make_steps(model, criterion, fused, compute_dtype,
-                                          device_augment)
+    par = None
+    if mesh is not None:
+        from gaviko_tpu_torch.parallel.mesh import ParallelTrainer
+
+        logging.info(f"Parallel training on mesh data={mesh.data} x model={mesh.model} "
+                     f"(rank {mesh.rank})")
+        par = ParallelTrainer(model, criterion, fused, mesh, trainable, frozen,
+                              zero=bool(par_cfg.get("zero", True)),
+                              compute_dtype=compute_dtype, device_augment=device_augment)
+        trainable, frozen, opt_state = par.trainable, par.frozen, par.opt_state
+        train_step, eval_step = par.train_step, par.eval_step
+    else:
+        opt_state = init_opt_state(trainable, fused)
+        train_step, eval_step, _ = make_steps(model, criterion, fused, compute_dtype,
+                                              device_augment)
     step_seeds = step_seeds or default_step_seeds(int(train_cfg.get("seed", 0)))
     step_augment = step_augment or default_step_augment(int(train_cfg.get("seed", 0)))
 
@@ -358,7 +397,14 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
     if resume_path == "auto" and os.path.exists(auto_resume):
         resume_path = auto_resume
     if resume_path and resume_path != "auto" and os.path.exists(resume_path):
-        trainable, opt_state, meta = load_train_state(resume_path, trainable, opt_state)
+        if par is None:
+            trainable, opt_state, meta = load_train_state(resume_path, trainable, opt_state)
+        else:
+            # Every rank reads the whole state and keeps its shard of it.
+            whole = par.full_template
+            whole, whole_opt, meta = load_train_state(
+                resume_path, whole, fused_optim.FusedAdamState(0, whole, whole))
+            trainable, opt_state = par.shard_state(whole, whole_opt)
         start_epoch = meta["epoch"]
         current_epoch = meta["epoch"]
         global_step = meta["global_step"]
@@ -384,7 +430,7 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
 
     # Optional wandb (ref: train.py:354-361), gated on the config as in the
     # JAX package; cli/train.py turns the flag off when wandb is absent.
-    wandb_on = config.get("wandb", {}).get("enable", False)
+    wandb_on = config.get("wandb", {}).get("enable", False) and lead
 
     def _wandb_log(payload, step):
         if wandb_on:
@@ -394,16 +440,33 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
 
     def _save_resume(epoch_done: int, step_in_epoch: int = 0):
         """Full train state (params + optimizer + progress). ``step_in_epoch``
-        > 0 marks a mid-epoch preemption state; 0 is an epoch boundary. One
-        process writes it: the port trains on one card."""
+        > 0 marks a mid-epoch preemption state; 0 is an epoch boundary. On a
+        mesh every rank joins the gather of the whole state and rank 0
+        writes it."""
         if not train_cfg.get("save_resume_state", True):
             return None
+        whole, whole_opt = ((trainable, opt_state) if par is None
+                            else par.gather_state(trainable, opt_state))
+        if not lead:
+            return None
         os.makedirs(resume_dir, exist_ok=True)
-        save_train_state(auto_resume, trainable, opt_state, meta={
+        save_train_state(auto_resume, whole, whole_opt, meta={
             "epoch": epoch_done, "step_in_epoch": step_in_epoch,
             "global_step": global_step, "best_val_acc": val_acc_max,
             "best_epoch": best_epoch, "epoch_since_improvement": epoch_since_improvement})
         return auto_resume
+
+    if mesh is not None:
+        from gaviko_tpu_torch.parallel.mesh import host_any, host_decide
+
+    stop_now = False
+
+    def _agreed_preempted() -> bool:
+        """Whether to stop for a signal; on a mesh, whether any rank got
+        one (every rank learns it at the same step)."""
+        nonlocal stop_now
+        stop_now = guard.preempted if mesh is None else host_any(guard.preempted, mesh)
+        return stop_now
 
     preempted = False
     # Epoch-boundary saves are rate-limited by wall time
@@ -443,8 +506,10 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                 if not batch_bytes_set:
                     memory_logger.set_sizes(batch_bytes=inputs.numel() * inputs.element_size())
                     batch_bytes_set = True
-                augment = (step_augment(global_step, inputs.shape[0]) if device_augment
-                           else None)
+                # The global batch's draws: a data shard takes its rows.
+                augment = (step_augment(global_step,
+                                        inputs.shape[0] * (mesh.data if mesh else 1))
+                           if device_augment else None)
                 trainable, opt_state, loss, correct = train_step(
                     trainable, opt_state, frozen, inputs, labels, step_seeds(global_step),
                     augment)
@@ -462,9 +527,9 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                     profiler.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
                     profiler = None
                     logging.info("Profiler trace stopped")
-                if guard.preempted:
+                if _agreed_preempted():
                     break
-            if guard.preempted:
+            if stop_now:
                 # Mid-epoch preemption: the in-flight step finished; save the
                 # state pointing at the next unconsumed batch (this partial
                 # epoch's CSV rows are dropped, as in the JAX package).
@@ -505,9 +570,11 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                 loss, correct, _ = eval_step(trainable, frozen, inputs, labels)
                 if (index_val == 0 and train_cfg.get("flops_calculation")
                         and not flops_done):
+                    # On a mesh: this rank's forward of its shard.
                     x = eval_rescale(inputs) if device_augment else inputs
-                    flops = forward_flops(lambda p, x: model.apply(p, x, model.spec),
-                                          {**frozen, **trainable}, x.to(compute_dtype))
+                    apply = (par.forward if par is not None
+                             else lambda p, x: model.apply(p, x, model.spec))
+                    flops = forward_flops(apply, {**frozen, **trainable}, x.to(compute_dtype))
                     n_total = sum(v.numel() for v in {**frozen, **trainable}.values())
                     analyze_model_computation(n_total, flops, verbose=True)
                     flops_done = True
@@ -544,13 +611,16 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                 best_epoch = current_epoch
                 if val_acc_max > train_cfg["save_threshold"]:
                     backbone = config["model"]["backbone"].replace("-", "_")
-                    best_ckpt_path = os.path.join(
+                    path = os.path.join(
                         resume_dir,
                         f"{method}_{backbone}_best_model_epoch{current_epoch}"
                         f"_acc{val_acc:.4f}.pt")
-                    os.makedirs(resume_dir, exist_ok=True)
-                    save_pt(best_ckpt_path, trainable)  # trainable-only (train.py:472-483)
-                    logging.info(f"Model saved to {best_ckpt_path}")
+                    whole = trainable if par is None else par.gather_trainable(trainable)
+                    if lead:  # on a mesh rank 0 writes the gathered tensors
+                        best_ckpt_path = path
+                        os.makedirs(resume_dir, exist_ok=True)
+                        save_pt(best_ckpt_path, whole)  # trainable-only (train.py:472-483)
+                        logging.info(f"Model saved to {best_ckpt_path}")
                 epoch_since_improvement = 0
             else:
                 epoch_since_improvement += 1
@@ -565,11 +635,15 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
                          f"{train_acc * 100:.2f}% | val loss {val_loss:.4f} val acc "
                          f"{val_acc * 100:.2f}%")
 
-            if (epoch == num_epochs - 1 or resume_interval <= 0 or guard.preempted
-                    or time.monotonic() - last_resume_save >= resume_interval):
+            stop_now = _agreed_preempted()
+            save_now = (epoch == num_epochs - 1 or resume_interval <= 0 or stop_now
+                        or time.monotonic() - last_resume_save >= resume_interval)
+            if mesh is not None:
+                save_now = host_decide(save_now, mesh)
+            if save_now:
                 _save_resume(current_epoch)
                 last_resume_save = time.monotonic()
-            if guard.preempted:
+            if stop_now:
                 # The signal arrived during validation: the epoch is complete
                 # and its boundary state saved; stop before the next.
                 logging.info("Preempted at the epoch %d boundary.", epoch)

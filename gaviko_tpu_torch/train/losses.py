@@ -4,6 +4,11 @@ Port of ``gaviko_tpu/train/losses.py``. The reference focal loss
 (src/losses/focal_loss.py) applies its clamp-then-softmax ``_process_preds``
 twice, i.e. softmax(softmax(clamp(logits))) (PARITY #1). ``parity=True``
 reproduces that; ``parity=False`` is the corrected single log-softmax form.
+
+Each loss is a sum over the valid rows divided by their count. A data shard
+of a sharded step (``parallel/mesh.py``) passes ``denominator``, the whole
+batch's count of valid rows, so the shards' losses and gradients sum to the
+whole batch's.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ def _process_preds(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float, *,
                ignore_index: int = -100, eps: float = 1e-16,
-               parity: bool = True) -> torch.Tensor:
+               parity: bool = True, denominator=None) -> torch.Tensor:
     """Mean multi-class focal loss over [B, C] logits and int labels [B],
     rows labelled ``ignore_index`` left out."""
     mask = labels == ignore_index
@@ -40,23 +45,25 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float, *,
         logpt = torch.log_softmax(logits, dim=-1).gather(-1, safe[:, None])[:, 0]
         pt = torch.exp(logpt)
         loss = torch.where(mask, torch.zeros_like(pt), -(1.0 - pt) ** gamma * logpt)
-    return loss.sum() / (~mask).sum()
+    return loss.sum() / ((~mask).sum() if denominator is None else denominator)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = -100) -> torch.Tensor:
+                       ignore_index: int = -100, denominator=None) -> torch.Tensor:
     """Mean CE over non-ignored rows (torch nn.CrossEntropyLoss defaults)."""
     mask = labels == ignore_index
     safe = torch.where(mask, torch.zeros_like(labels), labels)
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[:, None])[:, 0]
     nll = torch.where(mask, torch.zeros_like(nll), nll)
-    return nll.sum() / (~mask).sum().clamp_min(1)
+    if denominator is None:
+        denominator = (~mask).sum().clamp_min(1)
+    return nll.sum() / denominator
 
 
 def make_criterion(train_cfg: dict) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """loss_fn selection (ref: train.py:176-179; gamma=1.2 hardcoded there)."""
     if train_cfg.get("loss_fn") == "focal_loss":
         parity = train_cfg.get("focal_parity", True)
-        return lambda logits, labels: focal_loss(logits, labels, gamma=1.2,
-                                                 parity=parity)
+        return lambda logits, labels, denominator=None: focal_loss(
+            logits, labels, gamma=1.2, parity=parity, denominator=denominator)
     return cross_entropy_loss

@@ -165,7 +165,7 @@ def test_fused_mhsa_is_one_launch_on_the_packed_qkv(monkeypatch, dtype, suffix, 
     assert (name, symbol) == ("fused_mhsa", f"gaviko_fused_mhsa_{suffix}")
     assert args[:8] == (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 2, 16, 2, dim_head, 13)
     assert tuple(args[8]) == tfa.attention_plan(dim_head, dtype).tile
-    assert args[9:] == (0.125, *dropout_args(0.1, 5), 0)
+    assert args[9:] == (0.125, *dropout_args(0.1, 5), 2, 0, 0)
 
 
 def test_fused_mhsa_pads_a_head_dim_of_no_16_byte_columns(monkeypatch):
@@ -347,7 +347,7 @@ def test_fused_mhsa_bwd_is_one_launch(monkeypatch, dtype, suffix, dim_head):
     assert args[3] == lse.data_ptr() and args[5] == dqkv.data_ptr()
     assert args[6:11] == (2, 16, 2, dim_head, 13)
     assert tuple(args[11]) == tfa.mhsa_bwd_plan(dim_head, dtype).arg
-    assert args[12:] == (0.125, *dropout_args(0.1, 5), 0)
+    assert args[12:] == (0.125, *dropout_args(0.1, 5), 2, 0, 0)
 
 
 def test_fused_mhsa_bwd_pads_a_head_dim_of_no_16_byte_columns(monkeypatch):

@@ -1799,3 +1799,93 @@ def test_kernels_launch_from_a_fresh_thread(dev):
     thread.join()
     assert errors == [] and len(got) == 1
     assert all(torch.equal(a, b) for a, b in zip(got[0], on_main))
+
+
+# ---- tensor-parallel shards: A and B's head offset, B6 / B7's hidden columns,
+# ---- B13's norm apart from its update (parallel/mesh.py)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,heads,head0,D", [(16, 8, 8, 64), (12, 6, 6, 64), (4, 2, 2, 128)])
+def test_fused_mhsa_kernels_on_a_head_shard(dev, dtype, H, heads, head0, D):
+    """Kernels A and B on heads [head0, head0 + heads) of a layer of H, with
+    dropout: against their plain versions, and bit-equal to the whole
+    layer's kernels on those heads (every (batch, head) plane is its own)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B, n_pad, n_true = 2, 136, 130
+    qkv = _randn(gen, B, n_pad, 3 * H * D, dtype=dtype)
+    dout = _randn(gen, B, n_pad, H * D, dtype=dtype)
+    dout[:, n_true:] = 0
+    cols = torch.cat([torch.arange(head0 * D, (head0 + heads) * D, device=dev) + j * H * D
+                      for j in range(3)])
+    part, o = qkv[..., cols].contiguous(), slice(head0 * D, (head0 + heads) * D)
+    pdout = dout[..., o].contiguous()
+    kw = dict(heads_total=H, head0=head0)
+    before = (fused_mhsa.launches, fused_mhsa_bwd.launches)
+    out, lse = fused_mhsa(part, heads, D, D ** -0.5, n_true, 0.1, True, -515, **kw)
+    dqkv = fused_mhsa_bwd(part, out, lse, pdout, heads, D, D ** -0.5, n_true, 0.1, -515, **kw)
+    assert (fused_mhsa.launches, fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want, _ = mhsa_reference(part, heads, D, D ** -0.5, n_true, 0.1, True, -515, **kw)
+    assert _rel_mae(out[:, :n_true], want[:, :n_true]) <= BUDGET[dtype]
+    dwant = mhsa_bwd_reference(part, out, lse, pdout, heads, D, D ** -0.5, n_true, 0.1, -515,
+                               **kw)
+    assert _rel_mae(dqkv, dwant) <= BUDGET[dtype]
+    whole, wlse = fused_mhsa(qkv, H, D, D ** -0.5, n_true, 0.1, True, -515)
+    wd = fused_mhsa_bwd(qkv, whole, wlse, dout, H, D, D ** -0.5, n_true, 0.1, -515)
+    assert torch.equal(out, whole[..., o]) and torch.equal(lse, wlse[:, head0:head0 + heads])
+    assert torch.equal(dqkv, wd[..., cols])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim,mlp,col0", [(768, 1536, 1536), (1024, 2048, 2048)])
+def test_fused_mlp_kernels_on_a_hidden_slice(dev, dtype, dim, mlp, col0):
+    """B6 and B7 on hidden columns [col0, col0 + mlp) of a wider layer, with
+    dropout and without the residual (a model rank > 0's call), against
+    their plain versions with the same column offset."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    args = _mlp_args(gen, 2, 37, dim, mlp, dtype)
+    dy = _randn(gen, 2, 37, dim, dtype=dtype)
+    out, a = fused_mlp_forward(*args, 1e-5, "exact", 0.1, False, 9, save_a=True,
+                               hidden_col0=col0)
+    want, want_a = mlp_reference(*args, 1e-5, "exact", 0.1, False, 9, save_a=True,
+                                 hidden_col0=col0)
+    assert _rel_mae(out, want) <= BUDGET[dtype] and _rel_mae(a, want_a) <= BUDGET[dtype]
+    at0 = mlp_reference(*args, 1e-5, "exact", 0.1, False, 9)
+    assert _rel_mae(out, at0) > 10 * BUDGET[dtype]  # the offset moves the hidden's bits
+    got = fused_mlp_bwd(*args, dy, a, 1e-5, "exact", 0.1, False, 9, col0)
+    wants = mlp_bwd_reference(*args, dy, a, 1e-5, "exact", 0.1, False, 9, col0)
+    for name, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), got, wants):
+        assert _rel_mae(g, w) <= BUDGET[dtype], (name, _rel_mae(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("one_pass", [True, False])
+def test_fused_adam_sharded_norm_bit_equal_to_one_launch(dev, monkeypatch, dtype, one_pass):
+    """B13's sharded step (the norm kernel into a device scalar, a reduce
+    over the ranks, then the update kernel), on one rank: bit-equal to the
+    one-launch and two-launch steps (0 ULP), reruns bit-equal; the norm of a
+    prefix of the leaves plus the rest's sum of squares, reduced in, within
+    the budgets of a one-ULP move of the clip scale."""
+    from gaviko_tpu_torch.ops import fused_adam as fa
+
+    monkeypatch.setattr(fa, "ONE_PASS_BYTES", fa.ONE_PASS_BYTES if one_pass else 0)
+    grads, mu, nu, params = _adam_leaves(dev, dtype, ADAM_SIZES, 1.0)
+    scalars = (3e-4, 0.93, 0.1351, 0.00299)
+    runs = []
+    for reduce in (None, lambda t: None, lambda t: None):
+        state = [[t.clone() for t in ts] for ts in (mu, nu, params)]
+        before = fa.fused_adam.launches
+        runs.append(fa.fused_adam(grads, *state, *scalars, clip=1.0, eps=1e-8,
+                                  norm_reduce=reduce))
+        assert fa.fused_adam.launches == before + 1
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    k = len(ADAM_SIZES) // 2
+    rest = sum(g.double().square().sum() for g in grads[k:])
+    state = [[t.clone() for t in ts] for ts in (mu, nu, params)]
+    split = fa.fused_adam(grads, *state, *scalars, clip=1.0, eps=1e-8, n_counted=k,
+                          norm_reduce=lambda t: t.add_(rest))
+    tol = dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32 else dict(rtol=8e-3, atol=1e-6)
+    for got, ref in zip(split, runs[0]):
+        for i in range(len(ADAM_SIZES)):
+            torch.testing.assert_close(got[i], ref[i], **tol)

@@ -37,6 +37,8 @@ def test_every_module_imports_without_jax():
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     assert len(MODULES) >= 20, MODULES
+    assert {"gaviko_tpu_torch.parallel.mesh", "gaviko_tpu_torch.parallel.infer",
+            "gaviko_tpu_torch.parallel.shard"} <= set(MODULES)
 
 
 def test_cli_serve_help_runs_on_cpu():
@@ -49,11 +51,11 @@ def test_cli_serve_help_runs_on_cpu():
 
 @pytest.mark.parametrize("flag", ["--quantize=int8", "--mesh=2,2", "--artifact=x"])
 def test_cli_serve_refuses_unported_flags(flag):
-    """--mesh and --artifact exit 2 naming their ROADMAP item. --quantize
-    int8 is ported (it was refused here until int8 serving came): it gets
-    past the flag checks and stops at the config file, which is missing."""
+    """--artifact exits 2 naming its ROADMAP item. --quantize int8 and
+    --mesh are ported (each was refused here until it came): they get past
+    the flag checks and stop at the config file, which is missing."""
     res = _run(["-m", "gaviko_tpu_torch.cli.serve", "--config", "no_such_config.yaml", flag])
-    if flag == "--quantize=int8":
+    if flag in ("--quantize=int8", "--mesh=2,2"):
         assert res.returncode != 0 and "not ported yet" not in res.stderr
         assert "No such file or directory: 'no_such_config.yaml'" in res.stderr
         return

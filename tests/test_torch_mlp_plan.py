@@ -173,13 +173,13 @@ def test_fused_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, save_
     out, a = res if save_a else (res, None)
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("fused_mlp", f"gaviko_fused_mlp_{suffix}")
-    assert len(argtypes) == len(got) == 21
+    assert len(argtypes) == len(got) == 22
     assert got[:7] == tuple(t.data_ptr() for t in args)
     assert got[7] == out.data_ptr() and got[8] == (None if a is None else a.data_ptr())
     plan = tfm.mlp_plan(70, 256, 512, dtype)
     (_, _, _, off_h), (_, _, _, off_g) = plan.fwd_scratch
     assert got[10] - got[9] == off_g - off_h and got[9] % 16 == 0
-    assert got[11:] == (70, 256, 512, 1, 1, 1e-5, *dropout_args(0.1, 5), 0)
+    assert got[11:] == (70, 256, 512, 1, 1, 1e-5, *dropout_args(0.1, 5), 0, 0)
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"), (torch.float32, "f32")])
@@ -199,7 +199,7 @@ def test_fused_mlp_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, r
     assert tfm.fused_mlp_bwd.launches == before + 1
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("fused_mlp_bwd", f"gaviko_fused_mlp_bwd_{suffix}")
-    assert len(argtypes) == len(got) == 35
+    assert len(argtypes) == len(got) == 36
     x, gamma, beta, w1, b1, w2, b2 = args
     assert got[:7] == tuple(t.data_ptr() for t in (x, gamma, beta, w1, w2, dy, a))
     assert got[7:14] == tuple(t.data_ptr() for t in outs)
@@ -213,7 +213,7 @@ def test_fused_mlp_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, r
              "part_db")
     for n, p in zip(names, ptrs):
         assert p == base + layout[n], n
-    assert got[25:] == (rows, dim, mlp, 0, 0, 1e-5, *dropout_args(0.1, 3), 0)
+    assert got[25:] == (rows, dim, mlp, 0, 0, 1e-5, *dropout_args(0.1, 3), 0, 0)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

@@ -73,10 +73,11 @@ def test_logits_match_jax_predictor(predictor, ckpt):
 
 
 def test_predictor_rejects_unported_options(ckpt):
-    """mesh_shape is not ported and names its ROADMAP item; quantize takes
-    None or "int8" only, as in the JAX package (int8 itself is served by
-    tests/test_torch_int8.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """mesh_shape needs a process group of exactly data x tp ranks (served
+    on a mesh by tests/test_torch_parallel_run.py), so one process refuses
+    (2, 2) naming the launcher; quantize takes None or "int8" only, as in
+    the JAX package (int8 itself is served by tests/test_torch_int8.py)."""
+    with pytest.raises(RuntimeError, match="exactly 4 ranks.*torchrun"):
         Predictor(CONFIG, checkpoint=ckpt, pretrained_dir=None, device="cpu",
                   mesh_shape=(2, 2))
     with pytest.raises(ValueError, match="quantize"):

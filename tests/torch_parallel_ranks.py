@@ -1,0 +1,169 @@
+"""Rank bodies and a launcher for the port's multi-process CPU tests.
+
+The ranks are spawned processes on one gloo group whose store is a file in
+the test's temporary directory; they import torch and the port only (no
+JAX), so they start in a few seconds. Each writes its result with
+``torch.save`` to ``<dir>/rank<r>.pt``; the launcher joins every rank with
+a deadline and fails if one dies or hangs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+import traceback
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(rank, fn, world, out_dir, args):
+    torch.set_num_threads(1)  # the ranks share the test worker's cores
+    try:
+        if fn is not run_cli_rank:  # the CLI joins from its config
+            dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                                    world_size=world, rank=rank)
+        result = fn(rank, world, *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def start(fn, world: int, out_dir: str, *args):
+    """Start ``fn(rank, world, *args)`` on ``world`` ranks -> a handle for
+    :func:`join` (the caller may work meanwhile)."""
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.start_processes(_entry, args=(fn, world, out_dir, args), nprocs=world,
+                             start_method="spawn", join=False)
+    return ctx, world, out_dir
+
+
+def spawn(fn, world: int, out_dir: str, *args, timeout: float = 120.0):
+    """Run ``fn(rank, world, *args)`` on ``world`` ranks -> their results."""
+    return join(start(fn, world, out_dir, *args), timeout)
+
+
+def join(handle, timeout: float = 120.0):
+    """Wait for every rank of ``handle`` -> their results; a rank that dies
+    or outlasts ``timeout`` fails the call, and the others are killed."""
+    ctx, world, out_dir = handle
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks did not finish in {timeout} s")
+    except Exception:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        errs = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir))
+                if f.endswith(".err")]
+        raise RuntimeError("a rank failed:\n" + "\n".join(errs))
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+# ------------------------------------------------------------ the bodies ----
+
+def _model(cfg: dict, depth: int):
+    from gaviko_tpu_torch.models.factory import build_model
+
+    m = build_model(cfg)
+    return dataclasses.replace(m, spec=dataclasses.replace(m.spec, depth=depth))
+
+
+def train_rank(rank, world, runs, data, train_cfg, total_steps, infer_batch):
+    """For each run (cfg, depth, whole numpy params, per-step seeds, batches
+    of the global batch): the sharded train steps on a data x model mesh ->
+    the losses and the whole trainable tensors after them (and, where
+    ``infer_batch`` is given, the sharded forward's logits of the initial
+    params)."""
+    from gaviko_tpu_torch.core.layers import SeedStream
+    from gaviko_tpu_torch.parallel.infer import make_parallel_forward
+    from gaviko_tpu_torch.parallel.mesh import ParallelTrainer, make_mesh
+    from gaviko_tpu_torch.train import loop, losses
+    from gaviko_tpu_torch.weights.from_jax import from_jax
+
+    mesh = make_mesh(data, world // data)
+    out = []
+    for cfg, depth, params, seeds, batches in runs:
+        model = _model(cfg, depth)
+        whole = from_jax(params)
+        res = {}
+        if infer_batch is not None:
+            fwd, sharded = make_parallel_forward(model, mesh, whole)
+            res["logits"] = fwd(sharded, torch.from_numpy(infer_batch)).numpy()
+        trainable, frozen = loop.split_params(model, whole)
+        par = ParallelTrainer(model, losses.make_criterion(train_cfg),
+                              loop.make_optimizer(train_cfg, total_steps), mesh, trainable,
+                              frozen, zero=True)
+        tr, fr, opt = par.trainable, par.frozen, par.opt_state
+        per = batches[0][0].shape[0] // mesh.data
+        rows = slice(mesh.d * per, (mesh.d + 1) * per)
+        res["losses"] = []
+        for (x, y), s in zip(batches, seeds):
+            tr, opt, loss, _ = par.train_step(tr, opt, fr, torch.from_numpy(x[rows]),
+                                              torch.from_numpy(y[rows]).long(),
+                                              SeedStream(s))
+            res["losses"].append(float(loss))
+        res["trainable"] = {k: v.numpy() for k, v in par.gather_trainable(tr).items()}
+        out.append(res)
+    return out
+
+
+def run_cli_rank(rank, world, config):
+    """``cli.train.train`` as rank ``rank`` of ``world`` (the topology in
+    ``train.parallel``) -> the paths it wrote."""
+    from gaviko_tpu_torch.cli.train import train
+    from gaviko_tpu_torch.parallel import mesh
+
+    mesh.INIT_TIMEOUT = timedelta(seconds=120)  # a rank that never comes fails the test
+    if world > 1:
+        config["train"]["parallel"].update(num_processes=world, process_id=rank)
+    result = train(config, "cpu")
+    return {"csv": result["csv_log"], "best": result["best_ckpt_path"]}
+
+
+def mesh_serve_rank(rank, world, config, volumes, mesh_shape):
+    """``Predictor(mesh_shape=...)``: rank 0 predicts ``volumes`` and
+    releases the others, which follow -> rank 0's logits."""
+    from gaviko_tpu_torch.serving import Predictor
+
+    pred = Predictor(config, batch_size=2, dtype="float32", pretrained_dir=None,
+                     mesh_shape=mesh_shape, device="cpu")
+    if pred.mesh.rank != 0:
+        pred.follow()
+        return None
+    logits = pred.predict_logits(volumes)
+    pred.reload_checkpoint(None)
+    again = pred.predict_logits(volumes)
+    pred.close()
+    return np.stack([logits, again])
+
+
+def collectives_rank(rank, world, shapes):
+    """ZeRO's collectives over leaves of ``shapes`` (f32 and bf16), each cut
+    along its ``zero_axis``: natively (gloo on the CPU has reduce-scatter
+    and all-gather) and as built from all_reduce (gloo on CUDA tensors) ->
+    (this rank's leaves, {path: (reduce-scattered, all-gathered back)})."""
+    from gaviko_tpu_torch.parallel import mesh
+
+    gen = torch.Generator().manual_seed(rank)
+    leaves = [torch.randn(s, generator=gen).to(torch.bfloat16 if i % 3 == 2 else torch.float32)
+              for i, s in enumerate(shapes)]
+    axes = [mesh.zero_axis(s, world) for s in shapes]
+    out = {}
+    for path, native in (("native", mesh._native), ("all_reduce", lambda t, g: False)):
+        mesh._native = native
+        parts = mesh.reduce_scatter_flat(leaves, axes, dist.group.WORLD)
+        out[path] = (parts, mesh.all_gather_flat(parts, axes, dist.group.WORLD))
+    return leaves, out
