@@ -65,8 +65,8 @@ Phases, each printing its own line:
    B11 also runs again and must be bit-equal to its first run; patchify,
    A, B10, B, C, D, B6, B7, B9 and B12 in fp32 are bounded at 495 / 3
    TFLOP/s (each product as three TF32 ones);
-4. serving, for GAViKO vit-l16 (``gaviko_tpu/configs/gaviko.yaml``), the
-   plain vit-b16 ViT (``gaviko_tpu/configs/vit.yaml``, method ``fft``),
+4. serving, for GAViKO vit-l16 (``gaviko_tpu_torch/configs/gaviko.yaml``), the
+   plain vit-b16 ViT (``gaviko_tpu_torch/configs/vit.yaml``, method ``fft``),
    vit-t16 (the same config with ``model.backbone: vit-t16``: 3 heads, the
    unfused attention route, B10 in 11 layers) and vit-b16 with
    ``model.dim_head`` 128, 192 and 256 (A at that head dim, B8 in the last
@@ -109,7 +109,7 @@ Phases, each printing its own line:
    loss gradients' difference is split into the kernels' and the clamp's
    shares (see ``phase_train_check``);
 8. vit-b16 train and train check: phases 6 and 7 for the plain ViT of
-   ``gaviko_tpu/configs/vit.yaml``, method ``fft`` (every tensor trains;
+   ``gaviko_tpu_torch/configs/vit.yaml``, method ``fft`` (every tensor trains;
    dropout and emb_dropout 0.1; random init from seed 0; full depth), at
    B8: 3 train steps and one eval step in fp32 (TF32 off) and bf16, with
    the exact launches a step (bf16: patchify 1 and each of A, B, B6 and B7
@@ -123,11 +123,11 @@ Phases, each printing its own line:
 9. vit-t16 train and train check: phases 6 and 7 for vit-t16 at B8, with
    the config's dropout 0.1 (plain attention with ``layers.dropout`` on
    the probabilities: no attention kernel) in fp32 and bf16, and
-   dropout-free in bf16 (B10 in 11 layers a step, its backward the plain
-   version's VJP);
+   dropout-free in bf16 (B10 in 3 layers a step, its backward the plain
+   version's VJP), at CUT_DEPTH (4) layers;
 10. vit-b16 with ``dim_head: 128``, train and train check in fp32 and bf16
-   (A and B at head dim 128 in 11 layers a step), and with 192 and 256 in
-   bf16;
+   (A and B at head dim 128 in 3 layers a step), and with 192 and 256 in
+   bf16, at CUT_DEPTH (4) layers;
 11. B13 (``csrc/fused_adam.cu``) at the trainable leaves of the GAViKO train
    run (604 tensors, 2.27 M elements: one cooperative launch) and of the
    vit-b16 fft run (140, 88.2 M: two launches), in f32 and bf16 storage
@@ -180,7 +180,7 @@ Phases, each printing its own line:
    exactly ``gaviko_train_launches(spec, "bf16")``, the frozen backbone
    still the converted tensors, the profiled step's trace;
 19. parallel_one: ``cli.train`` in this process on
-   ``gaviko_tpu/configs/gaviko_tpu.yaml`` as shipped (``train.parallel``
+   ``gaviko_tpu_torch/configs/gaviko_tpu.yaml`` as shipped (``train.parallel``
    on, ``data: auto``: a 1 x 1 mesh; vit-l16 GAViKO, bf16, device
    augmentation, the grain loader, B8), overridden only in
    ``checkpoint_backend: npz``, one epoch and the paths (24 train and 8 val
@@ -201,7 +201,26 @@ Phases, each printing its own line:
    rows, dropout 0.1) against their plain versions and bit-equal to the
    whole layer's kernels on those heads; B13's sharded step (its norm
    kernel into a device scalar, then its update) at GAViKO's trainable
-   leaves bit-equal to its one-launch step.
+   leaves bit-equal to its one-launch step;
+22. deploy (run on the live predictors of phases 4 and 5, right after
+   their own checks): GAViKO vit-l16 (B8 bf16) and vit-b16 ``fft`` int8
+   exported by ``deploy.export_artifact`` for ``cuda`` (the manifest's
+   ``gaviko::`` ops exactly ``serving_launches``), loaded in a
+   ``DeployedPredictor`` and checked against the live ``Predictor`` on the
+   same 8 volumes (relative MAE <= 2e-2, int8 1e-2; bit-equality reported),
+   then 16 volumes served 8 at a time through ``serve()`` with exact
+   launches a batch, against the live predictor's served logits; export s,
+   artifact MB, load s, first-forward ms, ``predict_logits`` vol/s beside
+   the live predictor's, a B8 forward's ms eager, from the predictor's
+   program and from the program as exported (its per-call checks kept), and
+   the host µs a call of A and C eagerly and through their ``gaviko::``
+   ops; the int8 artifact then reloads a checkpoint of one quantized
+   weight (sidecars re-quantized as ``quantize_weight`` does, exact
+   launches after); ``cli.export`` -> ``cli.infer --artifact`` on
+   vit.yaml and a folder of 8 volumes (``deploy_cli``); and
+   ``torch.library.opcheck`` of every ``gaviko::`` op on the card with the
+   arguments those artifacts gave it, B10 at the vit-t16 serving shapes
+   and at head dim 36 (``opcheck``).
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
@@ -218,7 +237,8 @@ int8 serving shapes with that run's launches; ``ln_linear_bwd`` and
 ``ln_linear_bwd_l16`` for B12 at the vit-b16 and GAViKO vit-l16 bf16
 hybrid train shapes with the bf16 hybrid runs' launches; each row's
 ``zoo_launches`` the launches a forward or a step of every zoo run that
-launched it, ``trainer_input_launches`` its launches in the last train
+launched it, ``deploy_launches`` its launches in the first forward (one
+batch) of each artifact of phase 22 that launched it, ``trainer_input_launches`` its launches in the last train
 step of phase 18 and, on the rows at the parallel runs' head dim and
 widths, ``parallel_launches`` its launches a step in phases 19 and 20 on
 rank 0 and in the vit-b16 tensor-parallel eval step), the
@@ -240,17 +260,22 @@ import tempfile
 import threading
 import time
 import urllib.request
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-CONFIG = "gaviko_tpu/configs/gaviko.yaml"
-VIT_CONFIG = "gaviko_tpu/configs/vit.yaml"
+CONFIG = "gaviko_tpu_torch/configs/gaviko.yaml"
+VIT_CONFIG = "gaviko_tpu_torch/configs/vit.yaml"
 B = 8
 HEADLINE_B = 64  # the JAX bench's vit-b16 serving batch
 N_REQUESTS = 16
 BF16_BUDGET, F32_BUDGET, SERVE_BUDGET = 1e-2, 1e-4, 2e-2
 TRAIN_B, TRAIN_STEPS, TRAIN_TOTAL_STEPS = 4, 3, 100
+# Layers of the vit-t16 and head-dim train runs (phases 9-10): they check
+# routes and kernels at a head count or head dim, which depth does not
+# change; cut to keep the whole run well inside its time limit.
+CUT_DEPTH = 4
 VIT_TRAIN_B = 8  # vit.yaml's batch_size
 LOCAL_RATE, LOCAL_SEED = 0.2, 1234567
 VIT_RATE, VIT_SEED = 0.1, -7654321  # vit.yaml's dropout
@@ -389,13 +414,13 @@ LOCAL_DIGESTS = {
 TRAINER_VOLUMES = (8, 4)  # train and val volumes of the trainer phase
 # The PEFT zoo's shipped configs (vit-b16, B8): (method, config, model
 # entries replaced in memory); shallow VPT is vpt.yaml with deep_prompt off.
-ZOO = (("deep_vpt", "gaviko_tpu/configs/vpt.yaml", None),
-       ("shallow_vpt", "gaviko_tpu/configs/vpt.yaml", {"deep_prompt": False}),
-       ("adaptformer", "gaviko_tpu/configs/adaptformer.yaml", None),
-       ("ssf", "gaviko_tpu/configs/ssf.yaml", None),
-       ("melo", "gaviko_tpu/configs/melo.yaml", None),
-       ("dvpt", "gaviko_tpu/configs/dvpt.yaml", None),
-       ("evp", "gaviko_tpu/configs/evp.yaml", None))
+ZOO = (("deep_vpt", "gaviko_tpu_torch/configs/vpt.yaml", None),
+       ("shallow_vpt", "gaviko_tpu_torch/configs/vpt.yaml", {"deep_prompt": False}),
+       ("adaptformer", "gaviko_tpu_torch/configs/adaptformer.yaml", None),
+       ("ssf", "gaviko_tpu_torch/configs/ssf.yaml", None),
+       ("melo", "gaviko_tpu_torch/configs/melo.yaml", None),
+       ("dvpt", "gaviko_tpu_torch/configs/dvpt.yaml", None),
+       ("evp", "gaviko_tpu_torch/configs/evp.yaml", None))
 
 
 def _ptxas(log: str) -> list:
@@ -432,6 +457,11 @@ def _nvidia_smi() -> str:
 def _rel_mae(got, want) -> float:
     got, want = got.double(), want.double()
     return float((got - want).abs().mean() / want.abs().mean().clamp_min(1e-30))
+
+
+def _rel_mae_np(got: np.ndarray, want: np.ndarray) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).mean() / max(np.abs(want).mean(), 1e-30))
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
@@ -1487,7 +1517,10 @@ def _vit_routes(spec, dtype) -> dict:
 
 def serving_launches(spec, quantized: bool = False) -> dict:
     """Launches of each kernel in one bf16 serving forward: GAViKO runs
-    patchify, then the MHSA and local attention in every layer; the plain
+    patchify, then the MHSA (B10 where the fused gate is false, as at
+    vit-t16's 3 heads) and local attention in every layer, and the fused
+    LN+qkv and the fused MLP in every layer where their gates hold (at
+    vit-s16 widths; not at vit-l16's); the plain
     ViT runs patchify and, in all but the last layer, the fused LN+qkv
     where its gate holds and the fused MHSA (or, where the MHSA gate is
     false, as for vit-t16's 3 heads, the flash attention kernel B10) and
@@ -1502,10 +1535,17 @@ def serving_launches(spec, quantized: bool = False) -> dict:
     want["patchify"] = 1
     if quantized:
         want.update(int8_linear=2 * spec.depth, int8_mlp=spec.depth)
-    if spec.method == "gaviko":
-        want.update(fused_mhsa=spec.depth, local_attention=spec.depth)
-        return want
     r = _vit_routes(spec, torch.bfloat16)
+    if spec.method == "gaviko":
+        from gaviko_tpu_torch.ops.flash_attention import fused_mhsa_supported
+
+        fused = fused_mhsa_supported(spec.heads, spec.dim_head,
+                                     _pad8(spec.num_prompts + 1 + spec.num_patches))
+        want.update(fused_mhsa=spec.depth * fused, flash_attention=spec.depth * (not fused),
+                    local_attention=spec.depth)
+        if not quantized:
+            want.update(ln_linear=spec.depth * r["qkv"], fused_mlp=spec.depth * r["mlp"])
+        return want
     if quantized:
         want.update(fused_mhsa=spec.depth * r["fused_mhsa"],
                     flash_attention=spec.depth * (not r["fused_mhsa"]))
@@ -1551,11 +1591,17 @@ def make_predictor(config_path: str, method: str, model_over=None, quantize=None
     return predictor
 
 
-def phase_serving(predictor, vols) -> tuple:
+def phase_serving(predictor, vols, spec=None, quantized=None) -> tuple:
     """POST every volume, B at a time; returns (launches, served logits).
     Each batch the dispatcher runs is one forward, so every kernel must
-    launch ``serving_launches`` times the number of batches."""
+    launch ``serving_launches`` times the number of batches. ``spec`` and
+    ``quantized`` are the predictor's own unless given (a
+    ``DeployedPredictor`` has neither)."""
     from gaviko_tpu_torch.serving import serve
+
+    spec = predictor.spec if spec is None else spec
+    if quantized is None:
+        quantized = predictor._quantize == "int8"
 
     bodies = [_npz(v) for v in vols]
     server = serve(predictor, host="127.0.0.1", port=0)
@@ -1591,11 +1637,12 @@ def phase_serving(predictor, vols) -> tuple:
     logits = np.asarray([a["logits"] for a in answers], np.float64)
     classes = np.asarray([a["class"] for a in answers])
     want = {n: c * metrics["batches_total"] for n, c in serving_launches(
-        predictor.spec, predictor._quantize == "int8").items()}
-    print(json.dumps({"phase": "serving", "method": predictor.spec.method,
+        spec, quantized).items()}
+    print(json.dumps({"phase": "serving", "method": spec.method,
+                      "predictor": type(predictor).__name__, "quantize": quantized,
                       "requests": len(answers), "seconds": seconds, "launches": launches,
                       "want_launches": want, "metrics": metrics}), flush=True)
-    if logits.shape != (len(vols), predictor.spec.num_classes):
+    if logits.shape != (len(vols), spec.num_classes):
         raise RuntimeError(f"served logits have shape {logits.shape}")
     if not np.isfinite(logits).all():
         raise RuntimeError("served logits are not finite")
@@ -1678,6 +1725,305 @@ def phase_plain_check(predictor, vols, served, card: str, headline_batch=None,
     if fp_served is not None and not line["rel_mae_vs_fp"] <= INT8_FP_BUDGET:
         raise RuntimeError(f"int8 logits vs bf16 fp: rel MAE {line['rel_mae_vs_fp']} > "
                            f"{INT8_FP_BUDGET}")
+
+
+# Deployment (phase 22): an artifact's logits against its live Predictor's
+# on the same volumes, by the serving budgets (bf16 2e-2, int8 1e-2).
+DEPLOY_BUDGET = {None: SERVE_BUDGET, "int8": INT8_PLAIN_BUDGET}
+DEPLOY_RELOAD_KEY = "transformer.layers.0.0.to_qkv.weight"  # the int8 reload's overlaid weight
+OPCHECK_OPS = ("patchify", "fused_mhsa", "flash_attention", "local_attention", "fused_mlp",
+               "cls_attention", "ln_linear", "int8_linear", "int8_mlp")  # every gaviko:: op
+HOST_CALLS, HOST_REPEATS = 50, 7
+
+
+def _host_us(fn) -> float:
+    """Median host µs a call over HOST_CALLS back-to-back calls with no
+    synchronisation between them (``scripts/attention_host_us.py``'s
+    method): what a host-bound forward pays a launch."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(HOST_REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _deploy_host_us(spec) -> dict:
+    """Host µs a call of A and C at the GAViKO B8 bf16 serving shapes,
+    eagerly (the wrapper) and as the exported program calls them (its
+    ``gaviko::`` op, which runs the same launch)."""
+    import torch
+
+    from gaviko_tpu_torch.ops import _build
+    from gaviko_tpu_torch.ops.flash_attention import flash_local_attention, fused_mhsa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_true = spec.num_prompts + 1 + spec.num_patches
+    inner, dl = spec.heads * spec.dim_head, spec.local_dim
+    qkv = torch.randn(B, _pad8(n_true), 3 * inner, generator=gen, device="cuda").bfloat16()
+    local = torch.randn(B, spec.num_patches, 3 * dl, generator=gen, device="cuda").bfloat16()
+    q, k, v = local.chunk(3, dim=-1)
+    a = (qkv, spec.heads, spec.dim_head, spec.dim_head ** -0.5, n_true)
+    c = (q, k, v, spec.dim ** -0.5)
+    dhw, win = tuple(spec.DHW), tuple(spec.local_k)
+    with torch.inference_mode():
+        return {"fused_mhsa": {"eager": _host_us(lambda: fused_mhsa(*a)),
+                               "artifact": _host_us(lambda: _build.op("fused_mhsa")(*a))},
+                "local_attention": {
+                    "eager": _host_us(lambda: flash_local_attention(*c, dhw, win)),
+                    "artifact": _host_us(lambda: _build.op("local_attention")(
+                        *c, list(dhw), list(win)))}}
+
+
+def _record_op_args(store: dict):
+    """A dispatch mode that records, into ``store``, the arguments of the
+    first call of each ``gaviko::`` op run inside it (an exported program's
+    forward), for ``phase_opcheck``; every call runs as it would without it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.namespace == "gaviko":
+                store.setdefault(_op_name(func), (func, args, kwargs))
+            return func(*args, **kwargs)
+
+    return Record()
+
+
+def _op_name(op) -> str:
+    """``gaviko::fused_mhsa.default`` -> ``fused_mhsa``."""
+    return op.name().split("::")[1].split(".")[0]
+
+
+def phase_deploy(name: str, config: dict, predictor, vols, live_served, card: str,
+                 op_args: dict) -> dict:
+    """A deployment artifact of the live ``predictor``'s model (``deploy``):
+    exported for ``cuda`` (B8 bf16, int8 as the predictor is), its manifest
+    calling each ``gaviko::`` op ``serving_launches`` times; loaded in a
+    ``DeployedPredictor``; its first forward's logits against the live
+    predictor's on the same 8 volumes, then 16 volumes served 8 at a time
+    through ``serve()`` with exact launches a batch, against the live
+    predictor's served logits (relative MAE by DEPLOY_BUDGET, bit-equality
+    reported). Prints export s, artifact MB, load s, first-forward ms,
+    ``predict_logits`` vol/s beside the live predictor's (turns: live,
+    artifact, artifact, live), a B8 forward's CUDA-event ms eager, from the
+    predictor's program and from the program as exported (its per-call
+    input checks and asserts kept), and (GAViKO) the host µs a call of A
+    and C eager and through their ops. An int8 artifact
+    then reloads a checkpoint of one quantized weight: its sidecars must be
+    ``quantize_weight``'s of the new weight, its logits move, and a forward
+    still launches exactly. Returns the launches of the first forward (one
+    batch), read from the wrappers' counters, and records each ``gaviko::``
+    op's arguments in one more forward into ``op_args``."""
+    import torch
+
+    from gaviko_tpu_torch.deploy import DeployedPredictor, export_artifact
+    from gaviko_tpu_torch.ops.int8_linear import INT8_SUFFIX, SCALE_SUFFIX, quantize_weight
+    from gaviko_tpu_torch.utils.layouts import put_volume
+
+    t_start = time.perf_counter()
+    spec, quantize = predictor.spec, predictor._quantize
+    budget = DEPLOY_BUDGET[quantize]
+    per_batch = serving_launches(spec, quantize == "int8")
+    line = {"phase": "deploy", "model": name, "method": spec.method,
+            "backbone": spec.backbone, "quantize": quantize, "budget": budget, "card": card}
+    with tempfile.TemporaryDirectory(prefix="gaviko_deploy_") as root:
+        path = os.path.join(root, f"{name}.gaviko")
+        t0 = time.perf_counter()
+        platform = predictor.device.type  # cuda here; the CPU rehearses the phase
+        meta = export_artifact(config, path, batch_size=B, dtype="bfloat16",
+                               pretrained_dir=None, quantize=quantize, platforms=(platform,))
+        line["export_s"] = time.perf_counter() - t0
+        line["artifact_mb"] = os.path.getsize(path) / 1e6
+        line["ops"] = meta["ops"][platform]
+        t0 = time.perf_counter()
+        dep = DeployedPredictor(path, device=predictor.device)
+        torch.cuda.synchronize()
+        line["load_s"] = time.perf_counter() - t0
+        wrappers = _wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        first = dep.predict_logits(vols[:B])
+        line["first_forward_ms"] = (time.perf_counter() - t0) * 1e3
+        first_launches = {n: w.launches for n, w in wrappers.items()}
+        line["first_launches_exact"] = first_launches == per_batch
+        live = predictor.predict_logits(vols[:B])
+        line["rel_mae"] = _rel_mae_np(first, live)
+        line["bit_equal"] = bool(np.array_equal(first, live))
+        print(json.dumps({"phase": "deploy_loaded", **line}), flush=True)
+
+        launches, served = phase_serving(dep, vols, spec=spec, quantized=quantize == "int8")
+        line["served_rel_mae"] = _rel_mae_np(served, live_served)
+        line["served_bit_equal"] = bool(np.array_equal(served, live_served))
+
+        def rate(p, reps=3):
+            p.predict_logits(vols[:B])
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                p.predict_logits(vols[:B])
+            return reps * B / (time.perf_counter() - t0)
+
+        turns = [rate(predictor), rate(dep), rate(dep), rate(predictor)]
+        line["live_vol_per_s"], line["vol_per_s"] = turns[::3], turns[1:3]
+        batch = put_volume(np.stack([v[None] for v in vols[:B]]), torch.bfloat16,
+                           predictor.device)
+        with torch.no_grad(), _record_op_args(op_args):  # not inference tensors
+            dep._program(dep._device_params, batch)
+        with zipfile.ZipFile(path) as z:  # the program as exported, its checks kept
+            checked = torch.export.load(io.BytesIO(z.read(f"program.{platform}.pt2"))).module()
+        with torch.inference_mode():
+            line["live_forward_ms"] = _median_ms(
+                lambda: predictor.model.apply(predictor.params, batch, spec), reps=5)
+            line["forward_ms"] = _median_ms(lambda: dep._program(dep._device_params, batch),
+                                            reps=5)
+            line["forward_ms_checked"] = _median_ms(lambda: checked(dep._device_params, batch),
+                                                    reps=5)
+        del checked
+        if spec.method == "gaviko":
+            line["host_us"] = _deploy_host_us(spec)
+
+        if quantize == "int8":
+            key = DEPLOY_RELOAD_KEY
+            new_w = (dep.params[key].float() * 2.0 + 0.01).to(dep.params[key].dtype)
+            ckpt = os.path.join(root, "reload.pt")
+            torch.save({key: new_w}, ckpt)
+            dep.reload_checkpoint(ckpt)
+            w_i8, scale = quantize_weight(new_w)
+            requantized = all(torch.equal(t.cpu(), want) for t, want in (
+                (dep.params[key + INT8_SUFFIX], w_i8), (dep.params[key + SCALE_SUFFIX], scale),
+                (dep._device_params[key + INT8_SUFFIX], w_i8)))
+            for w in wrappers.values():
+                w.launches = 0
+            reloaded = dep.predict_logits(vols[:B])
+            reload_launches = {n: w.launches for n, w in wrappers.items()}
+            line["reload"] = {"key": key, "requantized": requantized,
+                              "rel_change": _rel_mae_np(reloaded, first),
+                              "launches_exact": reload_launches == per_batch}
+            if not (requantized and line["reload"]["rel_change"] > 0
+                    and reload_launches == per_batch):
+                raise RuntimeError(f"deploy {name}: reload failed: {line['reload']}, "
+                                   f"launches {reload_launches}")
+        del dep
+        torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_start
+    print(json.dumps(line), flush=True)
+    want_ops = {f"gaviko::{n}": c for n, c in per_batch.items() if c}
+    if line["ops"] != want_ops:
+        raise RuntimeError(f"deploy {name}: the program calls {line['ops']}, want {want_ops}")
+    if first_launches != per_batch:
+        raise RuntimeError(f"deploy {name}: a batch launched {first_launches}, "
+                           f"want {per_batch}")
+    for key in ("rel_mae", "served_rel_mae"):
+        if not line[key] <= budget:
+            raise RuntimeError(f"deploy {name}: {key} {line[key]} > {budget}")
+    return first_launches
+
+
+def phase_deploy_cli(predictor, vols, card: str, op_args: dict) -> None:
+    """``python -m gaviko_tpu_torch.cli.export`` then ``cli.infer
+    --artifact`` (both in this process) on vit.yaml ``fft`` at B8 bf16 and a
+    folder of 8 volumes: the CSV's classes are those of a
+    ``DeployedPredictor`` of the exported file, whose logits are within
+    SERVE_BUDGET of the live ``predictor``'s on the same volumes. Records
+    each ``gaviko::`` op's arguments in one more forward into ``op_args``."""
+    import yaml
+
+    import torch
+
+    from gaviko_tpu_torch.cli import export as export_cli
+    from gaviko_tpu_torch.cli import infer as infer_cli
+    from gaviko_tpu_torch.config import load_config
+    from gaviko_tpu_torch.deploy import DeployedPredictor
+    from gaviko_tpu_torch.utils.layouts import put_volume
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gaviko_deploy_cli_") as root:
+        folder = os.path.join(root, "volumes")
+        os.makedirs(folder)
+        names = [f"vol_{i:02d}.npz" for i in range(B)]
+        for n, v in zip(names, vols[:B]):
+            np.savez(os.path.join(folder, n), data=v)
+        config = load_config(VIT_CONFIG)
+        config["utils"].update(log_dir=os.path.join(root, "log"))
+        config_path = os.path.join(root, "vit.yaml")
+        with open(config_path, "w") as f:
+            yaml.safe_dump(config, f)
+        path = os.path.join(root, "vit.gaviko")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            export_cli.main(["--config", config_path, "--method", "fft", "--output", path,
+                             "--platforms", predictor.device.type])
+        csv_path = infer_cli.main(["--artifact", path, "--image_folder", folder,
+                                   "--results_dir", os.path.join(root, "outputs"),
+                                   "--device", str(predictor.device)])
+        with open(csv_path) as f:
+            rows = dict(line.split(",") for line in f.read().splitlines()[1:])
+        dep = DeployedPredictor(path, device=predictor.device)
+        logits = dep.predict_logits(vols[:B])
+        batch = put_volume(np.stack([v[None] for v in vols[:B]]), torch.bfloat16,
+                           predictor.device)
+        with torch.no_grad(), _record_op_args(op_args):  # not inference tensors
+            dep._program(dep._device_params, batch)
+        del batch
+        classes = {n: str(int(c)) for n, c in zip(names, logits.argmax(-1))}
+        rel = _rel_mae_np(logits, predictor.predict_logits(vols[:B]))
+        del dep
+    line = {"phase": "deploy_cli", "export_line": out.getvalue().strip(), "rows": len(rows),
+            "classes_match": rows == classes, "rel_mae": rel, "budget": SERVE_BUDGET,
+            "seconds": time.perf_counter() - t_start, "card": card}
+    print(json.dumps(line), flush=True)
+    if rows != classes or not rel <= SERVE_BUDGET or "wrote " not in line["export_line"]:
+        raise RuntimeError(f"deploy_cli failed: {line}")
+
+
+def phase_opcheck(op_args: dict, card: str) -> None:
+    """``torch.library.opcheck`` (schema, autograd registration, the fake
+    against the kernel's output: shape, dtype, strides and aliasing, and a
+    dynamic-shape trace) on every ``gaviko::`` op on the card: each with the
+    arguments an artifact of phase 22 gave it (``op_args``), and
+    ``flash_attention`` (B10), which no phase 22 artifact calls, at the
+    vit-t16 B8 bf16 serving shapes (head views of a packed qkv) and at a
+    head dim of 36, whose fake is a slice of a padded buffer."""
+    import torch
+
+    from gaviko_tpu_torch.models.factory import build_model
+
+    t_start = time.perf_counter()
+    spec = build_model(_config(VIT_CONFIG, "fft", T16)["model"]).spec
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h = spec.num_patches + 1, spec.heads
+    cases = dict(op_args)
+    flash = torch.ops.gaviko.flash_attention.default
+    for d in (spec.dim_head, 36):
+        qkv = torch.randn(B, n, 3 * h * d, generator=gen, device="cuda").bfloat16()
+        q, k, v = qkv.view(B, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        cases[f"flash_attention_d{d}"] = (flash, (q, k, v, d ** -0.5), {})
+    results = {}
+    for name, (op, args, kwargs) in sorted(cases.items()):
+        t0 = time.perf_counter()
+        results[name] = {
+            "shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
+            **torch.library.opcheck(op, args, kwargs, raise_exception=False),
+            "s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    failed = {k: {t: str(r) for t, r in v.items() if t.startswith("test_") and r != "SUCCESS"}
+              for k, v in results.items()}
+    failed = {k: v for k, v in failed.items() if v}
+    print(json.dumps({"phase": "opcheck", "ops": results, "failed": failed,
+                      "seconds": time.perf_counter() - t_start, "card": card}, default=str),
+          flush=True)
+    missing = set(OPCHECK_OPS) - {_op_name(op) for op, _, _ in cases.values()}
+    if failed or missing:
+        raise RuntimeError(f"opcheck failed: {failed}, ops not checked: {sorted(missing)}")
 
 
 def train_setup(model_over=None):
@@ -1855,6 +2201,18 @@ def zoo_launches(spec, dtype, train: bool) -> dict:
     return want
 
 
+def cut_vit_train_setup(model_over):
+    """``vit_train_setup`` with the backbone at CUT_DEPTH layers."""
+    from gaviko_tpu_torch import config
+
+    saved = dict(config.VIT_CONFIG_MAP)
+    config.VIT_CONFIG_MAP.update({k: dict(v, depth=CUT_DEPTH) for k, v in saved.items()})
+    try:
+        return vit_train_setup(model_over)
+    finally:
+        config.VIT_CONFIG_MAP.update(saved)
+
+
 def vit_train_setup(model_over=None):
     """The ViT of vit.yaml, method fft (vit-b16, or as ``model_over``
     changes it; random init from seed 0, on the card), TRAIN_STEPS
@@ -1993,34 +2351,48 @@ def _profile_int8_forward(forward, depth: int) -> dict:
     raise RuntimeError(f"the profiled int8 forward ran {profile['kernel_counts']}, not {want}")
 
 
+_PROFILED_STEP = "chip_smoke_profiled_step"
+
+
 def profile_step(step, count_names=()) -> dict:
     """One more step under torch.profiler: the wall time, the device's busy
     time (the sum of its kernels, which one stream runs one at a time) and
     so its idle share, the kernels that took the most device time, and the
-    number of device kernels whose name holds each of ``count_names``."""
+    number of device kernels whose name holds each of ``count_names``.
+
+    A session late in a long process can drop the device records of its
+    first launches (up to 6 of a vit-b16 int8 forward's 141 on an H100), so
+    each session opens with 32 throwaway launches, and only the device
+    records that start inside the step's ``record_function`` range count
+    (less the range's own annotation on the device's timeline)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(32):
+            warm.add_(1.0)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name, busy_us, n = {}, 0.0, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+        with record_function(_PROFILED_STEP):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    opened = min(e.time_range.start for e in events if e.name == _PROFILED_STEP)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.time_range.start >= opened and e.name != _PROFILED_STEP]
+    by_name, busy_us = {}, 0.0
+    for e in device:
         us = e.time_range.elapsed_us()
         busy_us += us
-        n += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    counts = {c: sum(1 for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and c in e.name) for c in count_names}
+    counts = {c: sum(1 for e in device if c in e.name) for c in count_names}
     return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms, "device_kernels": n,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms, "device_kernels": len(device),
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}, "kernel_counts": counts}
 
 
@@ -2958,7 +3330,7 @@ def phase_trainer_input(root: str, pretrained: str, sample: dict, card: str) -> 
     return line
 
 
-PAR_CONFIG = "gaviko_tpu/configs/gaviko_tpu.yaml"
+PAR_CONFIG = "gaviko_tpu_torch/configs/gaviko_tpu.yaml"
 PAR_B = 8  # gaviko_tpu.yaml's global batch
 PAR_VOLUMES = (24, 8)  # 3 steps and one eval batch at B8
 # The 2-rank runs on cuda:0 (gloo): job -> (data, model) of the mesh.
@@ -3430,7 +3802,7 @@ def main() -> int:
     phase_local_bits(smi)
     rng = np.random.RandomState(0)
     vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
-    launches, fp_served = {}, {}
+    launches, fp_served, deploy, op_args = {}, {}, {}, {}
     for name, config, method, over, headline in (
             ("serving", CONFIG, "gaviko", None, None), ("vit", VIT_CONFIG, "fft", None, HEADLINE_B),
             ("t16", VIT_CONFIG, "fft", T16, None),
@@ -3438,6 +3810,13 @@ def main() -> int:
         predictor = make_predictor(config, method, over)
         launches[name], fp_served[name] = phase_serving(predictor, vols)
         phase_plain_check(predictor, vols[:B], fp_served[name][:B], smi, headline)
+        # Deployment (phase 22) on the live predictor: GAViKO's artifact, and
+        # cli.export -> cli.infer --artifact on vit.yaml.
+        if name == "serving":
+            deploy["gaviko"] = phase_deploy("gaviko", _config(config, method, over), predictor,
+                                            vols, fp_served[name], smi, op_args)
+        elif name == "vit":
+            phase_deploy_cli(predictor, vols, smi, op_args)
         del predictor
         torch.cuda.empty_cache()
     # int8 serving (B11): GAViKO vit-l16, vit-b16 fft and vit-b16 at
@@ -3451,8 +3830,13 @@ def main() -> int:
         launches[name], served = phase_serving(predictor, vols)
         phase_plain_check(predictor, vols[:B], served[:B], smi, budget=budget,
                           fp_served=fp_served[fp_name][:B])
+        if name == "vit_int8":  # phase 22: the int8 artifact, and its reload
+            deploy[name] = phase_deploy(name, _config(config, method, over), predictor, vols,
+                                        served, smi, op_args)
         del predictor
         torch.cuda.empty_cache()
+    phase_opcheck(op_args, smi)  # phase 22: every gaviko:: op's fake against its kernel
+    del op_args
 
     # Train runs: (name, setup, precisions, the precision whose launches the
     # kernels line reports, GAVIKO_LNQKV_HYBRID for the run). vit-t16 trains
@@ -3468,12 +3852,13 @@ def main() -> int:
             ("vit_train_hybrid", vit_train_setup, ("fp32", "bf16"), "bf16", True),
             ("gaviko_trainable_hybrid", lambda: train_setup({"freeze_vit": False}),
              ("bf16",), "bf16", True),
-            ("t16_train", lambda: vit_train_setup(T16), ("fp32", "bf16"), "bf16", False),
-            ("t16_train_no_dropout", lambda: vit_train_setup(t16_no_dropout), ("bf16",),
+            ("t16_train", lambda: cut_vit_train_setup(T16), ("fp32", "bf16"), "bf16", False),
+            ("t16_train_no_dropout", lambda: cut_vit_train_setup(t16_no_dropout), ("bf16",),
              "bf16", False),
-            ("dh128_train", lambda: vit_train_setup(DH[128]), ("fp32", "bf16"), "bf16", False),
-            ("dh192_train", lambda: vit_train_setup(DH[192]), ("bf16",), "bf16", False),
-            ("dh256_train", lambda: vit_train_setup(DH[256]), ("bf16",), "bf16", False)):
+            ("dh128_train", lambda: cut_vit_train_setup(DH[128]), ("fp32", "bf16"), "bf16",
+             False),
+            ("dh192_train", lambda: cut_vit_train_setup(DH[192]), ("bf16",), "bf16", False),
+            ("dh256_train", lambda: cut_vit_train_setup(DH[256]), ("bf16",), "bf16", False)):
         with _lnqkv_hybrid(hybrid):
             setup = make_setup()
             runs = {p: phase_train(setup, p, smi) for p in precisions}
@@ -3561,6 +3946,7 @@ def main() -> int:
             if key in line:
                 row[key] = line[key]
         row["zoo_launches"] = {run: c[n] for run, c in zoo.items() if c[n]}
+        row["deploy_launches"] = {run: c[n] for run, c in deploy.items() if c[n]}
         row["trainer_input_launches"] = input_launches[n]
         if row_name == n:  # the parallel runs are at head dim 64 and vit-b16 / vit-l16 widths
             row["parallel_launches"] = {run: c[n] for run, c in parallel_launches.items()

@@ -9,8 +9,12 @@ reports accuracy, quadratic Cohen's kappa and macro one-vs-rest ROC-AUC
 (``train/metrics.py``), and writes the versioned
 ``{method}_{backbone}_eval_results_v{N}.csv`` and its ``_metrics.txt``.
 ``--quantize int8`` evaluates with the int8 backbone GEMMs (the serving
-path's sidecars, added after the checkpoint overlay); ``--artifact``
-(ROADMAP Queue A item 14) is not ported and exits with an error naming it.
+path's sidecars, added after the checkpoint overlay).
+
+``--artifact model.gaviko --data_path <labels csv> [--image_folder <dir>]``
+evaluates a deployment artifact (``cli.export``) instead: the same metrics
+and files, the forward from the artifact's program, with no config and no
+model build, so the unit that will be served is the one validated.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from gaviko_tpu_torch.models.pretrained import build_params
 from gaviko_tpu_torch.train.loop import make_steps, split_params
 from gaviko_tpu_torch.train.losses import make_criterion
 from gaviko_tpu_torch.train.metrics import accuracy, cohen_kappa_quadratic, roc_auc_ovr_macro
+from gaviko_tpu_torch.utils.compile_cache import enable_compilation_cache
 from gaviko_tpu_torch.utils.logging import setup_logging
 
 
@@ -77,6 +82,37 @@ def _finish_eval(valid_df, y_test, y_pred, y_proba, results_dir: str, method: st
         f.write(f"Test Quadratic Kappa: {test_qkv}\n")
         f.write(f"Test AUC: {test_auc}\n")
     return {"accuracy": test_acc, "kappa": test_qkv, "auc": test_auc, "csv": csv_path}
+
+
+def evaluate_artifact(artifact: str, data_path: str, results_dir: str,
+                      image_folder: str | None = None, device="cuda") -> dict:
+    """Evaluate a deployment artifact on the CSV's ``val`` subset: the
+    metrics and files of :func:`evaluate`, the forward from the artifact
+    (``deploy.DeployedPredictor``) on ``device``."""
+    from gaviko_tpu_torch.deploy import DeployedPredictor
+
+    pred = DeployedPredictor(artifact, device=resolve_device(device))
+    valid_df = split_dataframe(read_csv(data_path), "val")
+    if not valid_df:
+        raise ValueError(f"no rows with subset=='val' in {data_path}")
+    paths = [os.path.join(image_folder, row["mri_path"]) if image_folder else row["mri_path"]
+             for row in valid_df]
+    y_test = [int(row["kl_grade"]) for row in valid_df]
+    y_pred, y_proba = [], []
+    # One device batch of volumes in host memory at a time.
+    for i in range(0, len(paths), pred.batch_size):
+        vols = []
+        for p in paths[i: i + pred.batch_size]:
+            with np.load(p) as z:
+                vols.append(z["data"])
+        logits = pred.predict_logits(vols)
+        y_pred.extend(np.argmax(logits, axis=1).tolist())
+        p = np.exp(logits - logits.max(-1, keepdims=True))
+        y_proba.extend((p / p.sum(-1, keepdims=True)).tolist())
+
+    mc = pred.meta["model_config"]
+    return _finish_eval(valid_df, y_test, y_pred, y_proba, results_dir, mc["method"],
+                        str(mc.get("backbone", "none")))
 
 
 def load_model(config: dict, device: torch.device, quantize=None):
@@ -136,7 +172,12 @@ def main(argv=None):
                                                  "(PyTorch port)")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--artifact", type=str, default=None,
-                        help="not ported yet (ROADMAP Queue A item 14)")
+                        help="evaluate a deployment artifact (cli.export output) instead of "
+                             "building from --config; requires --data_path")
+    parser.add_argument("--data_path", type=str, default=None,
+                        help="labels CSV (with --artifact; --config runs read data.data_path)")
+    parser.add_argument("--image_folder", type=str, default=None,
+                        help="npz folder the CSV's mri_path is relative to (with --artifact)")
     parser.add_argument("--results_dir", type=str, default="./outputs")
     parser.add_argument("--checkpoint", type=str, required=False)
     parser.add_argument("--method", type=str, default=None, choices=list(METHODS))
@@ -146,10 +187,31 @@ def main(argv=None):
                         help="cuda (default) or cpu (the plain versions)")
     args = parser.parse_args(argv)
 
+    if (args.config is None) == (args.artifact is None):
+        parser.error("exactly one of --config or --artifact is required")
+    enable_compilation_cache()
     if args.artifact is not None:
-        parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
-    if args.config is None:
-        parser.error("--config is required")
+        if args.data_path is None:
+            parser.error("--artifact requires --data_path (labels CSV)")
+        if args.checkpoint is not None:
+            parser.error("--checkpoint is baked into the artifact at export time; not "
+                         "accepted with --artifact")
+        if args.method is not None:
+            parser.error("--method is baked into the artifact at export time; not accepted "
+                         "with --artifact")
+        if args.quantize is not None:
+            parser.error("--quantize applies to --config runs; artifacts bake their "
+                         "precision in at export time")
+        os.makedirs(args.results_dir, exist_ok=True)
+        setup_logging(log_dir=args.results_dir)
+        return evaluate_artifact(args.artifact, args.data_path, args.results_dir,
+                                 image_folder=args.image_folder, device=args.device)
+    if args.data_path is not None:
+        parser.error("--data_path applies to --artifact runs only; --config runs read "
+                     "data.data_path from the YAML")
+    if args.image_folder is not None:
+        parser.error("--image_folder applies to --artifact runs only; --config runs read "
+                     "data.image_folder from the YAML")
     config = load_config(args.config)
     # No --method and none in the YAML: the reference's default ("gaviko").
     if args.method is None and not config["model"].get("method"):

@@ -5,8 +5,9 @@
 
 Port of ``gaviko_tpu/cli/infer.py``: scans ``data.image_folder`` for
 ``*.npz``, predicts argmax classes and writes the versioned
-``{method}_{backbone}_inference_results_v{N}.csv``. ``--artifact`` is not
-ported (ROADMAP Queue A item 14).
+``{method}_{backbone}_inference_results_v{N}.csv``. ``--artifact
+model.gaviko --image_folder <dir>`` runs a deployment artifact
+(``cli.export``) instead, with no config and no model build.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from gaviko_tpu_torch.data.device_prefetch import stage_batch, wait_staged
 from gaviko_tpu_torch.data.pipeline import dataset_from_dataframe, pick_loader, scan_folder
 from gaviko_tpu_torch.train.loop import make_steps
 from gaviko_tpu_torch.train.losses import cross_entropy_loss
+from gaviko_tpu_torch.utils.compile_cache import enable_compilation_cache
 from gaviko_tpu_torch.utils.logging import setup_logging
 
 
@@ -59,12 +61,44 @@ def inference(config: dict, device="cuda") -> str:
     return csv_path
 
 
+def inference_artifact(artifact: str, image_folder: str, results_dir: str,
+                       device="cuda") -> str:
+    """Folder inference from a deployment artifact: the outputs of
+    :func:`inference`, the forward from the artifact's program on
+    ``device``."""
+    from gaviko_tpu_torch.deploy import DeployedPredictor
+
+    pred = DeployedPredictor(artifact, device=resolve_device(device))
+    paths = [row["mri_path"] for row in scan_folder(image_folder)]
+    outputs = []
+    # One device batch of volumes in host memory at a time.
+    for i in range(0, len(paths), pred.batch_size):
+        vols = []
+        for p in paths[i: i + pred.batch_size]:
+            with np.load(p) as z:
+                vols.append(z["data"])
+        outputs.extend(int(c) for c in pred.predict(vols))
+
+    os.makedirs(results_dir, exist_ok=True)
+    mc = pred.meta["model_config"]
+    backbone = str(mc.get("backbone", "none")).replace("-", "_")
+    csv_path = versioned_path(
+        results_dir, f"{mc['method']}_{backbone}_inference_results_v{{version}}.csv")
+    write_outputs(csv_path, paths, outputs)
+    logging.info(f"Results saved to {csv_path}")
+    return csv_path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Inference script for Gaviko model "
                                                  "(PyTorch port)")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--artifact", type=str, default=None,
-                        help="not ported yet (ROADMAP Queue A item 14)")
+                        help="run a deployment artifact (cli.export output) instead of "
+                             "building from --config; requires --image_folder")
+    parser.add_argument("--image_folder", type=str, default=None,
+                        help="npz folder to scan (with --artifact; --config runs take it "
+                             "from data.image_folder)")
     parser.add_argument("--results_dir", type=str, default="./outputs")
     parser.add_argument("--checkpoint", type=str, required=False)
     parser.add_argument("--method", type=str, default="gaviko", choices=list(METHODS))
@@ -72,10 +106,19 @@ def main(argv=None):
                         help="cuda (default) or cpu (the plain versions)")
     args = parser.parse_args(argv)
 
+    if (args.config is None) == (args.artifact is None):
+        parser.error("exactly one of --config or --artifact is required")
+    enable_compilation_cache()
     if args.artifact is not None:
-        parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
-    if args.config is None:
-        parser.error("--config is required")
+        if args.image_folder is None:
+            parser.error("--artifact requires --image_folder")
+        if args.checkpoint is not None:
+            parser.error("--checkpoint is baked into the artifact at export time; not "
+                         "accepted with --artifact")
+        os.makedirs(args.results_dir, exist_ok=True)
+        setup_logging(log_dir=args.results_dir)
+        return inference_artifact(args.artifact, args.image_folder, args.results_dir,
+                                  device=args.device)
     config = load_config(args.config)
     apply_method_override(config, args.method)
     config["utils"]["results_dir"] = args.results_dir or config["utils"].get("results_dir")

@@ -1,13 +1,17 @@
 """Serving entry point: the port's Predictor behind a local HTTP endpoint.
 
-    python -m gaviko_tpu_torch.cli.serve --config gaviko_tpu/configs/gaviko.yaml \
+    python -m gaviko_tpu_torch.cli.serve --config gaviko_tpu_torch/configs/gaviko.yaml \
         --method gaviko --checkpoint <ckpt> --port 8477
 
 POST an .npz body (key ``data``, shape (D, H, W)) to /predict; GET /healthz,
 GET /metrics. The flags are the JAX package's (``gaviko_tpu/cli/serve.py``);
-``--quantize int8`` serves with the int8 backbone GEMMs; ``--artifact`` is
-not ported yet and exits with an error naming its ROADMAP item. The model
-runs on the CUDA card.
+``--quantize int8`` serves with the int8 backbone GEMMs. The model runs on
+the CUDA card.
+
+``--artifact model.gaviko`` serves a deployment artifact (``cli.export``)
+through ``deploy.DeployedPredictor`` instead of building from ``--config``:
+no model code runs, and ``--checkpoint``, ``--quantize`` and ``--mesh``,
+baked in at export time, are refused (``/reload`` overlays a checkpoint).
 
 ``--mesh data,tp`` serves on data x tp ranks (``Predictor(mesh_shape=...)``):
 launch that many processes, e.g. ``torchrun --nproc_per_node 2 -m
@@ -22,13 +26,15 @@ import argparse
 import logging
 
 from gaviko_tpu_torch.config import METHODS, apply_method_override, load_config
+from gaviko_tpu_torch.utils.compile_cache import enable_compilation_cache
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Serve a gaviko model (PyTorch port)")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--artifact", type=str, default=None,
-                        help="not ported yet (ROADMAP Queue A item 14)")
+                        help="serve a deployment artifact (cli.export output) instead of "
+                             "building from --config")
     parser.add_argument("--method", type=str, default="gaviko", choices=list(METHODS))
     parser.add_argument("--checkpoint", type=str, default=None)
     parser.add_argument("--host", type=str, default="127.0.0.1")
@@ -48,10 +54,13 @@ def main(argv=None):
                         help="reject POST bodies above this size")
     args = parser.parse_args(argv)
 
+    if (args.config is None) == (args.artifact is None):
+        parser.error("exactly one of --config or --artifact is required")
     if args.artifact is not None:
-        parser.error("--artifact is not ported yet (ROADMAP Queue A item 14)")
-    if args.config is None:
-        parser.error("--config is required")
+        for flag in ("checkpoint", "quantize", "mesh"):
+            if getattr(args, flag) is not None:
+                parser.error(f"--{flag} is baked into the artifact at export time; not "
+                             "accepted with --artifact")
     mesh = None
     if args.mesh is not None:
         try:
@@ -65,6 +74,19 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    enable_compilation_cache()
+    if args.artifact is not None:
+        from gaviko_tpu_torch.deploy import DeployedPredictor
+
+        server = serve(DeployedPredictor(args.artifact, device="cuda"), host=args.host,
+                       port=args.port, auth_token=args.auth_token,
+                       checkpoint_dir=args.checkpoint_dir,
+                       max_body_bytes=args.max_body_mb * 1024 * 1024)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+        return
     config = load_config(args.config)
     apply_method_override(config, args.method)
     if mesh is not None:

@@ -35,6 +35,7 @@ from gaviko_tpu_torch.data.pipeline import (
 from gaviko_tpu_torch.models.factory import build_model
 from gaviko_tpu_torch.models.pretrained import build_params
 from gaviko_tpu_torch.train.loop import run_training
+from gaviko_tpu_torch.utils.compile_cache import enable_compilation_cache
 from gaviko_tpu_torch.utils.logging import setup_logging
 
 
@@ -122,7 +123,7 @@ def train(config: dict, device="cuda") -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Training script for Gaviko model (PyTorch port)")
-    parser.add_argument("--config", type=str, default="gaviko_tpu/configs/gaviko.yaml",
+    parser.add_argument("--config", type=str, default="gaviko_tpu_torch/configs/gaviko.yaml",
                         help="Path to the configuration file")
     parser.add_argument("--method", type=str, default="gaviko", choices=list(METHODS),
                         help="Model to train")
@@ -135,6 +136,7 @@ def main(argv=None):
                         help="cuda (default) or cpu (the plain versions)")
     args = parser.parse_args(argv)
 
+    enable_compilation_cache()
     config = load_config(args.config)
     apply_method_override(config, args.method)
     if args.results_dir is not None:

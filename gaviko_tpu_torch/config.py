@@ -43,12 +43,11 @@ def mapping_vit(backbone: Optional[str]) -> Tuple[int, int, int, int]:
 
 def load_config(path: str) -> dict:
     """Load a YAML config. A path that doesn't exist on disk is retried
-    against the JAX package's ``gaviko_tpu/configs/`` directory beside this
-    package (by basename), the configs both packages share."""
+    against this package's ``configs/`` directory (by basename): copies of
+    the JAX package's shipped YAMLs, byte for byte."""
     if not os.path.exists(path):
         packaged = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "gaviko_tpu", "configs", os.path.basename(path))
+            os.path.dirname(os.path.abspath(__file__)), "configs", os.path.basename(path))
         if os.path.exists(packaged):
             path = packaged
     with open(path) as f:

@@ -14,6 +14,13 @@ Every C entry point launches on the stream it is given and returns
 On a CPU tensor every wrapper runs its kernel's plain PyTorch version; on a
 CUDA tensor it launches the kernel or raises. :func:`plain_versions` is the
 one exception, for comparing a kernel with its plain version on the card.
+While ``torch.export`` traces a forward (``torch.compiler.is_exporting()``),
+a forward wrapper on a CUDA tensor records its ``gaviko::`` custom op
+(:func:`op`, ``ops/library.py``) instead, whose implementation is the same
+launch.
+
+Where the libraries go is ``BUILD_DIR``; ``utils/compile_cache.py`` moves
+it (``GAVIKO_COMPILE_CACHE_DIR``, ``GAVIKO_COMPILE_CACHE=0``).
 """
 
 from __future__ import annotations
@@ -62,6 +69,17 @@ def library_path(name: str) -> Path:
     for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def sources_digest() -> str:
+    """sha256 of NVCC_FLAGS and every source under ``csrc/`` (by name), as
+    :func:`library_path` hashes each library's: an exported artifact
+    records it, and a package whose kernels differ refuses to serve it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted((*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh"))):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
 
 
 def build() -> Dict[str, str]:
@@ -127,6 +145,13 @@ def launch(name: str, symbol: str, argtypes: Sequence, *args) -> None:
     if rc != 0:
         msg = _library(name).gaviko_error_string(rc).decode()
         raise RuntimeError(f"{symbol} failed: CUDA error {rc} ({msg})")
+
+
+def op(name: str):
+    """The custom op ``gaviko::<name>`` (``ops/library.py`` registers them)."""
+    from gaviko_tpu_torch.ops import library  # noqa: F401 (registers the ops)
+
+    return getattr(torch.ops.gaviko, name)
 
 
 def stream_of(t: torch.Tensor) -> int:

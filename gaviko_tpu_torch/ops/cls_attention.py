@@ -122,6 +122,8 @@ def cls_attention(kv: torch.Tensor, q0: torch.Tensor, heads: int, dim_head: int,
         return cls_attention_reference(kv, q0, heads, dim_head, scale, n_true)
     _build.refuse_grad("cls_attention", "inference only, as in the JAX package: training "
                        "takes cls_attend's differentiable form", kv, q0)
+    if torch.compiler.is_exporting():
+        return _build.op("cls_attention")(kv, q0, heads, dim_head, scale, n_true)
     B, N, two_inner = kv.shape
     inner = heads * dim_head
     if dim_head < 1:

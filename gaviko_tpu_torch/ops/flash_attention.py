@@ -340,6 +340,8 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one [B, H, N, D] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if torch.compiler.is_exporting():
+        return _build.op("flash_attention")(q, k, v, scale)
     D = q.shape[-1]
     if D % 8:
         q, k, v = (F.pad(t, (0, (-D) % 8)) for t in (q, k, v))
@@ -427,6 +429,11 @@ def _mhsa_forward(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
         return mhsa_reference(qkv, heads, dim_head, scale, n_true, dropout_rate,
                               with_lse=with_lse, seed=seed, heads_total=heads_total,
                               head0=head0)
+    if torch.compiler.is_exporting():
+        if dropout_rate > 0.0 or with_lse:
+            raise NotImplementedError("an exported forward runs fused_mhsa without dropout "
+                                      "or lse")
+        return _build.op("fused_mhsa")(qkv, heads, dim_head, scale, n_true)
     B, n_pad, three_inner = qkv.shape
     if three_inner != 3 * heads * dim_head:
         raise ValueError(f"fused_mhsa takes a packed [B, N, 3*heads*dim_head] qkv; got "
@@ -913,6 +920,11 @@ def _local_forward(q, k, v, scale, DHW, local_k, dropout_rate, seed):
     if not _build.use_kernel(q):
         return local_reference(q, k, v, scale, DHW, local_k, dropout_rate, seed,
                                with_lse=True)
+    if torch.compiler.is_exporting():
+        if dropout_rate > 0.0:
+            raise NotImplementedError("an exported forward runs the local attention "
+                                      "without dropout")
+        return _build.op("local_attention")(q, k, v, scale, list(DHW), list(local_k)), None
     geom = _local_geometry(q, k, v, DHW, local_k)
     drop = dropout_args(dropout_rate, seed)
     B, N, dl = q.shape

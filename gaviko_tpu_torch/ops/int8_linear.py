@@ -297,6 +297,8 @@ def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
     _build.refuse_grad("int8_linear", _SERVING_ONLY, x, bias, gamma, beta)
     if not _build.use_kernel(x):
         return int8_linear_reference(x, w_i8, w_scale, bias, gamma, beta, eps)
+    if torch.compiler.is_exporting():
+        return _build.op("int8_linear")(x, w_i8, w_scale, bias, gamma, beta, float(eps))
     din = x.shape[-1]
     dout = _check_weight("int8_linear", w_i8, w_scale, din)
     if (gamma is None) != (beta is None):
@@ -336,6 +338,9 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if not _build.use_kernel(x):
         return int8_mlp_reference(x, gamma, beta, w1_i8, s1, b1, w2_i8, s2, b2, eps,
                                   approximate, residual)
+    if torch.compiler.is_exporting():
+        return _build.op("int8_mlp")(x, gamma, beta, w1_i8, s1, b1, w2_i8, s2, b2, float(eps),
+                                     gelu_mode(approximate), bool(residual))
     dim = x.shape[-1]
     mlp_dim = _check_weight("int8_mlp fc1", w1_i8, s1, dim)
     if _check_weight("int8_mlp fc2", w2_i8, s2, mlp_dim) != dim:

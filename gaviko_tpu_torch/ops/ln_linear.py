@@ -167,6 +167,8 @@ def _ln_linear_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """B9 on CUDA (its output has no backward), the plain version on the CPU."""
     if not _build.use_kernel(x):
         return ln_linear_reference(x, gamma, beta, w, eps)
+    if torch.compiler.is_exporting():
+        return _build.op("ln_linear")(x, gamma, beta, w, float(eps))
     dim, out_dim = x.shape[-1], w.shape[0]
     if tuple(w.shape) != (out_dim, dim) or gamma.shape != (dim,) or beta.shape != (dim,):
         raise ValueError(f"fused_ln_linear: w (out, {dim}), gamma and beta ({dim},); got "

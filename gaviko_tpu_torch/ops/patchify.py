@@ -90,6 +90,10 @@ def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         if not save_rows:
             return out
         return out, patch_rows(img, (pd, ph, pw)).reshape(out.shape[0] * out.shape[1], -1)
+    if torch.compiler.is_exporting():
+        if save_rows:
+            raise NotImplementedError("an exported forward saves no patch rows")
+        return _build.op("patchify")(img, weight, bias, pos)
     _build.refuse_grad("patchify_kernel", "the gradient goes through patchify_fused",
                        *(t for t in (img, weight, bias, pos) if t is not None))
     dt = img.dtype

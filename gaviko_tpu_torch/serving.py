@@ -51,6 +51,28 @@ from gaviko_tpu_torch.utils.layouts import put_volume
 _RECEIVE, _STOP, _FORWARD, _RELOAD = -1, 0, 1, 2  # mesh serving's orders
 
 
+def load_params(model, checkpoint: Optional[str], pretrained_dir: Optional[str],
+                cdtype: torch.dtype, quantize: Optional[str], device="cpu") -> dict:
+    """The served weights of ``model``: seed-0 init with the pretrained
+    backbone and the checkpoint overlaid, f32 tensors cast to ``cdtype`` on
+    ``device``, then, for ``quantize="int8"``, the backbone's int8
+    sidecars. ``Predictor`` and ``deploy.export_artifact`` both build their
+    weights here."""
+    from gaviko_tpu_torch.models.pretrained import build_params
+
+    params = build_params(model, torch.Generator().manual_seed(0),
+                          pretrained_dir=pretrained_dir, checkpoint_path=checkpoint)
+    params = {k: (t.to(cdtype) if t.dtype == torch.float32 else t).to(device)
+              for k, t in params.items()}
+    if quantize == "int8":
+        from gaviko_tpu_torch.ops.int8_linear import quantize_backbone
+
+        # After the cast, as the JAX package does: codes of the serving
+        # dtype's weights, f32 scales.
+        params = quantize_backbone(params, model.spec.depth)
+    return params
+
+
 class Predictor:
     def __init__(
         self,
@@ -126,22 +148,8 @@ class Predictor:
         return rank_device(self.device)
 
     def _load_params(self, checkpoint: Optional[str]):
-        from gaviko_tpu_torch.models.pretrained import build_params
-
-        params = build_params(
-            self.model, torch.Generator().manual_seed(0),
-            pretrained_dir=self._pretrained_dir, checkpoint_path=checkpoint)
-        params = {
-            k: (t.to(self._cdtype) if t.dtype == torch.float32 else t).to(self.device)
-            for k, t in params.items()
-        }
-        if self._quantize == "int8":
-            from gaviko_tpu_torch.ops.int8_linear import quantize_backbone
-
-            # After the cast, as the JAX package does: codes of the serving
-            # dtype's weights, f32 scales.
-            params = quantize_backbone(params, self.spec.depth)
-        return params
+        return load_params(self.model, checkpoint, self._pretrained_dir, self._cdtype,
+                           self._quantize, self.device)
 
     def _forward(self, params, batch: torch.Tensor) -> np.ndarray:
         if self._mesh is not None:

@@ -32,8 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from mlp_profile import _event_ms, _host_us, _profile  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODELS = (("gaviko", "gaviko_tpu/configs/gaviko.yaml", "gaviko"),
-          ("vitb16", "gaviko_tpu/configs/vit.yaml", "fft"))
+MODELS = (("gaviko", "gaviko_tpu_torch/configs/gaviko.yaml", "gaviko"),
+          ("vitb16", "gaviko_tpu_torch/configs/vit.yaml", "fft"))
 
 
 def trainable_shapes(config_path: str, method: str) -> list:

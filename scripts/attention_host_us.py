@@ -1,8 +1,8 @@
-"""Host microseconds a call of kernels A, B10 and B spends enqueueing.
+"""Host microseconds a call of kernels A, B10, B and C spends enqueueing.
 
-Times the wrappers ``fused_mhsa`` (A), ``flash_attention`` (B10) and
-``fused_mhsa_bwd`` (B) of the ``gaviko_tpu_torch`` in the checkout this
-file lies in: the checks, the
+Times the wrappers ``fused_mhsa`` (A), ``flash_attention`` (B10),
+``fused_mhsa_bwd`` (B) and ``flash_local_attention``'s forward (C) of the
+``gaviko_tpu_torch`` in the checkout this file lies in: the checks, the
 allocations, the argument packing (the TMA descriptor encodes, where the
 kernel has them) and the launch, over back-to-back calls with no
 synchronisation between them. A host-bound step pays this for every launch.
@@ -52,11 +52,13 @@ def _cases(dtype):
     vit-t16 B8 on the head views of the packed qkv (3 heads of 64, 1,001
     rows), both at head dim 512 (B2, 4 heads: the general instance), and B
     at GAViKO train B4 (the train case's output, lse and a cotangent) and
-    at head dim 512."""
+    at head dim 512, and C at GAViKO vit-l16 serving B8 (the 20-wide latent's
+    q, k and v views of its packed projection on the 10 x 10 x 10 grid,
+    window 6, no dropout)."""
     import torch
 
     from gaviko_tpu_torch.ops.flash_attention import (
-        _split_heads, flash_attention, fused_mhsa, fused_mhsa_bwd)
+        _split_heads, flash_attention, flash_local_attention, fused_mhsa, fused_mhsa_bwd)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -66,6 +68,7 @@ def _cases(dtype):
     serve, train, t16, gen_a = (randn(8, 1040, 3 * 1024), randn(4, 1040, 3 * 1024),
                                 randn(8, 1008, 3 * 192), randn(2, 1008, 3 * 2048))
     q, k, v = (t[:, :, :1001] for t in _split_heads(t16, 3, 64))
+    lq, lk, lv = randn(8, 1000, 3 * 20).chunk(3, dim=-1)
     qg, kg, vg = (t[:, :, :1001] for t in _split_heads(gen_a, 4, 512))
     out, lse = fused_mhsa(train, 16, 64, 0.125, 1033, 0.2, with_lse=True, seed=7)
     out_g, lse_g = fused_mhsa(gen_a, 4, 512, 512 ** -0.5, 1001, with_lse=True)
@@ -80,6 +83,8 @@ def _cases(dtype):
                                                         1033, 0.2, 7)),
         ("fused_mhsa_bwd_gen512", lambda: fused_mhsa_bwd(gen_a, out_g, lse_g, out_g, 4, 512,
                                                          512 ** -0.5, 1001)),
+        ("local_attention_serving", lambda: flash_local_attention(
+            lq, lk, lv, 1024 ** -0.5, (10, 10, 10), (6, 6, 6))),
     ]
 
 

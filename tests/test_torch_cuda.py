@@ -568,7 +568,7 @@ def test_cli_serves_vit_b16(dev, tmp_path):
     log = open(tmp_path / "serve.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "gaviko_tpu_torch.cli.serve", "--config",
-         "gaviko_tpu/configs/vit.yaml", "--method", "fft", "--port", str(port)],
+         "gaviko_tpu_torch/configs/vit.yaml", "--method", "fft", "--port", str(port)],
         cwd=repo, stdout=log, stderr=subprocess.STDOUT)
     url = f"http://127.0.0.1:{port}"
     try:
@@ -1412,7 +1412,7 @@ def test_int8_predictor_serves_vit_b16_at_dim_head_192(dev):
     from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp
     from gaviko_tpu_torch.serving import Predictor
 
-    config = apply_method_override(load_config("gaviko_tpu/configs/vit.yaml"), "fft")
+    config = apply_method_override(load_config("gaviko_tpu_torch/configs/vit.yaml"), "fft")
     config["model"]["dim_head"] = 192
     predictor = Predictor(config, batch_size=2, dtype="bfloat16", pretrained_dir=None,
                           quantize="int8", device="cuda")

@@ -51,15 +51,20 @@ def test_cli_serve_help_runs_on_cpu():
 
 @pytest.mark.parametrize("flag", ["--quantize=int8", "--mesh=2,2", "--artifact=x"])
 def test_cli_serve_refuses_unported_flags(flag):
-    """--artifact exits 2 naming its ROADMAP item. --quantize int8 and
-    --mesh are ported (each was refused here until it came): they get past
-    the flag checks and stop at the config file, which is missing."""
+    """--quantize int8, --mesh and --artifact are ported (each was refused
+    here until it came): the first two get past the flag checks and stop at
+    the config file, which is missing; --artifact takes the place of
+    --config (exit 2 beside it) and, alone, stops at the artifact file,
+    which is missing."""
     res = _run(["-m", "gaviko_tpu_torch.cli.serve", "--config", "no_such_config.yaml", flag])
     if flag in ("--quantize=int8", "--mesh=2,2"):
         assert res.returncode != 0 and "not ported yet" not in res.stderr
         assert "No such file or directory: 'no_such_config.yaml'" in res.stderr
         return
-    assert res.returncode == 2 and "not ported yet" in res.stderr
+    assert res.returncode == 2 and "exactly one of --config or --artifact" in res.stderr
+    res = _run(["-m", "gaviko_tpu_torch.cli.serve", flag])
+    assert res.returncode != 0 and "not ported yet" not in res.stderr
+    assert "No such file or directory: 'x'" in res.stderr
 
 
 def test_chip_smoke_fails_without_a_gpu():
