@@ -6,7 +6,7 @@
 Phases, each printing its own line:
 
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA
-   versions, whether PyYAML is installed;
+   versions, whether PyYAML and tensorstore import;
 2. build: compiles the CUDA kernels from ``gaviko_tpu_torch/csrc`` (nvcc,
    one process per source, in parallel) and prints the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, in
@@ -127,7 +127,10 @@ Phases, each printing its own line:
    version's VJP), at CUT_DEPTH (4) layers;
 10. vit-b16 with ``dim_head: 128``, train and train check in fp32 and bf16
    (A and B at head dim 128 in 3 layers a step), and with 192 and 256 in
-   bf16, at CUT_DEPTH (4) layers;
+   bf16, at CUT_DEPTH (4) layers; then ``train.fused_optimizer: false``
+   (``chain``): vit-b16 fft at CUT_DEPTH, 3 fp32 steps with the optax
+   chain's state (``ChainState``) against the same steps with the fused
+   state, losses and params within CHAIN_BUDGET, B13 once a step;
 11. B13 (``csrc/fused_adam.cu``) at the trainable leaves of the GAViKO train
    run (604 tensors, 2.27 M elements: one cooperative launch) and of the
    vit-b16 fft run (140, 88.2 M: two launches), in f32 and bf16 storage
@@ -180,23 +183,35 @@ Phases, each printing its own line:
    exactly ``gaviko_train_launches(spec, "bf16")``, the frozen backbone
    still the converted tensors, the profiled step's trace;
 19. parallel_one: ``cli.train`` in this process on
-   ``gaviko_tpu_torch/configs/gaviko_tpu.yaml`` as shipped (``train.parallel``
-   on, ``data: auto``: a 1 x 1 mesh; vit-l16 GAViKO, bf16, device
-   augmentation, the grain loader, B8), overridden only in
-   ``checkpoint_backend: npz``, one epoch and the paths (24 train and 8 val
-   synthetic volumes): every train step is ``ParallelTrainer``'s (none from
-   ``make_steps``) with exactly ``gaviko_train_launches(spec, "bf16")``,
-   the CSV, the resume state and the best checkpoint written;
+   ``gaviko_tpu_torch/configs/gaviko_tpu.yaml`` (``train.parallel`` on,
+   ``data: auto``: a 1 x 1 mesh; vit-l16 GAViKO, bf16, device augmentation,
+   the grain loader, B8), overridden in one epoch and the paths (24 train
+   and 8 val synthetic volumes): every train step is ``ParallelTrainer``'s
+   (none from ``make_steps``) with exactly ``gaviko_train_launches(spec,
+   "bf16")``, the CSV, the resume state and the best checkpoint written.
+   Where tensorstore imports (phase 1 says), ``checkpoint_backend: orbax``
+   runs as shipped: the resume directory, then a second ``cli.train
+   --resume auto`` at two epochs that resumes from it and trains epoch 2
+   only; without tensorstore the option must refuse naming it, and the run
+   takes ``checkpoint_backend: npz``;
 20. parallel_two: 2 ranks spawned on cuda:0 over gloo (NCCL refuses two
-   ranks on one card): GAViKO vit-l16 (gaviko_tpu.yaml) with data 2 and
-   ZeRO, then model 2 (the frozen backbone's heads and hidden split), then
-   vit.yaml fft at depth 2 with model 2 and ``GAVIKO_LNQKV_HYBRID=1`` (B6,
-   B7, B9, B12 and B8 on their shards): 3 bf16 steps of the global batch 8
-   and one eval step each, against a 1-rank run of the same batches and
-   seeds under the bf16 train-check budgets (per-step loss; the update,
-   mu and nu of the resume state the ranks gather, with the 1-rank state's
-   leaves), each rank's launches a step the 1-rank step's, and the wall and
-   collective seconds a step (gloo through the host: not NCCL figures);
+   ranks on one card), one spawn for every job, after the 1-rank runs:
+   GAViKO vit-l16 (gaviko_tpu.yaml) with data 2 and ZeRO, then model 2
+   (the frozen backbone's heads and hidden split), vit.yaml fft at depth 2
+   with model 2 and ``GAVIKO_LNQKV_HYBRID=1`` (B6, B7, B9, B12 and B8 on
+   their shards) and with data 2, ZeRO and ``accumulation_steps: 2`` (four
+   micro-steps, B13 on the ZeRO slices of the running mean at the second
+   and fourth), and MeLO, SSF and AdaptFormer (their shipped configs at
+   vit-b16 widths and CUT_DEPTH layers) with model 2: the bf16 steps of the
+   global batch 8 and one eval step each, against a 1-rank run of the same
+   batches and seeds under the bf16 train-check budgets (per-step loss; the
+   update, mu and nu of the resume state the ranks gather, with the 1-rank
+   state's leaves), each rank's launches a step the 1-rank step's, and the
+   wall and collective seconds a step (gloo through the host: not NCCL
+   figures); then GAViKO vit-l16 int8 serving (``quantize="int8"``, B8
+   bf16) on data 2 and on model 2, rank 0's logits against phase 5's
+   1-rank int8 logits (INT8_PLAIN_BUDGET) and each rank's launches of a
+   forward exactly ``serving_launches(spec, True)``;
 21. parallel_kernels: A and B on heads 8..15 of vit-l16's 16 (B4, 1,040
    rows, dropout 0.1) against their plain versions and bit-equal to the
    whole layer's kernels on those heads; B13's sharded step (its norm
@@ -262,6 +277,7 @@ import time
 import urllib.request
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -287,6 +303,9 @@ TRAIN_BUDGET = {"fp32": (1e-4, F32_BUDGET, 1e-3, None),
 # Trainer check: relative MAE of the update two fp32 steps applied against
 # the plain path's (H100 readings 3.6e-7 and 2.0e-6; 1 for no update).
 TRAINER_UPDATE_BUDGET = 1e-4
+# fused_optimizer: false against the fused state, the same B13 steps: losses
+# (relative) and params (absolute) after three fp32 steps.
+CHAIN_BUDGET = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet; dense, 700 W): bytes/s and ops/s by
 # input type. f32 is held to the SIMT rate, but for A, B10, B, C, D, B6, B7,
 # B9, B12 and patchify, which run each f32 product as three TF32 ones on the
@@ -2055,23 +2074,23 @@ def train_setup(model_over=None):
     return config, model, params, _batches(TRAIN_B, 0), seeds, gaviko_train_launches
 
 
-def _batches(batch: int, seed: int) -> list:
-    """TRAIN_STEPS synthetic (volumes, labels) batches on the card."""
+def _batches(batch: int, seed: int, steps: int = TRAIN_STEPS) -> list:
+    """``steps`` synthetic (volumes, labels) batches on the card."""
     import torch
 
     rng = np.random.RandomState(seed)
     return [(torch.from_numpy(rng.rand(batch, 1, 120, 160, 160).astype(np.float32))
              .to("cuda"), torch.from_numpy(rng.randint(0, 5, batch)).long().to("cuda"))
-            for _ in range(TRAIN_STEPS)]
+            for _ in range(steps)]
 
 
-def _step_seeds(n_seeds: int) -> list:
+def _step_seeds(n_seeds: int, steps: int = TRAIN_STEPS) -> list:
     """Each step's dropout seeds."""
     import torch
 
     return [torch.randint(-2 ** 31, 2 ** 31, (n_seeds,),
                           generator=torch.Generator().manual_seed(i)).tolist()
-            for i in range(TRAIN_STEPS)]
+            for i in range(steps)]
 
 
 def gaviko_train_launches(spec, precision: str) -> dict:
@@ -2239,10 +2258,11 @@ def vit_train_setup(model_over=None):
 
 
 def run_train(config, model, params, batches, seeds, launches, precision: str,
-              profiled: bool = True) -> dict:
+              profiled: bool = True, keep: bool = False) -> dict:
     """TRAIN_STEPS train steps (the counted, timed main path), optionally one
     more under the profiler, and one eval step, through the port's public
-    train API."""
+    train API. ``keep``: the result also holds the trainable tensors and
+    the optimizer state after the counted steps (``profiled`` must be off)."""
     import torch
 
     from gaviko_tpu_torch.core.layers import SeedStream
@@ -2258,7 +2278,7 @@ def run_train(config, model, params, batches, seeds, launches, precision: str,
     # The step updates the trainable tensors in place on the card (B13), so
     # each run starts from its own copy.
     trainable = {k: v.clone() for k, v in trainable.items()}
-    opt_state = loop.init_opt_state(trainable)
+    opt_state = loop.init_opt_state(trainable, fused)
     seeds = seeds[precision]
 
     wrappers = _wrappers()
@@ -2287,7 +2307,8 @@ def run_train(config, model, params, batches, seeds, launches, precision: str,
     eval_loss, _, logits = eval_step(trainable, frozen, *batches[0])
     if not np.isfinite([*losses, float(eval_loss)]).all() or not torch.isfinite(logits).all():
         raise RuntimeError(f"train {precision}: non-finite loss or logits")
-    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+    kept = {"params": trainable, "opt_state": opt_state} if keep and not profiled else {}
+    return {**kept, "losses": losses, "step_ms": step_ms, "launches": launches,
             "peak_bytes": peak, "eval_loss": float(eval_loss),
             "trainable": len(trainable), "trainable_shapes": [tuple(v.shape) for v in
                                                                 trainable.values()],
@@ -2605,6 +2626,57 @@ def _op_counts(fn) -> dict:
     return {"aten_ops": sum(e.name.startswith("aten::") for e in events
                             if e.device_type == DeviceType.CPU),
             "device_events": sum(e.device_type == DeviceType.CUDA for e in events)}
+
+
+def phase_chain(card: str) -> dict:
+    """``train.fused_optimizer: false``: vit.yaml's fft at vit-b16 widths
+    and CUT_DEPTH layers, TRAIN_STEPS fp32 steps at B8 with the optax
+    chain's state (``ChainState``: leaves [count, *mu, *nu, count]), against
+    the same steps with the fused state. Both step B13 on the same math, so
+    the losses (relative) and the trainable tensors (absolute) after the
+    steps agree within CHAIN_BUDGET (the line says whether bit for bit);
+    each step launches exactly ``vit_train_launches``, B13 once."""
+    import torch
+
+    from gaviko_tpu_torch.train.fused_optim import ChainState
+    from gaviko_tpu_torch.utils.checkpoint import opt_leaves
+
+    t0 = time.perf_counter()
+    config, *rest = cut_vit_train_setup(None)
+    spec = rest[0].spec
+    runs = {}
+    for name, flag in (("fused", True), ("chain", False)):
+        cfg = {**config, "train": {**config["train"], "fused_optimizer": flag}}
+        t = time.perf_counter()
+        runs[name] = run_train(cfg, *rest, "fp32", profiled=False, keep=True)
+        runs[name]["seconds"] = time.perf_counter() - t
+    fused, chain = runs["fused"], runs["chain"]
+    diff = max(float((chain["params"][k] - fused["params"][k]).abs().max())
+               for k in fused["params"])
+    want = vit_train_launches(spec, "fp32")
+    per_step = {n: c / TRAIN_STEPS for n, c in chain["launches"].items()}
+    n = len(fused["params"])
+    line = {"phase": "chain", "backbone": spec.backbone, "depth": spec.depth,
+            "batch": VIT_TRAIN_B, "precision": "fp32", "losses": chain["losses"],
+            "fused_losses": fused["losses"], "step_ms": chain["step_ms"],
+            "fused_step_ms": fused["step_ms"], "params_max_abs_diff": diff,
+            "bit_equal": diff == 0.0 and chain["losses"] == fused["losses"],
+            "state": type(chain["opt_state"]).__name__,
+            "state_leaves": len(opt_leaves(chain["opt_state"])), "want_leaves": 2 + 2 * n,
+            "launches_per_step": per_step, "b13_per_step": per_step["fused_adam"],
+            "seconds": time.perf_counter() - t0, "card": card}
+    print(json.dumps(line), flush=True)
+    del runs, fused, chain
+    torch.cuda.empty_cache()
+    if line["state"] != ChainState.__name__ or line["state_leaves"] != 2 + 2 * n:
+        raise RuntimeError(f"chain: state {line['state']} with {line['state_leaves']} leaves")
+    if per_step != want or line["b13_per_step"] != 1:
+        raise RuntimeError(f"chain: launches a step {per_step}, want {want}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(line["losses"], line["fused_losses"]))
+    if not (loss_rel <= CHAIN_BUDGET and diff <= CHAIN_BUDGET):
+        raise RuntimeError(f"chain: losses {line['losses']} vs {line['fused_losses']}, params "
+                           f"differ by {diff} (budget {CHAIN_BUDGET})")
+    return line
 
 
 def phase_adam(card: str, name: str, shapes) -> dict:
@@ -3333,31 +3405,73 @@ def phase_trainer_input(root: str, pretrained: str, sample: dict, card: str) -> 
 PAR_CONFIG = "gaviko_tpu_torch/configs/gaviko_tpu.yaml"
 PAR_B = 8  # gaviko_tpu.yaml's global batch
 PAR_VOLUMES = (24, 8)  # 3 steps and one eval batch at B8
-# The 2-rank runs on cuda:0 (gloo): job -> (data, model) of the mesh.
-PAR_MESH = {"gaviko_dp": (2, 1), "gaviko_tp": (1, 2), "vit_tp": (1, 2)}
-PAR_TIMEOUT_S = 420
+# The 2-rank runs on cuda:0 (gloo): job -> (data, model) of the mesh. The
+# train jobs: GAViKO data 2 + ZeRO and model 2; vit-b16 fft at depth 2 on
+# model 2 (hybrid flag) and on data 2 + ZeRO with accumulation_steps 2
+# (PAR_ACCUM_STEPS micro-steps: two updates); MeLO, SSF and AdaptFormer at
+# vit-b16 widths and CUT_DEPTH layers on model 2. The serving job: GAViKO
+# vit-l16 int8 at B8 on each mesh of PAR_INT8_MESHES.
+PAR_MESH = {"gaviko_dp": (2, 1), "gaviko_tp": (1, 2), "vit_tp": (1, 2), "vit_accum": (2, 1),
+            "melo_tp": (1, 2), "ssf_tp": (1, 2), "adaptformer_tp": (1, 2)}
+PAR_ACCUM, PAR_ACCUM_STEPS = 2, 4
+PAR_INT8_MESHES = ((2, 1), (1, 2))
+PAR_TIMEOUT_S = 600
 # The worst leaf's own relative MAE of the 2-rank state against one rank's,
 # by model (H100 readings, sound / planted fault, update, mu, nu). vit-b16:
 # 8.0e-3, 1.2e-2, 9.1e-3 / 0.78, 0.74, 0.65 without the model sum of a split
 # block's LN and bias gradients (the all-leaf MAE read 6.5e-3 there). GAViKO,
 # whose prompt projections' small gradients sit near bf16's rounding: 0.29,
 # 0.95, 0.21 / 6.9, 124, 4.3 with copy_in's backward not summed over model.
+# The accumulating run and the zoo's are held to vit's, but AdaptFormer's
+# mu: its adapters' up projections start at zero, so step 1 gives the
+# adapter's LayerNorm and down projection no gradient and the next steps
+# small ones, and the last layer's adapter sums them over the 8 pooled rows
+# only (H100 readings: worst leaf 0.054, 0.25 (its last adapter's LN weight),
+# 0.044, all-leaf mu 1.2e-2; MeLO 0.015, 0.037, 0.042; SSF 0.053, 0.017,
+# 0.0071; vit_accum 0.011, 0.0079, 0.0082). AdaptFormer with copy_in's
+# backward not summed over model (scripts/parallel_gate_faults.py
+# adaptformer_tp): worst leaf 0.36, 0.37, 0.44, all-leaf 0.23, 0.15, 0.021,
+# update cosine 0.80: its mu leaf budget passes that fault, which the
+# update's and nu's leaf budgets and the all-leaf update and mu budgets
+# (rel MAE 5e-2, cosine 0.99) catch.
 PAR_LEAF_BUDGET = {"gaviko": {"params_update": 1.0, "mu": 10.0, "nu": 1.0},
-                   "vit": {"params_update": 0.1, "mu": 0.1, "nu": 0.1}}
+                   **{m: {"params_update": 0.1, "mu": 0.1, "nu": 0.1}
+                      for m in ("vit", "melo", "ssf")},
+                   "adaptformer": {"params_update": 0.1, "mu": 1.0, "nu": 0.1}}
 # The parallel runs whose B13 launches each B13 row of the kernels line carries.
 PAR_ADAM_RUNS = {"fused_adam_gaviko": ("parallel_one", "gaviko_dp", "gaviko_tp"),
-                 "fused_adam_vitb16": ("vit_tp",)}
+                 "fused_adam_vitb16": ("vit_tp", "vit_accum")}
+
+
+def _tensorstore_version():
+    """tensorstore's version where it imports (the orbax resume directory
+    needs it), else None."""
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError:
+        return None
+    from importlib.metadata import PackageNotFoundError, version
+
+    try:
+        return version("tensorstore")
+    except PackageNotFoundError:
+        return "imported"
 
 
 def phase_parallel_one(root: str, card: str) -> dict:
-    """``cli.train`` (in this process) on gaviko_tpu.yaml as shipped:
-    ``train.parallel`` on (data auto, model 1, ZeRO), vit-l16 GAViKO in bf16
-    with ``train.device_augment``, the grain loader, B8, flops and memory
-    logging; overridden: ``checkpoint_backend: npz`` (orbax is Queue A item
-    8), one epoch, and the paths (a synthetic dataset of 24 train and 8 val
-    volumes). One process is a 1 x 1 mesh: every train step must be
-    ``ParallelTrainer.train_step`` (none from ``make_steps``), with exactly
-    ``gaviko_train_launches(spec, "bf16")`` a step."""
+    """``cli.train`` (in this process) on gaviko_tpu.yaml: ``train.parallel``
+    on (data auto, model 1, ZeRO), vit-l16 GAViKO in bf16 with
+    ``train.device_augment``, the grain loader, B8, flops and memory
+    logging; overridden: one epoch and the paths (a synthetic dataset of 24
+    train and 8 val volumes). Where tensorstore imports, the config's
+    ``checkpoint_backend: orbax`` runs as shipped: the run writes the resume
+    directory ``experiments/gaviko/resume_state``, and a second ``cli.train``
+    with ``--resume auto`` and two epochs resumes from it and trains epoch 2
+    only. Without tensorstore the option must refuse naming it, and the run
+    takes ``checkpoint_backend: npz``. One process is a 1 x 1 mesh: every
+    train step must be ``ParallelTrainer.train_step`` (none from
+    ``make_steps``), with exactly ``gaviko_train_launches(spec, "bf16")`` a
+    step."""
     import torch
     import yaml
 
@@ -3366,23 +3480,37 @@ def phase_parallel_one(root: str, card: str) -> dict:
     from gaviko_tpu_torch.models.factory import build_model
     from gaviko_tpu_torch.parallel import mesh as pmesh
     from gaviko_tpu_torch.train import loop
+    from gaviko_tpu_torch.train.fused_optim import init
+    from gaviko_tpu_torch.utils.checkpoint import save_train_state_orbax
 
     t0 = time.perf_counter()
     _, _, folder = _trainer_files(root, 1, PAR_VOLUMES)
     config = load_config(PAR_CONFIG)
-    overrides = {"train.checkpoint_backend": "npz", "train.num_epochs": 1}
-    config["train"].update(checkpoint_backend="npz", num_epochs=1,
-                           save_dir=os.path.join(root, "weights_par"))
+    orbax = _tensorstore_version() is not None
+    overrides = {"train.num_epochs": 1}
+    refusal = None
+    if not orbax:
+        try:
+            save_train_state_orbax(os.path.join(root, "refused"), {}, init({}), {})
+        except ImportError as e:
+            refusal = str(e)
+        if not refusal or "tensorstore" not in refusal or os.path.exists(
+                os.path.join(root, "refused")):
+            raise RuntimeError(f"parallel_one: without tensorstore the orbax backend must "
+                               f"refuse and write nothing, got {refusal!r}")
+        overrides["train.checkpoint_backend"] = "npz"
+        config["train"]["checkpoint_backend"] = "npz"
+    config["train"].update(num_epochs=1, save_dir=os.path.join(root, "weights_par"))
     labels = os.path.join(root, "labels.csv")
     config["data"].update(data_path=labels, image_folder=folder, test_data=labels)
     config["utils"].update(log_dir=os.path.join(root, "log_par"),
                            results_dir=os.path.join(root, "outputs_par"))
     print(json.dumps({"phase": "parallel_one_config", "config": PAR_CONFIG,
+                      "checkpoint_backend": config["train"]["checkpoint_backend"],
+                      "tensorstore": _tensorstore_version(), "orbax_refusal": refusal,
                       "overrides": overrides, "paths": "a temporary directory",
                       "train.parallel": config["train"]["parallel"]}), flush=True)
     cfg_path = os.path.join(root, "gaviko_tpu.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(config, f)
     wrappers, record, made = _wrappers(), [], []
     inner_step, inner_make = pmesh.ParallelTrainer.train_step, loop.make_steps
 
@@ -3401,61 +3529,99 @@ def phase_parallel_one(root: str, card: str) -> dict:
         made.append(1)
         return inner_make(*a, **kw)
 
-    pmesh.ParallelTrainer.train_step, loop.make_steps = counted, make_steps
-    try:
-        result = cli_train.main(["--config", cfg_path, "--method", "gaviko"])
-    finally:
-        pmesh.ParallelTrainer.train_step, loop.make_steps = inner_step, inner_make
+    def run(epochs: int, *flags):
+        config["train"]["num_epochs"] = epochs
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(config, f)
+        record.clear()
+        pmesh.ParallelTrainer.train_step, loop.make_steps = counted, make_steps
+        try:
+            return cli_train.main(["--config", cfg_path, "--method", "gaviko", *flags])
+        finally:
+            pmesh.ParallelTrainer.train_step, loop.make_steps = inner_step, inner_make
+
+    result = run(1)
+    first = list(record)
     spec = build_model(config["model"]).spec
     want = gaviko_train_launches(spec, "bf16")
     rows = _csv_rows(result["csv_log"])
     resume = os.path.join(config["train"]["save_dir"], "experiments", "gaviko",
-                          "resume_state.npz")
-    line = {"phase": "parallel_one", "mesh": "1 x 1", "train_steps": len(record),
+                          "resume_state" if orbax else "resume_state.npz")
+    line = {"phase": "parallel_one", "mesh": "1 x 1", "train_steps": len(first),
             "make_steps_calls": len(made), "csv_rows": len(rows),
-            "step_seconds": [r["seconds"] for r in record],
-            "step_launches": [r["launches"] for r in record], "want_launches": want,
-            "resume_state": os.path.exists(resume),
+            "step_seconds": [r["seconds"] for r in first],
+            "step_launches": [r["launches"] for r in first], "want_launches": want,
+            "checkpoint_backend": config["train"]["checkpoint_backend"],
+            "resume_state": os.path.isdir(resume) if orbax else os.path.isfile(resume),
             "best_checkpoint": bool(result["best_ckpt_path"]),
             "seconds": time.perf_counter() - t0, "card": card}
-    print(json.dumps(line), flush=True)
     del result
-    torch.cuda.empty_cache()
     n_steps = -(-PAR_VOLUMES[0] // PAR_B)
-    if len(record) != n_steps or made:
-        raise RuntimeError(f"parallel_one: {len(record)} parallel steps, make_steps called "
+    if orbax and line["resume_state"]:
+        t = time.perf_counter()
+        resumed = run(2, "--resume", "auto")
+        line["resumed"] = {"train_steps": len(record), "csv_rows": len(_csv_rows(
+            resumed["csv_log"])), "step_launches": [r["launches"] for r in record],
+            "seconds": time.perf_counter() - t}
+        del resumed
+    print(json.dumps(line), flush=True)
+    torch.cuda.empty_cache()
+    if len(first) != n_steps or made:
+        raise RuntimeError(f"parallel_one: {len(first)} parallel steps, make_steps called "
                            f"{len(made)} times")
-    if any(r["launches"] != want for r in record):
-        raise RuntimeError(f"parallel_one: launches {record}, want {want} a step")
+    if any(r["launches"] != want for r in first):
+        raise RuntimeError(f"parallel_one: launches {first}, want {want} a step")
     if len(rows) != n_steps + 1 or not line["resume_state"] or not line["best_checkpoint"]:
         raise RuntimeError(f"parallel_one: {len(rows)} CSV rows, resume state "
                            f"{line['resume_state']}, best {line['best_checkpoint']}")
+    if orbax:
+        r = line["resumed"]
+        if (r["train_steps"] != n_steps or r["csv_rows"] != n_steps + 1
+                or any(c != want for c in r["step_launches"])):
+            raise RuntimeError(f"parallel_one: the resume from {resume} ran {r}, want epoch 2 "
+                               f"only ({n_steps} steps of {want})")
     return line
 
 
 def _par_setup(job: str):
     """(config, model, params, batches, per-step seeds, launches a step) of
-    a parallel run: GAViKO vit-l16 of gaviko_tpu.yaml (frozen backbone, B8
-    raw volumes for the device augmentation) or vit.yaml's fft at depth 2
-    (B8); random init from seed 0 on the card, the same in every process."""
+    a parallel train job: GAViKO vit-l16 of gaviko_tpu.yaml (frozen
+    backbone, B8 raw volumes for the device augmentation); vit.yaml's fft
+    at depth 2 (B8; PAR_ACCUM_STEPS batches for ``vit_accum``); a zoo
+    method's shipped config at CUT_DEPTH (B8). Random init from seed 0 on
+    the card, the same in every process."""
     import dataclasses
 
     import torch
 
     from gaviko_tpu_torch.models.factory import build_model
 
-    if job.startswith("gaviko"):
+    method = job.split("_")[0]
+    n_batches = PAR_ACCUM_STEPS if job == "vit_accum" else TRAIN_STEPS
+    if method == "gaviko":
         config = _config(PAR_CONFIG, "gaviko")
         model = build_model(config["model"])
         n_seeds, launches = 2 * model.spec.depth, gaviko_train_launches
-    else:
+    elif method == "vit":
         config = _config(VIT_CONFIG, "fft")
         model = build_model(config["model"])
         model = dataclasses.replace(model, spec=dataclasses.replace(model.spec, depth=2))
         n_seeds, launches = 1 + 3 * (model.spec.depth - 1) + 4, vit_train_launches
+        if job == "vit_accum":
+            config["train"]["accumulation_steps"] = PAR_ACCUM
+    else:
+        zoo_config, over = next((c, o) for m, c, o in ZOO if m == method)
+        config = _config(zoo_config, method, over)
+        model = build_model(config["model"])
+        model = dataclasses.replace(model, spec=dataclasses.replace(model.spec, depth=CUT_DEPTH))
+        n_seeds = (1 + 3 * (CUT_DEPTH - 1) + 4) if method == "melo" else 0
+
+        def launches(spec, precision):
+            return zoo_launches(spec, _dtype(precision), True)
     params = {k: v.to("cuda") for k, v in
               model.init(torch.Generator().manual_seed(0), model.spec).items()}
-    return config, model, params, _batches(PAR_B, 5), _step_seeds(n_seeds), launches
+    return (config, model, params, _batches(PAR_B, 5, n_batches),
+            _step_seeds(n_seeds, n_batches), launches)
 
 
 def _timed_collectives(spent: list) -> None:
@@ -3478,21 +3644,44 @@ def _timed_collectives(spent: list) -> None:
     dist.all_reduce, dist.broadcast = timed(dist.all_reduce), timed(dist.broadcast)
 
 
+def _par_want(want: dict, step: int, accum: int) -> dict:
+    """A micro-step's launches: B13 runs on every ``accum``-th only."""
+    return {**want, "fused_adam": want["fused_adam"] * ((step + 1) % accum == 0)}
+
+
+def _cpu_state(trainable, opt) -> tuple:
+    """(trainable, optimizer state) on the CPU, in the state's own layout
+    (``FusedAdamState`` or, accumulating, ``MultiStepState``)."""
+    from gaviko_tpu_torch.train.fused_optim import FusedAdamState, MultiStepState
+
+    def cpu(d):
+        return {k: v.cpu() for k, v in d.items()}
+
+    if isinstance(opt, MultiStepState):
+        inner = opt.inner
+        opt = MultiStepState(opt.mini_step, opt.gradient_step,
+                             FusedAdamState(inner.count, cpu(inner.mu), cpu(inner.nu)),
+                             cpu(opt.acc))
+    else:
+        opt = FusedAdamState(opt.count, cpu(opt.mu), cpu(opt.nu))
+    return cpu(trainable), opt
+
+
 def _par_run(job: str, world: int) -> dict:
-    """TRAIN_STEPS bf16 train steps and one eval step of ``job``: on one
-    process through ``make_steps``, or as this rank of a ``PAR_MESH[job]``
-    mesh through ``ParallelTrainer`` (its rows of each global batch, the
-    global batch's augmentation draws). Returns the losses, each step's
-    seconds, collective seconds and kernel launches (counts set to 0 just
-    before a step, read just after), the eval's launches, and on rank 0 the
-    whole resume state on the CPU."""
+    """The batches of ``job`` (bf16 train steps; micro-steps for
+    ``vit_accum``) and one eval step: on one process through
+    ``make_steps``, or as this rank of a ``PAR_MESH[job]`` mesh through
+    ``ParallelTrainer`` (its rows of each global batch, the global batch's
+    augmentation draws). Returns the losses, each step's seconds, collective
+    seconds and kernel launches (counts set to 0 just before a step, read
+    just after), the eval's launches, and on rank 0 the whole resume state
+    on the CPU."""
     import torch
     import torch.distributed as dist
 
     from gaviko_tpu_torch.core.layers import SeedStream
     from gaviko_tpu_torch.parallel.mesh import ParallelTrainer, make_mesh
     from gaviko_tpu_torch.train import loop
-    from gaviko_tpu_torch.train.fused_optim import FusedAdamState
     from gaviko_tpu_torch.train.losses import make_criterion
 
     config, model, params, batches, seeds, launches = _par_setup(job)
@@ -3502,12 +3691,13 @@ def _par_run(job: str, world: int) -> dict:
     cdt = loop.compute_dtype_of(train_cfg)
     augment_on = bool(train_cfg.get("device_augment"))
     trainable, frozen = loop.split_params(model, params)
-    out = {"want_launches": launches(model.spec, "bf16"),
+    want = launches(model.spec, "bf16")
+    out = {"want_launches": [_par_want(want, i, fused["accum"]) for i in range(len(batches))],
            "start": {k: v.cpu() for k, v in trainable.items()}}
     draws = loop.default_step_augment(0)
     if world == 1:
         step, eval_step, _ = loop.make_steps(model, criterion, fused, cdt, augment_on)
-        opt, rank, rows = loop.init_opt_state(trainable), 0, slice(None)
+        opt, rank, rows = loop.init_opt_state(trainable, fused), 0, slice(None)
     else:
         mesh = make_mesh(*PAR_MESH[job])
         par = ParallelTrainer(model, criterion, fused, mesh, trainable, frozen,
@@ -3543,45 +3733,91 @@ def _par_run(job: str, world: int) -> dict:
     if world > 1:
         trainable, opt = par.gather_state(trainable, opt)
     if rank == 0:
-        out["state"] = ({k: v.cpu() for k, v in trainable.items()},
-                        FusedAdamState(opt.count, {k: v.cpu() for k, v in opt.mu.items()},
-                                       {k: v.cpu() for k, v in opt.nu.items()}))
+        out["state"] = _cpu_state(trainable, opt)
     if world > 1:
         dist.barrier()
     return out
 
 
-def _par_rank(rank: int, world: int, out_dir: str, job: str) -> None:
-    """A spawned rank: joins the gloo group on cuda:0 and runs ``_par_run``."""
+def _par_serve(world: int) -> dict:
+    """GAViKO vit-l16 int8 serving (gaviko.yaml, ``quantize="int8"``, B8
+    bf16) on each mesh of PAR_INT8_MESHES: every rank quantizes the whole
+    weights and builds the Predictor; rank 0 predicts the first B of the
+    serving phases' volumes, the other rank follows. Each rank's launches
+    of that one forward (counts set to 0 just before, read just after), its
+    seconds, and on rank 0 the logits."""
     import torch
     import torch.distributed as dist
 
-    if job == "vit_tp":
-        os.environ["GAVIKO_LNQKV_HYBRID"] = "1"
+    from gaviko_tpu_torch.serving import Predictor
+
+    rng = np.random.RandomState(0)  # main()'s serving volumes
+    vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(B)]
+    out, wrappers = {}, _wrappers()
+    for shape in PAR_INT8_MESHES:
+        t0 = time.perf_counter()
+        pred = Predictor(_config(CONFIG, "gaviko"), batch_size=B, dtype="bfloat16",
+                         pretrained_dir=None, quantize="int8", mesh_shape=shape,
+                         device="cuda:0")
+        built = time.perf_counter() - t0
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if pred.mesh.rank == 0:
+            logits = pred.predict_logits(vols)
+            pred.close()
+        else:
+            logits = None
+            pred.follow()
+        torch.cuda.synchronize()
+        out["x".join(map(str, shape))] = {
+            "logits": logits, "launches": {n: w.launches for n, w in wrappers.items()},
+            "predictor_s": built, "predict_s": time.perf_counter() - t}
+        del pred
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _par_rank(rank: int, world: int, out_dir: str, jobs) -> None:
+    """A spawned rank: joins the gloo group on cuda:0 and runs each job of
+    ``jobs`` in turn (``_par_run``, vit_tp with GAVIKO_LNQKV_HYBRID=1;
+    ``int8_serve``: ``_par_serve``), saving {job: result}."""
+    import torch
+    import torch.distributed as dist
+
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", world_size=world,
                             rank=rank)
     try:
-        torch.save(_par_run(job, world), os.path.join(out_dir, f"rank{rank}.pt"))
+        out = {}
+        for job in jobs:
+            t0 = time.perf_counter()
+            with _lnqkv_hybrid(job == "vit_tp"):
+                out[job] = _par_serve(world) if job == "int8_serve" else _par_run(job, world)
+            out[job]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(job: str, world: int, out_dir: str) -> list:
-    """``world`` ranks of ``job``, each joined within PAR_TIMEOUT_S; a rank
+def _spawn_ranks(jobs, world: int, out_dir: str) -> list:
+    """``world`` ranks running ``jobs``, joined within PAR_TIMEOUT_S; a rank
     that dies or hangs fails the phase (the others are killed)."""
     import torch
     import torch.multiprocessing as mp
 
     os.makedirs(out_dir, exist_ok=True)
-    ctx = mp.start_processes(_par_rank, args=(world, out_dir, job), nprocs=world,
+    ctx = mp.start_processes(_par_rank, args=(world, out_dir, list(jobs)), nprocs=world,
                              start_method="spawn", join=False)
     deadline = time.monotonic() + PAR_TIMEOUT_S
     try:
         while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
             if time.monotonic() > deadline:
-                raise RuntimeError(f"parallel {job}: the ranks outlasted {PAR_TIMEOUT_S} s")
+                raise RuntimeError(f"parallel {jobs}: the ranks outlasted {PAR_TIMEOUT_S} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -3591,19 +3827,61 @@ def _spawn_ranks(job: str, world: int, out_dir: str) -> list:
             for r in range(world)]
 
 
-def _state_diff(got, want, start) -> dict:
+def _shift_invariant(job: str, params) -> dict:
+    """name -> the elements of that trainable tensor whose gradient is zero
+    in exact arithmetic, for ``job``: SSF's shift of the keys (the middle
+    third of every attention's ``ssf_shift_1``) adds one vector to every
+    key, which the softmax ignores. What the backward leaves there is
+    rounding, which Adam scales to a full step of either sign, in either
+    run alike; those elements are left out of the update's comparison
+    (H100 reading with them: update rel MAE 0.069, cosine 0.957, worst leaf
+    a ``ssf_shift_1`` at 0.37, while mu and nu agreed to 1.0e-2 and
+    4.4e-3)."""
+    if not job.startswith("ssf"):
+        return {}
+    out = {}
+    for k, v in params.items():
+        if k.endswith(".0.ssf_shift_1"):
+            third = v.shape[0] // 3
+            mask = np.zeros(v.shape[0], bool)
+            mask[third:2 * third] = True
+            out[k] = mask
+    return out
+
+
+def _state_diff(got, want, start, skip=None) -> dict:
     """The 2-rank resume state against the 1-rank one: same keys, shapes and
-    dtypes; for the params (their update from ``start``), mu and nu, the
-    relative MAE and cosine over every leaf together, and the worst leaf's
-    own relative MAE (and its name)."""
+    dtypes; for the params (their update from ``start``; the elements of
+    ``skip`` left out, see ``_shift_invariant``), mu and nu (and,
+    accumulating, the running mean ``acc``), the relative MAE and cosine
+    over every leaf together, and the worst leaf's own relative MAE (and its
+    name)."""
+    import torch
+
+    from gaviko_tpu_torch.train.fused_optim import MultiStepState
+
     (gp, gopt), (wp, wopt) = got, want
+    if type(gopt) is not type(wopt):
+        raise RuntimeError(f"parallel: a {type(gopt).__name__} against a "
+                           f"{type(wopt).__name__}")
+    multi = isinstance(wopt, MultiStepState)
+    gin, win = (gopt.inner, wopt.inner) if multi else (gopt, wopt)
     if set(gp) != set(wp) or any(gp[k].shape != wp[k].shape or gp[k].dtype != wp[k].dtype
-                                 for k in wp) or gopt.count != wopt.count:
+                                 for k in wp) or gin.count != win.count or (multi and (
+            gopt.mini_step, gopt.gradient_step) != (wopt.mini_step, wopt.gradient_step)):
         raise RuntimeError("parallel: the gathered resume state differs in its leaves")
     out = {}
-    for name, g, w in (("params_update", {k: gp[k] - start[k] for k in wp},
-                        {k: wp[k] - start[k] for k in wp}),
-                       ("mu", gopt.mu, wopt.mu), ("nu", gopt.nu, wopt.nu)):
+    skip = skip or {}
+
+    def update(p):
+        return {k: (p[k] - start[k])[~torch.from_numpy(skip[k])] if k in skip else
+                p[k] - start[k] for k in wp}
+
+    terms = [("params_update", update(gp), update(wp)), ("mu", gin.mu, win.mu),
+             ("nu", gin.nu, win.nu)]
+    if multi and any(float(a.abs().max()) > 0 for a in wopt.acc.values()):
+        terms.append(("acc", gopt.acc, wopt.acc))
+    for name, g, w in terms:
         a = np.concatenate([g[k].double().flatten().numpy() for k in sorted(w)])
         b = np.concatenate([w[k].double().flatten().numpy() for k in sorted(w)])
         scale = float(np.abs(b).mean())
@@ -3615,47 +3893,71 @@ def _state_diff(got, want, start) -> dict:
     return out
 
 
-def phase_parallel_two(root: str, card: str) -> dict:
+def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] = None) -> dict:
     """2 ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
-    card): GAViKO vit-l16 of gaviko_tpu.yaml with data 2 and ZeRO, then data
-    1 x model 2 (the frozen backbone's heads and hidden split), and vit.yaml
-    fft at depth 2 with model 2 and GAVIKO_LNQKV_HYBRID=1 (B6, B7, B9, B12
-    and B8 on their shards): 3 bf16 steps of the global batch 8 and an eval
-    step from the seeds and batches of a 1-rank run of the same global batch
-    (``make_steps``), held to it under the bf16 train-check budgets: per-step
-    loss, the update of the trainable tensors and the whole resume state
-    gathered by the ranks (rank 0 writes it; the same leaves as the 1-rank
-    state), over all leaves and leaf by leaf (PAR_LEAF_BUDGET), and the
-    eval step's logits and loss (B8 and B9 on their shards in vit_tp's).
-    Each step's launches on each rank are the 1-rank step's.
+    card), one spawn for every job of PAR_MESH and the int8 serving job.
+    Train jobs: GAViKO vit-l16 of gaviko_tpu.yaml with data 2 and ZeRO, then
+    data 1 x model 2 (the frozen backbone's heads and hidden split);
+    vit.yaml fft at depth 2 with model 2 and GAVIKO_LNQKV_HYBRID=1 (B6, B7,
+    B9, B12 and B8 on their shards), and with data 2, ZeRO and
+    accumulation_steps 2 (four micro-steps: B13 on the ZeRO slices of the
+    running mean at the second and fourth); MeLO (its LoRA-merged qkv whole
+    on both ranks), SSF (ssf_1 split with the qkv rows) and AdaptFormer at
+    vit-b16 widths and CUT_DEPTH with model 2. Each runs its bf16 steps and
+    an eval step from the seeds and batches of a 1-rank run of the same
+    global batch (``make_steps``, run first, alone on the card), held to it
+    under the bf16 train-check budgets: per-step loss, the update of the
+    trainable tensors and the whole resume state gathered by the ranks
+    (rank 0 writes it; the same leaves as the 1-rank state), over all
+    leaves and leaf by leaf (PAR_LEAF_BUDGET), and the eval step's logits
+    and loss. Each step's launches on each rank are the 1-rank step's.
+    The serving job (given ``int8_served``): GAViKO vit-l16 int8 at B8 on
+    data 2 and on model 2 (the int8 blocks whole on both ranks), rank 0's
+    logits against the 1-rank int8 Predictor's ``int8_served``
+    (INT8_PLAIN_BUDGET), each rank's launches of one forward
+    ``serving_launches(spec, True)``.
     Prints the wall and collective seconds a step: gloo through the host,
     not an NCCL figure."""
     import torch
 
+    from gaviko_tpu_torch.models.factory import build_model
     from gaviko_tpu_torch.utils.checkpoint import save_train_state
 
     loss_budget, _, grad_budget, cos_floor = TRAIN_BUDGET["bf16"]
-    lines = {}
+    lines, ones = {}, {}
+    t0 = time.perf_counter()
     for job in PAR_MESH:
-        t0 = time.perf_counter()
+        t = time.perf_counter()
         with _lnqkv_hybrid(job == "vit_tp"):
-            one = _par_run(job, 1)
-        start, want_launches = one["start"], one["want_launches"]
+            ones[job] = _par_run(job, 1)
+        ones[job]["seconds"] = time.perf_counter() - t
         torch.cuda.empty_cache()
-        ranks = _spawn_ranks(job, 2, os.path.join(root, job))
-        two = ranks[0]
+    t_two = time.perf_counter()
+    jobs = [*PAR_MESH, *(["int8_serve"] if int8_served is not None else [])]
+    ranks = _spawn_ranks(jobs, 2, os.path.join(root, "two"))
+    print(json.dumps({"phase": "parallel_two_spawn", "jobs": jobs,
+                      "one_rank_seconds": t_two - t0,
+                      "two_rank_seconds": time.perf_counter() - t_two,
+                      "job_seconds": {f"rank{r}": {j: res[j]["seconds"] for j in res}
+                                      for r, res in enumerate(ranks)}, "card": card}),
+          flush=True)
+    for job in PAR_MESH:
+        one, two = ones[job], ranks[0][job]
+        start, want_launches = one["start"], one["want_launches"]
         for name, res in (("one", one), ("two", two)):
             save_train_state(os.path.join(root, f"{job}_{name}.npz"), *res["state"],
-                             meta={"epoch": 1, "global_step": TRAIN_STEPS})
+                             meta={"epoch": 1, "global_step": len(res["losses"])})
         with np.load(os.path.join(root, f"{job}_one.npz")) as a, \
                 np.load(os.path.join(root, f"{job}_two.npz")) as b:
             same_files = (sorted(a.files) == sorted(b.files)
                           and all(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
                                   for k in a.files))
-        diff = _state_diff(two["state"], one["state"], start)
+        skip = _shift_invariant(job, start)
+        diff = _state_diff(two["state"], one["state"], start, skip)
         loss_rel = [abs(x - w) / abs(w) for x, w in zip(two["losses"], one["losses"])]
         eval_rel = abs(two["eval_loss"] - one["eval_loss"]) / abs(one["eval_loss"])
         logits_rel = _rel_mae(two["eval_logits"], one["eval_logits"])
+        leaf_budget = PAR_LEAF_BUDGET[job.split("_")[0]]
         line = {"phase": "parallel_two", "job": job, "mesh": "x".join(map(str, PAR_MESH[job])),
                 "backend": "gloo, both ranks on cuda:0 (collectives through the host; not "
                            "an NCCL figure)",
@@ -3664,25 +3966,31 @@ def phase_parallel_two(root: str, card: str) -> dict:
                 "one_rank_eval_loss": one["eval_loss"], "eval_loss_rel": eval_rel,
                 "eval_logits_rel_mae": logits_rel,
                 "state": diff, "resume_files_same_leaves": same_files,
-                "step_s": {f"rank{r}": res["step_s"] for r, res in enumerate(ranks)},
-                "collective_s": {f"rank{r}": res["collective_s"]
+                "update_elements_left_out": {k: int(m.sum()) for k, m in skip.items()},
+                "state_layout": type(two["state"][1]).__name__,
+                "step_s": {f"rank{r}": res[job]["step_s"] for r, res in enumerate(ranks)},
+                "collective_s": {f"rank{r}": res[job]["collective_s"]
                                  for r, res in enumerate(ranks)},
                 "one_rank_step_s": one["step_s"],
-                "launches": {f"rank{r}": res["launches"][-1] for r, res in enumerate(ranks)},
-                "eval_launches": {f"rank{r}": res["eval_launches"]
+                "launches": {f"rank{r}": res[job]["launches"][-1]
+                             for r, res in enumerate(ranks)},
+                "eval_launches": {f"rank{r}": res[job]["eval_launches"]
                                   for r, res in enumerate(ranks)},
-                "seconds": time.perf_counter() - t0, "card": card,
+                "seconds": {"one_rank": one["seconds"],
+                            **{f"rank{r}": res[job]["seconds"] for r, res in enumerate(ranks)}},
+                "card": card,
                 "budget": {"loss_rel": loss_budget, "rel_mae": grad_budget,
                            "cosine": cos_floor, "eval_logits_rel_mae": BF16_BUDGET,
-                           "worst_leaf": PAR_LEAF_BUDGET[job.split("_")[0]]}}
+                           "worst_leaf": leaf_budget}}
         print(json.dumps(line), flush=True)
         for r, res in enumerate(ranks):
-            if any(c != want_launches for c in res["launches"]):
-                raise RuntimeError(f"parallel {job}: rank {r} launches {res['launches']}, "
-                                   f"want {want_launches} a step")
-            if res["eval_launches"] != one["eval_launches"]:
+            if res[job]["launches"] != want_launches or one["launches"] != want_launches:
+                raise RuntimeError(f"parallel {job}: rank {r} launches {res[job]['launches']}, "
+                                   f"one rank {one['launches']}, want {want_launches}")
+            if res[job]["eval_launches"] != one["eval_launches"]:
                 raise RuntimeError(f"parallel {job}: rank {r} eval launches "
-                                   f"{res['eval_launches']}, one rank {one['eval_launches']}")
+                                   f"{res[job]['eval_launches']}, one rank "
+                                   f"{one['eval_launches']}")
         if max(loss_rel) > loss_budget or not same_files:
             raise RuntimeError(f"parallel {job}: loss rel {loss_rel}, same leaves {same_files}")
         if not (eval_rel <= loss_budget and logits_rel <= BF16_BUDGET):
@@ -3690,11 +3998,34 @@ def phase_parallel_two(root: str, card: str) -> dict:
                                f"{logits_rel} outside the bf16 budget")
         for name, d in diff.items():
             if not (d["rel_mae"] <= grad_budget and d["cosine"] >= cos_floor
-                    and d["worst_leaf"] <= PAR_LEAF_BUDGET[job.split("_")[0]][name]):
+                    and d["worst_leaf"] <= leaf_budget.get(name, leaf_budget["mu"])):
                 raise RuntimeError(f"parallel {job}: {name} {d} outside the bf16 budget")
         lines[job] = line
         if job == "gaviko_dp":
             lines["gaviko_trainable_shapes"] = [tuple(v.shape) for v in start.values()]
+    if int8_served is None:
+        return lines
+    spec = build_model(_config(CONFIG, "gaviko")["model"]).spec
+    want = serving_launches(spec, quantized=True)
+    for mesh in ("x".join(map(str, shape)) for shape in PAR_INT8_MESHES):
+        res = ranks[0]["int8_serve"][mesh]
+        rel = _rel_mae_np(res["logits"], int8_served)
+        line = {"phase": "parallel_int8_serving", "mesh": mesh, "batch": B,
+                "dtype": "bfloat16", "rel_mae_vs_one_rank": rel, "budget": INT8_PLAIN_BUDGET,
+                "argmax_agreement": float((res["logits"].argmax(-1)
+                                           == int8_served.argmax(-1)).mean()),
+                "launches": {f"rank{r}": rr["int8_serve"][mesh]["launches"]
+                             for r, rr in enumerate(ranks)}, "want_launches": want,
+                "predictor_s": {f"rank{r}": rr["int8_serve"][mesh]["predictor_s"]
+                                for r, rr in enumerate(ranks)},
+                "predict_s": res["predict_s"], "card": card}
+        print(json.dumps(line), flush=True)
+        if any(c != want for c in line["launches"].values()):
+            raise RuntimeError(f"parallel int8 {mesh}: launches {line['launches']}, want {want}")
+        if not (res["logits"].shape == int8_served.shape and np.isfinite(res["logits"]).all()
+                and rel <= INT8_PLAIN_BUDGET):
+            raise RuntimeError(f"parallel int8 {mesh}: logits rel MAE {rel} against one rank")
+        lines[f"int8_{mesh}"] = line
     return lines
 
 
@@ -3778,7 +4109,8 @@ def main() -> int:
         has_yaml = "missing"
     print(json.dumps({"phase": "env", "nvidia_smi": smi,
                       "torch": torch.__version__, "cuda": torch.version.cuda,
-                      "yaml": has_yaml}), flush=True)
+                      "yaml": has_yaml, "tensorstore": _tensorstore_version() or "missing"}),
+          flush=True)
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -3830,6 +4162,8 @@ def main() -> int:
         launches[name], served = phase_serving(predictor, vols)
         phase_plain_check(predictor, vols[:B], served[:B], smi, budget=budget,
                           fp_served=fp_served[fp_name][:B])
+        if name == "int8":  # the 1-rank logits the int8 mesh runs are held to
+            int8_served = np.asarray(served[:B], np.float64)
         if name == "vit_int8":  # phase 22: the int8 artifact, and its reload
             deploy[name] = phase_deploy(name, _config(config, method, over), predictor, vols,
                                         served, smi, op_args)
@@ -3868,6 +4202,9 @@ def main() -> int:
         launches[name] = runs[reported]["launches"]
         del setup, runs
         torch.cuda.empty_cache()
+
+    # fused_optimizer: false (the optax chain's state) against the fused state.
+    phase_chain(smi)
 
     # B13 at the trainable leaves of the GAViKO and vit-b16 train runs.
     adam = {row: phase_adam(smi, row, adam_shapes[run]) for row, run in ADAM_ROWS.items()}
@@ -3908,12 +4245,15 @@ def main() -> int:
         trainer_input = phase_trainer_input(root, pretrained, sample, smi)
     input_launches = trainer_input["step_launches"][-1]
 
-    # Multi-device training (parallel/mesh.py): gaviko_tpu.yaml through
-    # cli.train on a 1 x 1 mesh, then 2 ranks on cuda:0 over gloo against
-    # one rank, then A and B on a head shard and B13's sharded step.
+    # Multi-device training and serving (parallel/mesh.py): gaviko_tpu.yaml
+    # through cli.train on a 1 x 1 mesh (orbax resume directory where
+    # tensorstore imports), then 2 ranks on cuda:0 over gloo against one
+    # rank (train jobs, the accumulating one and the zoo's tensor
+    # parallelism included, and GAViKO int8 serving), then A and B on a
+    # head shard and B13's sharded step.
     with tempfile.TemporaryDirectory(prefix="gaviko_parallel_") as root:
         par_one = phase_parallel_one(root, smi)
-        par_two = phase_parallel_two(root, smi)
+        par_two = phase_parallel_two(root, smi, int8_served)
     phase_parallel_kernels(smi, par_two.pop("gaviko_trainable_shapes"))
     parallel_launches = {"parallel_one": par_one["step_launches"][-1],
                          **{job: line["launches"]["rank0"] for job, line in par_two.items()},

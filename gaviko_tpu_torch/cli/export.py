@@ -7,8 +7,11 @@ Port of ``gaviko_tpu/cli/export.py``, with its flags and its last line. The
 artifact (a zip: one ``torch.export`` program a platform, the weights and a
 manifest) serves without model-building code: ``cli.serve --artifact
 model.gaviko``. ``--platforms`` takes ``cuda`` and / or ``cpu`` (default
-``cuda``; any host exports either); ``--mesh`` is not ported (ROADMAP Queue
-A item 16). See :mod:`gaviko_tpu_torch.deploy` for the format.
+``cuda``; any host exports either). ``--mesh`` (an artifact whose program
+holds a mesh's shards and collectives) is not ported (ROADMAP Queue A item
+16): serve on a mesh from the config instead, ``cli.serve --mesh d,t``
+(int8 and every method included). See :mod:`gaviko_tpu_torch.deploy` for
+the format.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ def main(argv=None):
     parser.add_argument("--platforms", type=str, default=None,
                         help="comma-separated targets from 'cuda,cpu' (default: cuda)")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="not ported (ROADMAP Queue A item 16)")
+                        help="mesh artifacts are not ported (ROADMAP Queue A item 16); "
+                             "serve on a mesh with cli.serve --mesh d,t instead")
     args = parser.parse_args(argv)
 
     if args.mesh is not None:

@@ -15,6 +15,10 @@ backbone is live, the embedding's included. The stream is padded once to
 a multiple of 8 rows; in the CLS-fast last layer K and V (with the v
 delta) span every row and Q (with the q delta) is computed for row 0
 alone, by plain GEMMs as in the JAX package.
+
+Under tensor parallelism the LoRA-merged layers run whole on every model
+rank (the JAX package splits their qkv rows: the same numbers), and the
+layers without LoRA split by heads as the plain ViT's do.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from gaviko_tpu_torch.config import ModelSpec
 from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core import vit as vit_core
 from gaviko_tpu_torch.core.layers import Params, SeedStream, dropout, layer_norm, linear, proj
+from gaviko_tpu_torch.parallel import shard
 
 PREFIX = "lora_vit."
 
@@ -54,6 +59,12 @@ def _lora_qkv(vt: Params, qp: str, scaling: int, h: torch.Tensor) -> torch.Tenso
 
 def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
           train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    with shard.within(PREFIX):  # a tensor-parallel shard names the inner ViT's weights
+        return _apply(params, img, spec, train=train, seeds=seeds)
+
+
+def _apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
+           train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
     vt = {k[len(PREFIX):]: v for k, v in params.items() if k.startswith(PREFIX)}
     lora = set(_lora_layers(spec))
     scaling = spec.alpha // spec.r
@@ -70,19 +81,23 @@ def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
         a = f"transformer.layers.{i}.0"
         qp = f"{a}.to_qkv"
         if fast and i == spec.depth - 1:
-            xn = layer_norm(vt, f"{a}.norm", x)
+            # A layer without LoRA may be split over the model ranks: its heads.
+            s = None if i in lora else shard.part(f"{a}.to_qkv.weight")
+            heads, head0 = vit_core._local_heads(spec, s)
+            xn = layer_norm(vt, f"{a}.norm", shard.copy_in(x, s))
             w = vt[f"{qp}.qkv.weight"] if i in lora else vt[f"{a}.to_qkv.weight"]
-            dim = w.shape[1]
+            dim = w.shape[1] if s is None else w.shape[0] // 3
             kv = proj(xn, w[dim:])
             q0 = proj(xn[:, 0], w[:dim])
             if i in lora:
                 kv = torch.cat([kv[..., :dim], kv[..., dim:] + _delta(vt, qp, "v", xn, scaling)],
                                dim=-1)
                 q0 = q0 + _delta(vt, qp, "q", xn[:, 0], scaling)
-            out = vit_core.cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds)
-            out = dropout(linear(vt, f"{a}.to_out.0", out.to(x.dtype)), spec.dropout, train,
-                          seeds)
-            c = x[:, 0] + out
+            out = vit_core.cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds,
+                                      heads=heads, head0=head0)
+            out = shard.reduce_out(vit_core._out_proj(vt, f"{a}.to_out.0", out.to(x.dtype), s),
+                                   s)
+            c = x[:, 0] + dropout(out, spec.dropout, train, seeds)
             c = c + vit_core.feedforward_cls_branch(vt, f"transformer.layers.{i}.1", c, spec,
                                                     train=train, seeds=seeds)
             return linear(vt, "mlp_head", layer_norm(vt, "transformer.norm", c))

@@ -14,6 +14,11 @@ GEMMs with ``ssf_ada`` between them, so SSF runs neither the fused
 LN+linear nor the fused MLP. In the CLS-fast last layer ``ssf_1`` is
 sliced into its kv and q thirds. The stream is padded once to a multiple
 of 8 rows. ``quantize_backbone`` refuses SSF, as in the JAX package.
+
+Under tensor parallelism a split block runs its heads (or hidden columns)
+between ``copy_in`` and ``reduce_out`` as ``core/vit``'s blocks do, with
+``ssf_1`` split as the qkv's (fc1's) rows (``parallel/mesh.tp_plan``) and
+``ssf_2`` applied to the summed output.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from gaviko_tpu_torch.core import vit as vit_core
 from gaviko_tpu_torch.core.layers import (
     Params, SeedStream, dropout, gelu_spec, layer_norm, linear, proj, ssf_ada)
 from gaviko_tpu_torch.ops.attention import self_attention
+from gaviko_tpu_torch.parallel import shard
 
 
 def _ssf(p: Params, prefix: str, idx: int, x: torch.Tensor) -> torch.Tensor:
@@ -37,37 +43,43 @@ def _ssf(p: Params, prefix: str, idx: int, x: torch.Tensor) -> torch.Tensor:
 
 def _attn_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                 train: bool, seeds: Optional[SeedStream], n_true: int) -> torch.Tensor:
-    h = _ssf(p, prefix, 0, layer_norm(p, f"{prefix}.norm", x))
+    s = shard.part(f"{prefix}.to_qkv.weight")
+    heads, head0 = vit_core._local_heads(spec, s)
+    h = _ssf(p, prefix, 0, layer_norm(p, f"{prefix}.norm", shard.copy_in(x, s)))
     qkv = _ssf(p, prefix, 1, proj(h, p[f"{prefix}.to_qkv.weight"]))
     dh = spec.dim_head
-    out = self_attention(qkv, spec.heads, dh, dh ** -0.5, n_true,
-                         spec.dropout if train else 0.0, seeds)
-    out = _ssf(p, prefix, 2, linear(p, f"{prefix}.to_out.0", out))
-    return dropout(out, spec.dropout, train, seeds)
+    out = self_attention(qkv, heads, dh, dh ** -0.5, n_true,
+                         spec.dropout if train else 0.0, seeds, spec.heads, head0)
+    out = shard.reduce_out(vit_core._out_proj(p, f"{prefix}.to_out.0", out, s), s)
+    return dropout(_ssf(p, prefix, 2, out), spec.dropout, train, seeds)
 
 
 def _ff_block(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
               train: bool, seeds: Optional[SeedStream]) -> torch.Tensor:
-    h = _ssf(p, prefix, 0, layer_norm(p, f"{prefix}.net.0", x))
+    s = shard.part(f"{prefix}.net.1.weight")
+    h = _ssf(p, prefix, 0, layer_norm(p, f"{prefix}.net.0", shard.copy_in(x, s)))
     h = gelu_spec(_ssf(p, prefix, 1, linear(p, f"{prefix}.net.1", h)), spec.gelu)
-    h = dropout(h, spec.dropout, train, seeds)
-    h = _ssf(p, prefix, 2, linear(p, f"{prefix}.net.4", h))
-    return dropout(h, spec.dropout, train, seeds)
+    h = dropout(h, spec.dropout, train, seeds, col_offset=s.m * h.shape[-1] if s else 0)
+    h = shard.reduce_out(vit_core._out_proj(p, f"{prefix}.net.4", h, s), s)
+    return dropout(_ssf(p, prefix, 2, h), spec.dropout, train, seeds)
 
 
 def _attn_cls_branch(p: Params, prefix: str, x: torch.Tensor, spec: ModelSpec, *,
                      train: bool, seeds: Optional[SeedStream], n_true: int) -> torch.Tensor:
     """``_attn_block(...)[:, 0]`` for the CLS query alone (the last-layer
     fast path), ``ssf_1`` sliced to the kv and q thirds of the packed qkv."""
-    h = _ssf(p, prefix, 0, layer_norm(p, f"{prefix}.norm", x))
+    s = shard.part(f"{prefix}.to_qkv.weight")
+    heads, head0 = vit_core._local_heads(spec, s)
+    h = _ssf(p, prefix, 0, layer_norm(p, f"{prefix}.norm", shard.copy_in(x, s)))
     w = p[f"{prefix}.to_qkv.weight"]
     inner = w.shape[0] // 3
     sc, sh = p[f"{prefix}.ssf_scale_1"], p[f"{prefix}.ssf_shift_1"]
     kv = proj(h, w[inner:]) * sc[inner:] + sh[inner:]
     q0 = proj(h[:, 0], w[:inner]) * sc[:inner] + sh[:inner]
-    out = vit_core.cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds)
-    out = _ssf(p, prefix, 2, linear(p, f"{prefix}.to_out.0", out.to(x.dtype)))
-    return dropout(out, spec.dropout, train, seeds)
+    out = vit_core.cls_attend(kv, q0, spec, n_true=n_true, train=train, seeds=seeds,
+                              heads=heads, head0=head0)
+    out = shard.reduce_out(vit_core._out_proj(p, f"{prefix}.to_out.0", out.to(x.dtype), s), s)
+    return dropout(_ssf(p, prefix, 2, out), spec.dropout, train, seeds)
 
 
 def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,

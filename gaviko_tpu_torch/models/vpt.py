@@ -29,12 +29,19 @@ from gaviko_tpu_torch.config import ModelSpec
 from gaviko_tpu_torch.core import init as tinit
 from gaviko_tpu_torch.core import vit as vit_core
 from gaviko_tpu_torch.core.layers import Params, SeedStream, dropout, layer_norm, linear
+from gaviko_tpu_torch.parallel import shard
 
 PREFIX = "vision_transformer."
 
 
 def apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
           train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
+    with shard.within(PREFIX):  # a tensor-parallel shard names the inner ViT's weights
+        return _apply(params, img, spec, train=train, seeds=seeds)
+
+
+def _apply(params: Params, img: torch.Tensor, spec: ModelSpec, *,
+           train: bool = False, seeds: Optional[SeedStream] = None) -> torch.Tensor:
     bb_train = train and not spec.freeze_vit
     vt = {k[len(PREFIX):]: v for k, v in params.items() if k.startswith(PREFIX)}
 

@@ -17,17 +17,17 @@ from typing import Optional
 
 import torch
 
-from gaviko_tpu_torch.parallel.mesh import (Mesh, check_tp, forward_rows, gather_rows,
-                                            make_mesh, shard_params, tp_plan)
+from gaviko_tpu_torch.parallel.mesh import (Mesh, forward_rows, gather_rows, make_mesh,
+                                            shard_params, tp_plan)
 
 
 def make_parallel_forward(model, mesh: Mesh, params, compute_dtype: Optional[torch.dtype] = None):
     """-> (forward(params, inputs) -> f32 logits [B, classes], this rank's
     params). ``inputs`` is the whole micro-batch, on every rank; ``B`` must
     divide by the mesh's data size. Weights whose heads or hidden width do
-    not divide stay whole."""
+    not divide stay whole, and so do int8 serving's blocks (their sidecars
+    and float weights): B11 runs each on every rank, on its rows."""
     plan = tp_plan(params, model.spec.heads, mesh.model)
-    check_tp(model.spec.method, plan)
     sharded = shard_params(params, plan, mesh.m, mesh.model, model.spec.heads)
 
     @torch.inference_mode()

@@ -26,7 +26,12 @@ is one process that computes on its shard itself and calls the collectives:
   A block whose heads (or hidden width) do not divide by tp stays whole on
   every rank, as JAX replicates a dimension that does not divide. GAViKO's
   local attention (``local_attns.*.qkv.weight``) is not a ``to_qkv`` and
-  stays whole. :func:`shard_params` and :func:`gather_shards` turn a whole
+  stays whole, and so do MeLO's LoRA-merged layers (``to_qkv.qkv.weight``,
+  which JAX splits by rows: whole here, the same numbers) and the weights
+  of every method that no rule covers (prompts, adapters, DVPT's and EVP's
+  generators, the head): every model rank computes them, as JAX replicates
+  them. SSF's scale and shift of a split qkv or fc1 output split with its
+  rows. :func:`shard_params` and :func:`gather_shards` turn a whole
   flat dict (torch or the JAX package's numpy) into each rank's and back;
 - ZeRO (``zero: true``): each data rank owns the slice of every Adam
   moment along its largest axis divisible by the data size
@@ -39,7 +44,10 @@ is one process that computes on its shard itself and calls the collectives:
   dtype, are the whole batch's. The gradients of a split block's LayerNorm
   and output bias are partial sums over ``model`` too, and are first
   summed over ``model``. B13 runs sharded (``ops/fused_adam.py``): the sum of squares
-  of the leaves a rank counts, all-reduced, then the update.
+  of the leaves a rank counts, all-reduced, then the update. With
+  ``accumulation_steps`` k > 1 each micro-step folds this rank's slices of
+  the summed gradients into its slices of optax ``MultiSteps``' running
+  mean, and every k-th runs that sharded B13 update on the mean.
 
 Collectives. Gradients are summed in flat buckets, one a dtype. Under ZeRO
 each data rank receives only its slices of the summed gradients
@@ -60,12 +68,13 @@ import socket
 from collections import defaultdict
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from gaviko_tpu_torch.ops.int8_linear import INT8_SUFFIX
 from gaviko_tpu_torch.parallel import shard as shard_lib
 
 Params = Dict[str, torch.Tensor]
@@ -392,47 +401,50 @@ def tp_plan(params: Mapping, heads: int, tp: int) -> Dict[str, str]:
     """name -> how it splits over ``tp`` model ranks ("qkv" by heads' rows,
     "out" by their input columns, "rows", "cols"), for every weight of a
     block that splits; names absent stay whole. ``heads`` is the model's
-    head count (every ``to_qkv`` has it)."""
+    head count (every ``to_qkv`` has it). SSF's scale and shift of a split
+    GEMM's output (``ssf_scale_1`` / ``ssf_shift_1``) split as its rows. A
+    block carrying int8 sidecars stays whole: int8 serving on a mesh runs
+    B11 on the whole layer on every rank (its rows split over data)."""
     plan: Dict[str, str] = {}
     if tp <= 1:
         return plan
     for name in params:
-        qkv = _QKV.fullmatch(name)
+        if name + INT8_SUFFIX in params:
+            continue
+        qkv, fc1 = _QKV.fullmatch(name), _FC1.fullmatch(name)
         if qkv and heads % tp == 0 and f"{qkv[1]}.to_out.0.weight" in params:
-            plan[name], plan[f"{qkv[1]}.to_out.0.weight"] = "qkv", "cols"
-        fc1 = _FC1.fullmatch(name)
-        if (fc1 and params[name].shape[0] % tp == 0
+            pre, how = qkv[1], "qkv"
+            plan[name], plan[f"{pre}.to_out.0.weight"] = "qkv", "cols"
+        elif (fc1 and params[name].shape[0] % tp == 0
                 and f"{fc1[1]}.net.4.weight" in params):
-            plan[name], plan[f"{fc1[1]}.net.4.weight"] = "rows", "cols"
-            if f"{fc1[1]}.net.1.bias" in params:
-                plan[f"{fc1[1]}.net.1.bias"] = "rows"
+            pre, how = fc1[1], "rows"
+            plan[name], plan[f"{pre}.net.4.weight"] = "rows", "cols"
+            if f"{pre}.net.1.bias" in params:
+                plan[f"{pre}.net.1.bias"] = "rows"
+        else:
+            continue
+        for leaf in ("ssf_scale_1", "ssf_shift_1"):
+            if f"{pre}.{leaf}" in params:
+                plan[f"{pre}.{leaf}"] = how
     return plan
-
-
-TP_METHODS = ("gaviko", "fft", "linear", "bitfit")
-
-
-def check_tp(method: str, plan: Mapping[str, str]) -> None:
-    """Tensor parallelism runs the methods whose blocks the rules cover: the
-    zoo's extra weights (and MeLO's LoRA qkv) have no shard rule."""
-    if plan and method not in TP_METHODS:
-        raise NotImplementedError(
-            f"tensor parallelism for method {method!r} is not ported (ROADMAP Queue A item "
-            "16); run it with a model size of 1")
 
 
 def partial_grad_names(plan: Mapping[str, str], names) -> frozenset:
     """The whole (replicated) weights whose gradient each model rank holds
-    only a part of: a split block's LayerNorm (applied after ``copy_in``)
-    and its output bias (added on model rank 0 only)."""
+    only a part of: a split block's LayerNorm and SSF's scale and shift
+    after it (applied after ``copy_in``), and its output bias (added on
+    model rank 0 only)."""
     out = set()
     for name, how in plan.items():
-        if how == "qkv":
+        if name.endswith(".to_qkv.weight"):
             pre = name[:-len(".to_qkv.weight")]
             out |= {f"{pre}.norm.weight", f"{pre}.norm.bias", f"{pre}.to_out.0.bias"}
         elif name.endswith(".net.1.weight"):
             pre = name[:-len(".net.1.weight")]
             out |= {f"{pre}.net.0.weight", f"{pre}.net.0.bias", f"{pre}.net.4.bias"}
+        else:
+            continue
+        out |= {f"{pre}.ssf_scale_0", f"{pre}.ssf_shift_0"}
     return frozenset(out & set(names))
 
 
@@ -531,12 +543,19 @@ def gather_rows(rows: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 class ShardedAdamState(NamedTuple):
     """A rank's optimizer state: its slices of the moments and of the
-    trainable parameters (``owned``), the ones B13 updates in place."""
+    trainable parameters (``owned``), the ones B13 updates in place. With
+    ``accumulation_steps > 1`` it is the ``inner`` of a ``MultiStepState``
+    whose ``acc`` holds this rank's slices of the running mean (ZeRO-sliced
+    as the moments are, as JAX shards every leaf of the state)."""
 
     count: int
     mu: Params
     nu: Params
     owned: Params
+
+
+# With accumulation a rank holds ``fused_optim.MultiStepState`` around it.
+OptState = Union[ShardedAdamState, "fused_optim.MultiStepState"]
 
 
 class ParallelTrainer:
@@ -558,19 +577,15 @@ class ParallelTrainer:
         from gaviko_tpu_torch.ops.augment import eval_rescale
         from gaviko_tpu_torch.train.loop import make_loss_and_grads
 
-        if fused["accum"] > 1:
-            raise NotImplementedError(
-                "train.accumulation_steps > 1 under train.parallel is not ported (ROADMAP "
-                "Queue A item 16)")
         self.model, self.criterion, self.fused, self.mesh = model, criterion, fused, mesh
         self.compute_dtype, self.device_augment = compute_dtype, device_augment
+        self.accum = fused["accum"]
         self._make_loss_and_grads = make_loss_and_grads
         self._prepare = eval_rescale if device_augment else (lambda x: x)
         heads = model.spec.heads
         whole = {**frozen, **trainable}
         self.heads = heads
         self.plan = tp_plan(whole, heads, mesh.model)
-        check_tp(model.spec.method, self.plan)
         self.partial = partial_grad_names(self.plan, trainable)
         self.keys = sorted(trainable)
         d, m, D = mesh.d, mesh.m, mesh.data
@@ -603,23 +618,42 @@ class ParallelTrainer:
     def _slice(self, k: str, t: torch.Tensor) -> torch.Tensor:
         return zero_slice(t, self.axis[k], self.mesh.d, self.mesh.data)
 
-    def shard_state(self, trainable: Params, opt_state) -> Tuple[Params, ShardedAdamState]:
+    def shard_state(self, trainable: Params, opt_state) -> Tuple[Params, OptState]:
         """This rank's (trainable, optimizer state) from whole ones (a whole
-        ``FusedAdamState``, or None for a fresh state)."""
+        state of the optimizer's layout, see ``train.loop.init_opt_state``,
+        or None for a fresh state): a ``ShardedAdamState``, or with
+        accumulation a ``MultiStepState`` around one."""
+        from gaviko_tpu_torch.train import fused_optim
+
         local = self._shard(trainable)
         # B13 updates contiguous tensors in place: a ZeRO slice gets its own.
         owned = {k: self._slice(k, v).clone(memory_format=torch.contiguous_format)
                  if self.axis[k] is not None else v for k, v in local.items()}
         if opt_state is None:
-            mu = {k: torch.zeros_like(v) for k, v in owned.items()}
-            nu = {k: torch.zeros_like(v) for k, v in owned.items()}
-            count = 0
-        else:
-            mu, nu = ({k: self._slice(k, v).clone(memory_format=torch.contiguous_format)
-                       for k, v in self._shard(moments).items()}
-                      for moments in (opt_state.mu, opt_state.nu))
-            count = int(opt_state.count)
-        return local, ShardedAdamState(count, mu, nu, owned)
+            def zeros():
+                return {k: torch.zeros_like(v) for k, v in owned.items()}
+
+            inner = ShardedAdamState(0, zeros(), zeros(), owned)
+            if self.accum == 1:
+                return local, inner
+            return local, fused_optim.MultiStepState(0, 0, inner, zeros())
+        multi = isinstance(opt_state, fused_optim.MultiStepState)
+        if multi != (self.accum > 1):
+            raise ValueError(f"a resume state of {type(opt_state).__name__} for "
+                             f"accumulation_steps {self.accum}")
+        whole = opt_state.inner if multi else opt_state
+        inner = ShardedAdamState(int(whole.count), self._mine(whole.mu), self._mine(whole.nu),
+                                 owned)
+        if not multi:
+            return local, inner
+        return local, fused_optim.MultiStepState(int(opt_state.mini_step),
+                                                 int(opt_state.gradient_step), inner,
+                                                 self._mine(opt_state.acc))
+
+    def _mine(self, whole: Params) -> Params:
+        """This rank's own copies of its parts of whole state leaves."""
+        return {k: self._slice(k, v).clone(memory_format=torch.contiguous_format)
+                for k, v in self._shard(whole).items()}
 
     def _gather_data(self, parts: Params) -> Params:
         """Whole-over-data leaves from this rank's ZeRO slices (leaves that
@@ -648,14 +682,26 @@ class ParallelTrainer:
         """Whole trainable tensors (collective: every rank calls it)."""
         return self._gather_model(trainable)
 
-    def gather_state(self, trainable: Params, opt_state: ShardedAdamState):
-        """-> (whole trainable, whole ``FusedAdamState``): the resume state
-        one process would hold (collective: every rank calls it)."""
-        from gaviko_tpu_torch.train.fused_optim import FusedAdamState
+    def gather_state(self, trainable: Params, opt_state: OptState):
+        """-> (whole trainable, whole optimizer state): the resume state one
+        process would hold, in the optimizer's layout (``FusedAdamState``,
+        the chain's ``ChainState`` or ``MultiStepState``; collective: every
+        rank calls it)."""
+        from gaviko_tpu_torch.train import fused_optim
 
-        mu, nu = (self._gather_model(self._gather_data(m)) for m in (opt_state.mu,
-                                                                      opt_state.nu))
-        return self._gather_model(trainable), FusedAdamState(opt_state.count, mu, nu)
+        def whole(parts: Params) -> Params:
+            return self._gather_model(self._gather_data(parts))
+
+        if isinstance(opt_state, fused_optim.MultiStepState):
+            inner = opt_state.inner
+            state = opt_state._replace(
+                inner=fused_optim.FusedAdamState(inner.count, whole(inner.mu), whole(inner.nu)),
+                acc=whole(opt_state.acc))
+        else:
+            state = (fused_optim.ChainState if self.fused.get("chain")
+                     else fused_optim.FusedAdamState)(opt_state.count, whole(opt_state.mu),
+                                                      whole(opt_state.nu))
+        return self._gather_model(trainable), state
 
     # -- steps --
 
@@ -709,8 +755,18 @@ class ParallelTrainer:
                                          n_counted=self.n_counted)
         owned = dict(zip(ks, new_p))
         trainable = {**trainable, **self._gather_data(owned)}
-        return trainable, ShardedAdamState(state.count + 1, dict(zip(ks, new_m)),
-                                           dict(zip(ks, new_v)), owned)
+        return trainable, state._replace(count=state.count + 1, mu=dict(zip(ks, new_m)),
+                                         nu=dict(zip(ks, new_v)), owned=owned)
+
+    def _update(self, grads: Params, state: OptState, trainable: Params):
+        """B13 on this rank's slices of the summed gradients; with
+        ``accumulation_steps`` k > 1, ``fused_optim.multi_step`` around it
+        on the slices' running mean."""
+        from gaviko_tpu_torch.train import fused_optim
+
+        if self.accum == 1:
+            return self._adam(grads, state, trainable)
+        return fused_optim.multi_step(grads, state, trainable, self.accum, self._adam)
 
     def _sum(self, *values: torch.Tensor) -> List[torch.Tensor]:
         """Scalars summed over data, in one collective."""
@@ -726,7 +782,7 @@ class ParallelTrainer:
         with shard_lib.active(self.mesh.shard(inputs.shape[0] * self.mesh.data, self.plan)):
             loss, logits, grads = loss_and_grads(trainable, frozen, inputs, labels, seeds,
                                                  self._rows(augment, inputs.shape[0]))
-        trainable, opt_state = self._adam(self._sync_grads(grads), opt_state, trainable)
+        trainable, opt_state = self._update(self._sync_grads(grads), opt_state, trainable)
         correct = (logits.float().argmax(dim=1) == labels).sum()
         loss, correct = self._sum(loss, correct)
         return trainable, opt_state, loss, correct

@@ -28,6 +28,7 @@ output bias, and the fused MLP's residual, are added on model rank 0 only
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -68,6 +69,20 @@ def active(shard: Optional[Shard]):
         yield shard
     finally:
         _state.shard = before
+
+
+@contextlib.contextmanager
+def within(prefix: str):
+    """Run a model that strips ``prefix`` from its params' names (VPT's
+    ``vision_transformer.``, MeLO's ``lora_vit.``): the shard names its split
+    weights without it too."""
+    s = current()
+    if s is None or not s.split:
+        yield s
+        return
+    names = frozenset(k[len(prefix):] for k in s.split if k.startswith(prefix))
+    with active(dataclasses.replace(s, split=names)) as inner:
+        yield inner
 
 
 def _int32(h: int) -> int:

@@ -29,8 +29,11 @@ with torchrun), every rank builds the Predictor with its shard of the
 weights, rank 0 takes the requests and broadcasts each micro-batch (and
 each reload) to the others, which run :meth:`Predictor.follow` until rank
 0's :meth:`Predictor.close`; the logits come back whole. It runs in the
-serving dtype, as the JAX package's mesh branch does. int8 on a mesh is not
-ported.
+serving dtype, as the JAX package's mesh branch does. With
+``quantize="int8"`` every rank quantizes the whole weights first, as JAX
+does, and the int8 blocks stay whole on every rank (``parallel/mesh.tp_plan``):
+each rank runs B11 on its rows of the micro-batch, as many launches a
+forward as one process.
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ class Predictor:
         self._mesh = None
         self._lock = threading.Lock()
         if mesh_shape is not None:
-            self.device = self._join_mesh(mesh_shape, batch_size, quantize)
+            self.device = self._join_mesh(mesh_shape, batch_size)
         self.batch_size = batch_size
         self.model = build_model(config["model"])
         self.spec = self.model.spec
@@ -125,7 +128,7 @@ class Predictor:
         self._forward(self.params, warm)
         logging.info(f"Predictor ready: micro-batch {shape}, {dtype}, {self.device}")
 
-    def _join_mesh(self, mesh_shape, batch_size: int, quantize) -> torch.device:
+    def _join_mesh(self, mesh_shape, batch_size: int) -> torch.device:
         """Check the process group against ``mesh_shape`` -> this rank's device."""
         import torch.distributed as dist
 
@@ -139,9 +142,6 @@ class Predictor:
                 f"this process has {world}. Launch {data * tp} processes, e.g. torchrun "
                 f"--nproc_per_node {data * tp} -m gaviko_tpu_torch.cli.serve --mesh "
                 f"{data},{tp} ...")
-        if quantize is not None:
-            raise NotImplementedError("int8 serving on a mesh is not ported (ROADMAP Queue A "
-                                      "item 16)")
         if batch_size % data:
             raise ValueError(f"batch_size {batch_size} does not split over {data} data ranks")
         self._mesh_shape = (data, tp)

@@ -18,7 +18,11 @@ version, which returns new tensors. Nothing falls back: a CUDA step launches
 the kernel or raises.
 
 The state is ``FusedAdamState(count, mu, nu)``, as in the JAX package, with
-``count`` a host int. After a step on the card its ``mu`` also carries the
+``count`` a host int. With ``train.fused_optimizer: false`` the JAX package
+runs the optax chain clip -> Adam -> lr schedule instead: the same math, and
+a state whose leaves are ``[count, *mu, *nu, count]`` (the clip has none, the
+schedule its own count). ``ChainState`` holds that layout and :func:`step`
+steps it the same way, by B13. After a step on the card its ``mu`` also carries the
 kernel's table of leaves (``ops.fused_adam.AdamTable``), so the next step
 rewrites only the grad pointers.
 """
@@ -43,6 +47,15 @@ class FusedAdamState(NamedTuple):
     nu: Params
 
 
+class ChainState(NamedTuple):
+    """The optax chain's state (``fused_optimizer: false``): Adam's count and
+    moments; the lr schedule's count, its last leaf, always equals
+    ``count``."""
+    count: int
+    mu: Params
+    nu: Params
+
+
 class _Moments(dict):
     """The first-moment dict of a state stepped on the card, with the
     AdamTable of that step's tensors (which the next step reuses if it
@@ -50,8 +63,8 @@ class _Moments(dict):
     table = None
 
 
-def init(params: Params) -> FusedAdamState:
-    return FusedAdamState(
+def init(params: Params, chain: bool = False) -> Union[FusedAdamState, ChainState]:
+    return (ChainState if chain else FusedAdamState)(
         count=0,
         mu={k: torch.zeros_like(v) for k, v in params.items()},
         nu={k: torch.zeros_like(v) for k, v in params.items()},
@@ -70,10 +83,11 @@ def step_scalars(count: int, sched: Scalar, b1: Scalar):
 
 
 @torch.no_grad()
-def step(grads: Params, state: FusedAdamState, params: Params, sched: Scalar,
-         clip: float = 1.0, b1: Scalar = 0.9, eps: float = 1e-8):
-    """-> (new_params, new_state). ``sched`` and ``b1`` are floats or host
-    schedules of the pre-step count; the clip scale stays on the device."""
+def step(grads: Params, state: Union[FusedAdamState, ChainState], params: Params,
+         sched: Scalar, clip: float = 1.0, b1: Scalar = 0.9, eps: float = 1e-8):
+    """-> (new_params, new_state of the state's class). ``sched`` and ``b1``
+    are floats or host schedules of the pre-step count; the clip scale stays
+    on the device."""
     keys = list(grads)
     lr, beta1, c1, c2 = step_scalars(state.count, sched, b1)
     mu, nu, p = ([d[k] for k in keys] for d in (state.mu, state.nu, params))
@@ -87,7 +101,7 @@ def step(grads: Params, state: FusedAdamState, params: Params, sched: Scalar,
     new_mu = _Moments(zip(keys, new_m))
     new_mu.table = table
     return (dict(zip(keys, new_p)),
-            FusedAdamState(count=state.count + 1, mu=new_mu, nu=dict(zip(keys, new_v))))
+            state._replace(count=state.count + 1, mu=new_mu, nu=dict(zip(keys, new_v))))
 
 
 class MultiStepState(NamedTuple):
@@ -95,7 +109,7 @@ class MultiStepState(NamedTuple):
     and accumulated gradients around the fused step's state."""
     mini_step: int  # micro-steps accumulated since the last update
     gradient_step: int  # updates applied
-    inner: FusedAdamState
+    inner: FusedAdamState  # or a mesh rank's ``ShardedAdamState``
     acc: Params  # running mean of this cycle's micro-step gradients
 
 
@@ -105,16 +119,17 @@ def init_multi_steps(params: Params) -> MultiStepState:
 
 @torch.no_grad()
 def multi_step(grads: Params, state: MultiStepState, params: Params, k_steps: int,
-               sched: Scalar, clip: float = 1.0, b1: Scalar = 0.9, eps: float = 1e-8):
+               update: Callable):
     """Gradient accumulation with optax ``MultiSteps(every_k_schedule=k_steps,
-    use_grad_mean=True)`` semantics around :func:`step`: the running mean
-    ``acc + (g - acc) / (n + 1)`` of the micro-step gradients, and every
-    k-th micro-step one clip + Adam step on it (the schedules count updates,
-    not micro-steps); the params are unchanged in between."""
+    use_grad_mean=True)`` semantics around ``update(grads, inner, params) ->
+    (params, inner)`` (:func:`step`, or a mesh's sharded step on its slices):
+    the running mean ``acc + (g - acc) / (n + 1)`` of the micro-step
+    gradients, and every k-th micro-step one update on it (the schedules
+    count updates, not micro-steps); the params are unchanged in between."""
     n = state.mini_step
     acc = {k: a + (grads[k] - a) / (n + 1) for k, a in state.acc.items()}
     if n + 1 < k_steps:
         return params, MultiStepState(n + 1, state.gradient_step, state.inner, acc)
-    params, inner = step(acc, state.inner, params, sched, clip=clip, b1=b1, eps=eps)
+    params, inner = update(acc, state.inner, params)
     zeros = {k: torch.zeros_like(a) for k, a in acc.items()}
     return params, MultiStepState(0, state.gradient_step + 1, inner, zeros)

@@ -8,6 +8,8 @@ Port of ``gaviko_tpu/train/loop.py``:
   then global-norm clip 1.0 + Adam with the OneCycle lr and cycled beta1
   (``train/fused_optim.py``: kernel B13 on the card), or, with
   ``accumulation_steps > 1``, optax ``MultiSteps`` accumulation around it;
+  ``fused_optimizer: false`` keeps the optax chain's state layout (the
+  same B13 step);
 - mixed precision as in the JAX package: with ``train.precision: bf16`` the
   params stay f32 masters and each step casts every f32 param to bf16
   inside the differentiated function, so the gradients reach the f32
@@ -17,7 +19,8 @@ Port of ``gaviko_tpu/train/loop.py``:
   epochs, the 15-field per-step CSV with the ``len(ds) * (epoch + 1)``
   normalisation (PARITY #15), validation, the trainable-only best
   checkpoint gated on ``save_threshold``, early stopping, resume (``auto``
-  or a path) with rate-limited epoch-boundary saves, mid-epoch preemption,
+  or a path; an npz file or, with ``checkpoint_backend: orbax``, an orbax
+  directory) with rate-limited epoch-boundary saves, mid-epoch preemption,
   ``train.profile`` through ``torch.profiler`` and ``debug_nans`` as
   autograd anomaly detection.
 
@@ -63,7 +66,8 @@ from gaviko_tpu_torch.train.preemption import PreemptionGuard
 
 Params = Dict[str, torch.Tensor]
 Seeds = Union[SeedStream, Iterable[int], None]
-OptState = Union[fused_optim.FusedAdamState, fused_optim.MultiStepState]
+OptState = Union[fused_optim.FusedAdamState, fused_optim.ChainState,
+                 fused_optim.MultiStepState]
 
 
 def split_params(model: Model, params: Params) -> Tuple[Params, Params]:
@@ -73,23 +77,22 @@ def split_params(model: Model, params: Params) -> Tuple[Params, Params]:
 
 
 def make_optimizer(train_cfg: dict, total_steps: int) -> dict:
-    """The fused clip + Adam spec (ref: train.py:185-206, 315-316):
-    ``{"sched", "clip", "eps", "b1", "accum"}``, b1 the cycled schedule
-    unless ``scheduler.cycle_momentum: false``, the schedules over
+    """The clip + Adam spec (ref: train.py:185-206, 315-316):
+    ``{"sched", "clip", "eps", "b1", "accum", "chain"}``, b1 the cycled
+    schedule unless ``scheduler.cycle_momentum: false``, the schedules over
     ``total_steps // accumulation_steps`` updates. Weight decay stays off,
-    as in the reference's actual optimizer."""
+    as in the reference's actual optimizer. ``chain``: the state takes the
+    optax chain's layout (``fused_optimizer: false`` at
+    ``accumulation_steps: 1``; the JAX package's ``MultiSteps`` wraps that
+    chain whatever the flag says). B13 steps either."""
     accum = int(train_cfg.get("accumulation_steps", 1) or 1)
-    if not train_cfg.get("fused_optimizer", True):
-        raise NotImplementedError(
-            "the optax-chain optimizer (fused_optimizer: false, the JAX package's "
-            "optax state layout for old resume files) is not ported: the port has "
-            "the fused step only (ROADMAP Queue A item 8)")
     sched_steps = max(total_steps // accum, 1)
     sched = schedule_lib.from_config(train_cfg["scheduler"], sched_steps)
     b1 = schedule_lib.beta1_from_config(train_cfg["scheduler"], sched_steps)
     eps = 1e-4 if train_cfg.get("fp16") else 1e-8  # ref: train.py:185-189
     return {"sched": sched, "clip": 1.0, "eps": eps,
-            "b1": b1 if b1 is not None else 0.9, "accum": accum}
+            "b1": b1 if b1 is not None else 0.9, "accum": accum,
+            "chain": accum == 1 and not train_cfg.get("fused_optimizer", True)}
 
 
 def compute_dtype_of(train_cfg: dict) -> torch.dtype:
@@ -99,20 +102,31 @@ def compute_dtype_of(train_cfg: dict) -> torch.dtype:
 
 
 def init_opt_state(trainable: Params, fused: Optional[dict] = None) -> OptState:
-    """``FusedAdamState``, or with ``accum > 1`` the accumulating
-    ``MultiStepState`` around it."""
+    """``FusedAdamState`` (``ChainState`` in the chain's layout), or with
+    ``accum > 1`` the accumulating ``MultiStepState`` around it."""
     if fused is not None and fused["accum"] > 1:
         return fused_optim.init_multi_steps(trainable)
-    return fused_optim.init(trainable)
+    return fused_optim.init(trainable, chain=bool(fused and fused.get("chain")))
+
+
+def opt_template(params: Params, fused: dict) -> OptState:
+    """A state of ``fused``'s layout whose tensors are ``params`` (no copy):
+    the template a resume file is read into."""
+    if fused["accum"] > 1:
+        return fused_optim.MultiStepState(0, 0, fused_optim.FusedAdamState(0, params, params),
+                                          params)
+    return (fused_optim.ChainState if fused.get("chain") else fused_optim.FusedAdamState)(
+        0, params, params)
 
 
 def apply_optimizer(fused: dict, grads: Params, opt_state: OptState, trainable: Params):
+    def update(g, state, params):
+        return fused_optim.step(g, state, params, fused["sched"], clip=fused["clip"],
+                                eps=fused["eps"], b1=fused["b1"])
+
     if isinstance(opt_state, fused_optim.MultiStepState):
-        return fused_optim.multi_step(grads, opt_state, trainable, fused["accum"],
-                                      fused["sched"], clip=fused["clip"], eps=fused["eps"],
-                                      b1=fused["b1"])
-    return fused_optim.step(grads, opt_state, trainable, fused["sched"],
-                            clip=fused["clip"], eps=fused["eps"], b1=fused["b1"])
+        return fused_optim.multi_step(grads, opt_state, trainable, fused["accum"], update)
+    return update(grads, opt_state, trainable)
 
 
 def _seed_stream(seeds: Seeds) -> Optional[SeedStream]:
@@ -200,16 +214,6 @@ def make_steps(model: Model, criterion: Callable, fused: dict,
     return train_step, eval_step, predict_step
 
 
-def unported_options(config: dict) -> None:
-    """Raise on a train option the port does not have yet, naming its
-    ROADMAP item (``fused_optimizer: false`` raises in make_optimizer)."""
-    train_cfg = config["train"]
-    if train_cfg.get("checkpoint_backend", "npz") != "npz":
-        raise NotImplementedError(
-            "train.checkpoint_backend: orbax is not ported; the port writes the npz "
-            "resume state (ROADMAP Queue A item 8)")
-
-
 def default_step_seeds(seed: int) -> Callable[[int], SeedStream]:
     """Each step's dropout seeds from a ``torch.Generator`` keyed by
     ``train.seed`` and the global step (as the JAX step's rng is
@@ -277,13 +281,13 @@ def run_training(config: dict, model: Model, params: Params, loaders, time_stamp
 def _run_training(config: dict, model: Model, params: Params, loaders, time_stamp: str,
                   guard: PreemptionGuard, step_seeds, step_augment) -> dict:
     from gaviko_tpu_torch.data.device_prefetch import DevicePrefetcher, stage_batch, wait_staged
-    from gaviko_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+    from gaviko_tpu_torch.utils.checkpoint import (load_train_state, require_tensorstore,
+                                                   save_train_state, save_train_state_orbax)
     from gaviko_tpu_torch.utils.logging import (
         TRAIN_LOG_FIELDS, CSVLogger, MemoryUsageLogger, analyze_model_computation,
         forward_flops)
     from gaviko_tpu_torch.weights.torch_io import save_pt
 
-    unported_options(config)
     train_loader, val_loader, train_len, val_len = loaders
     train_cfg = dict(config["train"])
     train_cfg.setdefault("fp16", config["model"].get("fp16", False))
@@ -392,8 +396,13 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
 
     resume_path = train_cfg.get("resume")
     method = config["model"]["method"]
+    # train.checkpoint_backend: npz (one file) or orbax (a directory); a
+    # resume path loads by what it is, as in the JAX package.
+    orbax = train_cfg.get("checkpoint_backend", "npz") == "orbax"
+    if orbax:
+        require_tensorstore()  # raise before training, not at the first save
     resume_dir = os.path.join(train_cfg["save_dir"], "experiments", method)
-    auto_resume = os.path.join(resume_dir, "resume_state.npz")
+    auto_resume = os.path.join(resume_dir, "resume_state" if orbax else "resume_state.npz")
     if resume_path == "auto" and os.path.exists(auto_resume):
         resume_path = auto_resume
     if resume_path and resume_path != "auto" and os.path.exists(resume_path):
@@ -402,8 +411,8 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
         else:
             # Every rank reads the whole state and keeps its shard of it.
             whole = par.full_template
-            whole, whole_opt, meta = load_train_state(
-                resume_path, whole, fused_optim.FusedAdamState(0, whole, whole))
+            whole, whole_opt, meta = load_train_state(resume_path, whole,
+                                                      opt_template(whole, fused))
             trainable, opt_state = par.shard_state(whole, whole_opt)
         start_epoch = meta["epoch"]
         current_epoch = meta["epoch"]
@@ -450,7 +459,8 @@ def _run_training(config: dict, model: Model, params: Params, loaders, time_stam
         if not lead:
             return None
         os.makedirs(resume_dir, exist_ok=True)
-        save_train_state(auto_resume, whole, whole_opt, meta={
+        saver = save_train_state_orbax if orbax else save_train_state
+        saver(auto_resume, whole, whole_opt, meta={
             "epoch": epoch_done, "step_in_epoch": step_in_epoch,
             "global_step": global_step, "best_val_acc": val_acc_max,
             "best_epoch": best_epoch, "epoch_since_improvement": epoch_since_improvement})

@@ -7,15 +7,19 @@ checkout is not changed:
 - ``vit_tp``: the gradients of a split block's LayerNorm and output bias,
   which each model rank holds only part of, are not summed over model
   (``parallel.mesh.partial_grad_names`` returns nothing);
-- ``gaviko_tp``: ``copy_in``'s backward does not all-reduce over model, so
-  the prompts' gradients through the frozen backbone are partial.
+- every other job (``gaviko_tp``, ``adaptformer_tp``, ...): ``copy_in``'s
+  backward does not all-reduce over model, so the gradients of what lies
+  before a split block (GAViKO's prompts through the frozen backbone,
+  AdaptFormer's adapters) are partial.
 
 Each run prints the phase's JSON lines (losses, eval, the state's all-leaf
 and worst-leaf relative MAE) and what its gates raised. A gate is sound if
 the first run raises nothing and each fault run raises. Needs one CUDA
-device; builds the checkout's kernels first::
+device; builds the checkout's kernels first. With job names, the sound run
+and the fault runs take those jobs only (default: every job sound, then
+``gaviko_tp`` and ``vit_tp`` with their faults)::
 
-    python3 scripts/parallel_gate_faults.py
+    python3 scripts/parallel_gate_faults.py [adaptformer_tp ...]
 """
 
 import json
@@ -30,14 +34,14 @@ import chip_smoke as cs  # noqa: E402
 _sound_rank = cs._par_rank
 
 
-def fault_rank(rank, world, out_dir, job):
+def fault_rank(rank, world, out_dir, jobs):
     from gaviko_tpu_torch.parallel import mesh, shard
 
-    if job == "vit_tp":
+    if "vit_tp" in jobs:
         mesh.partial_grad_names = lambda plan, names: frozenset()
     else:
         shard._Enter.backward = staticmethod(lambda ctx, g: (g, None))
-    _sound_rank(rank, world, out_dir, job)
+    _sound_rank(rank, world, out_dir, jobs)
 
 
 def run(tag: str, smi: str) -> None:
@@ -58,10 +62,14 @@ def main() -> None:
     smi = cs._nvidia_smi()
     print(json.dumps({"card": smi}), flush=True)
     _build.build()
-    run("sound", smi)
     jobs = dict(cs.PAR_MESH)
+    chosen = sys.argv[1:]
+    if chosen:
+        cs.PAR_MESH.clear()
+        cs.PAR_MESH.update({j: jobs[j] for j in chosen})
+    run("sound", smi)
     cs._par_rank = fault_rank
-    for job in ("gaviko_tp", "vit_tp"):
+    for job in chosen or ("gaviko_tp", "vit_tp"):
         cs.PAR_MESH.clear()
         cs.PAR_MESH[job] = jobs[job]
         run(f"fault_{job}", smi)

@@ -364,19 +364,23 @@ def test_backend_follows_the_observed_layout(ranks, rank, want):
 
 
 def test_what_a_mesh_does_not_take_raises_naming_its_item():
-    pmesh.check_tp("gaviko", {"a.to_qkv.weight": "qkv"})
-    pmesh.check_tp("melo", {})  # data parallelism runs every method
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pmesh.check_tp("melo", {"a.to_qkv.weight": "qkv"})
+    """A mesh takes every method's tensor parallelism and the accumulating
+    optimizer now (tests/test_torch_parallel_{zoo,accum}.py); what it does
+    not take is a mesh artifact, which raises naming its item."""
+    from gaviko_tpu_torch import deploy
+
+    assert not hasattr(pmesh, "check_tp")
     model = build_model(dict(num_classes=5, channels=1, pool="cls", backbone="vit-t16",
                              method="bitfit", image_size=32, image_patch_size=16, frames=24,
                              frame_patch_size=12))
     params = model.init(torch.Generator().manual_seed(0), model.spec)
     tr, fr = tloop.split_params(model, params)
     fused = tloop.make_optimizer({"accumulation_steps": 2, "scheduler": {"max_lr": 1e-3}}, 4)
+    par = pmesh.ParallelTrainer(model, tlosses.make_criterion({}), fused, pmesh.make_mesh(),
+                                tr, fr)
+    assert par.opt_state.acc is not None and par.opt_state.mini_step == 0
     with pytest.raises(NotImplementedError, match="item 16"):
-        pmesh.ParallelTrainer(model, tlosses.make_criterion({}), fused, pmesh.make_mesh(), tr,
-                              fr)
+        deploy.export_artifact({"model": {}}, "unused.gaviko", mesh_shape=(1, 2))
 
 
 def test_one_by_one_mesh_predictor_matches_one_process():

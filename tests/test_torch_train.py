@@ -253,22 +253,23 @@ def test_clip_scale_divides_by_the_norm():
 
 
 def test_make_optimizer_refuses_what_is_not_ported():
-    """Only the optax-chain optimizer (fused_optimizer: false) and the
-    trainer options still unported refuse, naming their ROADMAP item;
-    accumulation_steps > 1 (optax MultiSteps semantics, schedules over the
-    updates), pure_bf16, device_augment and train.parallel are ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        tloop.make_optimizer({**TRAIN_CFG, "fused_optimizer": False}, 10)
+    """No train option is left unported: the optax-chain layout
+    (fused_optimizer: false) and the orbax resume directory run (held to
+    JAX in tests/test_torch_chain.py), as do accumulation_steps > 1 (optax
+    MultiSteps semantics, schedules over the updates, whatever
+    fused_optimizer says), pure_bf16, device_augment and train.parallel."""
+    chain = tloop.make_optimizer({**TRAIN_CFG, "fused_optimizer": False}, 10)
+    assert chain["chain"] and not tloop.make_optimizer(TRAIN_CFG, 10)["chain"]
+    assert isinstance(tloop.init_opt_state({"a": torch.zeros(2)}, chain), topt.ChainState)
     fused = tloop.make_optimizer({**TRAIN_CFG, "accumulation_steps": 2}, 10)
     assert fused["accum"] == 2
     assert fused["sched"](4) == tsched.from_config(SCHED, 5)(4)
     assert isinstance(tloop.init_opt_state({"a": torch.zeros(2)}, fused),
                       topt.MultiStepState)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        tloop.unported_options({"train": {**TRAIN_CFG, "checkpoint_backend": "orbax"}})
-    tloop.unported_options({"train": TRAIN_CFG})
-    tloop.unported_options({"train": {**TRAIN_CFG, "parallel": {"enabled": True}}})
-    tloop.unported_options({"train": {**TRAIN_CFG, "device_augment": True}})
+    multi = tloop.make_optimizer({**TRAIN_CFG, "accumulation_steps": 2,
+                                  "fused_optimizer": False}, 10)
+    assert not multi["chain"]  # MultiSteps wraps the chain either way
+    assert not hasattr(tloop, "unported_options")
     assert tloop.compute_dtype_of({"precision": "bf16"}) == torch.bfloat16
     assert tloop.compute_dtype_of({"precision": "pure_bf16"}) == torch.bfloat16
     assert tloop.compute_dtype_of(TRAIN_CFG) == torch.float32

@@ -84,9 +84,9 @@ def _model(cfg: dict, depth: int):
 def train_rank(rank, world, runs, data, train_cfg, total_steps, infer_batch):
     """For each run (cfg, depth, whole numpy params, per-step seeds, batches
     of the global batch): the sharded train steps on a data x model mesh ->
-    the losses and the whole trainable tensors after them (and, where
-    ``infer_batch`` is given, the sharded forward's logits of the initial
-    params)."""
+    the losses, the whole trainable tensors and Adam's whole moments after
+    them (and, where ``infer_batch`` is given, the sharded forward's logits
+    of the initial params)."""
     from gaviko_tpu_torch.core.layers import SeedStream
     from gaviko_tpu_torch.parallel.infer import make_parallel_forward
     from gaviko_tpu_torch.parallel.mesh import ParallelTrainer, make_mesh
@@ -115,8 +115,56 @@ def train_rank(rank, world, runs, data, train_cfg, total_steps, infer_batch):
                                               torch.from_numpy(y[rows]).long(),
                                               SeedStream(s))
             res["losses"].append(float(loss))
-        res["trainable"] = {k: v.numpy() for k, v in par.gather_trainable(tr).items()}
+        whole, state = par.gather_state(tr, opt)
+        state = getattr(state, "inner", state)
+        res["trainable"] = {k: v.numpy() for k, v in whole.items()}
+        res["mu"], res["nu"] = ({k: v.float().numpy() for k, v in m.items()}
+                                for m in (state.mu, state.nu))
         out.append(res)
+    return out
+
+
+def accum_rank(rank, world, cfg, depth, params, seeds, batches, data, train_cfg, total_steps,
+               out_dir, resume=None):
+    """Sharded train steps with the accumulating optimizer on a data x model
+    mesh, from a fresh state, or from the whole resume file ``resume`` (at
+    its global step) -> the losses and the whole trainable tensors after
+    the last batch. A fresh run's rank 0 also writes the gathered state
+    after micro-step 3 (mid-cycle at accumulation 2) to
+    ``<out_dir>/mesh_step3.npz``."""
+    from gaviko_tpu_torch.core.layers import SeedStream
+    from gaviko_tpu_torch.parallel.mesh import ParallelTrainer, make_mesh
+    from gaviko_tpu_torch.train import loop, losses
+    from gaviko_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+    from gaviko_tpu_torch.weights.from_jax import from_jax
+
+    mesh = make_mesh(data, world // data)
+    model = _model(cfg, depth)
+    fused = loop.make_optimizer(train_cfg, total_steps)
+    trainable, frozen = loop.split_params(model, from_jax(params))
+    par = ParallelTrainer(model, losses.make_criterion(train_cfg), fused, mesh, trainable,
+                          frozen, zero=True)
+    tr, opt, start = par.trainable, par.opt_state, 0
+    if resume is not None:
+        whole = par.full_template
+        whole, whole_opt, meta = load_train_state(resume, whole,
+                                                  loop.opt_template(whole, fused))
+        tr, opt = par.shard_state(whole, whole_opt)
+        start = meta["global_step"]
+    per = batches[0][0].shape[0] // mesh.data
+    rows = slice(mesh.d * per, (mesh.d + 1) * per)
+    out = {"losses": []}
+    for i in range(start, len(batches)):
+        x, y = batches[i]
+        tr, opt, loss, _ = par.train_step(tr, opt, par.frozen, torch.from_numpy(x[rows]),
+                                          torch.from_numpy(y[rows]).long(), SeedStream(seeds[i]))
+        out["losses"].append(float(loss))
+        if i == 2 and resume is None:
+            whole, whole_opt = par.gather_state(tr, opt)
+            if rank == 0:
+                save_train_state(os.path.join(out_dir, "mesh_step3.npz"), whole, whole_opt,
+                                 {"global_step": 3})
+    out["trainable"] = {k: v.numpy() for k, v in par.gather_trainable(tr).items()}
     return out
 
 
@@ -133,18 +181,19 @@ def run_cli_rank(rank, world, config):
     return {"csv": result["csv_log"], "best": result["best_ckpt_path"]}
 
 
-def mesh_serve_rank(rank, world, config, volumes, mesh_shape):
-    """``Predictor(mesh_shape=...)``: rank 0 predicts ``volumes`` and
-    releases the others, which follow -> rank 0's logits."""
+def mesh_serve_rank(rank, world, config, volumes, mesh_shape, kw=None):
+    """``Predictor(mesh_shape=..., **kw)``: rank 0 predicts ``volumes``,
+    reloads the checkpoint and predicts them again, and releases the
+    others, which follow -> rank 0's logits, both times."""
     from gaviko_tpu_torch.serving import Predictor
 
-    pred = Predictor(config, batch_size=2, dtype="float32", pretrained_dir=None,
-                     mesh_shape=mesh_shape, device="cpu")
+    pred = Predictor(config, **{**dict(batch_size=2, dtype="float32", pretrained_dir=None),
+                                **(kw or {})}, mesh_shape=mesh_shape, device="cpu")
     if pred.mesh.rank != 0:
         pred.follow()
         return None
     logits = pred.predict_logits(volumes)
-    pred.reload_checkpoint(None)
+    pred.reload_checkpoint((kw or {}).get("checkpoint"))
     again = pred.predict_logits(volumes)
     pred.close()
     return np.stack([logits, again])
