@@ -1840,8 +1840,9 @@ def phase_deploy(name: str, config: dict, predictor, vols, live_served, card: st
     then reloads a checkpoint of one quantized weight: its sidecars must be
     ``quantize_weight``'s of the new weight, its logits move, and a forward
     still launches exactly. Returns the launches of the first forward (one
-    batch), read from the wrappers' counters, and records each ``gaviko::``
-    op's arguments in one more forward into ``op_args``."""
+    batch), read from the wrappers' counters, and its logits (what the mesh
+    artifacts of phase 20 are held to), and records each ``gaviko::`` op's
+    arguments in one more forward into ``op_args``."""
     import torch
 
     from gaviko_tpu_torch.deploy import DeployedPredictor, export_artifact
@@ -1944,7 +1945,7 @@ def phase_deploy(name: str, config: dict, predictor, vols, live_served, card: st
     for key in ("rel_mae", "served_rel_mae"):
         if not line[key] <= budget:
             raise RuntimeError(f"deploy {name}: {key} {line[key]} > {budget}")
-    return first_launches
+    return first_launches, first
 
 
 def phase_deploy_cli(predictor, vols, card: str, op_args: dict) -> None:
@@ -3415,6 +3416,9 @@ PAR_MESH = {"gaviko_dp": (2, 1), "gaviko_tp": (1, 2), "vit_tp": (1, 2), "vit_acc
             "melo_tp": (1, 2), "ssf_tp": (1, 2), "adaptformer_tp": (1, 2)}
 PAR_ACCUM, PAR_ACCUM_STEPS = 2, 4
 PAR_INT8_MESHES = ((2, 1), (1, 2))
+# The mesh artifacts (deploy.py): GAViKO vit-l16 of gaviko.yaml, B8 bf16,
+# exported for cuda in this process, served on each mesh by the 2 ranks.
+PAR_ARTIFACT_MESHES = ((2, 1), (1, 2))
 PAR_TIMEOUT_S = 600
 # The worst leaf's own relative MAE of the 2-rank state against one rank's,
 # by model (H100 readings, sound / planted fault, update, mu, nu). vit-b16:
@@ -3780,10 +3784,102 @@ def _par_serve(world: int) -> dict:
     return out
 
 
+def _mesh_artifact_path(root: str, shape) -> str:
+    return os.path.join(root, f"mesh_{shape[0]}x{shape[1]}.gaviko")
+
+
+def _lead_or_follow(pred, vols):
+    """Rank 0: ``predict_logits(vols)`` and release the other ranks -> the
+    logits; a following rank: follow until then -> None."""
+    if pred.mesh.rank == 0:
+        logits = pred.predict_logits(vols)
+        pred.close()
+        return logits
+    pred.follow()
+    return None
+
+
+def _par_mesh_artifact(world: int, root: str) -> dict:
+    """GAViKO vit-l16's mesh artifacts (B8 bf16, cuda, exported by
+    ``phase_parallel_two`` into ``root``) on each mesh of
+    PAR_ARTIFACT_MESHES: every rank loads the artifact (``DeployedPredictor``)
+    and builds the live ``Predictor(mesh_shape=...)`` of gaviko.yaml (seed
+    0, the artifact's weights); rank 0 predicts the first B of the serving
+    phases' volumes once with each, the other rank follows. Each rank's
+    launches and collectives of those forwards (counts set to 0 just
+    before, read just after), then ``predict_logits`` seconds in turns
+    (live, artifact, artifact, live), and on rank 0 both logits. At TP2 the
+    collective op's fake against its result on the card, and its refusal
+    with no group bound."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from gaviko_tpu_torch.deploy import DeployedPredictor
+    from gaviko_tpu_torch.ops import library
+    from gaviko_tpu_torch.serving import Predictor
+
+    rng = np.random.RandomState(0)  # main()'s serving volumes
+    vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(B)]
+    out, wrappers = {}, _wrappers()
+
+    def counted(pred):
+        for w in wrappers.values():
+            w.launches = 0
+        calls = library.model_all_reduces
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = _lead_or_follow(pred, vols)
+        torch.cuda.synchronize()
+        return (logits, {n: w.launches for n, w in wrappers.items()},
+                library.model_all_reduces - calls, time.perf_counter() - t)
+
+    def timed(pred):
+        t = time.perf_counter()
+        _lead_or_follow(pred, vols)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    for shape in PAR_ARTIFACT_MESHES:
+        t0 = time.perf_counter()
+        dep = DeployedPredictor(_mesh_artifact_path(root, shape), device="cuda:0")
+        torch.cuda.synchronize()
+        res = {"load_s": time.perf_counter() - t0, "m": dep.mesh.m}
+        live = Predictor(_config(CONFIG, "gaviko"), batch_size=B, dtype="bfloat16",
+                         pretrained_dir=None, mesh_shape=shape, device="cuda:0")
+        res["logits"], res["launches"], res["collectives"], res["first_s"] = counted(dep)
+        res["live_logits"], res["live_launches"], _, res["live_first_s"] = counted(live)
+        turns = [timed(p) for p in (live, dep, dep, live)]
+        res["live_predict_s"], res["predict_s"] = turns[::3], turns[1:3]
+        if dep.mesh.model > 1:
+            gen = torch.Generator(device="cuda:0").manual_seed(0)  # one x on both ranks
+            x = torch.randn(B, 1040, 1024, generator=gen, device="cuda:0").bfloat16()
+            op = torch.ops.gaviko.model_all_reduce.default
+            try:
+                op(x)
+                res["op_refused_unbound"] = False
+            except RuntimeError:
+                res["op_refused_unbound"] = True
+            with library.bound_model_group(dep.mesh.model_group):
+                real = op(x)
+            with FakeTensorMode() as mode:
+                fake = op(mode.from_tensor(x))
+            res["op_fake_matches"] = (fake.shape == real.shape and fake.dtype == real.dtype
+                                      and fake.stride() == real.stride()
+                                      and fake.device == real.device)
+            res["op_sums"] = bool(torch.equal(real, x + x))
+        out["x".join(map(str, shape))] = res
+        del dep, live
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
 def _par_rank(rank: int, world: int, out_dir: str, jobs) -> None:
     """A spawned rank: joins the gloo group on cuda:0 and runs each job of
     ``jobs`` in turn (``_par_run``, vit_tp with GAVIKO_LNQKV_HYBRID=1;
-    ``int8_serve``: ``_par_serve``), saving {job: result}."""
+    ``int8_serve``: ``_par_serve``; ``mesh_artifact``: ``_par_mesh_artifact``
+    on the artifacts in ``out_dir``'s parent), saving {job: result}."""
     import torch
     import torch.distributed as dist
 
@@ -3796,7 +3892,11 @@ def _par_rank(rank: int, world: int, out_dir: str, jobs) -> None:
         for job in jobs:
             t0 = time.perf_counter()
             with _lnqkv_hybrid(job == "vit_tp"):
-                out[job] = _par_serve(world) if job == "int8_serve" else _par_run(job, world)
+                if job == "mesh_artifact":
+                    out[job] = _par_mesh_artifact(world, os.path.dirname(out_dir))
+                else:
+                    out[job] = (_par_serve(world) if job == "int8_serve"
+                                else _par_run(job, world))
             out[job]["seconds"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -3893,7 +3993,8 @@ def _state_diff(got, want, start, skip=None) -> dict:
     return out
 
 
-def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] = None) -> dict:
+def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] = None,
+                       artifact_logits: Optional[np.ndarray] = None) -> dict:
     """2 ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
     card), one spawn for every job of PAR_MESH and the int8 serving job.
     Train jobs: GAViKO vit-l16 of gaviko_tpu.yaml with data 2 and ZeRO, then
@@ -3916,6 +4017,15 @@ def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] =
     logits against the 1-rank int8 Predictor's ``int8_served``
     (INT8_PLAIN_BUDGET), each rank's launches of one forward
     ``serving_launches(spec, True)``.
+    The mesh artifact job (given ``artifact_logits``, phase 22's GAViKO
+    single-device artifact's logits): GAViKO vit-l16 of gaviko.yaml at B8
+    bf16 exported for cuda here on each mesh of PAR_ARTIFACT_MESHES (one
+    program a model rank), served by both ranks: rank 0's logits bit-equal
+    to the live ``Predictor(mesh_shape=...)``'s on the same volumes and
+    within BF16_BUDGET of ``artifact_logits``; each rank's launches of one
+    forward the live mesh forward's, ``serving_launches(spec)``; each model
+    rank's program calling those ops and the collective as often as the
+    rank ran them.
     Prints the wall and collective seconds a step: gloo through the host,
     not an NCCL figure."""
     import torch
@@ -3932,8 +4042,22 @@ def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] =
             ones[job] = _par_run(job, 1)
         ones[job]["seconds"] = time.perf_counter() - t
         torch.cuda.empty_cache()
+    exports = {}
+    if artifact_logits is not None:
+        from gaviko_tpu_torch.deploy import export_artifact
+
+        for shape in PAR_ARTIFACT_MESHES:
+            t = time.perf_counter()
+            path = _mesh_artifact_path(root, shape)
+            meta = export_artifact(_config(CONFIG, "gaviko"), path, batch_size=B,
+                                   dtype="bfloat16", pretrained_dir=None, platforms=("cuda",),
+                                   mesh_shape=shape)
+            exports[shape] = {"export_s": time.perf_counter() - t,
+                              "artifact_mb": os.path.getsize(path) / 1e6,
+                              "ops": meta["ops"]["cuda"], "placements": len(meta["placements"])}
     t_two = time.perf_counter()
-    jobs = [*PAR_MESH, *(["int8_serve"] if int8_served is not None else [])]
+    jobs = [*PAR_MESH, *(["int8_serve"] if int8_served is not None else []),
+            *(["mesh_artifact"] if artifact_logits is not None else [])]
     ranks = _spawn_ranks(jobs, 2, os.path.join(root, "two"))
     print(json.dumps({"phase": "parallel_two_spawn", "jobs": jobs,
                       "one_rank_seconds": t_two - t0,
@@ -4003,29 +4127,76 @@ def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] =
         lines[job] = line
         if job == "gaviko_dp":
             lines["gaviko_trainable_shapes"] = [tuple(v.shape) for v in start.values()]
-    if int8_served is None:
-        return lines
     spec = build_model(_config(CONFIG, "gaviko")["model"]).spec
-    want = serving_launches(spec, quantized=True)
-    for mesh in ("x".join(map(str, shape)) for shape in PAR_INT8_MESHES):
-        res = ranks[0]["int8_serve"][mesh]
-        rel = _rel_mae_np(res["logits"], int8_served)
-        line = {"phase": "parallel_int8_serving", "mesh": mesh, "batch": B,
-                "dtype": "bfloat16", "rel_mae_vs_one_rank": rel, "budget": INT8_PLAIN_BUDGET,
-                "argmax_agreement": float((res["logits"].argmax(-1)
-                                           == int8_served.argmax(-1)).mean()),
-                "launches": {f"rank{r}": rr["int8_serve"][mesh]["launches"]
-                             for r, rr in enumerate(ranks)}, "want_launches": want,
-                "predictor_s": {f"rank{r}": rr["int8_serve"][mesh]["predictor_s"]
-                                for r, rr in enumerate(ranks)},
-                "predict_s": res["predict_s"], "card": card}
+    if int8_served is not None:
+        want = serving_launches(spec, quantized=True)
+        for mesh in ("x".join(map(str, shape)) for shape in PAR_INT8_MESHES):
+            res = ranks[0]["int8_serve"][mesh]
+            rel = _rel_mae_np(res["logits"], int8_served)
+            line = {"phase": "parallel_int8_serving", "mesh": mesh, "batch": B,
+                    "dtype": "bfloat16", "rel_mae_vs_one_rank": rel, "budget": INT8_PLAIN_BUDGET,
+                    "argmax_agreement": float((res["logits"].argmax(-1)
+                                               == int8_served.argmax(-1)).mean()),
+                    "launches": {f"rank{r}": rr["int8_serve"][mesh]["launches"]
+                                 for r, rr in enumerate(ranks)}, "want_launches": want,
+                    "predictor_s": {f"rank{r}": rr["int8_serve"][mesh]["predictor_s"]
+                                    for r, rr in enumerate(ranks)},
+                    "predict_s": res["predict_s"], "card": card}
+            print(json.dumps(line), flush=True)
+            if any(c != want for c in line["launches"].values()):
+                raise RuntimeError(f"parallel int8 {mesh}: launches {line['launches']}, "
+                                   f"want {want}")
+            if not (res["logits"].shape == int8_served.shape and np.isfinite(res["logits"]).all()
+                    and rel <= INT8_PLAIN_BUDGET):
+                raise RuntimeError(f"parallel int8 {mesh}: logits rel MAE {rel} against one rank")
+            lines[f"int8_{mesh}"] = line
+    if artifact_logits is None:
+        return lines
+    for shape, exported in exports.items():
+        mesh = "x".join(map(str, shape))
+        res = {f"rank{r}": rr["mesh_artifact"][mesh] for r, rr in enumerate(ranks)}
+        r0 = res["rank0"]
+        bit_equal = bool(np.array_equal(r0["logits"], r0["live_logits"]))
+        rel = _rel_mae_np(r0["logits"], artifact_logits)
+        ops_match = {}
+        for r, rr in res.items():
+            calls = {f"gaviko::{n}": c for n, c in rr["launches"].items() if c}
+            if rr["collectives"]:
+                calls["gaviko::model_all_reduce"] = rr["collectives"]
+            ops_match[r] = calls == exported["ops"][rr["m"]]
+        line = {"phase": "parallel_mesh_artifact", "mesh": mesh, "batch": B,
+                "dtype": "bfloat16", "platform": "cuda",
+                "backend": "gloo, both ranks on cuda:0 (collectives through the host; not "
+                           "an NCCL figure)",
+                **exported, "load_s": {r: rr["load_s"] for r, rr in res.items()},
+                "predict_s": r0["predict_s"], "live_predict_s": r0["live_predict_s"],
+                "first_s": r0["first_s"], "live_first_s": r0["live_first_s"],
+                "bit_equal_to_live": bit_equal, "rel_mae_vs_single_artifact": rel,
+                "budget": BF16_BUDGET,
+                "launches": {r: rr["launches"] for r, rr in res.items()},
+                "live_launches": {r: rr["live_launches"] for r, rr in res.items()},
+                "want_launches": serving_launches(spec),
+                "collectives": {r: rr["collectives"] for r, rr in res.items()},
+                "ops_match_launches": ops_match,
+                **{k: {r: rr[k] for r, rr in res.items()} for k in
+                   ("op_refused_unbound", "op_fake_matches", "op_sums") if k in r0},
+                "card": card}
         print(json.dumps(line), flush=True)
-        if any(c != want for c in line["launches"].values()):
-            raise RuntimeError(f"parallel int8 {mesh}: launches {line['launches']}, want {want}")
-        if not (res["logits"].shape == int8_served.shape and np.isfinite(res["logits"]).all()
-                and rel <= INT8_PLAIN_BUDGET):
-            raise RuntimeError(f"parallel int8 {mesh}: logits rel MAE {rel} against one rank")
-        lines[f"int8_{mesh}"] = line
+        want_plain = serving_launches(spec)
+        for r, rr in res.items():
+            if not (rr["launches"] == rr["live_launches"] == want_plain and ops_match[r]):
+                raise RuntimeError(f"mesh artifact {mesh}: {r} launches {rr['launches']}, "
+                                   f"live {rr['live_launches']}, want {want_plain}; "
+                                   f"collectives {rr['collectives']}, program "
+                                   f"{exported['ops'][rr['m']]}")
+            if shape[1] > 1 and not (rr["op_refused_unbound"] and rr["op_fake_matches"]
+                                     and rr["op_sums"] and rr["collectives"]):
+                raise RuntimeError(f"mesh artifact {mesh}: {r}'s collective op: {line}")
+        if not (bit_equal and r0["logits"].shape == artifact_logits.shape
+                and np.isfinite(r0["logits"]).all() and rel <= BF16_BUDGET):
+            raise RuntimeError(f"mesh artifact {mesh}: bit-equal to live {bit_equal}, rel MAE "
+                               f"{rel} against the single-device artifact")
+        lines[f"artifact_{mesh}"] = line
     return lines
 
 
@@ -4145,8 +4316,9 @@ def main() -> int:
         # Deployment (phase 22) on the live predictor: GAViKO's artifact, and
         # cli.export -> cli.infer --artifact on vit.yaml.
         if name == "serving":
-            deploy["gaviko"] = phase_deploy("gaviko", _config(config, method, over), predictor,
-                                            vols, fp_served[name], smi, op_args)
+            deploy["gaviko"], artifact_logits = phase_deploy(
+                "gaviko", _config(config, method, over), predictor, vols, fp_served[name], smi,
+                op_args)
         elif name == "vit":
             phase_deploy_cli(predictor, vols, smi, op_args)
         del predictor
@@ -4165,8 +4337,8 @@ def main() -> int:
         if name == "int8":  # the 1-rank logits the int8 mesh runs are held to
             int8_served = np.asarray(served[:B], np.float64)
         if name == "vit_int8":  # phase 22: the int8 artifact, and its reload
-            deploy[name] = phase_deploy(name, _config(config, method, over), predictor, vols,
-                                        served, smi, op_args)
+            deploy[name], _ = phase_deploy(name, _config(config, method, over), predictor,
+                                           vols, served, smi, op_args)
         del predictor
         torch.cuda.empty_cache()
     phase_opcheck(op_args, smi)  # phase 22: every gaviko:: op's fake against its kernel
@@ -4249,11 +4421,12 @@ def main() -> int:
     # through cli.train on a 1 x 1 mesh (orbax resume directory where
     # tensorstore imports), then 2 ranks on cuda:0 over gloo against one
     # rank (train jobs, the accumulating one and the zoo's tensor
-    # parallelism included, and GAViKO int8 serving), then A and B on a
-    # head shard and B13's sharded step.
+    # parallelism included, GAViKO int8 serving, and GAViKO's mesh
+    # artifacts against the live mesh Predictor and phase 22's artifact),
+    # then A and B on a head shard and B13's sharded step.
     with tempfile.TemporaryDirectory(prefix="gaviko_parallel_") as root:
         par_one = phase_parallel_one(root, smi)
-        par_two = phase_parallel_two(root, smi, int8_served)
+        par_two = phase_parallel_two(root, smi, int8_served, artifact_logits)
     phase_parallel_kernels(smi, par_two.pop("gaviko_trainable_shapes"))
     parallel_launches = {"parallel_one": par_one["step_launches"][-1],
                          **{job: line["launches"]["rank0"] for job, line in par_two.items()},

@@ -14,7 +14,9 @@ path's sidecars, added after the checkpoint overlay).
 ``--artifact model.gaviko --data_path <labels csv> [--image_folder <dir>]``
 evaluates a deployment artifact (``cli.export``) instead: the same metrics
 and files, the forward from the artifact's program, with no config and no
-model build, so the unit that will be served is the one validated.
+model build, so the unit that will be served is the one validated. A mesh
+artifact runs under ``torchrun --nproc_per_node <data x tp>``: rank 0
+evaluates, the other ranks follow it.
 """
 
 from __future__ import annotations
@@ -88,31 +90,35 @@ def evaluate_artifact(artifact: str, data_path: str, results_dir: str,
                       image_folder: str | None = None, device="cuda") -> dict:
     """Evaluate a deployment artifact on the CSV's ``val`` subset: the
     metrics and files of :func:`evaluate`, the forward from the artifact
-    (``deploy.DeployedPredictor``) on ``device``."""
-    from gaviko_tpu_torch.deploy import DeployedPredictor
+    (``deploy.DeployedPredictor``) on ``device``. A mesh artifact runs on
+    the data x tp ranks of torchrun's launch: rank 0 evaluates (and
+    returns the metrics), the others follow it (and return None)."""
+    from gaviko_tpu_torch.deploy import run_on_ranks
 
-    pred = DeployedPredictor(artifact, device=resolve_device(device))
     valid_df = split_dataframe(read_csv(data_path), "val")
     if not valid_df:
         raise ValueError(f"no rows with subset=='val' in {data_path}")
     paths = [os.path.join(image_folder, row["mri_path"]) if image_folder else row["mri_path"]
              for row in valid_df]
     y_test = [int(row["kl_grade"]) for row in valid_df]
-    y_pred, y_proba = [], []
-    # One device batch of volumes in host memory at a time.
-    for i in range(0, len(paths), pred.batch_size):
-        vols = []
-        for p in paths[i: i + pred.batch_size]:
-            with np.load(p) as z:
-                vols.append(z["data"])
-        logits = pred.predict_logits(vols)
-        y_pred.extend(np.argmax(logits, axis=1).tolist())
-        p = np.exp(logits - logits.max(-1, keepdims=True))
-        y_proba.extend((p / p.sum(-1, keepdims=True)).tolist())
 
-    mc = pred.meta["model_config"]
-    return _finish_eval(valid_df, y_test, y_pred, y_proba, results_dir, mc["method"],
-                        str(mc.get("backbone", "none")))
+    def work(pred):
+        y_pred, y_proba = [], []
+        # One device batch of volumes in host memory at a time.
+        for i in range(0, len(paths), pred.batch_size):
+            vols = []
+            for p in paths[i: i + pred.batch_size]:
+                with np.load(p) as z:
+                    vols.append(z["data"])
+            logits = pred.predict_logits(vols)
+            y_pred.extend(np.argmax(logits, axis=1).tolist())
+            p = np.exp(logits - logits.max(-1, keepdims=True))
+            y_proba.extend((p / p.sum(-1, keepdims=True)).tolist())
+        mc = pred.meta["model_config"]
+        return _finish_eval(valid_df, y_test, y_pred, y_proba, results_dir, mc["method"],
+                            str(mc.get("backbone", "none")))
+
+    return run_on_ranks(artifact, resolve_device(device), work)
 
 
 def load_model(config: dict, device: torch.device, quantize=None):

@@ -1,17 +1,19 @@
 """Export a model to a self-contained deployment artifact (PyTorch port).
 
     python -m gaviko_tpu_torch.cli.export --config <yaml> --method <m> \
-        --checkpoint <ckpt> --output model.gaviko [--platforms cuda,cpu] [--quantize int8]
+        --checkpoint <ckpt> --output model.gaviko [--platforms cuda,cpu] [--quantize int8] \
+        [--mesh data,tp]
 
 Port of ``gaviko_tpu/cli/export.py``, with its flags and its last line. The
 artifact (a zip: one ``torch.export`` program a platform, the weights and a
 manifest) serves without model-building code: ``cli.serve --artifact
 model.gaviko``. ``--platforms`` takes ``cuda`` and / or ``cpu`` (default
-``cuda``; any host exports either). ``--mesh`` (an artifact whose program
-holds a mesh's shards and collectives) is not ported (ROADMAP Queue A item
-16): serve on a mesh from the config instead, ``cli.serve --mesh d,t``
-(int8 and every method included). See :mod:`gaviko_tpu_torch.deploy` for
-the format.
+``cuda``; any host exports either). ``--mesh data,tp`` bakes a mesh's
+forward into the artifact (one program a model rank, the placements of the
+split weights in the manifest); it is served on exactly data x tp ranks,
+e.g. ``torchrun --nproc_per_node 4 -m gaviko_tpu_torch.cli.serve
+--artifact model.gaviko`` for ``--mesh 2,2``. See
+:mod:`gaviko_tpu_torch.deploy` for the format.
 """
 
 from __future__ import annotations
@@ -40,12 +42,19 @@ def main(argv=None):
     parser.add_argument("--platforms", type=str, default=None,
                         help="comma-separated targets from 'cuda,cpu' (default: cuda)")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="mesh artifacts are not ported (ROADMAP Queue A item 16); "
-                             "serve on a mesh with cli.serve --mesh d,t instead")
+                        help="'data,tp': bake a mesh's sharded forward into the artifact; "
+                             "serving then needs data*tp ranks")
     args = parser.parse_args(argv)
 
+    mesh_shape = None
     if args.mesh is not None:
-        parser.error("--mesh artifacts are not ported yet (ROADMAP Queue A item 16)")
+        try:
+            d, t = (int(x) for x in args.mesh.split(","))
+            if d < 1 or t < 1:
+                raise ValueError
+            mesh_shape = (d, t)
+        except ValueError:
+            parser.error("--mesh must be 'data,tp' (two positive integers)")
     platforms = None
     if args.platforms:
         platforms = tuple(p.strip() for p in args.platforms.split(","))
@@ -59,7 +68,7 @@ def main(argv=None):
         config, args.output, checkpoint=args.checkpoint,
         batch_size=args.batch_size, dtype=args.dtype,
         pretrained_dir=config["model"].get("pretrained_dir", "./pretrained"),
-        quantize=args.quantize, platforms=platforms,
+        quantize=args.quantize, platforms=platforms, mesh_shape=mesh_shape,
     )
     print(f"wrote {args.output} (platforms={meta['platforms']}, "
           f"batch={meta['batch_size']}, dtype={meta['dtype']})")

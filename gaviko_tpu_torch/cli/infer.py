@@ -7,7 +7,9 @@ Port of ``gaviko_tpu/cli/infer.py``: scans ``data.image_folder`` for
 ``*.npz``, predicts argmax classes and writes the versioned
 ``{method}_{backbone}_inference_results_v{N}.csv``. ``--artifact
 model.gaviko --image_folder <dir>`` runs a deployment artifact
-(``cli.export``) instead, with no config and no model build.
+(``cli.export``) instead, with no config and no model build (a mesh
+artifact under ``torchrun --nproc_per_node <data x tp>``: rank 0 writes
+the CSV, the other ranks follow it).
 """
 
 from __future__ import annotations
@@ -65,28 +67,32 @@ def inference_artifact(artifact: str, image_folder: str, results_dir: str,
                        device="cuda") -> str:
     """Folder inference from a deployment artifact: the outputs of
     :func:`inference`, the forward from the artifact's program on
-    ``device``."""
-    from gaviko_tpu_torch.deploy import DeployedPredictor
+    ``device``. A mesh artifact runs on the data x tp ranks of torchrun's
+    launch: rank 0 writes the CSV (and returns its path), the others follow
+    it (and return None)."""
+    from gaviko_tpu_torch.deploy import run_on_ranks
 
-    pred = DeployedPredictor(artifact, device=resolve_device(device))
     paths = [row["mri_path"] for row in scan_folder(image_folder)]
-    outputs = []
-    # One device batch of volumes in host memory at a time.
-    for i in range(0, len(paths), pred.batch_size):
-        vols = []
-        for p in paths[i: i + pred.batch_size]:
-            with np.load(p) as z:
-                vols.append(z["data"])
-        outputs.extend(int(c) for c in pred.predict(vols))
 
-    os.makedirs(results_dir, exist_ok=True)
-    mc = pred.meta["model_config"]
-    backbone = str(mc.get("backbone", "none")).replace("-", "_")
-    csv_path = versioned_path(
-        results_dir, f"{mc['method']}_{backbone}_inference_results_v{{version}}.csv")
-    write_outputs(csv_path, paths, outputs)
-    logging.info(f"Results saved to {csv_path}")
-    return csv_path
+    def work(pred):
+        outputs = []
+        # One device batch of volumes in host memory at a time.
+        for i in range(0, len(paths), pred.batch_size):
+            vols = []
+            for p in paths[i: i + pred.batch_size]:
+                with np.load(p) as z:
+                    vols.append(z["data"])
+            outputs.extend(int(c) for c in pred.predict(vols))
+        os.makedirs(results_dir, exist_ok=True)
+        mc = pred.meta["model_config"]
+        backbone = str(mc.get("backbone", "none")).replace("-", "_")
+        csv_path = versioned_path(
+            results_dir, f"{mc['method']}_{backbone}_inference_results_v{{version}}.csv")
+        write_outputs(csv_path, paths, outputs)
+        logging.info(f"Results saved to {csv_path}")
+        return csv_path
+
+    return run_on_ranks(artifact, resolve_device(device), work)
 
 
 def main(argv=None):

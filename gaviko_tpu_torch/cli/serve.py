@@ -12,18 +12,25 @@ the CUDA card.
 through ``deploy.DeployedPredictor`` instead of building from ``--config``:
 no model code runs, and ``--checkpoint``, ``--quantize`` and ``--mesh``,
 baked in at export time, are refused (``/reload`` overlays a checkpoint).
+A mesh artifact (``cli.export --mesh data,tp``) is served on exactly
+data x tp ranks joined from torchrun's environment, e.g. ``torchrun
+--nproc_per_node 4 -m gaviko_tpu_torch.cli.serve --artifact m.gaviko`` for
+a 2 x 2 mesh.
 
 ``--mesh data,tp`` serves on data x tp ranks (``Predictor(mesh_shape=...)``):
 launch that many processes, e.g. ``torchrun --nproc_per_node 2 -m
 gaviko_tpu_torch.cli.serve ... --mesh 1,2``, or give the config's
-``train.parallel`` topology keys. Rank 0 runs the HTTP server and the
-BatchQueue; the other ranks follow its orders until it stops.
+``train.parallel`` topology keys. Either way rank 0 runs the HTTP server
+and the BatchQueue; the other ranks follow its orders until it stops.
+``--device cpu`` runs the plain versions (an artifact's ``cpu`` program).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+
+import torch
 
 from gaviko_tpu_torch.config import METHODS, apply_method_override, load_config
 from gaviko_tpu_torch.utils.compile_cache import enable_compilation_cache
@@ -52,6 +59,8 @@ def main(argv=None):
                         help="restrict /reload to checkpoints under this dir")
     parser.add_argument("--max_body_mb", type=int, default=128,
                         help="reject POST bodies above this size")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu (the plain versions)")
     args = parser.parse_args(argv)
 
     if (args.config is None) == (args.artifact is None):
@@ -75,43 +84,41 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     enable_compilation_cache()
-    if args.artifact is not None:
-        from gaviko_tpu_torch.deploy import DeployedPredictor
 
-        server = serve(DeployedPredictor(args.artifact, device="cuda"), host=args.host,
-                       port=args.port, auth_token=args.auth_token,
-                       checkpoint_dir=args.checkpoint_dir,
+    def run(predictor):
+        server = serve(predictor, host=args.host, port=args.port,
+                       auth_token=args.auth_token, checkpoint_dir=args.checkpoint_dir,
                        max_body_bytes=args.max_body_mb * 1024 * 1024)
         try:
             server.serve_forever()
         finally:
             server.server_close()
+
+    if args.artifact is not None:
+        from gaviko_tpu_torch.deploy import run_on_ranks
+
+        run_on_ranks(args.artifact, args.device, run)
         return
     config = load_config(args.config)
     apply_method_override(config, args.method)
     if mesh is not None:
         from gaviko_tpu_torch.parallel.mesh import init_distributed
 
-        init_distributed(config.get("train", {}).get("parallel") or {}, "cuda")
+        init_distributed(config.get("train", {}).get("parallel") or {},
+                         torch.device(args.device).type)
     predictor = Predictor(
         config, checkpoint=args.checkpoint, batch_size=args.batch_size,
         dtype=args.dtype,
         pretrained_dir=config["model"].get("pretrained_dir", "./pretrained"),
-        quantize=args.quantize, mesh_shape=mesh, device="cuda",
+        quantize=args.quantize, mesh_shape=mesh, device=args.device,
     )
     try:
         if mesh is not None and predictor.mesh.rank != 0:
             predictor.follow()
             return
-        server = serve(
-            predictor, host=args.host, port=args.port,
-            auth_token=args.auth_token, checkpoint_dir=args.checkpoint_dir,
-            max_body_bytes=args.max_body_mb * 1024 * 1024,
-        )
         try:
-            server.serve_forever()
+            run(predictor)
         finally:
-            server.server_close()
             predictor.close()
     finally:
         import torch.distributed as dist

@@ -259,9 +259,10 @@ def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if mode not in GELU_MODES:
         raise ValueError(f"gelu mode must be one of {GELU_MODES}, got {mode!r}")
     if torch.compiler.is_exporting():
-        if dropout_rate > 0.0 or save_a or hidden_col0:
-            raise NotImplementedError("an exported forward runs fused_mlp without dropout, "
-                                      "saved hidden or hidden slice")
+        # hidden_col0 (a mesh rank's hidden slice) moves dropout bits only.
+        if dropout_rate > 0.0 or save_a:
+            raise NotImplementedError("an exported forward runs fused_mlp without dropout "
+                                      "or saved hidden")
         return _build.op("fused_mlp")(x, gamma, beta, w1, b1, w2, b2, float(eps), mode,
                                       bool(residual))
     dim = x.shape[-1]

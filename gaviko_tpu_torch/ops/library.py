@@ -22,13 +22,25 @@ holds its kernels as ``tpu_custom_call`` payloads.
 Eager calls never pass through these ops. A CPU tensor never reaches them
 either: its wrapper runs the plain version, so a CPU export's graph holds
 plain ATen ops.
+
+One op is not a kernel: ``gaviko::model_all_reduce`` sums a tensor over the
+model group of a mesh. A mesh artifact's program (``deploy.py``) holds one
+rank's sharded forward; ``parallel/shard.reduce_out`` records this op where
+an eager forward calls ``dist.all_reduce``. The export runs in one process
+with no process group, so the group stays out of the graph, as the kernels'
+pointers do: the serving predictor binds its model group around each call
+(:func:`bound_model_group`), and the op refuses to run with none bound. It
+is registered for ``cpu`` and ``cuda``, since a mesh artifact's ``cpu``
+program holds it too.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from gaviko_tpu_torch.ops import cls_attention as _cls
 from gaviko_tpu_torch.ops import flash_attention as _fa
@@ -143,6 +155,46 @@ def int8_mlp(x: Tensor, gamma: Tensor, beta: Tensor, w1_i8: Tensor, s1: Tensor, 
 @int8_mlp.register_fake
 def _(x, gamma, beta, w1_i8, s1, b1, w2_i8, s2, b2, eps, gelu, residual):
     return x.new_empty(x.shape)
+
+
+# The model group ``model_all_reduce`` sums over, bound for this process by
+# the serving predictor around a mesh forward (its dispatcher thread, the
+# caller's, or a following rank's may run it), and its calls (read by
+# chip_smoke.py).
+_model_group = None
+model_all_reduces = 0
+
+
+@contextlib.contextmanager
+def bound_model_group(group):
+    """Bind ``group`` as the model group of ``gaviko::model_all_reduce`` in
+    this process for the block (None: nothing bound)."""
+    global _model_group
+    before = _model_group
+    _model_group = group
+    try:
+        yield
+    finally:
+        _model_group = before
+
+
+@torch.library.custom_op("gaviko::model_all_reduce", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def model_all_reduce(y: Tensor) -> Tensor:
+    global model_all_reduces
+    if _model_group is None:
+        raise RuntimeError(
+            "gaviko::model_all_reduce: no model group is bound in this process; a mesh "
+            "artifact's program runs under deploy.DeployedPredictor on its data x tp ranks")
+    y = y.contiguous().clone()  # shard.reduce_out's eager sum, step for step
+    dist.all_reduce(y, group=_model_group)
+    model_all_reduces += 1
+    return y
+
+
+@model_all_reduce.register_fake
+def _(y):
+    return torch.empty_like(y, memory_format=torch.contiguous_format)
 
 
 def graph_ops(graph_module: torch.fx.GraphModule) -> dict:

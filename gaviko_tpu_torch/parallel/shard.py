@@ -22,7 +22,8 @@ Tensor parallelism. A split block's input passes :func:`copy_in` (identity
 forward, all-reduce of the gradient over ``model`` backward) and its output
 :func:`reduce_out` (all-reduce over ``model`` forward, identity backward). The
 output bias, and the fused MLP's residual, are added on model rank 0 only
-(:func:`rank0`), so the all-reduced sum holds them once.
+(:func:`rank0`), so the all-reduced sum holds them once. A mesh artifact
+(``deploy.py``) traces one program a model rank for that reason.
 """
 
 from __future__ import annotations
@@ -155,9 +156,16 @@ def copy_in(x: torch.Tensor, s: Optional[Shard]) -> torch.Tensor:
 
 
 def reduce_out(y: torch.Tensor, s: Optional[Shard]) -> torch.Tensor:
-    """A split block's output: the sum of the model ranks' partial outputs."""
+    """A split block's output: the sum of the model ranks' partial outputs.
+    While ``torch.export`` traces a mesh artifact's program it records the
+    op ``gaviko::model_all_reduce`` instead (``ops/library.py``), which sums
+    over the model group that the serving predictor binds."""
     if s is None:
         return y
+    if torch.compiler.is_exporting():
+        from gaviko_tpu_torch.ops import _build
+
+        return _build.op("model_all_reduce")(y)
     if torch.is_grad_enabled() and y.requires_grad:
         return _Exit.apply(y, s.group)
     y = y.contiguous().clone()

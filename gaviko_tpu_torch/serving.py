@@ -76,7 +76,87 @@ def load_params(model, checkpoint: Optional[str], pretrained_dir: Optional[str],
     return params
 
 
-class Predictor:
+def check_mesh_world(data: int, tp: int, launch: str) -> None:
+    """Refuse a process group that is not exactly ``data`` x ``tp`` ranks,
+    naming the torchrun launch (``launch``: cli.serve's arguments) that
+    gives one."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data < 1 or tp < 1 or data * tp != world:
+        raise RuntimeError(
+            f"mesh_shape {data}x{tp} needs a process group of exactly {data * tp} ranks; "
+            f"this process has {world}. Launch {data * tp} processes, e.g. torchrun "
+            f"--nproc_per_node {data * tp} -m gaviko_tpu_torch.cli.serve {launch} ...")
+
+
+class MeshServing:
+    """Serving on a mesh of ranks (``parallel.mesh.Mesh``): rank 0 takes the
+    requests and sends each micro-batch and each reload to the others, which
+    run :meth:`follow` until rank 0's :meth:`close`. A subclass sets
+    ``_mesh`` (None: one process), ``_lock``, ``_shape``, ``_cdtype`` and
+    ``device``, and defines ``_rank_forward(params, batch)`` (this rank's
+    part of a forward of the whole micro-batch -> the whole logits, on every
+    rank), ``_served_params()`` and ``_reload(payload)``."""
+
+    @property
+    def mesh(self):
+        """The ``parallel.mesh.Mesh`` served on, or None."""
+        return self._mesh
+
+    def _order(self, op: int, payload=None):
+        """Rank 0 sends an order to every rank; the others receive it."""
+        import torch.distributed as dist
+
+        if self._mesh.rank != 0 and op != _RECEIVE:
+            raise RuntimeError("on a mesh only rank 0 takes requests; the other ranks run "
+                               f"{type(self).__name__}.follow()")
+        msg = [op, payload]
+        if self._mesh.ctrl_group is not None:  # a 1 x 1 mesh has no one to tell
+            dist.broadcast_object_list(msg, src=0, group=self._mesh.ctrl_group)
+        return msg
+
+    def _mesh_forward(self, params, batch: torch.Tensor) -> np.ndarray:
+        import torch.distributed as dist
+
+        batch = batch.contiguous()
+        if self._mesh.world_group is not None:
+            dist.broadcast(batch, src=0, group=self._mesh.world_group)
+        return self._rank_forward(params, batch).cpu().numpy()
+
+    def _lead_forward(self, params, batch: torch.Tensor) -> np.ndarray:
+        """Rank 0: order every rank to run a forward of ``batch`` and run it."""
+        with self._lock:
+            self._order(_FORWARD)
+            return self._mesh_forward(params, batch)
+
+    def _lead_reload(self, payload) -> None:
+        """Rank 0: order every rank to reload ``payload`` and reload it."""
+        with self._lock:
+            self._order(_RELOAD, payload)
+            self._reload(payload)
+
+    def follow(self) -> None:
+        """A rank > 0 of a mesh: run rank 0's forwards and reloads until it
+        closes."""
+        while True:
+            op, payload = self._order(_RECEIVE)
+            if op == _FORWARD:
+                self._mesh_forward(self._served_params(), torch.empty(
+                    self._shape, dtype=self._cdtype, device=self.device))
+            elif op == _RELOAD:
+                self._reload(payload)
+            else:
+                return
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the following ranks (a no-op elsewhere)."""
+        if self._mesh is not None and self._mesh.rank == 0:
+            with self._lock:
+                self._order(_STOP)
+
+
+class Predictor(MeshServing):
     def __init__(
         self,
         config: dict,
@@ -130,18 +210,10 @@ class Predictor:
 
     def _join_mesh(self, mesh_shape, batch_size: int) -> torch.device:
         """Check the process group against ``mesh_shape`` -> this rank's device."""
-        import torch.distributed as dist
-
         from gaviko_tpu_torch.parallel.mesh import rank_device
 
         data, tp = (int(x) for x in mesh_shape)
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if data < 1 or tp < 1 or data * tp != world:
-            raise RuntimeError(
-                f"mesh_shape {data}x{tp} needs a process group of exactly {data * tp} ranks; "
-                f"this process has {world}. Launch {data * tp} processes, e.g. torchrun "
-                f"--nproc_per_node {data * tp} -m gaviko_tpu_torch.cli.serve --mesh "
-                f"{data},{tp} ...")
+        check_mesh_world(data, tp, f"--mesh {data},{tp}")
         if batch_size % data:
             raise ValueError(f"batch_size {batch_size} does not split over {data} data ranks")
         self._mesh_shape = (data, tp)
@@ -153,58 +225,18 @@ class Predictor:
 
     def _forward(self, params, batch: torch.Tensor) -> np.ndarray:
         if self._mesh is not None:
-            with self._lock:
-                self._order(_FORWARD)
-                return self._mesh_forward(params, batch)
+            return self._lead_forward(params, batch)
         with torch.inference_mode():
             logits = self.model.apply(params, batch, self.spec)
             return logits.float().cpu().numpy()
 
-    # -- mesh serving: rank 0 leads, the other ranks follow its orders --
+    # -- mesh serving (MeshServing): rank 0 leads, the other ranks follow --
 
-    @property
-    def mesh(self):
-        """The ``parallel.mesh.Mesh`` served on, or None."""
-        return self._mesh
+    def _rank_forward(self, params, batch: torch.Tensor) -> torch.Tensor:
+        return self._pforward(params, batch)
 
-    def _order(self, op: int, payload=None):
-        """Rank 0 sends an order to every rank; the others receive it."""
-        import torch.distributed as dist
-
-        if self._mesh.rank != 0 and op != _RECEIVE:
-            raise RuntimeError("on a mesh only rank 0 takes requests; the other ranks run "
-                               "Predictor.follow()")
-        msg = [op, payload]
-        if self._mesh.ctrl_group is not None:  # a 1 x 1 mesh has no one to tell
-            dist.broadcast_object_list(msg, src=0, group=self._mesh.ctrl_group)
-        return msg
-
-    def _mesh_forward(self, params, batch: torch.Tensor) -> np.ndarray:
-        import torch.distributed as dist
-
-        batch = batch.contiguous()
-        if self._mesh.world_group is not None:
-            dist.broadcast(batch, src=0, group=self._mesh.world_group)
-        return self._pforward(params, batch).cpu().numpy()
-
-    def follow(self) -> None:
-        """A rank > 0 of a mesh: run rank 0's forwards and reloads until it
-        closes."""
-        while True:
-            op, payload = self._order(_RECEIVE)
-            if op == _FORWARD:
-                self._mesh_forward(self.params, torch.empty(
-                    self._shape, dtype=self._cdtype, device=self.device))
-            elif op == _RELOAD:
-                self._reload(payload)
-            else:
-                return
-
-    def close(self) -> None:
-        """Rank 0 of a mesh: release the following ranks (a no-op elsewhere)."""
-        if self._mesh is not None and self._mesh.rank == 0:
-            with self._lock:
-                self._order(_STOP)
+    def _served_params(self):
+        return self.params
 
     def _reload(self, checkpoint: Optional[str]) -> None:
         params = self._load_params(checkpoint)
@@ -216,9 +248,7 @@ class Predictor:
         (in-flight predictions finish on the old one). On a mesh every rank
         loads and re-shards it."""
         if self._mesh is not None:
-            with self._lock:
-                self._order(_RELOAD, checkpoint)
-                self._reload(checkpoint)
+            self._lead_reload(checkpoint)
             return
         self._reload(checkpoint)
 

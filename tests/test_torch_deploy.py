@@ -306,17 +306,29 @@ def test_refusals(gate, exported, jax_artifact, tmp_path):
         DeployedPredictor(bad, device=device)
 
 
-def test_mesh_refused(tmp_path, capsys):
+@pytest.mark.parametrize("mesh", ["2,2", "2", "a,b", "0,2", "2,2,1"])
+def test_export_cli_mesh_flag(mesh, dataset, tmp_path, monkeypatch, capsys):
+    """``cli.export --mesh data,tp`` parses as the JAX package's does and
+    passes ``mesh_shape`` to ``export_artifact`` (recorded here; the mesh
+    export itself: tests/test_torch_deploy_mesh.py); anything but two
+    positive integers is a parser error."""
     from gaviko_tpu_torch.cli import export as export_cli
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        export_artifact({"model": MODEL}, str(tmp_path / "m.gaviko"), pretrained_dir=None,
-                        mesh_shape=(2, 2))
-    with pytest.raises(SystemExit) as e:
-        export_cli.main(["--config", "gaviko.yaml", "--output", str(tmp_path / "m.gaviko"),
-                         "--mesh", "2,2"])
-    assert e.value.code == 2 and "item 16" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "m.gaviko")
+    calls = []
+    monkeypatch.setattr(export_cli, "export_artifact", lambda config, path, **kw: (
+        calls.append(kw), {"platforms": ["cuda"], "batch_size": 8, "dtype": "bfloat16"})[1])
+    cfg_path = str(tmp_path / "tiny.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(tiny_config(str(tmp_path), *dataset), f)  # JSON is YAML
+    args = ["--config", cfg_path, "--output", str(tmp_path / "m.gaviko"), "--mesh", mesh]
+    if mesh != "2,2":
+        with pytest.raises(SystemExit) as e:
+            export_cli.main(args)
+        assert e.value.code == 2 and "--mesh must be 'data,tp'" in capsys.readouterr().err
+        assert not calls
+        return
+    export_cli.main(args)
+    assert len(calls) == 1 and calls[0]["mesh_shape"] == (2, 2)
 
 
 @pytest.mark.parametrize("method", sorted(tconfig.METHODS))

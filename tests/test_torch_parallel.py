@@ -364,9 +364,11 @@ def test_backend_follows_the_observed_layout(ranks, rank, want):
 
 
 def test_what_a_mesh_does_not_take_raises_naming_its_item():
-    """A mesh takes every method's tensor parallelism and the accumulating
-    optimizer now (tests/test_torch_parallel_{zoo,accum}.py); what it does
-    not take is a mesh artifact, which raises naming its item."""
+    """A mesh takes every method's tensor parallelism, the accumulating
+    optimizer (tests/test_torch_parallel_{zoo,accum}.py) and mesh artifacts
+    (tests/test_torch_deploy_mesh.py) now; what a mesh artifact does not
+    take is a batch that its data axis does not divide, refused before any
+    model is built, as in the JAX package."""
     from gaviko_tpu_torch import deploy
 
     assert not hasattr(pmesh, "check_tp")
@@ -379,8 +381,8 @@ def test_what_a_mesh_does_not_take_raises_naming_its_item():
     par = pmesh.ParallelTrainer(model, tlosses.make_criterion({}), fused, pmesh.make_mesh(),
                                 tr, fr)
     assert par.opt_state.acc is not None and par.opt_state.mini_step == 0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        deploy.export_artifact({"model": {}}, "unused.gaviko", mesh_shape=(1, 2))
+    with pytest.raises(ValueError, match="must divide the data axis"):
+        deploy.export_artifact({"model": {}}, "unused.gaviko", batch_size=3, mesh_shape=(2, 2))
 
 
 def test_one_by_one_mesh_predictor_matches_one_process():

@@ -216,3 +216,147 @@ def collectives_rank(rank, world, shapes):
         parts = mesh.reduce_scatter_flat(leaves, axes, dist.group.WORLD)
         out[path] = (parts, mesh.all_gather_flat(parts, axes, dist.group.WORLD))
     return leaves, out
+
+
+HEAD_BIAS = "mlp_head.head.bias"  # GAViKO's classifier bias, the reload tests' overlay
+
+
+def _shallow(depth: int) -> None:
+    """Every backbone at ``depth`` in this process (the parent's patch)."""
+    from gaviko_tpu_torch import config as tconfig
+
+    for name in ("vit-t16", "vit-s16", "vit-b16"):
+        tconfig.VIT_CONFIG_MAP[name] = dict(tconfig.VIT_CONFIG_MAP[name], depth=depth)
+
+
+def _http_round(pred, volume, checkpoint) -> dict:
+    """``serving.serve(pred, port=0)`` on this rank: the direct call's logits
+    of ``volume``, then one POST /predict of it, GET /healthz and POST
+    /reload of ``checkpoint``."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from gaviko_tpu_torch.serving import serve
+
+    def call(path, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                     method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.load(r)
+
+    out = {"direct": pred.predict_logits([volume])[0]}
+    server = serve(pred, port=0)
+    port = server.server_address[1]
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, data=volume)
+        out["http"] = np.float32(call("/predict", buf.getvalue())["logits"])
+        out["healthz"] = call("/healthz")
+        out["reload"] = call("/reload", json.dumps({"checkpoint": checkpoint}).encode())
+    finally:
+        server.shutdown()
+        server.server_close()
+    t.join(timeout=10)
+    return out
+
+
+def deploy_mesh_rank(rank, world, paths, volumes, config, depth, overlays, out_dir):
+    """The mesh artifacts of ``tests/test_torch_deploy_mesh.py`` on their
+    ``cpu`` programs. On 4 ranks: ``gaviko::model_all_reduce`` unbound,
+    bound to the world and faked; the 2 x 2 artifact with ``tp_plan`` made
+    to raise (rank 0: logits, a reload of ``overlays[0]``, then ``serve()``
+    with a /reload of ``overlays[1]``; the others follow), the model code
+    imported by then, each rank's collectives and classifier bias after;
+    the 1 x 2 artifact refused; the live 2 x 2 Predictor from ``config``.
+    Then ranks 0 and 1 on a new 2-rank group: the 1 x 2 int8 artifact,
+    directly and through ``cli.infer --artifact`` on the volumes in
+    ``paths["folder"]``, and ``serve()`` over a live
+    ``Predictor(mesh_shape=(1, 2))`` (a /reload of ``overlays[0]``)."""
+    import sys
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from gaviko_tpu_torch.deploy import DeployedPredictor
+    from gaviko_tpu_torch.ops import library
+    from gaviko_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    x = torch.randn(3, 5, generator=torch.Generator().manual_seed(rank))[:, :4]  # strided
+    op = torch.ops.gaviko.model_all_reduce.default
+    try:
+        op(x)
+        out["unbound"] = None
+    except RuntimeError as e:
+        out["unbound"] = str(e)
+    with library.bound_model_group(dist.group.WORLD):
+        real = op(x)
+    with FakeTensorMode() as mode:
+        fake = op(mode.from_tensor(x))
+    out["op"] = {"sum": real, "real": (tuple(real.shape), real.dtype, real.stride()),
+                 "fake": (tuple(fake.shape), fake.dtype, fake.stride())}
+
+    def no_plan(*args, **kwargs):
+        raise AssertionError("a mesh DeployedPredictor called tp_plan")
+
+    tp_plan, pmesh.tp_plan = pmesh.tp_plan, no_plan
+    pred = DeployedPredictor(paths["mesh22"], device="cpu")
+    out["model_code"] = sorted(m for m in sys.modules if m.startswith(
+        ("gaviko_tpu_torch.models", "gaviko_tpu_torch.core", "gaviko_tpu_torch.config")))
+    calls = library.model_all_reduces
+    if rank == 0:
+        out["logits"] = pred.predict_logits(volumes)
+        pred.reload_checkpoint(overlays[0])
+        out["reloaded"] = pred.predict_logits(volumes[:1])
+        out["http"] = _http_round(pred, volumes[0], overlays[1])
+        pred.close()
+    else:
+        pred.follow()
+    pmesh.tp_plan = tp_plan
+    out["collectives"] = library.model_all_reduces - calls
+    out["bias"] = (pred.params[HEAD_BIAS], pred._device_params[HEAD_BIAS])
+    try:
+        DeployedPredictor(paths["int8_12"], device="cpu")
+        out["world"] = None
+    except RuntimeError as e:
+        out["world"] = str(e)
+
+    from gaviko_tpu_torch.serving import Predictor
+
+    _shallow(depth)
+    kw = dict(checkpoint=paths["ckpt"], batch_size=2, dtype="float32", pretrained_dir=None,
+              device="cpu")
+    live = Predictor(config, mesh_shape=(2, 2), **kw)
+    if rank == 0:
+        out["live"] = live.predict_logits(volumes)
+        live.close()
+    else:
+        live.follow()
+
+    dist.destroy_process_group()
+    if rank >= 2:
+        return out
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store2", world_size=2,
+                            rank=rank)
+    pred = DeployedPredictor(paths["int8_12"], device="cpu")
+    if rank == 0:
+        out["int8"] = pred.predict_logits(volumes)
+        pred.close()
+    else:
+        pred.follow()
+    from gaviko_tpu_torch.cli import infer
+
+    out["infer_csv"] = infer.main(["--artifact", paths["int8_12"], "--image_folder",
+                                   paths["folder"], "--results_dir", paths["results"],
+                                   "--device", "cpu"])
+    live = Predictor(config, mesh_shape=(1, 2), **kw)
+    if rank == 0:
+        out["live_http"] = _http_round(live, volumes[0], overlays[0])
+        live.close()
+    else:
+        live.follow()
+    out["live_bias"] = live.params[HEAD_BIAS]
+    return out
