@@ -52,8 +52,20 @@ Phases, each printing its own line:
    widths above 1,024 that JAX's gates admit (Queue C 11: 8,064 rows, 1,152
    -> 1,152, 2,048 -> 768 and 1,280 -> 768); then B7's outputs
    on fixed inputs, bit-equal (sha256) to the digests of the kernel on
-   ``csrc/gemm_sm90.cuh``, B12's bit-equal to the digests of B12 on the
-   same GEMM, and A's and B10's outputs on fixed
+   ``csrc/gemm_sm90.cuh`` at its 128 x 128 tile, B12's bit-equal to the
+   digests of B12 on the same GEMM, both also at the GEMM's other compiled
+   tile (``TILE_DIGEST_BLOCKS``: bf16); then the tile phase: each GEMM
+   instance's registers and spills from ptxas (no C7514), then B6, B7, B9,
+   B12, B11 and patchify on each compiled tile of the GEMM
+   (``ops/_blocks.py``; B6 and B7 through ``GAVIKO_MLP_BLOCK``, B9 and B12
+   through ``GAVIKO_LNL_BLOCK``, B11 and patchify through their ``block``
+   argument) against their plain versions under the same budgets, reruns
+   bit-equal, the plan's launches on the forced tile, and each tile's ms
+   beside the policy's tile and the chain's, at vit-b16 B8 (8,064 rows, bf16
+   and fp32) and B64 (64,512, bf16), GAViKO int8 B8 (8,320 rows), and
+   below one wave of 128-row tiles (bf16 and int8: vit-b16 B1, GAViKO's
+   last layer at B8, 264 rows; these also as CUDA graph replays), and
+   patchify at GAViKO B8 and vit-b16 B1; then A's and B10's outputs on fixed
    inputs bit-equal (sha256) to the tile's before Q's chunks could stream,
    then C and D (dropout 0.2, B4) at a latent of 64 on GAViKO's grid, at
    GAViKO's grid for image_size 224 (10x14x14) and at the latents of Queue
@@ -250,7 +262,10 @@ storage with the GAViKO fp32 and vit-b16 bf16 train runs' launches;
 ``int8_linear`` and ``int8_mlp`` for B11 at the GAViKO vit-l16 B8 bf16
 int8 serving shapes with that run's launches; ``ln_linear_bwd`` and
 ``ln_linear_bwd_l16`` for B12 at the vit-b16 and GAViKO vit-l16 bf16
-hybrid train shapes with the bf16 hybrid runs' launches; each row's
+hybrid train shapes with the bf16 hybrid runs' launches; on the rows of
+the six kernels on the GEMM, ``tiles`` the policy's tile of each GEMM launch
+at the row's shapes and ``tile_ms`` the tile phase's ms of each tile at its
+nearest case (bf16); each row's
 ``zoo_launches`` the launches a forward or a step of every zoo run that
 launched it, ``deploy_launches`` its launches in the first forward (one
 batch) of each artifact of phase 22 that launched it, ``trainer_input_launches`` its launches in the last train
@@ -408,6 +423,33 @@ B7_DIGESTS = {
 B12_DIGESTS = {
     "torch.bfloat16": "a4228266c2b75d7ff18e30b08425e99f4a04754c9ec2e843cd29b314f18a08b3",
     "torch.float32": "f49d3962ce0f76bd898d77f74c8b1b9aaba849b861706fe873b4e7407c98d2c0"}
+# sha256 of B7's and B12's outputs on the inputs of ``b7_digests`` and
+# ``b12_digests`` at the GEMM's other compiled tile (ops/_blocks.py: 64
+# rows, bf16 only), by tile rows (read on an NVIDIA H100 80GB HBM3, CUDA
+# 12.8): the 128-row digests, since no output of either sums across a tile's
+# rows but B7's db1, whose partials a tile round to the same bf16.
+TILE_DIGEST_BLOCKS = (64,)
+B7_TILE_DIGESTS = {block: {"torch.bfloat16": B7_DIGESTS["torch.bfloat16"]}
+                   for block in TILE_DIGEST_BLOCKS}
+B12_TILE_DIGESTS = {block: {"torch.bfloat16": B12_DIGESTS["torch.bfloat16"]}
+                    for block in TILE_DIGEST_BLOCKS}
+# The tile phase: the six kernels on csrc/gemm_sm90.cuh at every compiled
+# tile, at the shapes the tile policy (ops/_blocks.py) was set at. B6, B7,
+# B9 and B12 by case suffix: (rows, dim, mlp, qkv, the kernels run there):
+# vit-b16 at B8 and B64 (8 and 64 x 1,008 rows; fp32 at B8 only), and, in
+# bf16 only, below one wave of 128-row tiles on 132 SMs: vit-b16 at B1
+# (fc2 48 tiles) and GAViKO vit-l16's last layer at B8 (8 x 33 rows: B6's
+# launches, B7's dg, B9). B11 at GAViKO vit-l16 int8 serving B8 (8 x 1,040
+# rows, and the last layer's 8 x 33); patchify at GAViKO B8 (8,000 rows,
+# 3,072 -> 1,024) and at vit-b16 B1 (1,000 rows to 768: 48 tiles).
+_VIT_KERNELS = ("fused_mlp", "fused_mlp_bwd", "ln_linear", "ln_linear_bwd")
+TILE_CASES = {"": (8 * 1008, 768, 3072, 2304, _VIT_KERNELS),
+              "_b64": (64 * 1008, 768, 3072, 2304, _VIT_KERNELS),
+              "_b1": (1008, 768, 3072, 2304, ("fused_mlp",)),
+              "_last": (8 * 33, 1024, 4096, 3072, ("fused_mlp", "fused_mlp_bwd", "ln_linear"))}
+# Cases below one wave: host-bound calls, so each tile is also timed as a
+# CUDA graph replay (``_graph_ms``), the card's time alone.
+BELOW_WAVE = ("_b1", "_last")
 # sha256 of A's and B10's outputs on the inputs of ``attention_digests``, as
 # the forward tile gave them before Q's chunks could stream and its pieces
 # moved into csrc/hopper.cuh (read on an NVIDIA H100 80GB HBM3, CUDA 12.8):
@@ -936,16 +978,16 @@ def _c11_kernel_cases(dtype, gen):
     return cases
 
 
-def _digests(name: str, call, arrays) -> dict:
+def _digests(name: str, call, arrays, dtypes=None) -> dict:
     """sha256 of the outputs of ``call(*tensors)``, by dtype, on ``arrays``
-    (numpy) put on the card in bf16 and fp32; two calls must agree bit for
-    bit."""
+    (numpy) put on the card in ``dtypes`` (bf16 and fp32); two calls must
+    agree bit for bit."""
     import hashlib
 
     import torch
 
     digests = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         args = [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
         runs = []
         for _ in range(2):
@@ -960,9 +1002,39 @@ def _digests(name: str, call, arrays) -> dict:
     return digests
 
 
-def b7_digests() -> dict:
+@contextlib.contextmanager
+def _env(name: str, value: Optional[str]):
+    """Environment variable ``name`` set to ``value`` (None: unset) inside."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def _tile_dtypes(block: int) -> tuple:
+    """bf16 and fp32 where each has a compiled tile of ``block`` rows
+    (ops/_blocks.py's TILES)."""
+    import torch
+
+    from gaviko_tpu_torch.ops import _blocks
+
+    return tuple(dt for dt in (torch.bfloat16, torch.float32)
+                 if any(bm == block for bm, _ in _blocks.TILES[dt]))
+
+
+def b7_digests(block: int = 128) -> dict:
     """sha256 of B7's seven outputs, by dtype, on inputs made with numpy
-    (see B7_DIGESTS); two calls must agree bit for bit."""
+    (see B7_DIGESTS), every launch on tiles of ``block`` rows
+    (``GAVIKO_MLP_BLOCK``); two calls must agree bit for bit."""
+    from gaviko_tpu_torch.ops import _blocks
     from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_bwd
 
     rows, dim, mlp = 2002, 768, 3072
@@ -971,32 +1043,264 @@ def b7_digests() -> dict:
               rng.randn(mlp, dim) * dim ** -0.5, 0.1 * rng.randn(mlp),
               rng.randn(dim, mlp) * mlp ** -0.5, 0.1 * rng.randn(dim), rng.randn(rows, dim),
               rng.randn(rows, mlp))
-    return _digests("B7", lambda *t: fused_mlp_bwd(*t, 1e-5, "exact", VIT_RATE, True, VIT_SEED),
-                    arrays)
+    with _env(_blocks.MLP_ENV, str(block)):
+        return _digests("B7", lambda *t: fused_mlp_bwd(*t, 1e-5, "exact", VIT_RATE, True,
+                                                       VIT_SEED), arrays, _tile_dtypes(block))
 
 
-def b12_digests() -> dict:
+def b12_digests(block: int = 128) -> dict:
     """sha256 of B12's four outputs (with dW), by dtype, at the vit-b16
-    hybrid shapes on inputs made with numpy (see B12_DIGESTS); two calls
-    must agree bit for bit."""
+    hybrid shapes on inputs made with numpy (see B12_DIGESTS), its GEMM
+    launch on tiles of ``block`` rows (``GAVIKO_LNL_BLOCK``); two calls must
+    agree bit for bit."""
+    from gaviko_tpu_torch.ops import _blocks
     from gaviko_tpu_torch.ops.ln_linear import ln_linear_bwd
 
     rows, dim, out = LN_BWD_SHAPES[""]
     rng = np.random.RandomState(1)
     arrays = (2.0 * rng.randn(rows, dim) + 0.5, 1.0 + 0.1 * rng.randn(dim), 0.1 * rng.randn(dim),
               rng.randn(out, dim) * dim ** -0.5, rng.randn(rows, out) * out ** -0.5)
-    return _digests("B12", lambda *t: ln_linear_bwd(*t, 1e-5, True), arrays)
+    with _env(_blocks.LNL_ENV, str(block)):
+        return _digests("B12", lambda *t: ln_linear_bwd(*t, 1e-5, True), arrays,
+                        _tile_dtypes(block))
 
 
 def phase_b7_bits(card: str) -> None:
     """B7's and B12's outputs on fixed inputs bit-equal to the digests of
-    their kernels on csrc/gemm_sm90.cuh (B7_DIGESTS, B12_DIGESTS)."""
+    their kernels on csrc/gemm_sm90.cuh: at 128 x 128 to B7_DIGESTS and
+    B12_DIGESTS (the tile before the tile policy), at the other compiled
+    tiles to B7_TILE_DIGESTS and B12_TILE_DIGESTS."""
     got = {"b7": b7_digests(), "b12": b12_digests()}
     want = {"b7": B7_DIGESTS, "b12": B12_DIGESTS}
+    for block in TILE_DIGEST_BLOCKS:
+        got[f"b7_{block}"], got[f"b12_{block}"] = b7_digests(block), b12_digests(block)
+        want[f"b7_{block}"] = B7_TILE_DIGESTS.get(block)
+        want[f"b12_{block}"] = B12_TILE_DIGESTS.get(block)
     print(json.dumps({"phase": "b7_bits", "digests": got, "want": want, "card": card}),
           flush=True)
     if got != want:
         raise RuntimeError(f"B7 or B12 outputs changed: {got} != {want}")
+
+
+# The GEMM launches of each kernels-line row on csrc/gemm_sm90.cuh, at the
+# row's shapes in bf16: (plan function, its arguments, the plan's launches).
+LINE_TILES = {
+    "patchify": ("patchify", (8, 1, (120, 160, 160), (12, 16, 16), 768), "products"),
+    "fused_mlp": ("mlp", (8 * 1008, 768, 3072), "forward"),
+    "fused_mlp_bwd": ("mlp", (8 * 1008, 768, 3072), "backward"),
+    "ln_linear": ("ln_linear", ("forward", 8 * 1008, 768, 2304), "products"),
+    "ln_linear_bwd": ("ln_linear", ("backward", *LN_BWD_SHAPES[""]), "products"),
+    "ln_linear_bwd_l16": ("ln_linear", ("backward", *LN_BWD_SHAPES["_l16"]), "products"),
+    "int8_linear": ("int8", ("linear", 8 * 1040, 1024, 3072), "products"),
+    "int8_mlp": ("int8", ("mlp", 8 * 1040, 1024, 4096), "products"),
+}
+
+
+def _line_tiles(row: str) -> list:
+    """The tiles (BM, BN) the policy gives each GEMM launch of a kernels-line
+    row (LINE_TILES), as the environment stands."""
+    import torch
+
+    from gaviko_tpu_torch.ops.fused_mlp import mlp_plan
+    from gaviko_tpu_torch.ops.gemm_plan import patchify_plan
+    from gaviko_tpu_torch.ops.int8_linear import int8_plan
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_plan
+
+    kind, args, field = LINE_TILES[row]
+    plan = {"patchify": patchify_plan, "mlp": mlp_plan, "ln_linear": ln_linear_plan,
+            "int8": int8_plan}[kind](*args, torch.bfloat16)
+    return [list(launch[0].tile_shape) for launch in getattr(plan, field)]
+
+
+def _tile_cases(dtype, gen):
+    """The tile phase's cases in ``dtype``: (name, the operand dtype of its
+    GEMM's tiles, run(block) -> the kernel's result on tiles of ``block``
+    rows (None: the policy's), tiles() -> the tiles its plan gives each
+    GEMM launch as the environment stands, compare, work, chain). B6 and B7
+    take the tile through GAVIKO_MLP_BLOCK, B9 and B12 through
+    GAVIKO_LNL_BLOCK, B11 and patchify through their ``block`` argument."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaviko_tpu_torch.ops import _blocks
+    from gaviko_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_forward, mlp_plan
+    from gaviko_tpu_torch.ops.gemm_plan import patchify_plan
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp, int8_plan, quantize_weight
+    from gaviko_tpu_torch.ops.ln_linear import fused_ln_linear, ln_linear_bwd, ln_linear_plan
+    from gaviko_tpu_torch.ops.patchify import patchify_kernel
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    def tiles_of(*launches):
+        return [list(launch[0].tile_shape) for launch in launches]
+
+    def by_env(env, fn):
+        def run(block):
+            with _env(env, None if block is None else str(block)):
+                return fn()
+        return run
+
+    bf16 = dtype == torch.bfloat16
+    cases = []
+    for suffix, (rows, dim, mlp, qkv, kernels) in TILE_CASES.items():
+        if suffix and not bf16:
+            continue
+        x, dy = randn(rows, dim), randn(rows, dim)
+        gamma, beta = (1.0 + randn(dim, std=0.1)).to(dtype), randn(dim, std=0.1)
+        w1, b1 = randn(mlp, dim, std=dim ** -0.5), randn(mlp, std=0.1)
+        w2, b2 = randn(dim, mlp, std=mlp ** -0.5), randn(dim, std=0.1)
+        args = (x, gamma, beta, w1, b1, w2, b2)
+        with torch.no_grad():
+            _, a = fused_mlp_forward(*args, 1e-5, "exact", VIT_RATE, True, VIT_SEED, save_a=True)
+        w_qkv, g_qkv = randn(qkv, dim, std=dim ** -0.5), randn(rows, qkv, std=qkv ** -0.5)
+        mplan = lambda rows=rows, dim=dim, mlp=mlp: mlp_plan(rows, dim, mlp, dtype)  # noqa: E731
+        lplan = lambda kind, rows=rows, dim=dim, qkv=qkv: ln_linear_plan(  # noqa: E731
+            kind, rows, dim, qkv, dtype)
+        vit = {
+            "fused_mlp": (by_env(_blocks.MLP_ENV, lambda args=args: (
+                fused_mlp_forward(*args, 1e-5, "exact", 0.0, True))),
+                lambda mplan=mplan: tiles_of(*mplan().forward),
+                (2 * _nbytes(x) + _nbytes(*args[1:]), 4 * rows * dim * mlp),
+                lambda args=args: _mlp_chain(*args)),
+            "fused_mlp_bwd": (by_env(_blocks.MLP_ENV, lambda args=args, dy=dy, a=a: (
+                fused_mlp_bwd(*args, dy, a, 1e-5, "exact", VIT_RATE, True, VIT_SEED))),
+                lambda mplan=mplan: tiles_of(*mplan().backward),
+                (_nbytes(*args, dy, a, *args), 8 * rows * dim * mlp), _mlp_chain_grad(args, dy)),
+            "ln_linear": (by_env(_blocks.LNL_ENV, lambda x=x, g=gamma, b=beta,
+                                 w=w_qkv: fused_ln_linear(x, g, b, w)),
+                          lambda lplan=lplan: tiles_of(*lplan("forward").products),
+                          (_nbytes(x, gamma, beta, w_qkv, g_qkv), 2 * rows * dim * qkv),
+                          lambda x=x, g=gamma, b=beta, w=w_qkv, dim=dim: F.linear(
+                              F.layer_norm(x, (dim,), g, b, 1e-5), w)),
+            "ln_linear_bwd": (by_env(
+                _blocks.LNL_ENV, lambda x=x, g=gamma, b=beta, w=w_qkv, d=g_qkv: ln_linear_bwd(
+                    x, g, b, w, d, 1e-5, True)),
+                lambda lplan=lplan: tiles_of(*lplan("backward").products),
+                (_nbytes(x, gamma, beta, w_qkv, g_qkv, x, gamma, beta, w_qkv),
+                 4 * rows * dim * qkv),
+                _ln_linear_chain_grad(x, gamma, beta, w_qkv, g_qkv, True)),
+        }
+        for kernel in kernels:
+            run, tiles, work, chain = vit[kernel]
+            cases.append((f"{kernel}{suffix}", dtype, run, tiles, lambda r: r, work, chain))
+    # patchify: GAViKO B8, 8 volumes of 120 x 160 x 160 in 12 x 16 x 16
+    # patches (8,000 rows of 3,072) to vit-l16's 1,024; in bf16 also vit-b16
+    # B1 (1,000 rows to 768).
+    for suffix, b, dim in (("", 8, 1024), ("_b1", 1, 768))[:2 if bf16 else 1]:
+        img = torch.rand(b, 1, 120, 160, 160, generator=gen, device="cuda").to(dtype)
+        pw, pb = randn(dim, 1, 12, 16, 16, std=0.02), randn(dim, std=0.02)
+        cases.append((
+            f"patchify{suffix}", dtype, lambda block, img=img, pw=pw, pb=pb: patchify_kernel(
+                img, pw, pb, block=block),
+            lambda b=b, dim=dim: tiles_of(*patchify_plan(b, 1, (120, 160, 160), (12, 16, 16), dim,
+                                                         dtype).products), lambda r: r,
+            (_nbytes(img, pw, pb) + b * 1000 * dim * img.element_size(),
+             2 * b * 1000 * 3072 * dim),
+            lambda img=img, pw=pw, pb=pb: F.conv3d(img, pw, pb, stride=(12, 16, 16))))
+    if not bf16:
+        return cases
+    # B11 at GAViKO vit-l16 int8 serving B8 (bf16 activations): the qkv
+    # projection with its LN and the MLP at 8,320 rows, and both at the last
+    # layer's 264 pooled rows.
+    i8, d, h = torch.int8, 1024, 4096
+    for suffix, rows in (("", 8 * 1040), ("_last", 8 * 33)):
+        x = randn(rows, d)
+        gamma, beta = (1.0 + randn(d, std=0.1)).to(dtype), randn(d, std=0.1)
+        wq, sq = quantize_weight(randn(3 * d, d, std=d ** -0.5))
+        w1, s1 = quantize_weight(randn(h, d, std=d ** -0.5))
+        w2, s2 = quantize_weight(randn(d, h, std=h ** -0.5))
+        b1, b2 = randn(h, std=0.1), randn(d, std=0.1)
+        margs = (x, gamma, beta, w1, s1, b1, w2, s2, b2, 1e-5, "exact", False)
+        cases += [
+            (f"int8_linear{suffix}", i8, lambda block, x=x, wq=wq, sq=sq, g=gamma, b=beta:
+             int8_linear(x, wq, sq, gamma=g, beta=b, block=block),
+             lambda rows=rows: tiles_of(*int8_plan("linear", rows, d, 3 * d, dtype).products),
+             lambda r: r, (_nbytes(x, wq, sq, gamma, beta) + rows * 3 * d * x.element_size(),
+                           2 * rows * d * 3 * d), None),
+            (f"int8_mlp{suffix}", i8, lambda block, margs=margs: int8_mlp(*margs, block=block),
+             lambda rows=rows: tiles_of(*int8_plan("mlp", rows, d, h, dtype).products),
+             lambda r: r, (2 * _nbytes(x) + _nbytes(w1, s1, b1, w2, s2, b2, gamma, beta),
+                           4 * rows * d * h), None),
+        ]
+    return cases
+
+
+def phase_tiles(card: str, logs: dict) -> dict:
+    """The tile phase: first each GEMM instance's registers and spills from
+    the build's ptxas ``logs`` (the build fails the phase where ptxas
+    serialised an instance's wgmma, C7514); then for each case of
+    :func:`_tile_cases` in bf16 and fp32 (TF32 off), the kernel on each
+    compiled tile of its operand dtype against its plain version (the
+    budgets of phase 3), a rerun bit-equal, the plan's tiles under the
+    forcing (each launch on the forced tile), and the kernel's ms a tile
+    beside the policy's tile and its chain's ms; below one wave
+    (BELOW_WAVE) also each one's CUDA-graph ms. Returns {(name, dtype):
+    line}."""
+    import torch
+
+    from gaviko_tpu_torch.ops import _blocks
+    from gaviko_tpu_torch.ops._build import plain_versions
+
+    serialised = [ln.strip() for log in logs.values() for ln in log.splitlines()
+                  if "C7514" in ln and "gemm_kernel" in ln]
+    print(json.dumps({"phase": "tiles_ptxas", "tiles": {str(dt): [list(t) for t in ts]
+                                                        for dt, ts in _blocks.TILES.items()},
+                      "gemm_kernels": {n: [ln for ln in _ptxas(log) if "gemm_kernel" in ln]
+                                       for n, log in sorted(logs.items())},
+                      "c7514": serialised, "sms": _blocks.sms(), "card": card}), flush=True)
+    if serialised:
+        raise RuntimeError(f"ptxas serialised a GEMM instance's wgmma: {serialised}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {}
+    for dtype, budget in ((torch.bfloat16, BF16_BUDGET), (torch.float32, F32_BUDGET)):
+        for name, tdtype, run, tiles, cut, work, chain in _tile_cases(dtype, gen):
+            rate = (torch.int8 if tdtype == torch.int8 else "3xtf32"
+                    if dtype == torch.float32 else dtype)
+            bound_ms, bound_by = _bound(work, rate)
+            graphed = name.endswith(BELOW_WAVE)
+            with torch.no_grad():
+                with plain_versions():
+                    want = cut(run(None))
+                policy = tiles()
+                line = {"phase": "tiles", "name": name, "dtype": str(dtype),
+                        "policy": policy, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "chain_ms": None if chain is None else _median_ms(
+                            chain, reps=10, calls=KERNEL_CALLS),
+                        "by_tile": {}, "card": card}
+                for bm, bn in _blocks.TILES[tdtype]:
+                    got = cut(run(bm))
+                    torch.cuda.synchronize()
+                    rel, max_abs = _compare(got, want)
+                    again = cut(run(bm))
+                    pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+                    rerun_equal = all(torch.equal(a, b) for a, b in pairs)
+                    if name.startswith(("fused_mlp", "ln_linear")):
+                        env = _blocks.MLP_ENV if name.startswith("fused_mlp") else _blocks.LNL_ENV
+                        with _env(env, str(bm)):
+                            forced = tiles()
+                    else:
+                        forced = None  # the block argument reaches the plan directly
+                    line["by_tile"][f"{bm}x{bn}"] = {
+                        "rel_mae": rel, "max_abs_err": max_abs, "rerun_bit_equal": rerun_equal,
+                        "ms": _median_ms(lambda: run(bm), reps=10, calls=KERNEL_CALLS)}
+                    if graphed:
+                        line["by_tile"][f"{bm}x{bn}"]["graph_ms"] = _graph_ms(lambda: run(bm))
+                    if not rel <= budget:
+                        raise RuntimeError(f"{name} {dtype} at {bm}x{bn}: rel MAE {rel} > {budget}")
+                    if not rerun_equal:
+                        raise RuntimeError(f"{name} {dtype} at {bm}x{bn}: a rerun differs")
+                    if forced is not None and any(t != [bm, bn] for t in forced):
+                        raise RuntimeError(f"{name}: {bm} rows forced, the plan gives {forced}")
+                line["ms"] = _median_ms(lambda: run(None), reps=10, calls=KERNEL_CALLS)
+                if graphed:
+                    line["graph_ms"] = _graph_ms(lambda: run(None))
+            results[(name, str(dtype))] = line
+            print(json.dumps(line), flush=True)
+        torch.cuda.empty_cache()
+    return results
 
 
 def attention_digests() -> dict:
@@ -4301,6 +4605,9 @@ def main() -> int:
                "ln_bwd": phase_kernels(smi, None, "ln_bwd"),  # LN_BWD_SHAPES
                "c11": phase_kernels(smi, None, "c11")}  # C11_SHAPES
     phase_b7_bits(smi)
+    t0 = time.perf_counter()
+    tile_lines = phase_tiles(smi, logs)
+    print(json.dumps({"phase": "tiles_done", "seconds": time.perf_counter() - t0}), flush=True)
     phase_attention_bits(smi)
     phase_local_bits(smi)
     rng = np.random.RandomState(0)
@@ -4461,6 +4768,11 @@ def main() -> int:
         row["zoo_launches"] = {run: c[n] for run, c in zoo.items() if c[n]}
         row["deploy_launches"] = {run: c[n] for run, c in deploy.items() if c[n]}
         row["trainer_input_launches"] = input_launches[n]
+        if row_name in LINE_TILES:  # the GEMM's kernels: the policy's tiles, each tile's ms
+            row["tiles"] = _line_tiles(row_name)
+            tile_line = tile_lines.get((row_name.replace("_l16", ""), "torch.bfloat16"))
+            row["tile_ms"] = {"case": tile_line["name"], "policy": tile_line["policy"],
+                              **{t: v["ms"] for t, v in tile_line["by_tile"].items()}}
         if row_name == n:  # the parallel runs are at head dim 64 and vit-b16 / vit-l16 widths
             row["parallel_launches"] = {run: c[n] for run, c in parallel_launches.items()
                                         if c[n]}

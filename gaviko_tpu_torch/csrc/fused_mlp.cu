@@ -44,6 +44,7 @@ struct Args {
   int M, dim, mlp, gelu, residual;
   float eps;
   Drop drop;
+  gemm::Tile fc1, fc2;  // the two launches' tiles (ops/_blocks.py)
 };
 
 // fc1's epilogue: v + b1 -> a (when asked), then g = round(f0 GELU(v + b1)).
@@ -112,12 +113,12 @@ int forward(const Args& a, void* stream) {
     err = gemm::problem(&p1.prob[0], a.M, a.mlp, a.dim,
                         Fc1Epi<T>{static_cast<const T*>(a.b1), static_cast<T*>(a.a), g, a.mlp,
                                   a.gelu, a.drop});
-  if (err == cudaSuccess) err = gemm::run<T, false, false>(p1, 1, s);
+  if (err == cudaSuccess) err = gemm::run<T, false, false>(p1, 1, a.fc1, s);
   if (err == cudaSuccess)
     err = gemm::problem(&p2.prob[0], a.M, a.dim, a.mlp,
                         Fc2Epi<T>{static_cast<const T*>(a.b2), x, static_cast<T*>(a.out), a.dim,
                                   a.residual, a.drop});
-  if (err == cudaSuccess) err = gemm::run<T, false, false>(p2, 1, s);
+  if (err == cudaSuccess) err = gemm::run<T, false, false>(p2, 1, a.fc2, s);
   return static_cast<int>(err);
 }
 
@@ -132,16 +133,21 @@ int forward(const Args& a, void* stream) {
 // rate) (INT32_MIN at rate 0: no dropout), drop_scale 1 / (1 - rate).
 // hidden_col0: the hidden's first column in the whole layer (0 unless a
 // tensor-parallel rank holds a slice of it), for the hidden's dropout bits.
+// (fc1_bm, fc1_bn) and (fc2_bm, fc2_bn): the tiles of fc1's and fc2's
+// launches (csrc/gemm_sm90.cuh's compiled tiles; another returns
+// cudaErrorInvalidValue). Their epilogues write whole 8-column groups of
+// whole tiles: bn divides dim and mlp.
 #define GAVIKO_FUSED_MLP(NAME, T)                                                               \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,       \
                       const void* b1, const void* w2, const void* b2, void* out, void* a_out,   \
                       void* h, void* g, int M, int dim, int mlp, int gelu, int residual,        \
                       float eps, int seed, int threshold, float drop_scale, int hidden_col0,    \
-                      void* stream) {                                                           \
+                      int fc1_bm, int fc1_bn, int fc2_bm, int fc2_bn, void* stream) {           \
     const gaviko::mlp::Args a{x,   gamma, beta, w1,  b1,   w2,       b2,  out, a_out,          \
                               h,   g,     M,    dim, mlp,  gelu, residual, eps,                \
                               {static_cast<uint32_t>(seed), threshold, drop_scale,             \
-                               static_cast<uint32_t>(hidden_col0)}};                           \
+                               static_cast<uint32_t>(hidden_col0)},                            \
+                              {fc1_bm, fc1_bn}, {fc2_bm, fc2_bn}};                             \
     return gaviko::mlp::forward<T>(a, stream);                                                  \
   }
 GAVIKO_FUSED_MLP(gaviko_fused_mlp_bf16, __nv_bfloat16)

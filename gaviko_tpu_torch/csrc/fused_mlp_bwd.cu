@@ -142,7 +142,7 @@ struct Ptrs {
 
 template <typename T>
 int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, float eps,
-             Drop drop, void* stream) {
+             Drop drop, gemm::Tile dg_tile, gemm::Tile grads_tile, void* stream) {
   if (M < 1 || dim % gemm::BN || dim < 1 || mlp % gemm::BN || mlp < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -177,7 +177,7 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
     q.b[0] = m_w2;
     err = gemm::problem(&q.prob[0], M, mlp, dim,
                         DgEpi<T>{static_cast<const T*>(p.a), da, gd, p.part_db1, mlp, gelu, drop});
-    if (err == cudaSuccess) err = gemm::run<T, false, true>(q, 1, s);
+    if (err == cudaSuccess) err = gemm::run<T, false, true>(q, 1, dg_tile, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // dW2 = dout16^T gd16 and dW1 = da16^T h (depth M, A read [K][M]), then
@@ -195,7 +195,7 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
     if (err == cudaSuccess)
       err = gemm::problem(&q.prob[1], mlp, dim, M, OutEpi<T>{p.dw1, dim, 0}, true);
     if (err == cudaSuccess) err = gemm::problem(&q.prob[2], M, dim, mlp, OutEpi<T>{p.dh, dim, 1});
-    if (err == cudaSuccess) err = gemm::run<T, true, true>(q, 3, s);
+    if (err == cudaSuccess) err = gemm::run<T, true, true>(q, 3, grads_tile, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const LnArgs<T> ln{x,      gamma,  static_cast<const T*>(p.dy), p.dh, p.mean, p.rstd,
@@ -205,7 +205,7 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
   if (err != cudaSuccess) return static_cast<int>(err);
 
   Sums sums{};
-  const int tile_rows = (M + gemm::BM - 1) / gemm::BM;  // dg's rows of db1 partials
+  const int tile_rows = (M + dg_tile.bm - 1) / dg_tile.bm;  // dg's rows of db1 partials
   sums.add(p.part_db2, row_blocks, dim, p.db2);
   sums.add(p.part_db1, tile_rows, mlp, p.db1);
   sums.add(p.part_dg, row_blocks, dim, p.dgamma);
@@ -221,10 +221,13 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
 // [M, mlp]; outputs dx [M, dim], dgamma, dbeta, db2 [dim], dw1 [mlp, dim],
 // db1 [mlp], dw2 [dim, mlp]; scratch h, dout [M, dim], gd, da [M, mlp] in
 // the same dtype and dh [M, dim], mean, rstd [M], part_db2, part_dg, part_db
-// [ceil(M / 16), dim] and part_db1 [ceil(M / 128), mlp] f32. All contiguous
-// and 16-byte aligned; dim and mlp multiples of 128. gelu: 0 exact, 1 tanh,
-// 2 erf_fast. seed, threshold, drop_scale and hidden_col0 are the forward's
-// (threshold INT32_MIN: no dropout).
+// [ceil(M / 16), dim] and part_db1 [ceil(M / dg_bm), mlp] f32. All
+// contiguous and 16-byte aligned; dim and mlp multiples of 128. gelu: 0
+// exact, 1 tanh, 2 erf_fast. seed, threshold, drop_scale and hidden_col0 are
+// the forward's (threshold INT32_MIN: no dropout). (dg_bm, dg_bn) and
+// (grads_bm, grads_bn): the tiles of dg's launch and of the launch of dW2,
+// dW1 and dh (csrc/gemm_sm90.cuh's compiled tiles; another returns
+// cudaErrorInvalidValue); bn divides dim and mlp.
 #define GAVIKO_FUSED_MLP_BWD(NAME, T)                                                          \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w1,      \
                       const void* w2, const void* dy, const void* a, void* dx, void* dgamma,   \
@@ -232,7 +235,8 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
                       void* dout, void* gd, void* da, float* dh, float* mean, float* rstd,     \
                       float* part_db2, float* part_db1, float* part_dg, float* part_db,        \
                       int M, int dim, int mlp, int gelu, int residual, float eps, int seed,    \
-                      int threshold, float drop_scale, int hidden_col0, void* stream) {        \
+                      int threshold, float drop_scale, int hidden_col0, int dg_bm, int dg_bn,  \
+                      int grads_bm, int grads_bn, void* stream) {                              \
     const gaviko::mlp::Ptrs p{x,    gamma, beta, w1,   w2,       dy,       a,       dx,        \
                               dgamma, dbeta, dw1, db1, dw2,      db2,      h,       dout,      \
                               gd,   da,    dh,   mean, rstd,     part_db2, part_db1, part_dg,  \
@@ -240,7 +244,7 @@ int backward(const Ptrs& p, int M, int dim, int mlp, int gelu, int residual, flo
     return gaviko::mlp::backward<T>(p, M, dim, mlp, gelu, residual, eps,                       \
                                     {static_cast<uint32_t>(seed), threshold, drop_scale,       \
                                      static_cast<uint32_t>(hidden_col0)},                      \
-                                    stream);                                                   \
+                                    {dg_bm, dg_bn}, {grads_bm, grads_bn}, stream);             \
   }
 GAVIKO_FUSED_MLP_BWD(gaviko_fused_mlp_bwd_bf16, __nv_bfloat16)
 GAVIKO_FUSED_MLP_BWD(gaviko_fused_mlp_bwd_f32, float)

@@ -1,19 +1,22 @@
 // A Hopper GEMM of the port's own, for the fused MLP's products (kernels
 // B6, csrc/fused_mlp.cu, and B7, csrc/fused_mlp_bwd.cu), the LN + linear
-// products (B9, csrc/ln_linear.cu, and B12, csrc/ln_linear_bwd.cu) and the
-// int8 serving GEMMs (B11, csrc/int8_linear.cu):
+// products (B9, csrc/ln_linear.cu, and B12, csrc/ln_linear_bwd.cu), the
+// int8 serving GEMMs (B11, csrc/int8_linear.cu) and patchify's product
+// (csrc/patchify.cu):
 //
 //   C[M, N] = A[M, K] B[K, N], every output through an epilogue functor.
 //
 // A is stored [M][K] (K-major) or [K][M] (AT: MN-major); B is stored [N][K]
 // (K-major) or [K][N] (BT: MN-major), row-major with unit column stride, so
 // the weight gradients, whose depth is the rows, read both operands as
-// stored. A CTA owns a 128 x 128 output tile: one producer warp, one of whose
-// threads streams the operands' k tiles (128 bytes of depth: 64 bf16 or 32
-// f32 columns) through a ring of STAGES stages with full and empty mbarriers
-// (TMA boxes of 128 bytes x CW rows, 128-byte swizzled: csrc/hopper.cuh's
-// tensor maps of a [rows, cols] matrix, B = H = 1), and two consumer
-// warpgroups of 64 rows each:
+// stored. A CTA owns a BM x 128 output tile, BM (its rows) a template
+// parameter that ops/_blocks.py chooses a launch at a time (64 or 128 in
+// bf16 and int8, 128 in f32; see `compiled`): one producer warp, one of whose threads streams the
+// operands' k tiles (128 bytes of depth: 64 bf16 or 32 f32 columns) through
+// a ring of STAGES stages with full and empty mbarriers (TMA boxes of 128
+// bytes x CW rows, 128-byte swizzled: csrc/hopper.cuh's tensor maps of a
+// [rows, cols] matrix, B = H = 1), and BM / 64 consumer warpgroups of 64
+// rows each, every one of them taking the whole 128 columns:
 //
 // - bf16: wgmma m64n128k16 with both operands in shared memory; a
 //   [K][M] or [K][N] operand is read through the descriptor's transpose
@@ -35,7 +38,7 @@
 // layout), reads what it needs and writes its outputs itself; where it asks
 // (kColsum) the kernel also writes the tile's column sums of what the
 // functor left in the 8 values, in a fixed order (each thread's rows, then
-// the row groups in order), one row of partials a 128-row tile; where it
+// the row groups in order), one row of partials a BM-row tile; where it
 // asks (kRowmax) the functor returns a non-negative partial of its row,
 // and the kernel takes each row's maximum over the tile across the 16
 // lanes that hold it and then into the functor's `rowmax` [M] in device
@@ -57,12 +60,7 @@ namespace {  // internal linkage, as csrc/hopper.cuh says
 
 using attn::ROW_BYTES;
 
-constexpr int BM = 128, BN = 128;    // the output tile
-constexpr int CONSUMER_WARPS = 8;    // two warpgroups of 64 rows
-constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);  // + the producer warp
-constexpr int OPERAND_BYTES = BM * ROW_BYTES;      // one operand's k tile: 16 KB
-constexpr int STAGE_BYTES = 2 * OPERAND_BYTES;
-
+constexpr int BN = 128;  // a tile's columns, at every tile
 template <typename T>
 __host__ __device__ constexpr int chunk() {  // columns of 128 bytes: the k tile's depth
   return ROW_BYTES / static_cast<int>(sizeof(T));
@@ -78,9 +76,36 @@ __host__ __device__ constexpr bool on_wgmma() {
   return is_bf16<T>() || is_s8<T>();
 }
 
-// bf16 and int8: three stages, so two CTAs share an SM (their registers
-// allow it) and one's epilogue runs beside the other's products; f32 (its
-// 3xTF32 fragments take more registers): four stages, one CTA an SM.
+// The tiles compiled for T, by their rows BM (ops/_blocks.py's TILES): in
+// bf16 and int8 64 (one consumer warpgroup) and 128 (two), each consumer
+// thread holding the same 64 accumulators at both (90 registers, no spills:
+// ptxas -v on an H100 build); in f32 128 only, since at 64 rows ptxas
+// spilled more than at 128 in two of its 3xTF32 epilogues (B7's dg 40 / 44
+// bytes against 24 / 8, patchify's 8 / 8 against none). A tile of 256 rows
+// (four warpgroups, one CTA an SM) lost to 128 at every shape measured but
+// weight-gradient launches of 64,512 rows, which no shipped configuration
+// runs, so it is not compiled.
+template <typename T, int BM>
+__host__ __device__ constexpr bool compiled() {
+  return on_wgmma<T>() ? BM == 64 || BM == 128 : BM == 128;
+}
+template <int BM>
+__host__ __device__ constexpr int consumer_warps() {  // four warps a warpgroup of 64 rows
+  return BM / 16;
+}
+template <int BM>
+__host__ __device__ constexpr int threads() {  // + the producer warp
+  return 32 * (consumer_warps<BM>() + 1);
+}
+template <int BM>
+__host__ __device__ constexpr int stage_bytes() {  // both operands' k tiles
+  return (BM + BN) * ROW_BYTES;
+}
+
+// bf16 and int8: three stages, so two CTAs share an SM (their registers and
+// shared memory allow it, no third) and one's epilogue runs beside the
+// other's products; f32 (its 3xTF32 fragments take more registers): four
+// stages, one CTA an SM.
 template <typename T>
 __host__ __device__ constexpr int stages() {
   return on_wgmma<T>() ? 3 : 4;
@@ -88,6 +113,13 @@ __host__ __device__ constexpr int stages() {
 template <typename T>
 __host__ __device__ constexpr int min_blocks() {
   return on_wgmma<T>() ? 2 : 1;
+}
+
+// Rows of A's TMA box: CW (one box a CW-row slice of the k tile), but at
+// most the tile's rows (int8's 128-code k tile at 64 rows).
+template <typename T>
+__host__ __device__ constexpr int a_box_rows(int bm) {
+  return chunk<T>() < bm ? chunk<T>() : bm;
 }
 
 // What an epilogue functor asks for beyond kColsum, each off unless it
@@ -114,14 +146,17 @@ struct RowInputOf<E, std::void_t<decltype(E::kRowInput)>> {
 
 // The epilogue stages the tile's f32 sums in shared memory over the ring
 // (free by then): rows of BN floats padded by 8, so the fragments' 8-byte
-// stores of 4 rows meet no bank twice (68 KB, within every ring).
+// stores of 4 rows meet no bank twice (BM x 136 floats, within every ring).
 constexpr int SROW = BN + 8;
-constexpr int EPI_ROWS = CONSUMER_WARPS * 32 / (BN / 8);  // rows an epilogue pass: 16
+template <int BM>
+__host__ __device__ constexpr int epi_rows() {  // rows an epilogue pass: 8 or 16
+  return consumer_warps<BM>() * 32 / (BN / 8);
+}
 
-template <typename T>
+template <typename T, int BM>
 size_t smem_bytes() {
-  return 1024 + static_cast<size_t>(stages<T>()) * STAGE_BYTES +
-         2 * stages<T>() * sizeof(uint64_t) + EPI_ROWS * BN * sizeof(float);
+  return 1024 + static_cast<size_t>(stages<T>()) * stage_bytes<BM>() +
+         2 * stages<T>() * sizeof(uint64_t) + epi_rows<BM>() * BN * sizeof(float);
 }
 
 constexpr int MAX_PROBLEMS = 3;
@@ -207,10 +242,11 @@ __device__ __forceinline__ void pin_s32(int32_t (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// AT: the launch may hold problems whose A is stored [K][M] (each problem
-// says whether its own is); BT: B is stored [K][N].
-template <typename T, bool AT, bool BT, class Epi>
+// BM: the tile's rows; AT: the launch may hold problems whose A is stored
+// [K][M] (each problem says whether its own is); BT: B is stored [K][N].
+template <typename T, int BM, bool AT, bool BT, class Epi>
 struct Gemm {
+  static_assert(compiled<T, BM>(), "no such tile for this type");
   static constexpr bool kBf16 = is_bf16<T>();
   static constexpr bool kS8 = is_s8<T>();
   static constexpr bool kWgmma = kBf16 || kS8;  // the accumulators in wgmma's layout
@@ -221,14 +257,21 @@ struct Gemm {
   using Acc = typename std::conditional<kS8, int32_t, float>::type;
   static constexpr int CW = chunk<T>();
   static constexpr int BOX_BYTES = CW * ROW_BYTES;  // one TMA box: CW rows of 128 bytes
-  static constexpr int BOXES = BM / CW;             // boxes an operand's k tile
+  static constexpr int A_BOX_ROWS = a_box_rows<T>(BM);
+  static constexpr int A_BOX_BYTES = A_BOX_ROWS * ROW_BYTES;
+  static constexpr int A_BOXES = BM / A_BOX_ROWS;  // boxes of A's k tile
+  static constexpr int B_BOXES = BN / CW;          // boxes of B's
+  static constexpr int A_BYTES = BM * ROW_BYTES;   // A's k tile; B's follows it
   static constexpr int STAGES = stages<T>();
+  static constexpr int STAGE_BYTES = stage_bytes<BM>();
+  static constexpr int CONSUMER_WARPS = consumer_warps<BM>();
+  static constexpr int EPI_ROWS = epi_rows<BM>();
 
   static __device__ void run(const Params<Epi>& p) {
     extern __shared__ char smem_raw[];
     char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                          ~static_cast<uintptr_t>(1023));
-    static_assert(BM * SROW * sizeof(float) <= stages<T>() * STAGE_BYTES, "staging in the ring");
+    static_assert(BM * SROW * sizeof(float) <= STAGES * STAGE_BYTES, "staging in the ring");
     uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
     uint64_t* empty = full + STAGES;
     float* red = reinterpret_cast<float*>(empty + STAGES);  // [EPI_ROWS][BN]
@@ -391,8 +434,9 @@ struct Gemm {
   }
   static __device__ __forceinline__ int col_of(int c, int w) { return kWgmma ? 8 * c : 32 * w + 8 * c; }
 
-  // One thread: the nk k tiles of A's rows m0.. and B's
-  // columns n0.. into the ring, BOXES boxes an operand; TA: A is [K][M].
+  // One thread: the nk k tiles of A's rows m0.. and B's columns n0.. into
+  // the ring, A_BOXES and B_BOXES boxes, one of each in turn; TA: A is
+  // [K][M].
   template <bool TA>
   static __device__ void produce(const CUtensorMap* ma, const CUtensorMap* mb, char* ring,
                                  uint64_t* full, uint64_t* empty, int m0, int n0, int nk) {
@@ -401,18 +445,22 @@ struct Gemm {
       attn::mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
       attn::mbar_expect_tx(&full[st], STAGE_BYTES);
       char* as = ring + st * STAGE_BYTES;
-      char* bs = as + OPERAND_BYTES;
+      char* bs = as + A_BYTES;
       const int k0 = i * CW;
 #pragma unroll
-      for (int j = 0; j < BOXES; ++j) {
-        if constexpr (TA)
-          attn::tma_load(as + j * BOX_BYTES, ma, m0 + j * CW, k0, 0, 0, &full[st]);
-        else
-          attn::tma_load(as + j * BOX_BYTES, ma, k0, m0 + j * CW, 0, 0, &full[st]);
-        if constexpr (BT)
-          attn::tma_load(bs + j * BOX_BYTES, mb, n0 + j * CW, k0, 0, 0, &full[st]);
-        else
-          attn::tma_load(bs + j * BOX_BYTES, mb, k0, n0 + j * CW, 0, 0, &full[st]);
+      for (int j = 0; j < (A_BOXES > B_BOXES ? A_BOXES : B_BOXES); ++j) {
+        if (j < A_BOXES) {
+          if constexpr (TA)
+            attn::tma_load(as + j * A_BOX_BYTES, ma, m0 + j * CW, k0, 0, 0, &full[st]);
+          else
+            attn::tma_load(as + j * A_BOX_BYTES, ma, k0, m0 + j * A_BOX_ROWS, 0, 0, &full[st]);
+        }
+        if (j < B_BOXES) {
+          if constexpr (BT)
+            attn::tma_load(bs + j * BOX_BYTES, mb, n0 + j * CW, k0, 0, 0, &full[st]);
+          else
+            attn::tma_load(bs + j * BOX_BYTES, mb, k0, n0 + j * CW, 0, 0, &full[st]);
+        }
       }
     }
   }
@@ -436,7 +484,7 @@ struct Gemm {
       const int st = i % STAGES;
       attn::mbar_wait(&full[st], (i / STAGES) & 1);
       const char* as = ring + st * STAGE_BYTES;
-      const char* bs = as + OPERAND_BYTES;
+      const char* bs = as + A_BYTES;
       attn::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -471,7 +519,7 @@ struct Gemm {
       const int st = i % STAGES;
       attn::mbar_wait(&full[st], (i / STAGES) & 1);
       const char* as = ring + st * STAGE_BYTES;
-      const char* bs = as + OPERAND_BYTES;
+      const char* bs = as + A_BYTES;
       attn::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -509,7 +557,7 @@ struct Gemm {
       const int st = i % STAGES;
       attn::mbar_wait(&full[st], (i / STAGES) & 1);
       const char* as = ring + st * STAGE_BYTES;
-      const char* bs = as + OPERAND_BYTES;
+      const char* bs = as + A_BYTES;
 #pragma unroll
       for (int kk = 0; kk < CW / 8; ++kk) {
         const int k = kk * 8 + t;
@@ -539,66 +587,87 @@ struct Gemm {
   }
 };
 
-template <typename T, bool AT, bool BT, class Epi>
-__global__ void __launch_bounds__(THREADS, min_blocks<T>()) gemm_kernel(const __grid_constant__ Params<Epi> p) {
-  Gemm<T, AT, BT, Epi>::run(p);
+template <typename T, int BM, bool AT, bool BT, class Epi>
+__global__ void __launch_bounds__(threads<BM>(), min_blocks<T>())
+    gemm_kernel(const __grid_constant__ Params<Epi> p) {
+  Gemm<T, BM, AT, BT, Epi>::run(p);
 }
 
 // ----------------------------------------------------------- host ----
 
 // The tensor map of a [rows, cols] matrix of T (bf16, f32 or int8;
-// row-major, 16-byte aligned rows): boxes of 128 bytes x chunk<T>() rows,
-// 128-byte swizzled, what lies past the rows or the columns arriving as
-// zeros. One map serves an operand read K-major or MN-major.
+// row-major, 16-byte aligned rows): boxes of 128 bytes x box_rows rows
+// (chunk<T>(), or a_box_rows for an int8 A at 64 rows), 128-byte swizzled,
+// what lies past the rows or the columns arriving as zeros. One map serves
+// an operand read K-major or MN-major.
 template <typename T>
-cudaError_t encode_matrix(CUtensorMap* map, const void* ptr, int rows, int cols) {
+cudaError_t encode_matrix(CUtensorMap* map, const void* ptr, int rows, int cols,
+                          int box_rows = chunk<T>()) {
   int pos[3];
   const long long ld = cols;
   const attn::View v{ptr, ld * rows, ld, ld, rows};
-  const cudaError_t err = attn::encode<T>(map, pos, v, 1, 1, cols, chunk<T>());
+  const cudaError_t err = attn::encode<T>(map, pos, v, 1, 1, cols, box_rows);
   if (err != cudaSuccess) return err;
   return pos[0] == 1 ? cudaSuccess : cudaErrorInvalidValue;  // rows are the map's dimension 1
 }
 
 // C[M, N] = A[M, K] B[K, N], as ops/gemm_plan.py's GemmProduct and the
-// plans built on it (mlp_plan, ln_linear_plan, int8_plan) take it (where N
-// is no multiple of BN, the last column tile's B rows past N arrive as
-// zeros and its epilogue functor must skip the columns from N on); at: A
-// is stored [K][M].
+// plans built on it (mlp_plan, ln_linear_plan, int8_plan, patchify_plan)
+// take it (where N is no multiple of BN, the last column tile's B rows past
+// N arrive as zeros and its epilogue functor must skip the columns from N
+// on); at: A is stored [K][M]. The launch's tile sets its tile counts.
 template <class Epi>
 cudaError_t problem(Problem<Epi>* pr, int M, int N, int K, const Epi& epi, bool at = false) {
   if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
   pr->M = M;
   pr->N = N;
   pr->K = K;
-  pr->tiles_m = (M + BM - 1) / BM;
-  pr->tiles_n = (N + BN - 1) / BN;
   pr->n_fast = M >= N;
   pr->at = at;
   pr->epi = epi;
   return cudaSuccess;
 }
 
-template <class Epi>
-int tiles(const Problem<Epi>& pr) {
-  return pr.tiles_m * pr.tiles_n;
-}
+// A launch's output tile, as ops/_blocks.py chose it: bm x bn.
+struct Tile {
+  int bm, bn;
+};
 
 // One launch of the first `count` problems of p (their maps and problems
-// set; a problem with A stored [K][M] only where AT), their CTAs in order.
-template <typename T, bool AT, bool BT, class Epi>
-cudaError_t run(Params<Epi>& p, int count, cudaStream_t stream) {
-  if (count < 1 || count > MAX_PROBLEMS) return cudaErrorInvalidValue;
+// set; a problem with A stored [K][M] only where AT), their CTAs in order,
+// on tiles of BM x BN.
+template <typename T, int BM, bool AT, bool BT, class Epi>
+cudaError_t run_tile(Params<Epi>& p, int count, cudaStream_t stream) {
   int blocks = 0;
   for (int i = 0; i < MAX_PROBLEMS; ++i) {
-    if (i < count && p.prob[i].at && !AT) return cudaErrorInvalidValue;
-    blocks += i < count ? tiles(p.prob[i]) : 0;
+    Problem<Epi>& pr = p.prob[i];
+    if (i < count && pr.at && !AT) return cudaErrorInvalidValue;
+    if (i < count) {
+      pr.tiles_m = (pr.M + BM - 1) / BM;
+      pr.tiles_n = (pr.N + BN - 1) / BN;
+      blocks += pr.tiles_m * pr.tiles_n;
+    }
     p.ends[i] = blocks;
   }
-  const cudaError_t err = attn::opt_in<gemm_kernel<T, AT, BT, Epi>>();
+  const cudaError_t err = attn::opt_in<gemm_kernel<T, BM, AT, BT, Epi>>();
   if (err != cudaSuccess) return err;
-  gemm_kernel<T, AT, BT, Epi><<<blocks, THREADS, smem_bytes<T>(), stream>>>(p);
+  gemm_kernel<T, BM, AT, BT, Epi><<<blocks, threads<BM>(), smem_bytes<T, BM>(), stream>>>(p);
   return cudaGetLastError();
+}
+
+// The same at `tile`: its compiled instance, or cudaErrorInvalidValue for a
+// tile that is not compiled for T.
+template <typename T, bool AT, bool BT, class Epi>
+cudaError_t run(Params<Epi>& p, int count, Tile tile, cudaStream_t stream) {
+  if (count < 1 || count > MAX_PROBLEMS || tile.bn != BN) return cudaErrorInvalidValue;
+  switch (tile.bm) {
+    case 64:
+      if constexpr (compiled<T, 64>()) return run_tile<T, 64, AT, BT>(p, count, stream);
+      break;
+    case 128:
+      return run_tile<T, 128, AT, BT>(p, count, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

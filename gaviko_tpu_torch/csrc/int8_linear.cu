@@ -23,11 +23,12 @@
 // projection is 52.3 G int8 operations (0.026 ms at 1,979 TOPS) against
 // 71 MB, the out-projection 0.0105 ms of bytes and the MLP 139.6 G
 // operations (0.071 ms). The products run on csrc/gemm_sm90.cuh's int8
-// instance: 128 x 128 output tiles, a TMA ring of 128-code k tiles fed by one
-// producer warp, wgmma m64n128k32 s32.s8.s8 with both operands K-major in
-// shared memory (the codes [M][Kp] and the sidecar [N][Kp] as stored), int32
-// sums converted to f32 (cvt.rn.f32.s32) for an epilogue functor, each
-// row's scalars staged in shared memory for it. Each W tile is read by the
+// instance: BM x 128 output tiles (BM 64 or 128, ops/_blocks.py's
+// choice a launch: 64 on the last layer's 264 rows), a TMA ring of 128-code
+// k tiles fed by one producer warp, wgmma m64n128k32 s32.s8.s8 with both
+// operands K-major in shared memory (the codes [M][Kp] and the sidecar
+// [N][Kp] as stored), int32 sums converted to f32 (cvt.rn.f32.s32) for an
+// epilogue functor, each row's scalars staged in shared memory for it. Each W tile is read by the
 // CTAs of its column from L2, not by every 32-row block as before. A call
 // is:
 //
@@ -334,15 +335,16 @@ struct Int8Fc2Epi {
 
 // ---------------------------------------------------------------- calls ----
 
-// out[M, N] = codes a [M][Kp] . w [w_rows][Kp]^T through epi; the rows of w
-// past w_rows (up to N) arrive as zeros.
+// out[M, N] = codes a [M][Kp] . w [w_rows][Kp]^T through epi on `tile`; the
+// rows of w past w_rows (up to N) arrive as zeros.
 template <class Epi>
 cudaError_t product(Params<Epi>& p, const int8_t* a, const int8_t* w, int w_rows, int M, int N,
-                    int Kp, const Epi& epi, cudaStream_t stream) {
-  cudaError_t err = gemm::encode_matrix<int8_t>(&p.a[0], a, M, Kp);
+                    int Kp, const Epi& epi, gemm::Tile tile, cudaStream_t stream) {
+  cudaError_t err =
+      gemm::encode_matrix<int8_t>(&p.a[0], a, M, Kp, gemm::a_box_rows<int8_t>(tile.bm));
   if (err == cudaSuccess) err = gemm::encode_matrix<int8_t>(&p.b[0], w, w_rows, Kp);
   if (err == cudaSuccess) err = gemm::problem(&p.prob[0], M, N, Kp, epi);
-  if (err == cudaSuccess) err = gemm::run<int8_t, false, false>(p, 1, stream);
+  if (err == cudaSuccess) err = gemm::run<int8_t, false, false>(p, 1, tile, stream);
   return err;
 }
 
@@ -356,6 +358,7 @@ struct LinearArgs {
   float* sx;      // [M] scratch
   int M, K, Kp, N;
   float eps;
+  gemm::Tile tile;
 };
 
 template <typename T>
@@ -368,7 +371,7 @@ int linear(const LinearArgs& a, void* stream) {
   err = product(p, a.codes, a.w, a.N, a.M, a.N, a.Kp,
                 Int8LinearEpi<T>{a.sx, a.w_scale, static_cast<const T*>(a.bias),
                                  static_cast<T*>(a.out), a.N},
-                s);
+                a.tile, s);
   return static_cast<int>(err);
 }
 
@@ -387,6 +390,7 @@ struct MlpArgs {
   int M, D, Dp, H, Hp;
   float eps;
   int gelu, residual;
+  gemm::Tile fc1, fc2;
 };
 
 template <typename T>
@@ -399,7 +403,7 @@ int mlp_forward(const MlpArgs& a, void* stream) {
   err = product(p1, a.codes_x, a.w1, a.H, a.M, a.H, a.Dp,
                 Int8Fc1Epi<T>{a.sx, a.s1, static_cast<const T*>(a.b1), a.hidden, a.hmax, a.H,
                               a.gelu},
-                s);
+                a.fc1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
   if (a.H % 4 == 0)
@@ -415,7 +419,7 @@ int mlp_forward(const MlpArgs& a, void* stream) {
                 Int8Fc2Epi<T>{a.hmax, a.s2, static_cast<const T*>(a.b2),
                               static_cast<const T*>(a.x), static_cast<T*>(a.out), a.D,
                               a.residual},
-                s);
+                a.fc2, s);
   return static_cast<int>(err);
 }
 
@@ -429,12 +433,14 @@ bool pads_ok(int k, int kp) { return k >= 1 && kp >= k && kp % 16 == 0 && kp - k
 // zero-padded to Kp, the next multiple of 16), w_scale [N] f32, bias [N] or
 // nullptr -> out [M, N]; scratch codes [M, Kp] int8 and sx [M] f32; x,
 // gamma, beta, bias and out of one dtype, all contiguous and 16-byte
-// aligned. Two launches: the row pass, then the GEMM.
+// aligned; (bm, bn) the GEMM's tile (csrc/gemm_sm90.cuh's compiled tiles;
+// another returns cudaErrorInvalidValue). Two launches: the row pass, then
+// the GEMM.
 #define GAVIKO_INT8_LINEAR(SUFFIX, T)                                                             \
   extern "C" int gaviko_int8_linear_##SUFFIX(                                                     \
       const void* x, const void* gamma, const void* beta, const void* w, const void* w_scale,     \
       const void* bias, void* out, void* codes, void* sx, int M, int K, int Kp, int N, float eps, \
-      void* stream) {                                                                             \
+      int bm, int bn, void* stream) {                                                             \
     if (M < 1 || N < 1 || !gaviko::int8::pads_ok(K, Kp))                                          \
       return static_cast<int>(cudaErrorInvalidValue);                                             \
     const gaviko::int8::LinearArgs a{x,     gamma, beta,                                          \
@@ -442,7 +448,7 @@ bool pads_ok(int k, int kp) { return k >= 1 && kp >= k && kp % 16 == 0 && kp - k
                                      static_cast<const float*>(w_scale),                          \
                                      bias,  out,   static_cast<int8_t*>(codes),                   \
                                      static_cast<float*>(sx),                                     \
-                                     M,     K,     Kp,   N,   eps};                               \
+                                     M,     K,     Kp,   N,   eps, {bm, bn}};                     \
     return gaviko::int8::linear<T>(a, stream);                                                    \
   }
 GAVIKO_INT8_LINEAR(bf16, __nv_bfloat16)
@@ -453,14 +459,17 @@ GAVIKO_INT8_LINEAR(f32, float)
 // 16, the weights zero-padded); scratch codes_x [M, Dp] and codes_h [M, Hp]
 // int8, hidden [M, H] f32, sx and hmax [M] f32; x, gamma, beta, b1, b2 and
 // out of one dtype, all contiguous and 16-byte aligned. gelu: 0 exact, 1
-// tanh, 2 erf_fast. Four launches: the row pass, fc1, the hidden's codes,
-// fc2.
+// tanh, 2 erf_fast; (fc1_bm, fc1_bn) and (fc2_bm, fc2_bn) the two GEMMs'
+// tiles (csrc/gemm_sm90.cuh's compiled tiles; another returns
+// cudaErrorInvalidValue). Four launches: the row pass, fc1, the hidden's
+// codes, fc2.
 #define GAVIKO_INT8_MLP(SUFFIX, T)                                                                 \
   extern "C" int gaviko_int8_mlp_##SUFFIX(                                                         \
       const void* x, const void* gamma, const void* beta, const void* w1, const void* s1,          \
       const void* b1, const void* w2, const void* s2, const void* b2, void* out, void* codes_x,    \
       void* codes_h, void* hidden, void* sx, void* hmax, int M, int D, int Dp, int H, int Hp,      \
-      float eps, int gelu, int residual, void* stream) {                                           \
+      float eps, int gelu, int residual, int fc1_bm, int fc1_bn, int fc2_bm, int fc2_bn,           \
+      void* stream) {                                                                              \
     if (M < 1 || !gaviko::int8::pads_ok(D, Dp) || !gaviko::int8::pads_ok(H, Hp))                  \
       return static_cast<int>(cudaErrorInvalidValue);                                              \
     const gaviko::int8::MlpArgs a{x,                                                               \
@@ -485,7 +494,9 @@ GAVIKO_INT8_LINEAR(f32, float)
                                   Hp,                                                              \
                                   eps,                                                             \
                                   gelu,                                                            \
-                                  residual};                                                       \
+                                  residual,                                                        \
+                                  {fc1_bm, fc1_bn},                                                \
+                                  {fc2_bm, fc2_bn}};                                               \
     return gaviko::int8::mlp_forward<T>(a, stream);                                                \
   }
 GAVIKO_INT8_MLP(bf16, __nv_bfloat16)

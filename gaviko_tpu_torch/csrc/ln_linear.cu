@@ -30,7 +30,7 @@ namespace {
 
 template <typename T>
 int ln_linear(const void* x, const void* gamma, const void* beta, const void* w, void* out,
-              void* h, int M, int dim, int n, float eps, void* stream) {
+              void* h, int M, int dim, int n, float eps, gemm::Tile tile, void* stream) {
   if (M < 1 || dim < 1 || n < 1 || dim * sizeof(T) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -41,7 +41,7 @@ int ln_linear(const void* x, const void* gamma, const void* beta, const void* w,
   if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p.a[0], hs, M, dim);
   if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p.b[0], w, n, dim);
   if (err == cudaSuccess) err = gemm::problem(&p.prob[0], M, n, dim, OutEpi<T>{out, n, 0});
-  if (err == cudaSuccess) err = gemm::run<T, false, false>(p, 1, s);
+  if (err == cudaSuccess) err = gemm::run<T, false, false>(p, 1, tile, s);
   return static_cast<int>(err);
 }
 
@@ -51,12 +51,15 @@ int ln_linear(const void* x, const void* gamma, const void* beta, const void* w,
 
 // x [M, dim], gamma and beta [dim], w [out_dim, dim] -> out [M, out_dim],
 // with scratch h [M, dim]; all contiguous, 16-byte aligned, one dtype; rows
-// of dim a multiple of 16 bytes, any out_dim.
+// of dim a multiple of 16 bytes, any out_dim; (bm, bn) the GEMM's tile
+// (csrc/gemm_sm90.cuh's compiled tiles; another returns
+// cudaErrorInvalidValue).
 #define GAVIKO_LN_LINEAR(NAME, T)                                                             \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w,      \
-                      void* out, void* h, int M, int dim, int out_dim, float eps,             \
-                      void* stream) {                                                         \
-    return gaviko::mlp::ln_linear<T>(x, gamma, beta, w, out, h, M, dim, out_dim, eps, stream); \
+                      void* out, void* h, int M, int dim, int out_dim, float eps, int bm,     \
+                      int bn, void* stream) {                                                 \
+    return gaviko::mlp::ln_linear<T>(x, gamma, beta, w, out, h, M, dim, out_dim, eps, {bm, bn}, \
+                                     stream);                                                 \
   }
 GAVIKO_LN_LINEAR(gaviko_ln_linear_bf16, __nv_bfloat16)
 GAVIKO_LN_LINEAR(gaviko_ln_linear_f32, float)

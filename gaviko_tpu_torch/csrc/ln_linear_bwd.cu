@@ -49,7 +49,8 @@ struct BwdPtrs {
 };
 
 template <typename T>
-int ln_linear_bwd(const BwdPtrs& p, int M, int dim, int out, float eps, void* stream) {
+int ln_linear_bwd(const BwdPtrs& p, int M, int dim, int out, float eps, gemm::Tile tile,
+                  void* stream) {
   if (M < 1 || dim < 1 || out < 1 || dim * sizeof(T) % 16 || out * sizeof(T) % 16 ||
       (p.dw != nullptr) != (p.h != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -80,7 +81,7 @@ int ln_linear_bwd(const BwdPtrs& p, int M, int dim, int out, float eps, void* st
   q.a[count] = m_dy;
   q.b[count] = m_w;
   if (err == cudaSuccess) err = gemm::problem(&q.prob[count], M, dim, out, OutEpi<T>{p.dh, dim, 1});
-  if (err == cudaSuccess) err = gemm::run<T, true, true>(q, count + 1, s);
+  if (err == cudaSuccess) err = gemm::run<T, true, true>(q, count + 1, tile, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const LnArgs<T> ln{x,      gamma,      nullptr,    p.dh, p.mean, p.rstd, static_cast<T*>(p.dx),
@@ -103,15 +104,17 @@ int ln_linear_bwd(const BwdPtrs& p, int M, int dim, int out, float eps, void* st
 // scratch h [M, dim] in the same dtype (null exactly when dw is), dh [M,
 // dim], mean, rstd [M] and part_dg, part_db [ceil(M / 16), dim] f32. All
 // contiguous and 16-byte aligned; rows of dim and of out a multiple of 16
-// bytes.
+// bytes. (bm, bn): the tile of the launch of dW and dh
+// (csrc/gemm_sm90.cuh's compiled tiles; another returns
+// cudaErrorInvalidValue).
 #define GAVIKO_LN_LINEAR_BWD(NAME, T)                                                          \
   extern "C" int NAME(const void* x, const void* gamma, const void* beta, const void* w,       \
                       const void* dy, void* dx, void* dgamma, void* dbeta, void* dw, void* h,  \
                       float* dh, float* mean, float* rstd, float* part_dg, float* part_db,     \
-                      int M, int dim, int out, float eps, void* stream) {                      \
+                      int M, int dim, int out, float eps, int bm, int bn, void* stream) {      \
     const gaviko::mlp::BwdPtrs p{x,  gamma, beta, w,    dy,   dx,      dgamma, dbeta,          \
                                  dw, h,     dh,   mean, rstd, part_dg, part_db};               \
-    return gaviko::mlp::ln_linear_bwd<T>(p, M, dim, out, eps, stream);                         \
+    return gaviko::mlp::ln_linear_bwd<T>(p, M, dim, out, eps, {bm, bn}, stream);               \
   }
 GAVIKO_LN_LINEAR_BWD(gaviko_ln_linear_bwd_bf16, __nv_bfloat16)
 GAVIKO_LN_LINEAR_BWD(gaviko_ln_linear_bwd_f32, float)

@@ -115,7 +115,7 @@ struct PatchEpi {
 template <typename T>
 int patchify(const void* img, const void* w, const void* bias, const void* pos, void* out,
              void* rows, int B, int C, int D, int H, int W, int pd, int ph, int pw, int dim,
-             int kp, int vec, void* stream) {
+             int kp, int vec, gemm::Tile tile, void* stream) {
   Geom g;
   g.B = B; g.C = C; g.D = D; g.H = H; g.W = W;
   g.pd = pd; g.ph = ph; g.pw = pw;
@@ -143,7 +143,7 @@ int patchify(const void* img, const void* w, const void* bias, const void* pos, 
   if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p.a[0], r, static_cast<int>(M), kp);
   if (err == cudaSuccess) err = gemm::encode_matrix<T>(&p.b[0], w, dim, kp);
   if (err == cudaSuccess) err = gemm::problem(&p.prob[0], static_cast<int>(M), dim, kp, epi);
-  if (err == cudaSuccess) err = gemm::run<T, false, false>(p, 1, s);
+  if (err == cudaSuccess) err = gemm::run<T, false, false>(p, 1, tile, s);
   return static_cast<int>(err);
 }
 
@@ -157,13 +157,16 @@ int patchify(const void* img, const void* w, const void* bias, const void* pos, 
 // dim]; rows [B * n_tok, kp] (save_rows' output or scratch); all
 // contiguous, 16-byte aligned, one dtype. vec: the elements a thread of
 // the rows pass moves (16 / sizeof(T) where pw and W are multiples of it,
-// else 1), as ops/gemm_plan.py:patchify_plan gives it.
+// else 1), as ops/gemm_plan.py:patchify_plan gives it; (bm, bn) the GEMM's
+// tile (csrc/gemm_sm90.cuh's compiled tiles; another returns
+// cudaErrorInvalidValue).
 #define GAVIKO_PATCHIFY(NAME, T)                                                              \
   extern "C" int NAME(const void* img, const void* w, const void* bias, const void* pos,     \
                       void* out, void* rows, int B, int C, int D, int H, int W, int pd,      \
-                      int ph, int pw, int dim, int kp, int vec, void* stream) {              \
+                      int ph, int pw, int dim, int kp, int vec, int bm, int bn,              \
+                      void* stream) {                                                        \
     return gaviko::patchify::patchify<T>(img, w, bias, pos, out, rows, B, C, D, H, W, pd,     \
-                                         ph, pw, dim, kp, vec, stream);                       \
+                                         ph, pw, dim, kp, vec, {bm, bn}, stream);             \
   }
 GAVIKO_PATCHIFY(gaviko_patchify_bf16, __nv_bfloat16)
 GAVIKO_PATCHIFY(gaviko_patchify_f32, float)

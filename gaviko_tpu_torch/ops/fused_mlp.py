@@ -40,9 +40,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops import _blocks, _build
 from gaviko_tpu_torch.ops.gemm_plan import (  # noqa: F401 (SMEM_LIMIT, launch_tile: the plan's API)
-    ROW_BLOCK, SMEM_LIMIT, TILE_M, TILE_N, GemmProduct, _layout, _scratch, gemm_smem, launch_tile)
+    ROW_BLOCK, SMEM_LIMIT, TILE, GemmProduct, _layout, _scratch, gemm_smem, launch_tile,
+    launch_tiles)
 from gaviko_tpu_torch.ops.hash_dropout import dropout_args, keep_mask
 from gaviko_tpu_torch.ops.ln_linear import layer_norm_rounded
 
@@ -53,8 +54,9 @@ GELU_MODES = ("exact", "tanh", "erf_fast")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DROP = (_I, _I, _F)  # seed, threshold, 1 / (1 - rate)
-_ARGTYPES = (_P,) * 11 + (_I,) * 5 + (_F,) + _DROP + (_I, _P)
-_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_I, _P)
+_TILES = (_I,) * 4  # two launches' tiles: (bm, bn) each
+_ARGTYPES = (_P,) * 11 + (_I,) * 5 + (_F,) + _DROP + (_I,) + _TILES + (_P,)
+_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 5 + (_F,) + _DROP + (_I,) + _TILES + (_P,)
 
 
 class MlpPlan(NamedTuple):
@@ -64,7 +66,7 @@ class MlpPlan(NamedTuple):
     mlp: int
     dtype: torch.dtype
     chunk: int       # depth of a k tile: 128 bytes of columns
-    smem: int        # the GEMM's shared memory a CTA, bytes
+    smem: int        # the GEMM's shared memory a CTA at the largest of its tiles, bytes
     # The GEMM launches, each one or more products: B6's fc1 and fc2 after
     # its LN pass; B7's dg, then dw2, dw1 and dh in one launch.
     forward: Tuple[Tuple[GemmProduct, ...], ...]
@@ -76,22 +78,38 @@ class MlpPlan(NamedTuple):
     launches: Tuple[int, int]  # kernel launches a call of B6, of B7
 
 
-@functools.lru_cache(maxsize=256)
+def mlp_tiles(rows: int, dim: int, mlp: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """The tiles of B6's fc1 and fc2 launches and of B7's dg launch and its
+    launch of dW2, dW1 and dh (``ops/_blocks.py``; ``GAVIKO_MLP_BLOCK``
+    overrides all four, read at every call)."""
+    def tile(*shapes):
+        return _blocks.gemm_tile(shapes, dtype, _blocks.MLP_ENV)
+
+    return (tile((rows, mlp)), tile((rows, dim)), tile((rows, mlp)),
+            tile((dim, mlp), (mlp, dim), (rows, dim)))
+
+
 def mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype = torch.bfloat16) -> MlpPlan:
     """The plan of B6 and B7 for ``rows`` rows of width ``dim`` and an
-    ``mlp``-wide hidden (made only here; the wrappers hand its scratch to
-    the kernels, which take the same tiles). Every product runs on the
-    GEMM's 128 x 128 tiles with k tiles of 128 bytes (64 bf16 / 32 f32
-    columns), each CTA over its product's whole depth; the weight gradients,
-    whose depth is the rows, share a launch with dh, whose tiles fill their
-    last wave. Raises where the kernels cannot run: dim or mlp not a
-    positive multiple of 128, no rows, a dtype other than bf16 / f32, or a
-    matrix of 2**31 elements or more."""
+    ``mlp``-wide hidden (made only here; the wrappers hand its scratch and
+    tiles to the kernels). Every product runs on the GEMM with k tiles of
+    128 bytes (64 bf16 / 32 f32 columns), each CTA over its product's whole
+    depth, on its launch's tile (:func:`mlp_tiles`, resolved here, outside
+    the plan's cache); the weight gradients, whose depth is the rows, share
+    a launch with dh, whose tiles fill their last wave. Raises where the
+    kernels cannot run: dim or mlp not a positive multiple of 128, no rows,
+    a dtype other than bf16 / f32, or a matrix of 2**31 elements or more."""
+    tiles = mlp_tiles(rows, dim, mlp, dtype) if dtype in _blocks.TILES else (TILE,) * 4
+    return _mlp_plan(rows, dim, mlp, dtype, tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def _mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype, tiles) -> MlpPlan:
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"kernels take bfloat16 or float32, got {dtype}")
-    if dim < 1 or mlp < 1 or dim % TILE_N or mlp % TILE_N:
+    if dim < 1 or mlp < 1 or dim % _blocks.BN or mlp % _blocks.BN:
         raise NotImplementedError(
-            f"fused_mlp kernels take dim and mlp_dim positive multiples of {TILE_N}; got "
+            f"fused_mlp kernels take dim and mlp_dim positive multiples of {_blocks.BN}; got "
             f"dim {dim}, mlp_dim {mlp}")
     if rows < 1:
         raise ValueError(f"fused_mlp: no rows ({rows})")
@@ -101,7 +119,9 @@ def mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype = torch.bfloat16)
             f"{dim}, mlp_dim {mlp}")
     chunk = 128 // dtype.itemsize
     f32, dt = torch.float32, dtype
-    row_blocks, tiles_m = -(-rows // ROW_BLOCK), -(-rows // TILE_M)
+    fc1_tile, fc2_tile, dg_tile, grads_tile = tiles
+    # dg's launch writes a row of db1's partials a tile of its rows.
+    row_blocks, tiles_m = -(-rows // ROW_BLOCK), -(-rows // dg_tile[0])
     fwd_scratch, fwd_bytes = _layout((("h", (rows, dim), dt), ("g", (rows, mlp), dt)))
     bwd = [("h", (rows, dim), dt), ("dout", (rows, dim), dt), ("gd", (rows, mlp), dt),
            ("da", (rows, mlp), dt), ("dh", (rows, dim), f32), ("mean", (rows,), f32),
@@ -109,13 +129,14 @@ def mlp_plan(rows: int, dim: int, mlp: int, dtype: torch.dtype = torch.bfloat16)
            ("part_db1", (tiles_m, mlp), f32), ("part_dg", (row_blocks, dim), f32),
            ("part_db", (row_blocks, dim), f32)]
     bwd_scratch, bwd_bytes = _layout(bwd)
-    smem = gemm_smem(dtype)
+    smem = max(gemm_smem(dtype, t) for t in tiles)
     g = GemmProduct
     return MlpPlan(
         rows, dim, mlp, dtype, chunk, smem,
-        ((g("fc1", rows, mlp, dim),), (g("fc2", rows, dim, mlp),)),
-        ((g("dg", rows, mlp, dim),),
-         (g("dw2", dim, mlp, rows), g("dw1", mlp, dim, rows), g("dh", rows, dim, mlp))),
+        ((g("fc1", rows, mlp, dim, fc1_tile),), (g("fc2", rows, dim, mlp, fc2_tile),)),
+        ((g("dg", rows, mlp, dim, dg_tile),),
+         (g("dw2", dim, mlp, rows, grads_tile), g("dw1", mlp, dim, rows, grads_tile),
+          g("dh", rows, dim, mlp, grads_tile))),
         fwd_scratch, bwd_scratch, fwd_bytes, bwd_bytes, (3, 5))
 
 
@@ -284,7 +305,7 @@ def fused_mlp_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), None if a is None else a.data_ptr(),
         scratch["h"], scratch["g"], rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual),
-        eps, *drop, _build.stream_of(x))
+        eps, *drop, *launch_tiles(plan.forward), _build.stream_of(x))
     fused_mlp.launches += 1
     return (out, a) if save_a else out
 
@@ -411,7 +432,7 @@ def fused_mlp_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         *(sc[n] for n in ("h", "dout", "gd", "da", "dh", "mean", "rstd", "part_db2",
                           "part_db1", "part_dg", "part_db")),
         rows, dim, mlp_dim, GELU_MODES.index(mode), int(residual), eps, *drop,
-        _build.stream_of(x))
+        *launch_tiles(plan.backward), _build.stream_of(x))
     fused_mlp_bwd.launches += 1
     return outs
 

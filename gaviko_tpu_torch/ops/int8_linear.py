@@ -40,9 +40,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops import _blocks, _build
 from gaviko_tpu_torch.ops.fused_mlp import GELU_MODES, gelu_by_mode, gelu_mode
-from gaviko_tpu_torch.ops.gemm_plan import GemmProduct, _layout, _scratch, gemm_smem
+from gaviko_tpu_torch.ops.gemm_plan import (
+    GemmProduct, _layout, _scratch, gemm_smem, launch_tiles)
 
 # Sidecar param-key suffixes carrying the quantized backbone (the JAX
 # package's names, so a quantized dict moves between the packages as is).
@@ -60,8 +61,8 @@ K_ALIGN = 16
 ROW_BLOCK = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LINEAR_ARGTYPES = (_P,) * 9 + (_I,) * 4 + (_F, _P)
-_MLP_ARGTYPES = (_P,) * 15 + (_I,) * 5 + (_F, _I, _I, _P)
+_LINEAR_ARGTYPES = (_P,) * 9 + (_I,) * 4 + (_F, _I, _I, _P)
+_MLP_ARGTYPES = (_P,) * 15 + (_I,) * 5 + (_F,) + (_I,) * 6 + (_P,)
 _SERVING_ONLY = "int8 is serving-only, as in the JAX package: training ignores the sidecars"
 
 
@@ -205,7 +206,7 @@ class Int8Plan(NamedTuple):
     padded: Tuple[str, ...]  # the weights that take a zero-padded copy (K not a multiple)
     scratch: Tuple[Tuple[str, Tuple[int, ...], torch.dtype, int], ...]
     scratch_bytes: int
-    smem: int        # the GEMM's shared memory a CTA, bytes
+    smem: int        # the GEMM's shared memory a CTA at the largest of its tiles, bytes
     launches: int    # kernel launches a call
 
 
@@ -213,19 +214,28 @@ def _pad(k: int) -> int:
     return -(-k // K_ALIGN) * K_ALIGN
 
 
-@functools.lru_cache(maxsize=256)
-def int8_plan(kind: str, rows: int, k: int, n: int,
-              dtype: torch.dtype = torch.bfloat16) -> Int8Plan:
+def int8_plan(kind: str, rows: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16,
+              block=None) -> Int8Plan:
     """The plan of B11 for ``rows`` rows: int8_linear (``kind`` "linear")
     from ``k`` to ``n`` columns, or int8_mlp ("mlp") of width ``k`` with an
-    ``n``-wide hidden (made only here; the wrappers hand its scratch and
-    padded weights to the kernels, which take the same tiles). Any widths:
-    the row pass loops over a row, the products run on 128 x 128 tiles with
-    128-code k tiles (TMA zero-fills past the edges), and a width that is no
-    multiple of 16 is padded to one (codes written by the row pass, weights
-    copied once). Raises only where no kernel can run: no rows or columns,
-    a dtype other than bf16 / f32, or a matrix of 2**31 elements or
-    more."""
+    ``n``-wide hidden (made only here; the wrappers hand its scratch, tiles
+    and padded weights to the kernels). Any widths: the row pass loops over
+    a row, the products run on the int8 tiles of ``ops/_blocks.py``'s
+    choice (resolved here, outside the plan's cache; ``block`` forces a
+    tile's rows, and no variable overrides it, as in JAX) with 128-code k
+    tiles (TMA zero-fills past the edges), and a width that is no multiple
+    of 16 is padded to one (codes written by the row pass, weights copied
+    once). Raises only where no kernel can run: no rows or columns, a dtype
+    other than bf16 / f32, or a matrix of 2**31 elements or more."""
+    def tile(m, n_out):
+        return _blocks.gemm_tile(((m, n_out),), torch.int8, block=block)
+
+    tiles = (tile(rows, n),) if kind != "mlp" else (tile(rows, n), tile(rows, k))
+    return _int8_plan(kind, rows, k, n, dtype, tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def _int8_plan(kind: str, rows: int, k: int, n: int, dtype: torch.dtype, tiles) -> Int8Plan:
     if kind not in ("linear", "mlp"):
         raise ValueError(f"int8_plan: kind is 'linear' or 'mlp', got {kind!r}")
     if dtype not in (torch.bfloat16, torch.float32):
@@ -242,16 +252,16 @@ def int8_plan(kind: str, rows: int, k: int, n: int,
     i8, f32 = torch.int8, torch.float32
     P = GemmProduct
     if kind == "linear":
-        products = ((P("linear", rows, n, k_pad),),)
+        products = ((P("linear", rows, n, k_pad, tiles[0]),),)
         padded = ("w",) if k_pad != k else ()
         scratch = (("codes", (rows, k_pad), i8), ("sx", (rows,), f32))
     else:
-        products = ((P("fc1", rows, n, k_pad),), (P("fc2", rows, k, n_pad),))
+        products = ((P("fc1", rows, n, k_pad, tiles[0]),), (P("fc2", rows, k, n_pad, tiles[1]),))
         padded = tuple(w for w, kk in (("w1", k), ("w2", n)) if _pad(kk) != kk)
         scratch = (("codes_x", (rows, k_pad), i8), ("codes_h", (rows, n_pad), i8),
                    ("hidden", (rows, n), f32), ("sx", (rows,), f32), ("hmax", (rows,), f32))
     layout, nbytes = _layout(scratch)
-    smem = gemm_smem(torch.int8)
+    smem = max(gemm_smem(torch.int8, t) for t in tiles)
     # The row pass before the products; the MLP's hidden codes between them.
     launches = 1 + len(products) + (kind == "mlp")
     return Int8Plan(kind, rows, k, n, dtype, k_pad, n_pad, vec if k % vec == 0 else 1,
@@ -290,10 +300,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
-                beta: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
+                beta: Optional[torch.Tensor] = None, eps: float = 1e-5,
+                block: Optional[int] = None) -> torch.Tensor:
     """Same contract as :func:`int8_linear_reference`; the kernels on CUDA
     (two launches: the row pass, then the GEMM). Refuses a gradient on
-    either device."""
+    either device. ``block`` forces the GEMM's tile rows (an A/B run;
+    ``ops/_blocks.py`` chooses otherwise)."""
     _build.refuse_grad("int8_linear", _SERVING_ONLY, x, bias, gamma, beta)
     if not _build.use_kernel(x):
         return int8_linear_reference(x, w_i8, w_scale, bias, gamma, beta, eps)
@@ -303,7 +315,7 @@ def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
     dout = _check_weight("int8_linear", w_i8, w_scale, din)
     if (gamma is None) != (beta is None):
         raise ValueError("int8_linear: gamma and beta come together")
-    plan = int8_plan("linear", x.numel() // max(din, 1), din, dout, x.dtype)
+    plan = int8_plan("linear", x.numel() // max(din, 1), din, dout, x.dtype, block)
     x, w_scale = x.contiguous(), w_scale.float().contiguous()
     floats = [t for t in (x, gamma, beta, bias) if t is not None]
     _build.check_cuda("int8_linear", *floats)
@@ -319,7 +331,7 @@ def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
         "int8_linear", f"gaviko_int8_linear_{_build.dtype_suffix(x)}", _LINEAR_ARGTYPES,
         x.data_ptr(), _ptr(gamma), _ptr(beta), w.data_ptr(), w_scale.data_ptr(), _ptr(bias),
         out.data_ptr(), scratch["codes"], scratch["sx"], plan.rows, din, plan.k_pad, dout, eps,
-        _build.stream_of(x))
+        *launch_tiles(plan.products), _build.stream_of(x))
     int8_linear.launches += 1
     return out
 
@@ -330,10 +342,12 @@ int8_linear.launches = 0
 def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              w1_i8: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
              w2_i8: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
-             eps: float = 1e-5, approximate="exact", residual: bool = False) -> torch.Tensor:
+             eps: float = 1e-5, approximate="exact", residual: bool = False,
+             block: Optional[int] = None) -> torch.Tensor:
     """Same contract as :func:`int8_mlp_reference`; the kernels on CUDA (four
     launches: the row pass, fc1 writing the f32 hidden and its rows' maxima,
-    the hidden's codes, fc2). Refuses a gradient on either device."""
+    the hidden's codes, fc2). Refuses a gradient on either device. ``block``
+    forces both GEMMs' tile rows (an A/B run)."""
     _build.refuse_grad("int8_mlp", _SERVING_ONLY, x, gamma, beta, b1, b2)
     if not _build.use_kernel(x):
         return int8_mlp_reference(x, gamma, beta, w1_i8, s1, b1, w2_i8, s2, b2, eps,
@@ -345,7 +359,7 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     mlp_dim = _check_weight("int8_mlp fc1", w1_i8, s1, dim)
     if _check_weight("int8_mlp fc2", w2_i8, s2, mlp_dim) != dim:
         raise ValueError(f"int8_mlp: fc2 must map {mlp_dim} -> {dim}")
-    plan = int8_plan("mlp", x.numel() // max(dim, 1), dim, mlp_dim, x.dtype)
+    plan = int8_plan("mlp", x.numel() // max(dim, 1), dim, mlp_dim, x.dtype, block)
     x, s1, s2 = x.contiguous(), s1.float().contiguous(), s2.float().contiguous()
     _build.check_cuda("int8_mlp", x, gamma, beta, b1, b2)
     if gamma.numel() != dim or beta.numel() != dim or b1.numel() != mlp_dim \
@@ -362,7 +376,8 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         scratch["codes_x"], scratch["codes_h"], scratch["hidden"], scratch["sx"],
         scratch["hmax"], plan.rows, dim, plan.k_pad, mlp_dim, plan.n_pad, eps,
-        GELU_MODES.index(gelu_mode(approximate)), int(residual), _build.stream_of(x))
+        GELU_MODES.index(gelu_mode(approximate)), int(residual), *launch_tiles(plan.products),
+        _build.stream_of(x))
     int8_mlp.launches += 1
     return out
 

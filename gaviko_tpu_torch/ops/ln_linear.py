@@ -46,8 +46,9 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from gaviko_tpu_torch.ops import _build
-from gaviko_tpu_torch.ops.gemm_plan import ROW_BLOCK, GemmProduct, _layout, _scratch, gemm_smem
+from gaviko_tpu_torch.ops import _blocks, _build
+from gaviko_tpu_torch.ops.gemm_plan import (
+    ROW_BLOCK, TILE, GemmProduct, _layout, _scratch, gemm_smem, launch_tiles)
 
 # The JAX package's weight budget (its VMEM residency gate) and the hybrid
 # backward's (weights and an f32 dW accumulator resident). Kept as they are
@@ -56,8 +57,8 @@ _WEIGHT_BUDGET = 4_000_000
 _HYBRID_BUDGET = 45_000_000
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 6 + (_I,) * 3 + (_F, _P)
-_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 3 + (_F, _P)
+_ARGTYPES = (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P)
+_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 3 + (_F, _I, _I, _P)
 
 
 def ln_linear_supported(dim: int, out_dim: int, dtype: torch.dtype) -> bool:
@@ -94,20 +95,30 @@ class LnLinearPlan(NamedTuple):
 KINDS = ("forward", "backward", "backward_dh")
 
 
-@functools.lru_cache(maxsize=256)
 def ln_linear_plan(kind: str, rows: int, dim: int, out: int,
                    dtype: torch.dtype = torch.bfloat16) -> LnLinearPlan:
     """The plan of B9 (``kind`` "forward") or B12 ("backward", or
     "backward_dh" without dW) for ``rows`` rows of width ``dim`` and an
     ``out``-wide projection (made only here; the wrappers hand its scratch
-    to the kernels, which take the same tiles). Every product runs on the
-    GEMM's 128 x 128 tiles with k tiles of 128 bytes (64 bf16 / 32 f32
-    columns), each CTA over its product's whole depth, TMA zero-filling
-    past every edge; B12's dW, whose depth is the rows, shares a launch with
-    dh, whose tiles fill its last wave. Raises only where no kernel can run:
-    a dtype other than bf16 / f32, no rows or columns, a K stride (the rows
-    of x and W, and for B12 of dy) that is no multiple of 16 bytes (TMA's
-    global strides), or a matrix of 2**31 elements or more."""
+    and tile to the kernels). Every product runs on the GEMM with k tiles of
+    128 bytes (64 bf16 / 32 f32 columns), each CTA over its product's whole
+    depth, TMA zero-filling past every edge, on its launch's tile
+    (``ops/_blocks.py``, resolved here, outside the plan's cache;
+    ``GAVIKO_LNL_BLOCK`` overrides it); B12's dW, whose depth is the rows,
+    shares a launch with dh, whose tiles fill its last wave. Raises only
+    where no kernel can run: a dtype other than bf16 / f32, no rows or
+    columns, a K stride (the rows of x and W, and for B12 of dy) that is no
+    multiple of 16 bytes (TMA's global strides), or a matrix of 2**31
+    elements or more."""
+    shapes = ((rows, out),) if kind == "forward" else \
+        ((out, dim), (rows, dim)) if kind == "backward" else ((rows, dim),)
+    tile = _blocks.gemm_tile(shapes, dtype, _blocks.LNL_ENV) if dtype in _blocks.TILES else TILE
+    return _ln_linear_plan(kind, rows, dim, out, dtype, tile)
+
+
+@functools.lru_cache(maxsize=256)
+def _ln_linear_plan(kind: str, rows: int, dim: int, out: int, dtype: torch.dtype,
+                    tile) -> LnLinearPlan:
     if kind not in KINDS:
         raise ValueError(f"ln_linear_plan: kind is one of {KINDS}, got {kind!r}")
     if dtype not in (torch.bfloat16, torch.float32):
@@ -126,20 +137,20 @@ def ln_linear_plan(kind: str, rows: int, dim: int, out: int,
             f"{dim} -> {out}")
     P, dt, f32 = GemmProduct, dtype, torch.float32
     if kind == "forward":
-        products = ((P("linear", rows, out, dim),),)
+        products = ((P("linear", rows, out, dim, tile),),)
         row_blocks = 0
         scratch = (("h", (rows, dim), dt),)
         launches = 2  # the LN pass, the GEMM
     else:
-        dh = P("dh", rows, dim, out)
-        products = ((P("dw", out, dim, rows), dh),) if kind == "backward" else ((dh,),)
+        dh = P("dh", rows, dim, out, tile)
+        products = ((P("dw", out, dim, rows, tile), dh),) if kind == "backward" else ((dh,),)
         row_blocks = -(-rows // ROW_BLOCK)
         scratch = ((("h", (rows, dim), dt),) if kind == "backward" else ()) + (
             ("dh", (rows, dim), f32), ("mean", (rows,), f32), ("rstd", (rows,), f32),
             ("part_dg", (row_blocks, dim), f32), ("part_db", (row_blocks, dim), f32))
         launches = 4  # the row pass, the GEMM, the LN backward's row pass, the sums
     layout, nbytes = _layout(scratch)
-    return LnLinearPlan(kind, rows, dim, out, dtype, 128 // dtype.itemsize, gemm_smem(dtype),
+    return LnLinearPlan(kind, rows, dim, out, dtype, 128 // dtype.itemsize, gemm_smem(dtype, tile),
                         products, row_blocks, layout, nbytes, launches)
 
 
@@ -181,7 +192,8 @@ def _ln_linear_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.launch(
         "ln_linear", f"gaviko_ln_linear_{_build.dtype_suffix(x)}", _ARGTYPES,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), out.data_ptr(),
-        sc["h"], plan.rows, dim, out_dim, eps, _build.stream_of(x))
+        sc["h"], plan.rows, dim, out_dim, eps, *launch_tiles(plan.products),
+        _build.stream_of(x))
     fused_ln_linear.launches += 1
     return out
 
@@ -240,7 +252,7 @@ def ln_linear_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         *(t.data_ptr() for t in (x, gamma, beta, w, dy, dx, dgamma, dbeta)),
         None if dw is None else dw.data_ptr(), sc.get("h"),
         *(sc[n] for n in ("dh", "mean", "rstd", "part_dg", "part_db")),
-        plan.rows, dim, out_dim, eps, _build.stream_of(x))
+        plan.rows, dim, out_dim, eps, *launch_tiles(plan.products), _build.stream_of(x))
     ln_linear_bwd.launches += 1
     return dx, dgamma, dbeta, dw
 

@@ -32,7 +32,7 @@ from gaviko_tpu_torch.ops import _build
 from gaviko_tpu_torch.ops.gemm_plan import _scratch, patchify_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 6 + (_I,) * 11 + (_P,)
+_ARGTYPES = (_P,) * 6 + (_I,) * 13 + (_P,)
 
 
 def _geometry(img: torch.Tensor, weight: torch.Tensor):
@@ -79,11 +79,13 @@ def patchify_reference(img: torch.Tensor, weight: torch.Tensor,
 
 
 def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    pos: Optional[torch.Tensor] = None, save_rows: bool = False):
+                    pos: Optional[torch.Tensor] = None, save_rows: bool = False,
+                    block: Optional[int] = None):
     """Same contract as :func:`patchify_reference`, with no gradient; the
     kernel on CUDA. With ``save_rows`` it returns (out, rows), rows the patch
     matrix [B * N, C * pd * ph * pw] (on the card a view of the rows pass's
-    [B * N, kp]; on the CPU from :func:`patch_rows`)."""
+    [B * N, kp]; on the CPU from :func:`patch_rows`). ``block`` forces the
+    GEMM's tile rows (an A/B run; ``ops/_blocks.py`` chooses otherwise)."""
     B, C, D, H, W, dim, pd, ph, pw = _geometry(img, weight)
     if not _build.use_kernel(img):
         out = patchify_reference(img, weight, bias, pos)
@@ -97,7 +99,7 @@ def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _build.refuse_grad("patchify_kernel", "the gradient goes through patchify_fused",
                        *(t for t in (img, weight, bias, pos) if t is not None))
     dt = img.dtype
-    plan = patchify_plan(B, C, (D, H, W), (pd, ph, pw), dim, dt, save_rows)
+    plan = patchify_plan(B, C, (D, H, W), (pd, ph, pw), dim, dt, save_rows, block)
     weight = weight.to(dt).reshape(dim, plan.k)
     if plan.kp > plan.k:
         weight = F.pad(weight, (0, plan.kp - plan.k))
@@ -121,7 +123,8 @@ def patchify_kernel(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         "patchify", f"gaviko_patchify_{_build.dtype_suffix(img)}", _ARGTYPES,
         img.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         None if pos is None else pos.data_ptr(), out.data_ptr(), rows_ptr,
-        B, C, D, H, W, pd, ph, pw, dim, plan.kp, plan.vector, _build.stream_of(img))
+        B, C, D, H, W, pd, ph, pw, dim, plan.kp, plan.vector, *plan.products[0][0].tile_shape,
+        _build.stream_of(img))
     patchify_fused.launches += 1
     return (out, rows[:, :plan.k]) if save_rows else out
 

@@ -783,7 +783,9 @@ def test_fused_mlp_bwd_bit_equal_to_before_the_move(dev):
     """B7's outputs on fixed inputs are bit-equal to the redesigned kernel's
     digests, two calls agreeing (``chip_smoke.b7_digests`` and B7_DIGESTS),
     and B12's to the digests of B12 on the same GEMM
-    (``chip_smoke.b12_digests`` and B12_DIGESTS)."""
+    (``chip_smoke.b12_digests`` and B12_DIGESTS), both at the 128 x 128
+    tile; at the GEMM's other compiled tiles, to B7_TILE_DIGESTS and
+    B12_TILE_DIGESTS."""
     import importlib.util
     from pathlib import Path
 
@@ -793,6 +795,9 @@ def test_fused_mlp_bwd_bit_equal_to_before_the_move(dev):
     spec.loader.exec_module(smoke)
     assert smoke.b7_digests() == smoke.B7_DIGESTS
     assert smoke.b12_digests() == smoke.B12_DIGESTS
+    for block in smoke.TILE_DIGEST_BLOCKS:
+        assert smoke.b7_digests(block) == smoke.B7_TILE_DIGESTS[block]
+        assert smoke.b12_digests(block) == smoke.B12_TILE_DIGESTS[block]
 
 
 # B6 and B7 at the widths of vit-s16 (384, 1,536) and vit-b16 (768, 3,072)
@@ -1889,3 +1894,149 @@ def test_fused_adam_sharded_norm_bit_equal_to_one_launch(dev, monkeypatch, dtype
     for got, ref in zip(split, runs[0]):
         for i in range(len(ADAM_SIZES)):
             torch.testing.assert_close(got[i], ref[i], **tol)
+
+
+# ------------------------------------------- the GEMM's tiles (ops/_blocks.py) ----
+
+def _tile_params():
+    """(operand dtype, tile rows) of every tile compiled for bf16 and fp32."""
+    from gaviko_tpu_torch.ops import _blocks
+
+    return [(dt, bm) for dt in (torch.float32, torch.bfloat16) for bm, _ in _blocks.TILES[dt]]
+
+
+def _int8_tile_rows():
+    from gaviko_tpu_torch.ops import _blocks
+
+    return [bm for bm, _ in _blocks.TILES[torch.int8]]
+
+
+# Ragged rows (1,001: no multiple of any tile's rows; 70: under one 128-row
+# tile) at widths whose N is no multiple of 128 where the kernel takes it.
+@pytest.mark.parametrize("dtype,block", _tile_params())
+@pytest.mark.parametrize("rows", [1001, 70])
+def test_mlp_kernels_at_every_tile(dev, monkeypatch, dtype, block, rows):
+    """B6 (dropout, save_a, the residual) and B7 (its dg launch and its
+    launch of dW2, dW1 and dh) with GAVIKO_MLP_BLOCK set to each compiled
+    tile: every output against the plain version, the plan's launches on
+    that tile, a rerun bit-equal."""
+    from gaviko_tpu_torch.ops import _blocks
+    from gaviko_tpu_torch.ops.fused_mlp import mlp_plan
+
+    monkeypatch.setenv(_blocks.MLP_ENV, str(block))
+    dim, mlp = 384, 1536
+    plan = mlp_plan(rows, dim, mlp, dtype)
+    assert {p.tile_shape for launch in plan.forward + plan.backward for p in launch} == {
+        (block, 128)}
+    gen = torch.Generator(device=dev).manual_seed(40)
+    args = _mlp_args(gen, 1, rows, dim, mlp, dtype)
+    dy = _randn(gen, 1, rows, dim, dtype=dtype)
+    out, a = fused_mlp_forward(*args, 1e-5, "exact", 0.1, True, 21, save_a=True)
+    want, want_a = mlp_reference(*args, 1e-5, "exact", 0.1, True, 21, save_a=True)
+    assert _rel_mae(out, want) <= BUDGET[dtype] and _rel_mae(a, want_a) <= BUDGET[dtype]
+    again = fused_mlp_forward(*args, 1e-5, "exact", 0.1, True, 21, save_a=True)
+    assert torch.equal(out, again[0]) and torch.equal(a, again[1])
+    got = fused_mlp_bwd(*args, dy, a, 1e-5, "exact", 0.1, True, 21)
+    wants = mlp_bwd_reference(*args, dy, a, 1e-5, "exact", 0.1, True, 21)
+    for name, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), got, wants):
+        assert torch.isfinite(g).all(), name
+        assert _rel_mae(g, w) <= BUDGET[dtype], (name, _rel_mae(g, w))
+    again = fused_mlp_bwd(*args, dy, a, 1e-5, "exact", 0.1, True, 21)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,block", _tile_params())
+@pytest.mark.parametrize("rows,dim,out", [(1001, 768, 2304), (70, 256, 200)])
+def test_ln_linear_kernels_at_every_tile(dev, monkeypatch, dtype, block, rows, dim, out):
+    """B9 and B12 (with dW: its launch of dW and dh; and without) with
+    GAVIKO_LNL_BLOCK set to each compiled tile, out 200 no multiple of 128:
+    against their plain versions, reruns bit-equal."""
+    from gaviko_tpu_torch.ops import _blocks
+    from gaviko_tpu_torch.ops.ln_linear import ln_linear_plan
+
+    monkeypatch.setenv(_blocks.LNL_ENV, str(block))
+    for kind in ("forward", "backward", "backward_dh"):
+        plan = ln_linear_plan(kind, rows, dim, out, dtype)
+        assert {p.tile_shape for launch in plan.products for p in launch} == {(block, 128)}
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = _randn(gen, rows, dim, dtype=dtype, std=2.0) + 0.5
+    gamma, beta = _ln_params(gen, dim, dtype)
+    w = _randn(gen, out, dim, dtype=dtype, std=dim ** -0.5)
+    dy = _randn(gen, rows, out, dtype=dtype, std=out ** -0.5)
+    got = fused_ln_linear(x, gamma, beta, w)
+    assert _rel_mae(got, ln_linear_reference(x, gamma, beta, w)) <= BUDGET[dtype]
+    assert torch.equal(fused_ln_linear(x, gamma, beta, w), got)
+    for need_dw in (True, False):
+        got = ln_linear_bwd(x, gamma, beta, w, dy, 1e-5, need_dw)
+        want = ln_linear_bwd_reference(x, gamma, beta, w, dy, 1e-5, need_dw)
+        for name, g, wt in zip(("dx", "dgamma", "dbeta", "dw"), got, want):
+            if wt is not None:
+                assert _rel_mae(g, wt) <= BUDGET[dtype], (name, need_dw)
+        again = ln_linear_bwd(x, gamma, beta, w, dy, 1e-5, need_dw)
+        assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,block", _tile_params())
+def test_patchify_at_every_tile(dev, dtype, block):
+    """Patchify's GEMM on each compiled tile (its ``block`` argument), dim
+    130 and K 315 ragged: against its plain version, a rerun bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    img = torch.rand(3, 3, 6, 10, 14, generator=gen, device=dev).to(dtype)
+    w = _randn(gen, 130, 3, 3, 5, 7, dtype=dtype, std=0.02)
+    b, pos = _randn(gen, 130, dtype=dtype), _randn(gen, 8, 130, dtype=dtype)
+    got = patchify_kernel(img, w, b, pos, block=block)
+    assert _rel_mae(got, patchify_reference(img, w, b, pos)) <= BUDGET[dtype]
+    assert torch.equal(patchify_kernel(img, w, b, pos, block=block), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", _int8_tile_rows())
+@pytest.mark.parametrize("rows,dim,mlp", [(1033, 1024, 4096), (264, 1024, 4096), (37, 200, 300)])
+def test_int8_kernels_at_every_tile(dev, dtype, block, rows, dim, mlp):
+    """B11 on each compiled int8 tile (the ``block`` argument): int8_linear
+    without LN bit-equal to its plain version and with LN within the
+    budget, int8_mlp within the budget, reruns bit-equal."""
+    from gaviko_tpu_torch.ops.int8_linear import int8_linear, int8_mlp, int8_plan, quantize_weight
+
+    for kind, n in (("linear", mlp), ("mlp", mlp)):
+        plan = int8_plan(kind, rows, dim, n, dtype, block)
+        assert {p.tile_shape for launch in plan.products for p in launch} == {(block, 128)}
+    x, w_i8, scale, bias, gamma, beta = _int8_linear_case(dev, dtype, rows, dim, mlp, seed=43)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    w2, s2 = quantize_weight(_randn(gen, dim, mlp, dtype=dtype, std=mlp ** -0.5))
+    b2 = _randn(gen, dim, dtype=dtype, std=0.1)
+    margs = (x, gamma, beta, w_i8, scale, bias, w2, s2, b2, 1e-5, "exact", True)
+    with torch.no_grad():
+        for kw in ({"bias": bias}, {"gamma": gamma, "beta": beta}):
+            got = int8_linear(x, w_i8, scale, **kw, block=block)
+            with _build.plain_versions():
+                want = int8_linear(x, w_i8, scale, **kw)
+            if "gamma" in kw:
+                assert _rel_mae(got, want) <= BUDGET[dtype]
+            else:
+                assert torch.equal(got, want)
+            assert torch.equal(int8_linear(x, w_i8, scale, **kw, block=block), got)
+        got = int8_mlp(*margs, block=block)
+        with _build.plain_versions():
+            want = int8_mlp(*margs)
+        assert _rel_mae(got, want) <= BUDGET[dtype]
+        assert torch.equal(int8_mlp(*margs, block=block), got)
+
+
+def test_gemm_tiles_not_compiled_raise(dev, monkeypatch):
+    """A tile no instance has for the dtype raises before any launch: 256
+    rows (in no type) through GAVIKO_MLP_BLOCK, and 96 rows anywhere."""
+    from gaviko_tpu_torch.ops import _blocks
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    monkeypatch.setenv(_blocks.MLP_ENV, "256")
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _mlp_args(gen, 1, 70, 256, 512, dtype)
+        before = fused_mlp.launches
+        with pytest.raises(ValueError, match="no 256-row tile"):
+            fused_mlp(*args)
+        assert fused_mlp.launches == before
+    img = torch.rand(1, 1, 4, 8, 12, generator=gen, device=dev)
+    with pytest.raises(ValueError, match="no 96-row tile"):
+        patchify_kernel(img, _randn(gen, 72, 1, 2, 4, 4, dtype=torch.float32),
+                        _randn(gen, 72, dtype=torch.float32), block=96)

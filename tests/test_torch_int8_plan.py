@@ -8,8 +8,9 @@ sidecars and its launches on a faked card, on the CPU.
   out-projection inner -> dim with its bias, the MLP dim -> mlp_dim), and
   at vit-t16's 3 heads of 20 (widths that are no multiple of 16), at 37,
   264 and 8,320 rows: the codes' rows padded to a multiple of 16, each
-  product's tiles covering every output once, the scratch in one buffer
-  without overlaps, shared memory within a CTA's, the launches a call;
+  product's tiles (at every compiled int8 tile, ``ops/_blocks.py``)
+  covering every output once, the scratch in one buffer without overlaps,
+  shared memory within a CTA's, the launches a call;
 - the out-projections wider than 2,048 that JAX serves (vit-b16 at
   ``dim_head`` 192 and 256, vit-l16 at 192) have a plan and reach the
   kernel on a faked card (the kernel held a row in registers and refused
@@ -29,9 +30,10 @@ import pytest
 import torch
 
 from gaviko_tpu.config import VIT_CONFIG_MAP
-from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops import _blocks, _build
 from gaviko_tpu_torch.ops import int8_linear as tq
-from gaviko_tpu_torch.ops.fused_mlp import TILE_M, TILE_N, launch_tile
+from gaviko_tpu_torch.ops.fused_mlp import launch_tile
+from gaviko_tpu_torch.ops.gemm_plan import gemm_smem
 
 DTYPES = [torch.bfloat16, torch.float32]
 ROWS = (37, 264, 8320)
@@ -67,6 +69,9 @@ def _check_plan(plan, kind, rows, k, n):
     assert plan.row_blocks * tq.ROW_BLOCK >= rows > (plan.row_blocks - 1) * tq.ROW_BLOCK
     assert plan.smem <= 232_448
     products = [p for launch in plan.products for p in launch]
+    for p in products:
+        assert p.tile_shape in _blocks.TILES[torch.int8]
+        assert plan.smem >= gemm_smem(torch.int8, p.tile_shape)
     if kind == "linear":
         assert plan.n_pad == n
         assert [(p.name, p.m, p.n, p.k) for p in products] == [("linear", rows, n, plan.k_pad)]
@@ -107,22 +112,25 @@ def test_plan_at_every_width_jax_serves(dtype, rows):
                                       ("linear", 60, 192), ("linear", 7, 10),
                                       ("mlp", 1024, 4096), ("mlp", 60, 100)])
 def test_tiles_cover_every_output_once(rows, kind, k, n):
-    """Each GEMM launch's CTAs, decoded as the kernel decodes its block
-    index, take every 128 x 128 output tile once, the last column tile
-    ragged where the width is no multiple of 128."""
-    plan = tq.int8_plan(kind, rows, k, n)
-    for launch in plan.products:
-        (p,) = launch
-        seen = set()
-        for block in range(p.blocks):
-            name, m0, n0 = launch_tile(launch, block)
-            assert name == p.name and m0 % TILE_M == 0 and n0 % TILE_N == 0
-            assert 0 <= m0 < p.m and 0 <= n0 < p.n
-            assert (m0, n0) not in seen
-            seen.add((m0, n0))
-        assert len(seen) == -(-p.m // TILE_M) * -(-p.n // TILE_N)
-        with pytest.raises(IndexError):
-            launch_tile(launch, p.blocks)
+    """At every compiled int8 tile (the plan's ``block`` argument), each
+    GEMM launch's CTAs, decoded as the kernel decodes its block index, take
+    every output tile once, the last column tile ragged where the width is
+    no multiple of 128."""
+    for bm, bn in _blocks.TILES[torch.int8]:
+        plan = tq.int8_plan(kind, rows, k, n, block=bm)
+        for launch in plan.products:
+            (p,) = launch
+            assert p.tile_shape == (bm, bn)
+            seen = set()
+            for block in range(p.blocks):
+                name, m0, n0 = launch_tile(launch, block)
+                assert name == p.name and m0 % bm == 0 and n0 % bn == 0
+                assert 0 <= m0 < p.m and 0 <= n0 < p.n
+                assert (m0, n0) not in seen
+                seen.add((m0, n0))
+            assert len(seen) == -(-p.m // bm) * -(-p.n // bn)
+            with pytest.raises(IndexError):
+                launch_tile(launch, p.blocks)
 
 
 def test_plan_refuses_only_what_no_kernel_takes():
@@ -182,7 +190,8 @@ def _t(rng, *shape, dtype=torch.float32):
 def test_int8_linear_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, din, dout, ln):
     """int8_linear: one call of its entry point (the row pass and the GEMM)
     with the inputs, the (padded) sidecar, the output, the plan's codes and
-    scales inside one buffer, the rows, the widths and the padded width. The
+    scales inside one buffer, the rows, the widths, the padded width and the
+    plan's tile. The
     out-projections wider than 2,048 (Queue C 10) get there too."""
     calls = _fake_card(monkeypatch)
     rng = np.random.RandomState(0)
@@ -196,7 +205,7 @@ def test_int8_linear_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, din
     assert out.shape == (2, 9, dout) and out.dtype == dtype
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("int8_linear", f"gaviko_int8_linear_{suffix}")
-    assert len(argtypes) == len(got) == 15
+    assert len(argtypes) == len(got) == 17
     plan = tq.int8_plan("linear", 18, din, dout, dtype)
     w = tq.padded_codes(w_i8, plan.k_pad)
     assert (w is w_i8) == (din % 16 == 0)
@@ -205,7 +214,7 @@ def test_int8_linear_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, din
     assert got[5] == (None if ln else bias.data_ptr())
     layout = {n: off for n, _, _, off in plan.scratch}
     assert got[8] - got[7] == layout["sx"] - layout["codes"] and got[7] % 16 == 0
-    assert got[9:] == (18, din, plan.k_pad, dout, 1e-5, 0)
+    assert got[9:] == (18, din, plan.k_pad, dout, 1e-5, *plan.products[0][0].tile_shape, 0)
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"), (torch.float32, "f32")])
@@ -213,7 +222,8 @@ def test_int8_linear_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, din
 def test_int8_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, dim, mlp):
     """int8_mlp: one call of its entry point (its four launches) with the
     inputs, the padded sidecars, the output, the plan's scratch (codes of x
-    and of the hidden, the f32 hidden, the scales) and the widths."""
+    and of the hidden, the f32 hidden, the scales), the widths and the
+    tiles of fc1 and fc2."""
     calls = _fake_card(monkeypatch)
     rng = np.random.RandomState(1)
     x = _t(rng, 1, 33, dim, dtype=dtype)
@@ -226,7 +236,7 @@ def test_int8_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, dim, m
     assert out.shape == x.shape and out.dtype == dtype
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("int8_linear", f"gaviko_int8_mlp_{suffix}")
-    assert len(argtypes) == len(got) == 24
+    assert len(argtypes) == len(got) == 28
     plan = tq.int8_plan("mlp", 33, dim, mlp, dtype)
     pw1, pw2 = tq.padded_codes(w1, plan.k_pad), tq.padded_codes(w2, plan.n_pad)
     assert got[:3] == (x.data_ptr(), gamma.data_ptr(), beta.data_ptr())
@@ -236,4 +246,5 @@ def test_int8_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, dim, m
     base = got[10] - layout["codes_x"]
     for i, n in enumerate(("codes_x", "codes_h", "hidden", "sx", "hmax")):
         assert got[10 + i] == base + layout[n], n
-    assert got[15:] == (33, dim, plan.k_pad, mlp, plan.n_pad, 1e-5, 1, 1, 0)
+    tiles = tuple(v for launch in plan.products for v in launch[0].tile_shape)
+    assert got[15:] == (33, dim, plan.k_pad, mlp, plan.n_pad, 1e-5, 1, 1, *tiles, 0)

@@ -6,11 +6,13 @@ card, and Queue C 11, on the CPU.
   ``ln_linear_hybrid_supported`` admits in bf16 and fp32, at the four
   backbones' qkv and kv widths and at the widths above 1,024 (Queue C 11),
   at 37 / 1,001 / 8,064 rows: shared memory within a CTA's 232,448 bytes,
-  each product's tiles on the 128 x 128 grid of its output, the scratch in
-  one buffer without overlaps;
-- every CTA of each launch decoded as the kernel decodes its block index:
-  each output tile of each product once, and B12's grouped launch taking
-  dW's deep tiles before dh's;
+  each product's tiles on the grid of its launch's tile (one of the GEMM's
+  compiled tiles, ``ops/_blocks.py``) over its output, the scratch in one
+  buffer without overlaps;
+- at every compiled tile (``GAVIKO_LNL_BLOCK``), every CTA of each launch
+  decoded as the kernel decodes its block index: each output tile of each
+  product once, and B12's grouped launch taking dW's deep tiles before
+  dh's;
 - what the plan cannot take raises, and what the old kernels took (out 136)
   it takes;
 - on a faked CUDA tensor (``use_kernel`` says yes, ``launch`` records), B9
@@ -30,6 +32,7 @@ import torch
 import jax.numpy as jnp
 
 from gaviko_tpu.ops import ln_linear as jln
+from gaviko_tpu_torch.ops import _blocks
 from gaviko_tpu_torch.ops import gemm_plan as gp
 from gaviko_tpu_torch.ops import ln_linear as tln
 from tests.test_torch_mlp_plan import _fake_card, _matmul_3xtf32
@@ -59,10 +62,13 @@ def _check_plan(plan, kind, rows, dim, out):
     names = {"forward": ["linear"], "backward": ["dw", "dh"], "backward_dh": ["dh"]}[kind]
     assert [[p.name for p in launch] for launch in plan.products] == [names]
     assert plan.launches == (2 if kind == "forward" else 4)
+    tile, = {p.tile_shape for p in plan.products[0]}  # a launch runs one tile
+    assert tile in _blocks.TILES[plan.dtype] and plan.smem == gp.gemm_smem(plan.dtype, tile)
+    bm, bn = tile
     for p in plan.products[0]:
         assert (p.m, p.n, p.k) == want[p.name], p.name
-        assert (p.tiles_m - 1) * gp.TILE_M < p.m <= p.tiles_m * gp.TILE_M
-        assert (p.tiles_n - 1) * gp.TILE_N < p.n <= p.tiles_n * gp.TILE_N
+        assert (p.tiles_m - 1) * bm < p.m <= p.tiles_m * bm
+        assert (p.tiles_n - 1) * bn < p.n <= p.tiles_n * bn
     end = 0
     for name, shape, dtype, off in plan.scratch:
         assert off % 256 == 0 and off >= end, name
@@ -91,29 +97,35 @@ def test_plan_at_every_width_the_jax_gates_admit(dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
 @pytest.mark.parametrize("dim,out", WIDTHS[::3] + C11 + ((256, 136),))
 @pytest.mark.parametrize("rows", ROWS)
-def test_tiles_cover_every_output_once(dtype, dim, out, rows):
-    """Each launch's CTAs, decoded as the kernel decodes its block index,
-    take every output tile of each of its products once."""
-    for kind in tln.KINDS:
-        launch, = tln.ln_linear_plan(kind, rows, dim, out, dtype).products
-        seen = set()
-        for block in range(sum(p.blocks for p in launch)):
-            name, m0, n0 = gp.launch_tile(launch, block)
-            p = next(q for q in launch if q.name == name)
-            assert m0 % gp.TILE_M == 0 and n0 % gp.TILE_N == 0
-            assert 0 <= m0 < p.m and 0 <= n0 < p.n
-            assert (name, m0, n0) not in seen
-            seen.add((name, m0, n0))
-        assert len(seen) == sum(p.tiles_m * p.tiles_n for p in launch)
-        with pytest.raises(IndexError):
-            gp.launch_tile(launch, len(seen))
+def test_tiles_cover_every_output_once(monkeypatch, dtype, dim, out, rows):
+    """At every compiled tile (``GAVIKO_LNL_BLOCK``), each launch's CTAs,
+    decoded as the kernel decodes its block index, take every output tile
+    of each of its products once."""
+    for bm, bn in _blocks.TILES[dtype]:
+        monkeypatch.setenv(_blocks.LNL_ENV, str(bm))
+        for kind in tln.KINDS:
+            launch, = tln.ln_linear_plan(kind, rows, dim, out, dtype).products
+            seen = set()
+            for block in range(sum(p.blocks for p in launch)):
+                name, m0, n0 = gp.launch_tile(launch, block)
+                p = next(q for q in launch if q.name == name)
+                assert p.tile_shape == (bm, bn)
+                assert m0 % bm == 0 and n0 % bn == 0
+                assert 0 <= m0 < p.m and 0 <= n0 < p.n
+                assert (name, m0, n0) not in seen
+                seen.add((name, m0, n0))
+            assert len(seen) == sum(p.tiles_m * p.tiles_n for p in launch)
+            with pytest.raises(IndexError):
+                gp.launch_tile(launch, len(seen))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
-def test_b12_runs_dw_and_dh_in_one_launch(dtype):
+def test_b12_runs_dw_and_dh_in_one_launch(monkeypatch, dtype):
     """B12's GEMM launch: dW's tiles (depth: the rows) first, then dh's
     (depth: out), which fill dW's last wave; without dW, dh alone. At
-    vit-b16 B8 that is 108 + 378 CTAs, at GAViKO vit-l16 B4 192 + 264."""
+    vit-b16 B8 that is 108 + 378 CTAs, at GAViKO vit-l16 B4 192 + 264 (on
+    128 x 128 tiles: GAVIKO_LNL_BLOCK=128)."""
+    monkeypatch.setenv(_blocks.LNL_ENV, "128")
     plan = tln.ln_linear_plan("backward", 8064, 768, 2304, dtype)
     (dw, dh), = plan.products
     assert (dw.blocks, dh.blocks) == (108, 378) and dw.k == 8064 > dh.k == 2304
@@ -171,10 +183,11 @@ def _check_b9_call(monkeypatch, dtype, suffix, rows, dim, out):
     assert y.shape == (1, rows, out) and y.dtype == dtype
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("ln_linear", f"gaviko_ln_linear_{suffix}")
-    assert len(argtypes) == len(got) == 11
+    assert len(argtypes) == len(got) == 13
     assert got[:5] == tuple(t.data_ptr() for t in (x, gamma, beta, w, y))
     assert got[5] % 16 == 0  # h, the plan's scratch
-    assert got[6:] == (rows, dim, out, 1e-5, 0)
+    tile = tln.ln_linear_plan("forward", rows, dim, out, dtype).products[0][0].tile_shape
+    assert got[6:] == (rows, dim, out, 1e-5, *tile, 0)
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"), (torch.float32, "f32")])
@@ -201,7 +214,7 @@ def test_fused_ln_linear_takes_widths_above_1024_on_a_faked_card(monkeypatch, dt
 @pytest.mark.parametrize("need_dw", [True, False])
 def test_ln_linear_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, need_dw):
     """B12: one call of its entry point (its four launches) with the inputs,
-    the outputs (no dW and no h without dW) and the plan's scratch."""
+    the outputs (no dW and no h without dW), the plan's scratch and its tile."""
     calls = _fake_card(monkeypatch)
     rows, dim, out = 70, 1152, 768
     x, gamma, beta, w, dy = _inputs(rows, dim, out, dtype)
@@ -210,7 +223,7 @@ def test_ln_linear_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, n
     assert tln.ln_linear_bwd.launches == before + 1
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("ln_linear_bwd", f"gaviko_ln_linear_bwd_{suffix}")
-    assert len(argtypes) == len(got) == 20
+    assert len(argtypes) == len(got) == 22
     assert got[:5] == tuple(t.data_ptr() for t in (x, gamma, beta, w, dy))
     assert got[5:8] == tuple(t.data_ptr() for t in outs[:3])
     assert (got[8] is None) is (outs[3] is None) is (not need_dw)
@@ -220,7 +233,7 @@ def test_ln_linear_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, n
     assert got[9] == (base + layout["h"] if need_dw else None)
     for n, p in zip(("dh", "mean", "rstd", "part_dg", "part_db"), got[10:15]):
         assert p == base + layout[n], n
-    assert got[15:] == (rows, dim, out, 1e-5, 0)
+    assert got[15:] == (rows, dim, out, 1e-5, *plan.products[0][0].tile_shape, 0)
 
 
 @pytest.mark.parametrize("dtype,dim,out,budget", [

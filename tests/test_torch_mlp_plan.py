@@ -5,11 +5,13 @@ card, and the 3xTF32 products of their f32 instances, on the CPU.
 - ``mlp_plan`` at every (dim, mlp_dim) JAX's ``fused_mlp_supported`` admits
   in bf16 and fp32, and at the four backbones' widths, at ragged row counts
   (37, 2,002, 8,064): shared memory within a CTA's 232,448 bytes, each
-  product's tiles on the 128 x 128 grid of its output, the scratch in one
-  buffer without overlaps;
-- at the backbones, every CTA of each launch decoded as the kernel decodes
-  its block index: each output tile of each product once, and B7's grouped
-  launch taking the weight gradients' tiles before dh's;
+  product's tiles on the grid of its launch's tile (one of the GEMM's
+  compiled tiles, ``ops/_blocks.py``) over its output, db1's partials a
+  row a tile of dg's rows, the scratch in one buffer without overlaps;
+- at the backbones and at every compiled tile (``GAVIKO_MLP_BLOCK``),
+  every CTA of each launch decoded as the kernel decodes its block index:
+  each output tile of each product once, and B7's grouped launch taking
+  the weight gradients' tiles before dh's;
 - what the plan cannot take raises (vit-t16's 192 among it);
 - on a faked CUDA tensor (``use_kernel`` says yes, ``launch`` records), B6
   and B7 make one call of their C entry points with the plan's scratch;
@@ -26,7 +28,7 @@ import torch
 import jax.numpy as jnp
 
 from gaviko_tpu.ops import fused_mlp as jfm
-from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops import _blocks, _build
 from gaviko_tpu_torch.ops import fused_mlp as tfm
 from gaviko_tpu_torch.ops.hash_dropout import dropout_args
 
@@ -58,10 +60,18 @@ def _check_plan(plan, rows, dim, mlp):
     assert plan.launches == (1 + len(plan.forward), 3 + len(plan.backward))
     products = [p for launch in plan.forward + plan.backward for p in launch]
     assert sorted(p.name for p in products) == sorted(want)
+    for launch in plan.forward + plan.backward:
+        assert len({p.tile_shape for p in launch}) == 1  # a launch runs one tile
     for p in products:
+        bm, bn = p.tile_shape
+        assert p.tile_shape in _blocks.TILES[plan.dtype]
+        assert plan.smem >= tfm.gemm_smem(plan.dtype, p.tile_shape)
         assert (p.m, p.n, p.k) == want[p.name], p.name
-        assert p.n % tfm.TILE_N == 0 and p.tiles_n * tfm.TILE_N == p.n
-        assert (p.tiles_m - 1) * tfm.TILE_M < p.m <= p.tiles_m * tfm.TILE_M
+        assert p.n % bn == 0 and p.tiles_n * bn == p.n
+        assert (p.tiles_m - 1) * bm < p.m <= p.tiles_m * bm
+    (dg,), = plan.backward[:1]
+    part_db1 = next(shape for name, shape, _, _ in plan.bwd_scratch if name == "part_db1")
+    assert part_db1 == (dg.tiles_m, mlp)
     for layout, nbytes in ((plan.fwd_scratch, plan.fwd_scratch_bytes),
                            (plan.bwd_scratch, plan.bwd_scratch_bytes)):
         end = 0
@@ -87,22 +97,29 @@ def test_plan_at_every_width_the_jax_gate_admits(dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
 @pytest.mark.parametrize("dim,mlp", WIDTHS)
 @pytest.mark.parametrize("rows", ROWS)
-def test_tiles_cover_every_output_once(dtype, dim, mlp, rows):
-    """Each launch's CTAs, decoded as the kernel decodes its block index,
-    take every output tile of each of its products once."""
-    plan = tfm.mlp_plan(rows, dim, mlp, dtype)
-    for launch in plan.forward + plan.backward:
-        seen = set()
-        for block in range(sum(p.blocks for p in launch)):
-            name, m0, n0 = tfm.launch_tile(launch, block)
-            p = next(q for q in launch if q.name == name)
-            assert m0 % tfm.TILE_M == 0 and n0 % tfm.TILE_N == 0
-            assert 0 <= m0 < p.m and 0 <= n0 < p.n
-            assert (name, m0, n0) not in seen
-            seen.add((name, m0, n0))
-        assert len(seen) == sum(p.tiles_m * p.tiles_n for p in launch)
-        with pytest.raises(IndexError):
-            tfm.launch_tile(launch, len(seen))
+def test_tiles_cover_every_output_once(monkeypatch, dtype, dim, mlp, rows):
+    """At every compiled tile (``GAVIKO_MLP_BLOCK``), each launch's CTAs,
+    decoded as the kernel decodes its block index, take every output tile
+    of each of its products once, and db1's partials are a row a tile of
+    dg's rows."""
+    for bm, bn in _blocks.TILES[dtype]:
+        monkeypatch.setenv(_blocks.MLP_ENV, str(bm))
+        plan = tfm.mlp_plan(rows, dim, mlp, dtype)
+        part_db1 = next(shape for name, shape, _, _ in plan.bwd_scratch if name == "part_db1")
+        assert part_db1 == (-(-rows // bm), mlp)
+        for launch in plan.forward + plan.backward:
+            seen = set()
+            for block in range(sum(p.blocks for p in launch)):
+                name, m0, n0 = tfm.launch_tile(launch, block)
+                p = next(q for q in launch if q.name == name)
+                assert p.tile_shape == (bm, bn)
+                assert m0 % bm == 0 and n0 % bn == 0
+                assert 0 <= m0 < p.m and 0 <= n0 < p.n
+                assert (name, m0, n0) not in seen
+                seen.add((name, m0, n0))
+            assert len(seen) == sum(p.tiles_m * p.tiles_n for p in launch)
+            with pytest.raises(IndexError):
+                tfm.launch_tile(launch, len(seen))
 
 
 def test_plan_raises_on_what_the_kernels_cannot_take():
@@ -122,12 +139,13 @@ def test_plan_raises_on_what_the_kernels_cannot_take():
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
-def test_weight_gradients_and_dh_share_a_launch(dtype):
+def test_weight_gradients_and_dh_share_a_launch(monkeypatch, dtype):
     """B7's launches: dg alone (its epilogue writes da16 and gd16, which the
     others read), then dW2, dW1 and dh in one launch, the weight gradients'
     long tiles (depth: the rows) first and dh's (depth: mlp) after them, so
     dh's tiles fill the weight gradients' last wave. At vit-b16 B8 that is
-    144 + 144 + 378 CTAs of the same 128 x 128 tile."""
+    144 + 144 + 378 CTAs of the same 128 x 128 tile (GAVIKO_MLP_BLOCK=128)."""
+    monkeypatch.setenv(_blocks.MLP_ENV, "128")
     plan = tfm.mlp_plan(8064, 768, 3072, dtype)
     assert [[p.name for p in launch] for launch in plan.backward] == [["dg"], ["dw2", "dw1", "dh"]]
     assert [[p.name for p in launch] for launch in plan.forward] == [["fc1"], ["fc2"]]
@@ -164,7 +182,8 @@ def test_fused_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, save_
     """B6: one call of its entry point (which launches the LN pass, fc1 and
     fc2) with the tensors' pointers, the output, ``a`` where asked, the
     plan's two scratch matrices inside one buffer, the widths, the GELU
-    mode, the residual, eps and the dropout arguments."""
+    mode, the residual, eps, the dropout arguments and the plan's tiles of
+    fc1 and fc2."""
     calls = _fake_card(monkeypatch)
     args = _mlp_tensors(70, 256, 512, dtype)
     before = tfm.fused_mlp.launches
@@ -173,20 +192,22 @@ def test_fused_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, save_
     out, a = res if save_a else (res, None)
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("fused_mlp", f"gaviko_fused_mlp_{suffix}")
-    assert len(argtypes) == len(got) == 22
+    assert len(argtypes) == len(got) == 26
     assert got[:7] == tuple(t.data_ptr() for t in args)
     assert got[7] == out.data_ptr() and got[8] == (None if a is None else a.data_ptr())
     plan = tfm.mlp_plan(70, 256, 512, dtype)
     (_, _, _, off_h), (_, _, _, off_g) = plan.fwd_scratch
     assert got[10] - got[9] == off_g - off_h and got[9] % 16 == 0
-    assert got[11:] == (70, 256, 512, 1, 1, 1e-5, *dropout_args(0.1, 5), 0, 0)
+    tiles = tuple(v for launch in plan.forward for v in launch[0].tile_shape)
+    assert got[11:] == (70, 256, 512, 1, 1, 1e-5, *dropout_args(0.1, 5), 0, *tiles, 0)
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "bf16"), (torch.float32, "f32")])
 @pytest.mark.parametrize("rows", [70, 8064])
 def test_fused_mlp_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, rows):
     """B7: one call of its entry point (its five launches) with the inputs,
-    the seven outputs and the plan's scratch."""
+    the seven outputs, the plan's scratch and the tiles of its two GEMM
+    launches."""
     calls = _fake_card(monkeypatch)
     dim, mlp = 768, 3072
     args = _mlp_tensors(rows, dim, mlp, dtype) if rows < 100 else tuple(
@@ -199,7 +220,7 @@ def test_fused_mlp_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, r
     assert tfm.fused_mlp_bwd.launches == before + 1
     (name, symbol, argtypes, got), = calls
     assert (name, symbol) == ("fused_mlp_bwd", f"gaviko_fused_mlp_bwd_{suffix}")
-    assert len(argtypes) == len(got) == 36
+    assert len(argtypes) == len(got) == 40
     x, gamma, beta, w1, b1, w2, b2 = args
     assert got[:7] == tuple(t.data_ptr() for t in (x, gamma, beta, w1, w2, dy, a))
     assert got[7:14] == tuple(t.data_ptr() for t in outs)
@@ -213,7 +234,8 @@ def test_fused_mlp_bwd_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, r
              "part_db")
     for n, p in zip(names, ptrs):
         assert p == base + layout[n], n
-    assert got[25:] == (rows, dim, mlp, 0, 0, 1e-5, *dropout_args(0.1, 3), 0, 0)
+    tiles = tuple(v for launch in plan.backward for v in launch[0].tile_shape)
+    assert got[25:] == (rows, dim, mlp, 0, 0, 1e-5, *dropout_args(0.1, 3), 0, *tiles, 0)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

@@ -5,15 +5,16 @@ version, on the CPU.
 - ``patchify_plan`` at GAViKO's and vit-b16's patch (12, 16, 16) of the
   120 x 160 x 160 volume, B8 and B4, bf16 and f32, and at a patch whose
   K is no whole number of 16-byte vectors ((3, 5, 7), three channels): the
-  GEMM's tiles cover every output once, the patch matrix's width kp is K
+  GEMM's tiles (the policy's and each compiled tile, ``ops/_blocks.py``)
+  cover every output once within a CTA's shared memory, the patch matrix's width kp is K
   rounded up to whole 16-byte rows (TMA's strides), the rows pass moves 16
   bytes a thread where the patch and volume widths allow it, and the
   scratch holds the matrix unless ``save_rows`` returns it;
 - the rows pass's plain version equals ``patch_rows`` with zero columns
   to kp, and the JAX package's gathered rows (``patchify_pallas(...,
   save_rows=True)`` in interpret mode, its stripe layout undone);
-- on a faked card one call is one launch with the plan's kp and vector
-  width, the weight padded with zero columns to kp, and ``save_rows``
+- on a faked card one call is one launch with the plan's kp, vector
+  width and tile, the weight padded with zero columns to kp, and ``save_rows``
   returns the first K columns of the [B * N, kp] matrix.
 """
 
@@ -24,10 +25,10 @@ import torch
 
 from gaviko_tpu.config import make_spec
 from gaviko_tpu.ops import patchify as jpatch
-from gaviko_tpu_torch.ops import _build
+from gaviko_tpu_torch.ops import _blocks, _build
 from gaviko_tpu_torch.ops import patchify as tpatch
 from gaviko_tpu_torch.ops.gemm_plan import (
-    TILE_M, TILE_N, _SCRATCH_ALIGN, gemm_smem, launch_tile, patchify_plan)
+    SMEM_LIMIT, _SCRATCH_ALIGN, gemm_smem, launch_tile, patchify_plan)
 
 VOLUME = (120, 160, 160)
 CASES = [  # (B, C, volume, patch, dim): GAViKO vit-l16, vit-b16, K no whole vector
@@ -44,8 +45,9 @@ def test_patchify_plan(dtype, B, C, vol, patch, dim):
     size = dtype.itemsize
     n_tok = (vol[0] // patch[0]) * (vol[1] // patch[1]) * (vol[2] // patch[2])
     k = C * patch[0] * patch[1] * patch[2]
-    for save_rows in (False, True):
-        plan = patchify_plan(B, C, vol, patch, dim, dtype, save_rows)
+    blocks = [None] + [bm for bm, _ in _blocks.TILES[dtype]]  # the policy's, then each tile
+    for save_rows, block in ((s, b) for s in (False, True) for b in blocks):
+        plan = patchify_plan(B, C, vol, patch, dim, dtype, save_rows, block)
         assert (plan.rows, plan.k, plan.dim, plan.launches) == (B * n_tok, k, dim, 2)
         # kp: the fewest columns of whole 16-byte rows, so the patch matrix's
         # and the weight's row strides are TMA's
@@ -54,13 +56,15 @@ def test_patchify_plan(dtype, B, C, vol, patch, dim):
         assert plan.vector == (16 // size if whole else 1)
         if plan.vector > 1:
             assert plan.kp == k  # a 16-byte run never leaves a patch row
-        assert plan.smem == gemm_smem(dtype)
         (product,), = plan.products
+        bm, bn = product.tile_shape
+        assert product.tile_shape in _blocks.TILES[dtype] and (block is None or bm == block)
+        assert plan.smem == gemm_smem(dtype, product.tile_shape) <= SMEM_LIMIT
         assert (product.m, product.n, product.k) == (plan.rows, dim, plan.kp)
-        covered = np.zeros((-(-plan.rows // TILE_M), -(-dim // TILE_N)), np.int64)
-        for block in range(product.blocks):
-            _, r0, c0 = launch_tile(plan.products[0], block)
-            covered[r0 // TILE_M, c0 // TILE_N] += 1
+        covered = np.zeros((-(-plan.rows // bm), -(-dim // bn)), np.int64)
+        for cta in range(product.blocks):
+            _, r0, c0 = launch_tile(plan.products[0], cta)
+            covered[r0 // bm, c0 // bn] += 1
         assert (covered == 1).all()
         if save_rows:
             assert plan.scratch == () and plan.scratch_bytes == 0
@@ -135,7 +139,8 @@ def test_patchify_is_one_launch_on_a_faked_card(monkeypatch, C, vol, patch, dtyp
     assert tpatch.patchify_fused.launches == before + 1
     (symbol, args), = calls
     assert symbol == f"gaviko_patchify_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
-    assert args[6:17] == (B, C, *vol, *patch, dim, plan.kp, plan.vector)
+    assert args[6:19] == (B, C, *vol, *patch, dim, plan.kp, plan.vector,
+                          *plan.products[0][0].tile_shape)
     if save_rows:
         out, rows = res
         assert rows.shape == (plan.rows, plan.k) and rows.stride() == (plan.kp, 1)
