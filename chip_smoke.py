@@ -171,10 +171,13 @@ Phases, each printing its own line:
    width and depth, random init from seed 0; shallow VPT is vpt.yaml with
    ``deep_prompt: false``): one B8 bf16 batch through ``predict_logits``
    with the launches ``zoo_launches`` derives from the gates, against the
-   plain versions (relative MAE <= 2e-2), and one profiled forward; then 3
-   train steps and one eval step at B8 in fp32 (TF32 off) and bf16 with
-   exact launches a step and a profiled step, each with its train check
-   under ``TRAIN_BUDGET``;
+   plain versions (relative MAE <= 2e-2), and one profiled forward; the
+   same with ``quantize="int8"`` (``zoo_launches(..., quantized=True)``,
+   also against the method's bf16 logits by INT8_FP_BUDGET; SSF logs the
+   JAX package's refusal and serves full precision); then 3 train steps
+   and one eval step at B8 in fp32 (TF32 off) and bf16 with exact launches
+   a step and a profiled step, each with its train check under
+   ``TRAIN_BUDGET``;
 15. weights: a synthetic vit-l16 timm file (timm's in21k inventory and
    shapes, 1.3 GB, from seed 0) converted by ``weights/convert.py`` and
    loaded onto the card by ``build_params`` for GAViKO: every landed key
@@ -223,20 +226,29 @@ Phases, each printing its own line:
    figures); then GAViKO vit-l16 int8 serving (``quantize="int8"``, B8
    bf16) on data 2 and on model 2, rank 0's logits against phase 5's
    1-rank int8 logits (INT8_PLAIN_BUDGET) and each rank's launches of a
-   forward exactly ``serving_launches(spec, True)``;
+   forward exactly ``serving_launches(spec, True)``; then the mesh
+   artifacts of PAR_ARTIFACTS (GAViKO vit-l16 and vit-b16 ``fft`` at 2 x 1
+   and 1 x 2, AdaptFormer at 1 x 2; B8 bf16, exported for cuda in this
+   process) against the live ``Predictor(mesh_shape=...)`` (bit-equal, and
+   on a rerun) and the single-device logits, each rank's launches and
+   collectives those of its program; the vit-b16 1 x 2 rank 0's kernel ops
+   through ``torch.library.opcheck`` at its shard arguments, then
+   ``serve()`` over that artifact: 16 POSTs 8 at a time equal to
+   ``predict_logits``, /healthz, /reload;
 21. parallel_kernels: A and B on heads 8..15 of vit-l16's 16 (B4, 1,040
    rows, dropout 0.1) against their plain versions and bit-equal to the
    whole layer's kernels on those heads; B13's sharded step (its norm
    kernel into a device scalar, then its update) at GAViKO's trainable
    leaves bit-equal to its one-launch step;
 22. deploy (run on the live predictors of phases 4 and 5, right after
-   their own checks): GAViKO vit-l16 (B8 bf16) and vit-b16 ``fft`` int8
-   exported by ``deploy.export_artifact`` for ``cuda`` (the manifest's
-   ``gaviko::`` ops exactly ``serving_launches``), loaded in a
-   ``DeployedPredictor`` and checked against the live ``Predictor`` on the
-   same 8 volumes (relative MAE <= 2e-2, int8 1e-2; bit-equality reported),
-   then 16 volumes served 8 at a time through ``serve()`` with exact
-   launches a batch, against the live predictor's served logits; export s,
+   their own checks): GAViKO vit-l16 (B8 bf16), vit-t16 (B10 in the
+   program) and vit-b16 ``fft`` int8 exported by
+   ``deploy.export_artifact`` for ``cuda`` (the manifest's ``gaviko::``
+   ops exactly ``serving_launches``), loaded in a ``DeployedPredictor``
+   and bit-equal to the live ``Predictor`` on the same 8 volumes, then 16
+   volumes served 8 at a time through ``serve()`` with exact launches a
+   batch, against the live predictor's served logits (relative MAE <=
+   2e-2, int8 1e-2; bit-equality reported); export s,
    artifact MB, load s, first-forward ms, ``predict_logits`` vol/s beside
    the live predictor's, a B8 forward's ms eager, from the predictor's
    program and from the program as exported (its per-call checks kept), and
@@ -246,8 +258,8 @@ Phases, each printing its own line:
    launches after); ``cli.export`` -> ``cli.infer --artifact`` on
    vit.yaml and a folder of 8 volumes (``deploy_cli``); and
    ``torch.library.opcheck`` of every ``gaviko::`` op on the card with the
-   arguments those artifacts gave it, B10 at the vit-t16 serving shapes
-   and at head dim 36 (``opcheck``).
+   arguments those artifacts gave it (B10 at the vit-t16 serving shapes),
+   and B10 at head dim 36 (``opcheck``).
 
 It then prints the kernels as one JSON line (the local attention kernels
 at GAViKO's B4 fp32 train shapes with the fp32 train run's launches;
@@ -282,6 +294,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -361,7 +374,9 @@ SOURCES = {
 # other points in its fp kernels and their plain versions, and a code that
 # moves at a rounding boundary carries through 12 unpooled layers; an H100
 # read 1.79e-2), and each against the bf16 fp predictor's on the same
-# volumes (JAX's own int8-vs-fp budget).
+# volumes (JAX's own int8-vs-fp budget). The PEFT zoo's int8 runs take
+# vit-b16's budgets (H100 readings: against the plain versions 5.4e-3 to
+# 1.59e-2, deep VPT the highest; against bf16 8.3e-3 to 2.0e-2).
 INT8_PLAIN_BUDGET, INT8_FP_BUDGET = 1e-2, 5e-2
 # B11 cases that must equal their plain version bit for bit (no LN: the
 # same codes, int32 sums and roundings).
@@ -2050,8 +2065,9 @@ def phase_plain_check(predictor, vols, served, card: str, headline_batch=None,
                            f"{INT8_FP_BUDGET}")
 
 
-# Deployment (phase 22): an artifact's logits against its live Predictor's
-# on the same volumes, by the serving budgets (bf16 2e-2, int8 1e-2).
+# Deployment (phase 22): an artifact's served logits against its live
+# Predictor's on the same volumes, by the serving budgets (bf16 2e-2, int8
+# 1e-2); its first forward's are the live Predictor's bit for bit.
 DEPLOY_BUDGET = {None: SERVE_BUDGET, "int8": INT8_PLAIN_BUDGET}
 DEPLOY_RELOAD_KEY = "transformer.layers.0.0.to_qkv.weight"  # the int8 reload's overlaid weight
 OPCHECK_OPS = ("patchify", "fused_mhsa", "flash_attention", "local_attention", "fused_mlp",
@@ -2131,11 +2147,11 @@ def phase_deploy(name: str, config: dict, predictor, vols, live_served, card: st
     """A deployment artifact of the live ``predictor``'s model (``deploy``):
     exported for ``cuda`` (B8 bf16, int8 as the predictor is), its manifest
     calling each ``gaviko::`` op ``serving_launches`` times; loaded in a
-    ``DeployedPredictor``; its first forward's logits against the live
-    predictor's on the same 8 volumes, then 16 volumes served 8 at a time
-    through ``serve()`` with exact launches a batch, against the live
-    predictor's served logits (relative MAE by DEPLOY_BUDGET, bit-equality
-    reported). Prints export s, artifact MB, load s, first-forward ms,
+    ``DeployedPredictor``; its first forward's logits the live predictor's
+    on the same 8 volumes bit for bit (the same kernels on the same
+    arguments), then 16 volumes served 8 at a time through ``serve()`` with
+    exact launches a batch, against the live predictor's served logits
+    (relative MAE by DEPLOY_BUDGET, bit-equality reported). Prints export s, artifact MB, load s, first-forward ms,
     ``predict_logits`` vol/s beside the live predictor's (turns: live,
     artifact, artifact, live), a B8 forward's CUDA-event ms eager, from the
     predictor's program and from the program as exported (its per-call
@@ -2246,9 +2262,11 @@ def phase_deploy(name: str, config: dict, predictor, vols, live_served, card: st
     if first_launches != per_batch:
         raise RuntimeError(f"deploy {name}: a batch launched {first_launches}, "
                            f"want {per_batch}")
-    for key in ("rel_mae", "served_rel_mae"):
-        if not line[key] <= budget:
-            raise RuntimeError(f"deploy {name}: {key} {line[key]} > {budget}")
+    if not line["bit_equal"]:
+        raise RuntimeError(f"deploy {name}: the artifact's logits differ from the live "
+                           f"predictor's (rel MAE {line['rel_mae']})")
+    if not line["served_rel_mae"] <= budget:
+        raise RuntimeError(f"deploy {name}: served_rel_mae {line['served_rel_mae']} > {budget}")
     return first_launches, first
 
 
@@ -2309,14 +2327,34 @@ def phase_deploy_cli(predictor, vols, card: str, op_args: dict) -> None:
         raise RuntimeError(f"deploy_cli failed: {line}")
 
 
-def phase_opcheck(op_args: dict, card: str) -> None:
+def _opcheck(cases: dict) -> tuple:
     """``torch.library.opcheck`` (schema, autograd registration, the fake
     against the kernel's output: shape, dtype, strides and aliasing, and a
-    dynamic-shape trace) on every ``gaviko::`` op on the card: each with the
-    arguments an artifact of phase 22 gave it (``op_args``), and
-    ``flash_attention`` (B10), which no phase 22 artifact calls, at the
-    vit-t16 B8 bf16 serving shapes (head views of a packed qkv) and at a
-    head dim of 36, whose fake is a slice of a padded buffer."""
+    dynamic-shape trace) of each case, name -> (op, args, kwargs), on the
+    card -> ({name: the shapes, each test's result, "SUCCESS" or the error,
+    and the seconds}, {name: its tests that failed})."""
+    import torch
+
+    results = {}
+    for name, (op, args, kwargs) in sorted(cases.items()):
+        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        t0 = time.perf_counter()
+        result = torch.library.opcheck(op, args, kwargs, raise_exception=False)
+        results[name] = {"shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
+                         **{k: str(v) for k, v in result.items()},
+                         "s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    failed = {k: {t: r for t, r in v.items() if t.startswith("test_") and r != "SUCCESS"}
+              for k, v in results.items()}
+    return results, {k: v for k, v in failed.items() if v}
+
+
+def phase_opcheck(op_args: dict, card: str) -> None:
+    """``_opcheck`` on every ``gaviko::`` op: each with the arguments an
+    artifact of phase 22 gave it (``op_args``; B10 at the vit-t16 B8 bf16
+    serving shapes, head views of a packed qkv), and ``flash_attention``
+    (B10) at those shapes with a head dim of 36, whose fake is a slice of a
+    padded buffer."""
     import torch
 
     from gaviko_tpu_torch.models.factory import build_model
@@ -2324,27 +2362,14 @@ def phase_opcheck(op_args: dict, card: str) -> None:
     t_start = time.perf_counter()
     spec = build_model(_config(VIT_CONFIG, "fft", T16)["model"]).spec
     gen = torch.Generator(device="cuda").manual_seed(0)
-    n, h = spec.num_patches + 1, spec.heads
-    cases = dict(op_args)
-    flash = torch.ops.gaviko.flash_attention.default
-    for d in (spec.dim_head, 36):
-        qkv = torch.randn(B, n, 3 * h * d, generator=gen, device="cuda").bfloat16()
-        q, k, v = qkv.view(B, n, 3, h, d).permute(2, 0, 3, 1, 4)
-        cases[f"flash_attention_d{d}"] = (flash, (q, k, v, d ** -0.5), {})
-    results = {}
-    for name, (op, args, kwargs) in sorted(cases.items()):
-        t0 = time.perf_counter()
-        results[name] = {
-            "shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
-            **torch.library.opcheck(op, args, kwargs, raise_exception=False),
-            "s": time.perf_counter() - t0}
-    torch.cuda.empty_cache()
-    failed = {k: {t: str(r) for t, r in v.items() if t.startswith("test_") and r != "SUCCESS"}
-              for k, v in results.items()}
-    failed = {k: v for k, v in failed.items() if v}
+    n, h, d = spec.num_patches + 1, spec.heads, 36
+    qkv = torch.randn(B, n, 3 * h * d, generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.view(B, n, 3, h, d).permute(2, 0, 3, 1, 4)
+    cases = {**op_args, f"flash_attention_d{d}": (torch.ops.gaviko.flash_attention.default,
+                                                  (q, k, v, d ** -0.5), {})}
+    results, failed = _opcheck(cases)
     print(json.dumps({"phase": "opcheck", "ops": results, "failed": failed,
-                      "seconds": time.perf_counter() - t_start, "card": card}, default=str),
-          flush=True)
+                      "seconds": time.perf_counter() - t_start, "card": card}), flush=True)
     missing = set(OPCHECK_OPS) - {_op_name(op) for op, _, _ in cases.values()}
     if failed or missing:
         raise RuntimeError(f"opcheck failed: {failed}, ops not checked: {sorted(missing)}")
@@ -2449,12 +2474,13 @@ def _pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def zoo_launches(spec, dtype, train: bool) -> dict:
+def zoo_launches(spec, dtype, train: bool, quantized: bool = False) -> dict:
     """Launches of each kernel in one forward of a PEFT method (``train``
     False: serving, no gradient) or in one train step (the forward under a
     gradient with the method's train flags, its backward, one B13 update),
     by the port's gates (the JAX package's), for the shipped
     ``freeze_vit: true`` (MeLO trains its whole backbone in train mode).
+    ``quantized``: serving with int8 sidecars (``quantize_backbone``).
 
     A layer's attention takes B9 for its qkv where the layer runs
     ``train=False``, no override, weights of the stream's dtype and B9's
@@ -2469,7 +2495,12 @@ def zoo_launches(spec, dtype, train: bool) -> dict:
     and MeLO N + 1 padded to a multiple of 8, DVPT P + 1 + N, EVP N + 1; EVP
     in bf16 runs an f32 stream on bf16 weights (two patchify calls). A
     gradient reaches every layer but AdaptFormer's first (its adapter
-    follows the layer's attention and MLP)."""
+    follows the layer's attention and MLP). With int8 sidecars every layer
+    but the CLS-fast last one runs B11: ``int8_linear`` for its qkv (not
+    MeLO's LoRA-merged one) and its out-projection, ``int8_mlp`` for its
+    MLP; the CLS-fast last layer keeps its full-precision routes, as the
+    JAX package's zoo models do. SSF is served in full precision
+    (``quantize_backbone`` refuses it)."""
     import torch
 
     from gaviko_tpu_torch.core.vit import cls_fast_enabled
@@ -2481,6 +2512,7 @@ def zoo_launches(spec, dtype, train: bool) -> dict:
     m = spec.method
     if m != "melo" and not spec.freeze_vit:
         raise ValueError("zoo_launches counts the shipped freeze_vit: true")
+    q8 = quantized and m != "ssf"
     train_mode = train and m == "melo"  # the layers' own train flag
     inner = spec.heads * spec.dim_head
     stream = torch.float32 if m == "evp" else dtype
@@ -2495,14 +2527,18 @@ def zoo_launches(spec, dtype, train: bool) -> dict:
             want["ln_linear_bwd"] += grad and ln_linear_hybrid_supported(spec.dim, out, stream)
 
     def layer(n: int, grad: bool) -> None:
-        if m not in ("ssf", "melo"):
+        if q8:
+            want["int8_linear"] += 1 + (m != "melo")
+        elif m not in ("ssf", "melo"):
             b9(3 * inner, grad)
         if fused_mhsa_supported(spec.heads, spec.dim_head, n):
             want["fused_mhsa"] += 1
             want["fused_mhsa_bwd"] += grad
         elif not (train_mode and spec.dropout > 0.0):
             want["flash_attention"] += 1
-        if m != "ssf" and fused_mlp_supported(spec.dim, spec.mlp_dim, stream):
+        if q8:
+            want["int8_mlp"] += 1
+        elif m != "ssf" and fused_mlp_supported(spec.dim, spec.mlp_dim, stream):
             want["fused_mlp"] += 1
             want["fused_mlp_bwd"] += grad
 
@@ -3338,17 +3374,39 @@ def zoo_train_setup(method: str, config_path: str, model_over=None):
             lambda s, precision: zoo_launches(s, _dtype(precision), True))
 
 
-def phase_zoo_serving(config_path: str, method: str, model_over, vols, card: str) -> dict:
+class _Warnings(logging.Handler):
+    """The messages of the warnings logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_zoo_serving(config_path: str, method: str, model_over, vols, card: str,
+                      quantize=None, fp_served=None) -> tuple:
     """One bf16 B8 batch through ``predict_logits`` with every kernel's
     launches counted (``zoo_launches``), against the same params through
     the plain versions on the card (relative MAE <= SERVE_BUDGET), and one
-    forward under the profiler. Returns the launches."""
+    forward under the profiler. ``quantize="int8"``: the Predictor adds
+    the int8 sidecars (B11 in every layer but the CLS-fast last one), and
+    the logits are also held to ``fp_served``, the method's bf16 served
+    logits of the same volumes (INT8_FP_BUDGET), as the vit_int8 run's
+    are; SSF must log the JAX package's refusal and serve full precision
+    (no B11 launch). Returns the launches and the served logits."""
     import torch
 
     from gaviko_tpu_torch.ops._build import plain_versions
     from gaviko_tpu_torch.utils.layouts import put_volume
 
-    predictor = make_predictor(config_path, method, model_over)
+    caught = _Warnings()
+    logging.getLogger().addHandler(caught)
+    try:
+        predictor = make_predictor(config_path, method, model_over, quantize=quantize)
+    finally:
+        logging.getLogger().removeHandler(caught)
     spec = predictor.spec
     wrappers = _wrappers()
     for w in wrappers.values():
@@ -3361,13 +3419,21 @@ def phase_zoo_serving(config_path: str, method: str, model_over, vols, card: str
     batch = put_volume(np.stack([v[None] for v in vols]), torch.bfloat16, predictor.device)
     forward_ms = _median_ms(lambda: predictor._forward(predictor.params, batch), reps=5)
     profile = profile_step(lambda: predictor._forward(predictor.params, batch))
-    want = zoo_launches(spec, torch.bfloat16, False)
-    print(json.dumps({"phase": "zoo_serving", "method": method, "backbone": spec.backbone,
-                      "depth": spec.depth, "batch_size": len(vols), "dtype": "bfloat16",
-                      "rel_mae": rel, "budget": SERVE_BUDGET,
-                      "argmax_agreement": float((served.argmax(-1) == plain.argmax(-1)).mean()),
-                      "forward_ms": forward_ms, "launches": launches, "want_launches": want,
-                      "profile": profile, "card": card}), flush=True)
+    quantized = quantize == "int8"
+    want = zoo_launches(spec, torch.bfloat16, False, quantized)
+    line = {"phase": "zoo_serving", "method": method, "backbone": spec.backbone,
+            "depth": spec.depth, "batch_size": len(vols), "dtype": "bfloat16",
+            "quantize": quantize, "rel_mae": rel, "budget": SERVE_BUDGET,
+            "argmax_agreement": float((served.argmax(-1) == plain.argmax(-1)).mean()),
+            "forward_ms": forward_ms, "launches": launches, "want_launches": want,
+            "profile": profile, "card": card}
+    refused = any("int8 quantization is not supported for SSF" in m for m in caught.messages)
+    if quantized:
+        line.update(rel_mae_vs_fp=_rel_mae_np(served, fp_served), fp_budget=INT8_FP_BUDGET,
+                    argmax_agreement_vs_fp=float((served.argmax(-1)
+                                                  == fp_served.argmax(-1)).mean()),
+                    int8_refused=refused)
+    print(json.dumps(line), flush=True)
     del predictor
     torch.cuda.empty_cache()
     if served.shape != (len(vols), spec.num_classes) or not np.isfinite(served).all():
@@ -3377,7 +3443,11 @@ def phase_zoo_serving(config_path: str, method: str, model_over, vols, card: str
         raise RuntimeError(f"{method} serving launched {launches}, want {want}")
     if not rel <= SERVE_BUDGET:
         raise RuntimeError(f"{method} served logits vs plain: rel MAE {rel} > {SERVE_BUDGET}")
-    return launches
+    if quantized and not (line["rel_mae_vs_fp"] <= INT8_FP_BUDGET
+                          and refused == (method == "ssf")):
+        raise RuntimeError(f"{method} int8: rel MAE vs bf16 {line['rel_mae_vs_fp']} > "
+                           f"{INT8_FP_BUDGET}, or the SSF refusal logged: {refused}")
+    return launches, served
 
 
 @contextlib.contextmanager
@@ -3720,9 +3790,26 @@ PAR_MESH = {"gaviko_dp": (2, 1), "gaviko_tp": (1, 2), "vit_tp": (1, 2), "vit_acc
             "melo_tp": (1, 2), "ssf_tp": (1, 2), "adaptformer_tp": (1, 2)}
 PAR_ACCUM, PAR_ACCUM_STEPS = 2, 4
 PAR_INT8_MESHES = ((2, 1), (1, 2))
-# The mesh artifacts (deploy.py): GAViKO vit-l16 of gaviko.yaml, B8 bf16,
-# exported for cuda in this process, served on each mesh by the 2 ranks.
-PAR_ARTIFACT_MESHES = ((2, 1), (1, 2))
+# The mesh artifacts (deploy.py), B8 bf16, exported for cuda in this
+# process and served by the 2 ranks: (model, mesh). GAViKO vit-l16 of
+# gaviko.yaml; vit-b16 fft of vit.yaml (at 1 x 2 B6 on half the hidden
+# columns, B9 on the heads' rows and B8 on a head shard in the CLS-fast
+# last layer); AdaptFormer of its shipped config (its adapters whole on
+# both ranks). PAR_HTTP's artifact is also served over HTTP. Rank 0's
+# logits are held to the single-device bf16 logits by BF16_BUDGET
+# (GAViKO) or SERVE_BUDGET: at 1 x 2 each split block's two partial
+# outputs are rounded to bf16 before their sum, 24 sums a forward, and
+# vit.yaml's random-init logits are small (mean |logit| 0.33). H100
+# readings at 1 x 2: vit 1.82e-2 (1.77e-2 with the plain versions on both
+# sides, 8.3e-7 in fp32: the sums' rounding, not the kernels),
+# AdaptFormer 5.6e-3 (mean |logit| 1.27); vit at 2 x 1 2.4e-3.
+PAR_ARTIFACT_MODELS = {"gaviko": (CONFIG, "gaviko"), "vit": (VIT_CONFIG, "fft"),
+                       "adaptformer": ("gaviko_tpu_torch/configs/adaptformer.yaml",
+                                       "adaptformer")}
+PAR_ARTIFACTS = (("gaviko", (2, 1)), ("gaviko", (1, 2)), ("vit", (2, 1)), ("vit", (1, 2)),
+                 ("adaptformer", (1, 2)))
+PAR_HTTP = ("vit", (1, 2))
+PAR_HTTP_SHIFT = np.arange(5, dtype=np.float32)  # the reload's shift of the head's bias
 PAR_TIMEOUT_S = 600
 # The worst leaf's own relative MAE of the 2-rank state against one rank's,
 # by model (H100 readings, sound / planted fault, update, mu, nu). vit-b16:
@@ -4088,8 +4175,12 @@ def _par_serve(world: int) -> dict:
     return out
 
 
-def _mesh_artifact_path(root: str, shape) -> str:
-    return os.path.join(root, f"mesh_{shape[0]}x{shape[1]}.gaviko")
+def _mesh_name(model: str, shape) -> str:
+    return f"{model}_{shape[0]}x{shape[1]}"
+
+
+def _mesh_artifact_path(root: str, model: str, shape) -> str:
+    return os.path.join(root, f"mesh_{_mesh_name(model, shape)}.gaviko")
 
 
 def _lead_or_follow(pred, vols):
@@ -4103,18 +4194,74 @@ def _lead_or_follow(pred, vols):
     return None
 
 
-def _par_mesh_artifact(world: int, root: str) -> dict:
-    """GAViKO vit-l16's mesh artifacts (B8 bf16, cuda, exported by
-    ``phase_parallel_two`` into ``root``) on each mesh of
-    PAR_ARTIFACT_MESHES: every rank loads the artifact (``DeployedPredictor``)
-    and builds the live ``Predictor(mesh_shape=...)`` of gaviko.yaml (seed
-    0, the artifact's weights); rank 0 predicts the first B of the serving
-    phases' volumes once with each, the other rank follows. Each rank's
-    launches and collectives of those forwards (counts set to 0 just
-    before, read just after), then ``predict_logits`` seconds in turns
-    (live, artifact, artifact, live), and on rank 0 both logits. At TP2 the
-    collective op's fake against its result on the card, and its refusal
-    with no group bound."""
+def _par_http(pred, vols, root: str) -> dict:
+    """``serving.serve`` over the mesh predictor ``pred`` on rank 0, the other
+    rank following: ``predict_logits`` of ``vols``, then each volume POSTed
+    to /predict, ``B`` at a time, GET /healthz and /metrics, POST /reload of
+    a checkpoint that shifts the head's bias by PAR_HTTP_SHIFT and one more
+    POST of the first volume. Each rank's launches over the whole round
+    (counts set to 0 just before, read just after); on rank 0 the logits,
+    the answers and the seconds of the POSTs."""
+    import torch
+
+    from gaviko_tpu_torch.serving import serve
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = {}
+    if pred.mesh.rank != 0:
+        pred.follow()
+    else:
+        out["direct"] = pred.predict_logits(vols)
+        server = serve(pred, host="127.0.0.1", port=0)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+
+        def call(path, body=None):
+            req = urllib.request.Request(f"{url}{path}", data=body,
+                                         method="GET" if body is None else "POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.load(r)
+
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=B) as ex:
+                answers = list(ex.map(lambda v: call("/predict", _npz(v)), vols))
+            out["post_s"] = time.perf_counter() - t0
+            out["http"] = np.asarray([a["logits"] for a in answers], np.float32)
+            out["classes"] = np.asarray([a["class"] for a in answers])
+            out["healthz"], out["metrics"] = call("/healthz"), call("/metrics")
+            key = "mlp_head.bias"
+            ckpt = os.path.join(root, "http_reload.pt")
+            torch.save({key: pred.params[key].float() + torch.from_numpy(PAR_HTTP_SHIFT)}, ckpt)
+            out["reload"] = call("/reload", json.dumps({"checkpoint": ckpt}).encode())
+            out["reloaded"] = np.float32(call("/predict", _npz(vols[0]))["logits"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+            pred.close()
+    torch.cuda.synchronize()
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    return out
+
+
+def _par_mesh_artifact(world: int, root: str, artifacts) -> dict:
+    """The mesh artifacts, (model, shape) each, that ``phase_parallel_two``
+    exported into ``root`` (B8 bf16, cuda): every rank loads the artifact
+    (``DeployedPredictor``) and builds the live ``Predictor(mesh_shape=...)``
+    of the same config (seed 0, the artifact's weights); rank 0 predicts
+    the first B of the serving phases' volumes once with each, the other
+    rank follows. Each rank's launches and collectives of those forwards
+    (counts set to 0 just before, read just after), then ``predict_logits``
+    seconds in turns (live, artifact, artifact, live), and on rank 0 both
+    logits and whether the artifact's last turn gave its first logits bit
+    for bit. GAViKO at TP2: the collective op's fake against its result on
+    the card, and its refusal with no group bound. PAR_HTTP's artifact:
+    rank 0's kernel ops of its first forward through ``_opcheck``,
+    then ``_par_http`` on all 16 of the volumes."""
     import torch
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -4124,38 +4271,49 @@ def _par_mesh_artifact(world: int, root: str) -> dict:
     from gaviko_tpu_torch.serving import Predictor
 
     rng = np.random.RandomState(0)  # main()'s serving volumes
-    vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(B)]
+    vols = [rng.rand(120, 160, 160).astype(np.float32) for _ in range(N_REQUESTS)]
     out, wrappers = {}, _wrappers()
 
-    def counted(pred):
+    def counted(pred, record=None):
         for w in wrappers.values():
             w.launches = 0
         calls = library.model_all_reduces
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits = _lead_or_follow(pred, vols)
+        with record if record is not None else contextlib.nullcontext():
+            logits = _lead_or_follow(pred, vols[:B])
         torch.cuda.synchronize()
         return (logits, {n: w.launches for n, w in wrappers.items()},
                 library.model_all_reduces - calls, time.perf_counter() - t)
 
     def timed(pred):
         t = time.perf_counter()
-        _lead_or_follow(pred, vols)
+        logits = _lead_or_follow(pred, vols[:B])
         torch.cuda.synchronize()
-        return time.perf_counter() - t
+        return time.perf_counter() - t, logits
 
-    for shape in PAR_ARTIFACT_MESHES:
+    for model, shape in artifacts:
         t0 = time.perf_counter()
-        dep = DeployedPredictor(_mesh_artifact_path(root, shape), device="cuda:0")
+        dep = DeployedPredictor(_mesh_artifact_path(root, model, shape), device="cuda:0")
         torch.cuda.synchronize()
         res = {"load_s": time.perf_counter() - t0, "m": dep.mesh.m}
-        live = Predictor(_config(CONFIG, "gaviko"), batch_size=B, dtype="bfloat16",
+        live = Predictor(_config(*PAR_ARTIFACT_MODELS[model]), batch_size=B, dtype="bfloat16",
                          pretrained_dir=None, mesh_shape=shape, device="cuda:0")
-        res["logits"], res["launches"], res["collectives"], res["first_s"] = counted(dep)
+        op_args = {}
+        record = (_record_op_args(op_args) if (model, shape) == PAR_HTTP and dep.mesh.rank == 0
+                  else None)
+        res["logits"], res["launches"], res["collectives"], res["first_s"] = counted(dep, record)
+        if record is not None:  # the fakes at a head shard and a hidden slice; the
+            # collective needs the other rank
+            res["opcheck"] = _opcheck({k: c for k, c in op_args.items()
+                                       if k != "model_all_reduce"})
         res["live_logits"], res["live_launches"], _, res["live_first_s"] = counted(live)
         turns = [timed(p) for p in (live, dep, dep, live)]
-        res["live_predict_s"], res["predict_s"] = turns[::3], turns[1:3]
-        if dep.mesh.model > 1:
+        res["live_predict_s"], res["predict_s"] = [t[0] for t in turns[::3]], [
+            t[0] for t in turns[1:3]]
+        if dep.mesh.rank == 0:
+            res["rerun_equal"] = bool(np.array_equal(turns[2][1], res["logits"]))
+        if model == "gaviko" and dep.mesh.model > 1:
             gen = torch.Generator(device="cuda:0").manual_seed(0)  # one x on both ranks
             x = torch.randn(B, 1040, 1024, generator=gen, device="cuda:0").bfloat16()
             op = torch.ops.gaviko.model_all_reduce.default
@@ -4172,18 +4330,21 @@ def _par_mesh_artifact(world: int, root: str) -> dict:
                                       and fake.stride() == real.stride()
                                       and fake.device == real.device)
             res["op_sums"] = bool(torch.equal(real, x + x))
-        out["x".join(map(str, shape))] = res
+        if (model, shape) == PAR_HTTP:
+            res["http"] = _par_http(dep, vols, root)
+        out[_mesh_name(model, shape)] = res
         del dep, live
         torch.cuda.empty_cache()
         dist.barrier()
     return out
 
 
-def _par_rank(rank: int, world: int, out_dir: str, jobs) -> None:
+def _par_rank(rank: int, world: int, out_dir: str, jobs, artifacts) -> None:
     """A spawned rank: joins the gloo group on cuda:0 and runs each job of
     ``jobs`` in turn (``_par_run``, vit_tp with GAVIKO_LNQKV_HYBRID=1;
     ``int8_serve``: ``_par_serve``; ``mesh_artifact``: ``_par_mesh_artifact``
-    on the artifacts in ``out_dir``'s parent), saving {job: result}."""
+    on ``artifacts``, exported into ``out_dir``'s parent), saving {job:
+    result}."""
     import torch
     import torch.distributed as dist
 
@@ -4197,7 +4358,7 @@ def _par_rank(rank: int, world: int, out_dir: str, jobs) -> None:
             t0 = time.perf_counter()
             with _lnqkv_hybrid(job == "vit_tp"):
                 if job == "mesh_artifact":
-                    out[job] = _par_mesh_artifact(world, os.path.dirname(out_dir))
+                    out[job] = _par_mesh_artifact(world, os.path.dirname(out_dir), artifacts)
                 else:
                     out[job] = (_par_serve(world) if job == "int8_serve"
                                 else _par_run(job, world))
@@ -4208,15 +4369,17 @@ def _par_rank(rank: int, world: int, out_dir: str, jobs) -> None:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(jobs, world: int, out_dir: str) -> list:
-    """``world`` ranks running ``jobs``, joined within PAR_TIMEOUT_S; a rank
-    that dies or hangs fails the phase (the others are killed)."""
+def _spawn_ranks(jobs, world: int, out_dir: str, artifacts=()) -> list:
+    """``world`` ranks running ``jobs`` (``artifacts``: the (model, shape) of
+    each mesh artifact the ``mesh_artifact`` job serves), joined within
+    PAR_TIMEOUT_S; a rank that dies or hangs fails the phase (the others are
+    killed)."""
     import torch
     import torch.multiprocessing as mp
 
     os.makedirs(out_dir, exist_ok=True)
-    ctx = mp.start_processes(_par_rank, args=(world, out_dir, list(jobs)), nprocs=world,
-                             start_method="spawn", join=False)
+    ctx = mp.start_processes(_par_rank, args=(world, out_dir, list(jobs), list(artifacts)),
+                             nprocs=world, start_method="spawn", join=False)
     deadline = time.monotonic() + PAR_TIMEOUT_S
     try:
         while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
@@ -4298,7 +4461,7 @@ def _state_diff(got, want, start, skip=None) -> dict:
 
 
 def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] = None,
-                       artifact_logits: Optional[np.ndarray] = None) -> dict:
+                       artifact_refs: Optional[dict] = None) -> dict:
     """2 ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
     card), one spawn for every job of PAR_MESH and the int8 serving job.
     Train jobs: GAViKO vit-l16 of gaviko_tpu.yaml with data 2 and ZeRO, then
@@ -4321,15 +4484,22 @@ def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] =
     logits against the 1-rank int8 Predictor's ``int8_served``
     (INT8_PLAIN_BUDGET), each rank's launches of one forward
     ``serving_launches(spec, True)``.
-    The mesh artifact job (given ``artifact_logits``, phase 22's GAViKO
-    single-device artifact's logits): GAViKO vit-l16 of gaviko.yaml at B8
-    bf16 exported for cuda here on each mesh of PAR_ARTIFACT_MESHES (one
-    program a model rank), served by both ranks: rank 0's logits bit-equal
-    to the live ``Predictor(mesh_shape=...)``'s on the same volumes and
-    within BF16_BUDGET of ``artifact_logits``; each rank's launches of one
-    forward the live mesh forward's, ``serving_launches(spec)``; each model
-    rank's program calling those ops and the collective as often as the
-    rank ran them.
+    The mesh artifact job (given ``artifact_refs``: each model of
+    PAR_ARTIFACT_MODELS -> single-device logits of the first B volumes,
+    GAViKO's from phase 22's artifact, vit-b16's and AdaptFormer's from
+    their served bf16 Predictors): each artifact of PAR_ARTIFACTS exported
+    for cuda here at B8 bf16 (one program a model rank), served by both
+    ranks: rank 0's logits bit-equal to the live
+    ``Predictor(mesh_shape=...)``'s on the same volumes and on a rerun, and
+    within BF16_BUDGET (GAViKO) or SERVE_BUDGET of the model's reference;
+    each rank's launches of one forward the live mesh forward's,
+    ``serving_launches(spec)`` (``zoo_launches`` for AdaptFormer); each
+    model rank's program calling those ops and the collective as often as
+    the rank ran them. PAR_HTTP's artifact then serves 16 volumes over
+    HTTP, B at a time: the logits equal ``predict_logits``'s, /healthz
+    answers ok, /reload answers reloaded and moves the logits by the
+    bias's shift, and each rank launches each kernel that many forwards'
+    worth.
     Prints the wall and collective seconds a step: gloo through the host,
     not an NCCL figure."""
     import torch
@@ -4347,22 +4517,22 @@ def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] =
         ones[job]["seconds"] = time.perf_counter() - t
         torch.cuda.empty_cache()
     exports = {}
-    if artifact_logits is not None:
+    if artifact_refs is not None:
         from gaviko_tpu_torch.deploy import export_artifact
 
-        for shape in PAR_ARTIFACT_MESHES:
+        for model, shape in PAR_ARTIFACTS:
             t = time.perf_counter()
-            path = _mesh_artifact_path(root, shape)
-            meta = export_artifact(_config(CONFIG, "gaviko"), path, batch_size=B,
+            path = _mesh_artifact_path(root, model, shape)
+            meta = export_artifact(_config(*PAR_ARTIFACT_MODELS[model]), path, batch_size=B,
                                    dtype="bfloat16", pretrained_dir=None, platforms=("cuda",),
                                    mesh_shape=shape)
-            exports[shape] = {"export_s": time.perf_counter() - t,
-                              "artifact_mb": os.path.getsize(path) / 1e6,
-                              "ops": meta["ops"]["cuda"], "placements": len(meta["placements"])}
+            exports[(model, shape)] = {
+                "export_s": time.perf_counter() - t, "artifact_mb": os.path.getsize(path) / 1e6,
+                "ops": meta["ops"]["cuda"], "placements": len(meta["placements"])}
     t_two = time.perf_counter()
     jobs = [*PAR_MESH, *(["int8_serve"] if int8_served is not None else []),
-            *(["mesh_artifact"] if artifact_logits is not None else [])]
-    ranks = _spawn_ranks(jobs, 2, os.path.join(root, "two"))
+            *(["mesh_artifact"] if artifact_refs is not None else [])]
+    ranks = _spawn_ranks(jobs, 2, os.path.join(root, "two"), exports)
     print(json.dumps({"phase": "parallel_two_spawn", "jobs": jobs,
                       "one_rank_seconds": t_two - t0,
                       "two_rank_seconds": time.perf_counter() - t_two,
@@ -4454,54 +4624,100 @@ def phase_parallel_two(root: str, card: str, int8_served: Optional[np.ndarray] =
                     and rel <= INT8_PLAIN_BUDGET):
                 raise RuntimeError(f"parallel int8 {mesh}: logits rel MAE {rel} against one rank")
             lines[f"int8_{mesh}"] = line
-    if artifact_logits is None:
+    if artifact_refs is None:
         return lines
-    for shape, exported in exports.items():
-        mesh = "x".join(map(str, shape))
+    for (model, shape), exported in exports.items():
+        mesh = _mesh_name(model, shape)
+        spec = build_model(_config(*PAR_ARTIFACT_MODELS[model])["model"]).spec
+        want_plain = (zoo_launches(spec, torch.bfloat16, False) if model == "adaptformer"
+                      else serving_launches(spec))
+        budget = BF16_BUDGET if model == "gaviko" else SERVE_BUDGET
+        ref = artifact_refs[model]
         res = {f"rank{r}": rr["mesh_artifact"][mesh] for r, rr in enumerate(ranks)}
         r0 = res["rank0"]
         bit_equal = bool(np.array_equal(r0["logits"], r0["live_logits"]))
-        rel = _rel_mae_np(r0["logits"], artifact_logits)
+        rel = _rel_mae_np(r0["logits"], ref)
         ops_match = {}
         for r, rr in res.items():
             calls = {f"gaviko::{n}": c for n, c in rr["launches"].items() if c}
             if rr["collectives"]:
                 calls["gaviko::model_all_reduce"] = rr["collectives"]
             ops_match[r] = calls == exported["ops"][rr["m"]]
-        line = {"phase": "parallel_mesh_artifact", "mesh": mesh, "batch": B,
-                "dtype": "bfloat16", "platform": "cuda",
+        line = {"phase": "parallel_mesh_artifact", "model": model, "mesh": "x".join(
+                    map(str, shape)), "batch": B, "dtype": "bfloat16", "platform": "cuda",
                 "backend": "gloo, both ranks on cuda:0 (collectives through the host; not "
                            "an NCCL figure)",
                 **exported, "load_s": {r: rr["load_s"] for r, rr in res.items()},
                 "predict_s": r0["predict_s"], "live_predict_s": r0["live_predict_s"],
                 "first_s": r0["first_s"], "live_first_s": r0["live_first_s"],
-                "bit_equal_to_live": bit_equal, "rel_mae_vs_single_artifact": rel,
-                "budget": BF16_BUDGET,
+                "bit_equal_to_live": bit_equal, "rerun_bit_equal": r0["rerun_equal"],
+                "rel_mae_vs_single_device": rel, "budget": budget,
                 "launches": {r: rr["launches"] for r, rr in res.items()},
                 "live_launches": {r: rr["live_launches"] for r, rr in res.items()},
-                "want_launches": serving_launches(spec),
+                "want_launches": want_plain,
                 "collectives": {r: rr["collectives"] for r, rr in res.items()},
                 "ops_match_launches": ops_match,
                 **{k: {r: rr[k] for r, rr in res.items()} for k in
                    ("op_refused_unbound", "op_fake_matches", "op_sums") if k in r0},
                 "card": card}
         print(json.dumps(line), flush=True)
-        want_plain = serving_launches(spec)
         for r, rr in res.items():
             if not (rr["launches"] == rr["live_launches"] == want_plain and ops_match[r]):
                 raise RuntimeError(f"mesh artifact {mesh}: {r} launches {rr['launches']}, "
                                    f"live {rr['live_launches']}, want {want_plain}; "
                                    f"collectives {rr['collectives']}, program "
                                    f"{exported['ops'][rr['m']]}")
-            if shape[1] > 1 and not (rr["op_refused_unbound"] and rr["op_fake_matches"]
-                                     and rr["op_sums"] and rr["collectives"]):
+            if "op_sums" in r0 and not (rr["op_refused_unbound"] and rr["op_fake_matches"]
+                                        and rr["op_sums"] and rr["collectives"]):
                 raise RuntimeError(f"mesh artifact {mesh}: {r}'s collective op: {line}")
-        if not (bit_equal and r0["logits"].shape == artifact_logits.shape
-                and np.isfinite(r0["logits"]).all() and rel <= BF16_BUDGET):
-            raise RuntimeError(f"mesh artifact {mesh}: bit-equal to live {bit_equal}, rel MAE "
-                               f"{rel} against the single-device artifact")
+        if not (bit_equal and r0["rerun_equal"] and r0["logits"].shape == ref.shape
+                and np.isfinite(r0["logits"]).all() and rel <= budget):
+            raise RuntimeError(f"mesh artifact {mesh}: bit-equal to live {bit_equal}, on a "
+                               f"rerun {r0['rerun_equal']}, rel MAE {rel} against the "
+                               f"single-device logits")
         lines[f"artifact_{mesh}"] = line
+        if (model, shape) == PAR_HTTP:
+            checked, failed = r0["opcheck"]
+            print(json.dumps({"phase": "parallel_mesh_opcheck", "mesh": mesh, "ops": checked,
+                              "failed": failed, "card": card}), flush=True)
+            if failed or set(checked) != {n for n, c in want_plain.items() if c}:
+                raise RuntimeError(f"mesh artifact {mesh}: opcheck on the shard: {failed}, "
+                                   f"checked {sorted(checked)}")
+            lines[f"http_{mesh}"] = _check_mesh_http(
+                mesh, {r: rr["http"] for r, rr in res.items()}, want_plain, card)
     return lines
+
+
+def _check_mesh_http(mesh: str, res: dict, want: dict, card: str) -> dict:
+    """``_par_http``'s round, each rank's result in ``res``: rank 0's HTTP
+    logits and classes those of ``predict_logits`` on the same volumes, bit
+    for bit; /healthz ok; the requests coalesced; /reload answered
+    "reloaded" and the next answer moved by PAR_HTTP_SHIFT (within bf16's
+    rounding of the logits); each rank's launches ``want`` times the
+    forwards of the round (two micro-batches of the direct call, the
+    batches of the 16 POSTs, the last POST)."""
+    r0 = res["rank0"]
+    metrics = r0["metrics"]
+    forwards = 2 + metrics["batches_total"] + 1
+    moved = r0["reloaded"] - r0["http"][0]
+    line = {"phase": "parallel_mesh_http", "mesh": mesh, "requests": len(r0["http"]),
+            "post_s": r0["post_s"], "metrics": metrics, "healthz": r0["healthz"],
+            "reload": r0["reload"],
+            "http_equal_to_predict_logits": bool(np.array_equal(r0["http"], r0["direct"])),
+            "classes_match": bool((r0["classes"] == r0["direct"].argmax(-1)).all()),
+            "reload_shift_err": float(np.abs(moved - PAR_HTTP_SHIFT).max()),
+            "launches": {r: rr["launches"] for r, rr in res.items()},
+            "want_launches": {n: c * forwards for n, c in want.items()}, "card": card}
+    print(json.dumps(line), flush=True)
+    if not (line["http_equal_to_predict_logits"] and line["classes_match"]
+            and r0["healthz"] == {"status": "ok"} and r0["reload"] == {"status": "reloaded"}
+            and metrics["requests_total"] == N_REQUESTS
+            and metrics["batches_total"] < N_REQUESTS and line["reload_shift_err"] <= 5e-2):
+        raise RuntimeError(f"mesh HTTP {mesh}: {line}")
+    if any(c != line["want_launches"] for c in line["launches"].values()):
+        raise RuntimeError(f"mesh HTTP {mesh}: launches {line['launches']}, want "
+                           f"{line['want_launches']}")
+    return line
 
 
 def phase_parallel_kernels(card: str, shapes) -> dict:
@@ -4626,6 +4842,9 @@ def main() -> int:
             deploy["gaviko"], artifact_logits = phase_deploy(
                 "gaviko", _config(config, method, over), predictor, vols, fp_served[name], smi,
                 op_args)
+        elif name == "t16":  # B10 inside an exported program
+            deploy["t16"], _ = phase_deploy("t16", _config(config, method, over), predictor,
+                                            vols, fp_served[name], smi, op_args)
         elif name == "vit":
             phase_deploy_cli(predictor, vols, smi, op_args)
         del predictor
@@ -4698,10 +4917,13 @@ def main() -> int:
     # The rest of the PEFT zoo at vit-b16, full width and depth, each from
     # its shipped config: served in bf16 at B8, then trained in fp32 and
     # bf16 at B8 with the train check.
-    zoo = {}
+    zoo, zoo_served = {}, {}
     for method, config, over in ZOO:
         t_method = time.perf_counter()
-        zoo[f"{method}_serve"] = phase_zoo_serving(config, method, over, vols[:B], smi)
+        zoo[f"{method}_serve"], zoo_served[method] = phase_zoo_serving(config, method, over,
+                                                                       vols[:B], smi)
+        zoo[f"{method}_int8"], _ = phase_zoo_serving(config, method, over, vols[:B], smi,
+                                                     "int8", zoo_served[method])
         setup = zoo_train_setup(method, config, over)
         for precision in ("fp32", "bf16"):
             run = phase_train(setup, precision, smi)
@@ -4733,7 +4955,9 @@ def main() -> int:
     # then A and B on a head shard and B13's sharded step.
     with tempfile.TemporaryDirectory(prefix="gaviko_parallel_") as root:
         par_one = phase_parallel_one(root, smi)
-        par_two = phase_parallel_two(root, smi, int8_served, artifact_logits)
+        par_two = phase_parallel_two(root, smi, int8_served, {
+            "gaviko": artifact_logits, "vit": fp_served["vit"][:B],
+            "adaptformer": zoo_served["adaptformer"]})
     phase_parallel_kernels(smi, par_two.pop("gaviko_trainable_shapes"))
     parallel_launches = {"parallel_one": par_one["step_launches"][-1],
                          **{job: line["launches"]["rank0"] for job, line in par_two.items()},

@@ -298,14 +298,25 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _widened(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """A float parameter narrower than an f32 ``x`` widened to f32, exactly
+    as the plain version reads it (EVP's f32 stream on bf16 LN and bias
+    weights); anything else as it is."""
+    if (t is not None and x.dtype == torch.float32 and t.dtype != x.dtype
+            and t.is_floating_point()):
+        return t.float()
+    return t
+
+
 def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
                 beta: Optional[torch.Tensor] = None, eps: float = 1e-5,
                 block: Optional[int] = None) -> torch.Tensor:
     """Same contract as :func:`int8_linear_reference`; the kernels on CUDA
-    (two launches: the row pass, then the GEMM). Refuses a gradient on
-    either device. ``block`` forces the GEMM's tile rows (an A/B run;
-    ``ops/_blocks.py`` chooses otherwise)."""
+    (two launches: the row pass, then the GEMM), where an f32 ``x`` takes
+    narrower LN and bias weights widened, as the reference reads them.
+    Refuses a gradient on either device. ``block`` forces the GEMM's tile
+    rows (an A/B run; ``ops/_blocks.py`` chooses otherwise)."""
     _build.refuse_grad("int8_linear", _SERVING_ONLY, x, bias, gamma, beta)
     if not _build.use_kernel(x):
         return int8_linear_reference(x, w_i8, w_scale, bias, gamma, beta, eps)
@@ -317,6 +328,7 @@ def int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError("int8_linear: gamma and beta come together")
     plan = int8_plan("linear", x.numel() // max(din, 1), din, dout, x.dtype, block)
     x, w_scale = x.contiguous(), w_scale.float().contiguous()
+    gamma, beta, bias = (_widened(t, x) for t in (gamma, beta, bias))
     floats = [t for t in (x, gamma, beta, bias) if t is not None]
     _build.check_cuda("int8_linear", *floats)
     for t, n in ((gamma, din), (beta, din), (bias, dout)):
@@ -346,8 +358,9 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              block: Optional[int] = None) -> torch.Tensor:
     """Same contract as :func:`int8_mlp_reference`; the kernels on CUDA (four
     launches: the row pass, fc1 writing the f32 hidden and its rows' maxima,
-    the hidden's codes, fc2). Refuses a gradient on either device. ``block``
-    forces both GEMMs' tile rows (an A/B run)."""
+    the hidden's codes, fc2), where an f32 ``x`` takes narrower LN and bias
+    weights widened, as the reference reads them. Refuses a gradient on
+    either device. ``block`` forces both GEMMs' tile rows (an A/B run)."""
     _build.refuse_grad("int8_mlp", _SERVING_ONLY, x, gamma, beta, b1, b2)
     if not _build.use_kernel(x):
         return int8_mlp_reference(x, gamma, beta, w1_i8, s1, b1, w2_i8, s2, b2, eps,
@@ -361,6 +374,7 @@ def int8_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"int8_mlp: fc2 must map {mlp_dim} -> {dim}")
     plan = int8_plan("mlp", x.numel() // max(dim, 1), dim, mlp_dim, x.dtype, block)
     x, s1, s2 = x.contiguous(), s1.float().contiguous(), s2.float().contiguous()
+    gamma, beta, b1, b2 = (_widened(t, x) for t in (gamma, beta, b1, b2))
     _build.check_cuda("int8_mlp", x, gamma, beta, b1, b2)
     if gamma.numel() != dim or beta.numel() != dim or b1.numel() != mlp_dim \
             or b2.numel() != dim:

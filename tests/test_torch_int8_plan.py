@@ -248,3 +248,36 @@ def test_int8_mlp_is_one_call_on_a_faked_card(monkeypatch, dtype, suffix, dim, m
         assert got[10 + i] == base + layout[n], n
     tiles = tuple(v for launch in plan.products for v in launch[0].tile_shape)
     assert got[15:] == (33, dim, plan.k_pad, mlp, plan.n_pad, 1e-5, 1, 1, *tiles, 0)
+
+
+@pytest.mark.parametrize("kind", ["linear", "mlp"])
+def test_f32_stream_takes_bf16_weights_widened_on_a_faked_card(monkeypatch, kind):
+    """EVP served in bf16 runs its transformer on an f32 stream with bf16
+    LN and bias weights. The plain versions read those weights as f32; the
+    kernel path widens them to f32 (exactly) and makes its one call, where
+    it used to refuse the mixed dtypes. A bf16 stream with f32 weights
+    (narrowing would round them) is still refused."""
+    calls = _fake_card(monkeypatch)
+    rng = np.random.RandomState(2)
+    dim, n = 64, 192
+    x = _t(rng, 1, 9, dim)
+    gamma, beta = _t(rng, dim, dtype=torch.bfloat16), _t(rng, dim, dtype=torch.bfloat16)
+    (w1, s1), (w2, s2) = tq.quantize_weight(_t(rng, n, dim)), tq.quantize_weight(_t(rng, dim, n))
+    b1, b2 = _t(rng, n, dtype=torch.bfloat16), _t(rng, dim, dtype=torch.bfloat16)
+
+    def call(stream, *weights):
+        if kind == "linear":
+            return tq.int8_linear(stream, w1, s1, bias=weights[2], gamma=weights[0],
+                                  beta=weights[1])
+        return tq.int8_mlp(stream, *weights[:2], w1, s1, weights[2], w2, s2, weights[3])
+
+    out = call(x, gamma, beta, b1, b2)
+    assert out.dtype == torch.float32 and len(calls) == 1
+    sent = calls[0][3][1:3]
+    assert all(p not in (gamma.data_ptr(), beta.data_ptr()) for p in sent)
+    for t in (gamma, beta, b1):
+        wide = tq._widened(t, x)
+        assert wide.dtype == torch.float32 and torch.equal(wide, t.float())
+    assert tq._widened(x, x) is x and tq._widened(None, x) is None
+    with pytest.raises(ValueError, match="share device and dtype"):
+        call(x.bfloat16(), gamma.float(), beta.float(), b1.float(), b2.float())

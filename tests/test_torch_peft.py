@@ -22,7 +22,9 @@ For each method:
   2e-2 relative MAE of JAX's;
 - int8: ``quantize_backbone``'s sidecar keys equal JAX's and the int8
   logits are within 1e-2 relative MAE of JAX's (the budget of
-  ``tests/test_torch_int8.py``); both packages refuse SSF.
+  ``tests/test_torch_int8.py``), with each kernel wrapper run as
+  ``chip_smoke.zoo_launches(..., quantized=True)`` says; both packages
+  refuse SSF, the port with JAX's warning.
 
 Also ``ssf_ada``'s two branches and its error, ``fft_highpass`` against
 JAX's (a bf16 volume gives f32 in both), every method of ``config.METHODS``
@@ -34,6 +36,7 @@ depth), MeLO with a subset of LoRA layers, and deep VPT at ``prompt_dim``
 
 import dataclasses
 import functools
+import logging
 
 import numpy as np
 import pytest
@@ -276,19 +279,28 @@ def test_bf16_logits_match_jax_dtype(zoo_case, monkeypatch):
     assert _rel(got.float().numpy(), np.asarray(want, np.float32)) <= 2e-2
 
 
-def test_int8_sidecars_and_logits_match_jax(zoo_case):
+def test_int8_sidecars_and_logits_match_jax(zoo_case, monkeypatch, caplog):
     """``quantize_backbone`` adds JAX's sidecar keys (none for SSF, which
-    both refuse) and the int8 logits stay within 1e-2 of JAX's."""
+    both refuse, the port with JAX's warning), the int8 logits stay within
+    1e-2 of JAX's, and the kernel wrappers run as the int8 serving path
+    launches them (``zoo_launches(..., quantized=True)``)."""
     jm, tm, jp, x = zoo_case["jm"], zoo_case["tm"], zoo_case["jp"], zoo_case["x"]
     jq8 = {k: np.asarray(v) for k, v in jq.quantize_backbone(
         {k: jnp.asarray(v) for k, v in jp.items()}).items()}
-    tq8 = tq.quantize_backbone(from_jax(jp), tm.spec.depth)
+    with caplog.at_level(logging.WARNING):
+        tq8 = tq.quantize_backbone(from_jax(jp), tm.spec.depth)
+    ssf = zoo_case["method"] == "ssf"
+    assert ("int8 quantization is not supported for SSF models" in caplog.text) == ssf
     assert sorted(tq8) == sorted(jq8)
-    assert (len(tq8) == len(jp)) == (zoo_case["method"] == "ssf")
+    assert (len(tq8) == len(jp)) == ssf
     want = np.asarray(jax.jit(lambda p, v: jm.apply(p, v, jm.spec))(jq8, jnp.asarray(x)))
+    counts = count_launches(monkeypatch)
     with torch.no_grad():
         got = tm.apply(tq8, torch.from_numpy(x), tm.spec).numpy()
     assert _rel(got, want) <= 1e-2
+    launches = chip_smoke.zoo_launches(tm.spec, torch.float32, False, quantized=True)
+    assert counts == {k: launches[k] for k in LAUNCH_SITES}
+    assert (launches["int8_linear"] > 0) != ssf
 
 
 @pytest.mark.parametrize("case", ["last_dim", "dim_1", "mismatch"])

@@ -360,3 +360,55 @@ def deploy_mesh_rank(rank, world, paths, volumes, config, depth, overlays, out_d
         live.follow()
     out["live_bias"] = live.params[HEAD_BIAS]
     return out
+
+
+def deploy_zoo_mesh_rank(rank, world, jobs, volumes_path, depth, out_dir):
+    """The zoo's mesh artifacts of ``tests/test_torch_deploy_zoo_mesh.py``.
+    Each job is (name, config, checkpoint, mesh artifact path,
+    single-device artifact path). On ``world`` ranks each rank first exports
+    its share of the jobs (``jobs[rank::world]``): the 1 x 2 artifact
+    (``cpu`` and ``cuda``) and the single-device ``cpu`` one. Then the ranks
+    pair up, each pair on a 2-rank group of its own, and each pair serves
+    its share of the jobs: both ranks load the mesh artifact and the live
+    ``Predictor(mesh_shape=(1, 2))`` from the same config and checkpoint,
+    the pair's first rank predicts the volumes stacked in the ``.npy`` at
+    ``volumes_path`` with each and the other
+    follows. -> {name: the mesh manifest where this rank exported it; on a
+    pair's first rank the logits of the artifact, the live mesh Predictor
+    and the single-device artifact; this rank's calls of the collective op
+    in the artifact's forwards}."""
+    from gaviko_tpu_torch.deploy import DeployedPredictor, export_artifact
+    from gaviko_tpu_torch.ops import library
+    from gaviko_tpu_torch.serving import Predictor
+
+    _shallow(depth)
+    volumes = list(np.load(volumes_path))
+    kw = dict(batch_size=2, dtype="float32", pretrained_dir=None)
+    out = {}
+    for name, config, ckpt, mesh_path, single_path in jobs[rank::world]:
+        out[name] = {"meta": export_artifact(config, mesh_path, checkpoint=ckpt, **kw,
+                                             platforms=("cpu", "cuda"), mesh_shape=(1, 2))}
+        export_artifact(config, single_path, checkpoint=ckpt, **kw, platforms=("cpu",))
+    dist.barrier()
+    dist.destroy_process_group()
+    pair, lead = rank // 2, rank % 2 == 0
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/pair{pair}", world_size=2,
+                            rank=rank % 2)
+    for name, config, ckpt, mesh_path, single_path in jobs[pair::world // 2]:
+        res = out.setdefault(name, {})
+        pred = DeployedPredictor(mesh_path, device="cpu")
+        calls = library.model_all_reduces
+        if lead:
+            res["logits"] = pred.predict_logits(volumes)
+            pred.close()
+        else:
+            pred.follow()
+        res["collectives"] = library.model_all_reduces - calls
+        live = Predictor(config, checkpoint=ckpt, **kw, mesh_shape=(1, 2), device="cpu")
+        if lead:
+            res["live"] = live.predict_logits(volumes)
+            live.close()
+            res["single"] = DeployedPredictor(single_path, device="cpu").predict_logits(volumes)
+        else:
+            live.follow()
+    return out
